@@ -1,0 +1,116 @@
+"""The port stands alone: importing it loads neither ``jax`` nor
+``nnstreamer_tpu``, no source file of it imports either, every entry
+point refuses to run quietly on the CPU when it was not asked to, and the
+K1 kernel wrapper never falls back from the kernel to its plain version.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import nnstreamer_tpu_torch
+from nnstreamer_tpu_torch.device import NoDeviceError, resolve_device
+from nnstreamer_tpu_torch.ops.kernels import _build
+from nnstreamer_tpu_torch.ops.kernels import image_kernels
+
+PKG_DIR = os.path.dirname(nnstreamer_tpu_torch.__file__)
+REPO = os.path.dirname(PKG_DIR)
+FORBIDDEN = ("jax", "jaxlib", "nnstreamer_tpu")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import nnstreamer_tpu_torch, nnstreamer_tpu_torch.cli, nnstreamer_tpu_torch.single\n"
+        "from nnstreamer_tpu_torch import registry\n"
+        "for k in (registry.KIND_ELEMENT, registry.KIND_FILTER, registry.KIND_DECODER):\n"
+        "    registry.available(k)\n"
+        "import nnstreamer_tpu_torch.models.zoo\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'nnstreamer_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_no_source_imports_jax_or_reference():
+    offenders = []
+    for path in list(_py_files()) + [os.path.join(REPO, "chip_smoke.py")]:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            offenders += [
+                f"{path}:{node.lineno} {n}" for n in names
+                if n.split(".")[0] in FORBIDDEN
+            ]
+    assert offenders == []
+
+
+@pytest.mark.parametrize("entry", ["device", "pipeline", "parse", "single", "zoo"])
+def test_entry_points_refuse_cpu_unless_asked(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.pipeline.graph import Pipeline
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    calls = {
+        "device": lambda: resolve_device(),
+        "pipeline": lambda: Pipeline(),
+        "parse": lambda: parse_pipeline("videotestsrc ! tensor_converter ! fakesink"),
+        "single": lambda: SingleShot(framework="torch", model="zoo:mobilenet_v2"),
+        "zoo": lambda: zoo.get("mobilenet_v2", size="32"),
+    }
+    with pytest.raises(NoDeviceError):
+        calls[entry]()
+    # ... and the same call asked for the CPU runs there
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrapper_never_falls_back():
+    """A tensor that is neither on the CPU nor on a CUDA card raises; and
+    without nvcc the kernel build itself raises instead of handing the work
+    to the plain version."""
+    before = image_kernels.crop_resize_launches.count
+    img = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
+    with pytest.raises(RuntimeError, match="no implementation"):
+        image_kernels.resize_bilinear(img, 4, 4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            image_kernels._cuda_crop_resize(
+                torch.zeros((1, 8, 8, 3), dtype=torch.uint8), None, 1, 4, 4,
+                None, None, torch.uint8,
+            )
+    assert image_kernels.crop_resize_launches.count == before
+
+
+def test_kernel_build_is_lazy_and_keyed_by_source():
+    """Nothing is built at import; the library name carries the source's
+    hash, under the repository's build directory."""
+    path = _build.library_path("image_kernels")
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libimage_kernels-") and path.suffix == ".so"
+    assert (_build.CSRC / "image_kernels.cu").is_file()
