@@ -5,22 +5,39 @@
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
-1. build    — compile every CUDA source under nnstreamer_tpu_torch/csrc
-              with nvcc for sm_90a (one nvcc per source, all at once).
-2. kernels  — the crop/resize kernel (K1) in both entry points against its
-              plain PyTorch version on the same GPU inputs: error, kernel /
-              plain / library device time (torch.profiler; the stream time
-              of back-to-back calls, host dispatch gaps included, beside
-              it), and the bound (bytes over 3.35 TB/s vs float ops over
-              67 TFLOP/s, the larger).
-3. pipeline — the image-labeling pipeline (1280x720 gradient frames →
-              resize 224 → MobileNet-v2 1.0/224/1001 → image_labeling) for
-              64 frames on the GPU: K1 launched exactly once per frame, the
-              model's outputs on the GPU, the first labels equal to the
-              port's own CPU run; frames per second free-running, and
-              end-to-end latency p50/p99 with the source paced at 30 fps.
-4. profile  — device time by kernel over 16 pipeline frames (torch.profiler).
-5. single   — SingleShot invoke on the GPU, logits against the CPU's.
+1. build       — compile every CUDA source under nnstreamer_tpu_torch/csrc
+                 with nvcc for sm_90a (one nvcc per source, all at once).
+2. kernels     — the crop/resize kernel (K1) in both entry points against
+                 its plain PyTorch version on the same GPU inputs: error,
+                 kernel / plain / library device time (torch.profiler; the
+                 stream time of back-to-back calls, host dispatch gaps
+                 included, beside it), and the bound (bytes over 3.35 TB/s
+                 vs float ops over 67 TFLOP/s, the larger).
+3. pipeline    — the image-labeling pipeline (1280x720 gradient frames →
+                 resize 224 → MobileNet-v2 1.0/224/1001 → image_labeling)
+                 for 64 frames on the GPU: K1 launched exactly once per
+                 frame, the model's outputs on the GPU, the first labels
+                 equal to the port's own CPU run; frames per second
+                 free-running, and end-to-end latency p50/p99 with the
+                 source paced at 30 fps.
+4. profile     — device time by kernel over 16 labeling frames.
+5. single      — SingleShot invoke on the GPU, logits against the CPU's.
+6. nms_kernels — the greedy NMS kernel (K2) against its plain version on
+                 the same GPU inputs (registry shapes n = 32 and 100, the
+                 1917 candidates of a real SSD output frame, n = 6300 and
+                 25200, a case of tied scores): alive masks, keep_idx and
+                 keep_score bit-identical; kernel / plain device time,
+                 time per greedy step, and the bound.
+7. detection   — the detection pipeline (1280x720 → resize 300 →
+                 SSD-MobileNet-v2 → bounding_boxes postproc=device) for 64
+                 frames: K1 and K2 each launched exactly once per frame,
+                 the filter's outputs on the GPU, the first detections
+                 equal to the port's own CPU run; fps and paced p50/p99;
+                 then the host-render form (postproc=auto, RGBA overlay)
+                 for 4 frames, K2 once per frame.
+8. detection_profile — device time by class over 16 detection frames.
+9. single_ssd  — SingleShot zoo:ssd_mobilenet_v2_pp (NMS inside the model)
+                 on the GPU against the CPU, K2 once per invoke.
 
 TF32 is off throughout (cuDNN would otherwise run float32 convolutions in
 TF32), so GPU and CPU runs compare at float32 precision. The last lines
@@ -32,8 +49,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -48,6 +67,21 @@ PIPELINE = (
     "tensor_filter name=f framework=torch model=zoo:mobilenet_v2 ! "
     "tensor_decoder mode=image_labeling ! tensor_sink name=out"
 )
+DET_PIPELINE = (
+    "videotestsrc pattern=gradient width=1280 height=720 num-frames={n}{live} "
+    "stamp-wall=true ! tensor_converter ! "
+    "tensor_transform mode=resize option=300:300 ! "
+    "tensor_filter name=f framework=torch model=zoo:ssd_mobilenet_v2 ! "
+    "tensor_decoder mode=bounding_boxes option1=mobilenet-ssd option3={priors} "
+    "postproc={pp} ! tensor_sink name=out"
+)
+SSD_FRAME = (
+    "videotestsrc pattern=gradient width=1280 height=720 num-frames=1 ! "
+    "tensor_converter ! tensor_transform mode=resize option=300:300 ! "
+    "tensor_filter framework=torch model=zoo:ssd_mobilenet_v2 ! tensor_sink name=out"
+)
+NMS_IOU = 0.5
+NMS_OPS_PER_COLUMN = 12  # one masked IoU column: 4 min/max, 5 sub/mul, add, div, compare
 
 
 def emit(obj) -> None:
@@ -210,6 +244,133 @@ def run_pipeline(parse_pipeline, device, n, live=False, hook=None):
     return labels, wall, lat_ms
 
 
+def nms_case(torch, det, nk, name, boxes, scores, max_out=100):
+    """One K2 case on the GPU: the kernel and the plain version on the
+    same ranked inputs (masks and packed results bit-identical, and the
+    whole ``nms`` equal to the port's CPU run), timings, bound."""
+    order, sboxes, sscores = det.rank(boxes, scores)
+    alive_k, live = nk._cuda_nms(sboxes, sscores, NMS_IOU)
+    got_mask = alive_k > 0
+    want_mask = nk.plain_nms_mask(sboxes, sscores, NMS_IOU)
+    got = det.pack_kept(order, sscores, got_mask, max_out)
+    want = det.pack_kept(order, sscores, want_mask, max_out)
+    cpu = det.nms(boxes.cpu(), scores.cpu(), NMS_IOU, max_out)
+    torch.cuda.synchronize()
+    m = int(live.item())
+    err = max(
+        (alive_k - want_mask.to(torch.float32)).abs().max().item(),
+        (got[1] - want[1]).abs().max().item(),
+    )
+    identical = (
+        torch.equal(got_mask, want_mask)
+        and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    )
+    if not identical or err != 0:
+        raise AssertionError(f"nms {name}: kernel differs from plain (max_abs_err {err})")
+    if not (torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(), cpu[1])):
+        raise AssertionError(f"nms {name}: GPU keep_idx/keep_score differ from the CPU run")
+    n = boxes.shape[0]
+    kept = torch.nonzero(want_mask).flatten().cpu()
+    # IoU columns the live steps of these inputs visit: j in (i, m) per kept i
+    columns = int((m - 1 - kept).sum())
+    n_bytes = n * 20 + n * 4  # boxes + scores in, alive out
+    n_ops = NMS_OPS_PER_COLUMN * columns
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_F32_OPS_S * 1e3
+    pool = [(sboxes, sscores)]
+
+    def kernel(b, s):
+        return nk._cuda_nms(b, s, NMS_IOU)
+
+    def plain(b, s):
+        return nk.plain_nms_mask(b, s, NMS_IOU)
+
+    reps = 50 if n <= 8192 else 10
+    ms = device_ms(torch, kernel, pool, reps)
+    stream_ms = time_ms(torch, kernel, pool, reps)
+    # the plain version launches ~12 kernels per live step and reads a
+    # flag back per step: one profiled call, its stream time beside it
+    plain_ms = device_ms(torch, plain, pool, 1)
+    plain_stream_ms = time_ms(torch, plain, pool, 1)
+    return {
+        "case": name, "n": n, "m": m, "kept": int(len(kept)), "max_out": max_out,
+        "max_abs_err": err, "bit_identical": True, "cpu_identical": True,
+        "kernel_ms": ms, "kernel_stream_ms": stream_ms, "ms_per_step": ms / max(m, 1),
+        "plain_ms": plain_ms, "plain_stream_ms": plain_stream_ms,
+        "library_ms": None,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "operations": n_ops,
+    }
+
+
+def synthetic_boxes(np, n, seed, scale=1.0, size=(0.01, 0.2), zero_below=0.1):
+    """n random (x1, y1, x2, y2) boxes in [0, scale] with scores; scores
+    under ``zero_below`` set to 0 (candidates that start dead)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, scale, (n, 2))
+    wh = rng.uniform(size[0] * scale, size[1] * scale, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    scores[scores < zero_below] = 0.0
+    return boxes, scores
+
+
+def run_detection(parse_pipeline, device, n, priors, pp="device", live=False, hook=None):
+    p = parse_pipeline(
+        DET_PIPELINE.format(
+            n=n, live=" is-live=true framerate=30/1" if live else "",
+            priors=priors, pp=pp,
+        ),
+        device=device,
+    )
+    p.negotiate()
+    if hook is not None:
+        p["f"].backend.module.register_forward_hook(hook)
+    t0 = time.perf_counter()
+    p.run(timeout=600)
+    wall = time.perf_counter() - t0
+    frames = p["out"].frames
+    lat_ms = sorted((f.meta["render_t"] - f.meta["wall_t0"]) * 1e3 for f in frames)
+    return frames, wall, lat_ms
+
+
+def profile_classes(torch, prof, wall_s, extra):
+    """Device time (ms) by class from a torch.profiler run, and the busy
+    share of ``wall_s``. ``extra``: (class name, key substring) pairs
+    checked first."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(
+        ((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+        reverse=True,
+    )
+    classes = {"conv": 0.0, **{c: 0.0 for c, _ in extra}, "memcpy": 0.0, "other": 0.0}
+    for dt, key, _ in rows:
+        low = key.lower()
+        cls = next((c for c, sub in extra if sub in low), None)
+        if cls is None:
+            if "memcpy" in low or "memset" in low:
+                cls = "memcpy"
+            elif any(t in low for t in ("conv", "xmma", "fprop", "gemm", "cudnn")):
+                cls = "conv"
+            else:
+                cls = "other"
+        classes[cls] += dt / 1e3
+    device_ms = sum(classes.values())
+    return {
+        "wall_ms": wall_s * 1e3,
+        "device_ms": device_ms if rows else "not measured",
+        "device_busy_share": device_ms / 1e3 / wall_s if rows else "not measured",
+        "device_ms_by_class": classes,
+        "device_kernels": sum(n for _, _, n in rows),
+        "top_kernels": [
+            {"name": k[:80], "device_ms": dt / 1e3, "calls": n} for dt, k, n in rows[:8]
+        ],
+    }
+
+
 def pct(sorted_vals, q):
     return sorted_vals[min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))]
 
@@ -294,7 +455,6 @@ def main() -> int:
     })
 
     # 4. profile -------------------------------------------------------------
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     p = parse_pipeline(PIPELINE.format(n=16, live=""), device=dev)
@@ -303,33 +463,8 @@ def main() -> int:
         t0 = time.perf_counter()
         p.run(timeout=600)
         prof_wall = time.perf_counter() - t0
-    rows = sorted(
-        ((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
-        reverse=True,
-    )
-    classes = {"conv": 0.0, "crop_resize (K1)": 0.0, "memcpy": 0.0, "other": 0.0}
-    for dt, key, _ in rows:
-        low = key.lower()
-        if "crop_resize" in low:
-            classes["crop_resize (K1)"] += dt / 1e3
-        elif "memcpy" in low or "memset" in low:
-            classes["memcpy"] += dt / 1e3
-        elif any(t in low for t in ("conv", "xmma", "fprop", "gemm", "cudnn")):
-            classes["conv"] += dt / 1e3
-        else:
-            classes["other"] += dt / 1e3
-    device_ms = sum(classes.values())
-    emit({
-        "phase": "profile", "frames": 16, "wall_ms": prof_wall * 1e3,
-        "device_ms": device_ms if rows else "not measured",
-        "device_busy_share": device_ms / 1e3 / prof_wall if rows else "not measured",
-        "device_ms_by_class": classes,
-        "device_kernels": sum(n for _, _, n in rows),
-        "top_kernels": [
-            {"name": k[:80], "device_ms": dt / 1e3, "calls": n} for dt, k, n in rows[:8]
-        ],
-    })
+    emit({"phase": "profile", "frames": 16,
+          **profile_classes(torch, prof, prof_wall, [("crop_resize (K1)", "crop_resize")])})
 
     # 5. single --------------------------------------------------------------
     x = np.random.default_rng(0).integers(0, 256, (1, 224, 224, 3)).astype(np.uint8)
@@ -353,6 +488,145 @@ def main() -> int:
     emit({"phase": "single", "max_abs_err": err, "tolerance": tol,
           "top1": int(gpu_logits.argmax()), "invoke_ms_p50": sorted(times)[10]})
 
+    # 6. nms_kernels ---------------------------------------------------------
+    from nnstreamer_tpu_torch.models import ssd_mobilenet
+    from nnstreamer_tpu_torch.ops import detection as det
+    from nnstreamer_tpu_torch.ops.kernels import nms as nk
+
+    frame = parse_pipeline(SSD_FRAME, device=dev)
+    frame.run(timeout=600)
+    loc, cls = (torch.from_numpy(t).to(dev) for t in frame["out"].frames[0].tensors)
+    priors = torch.from_numpy(ssd_mobilenet.generate_anchors()).to(dev)
+    ssd_boxes, _, ssd_scores = det.ssd_candidates(loc[0], cls[0], priors)
+
+    def on_dev(boxes, scores):
+        return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
+
+    def registry_case(n):
+        # the JAX package's kernel registry inputs (ops/pallas/nms.py _boxes_scores)
+        rng = np.random.default_rng(9)
+        xy = rng.uniform(0, 60, (n, 2))
+        wh = rng.uniform(2, 30, (n, 2))
+        boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+        return on_dev(boxes, rng.uniform(0.05, 1.0, n).astype(np.float32))
+
+    tie_boxes, _ = synthetic_boxes(np, 512, 3)
+    tie_scores = np.random.default_rng(4).choice([0.0, 0.3, 0.6, 0.9], 512).astype(np.float32)
+    nms_cases = [
+        nms_case(torch, det, nk, "registry-n32", *registry_case(32), max_out=8),
+        nms_case(torch, det, nk, "registry-n100", *registry_case(100), max_out=16),
+        nms_case(torch, det, nk, "ssd-frame-1917", ssd_boxes, ssd_scores),
+        nms_case(torch, det, nk, "synthetic-6300", *on_dev(*synthetic_boxes(np, 6300, 6300))),
+        nms_case(torch, det, nk, "synthetic-25200", *on_dev(*synthetic_boxes(np, 25200, 25200))),
+        nms_case(torch, det, nk, "ties-512", *on_dev(tie_boxes, tie_scores)),
+    ]
+    emit({"phase": "nms_kernels", "iou_threshold": NMS_IOU, "cases": nms_cases})
+    ssd_case = nms_cases[2]
+
+    # 7. detection -------------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        priors_path = os.path.join(tmp, "box-priors.txt")
+        ssd_mobilenet.write_box_priors(priors_path)
+        run_detection(parse_pipeline, dev, 4, priors_path)  # warm-up
+        cpu_frames, _, _ = run_detection(parse_pipeline, "cpu", 2, priors_path)
+        out_devices = set()
+        ik.crop_resize_launches.reset()
+        nk.nms_launches.reset()
+        det_frames, det_wall, _ = run_detection(
+            parse_pipeline, dev, FRAMES, priors_path,
+            hook=lambda m, i, o: out_devices.update(t.device.type for t in o),
+        )
+        det_k1, det_k2 = ik.crop_resize_launches.count, nk.nms_launches.count
+        det_live = int(nk.last_live.item())
+        if det_k1 != FRAMES or det_k2 != FRAMES:
+            raise AssertionError(
+                f"detection: K1 launched {det_k1}, K2 {det_k2} times for {FRAMES} frames"
+            )
+        if out_devices != {"cuda"}:
+            raise AssertionError(f"detection: filter outputs on {out_devices}, want cuda")
+        if len(det_frames) != FRAMES:
+            raise AssertionError(f"detection: {len(det_frames)} frames out of {FRAMES}")
+        det_err = 0.0
+        for g, c in zip(det_frames[:2], cpu_frames):
+            g, c = g.tensors[0], c.tensors[0]
+            if g.shape != (100, 6) or not np.isfinite(g).all():
+                raise AssertionError(f"detection: bad detections {g.shape}")
+            if not np.array_equal(g[:, 4], c[:, 4]):
+                raise AssertionError("detection: classes or their order differ from the CPU run")
+            det_err = max(det_err, float(np.abs(g - c).max()))
+        if not det_err <= 1e-5:
+            raise AssertionError(f"detection: GPU vs CPU max abs err {det_err} > 1e-5")
+        ik.crop_resize_launches.reset()
+        nk.nms_launches.reset()
+        _, _, det_lat = run_detection(parse_pipeline, dev, FRAMES, priors_path, live=True)
+        if (ik.crop_resize_launches.count, nk.nms_launches.count) != (FRAMES, FRAMES):
+            raise AssertionError("detection paced run: K1/K2 not once per frame")
+        nk.nms_launches.reset()
+        host_frames, _, _ = run_detection(parse_pipeline, dev, 4, priors_path, pp="auto")
+        host_k2 = nk.nms_launches.count
+        if host_k2 != 4:
+            raise AssertionError(f"host-render decode: K2 launched {host_k2} times for 4 frames")
+        for f in host_frames:
+            t = f.tensors[0]
+            if t.shape != (480, 640, 4) or t.dtype != np.uint8:
+                raise AssertionError(f"host-render decode: overlay {t.shape} {t.dtype}")
+        emit({
+            "phase": "detection", "frames": FRAMES, "k1_launches": det_k1,
+            "k2_launches": det_k2, "live_candidates_last_frame": det_live,
+            "detections_first_frame": int((det_frames[0].tensors[0][:, 5] > 0).sum()),
+            "gpu_vs_cpu_max_abs_err": det_err,
+            "fps": FRAMES / det_wall, "wall_s": det_wall,
+            "paced30_latency_ms_p50": pct(det_lat, 0.5),
+            "paced30_latency_ms_p99": pct(det_lat, 0.99),
+            "host_render": {"frames": 4, "k2_launches": host_k2,
+                            "overlay": list(host_frames[0].tensors[0].shape),
+                            "boxes_first_frame": len(host_frames[0].meta["detections"])},
+        })
+
+        # 8. detection_profile -------------------------------------------------
+        p = parse_pipeline(
+            DET_PIPELINE.format(n=16, live="", priors=priors_path, pp="device"), device=dev
+        )
+        p.negotiate()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            prof_wall = time.perf_counter() - t0
+    emit({"phase": "detection_profile", "frames": 16, **profile_classes(
+        torch, prof, prof_wall,
+        [("nms (K2)", "nms_kernel"), ("crop_resize (K1)", "crop_resize")],
+    )})
+
+    # 9. single_ssd ------------------------------------------------------------
+    x = np.random.default_rng(1).integers(0, 256, (1, 300, 300, 3)).astype(np.uint8)
+    invokes = 20
+    with SingleShot(framework="torch", model="zoo:ssd_mobilenet_v2_pp", device=dev) as s:
+        s.invoke(x)  # warm-up (also infers the output spec)
+        torch.cuda.synchronize()
+        nk.nms_launches.reset()
+        gpu_out = [t.cpu() for t in s.invoke(x)]
+        times = []
+        for _ in range(invokes):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            [t.cpu() for t in s.invoke(x)]
+            times.append((time.perf_counter() - t0) * 1e3)
+        pp_k2 = nk.nms_launches.count
+    with SingleShot(framework="torch", model="zoo:ssd_mobilenet_v2_pp", device="cpu") as s:
+        cpu_out = list(s.invoke(x))
+    if pp_k2 != invokes + 1:
+        raise AssertionError(f"single_ssd: K2 launched {pp_k2} times for {invokes + 1} invokes")
+    (gb, gc, gs, gn), (cb, cc, cs, cn) = gpu_out, cpu_out
+    if not (torch.equal(gn, cn) and torch.equal(gc, cc)):
+        raise AssertionError(f"single_ssd: num/classes differ: {gn} {gc} vs {cn} {cc}")
+    pp_err = max((gb - cb).abs().max().item(), (gs - cs).abs().max().item())
+    pp_tol = 1e-4 * max(cb.abs().max().item(), cs.abs().max().item(), 1e-30)
+    if not pp_err <= pp_tol:
+        raise AssertionError(f"single_ssd: GPU vs CPU err {pp_err} > {pp_tol}")
+    emit({"phase": "single_ssd", "num": int(gn.item()), "max_abs_err": pp_err,
+          "tolerance": pp_tol, "k2_launches": pp_k2, "invokes": invokes + 1,
+          "invoke_ms_p50": sorted(times)[invokes // 2]})
+
     main_case = cases[0]
     print(smi, flush=True)
     emit({"kernels": [{
@@ -367,6 +641,18 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
+    }, {
+        "name": "nms",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/nms.cu",
+        "replaces": "nnstreamer_tpu/ops/pallas/nms.py:119",
+        "launches": det_k2,
+        "max_abs_err": ssd_case["max_abs_err"],
+        "ms": ssd_case["kernel_ms"],
+        "plain_ms": ssd_case["plain_ms"],
+        "bound_ms": ssd_case["bound_ms"],
+        "bound_by": ssd_case["bound_by"],
+        "library_ms": None,  # no PyTorch call computes greedy NMS
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

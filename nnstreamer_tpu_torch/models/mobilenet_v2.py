@@ -16,10 +16,14 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
+from nnstreamer_tpu_torch.models.jax_weights import (
+    conv_bn_paths,
+    load_npz,
+    state_dict_from_tree,
+)
 from nnstreamer_tpu_torch.models.nn import ConvBN, init_dense
 
 # (expansion t, out channels c, repeats n, first stride s) — table 2 of the
@@ -86,7 +90,9 @@ class MobileNetV2(nn.Module):
         # ((q - zp)·scale); None = the generic (x - 127.5)/127.5
         self.input_quant: Optional[Tuple[float, float]] = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _input(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8/float NHWC batch → normalized float32 NCHW view whose
+        memory stays channels-last."""
         if x.dtype == torch.uint8:
             x = x.to(torch.float32)
             if self.input_quant is not None:
@@ -96,19 +102,31 @@ class MobileNetV2(nn.Module):
                 x = (x - 127.5) / 127.5
         else:
             x = x.to(torch.float32)
-        # NHWC → NCHW view whose memory stays channels-last
-        y = x.permute(0, 3, 1, 2)
-        y = self.stem(y)
+        return x.permute(0, 3, 1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.stem(self._input(x))
         for blk in self.blocks:
             y = blk(y)
         y = self.head(y)
         y = y.mean(dim=(2, 3))  # global average pool
         return self.classifier(y)
 
+    def features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The two maps an SSD head taps (``nnstreamer_tpu/models/
+        ssd_mobilenet.py _feature_maps``): the output of block 12 (the
+        last stride-16 map, 96 channels; 19x19 at 300x300) and the head's
+        output (1280 channels; 10x10 at 300x300), both NCHW."""
+        y = self.stem(self._input(x))
+        tap = None
+        for i, blk in enumerate(self.blocks):
+            y = blk(y)
+            if i == 12:
+                tap = y
+        return tap, self.head(y)
+
 
 # -- weights carried over from the JAX package --------------------------------
-
-_BN_LEAVES = ("bias", "mean", "scale", "var")  # sorted: tree-flatten order
 
 
 def jax_leaf_paths() -> List[Tuple]:
@@ -118,48 +136,15 @@ def jax_leaf_paths() -> List[Tuple]:
     blocks = []
     for t, _, n, _ in _INVERTED_RESIDUAL_CFG:
         blocks.extend([t] * n)
-
-    def conv(prefix):
-        return [(*prefix, "bn", k) for k in _BN_LEAVES] + [(*prefix, "w")]
-
     paths: List[Tuple] = []
     for i, t in enumerate(blocks):
         names = ("dw", "expand", "project") if t != 1 else ("dw", "project")
         for name in names:
-            paths.extend(conv(("blocks", i, name)))
+            paths.extend(conv_bn_paths(("blocks", i, name)))
     paths += [("classifier", "b"), ("classifier", "w")]
-    paths += conv(("head",))
-    paths += conv(("stem",))
+    paths += conv_bn_paths(("head",))
+    paths += conv_bn_paths(("stem",))
     return paths
-
-
-def _state_key(path: Tuple) -> str:
-    """Reference param path → key of :class:`MobileNetV2`'s state dict."""
-    if path[0] == "classifier":
-        return "classifier." + {"w": "weight", "b": "bias"}[path[1]]
-    if path[-2] == "bn":
-        module, leaf = path[:-2], path[-1]
-    else:  # the conv weight "w"
-        module, leaf = path[:-1], "weight"
-    return ".".join(str(p) for p in module) + "." + leaf
-
-
-def _convert_leaf(path: Tuple, value: np.ndarray) -> torch.Tensor:
-    """Layout carry-over of one leaf: conv HWIO → OIHW (depthwise
-    (3,3,1,C) → (C,1,3,3) falls out of the same transpose), dense
-    (cin, cout) → (cout, cin); vectors unchanged."""
-    a = np.asarray(value, dtype=np.float32)
-    if path[-1] == "w" and path[0] == "classifier":
-        a = a.T
-    elif path[-1] == "w":
-        a = a.transpose(3, 2, 0, 1)
-    return torch.tensor(np.ascontiguousarray(a))
-
-
-def _get(tree, path):
-    for p in path:
-        tree = tree[p]
-    return tree
 
 
 def mobilenet_v2_from_jax(params) -> Dict[str, torch.Tensor]:
@@ -169,27 +154,11 @@ def mobilenet_v2_from_jax(params) -> Dict[str, torch.Tensor]:
     n_blocks = len(params["blocks"])
     if n_blocks != sum(n for _, _, n, _ in _INVERTED_RESIDUAL_CFG):
         raise ValueError(f"not a mobilenet_v2 tree: {n_blocks} blocks")
-    return {
-        _state_key(path): _convert_leaf(path, _get(params, path))
-        for path in jax_leaf_paths()
-    }
+    return state_dict_from_tree(params, jax_leaf_paths())
 
 
 def load_jax_npz(model: MobileNetV2, path: str) -> None:
     """Overlay leaves ``p{i}`` of an npz (reference tree-flatten order,
     ``nnstreamer_tpu/models/zoo.py`` ``_load_params_overlay``) onto
     ``model``; leaves the file lacks keep their current values."""
-    blob = np.load(path, allow_pickle=False)
-    state = model.state_dict()
-    for i, p in enumerate(jax_leaf_paths()):
-        if f"p{i}" not in blob:
-            continue
-        key = _state_key(p)
-        new = _convert_leaf(p, blob[f"p{i}"])
-        if tuple(new.shape) != tuple(state[key].shape):
-            raise ValueError(
-                f"{path}: leaf p{i} ({key}) has shape {tuple(new.shape)}, "
-                f"model wants {tuple(state[key].shape)}"
-            )
-        state[key] = new
-    model.load_state_dict(state)
+    load_npz(model, path, jax_leaf_paths())

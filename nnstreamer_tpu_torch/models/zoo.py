@@ -1,14 +1,19 @@
 """Built-in model zoo: named (module, input spec) bundles for the native
 backend (``model=zoo:<name>``).
 
-The counterpart of ``nnstreamer_tpu/models/zoo.py`` for ``mobilenet_v2``
-and ``add``. Options come from the filter's ``custom=`` string:
+The counterpart of ``nnstreamer_tpu/models/zoo.py`` for ``mobilenet_v2``,
+``ssd_mobilenet_v2``, ``ssd_mobilenet_v2_pp`` and ``add``. Options come
+from the filter's ``custom=`` string:
 
 - mobilenet_v2: ``size``, ``num_classes``, ``width``, ``batch``,
   ``input_dtype``, ``seed`` (a ``torch.Generator`` seed — these random
   weights are NOT the JAX package's, whose generator differs) and
   ``params:<path.npz>`` (leaves ``p{i}`` in the reference's tree-flatten
   order: the way to run the JAX weights here);
+- ssd_mobilenet_v2: ``seed``, ``batch``, ``num_classes``, ``input_dtype``,
+  ``params``, ``compute_dtype`` (float32 only: bfloat16 is not ported yet);
+- ssd_mobilenet_v2_pp (batch 1, 91 classes): ``seed``, ``max_out``,
+  ``threshold``, ``input_dtype``, ``params``, ``compute_dtype``;
 - add: ``const``, ``dims``.
 
 An unknown option raises: quietly ignoring, say, ``quantize:int8`` would
@@ -24,6 +29,7 @@ import torch
 from torch import nn
 
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
+from nnstreamer_tpu_torch.models import ssd_mobilenet
 from nnstreamer_tpu_torch.models.mobilenet_v2 import (  # noqa: F401
     MobileNetV2,
     load_jax_npz,
@@ -105,11 +111,66 @@ def _mobilenet_v2(device: torch.device, **options) -> ZooModel:
     if options.get("params"):
         load_jax_npz(model, options["params"])
     model = model.eval().to(device=device, memory_format=torch.channels_last)
-    batch = int(options.get("batch", 1))
-    size = int(options.get("size", 224))
-    spec = TensorsSpec.of(TensorSpec(
-        (batch, size, size, 3),
-        DType.from_any(options.get("input_dtype", "uint8")),
-        name="image",
-    ))
+    spec = _image_spec(
+        int(options.get("batch", 1)), int(options.get("size", 224)),
+        options.get("input_dtype", "uint8"),
+    )
     return ZooModel("mobilenet_v2", model, spec, device)
+
+
+def _image_spec(batch: int, size: int, in_dtype: str) -> TensorsSpec:
+    return TensorsSpec.of(
+        TensorSpec((batch, size, size, 3), DType.from_any(in_dtype), name="image")
+    )
+
+
+def _check_float32(name: str, options) -> None:
+    compute = options.get("compute_dtype", "float32")
+    if compute != "float32":
+        raise ValueError(
+            f"zoo:{name}: compute_dtype {compute!r} is not ported yet (float32 only)"
+        )
+
+
+def _ssd(options, num_classes: int) -> ssd_mobilenet.SSDMobileNetV2:
+    gen = torch.Generator().manual_seed(int(options.get("seed", 0)))
+    model = ssd_mobilenet.SSDMobileNetV2(num_classes=num_classes, generator=gen)
+    if options.get("params"):
+        ssd_mobilenet.load_jax_npz(model, options["params"])
+    return model
+
+
+@model_factory(
+    "ssd_mobilenet_v2",
+    ("seed", "batch", "num_classes", "input_dtype", "params", "compute_dtype"),
+)
+def _ssd_mobilenet_v2(device: torch.device, **options) -> ZooModel:
+    """Raw two-tensor SSD (locations + class logits) for the decoder's
+    mobilenet-ssd mode; the analogue of ssd_mobilenet_v2_coco.tflite."""
+    _check_float32("ssd_mobilenet_v2", options)
+    num_classes = int(options.get("num_classes", ssd_mobilenet.NUM_CLASSES))
+    model = _ssd(options, num_classes)
+    model = model.eval().to(device=device, memory_format=torch.channels_last)
+    spec = _image_spec(
+        int(options.get("batch", 1)), ssd_mobilenet.INPUT_SIZE,
+        options.get("input_dtype", "uint8"),
+    )
+    return ZooModel("ssd_mobilenet_v2", model, spec, device)
+
+
+@model_factory(
+    "ssd_mobilenet_v2_pp",
+    ("seed", "max_out", "threshold", "input_dtype", "params", "compute_dtype"),
+)
+def _ssd_mobilenet_v2_pp(device: torch.device, **options) -> ZooModel:
+    """SSD + on-device decode and NMS → the TFLite detection-postprocess
+    4-tensor layout (decoder mode=mobilenet-ssd-postprocess). Batch 1."""
+    _check_float32("ssd_mobilenet_v2_pp", options)
+    model = ssd_mobilenet.SSDMobileNetV2PP(
+        _ssd(options, ssd_mobilenet.NUM_CLASSES),
+        max_out=int(options.get("max_out", 10)),
+        threshold=float(options.get("threshold", 0.001)),
+    )
+    model = model.eval().to(device=device, memory_format=torch.channels_last)
+    spec = _image_spec(1, ssd_mobilenet.INPUT_SIZE, options.get("input_dtype", "uint8"))
+    return ZooModel("ssd_mobilenet_v2_pp", model, spec, device)

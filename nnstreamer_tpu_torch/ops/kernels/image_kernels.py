@@ -21,29 +21,13 @@ for integer outputs.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Optional
 
 import torch
 
+from nnstreamer_tpu_torch.ops.kernels import LaunchCounter
+
 _IN_DTYPES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
-
-
-class LaunchCounter:
-    """Kernel launches since the last :meth:`reset` (thread-safe)."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.count = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.count += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.count = 0
-
 
 #: launches of the K1 CUDA kernel (both entry points share it)
 crop_resize_launches = LaunchCounter()

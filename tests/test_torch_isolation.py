@@ -1,7 +1,8 @@
 """The port stands alone: importing it loads neither ``jax`` nor
 ``nnstreamer_tpu``, no source file of it imports either, every entry
 point refuses to run quietly on the CPU when it was not asked to, and the
-K1 kernel wrapper never falls back from the kernel to its plain version.
+kernel wrappers (K1 crop/resize, K2 NMS) never fall back from the kernel
+to its plain version.
 """
 
 import ast
@@ -16,6 +17,7 @@ import nnstreamer_tpu_torch
 from nnstreamer_tpu_torch.device import NoDeviceError, resolve_device
 from nnstreamer_tpu_torch.ops.kernels import _build
 from nnstreamer_tpu_torch.ops.kernels import image_kernels
+from nnstreamer_tpu_torch.ops.kernels import nms as nms_kernels
 
 PKG_DIR = os.path.dirname(nnstreamer_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -68,7 +70,9 @@ def test_no_source_imports_jax_or_reference():
     assert offenders == []
 
 
-@pytest.mark.parametrize("entry", ["device", "pipeline", "parse", "single", "zoo"])
+@pytest.mark.parametrize(
+    "entry", ["device", "pipeline", "parse", "single", "zoo", "zoo-ssd", "single-ssd"]
+)
 def test_entry_points_refuse_cpu_unless_asked(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -83,6 +87,8 @@ def test_entry_points_refuse_cpu_unless_asked(entry):
         "parse": lambda: parse_pipeline("videotestsrc ! tensor_converter ! fakesink"),
         "single": lambda: SingleShot(framework="torch", model="zoo:mobilenet_v2"),
         "zoo": lambda: zoo.get("mobilenet_v2", size="32"),
+        "zoo-ssd": lambda: zoo.get("ssd_mobilenet_v2"),
+        "single-ssd": lambda: SingleShot(framework="torch", model="zoo:ssd_mobilenet_v2_pp"),
     }
     with pytest.raises(NoDeviceError):
         calls[entry]()
@@ -114,3 +120,25 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libimage_kernels-") and path.suffix == ".so"
     assert (_build.CSRC / "image_kernels.cu").is_file()
+
+
+def test_nms_wrapper_never_falls_back():
+    """The NMS wrapper on a tensor neither on the CPU nor on a CUDA card
+    raises and counts no launch; without nvcc the kernel build raises
+    instead of handing the work to the plain version."""
+    before = nms_kernels.nms_launches.count
+    boxes = torch.empty((8, 4), device="meta")
+    with pytest.raises(RuntimeError, match="no implementation"):
+        nms_kernels.nms_mask(boxes, torch.empty((8,), device="meta"), 0.5)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            nms_kernels._cuda_nms(torch.zeros((8, 4)), torch.ones(8), 0.5)
+    assert nms_kernels.nms_launches.count == before
+
+
+def test_nms_library_is_keyed_by_source():
+    path = _build.library_path("nms")
+    assert path.parent == _build.BUILD_DIR
+    assert path.parent.parts[-2:] == ("build", "torch_kernels")
+    assert path.name.startswith("libnms-") and path.suffix == ".so"
+    assert (_build.CSRC / "nms.cu").is_file()
