@@ -8,11 +8,13 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 1. build       — compile every CUDA source under nnstreamer_tpu_torch/csrc
                  with nvcc for sm_90a (one nvcc per source, all at once).
 2. kernels     — the crop/resize kernel (K1) in both entry points against
-                 its plain PyTorch version on the same GPU inputs: error,
-                 kernel / plain / library device time (torch.profiler; the
-                 stream time of back-to-back calls, host dispatch gaps
-                 included, beside it), and the bound (bytes over 3.35 TB/s
-                 vs float ops over 67 TFLOP/s, the larger).
+                 its plain PyTorch version on the same GPU inputs, at the
+                 shapes of both pipelines (720p → 224 and 720p → 300, u8)
+                 and others: error, kernel / plain / library device time
+                 (torch.profiler; the stream time of back-to-back calls,
+                 host dispatch gaps included, beside it), and the bound
+                 (bytes over 3.35 TB/s vs float ops over 67 TFLOP/s, the
+                 larger).
 3. pipeline    — the image-labeling pipeline (1280x720 gradient frames →
                  resize 224 → MobileNet-v2 1.0/224/1001 → image_labeling)
                  for 64 frames on the GPU: K1 launched exactly once per
@@ -26,8 +28,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  the same GPU inputs (registry shapes n = 32 and 100, the
                  1917 candidates of a real SSD output frame, n = 6300 and
                  25200, a case of tied scores): alive masks, keep_idx and
-                 keep_score bit-identical; kernel / plain device time,
-                 time per greedy step, and the bound.
+                 keep_score bit-identical; kernel / plain device time (and
+                 one launch timed alone with CUDA events), time per greedy
+                 step, and the bound.
 7. detection   — the detection pipeline (1280x720 → resize 300 →
                  SSD-MobileNet-v2 → bounding_boxes postproc=device) for 64
                  frames: K1 and K2 each launched exactly once per frame,
@@ -96,10 +99,14 @@ def gpu_info() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, pool, reps: int) -> float:
+def device_ms(torch, fn, pool, reps: int, per_launch=False):
     """Device time per call: the summed durations of every GPU kernel and
     copy the calls ran (torch.profiler), over ``reps`` calls cycling through
-    ``pool`` (inputs larger than L2, so each call reads cold memory)."""
+    ``pool`` (inputs larger than L2, so each call reads cold memory).
+    Returns (ms, the device records the profiler kept). With
+    ``per_launch`` (``fn`` launches one kernel) the time is the mean over
+    the records kept: a profile may lose the records of some long kernels,
+    and dividing their sum by ``reps`` would then undercount."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -110,13 +117,31 @@ def device_ms(torch, fn, pool, reps: int) -> float:
         for i in range(reps):
             fn(*pool[i % len(pool)])
         torch.cuda.synchronize()
-    total_us = sum(
-        ev.self_device_time_total for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA
-    )
+    events = [
+        ev for ev in prof.key_averages()
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+    ]
+    total_us = sum(ev.self_device_time_total for ev in events)
+    records = sum(ev.count for ev in events)
     if total_us <= 0:
         raise AssertionError("profiler recorded no device time")
-    return total_us / 1e3 / reps
+    return total_us / 1e3 / (records if per_launch else reps), records
+
+
+def alone_ms(torch, fn, args, reps: int = 5) -> float:
+    """Median stream time of ``reps`` calls, each timed alone with CUDA
+    events between two synchronizations: one launch and its dispatch."""
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
 
 
 def time_ms(torch, fn, pool, reps: int) -> float:
@@ -172,9 +197,9 @@ def kernel_case(torch, np, ik, name, dtype, shape, out_hw, boxes=None,
     in_bytes = img.numel() * img.element_size()
     copies = min(64, max(2, math.ceil(2 * L2_BYTES / in_bytes)))
     pool = [(img.clone(), tbox) for _ in range(copies)]
-    ms = device_ms(torch, kernel, pool, 100)
+    ms, records = device_ms(torch, kernel, pool, 100, per_launch=True)
     stream_ms = time_ms(torch, kernel, pool, 200)
-    plain_ms = device_ms(torch, plain, pool, 20)
+    plain_ms, _ = device_ms(torch, plain, pool, 20)
     library_ms = library_stream_ms = None
     if not crop:
         # the same full-image resize as one PyTorch call, on float NCHW
@@ -187,7 +212,7 @@ def kernel_case(torch, np, ik, name, dtype, shape, out_hw, boxes=None,
             return F.interpolate(x, size=(out_h, out_w), mode="bilinear",
                                  align_corners=False, antialias=False)
 
-        library_ms = device_ms(torch, library, lib_pool, 100)
+        library_ms, _ = device_ms(torch, library, lib_pool, 100)
         library_stream_ms = time_ms(torch, library, lib_pool, 200)
         del lib_pool
 
@@ -217,6 +242,7 @@ def kernel_case(torch, np, ik, name, dtype, shape, out_hw, boxes=None,
         "max_abs_err": err,
         "tolerance": tol,
         "kernel_ms": ms,
+        "kernel_records": records,
         "kernel_stream_ms": stream_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
@@ -286,16 +312,19 @@ def nms_case(torch, det, nk, name, boxes, scores, max_out=100):
         return nk.plain_nms_mask(b, s, NMS_IOU)
 
     reps = 50 if n <= 8192 else 10
-    ms = device_ms(torch, kernel, pool, reps)
+    ms, records = device_ms(torch, kernel, pool, reps, per_launch=True)
     stream_ms = time_ms(torch, kernel, pool, reps)
+    one_ms = alone_ms(torch, kernel, pool[0])
     # the plain version launches ~12 kernels per live step and reads a
     # flag back per step: one profiled call, its stream time beside it
-    plain_ms = device_ms(torch, plain, pool, 1)
+    plain_ms, _ = device_ms(torch, plain, pool, 1)
     plain_stream_ms = time_ms(torch, plain, pool, 1)
     return {
         "case": name, "n": n, "m": m, "kept": int(len(kept)), "max_out": max_out,
         "max_abs_err": err, "bit_identical": True, "cpu_identical": True,
-        "kernel_ms": ms, "kernel_stream_ms": stream_ms, "ms_per_step": ms / max(m, 1),
+        "kernel_ms": ms, "kernel_records": records, "kernel_reps": reps,
+        "kernel_stream_ms": stream_ms, "kernel_alone_ms": one_ms,
+        "ms_per_step": ms / max(m, 1),
         "plain_ms": plain_ms, "plain_stream_ms": plain_stream_ms,
         "library_ms": None,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -336,9 +365,11 @@ def run_detection(parse_pipeline, device, n, priors, pp="device", live=False, ho
 
 
 def profile_classes(torch, prof, wall_s, extra):
-    """Device time (ms) by class from a torch.profiler run, and the busy
-    share of ``wall_s``. ``extra``: (class name, key substring) pairs
-    checked first."""
+    """Device time (ms) by class from a torch.profiler run, the records
+    kept in each class, and the busy share of ``wall_s``. ``extra``:
+    (class name, key substring) pairs checked first. A profile may lose
+    some records, so the times are lower bounds: a class's record count
+    against the frames shows how many were kept."""
     from torch.autograd import DeviceType
 
     rows = sorted(
@@ -347,7 +378,8 @@ def profile_classes(torch, prof, wall_s, extra):
         reverse=True,
     )
     classes = {"conv": 0.0, **{c: 0.0 for c, _ in extra}, "memcpy": 0.0, "other": 0.0}
-    for dt, key, _ in rows:
+    calls = dict.fromkeys(classes, 0)
+    for dt, key, count in rows:
         low = key.lower()
         cls = next((c for c, sub in extra if sub in low), None)
         if cls is None:
@@ -358,12 +390,14 @@ def profile_classes(torch, prof, wall_s, extra):
             else:
                 cls = "other"
         classes[cls] += dt / 1e3
+        calls[cls] += count
     device_ms = sum(classes.values())
     return {
         "wall_ms": wall_s * 1e3,
         "device_ms": device_ms if rows else "not measured",
         "device_busy_share": device_ms / 1e3 / wall_s if rows else "not measured",
         "device_ms_by_class": classes,
+        "device_records_by_class": calls,
         "device_kernels": sum(n for _, _, n in rows),
         "top_kernels": [
             {"name": k[:80], "device_ms": dt / 1e3, "calls": n} for dt, k, n in rows[:8]
@@ -412,6 +446,8 @@ def main() -> int:
     cases = [
         kernel_case(torch, np, ik, "resize-u8-720p-224", torch.uint8,
                     (1, 720, 1280, 3), (224, 224)),
+        kernel_case(torch, np, ik, "resize-u8-720p-300", torch.uint8,
+                    (1, 720, 1280, 3), (300, 300)),
         kernel_case(torch, np, ik, "resize-f32-480p-300", torch.float32,
                     (2, 480, 640, 3), (300, 300)),
         kernel_case(torch, np, ik, "resize-bf16-480p-300", torch.bfloat16,
@@ -537,7 +573,6 @@ def main() -> int:
             hook=lambda m, i, o: out_devices.update(t.device.type for t in o),
         )
         det_k1, det_k2 = ik.crop_resize_launches.count, nk.nms_launches.count
-        det_live = int(nk.last_live.item())
         if det_k1 != FRAMES or det_k2 != FRAMES:
             raise AssertionError(
                 f"detection: K1 launched {det_k1}, K2 {det_k2} times for {FRAMES} frames"
@@ -572,7 +607,7 @@ def main() -> int:
                 raise AssertionError(f"host-render decode: overlay {t.shape} {t.dtype}")
         emit({
             "phase": "detection", "frames": FRAMES, "k1_launches": det_k1,
-            "k2_launches": det_k2, "live_candidates_last_frame": det_live,
+            "k2_launches": det_k2,
             "detections_first_frame": int((det_frames[0].tensors[0][:, 5] > 0).sum()),
             "gpu_vs_cpu_max_abs_err": det_err,
             "fps": FRAMES / det_wall, "wall_s": det_wall,

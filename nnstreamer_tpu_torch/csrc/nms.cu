@@ -16,13 +16,13 @@
 // follows each live step, so the next step reads final flags. No n x n matrix
 // exists anywhere, as in the TPU kernel.
 //
-// Layout. The alive flags are bytes in shared memory. The ranked boxes sit in
-// shared memory as four float rows (x1, y1, x2, y2) when n <= kSmemCoordsMaxN
-// (up to 192 KB of dynamic shared memory, above the 48 KB default through
-// cudaFuncSetAttribute); past that they are read from device memory, where
-// 16-byte loads of neighbouring columns coalesce and the whole list stays in
-// L2. n is taken up to kMaxN = 65536, which covers the 25,200 candidates of a
-// YOLOv5 head at 640x640; the wrapper raises beyond.
+// Layout. The alive flags are bytes in shared memory (a static array of kMaxN).
+// The ranked boxes are read from device memory as 16-byte loads through the
+// read-only cache: neighbouring columns coalesce, and the list stays in L1 or
+// L2 across the steps. A copy of the boxes in shared memory was slower on the
+// H100 at n = 1917 and 6300 (PERF.md), so there is none. n is taken up to
+// kMaxN = 32768, which covers the 25,200 candidates of a YOLOv5 head at
+// 640x640; the wrapper raises beyond.
 //
 // Numerics. The float operations are the reference's, in its order:
 // area = max(x2-x1, 0) * max(y2-y1, 0), iw, ih, inter = iw * ih,
@@ -35,8 +35,8 @@
 // Bound. Bytes: n * 20 in (boxes and scores) + n * 4 out. Operations: about 12
 // per IoU column, over the columns the live steps of these inputs visit (at
 // most m * n). At n = 1917 both give under a microsecond on an H100. The
-// kernel is instead bound by latency: m dependent steps, each a round of
-// shared-memory reads and a block-wide barrier, so its time per greedy step
+// kernel is instead bound by latency: m dependent steps, each a round of flag
+// and cached box reads and a block-wide barrier, so its time per greedy step
 // (kernel time / m) is the number to watch. Spreading the IoU rows over SMs
 // (a bitmask pass, then a one-warp scan) is the known way past that.
 //
@@ -44,14 +44,11 @@
 // package), so there is no library time to compare with.
 
 #include <cuda_runtime.h>
-#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kSmemCoordsMaxN = 12288;  // 4 rows x 12288 x 4 B = 192 KB
-constexpr int kMaxN = 65536;
-constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxN = 32768;  // one flag byte each: 32 KB of static shared memory
 
 __device__ __forceinline__ float box_area(float4 b) {
   return __fmul_rn(fmaxf(__fsub_rn(b.z, b.x), 0.0f), fmaxf(__fsub_rn(b.w, b.y), 0.0f));
@@ -66,16 +63,10 @@ __device__ __forceinline__ float iou(float4 c, float ca, float4 b, float ba) {
   return uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
 }
 
-template <bool kSmemCoords>
 __global__ void __launch_bounds__(kMaxThreads)
     nms_kernel(const float4* __restrict__ boxes, const float* __restrict__ scores,
                float* __restrict__ alive_out, int* __restrict__ live_out, int n, float thr) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* x1s = reinterpret_cast<float*>(smem);
-  float* y1s = x1s + n;
-  float* x2s = y1s + n;
-  float* y2s = x2s + n;
-  unsigned char* alive = smem + (kSmemCoords ? 16 * static_cast<size_t>(n) : 0);
+  __shared__ unsigned char alive[kMaxN];
   __shared__ int s_live;
 
   const int tid = threadIdx.x;
@@ -89,13 +80,6 @@ __global__ void __launch_bounds__(kMaxThreads)
     unsigned char a = scores[j] > 0.0f;
     alive[j] = a;
     if (a) last = j + 1;
-    if (kSmemCoords) {
-      float4 b = __ldg(boxes + j);
-      x1s[j] = b.x;
-      y1s[j] = b.y;
-      x2s[j] = b.z;
-      y2s[j] = b.w;
-    }
   }
   if (last > 0) atomicMax(&s_live, last);
   __syncthreads();
@@ -103,11 +87,11 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int i = 0; i < m; ++i) {
     if (!alive[i]) continue;  // final since the last live step's barrier
-    float4 b = kSmemCoords ? make_float4(x1s[i], y1s[i], x2s[i], y2s[i]) : __ldg(boxes + i);
+    float4 b = __ldg(boxes + i);
     float ba = box_area(b);
     for (int j = i + 1 + tid; j < m; j += nt) {
       if (!alive[j]) continue;
-      float4 c = kSmemCoords ? make_float4(x1s[j], y1s[j], x2s[j], y2s[j]) : __ldg(boxes + j);
+      float4 c = __ldg(boxes + j);
       if (iou(c, box_area(c), b, ba) > thr) alive[j] = 0;
     }
     __syncthreads();
@@ -115,22 +99,6 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int j = tid; j < n; j += nt) alive_out[j] = alive[j] ? 1.0f : 0.0f;
   if (tid == 0) *live_out = m;
-}
-
-template <bool kSmemCoords>
-cudaError_t launch(const float4* boxes, const float* scores, float* alive, int* live, int n,
-                   float thr, cudaStream_t stream) {
-  size_t smem = (kSmemCoords ? 16 * static_cast<size_t>(n) : 0) + static_cast<size_t>(n);
-  if (smem + 1024 > kDefaultSmem) {  // beside the static s_live
-    cudaError_t err = cudaFuncSetAttribute(
-        nms_kernel<kSmemCoords>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  int threads = ((n + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  nms_kernel<kSmemCoords><<<1, threads, smem, stream>>>(boxes, scores, alive, live, n, thr);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -142,8 +110,9 @@ cudaError_t launch(const float4* boxes, const float* scores, float* alive, int* 
 extern "C" int nns_nms_mask(const void* boxes, const float* scores, float* alive, int* live,
                             int n, float thr, void* stream) {
   if (n <= 0 || n > kMaxN) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float4* b = static_cast<const float4*>(boxes);
-  if (n <= kSmemCoordsMaxN) return launch<true>(b, scores, alive, live, n, thr, s);
-  return launch<false>(b, scores, alive, live, n, thr, s);
+  int threads = ((n + 31) / 32) * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  nms_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(boxes), scores, alive, live, n, thr);
+  return cudaGetLastError();
 }

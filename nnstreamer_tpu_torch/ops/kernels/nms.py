@@ -18,23 +18,19 @@ raises. There is no fallback from the kernel to the plain version.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Tuple
 
 import torch
 
 from nnstreamer_tpu_torch.ops.kernels import LaunchCounter
 
-#: the most candidates the kernel takes (its alive flags fill 64 KB of
+#: the most candidates the kernel takes (its alive flags fill 32 KB of
 #: shared memory); the 25,200 rows of a YOLOv5 head at 640x640 fit
-MAX_N = 65536
+MAX_N = 32768
 
 #: launches of the K2 CUDA kernel
 nms_launches = LaunchCounter()
-
-#: the live-candidate count m (the greedy steps walked) of the last kernel
-#: launch: a [1] int32 tensor on the card, written by the kernel. Reading
-#: it waits for the kernel, so the main path never does.
-last_live: Optional[torch.Tensor] = None
 
 
 def _iou_row(x1, y1, x2, y2, area, bx1, by1, bx2, by2, barea):
@@ -71,8 +67,10 @@ def plain_nms_mask(
     return alive
 
 
+@functools.cache
 def _kernel_fn():
-    """``nns_nms_mask`` from the built library, with its C signature."""
+    """``nns_nms_mask`` from the built library, with its C signature (set
+    once, at the first launch)."""
     from nnstreamer_tpu_torch.ops.kernels import _build
 
     fn = _build.load("nms").nns_nms_mask
@@ -88,8 +86,8 @@ def _cuda_nms(
     boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the kernel on contiguous float32 CUDA tensors → (alive [n]
-    float32 0/1, live [1] int32), both still being computed."""
-    global last_live
+    float32 0/1, live [1] int32: m, the greedy steps walked), both still
+    being computed. Reading ``live`` waits for the kernel."""
     n = boxes.shape[0]
     if n > MAX_N:
         raise ValueError(f"nms kernel takes at most {MAX_N} candidates, got {n}")
@@ -107,7 +105,6 @@ def _cuda_nms(
     if err != 0:
         raise RuntimeError(f"nns_nms_mask launch failed: cudaError_t {err}")
     nms_launches.add()
-    last_live = live
     return alive, live
 
 

@@ -376,6 +376,14 @@ def test_ssd_pp_matches_jax(tmp_path):
     priors = jnp.asarray(jssd.generate_anchors())
     ref = jax.jit(lambda p, im: jssd.apply_postprocessed(p, im, priors, max_out=10))
     wb, wc, ws, wn = (np.asarray(t) for t in ref(params, x))
+    assert boxes.shape == (10, 4) and classes.shape == (10,) and num.shape == (1,)
+    assert wn[0] > 0  # the reference keeps detections, so the rows below are compared
+    np.testing.assert_array_equal(num, wn)
+    np.testing.assert_array_equal(classes, wc)
+    np.testing.assert_allclose(boxes, wb, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(scores, ws, rtol=0, atol=1e-4)
+
+
 def test_zoo_ssd_options():
     with pytest.raises(ValueError, match="not ported yet"):
         tzoo.get("ssd_mobilenet_v2", device="cpu", compute_dtype="bfloat16")

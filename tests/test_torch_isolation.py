@@ -136,6 +136,17 @@ def test_nms_wrapper_never_falls_back():
     assert nms_kernels.nms_launches.count == before
 
 
+def test_nms_kernel_refuses_more_than_max_n():
+    """Past the candidates its shared memory holds, the kernel wrapper
+    raises before it builds or launches anything."""
+    before = nms_kernels.nms_launches.count
+    n = nms_kernels.MAX_N + 1
+    assert nms_kernels.MAX_N >= 25200  # a YOLOv5 head at 640x640 fits
+    with pytest.raises(ValueError, match="at most"):
+        nms_kernels._cuda_nms(torch.zeros((n, 4)), torch.ones(n), 0.5)
+    assert nms_kernels.nms_launches.count == before
+
+
 def test_nms_library_is_keyed_by_source():
     path = _build.library_path("nms")
     assert path.parent == _build.BUILD_DIR
