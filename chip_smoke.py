@@ -41,9 +41,38 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 8. detection_profile — device time by class over 16 detection frames.
 9. single_ssd  — SingleShot zoo:ssd_mobilenet_v2_pp (NMS inside the model)
                  on the GPU against the CPU, K2 once per invoke.
+10. attn_kernels — the decode-attention kernel (K3) against its plain
+                 version on the same GPU inputs: the JAX kernel registry's
+                 shapes, a wrapped absolute pos, and the serving shape
+                 (B 8, H 32, KV 8, D 128, S 4096) in float32, bfloat16 and
+                 int8, fills spread over the window and at pos 600; error,
+                 kernel / plain / library (scaled_dot_product_attention)
+                 device time, and the bound (cache bytes over 3.35 TB/s).
+11. serving    — ContinuousBatcher at Mistral-7B's published widths (32
+                 layers, d 4096, 32/8 heads, FFN 14336, vocab 32000),
+                 float32, 8 slots, max_len 4096, prompt_len 512, random
+                 weights from a seed: 16 greedy requests of 64 tokens
+                 (prompts 64-512 and one of 1500, the chunked prefill). K3
+                 launched exactly layers x steps; every greedy token equal
+                 to the no-cache forward's argmax (near-ties exempt,
+                 counted); through-cache logits of four requests against
+                 the full forward; decode tok/s, TPOT p50/p99, TTFT p50,
+                 a 16-step device profile; the same 8-request traffic
+                 with attn_impl="xla" beside it.
+12. serving_int8 — the int8 cache at the same widths, 4 layers, bfloat16:
+                 K3 launches exact; teacher-forced on the batcher's
+                 tokens, K3's greedy choices equal the inline attention's
+                 on the same cache (near-ties exempt), in bfloat16 and in
+                 float32, and the float32 logits agree.
+13. llm_pipeline — appsrc ! tensor_llm_serversink attn-impl=pallas ...
+                 tensor_llm_serversrc ! tensor_sink through parse_pipeline
+                 on the GPU (Mistral attention widths, 2 layers): every
+                 request back with its meta, K3 launches = layers x steps,
+                 generations equal to a directly built batcher's.
 
-TF32 is off throughout (cuDNN would otherwise run float32 convolutions in
-TF32), so GPU and CPU runs compare at float32 precision. The last lines
+TF32 is off throughout (cuDNN would otherwise run float32 convolutions,
+and the LLM phases' float32 matmuls could run, in TF32), so GPU and CPU
+runs and the references compare at float32 precision. The last lines
 are the card's name and power limit (nvidia-smi), the kernel summary
 ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
@@ -113,19 +142,20 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
     for args in pool[:3]:
         fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(*pool[i % len(pool)])
-        torch.cuda.synchronize()
-    events = [
-        ev for ev in prof.key_averages()
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-    ]
-    total_us = sum(ev.self_device_time_total for ev in events)
-    records = sum(ev.count for ev in events)
-    if total_us <= 0:
-        raise AssertionError("profiler recorded no device time")
-    return total_us / 1e3 / (records if per_launch else reps), records
+    for _ in range(3):  # a profile on this machine now and then keeps no device record
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(*pool[i % len(pool)])
+            torch.cuda.synchronize()
+        events = [
+            ev for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+        ]
+        total_us = sum(ev.self_device_time_total for ev in events)
+        records = sum(ev.count for ev in events)
+        if total_us > 0:
+            return total_us / 1e3 / (records if per_launch else reps), records
+    raise AssertionError("profiler recorded no device time in three profiles")
 
 
 def alone_ms(torch, fn, args, reps: int = 5) -> float:
@@ -364,10 +394,15 @@ def run_detection(parse_pipeline, device, n, priors, pp="device", live=False, ho
     return frames, wall, lat_ms
 
 
-def profile_classes(torch, prof, wall_s, extra):
+CONV_KEYS = ("conv", ("conv", "xmma", "fprop", "gemm", "cudnn"))
+MATMUL_KEYS = ("matmul", ("gemm", "gemv", "xmma", "cutlass", "matmul", "sm90_"))
+
+
+def profile_classes(torch, prof, wall_s, extra, main=CONV_KEYS):
     """Device time (ms) by class from a torch.profiler run, the records
     kept in each class, and the busy share of ``wall_s``. ``extra``:
-    (class name, key substring) pairs checked first. A profile may lose
+    (class name, key substring) pairs checked first; ``main``: the class
+    of the model's dense work and its key substrings. A profile may lose
     some records, so the times are lower bounds: a class's record count
     against the frames shows how many were kept."""
     from torch.autograd import DeviceType
@@ -377,7 +412,8 @@ def profile_classes(torch, prof, wall_s, extra):
          if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
         reverse=True,
     )
-    classes = {"conv": 0.0, **{c: 0.0 for c, _ in extra}, "memcpy": 0.0, "other": 0.0}
+    main_cls, main_subs = main
+    classes = {main_cls: 0.0, **{c: 0.0 for c, _ in extra}, "memcpy": 0.0, "other": 0.0}
     calls = dict.fromkeys(classes, 0)
     for dt, key, count in rows:
         low = key.lower()
@@ -385,8 +421,8 @@ def profile_classes(torch, prof, wall_s, extra):
         if cls is None:
             if "memcpy" in low or "memset" in low:
                 cls = "memcpy"
-            elif any(t in low for t in ("conv", "xmma", "fprop", "gemm", "cudnn")):
-                cls = "conv"
+            elif any(t in low for t in main_subs):
+                cls = main_cls
             else:
                 cls = "other"
         classes[cls] += dt / 1e3
@@ -405,8 +441,516 @@ def profile_classes(torch, prof, wall_s, extra):
     }
 
 
+# -- the LLM serving slice (Mistral-7B widths) -------------------------------
+
+# Mistral-7B-v0.1 (mistralai/Mistral-7B-v0.1 config.json): every width
+# published; RMSNorm eps 1e-6 (the repo's) where Mistral uses 1e-5
+MISTRAL = dict(vocab=32000, d_model=4096, n_heads=32, n_layers=32, d_ff=14336, n_kv_heads=8)
+SERVE = dict(n_slots=8, max_len=4096, prompt_len=512)  # max_len = the sliding window
+NEW_TOKENS = 64
+LONG_PROMPT = 1500  # > prompt_len: the chunked prefill
+# a reference position whose top-2 logit margin is below this share of
+# max |logit| is a near-tie that either choice may take: exempt from the
+# token check, and counted
+MARGIN_REL = 1e-3
+# the same rule in bfloat16, whose logits are rounded to 8 significant bits:
+# ties and one- or two-ulp margins are common there, and a one-ulp change
+# anywhere in a bfloat16 stack moves them, so near-ties are those within
+# 2**-6 of max |logit| (two to four bfloat16 ulps of it)
+MARGIN_REL_BF16 = 2.0 ** -6
+INT8_F32_LOGIT_TOL = 1e-3  # K3 vs the inline attention on one int8 cache, float32
+# through-cache logits against the no-cache forward, float32: two summation
+# orders, 32 layers deep (TF32 matmuls would be off by ~1e-3)
+LOGIT_REL_TOL = 2e-4
+PIPE_OPTS = "vocab:32000,d_model:4096,n_heads:32,n_kv_heads:8,n_layers:2,seed:0"
+LLM_PIPELINE = (
+    "appsrc name=src dimensions=512:1 types=int32 ! "
+    'tensor_llm_serversink id=chip custom="{opts}" attn-impl=pallas n-slots=8 '
+    "max-len=4096 prompt-len=512 max-new-tokens=32 "
+    "tensor_llm_serversrc name=ssrc id=chip ! tensor_sink name=out"
+)
+
+
+def attn_case(torch, np, da, name, b, h, kv, d, s_len, pos, dtype="float32",
+              from_float=False):
+    """One K3 case on the GPU: the kernel against its plain version on the
+    same inputs, timings, the library call, and the bound. ``from_float``:
+    an int8 cache as quantize_kv writes it from float K/V (the serving
+    path's values), else the kernel registry's raw int8 and scales."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.models import serving as sv
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    q = randn(b, 1, h, d)
+    ks = vs = None
+    if dtype == "int8" and from_float:
+        ck, ks = sv.quantize_kv(randn(b, s_len, kv, d))
+        cv, vs = sv.quantize_kv(randn(b, s_len, kv, d))
+    elif dtype == "int8":
+        ck, cv = (torch.from_numpy(rng.integers(-127, 128, (b, s_len, kv, d)).astype(np.int8))
+                  .to(dev) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.01, 0.1, (b, s_len, kv)).astype(np.float32))
+                  .to(dev) for _ in range(2))
+    else:
+        ck, cv = randn(b, s_len, kv, d), randn(b, s_len, kv, d)
+        if dtype == "bfloat16":
+            q, ck, cv = q.bfloat16(), ck.bfloat16(), cv.bfloat16()
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+
+    def kernel(q, ck, cv, p, ks, vs):
+        return da.decode_attention(q, ck, cv, p, k_scale=ks, v_scale=vs)
+
+    def plain(q, ck, cv, p, ks, vs):
+        return da.plain_decode_attention(q, ck, cv, p, k_scale=ks, v_scale=vs)
+
+    got = kernel(q, ck, cv, p, ks, vs)
+    want = plain(q, ck, cv, p, ks, vs)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    if got.shape != (b, 1, h, d) or got.dtype != torch.float32 or not err <= tol:
+        raise AssertionError(f"K3 {name}: kernel vs plain max_abs_err {err} > {tol}")
+
+    live = [min(x + 1, s_len) for x in pos]
+    esize = ck.element_size()
+    live_bytes = sum(live) * kv * d * 2 * esize + (sum(live) * kv * 2 * 4 if ks is not None else 0)
+    n_bytes = live_bytes + q.numel() * q.element_size() + b * h * d * 4 + b * 4
+    n_ops = sum(live) * h * 4 * d  # q.k and p.v: a multiply-add each per element
+    copies = min(8, max(1, math.ceil(2 * L2_BYTES / live_bytes)))
+    pool = [(q, ck.clone(), cv.clone(), p, ks, vs) for _ in range(copies)]
+    ms, records = device_ms(torch, kernel, pool, 50, per_launch=True)
+    one_ms = alone_ms(torch, kernel, pool[0])
+    plain_ms, _ = device_ms(torch, plain, pool, 5)
+
+    # yardstick: one PyTorch call on the same live prefix (float caches:
+    # int8 dequantized beforehand), a boolean mask and grouped heads
+    smax = max(live)
+    mask = (torch.arange(smax, device=dev)[None, :]
+            < torch.tensor(live, device=dev)[:, None])[:, None, None, :]
+    if ks is not None:
+        kf, vf = sv.dequantize_kv(ck, ks), sv.dequantize_kv(cv, vs)
+    else:
+        kf, vf = ck, cv
+    lib_pool = [(q.transpose(1, 2).contiguous(),
+                 kf[:, :smax].permute(0, 2, 1, 3).contiguous(),
+                 vf[:, :smax].permute(0, 2, 1, 3).contiguous(), mask)
+                for _ in range(copies)]
+
+    def library(qh, kl, vl, m):
+        return F.scaled_dot_product_attention(qh, kl, vl, attn_mask=m, enable_gqa=True)
+
+    library_ms = library_err = None
+    note = None
+    try:
+        lib_out = library(*lib_pool[0]).transpose(1, 2)
+        torch.cuda.synchronize()
+        library_err = (lib_out.float() - want).abs().max().item()
+        library_ms, _ = device_ms(torch, library, lib_pool, 50)
+    except TypeError as exc:  # a PyTorch without enable_gqa
+        note = f"scaled_dot_product_attention: {exc}"
+    del pool, lib_pool
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_F32_OPS_S * 1e3
+    return {
+        "case": name, "b": b, "h": h, "kv": kv, "d": d, "s": s_len,
+        "pos_min": min(pos), "pos_max": max(pos), "live_rows": sum(live),
+        "dtype": dtype + (" (quantize_kv of float)" if from_float else ""),
+        "max_abs_err": err, "tolerance": tol,
+        "kernel_ms": ms, "kernel_records": records, "kernel_alone_ms": one_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": library_err,
+        "library_note": note,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "operations": n_ops,
+        "achieved_GBps": n_bytes / (ms * 1e-3) / 1e9,
+    }
+
+
+def drive_requests(cb, prompts, budget, pump=8, on_round=None):
+    """Serve ``prompts`` through ``cb``: submit while a slot is free (per-
+    token steps while admissions are pending), then drain with
+    ``step_pump``. Host-clock timings; every step ends in a read of the
+    host, so it has waited for the card."""
+    queue = list(enumerate(prompts))
+    rid_of, t_sub, t_first = {}, {}, {}
+    step_ms, admit_ms, pump_ms = [], [], []
+    t_start = time.perf_counter()
+    while queue or any(cb.result(r) is None for r in rid_of.values()):
+        admitted = False
+        while queue and cb.n_free:
+            i, p = queue[0]
+            t0 = time.perf_counter()
+            rid = cb.submit(p, budget)
+            if rid is None:
+                break
+            queue.pop(0)
+            rid_of[i], t_sub[rid] = rid, t0
+            admitted = True
+        t0 = time.perf_counter()
+        if queue or admitted:
+            cb.step()
+            (admit_ms if admitted else step_ms).append((time.perf_counter() - t0) * 1e3)
+        else:
+            cb.step_pump(pump)
+            pump_ms.append((time.perf_counter() - t0) * 1e3 / pump)
+        now = time.perf_counter()
+        for rid in rid_of.values():
+            if rid not in t_first and cb.partial(rid):
+                t_first[rid] = now
+    wall = time.perf_counter() - t_start
+    toks = [cb.result(rid_of[i]) for i in range(len(prompts))]
+    ttft = sorted((t_first[r] - t_sub[r]) * 1e3 for r in rid_of.values())
+    return {
+        "tokens": toks, "wall_s": wall, "step_ms": sorted(step_ms),
+        "admit_step_ms": sorted(admit_ms), "pump_ms_per_step": sorted(pump_ms),
+        "ttft_ms": ttft,
+    }
+
+
+def through_cache_logits(torch, tfm, dec, sv, lm, prompt, toks, attn_fn, compute_dtype,
+                         cache_dtype="auto"):
+    """Teacher-forced serving path for one request, one slot: the prefill
+    of ``prompt`` in prompt_len chunks through the cache, then one
+    ``batched_decode_step`` per generated token (``attn_fn`` None = the
+    inline masked attention, else K3). → logits [len(toks), V] float32:
+    row j chose ``toks[j]``."""
+    import numpy as np
+
+    dev = lm.embed.device
+    n_heads, P, max_len = MISTRAL["n_heads"], SERVE["prompt_len"], SERVE["max_len"]
+    hd = lm.d_model // n_heads
+    shape = (lm.n_layers, 1, max_len, lm.n_kv_heads, hd)
+    if cache_dtype == "int8":
+        cache = tuple((torch.zeros(shape, dtype=torch.int8, device=dev),
+                       torch.ones(shape[:-1], device=dev)) for _ in range(2))
+    else:
+        cache = tuple(torch.zeros(shape, dtype=compute_dtype, device=dev) for _ in range(2))
+    t = len(prompt)
+    n_chunks = -(-t // P)
+    stage = tuple(torch.zeros((lm.n_layers, 1, n_chunks * P, lm.n_kv_heads, hd),
+                              dtype=compute_dtype, device=dev) for _ in range(2))
+    for c in range(n_chunks):
+        chunk = np.zeros((1, P), np.int64)
+        part = prompt[c * P:(c + 1) * P]
+        chunk[0, :len(part)] = part
+        logits, stage, _ = dec.verify_chunk(
+            lm, torch.as_tensor(chunk, device=dev), c * P, stage, n_heads,
+            compute_dtype=compute_dtype, return_logits=c == n_chunks - 1,
+        )
+    rows = [logits[0, (t - 1) % P]]
+    sv.insert_slot(cache, stage[0], stage[1], 0)
+    pos = torch.tensor([t], dtype=torch.int32, device=dev)
+    active = torch.ones((1,), dtype=torch.bool, device=dev)
+    for j in range(len(toks) - 1):
+        tok = torch.tensor([toks[j]], dtype=torch.int32, device=dev)
+        lg, cache, pos = sv.batched_decode_step(lm, tok, pos, active, cache, n_heads,
+                                                compute_dtype, attn_fn=attn_fn)
+        rows.append(lg[0])
+    return torch.stack(rows)
+
+
+def decode_profile(torch, cb, prompts, steps):
+    """Device time by class over ``steps`` decode steps of a full batch: the
+    run's first 8 prompts (the 1500-token one among them), admitted before
+    the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:SERVE["n_slots"]]:
+        cb.submit(p, steps + 4)
+    cb.step()
+    cb.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cb.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    while cb.n_free < SERVE["n_slots"]:
+        cb.step_pump(8)
+    return profile_classes(torch, prof, wall, [("decode_attention (K3)", "decode_attention")],
+                           main=MATMUL_KEYS)
+
+
+def per_step(prof, steps):
+    """A decode profile's device time a step, in all and by class."""
+    if not prof["device_kernels"]:
+        return {"device_ms_per_step": "not measured"}
+    return {
+        "device_ms_per_step": prof["device_ms"] / steps,
+        "device_ms_per_step_by_class": {
+            c: v / steps for c, v in prof["device_ms_by_class"].items()},
+        "device_busy_share": prof["device_busy_share"],
+    }
+
+
+def margin_check(torch, logits, toks, rel=MARGIN_REL):
+    """Greedy tokens against reference logits [n, V]: (mismatches at
+    positions whose top-2 margin is at least rel * max |logit|, positions
+    exempt as near-ties)."""
+    top2 = logits.topk(2, dim=-1).values
+    near = ((top2[:, 0] - top2[:, 1]) < rel * logits.abs().amax(dim=-1)).cpu()
+    wrong = logits.argmax(dim=-1).cpu() != torch.tensor(toks)
+    return int((wrong & ~near).sum()), int(near.sum())
+
+
 def pct(sorted_vals, q):
     return sorted_vals[min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))]
+
+
+def llm_phases(torch, np, dev, parse_pipeline):
+    """Phases 10-13, the LLM serving slice. Returns (the K3 case at the main
+    path's shape, K3 launches in the serving run)."""
+    # 10. attn_kernels ---------------------------------------------------------
+    from nnstreamer_tpu_torch.models import decode as dec
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+
+    # float32 matmuls in full float32 for every LLM phase (set above, and
+    # stated again here: the references compare at float32 precision)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    spread = [(i * 4095) // 7 for i in range(8)]
+    k3_cases = [
+        # the JAX package's kernel registry shapes (decode_attention.py:359-381)
+        attn_case(torch, np, da, "s64-bk16", 3, 4, 4, 16, 64, [0, 31, 63]),
+        attn_case(torch, np, da, "s40-bk128", 3, 4, 4, 16, 40, [0, 19, 39]),
+        attn_case(torch, np, da, "s97-bk32", 3, 4, 4, 16, 97, [0, 48, 96]),
+        attn_case(torch, np, da, "s33-bk16", 3, 4, 4, 16, 33, [0, 16, 32]),
+        attn_case(torch, np, da, "gqa-int8", 2, 4, 2, 16, 48, [11, 40], "int8"),
+        attn_case(torch, np, da, "bf16", 2, 2, 2, 16, 32, [5, 20], "bfloat16"),
+        # a wrapped ring's absolute positions (pos > S)
+        attn_case(torch, np, da, "wrapped-s200", 2, 2, 2, 16, 200, [200, 607]),
+        # the serving shape, fills spread over the whole window
+        attn_case(torch, np, da, "serve-f32-spread", 8, 32, 8, 128, 4096, spread),
+        attn_case(torch, np, da, "serve-bf16-spread", 8, 32, 8, 128, 4096, spread, "bfloat16"),
+        attn_case(torch, np, da, "serve-int8-spread", 8, 32, 8, 128, 4096, spread, "int8",
+                  from_float=True),
+        # the serving shape at a realistic fill
+        attn_case(torch, np, da, "serve-f32-pos600", 8, 32, 8, 128, 4096, [600] * 8),
+        attn_case(torch, np, da, "serve-int8-pos600", 8, 32, 8, 128, 4096, [600] * 8, "int8",
+                  from_float=True),
+    ]
+    emit({"phase": "attn_kernels", "cases": k3_cases})
+    k3_main = next(c for c in k3_cases if c["case"] == "serve-f32-pos600")
+
+    # 11. serving: the full-width engine ----------------------------------------
+    t0 = time.perf_counter()
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_heads, n_layers = MISTRAL["n_heads"], MISTRAL["n_layers"]
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(64, 513, 16)
+    lengths[3] = LONG_PROMPT
+    prompts = [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32) for n in lengths]
+    cb = sv.ContinuousBatcher(lm, n_heads, **SERVE, attn_impl="pallas", device=dev)
+    weights_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
+    kv_row = MISTRAL["n_kv_heads"] * (MISTRAL["d_model"] // n_heads)  # values a cache row holds
+    rows = SERVE["n_slots"] * SERVE["max_len"]
+    cache_gb = 2 * n_layers * rows * kv_row * 4 / 1e9
+    drive_requests(cb, [prompts[0][:64]], 4)  # warm-up: cuBLAS, the kernel's first load
+    steps0 = cb.stats()["steps"]
+    da.decode_attention_launches.reset()
+    run = drive_requests(cb, prompts, NEW_TOKENS)
+    k3_launches = da.decode_attention_launches.count
+    steps = cb.stats()["steps"] - steps0
+    if k3_launches != n_layers * steps:
+        raise AssertionError(f"serving: K3 launched {k3_launches} times, "
+                             f"{n_layers} layers x {steps} steps = {n_layers * steps}")
+    if any(t is None or len(t) != NEW_TOKENS for t in run["tokens"]):
+        raise AssertionError("serving: a request did not return its 64 tokens")
+    mismatches = exempt = 0
+    with torch.no_grad():
+        for p, toks in zip(prompts, run["tokens"]):
+            seq = torch.as_tensor(np.concatenate([p, toks[:-1]])[None], device=dev)
+            ref = tfm.apply(lm, seq, n_heads)[0, len(p) - 1:]
+            if not torch.isfinite(ref).all():
+                raise AssertionError("serving: reference logits not finite")
+            bad, near = margin_check(torch, ref, toks)
+            mismatches += bad
+            exempt += near
+        if mismatches:
+            raise AssertionError(f"serving: {mismatches} greedy tokens differ from the "
+                                 "no-cache reference's argmax (near-ties exempt)")
+        # logits: prefill and decoding through the cache (K3) against the
+        # full forward pass, teacher-forced on four requests (the long one too)
+        pre_err = dec_err = 0.0
+        for i in (0, 3, 7, 12):
+            p, toks = prompts[i], run["tokens"][i]
+            got = through_cache_logits(torch, tfm, dec, sv, lm, p, toks, da.make_decode_attention(),
+                                       torch.float32)
+            seq = torch.as_tensor(np.concatenate([p, toks[:-1]])[None], device=dev)
+            ref = tfm.apply(lm, seq, n_heads)[0, len(p) - 1:]
+            rel = ((got - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).cpu()
+            pre_err = max(pre_err, float(rel[0]))
+            dec_err = max(dec_err, float(rel[1:].max()))
+        if not (pre_err <= LOGIT_REL_TOL and dec_err <= LOGIT_REL_TOL):
+            raise AssertionError(f"serving: through-cache logits off the full forward: "
+                                 f"prefill {pre_err}, decode {dec_err} > {LOGIT_REL_TOL}")
+
+    serve_profile = decode_profile(torch, cb, prompts, 16)
+
+    # yardstick: the same 8-request traffic through K3 and through the
+    # plain inline attention (attn_impl="xla"), and 8 profiled steps each
+    yard = {"pallas": drive_requests(cb, prompts[:8], NEW_TOKENS)}
+    yard_prof = {"pallas": decode_profile(torch, cb, prompts, 8)}
+    del cb
+    torch.cuda.empty_cache()
+    cbx = sv.ContinuousBatcher(lm, n_heads, **SERVE, attn_impl="xla", device=dev)
+    drive_requests(cbx, [prompts[0][:64]], 4)
+    yard["xla"] = drive_requests(cbx, prompts[:8], NEW_TOKENS)
+    yard_prof["xla"] = decode_profile(torch, cbx, prompts, 8)
+    del cbx
+    gen_tokens = sum(len(t) for t in run["tokens"])
+    emit({
+        "phase": "serving", "config": "llm-serving-mistral7b", **MISTRAL, **SERVE,
+        "compute_dtype": "float32", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "requests": len(prompts), "prompt_lengths": [int(n) for n in lengths],
+        "new_tokens": NEW_TOKENS, "init_s": init_s,
+        "weights_gb": weights_gb, "cache_gb": cache_gb,
+        "k3_launches": k3_launches, "steps": steps, "layers_x_steps": n_layers * steps,
+        "greedy_mismatches": mismatches, "near_tie_exempt": exempt,
+        "prefill_logit_max_rel_err": pre_err, "decode_logit_max_rel_err": dec_err,
+        "logit_tolerance": LOGIT_REL_TOL,
+        # full-batch decode rate: 8 slots over the median decode-only step
+        "decode_tok_s": SERVE["n_slots"] * 1e3 / pct(run["step_ms"], 0.5),
+        "served_tok_s": gen_tokens / run["wall_s"], "wall_s": run["wall_s"],
+        "tpot_ms_p50": pct(run["step_ms"], 0.5), "tpot_ms_p99": pct(run["step_ms"], 0.99),
+        "decode_steps_timed": len(run["step_ms"]),
+        "pump_ms_per_step_p50": pct(run["pump_ms_per_step"], 0.5),
+        "admit_step_ms_p50": pct(run["admit_step_ms"], 0.5),
+        "ttft_ms_p50": pct(run["ttft_ms"], 0.5), "ttft_ms_p99": pct(run["ttft_ms"], 0.99),
+        "profile_steps": 16, **serve_profile,
+        "yardstick_8req": {
+            impl: {"decode_tok_s": SERVE["n_slots"] * 1e3 / pct(y["pump_ms_per_step"], 0.5),
+                   "ms_per_step_p50": pct(y["pump_ms_per_step"], 0.5),
+                   "served_tok_s": sum(len(t) for t in y["tokens"]) / y["wall_s"],
+                   "wall_s": y["wall_s"], **per_step(yard_prof[impl], 8)}
+            for impl, y in yard.items()
+        },
+    })
+    del lm
+    torch.cuda.empty_cache()
+
+    # 12. serving_int8: int8 cache, bfloat16 compute, 4 layers ---------------------
+    lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(1),
+                          **dict(MISTRAL, n_layers=4), device=dev)
+    cb8 = sv.ContinuousBatcher(lm4, n_heads, **SERVE, attn_impl="pallas", cache_dtype="int8",
+                               compute_dtype=torch.bfloat16, device=dev)
+    drive_requests(cb8, [prompts[0][:64]], 4)
+    steps0 = cb8.stats()["steps"]
+    da.decode_attention_launches.reset()
+    run8 = drive_requests(cb8, prompts[:8], NEW_TOKENS)
+    k3_int8 = da.decode_attention_launches.count
+    steps8 = cb8.stats()["steps"] - steps0
+    if k3_int8 != 4 * steps8:
+        raise AssertionError(f"serving_int8: K3 launched {k3_int8} times for 4 x {steps8}")
+    # int8 payload plus a float32 scale per row and kv head, K and V
+    int8_cache_gb = 2 * 4 * rows * (kv_row + MISTRAL["n_kv_heads"] * 4) / 1e9
+    del cb8
+    bad8 = near8 = batch_diff = 0
+    int8_rel = int8_f32_rel = 0.0
+    attn = da.make_decode_attention()
+
+    def rel_err(a, b):
+        return float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+
+    with torch.no_grad():
+        for p, toks in zip(prompts[:8], run8["tokens"]):
+            # the same serving step on the same int8 cache with the inline
+            # attention (xla) in place of K3, both teacher-forced on the
+            # batcher's tokens in one slot: their greedy choices agree
+            # (near-ties exempt), in the run's bfloat16 and in float32
+            xla = through_cache_logits(torch, tfm, dec, sv, lm4, p, toks, None, torch.bfloat16,
+                                       "int8")
+            k3 = through_cache_logits(torch, tfm, dec, sv, lm4, p, toks, attn, torch.bfloat16,
+                                      "int8")
+            bad, near = margin_check(torch, xla, k3.argmax(dim=-1).tolist(), MARGIN_REL_BF16)
+            bad8 += bad
+            near8 += near
+            int8_rel = max(int8_rel, rel_err(k3, xla))
+            # reported, not checked: the 8-slot batch runs its bfloat16
+            # matmuls at another M than one slot, so its rounding differs
+            batch_diff += int((xla.argmax(dim=-1).cpu() != torch.tensor(toks)).sum())
+            xla32 = through_cache_logits(torch, tfm, dec, sv, lm4, p, toks, None, torch.float32,
+                                         "int8")
+            k3_32 = through_cache_logits(torch, tfm, dec, sv, lm4, p, toks, attn, torch.float32,
+                                         "int8")
+            bad, _ = margin_check(torch, xla32, k3_32.argmax(dim=-1).tolist())
+            bad8 += bad
+            int8_f32_rel = max(int8_f32_rel, rel_err(k3_32, xla32))
+    if bad8 or not int8_f32_rel <= INT8_F32_LOGIT_TOL:
+        raise AssertionError(f"serving_int8: {bad8} K3 choices differ from the xla path's "
+                             f"argmax; float32 logits rel err {int8_f32_rel}")
+    emit({
+        "phase": "serving_int8", "layers": 4, "compute_dtype": "bfloat16", "cache_dtype": "int8",
+        "requests": 8, "k3_launches": k3_int8, "steps": steps8, "layers_x_steps": 4 * steps8,
+        "token_mismatches": bad8, "near_tie_exempt": near8,
+        "margin_rel_bf16": MARGIN_REL_BF16,
+        "batch8_vs_one_slot_argmax_differences": batch_diff,
+        "k3_vs_xla_logit_max_rel_err_bf16": int8_rel,
+        "k3_vs_xla_logit_max_rel_err_f32": int8_f32_rel,
+        "f32_logit_tolerance": INT8_F32_LOGIT_TOL, "cache_gb": int8_cache_gb,
+        "decode_tok_s": SERVE["n_slots"] * 1e3 / pct(run8["pump_ms_per_step"], 0.5),
+        "ms_per_step_p50": pct(run8["pump_ms_per_step"], 0.5),
+        "ttft_ms_p50": pct(run8["ttft_ms"], 0.5),
+    })
+    del lm4
+    torch.cuda.empty_cache()
+
+    # 13. llm_pipeline: the element pair through parse_pipeline ------------------
+    pipe_prompts = [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32)
+                    for n in rng.integers(32, 257, 12)]
+    budgets = [16 if i % 3 == 0 else 32 for i in range(len(pipe_prompts))]
+    pl = parse_pipeline(LLM_PIPELINE.format(opts=PIPE_OPTS), device=dev)
+    da.decode_attention_launches.reset()
+    ex = pl.start()
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    for i, (p, n) in enumerate(zip(pipe_prompts, budgets)):
+        meta = {"req": i} if n == 32 else {"req": i, "max_new_tokens": n}
+        pl["src"].push(Frame((p,), meta=meta))
+    pl["src"].end_of_stream()
+    done = ex.wait(600)
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"llm_pipeline: {ex.errors or 'no EOS within 600 s'}")
+    pipe_k3 = da.decode_attention_launches.count
+    pipe_steps = pl["ssrc"].serving_stats()["steps"]
+    got = {f.meta["req"]: f.tensors[0][0].tolist() for f in pl["out"].frames}
+    if sorted(got) != list(range(len(pipe_prompts))):
+        raise AssertionError(f"llm_pipeline: requests back {sorted(got)}")
+    if pipe_k3 != 2 * pipe_steps:
+        raise AssertionError(f"llm_pipeline: K3 launched {pipe_k3} times for 2 x {pipe_steps}")
+    m = zoo.get("transformer_lm", device=dev,
+                **dict(kv.split(":") for kv in PIPE_OPTS.split(",")))
+    direct = sv.ContinuousBatcher(m.params, n_heads, **SERVE, attn_impl="pallas", device=dev)
+    rids = []
+    for p, n in zip(pipe_prompts, budgets):
+        while (rid := direct.submit(p, n)) is None:
+            direct.step()
+        rids.append(rid)
+    while any(direct.result(r) is None for r in rids):
+        direct.step()
+    want = [direct.result(r) for r in rids]
+    diff = [i for i in range(len(pipe_prompts)) if got[i] != want[i]]
+    if diff:
+        raise AssertionError(f"llm_pipeline: requests {diff} differ from the direct batcher")
+    del m, direct
+    torch.cuda.empty_cache()
+    emit({"phase": "llm_pipeline", "requests": len(pipe_prompts), "layers": 2,
+          "k3_launches": pipe_k3, "steps": pipe_steps, "layers_x_steps": 2 * pipe_steps,
+          "equal_to_direct_batcher": True, "meta_returned": True,
+          "tokens_first_request": got[0][:8]})
+    return k3_main, k3_launches
 
 
 def main() -> int:
@@ -662,6 +1206,8 @@ def main() -> int:
           "tolerance": pp_tol, "k2_launches": pp_k2, "invokes": invokes + 1,
           "invoke_ms_p50": sorted(times)[invokes // 2]})
 
+    k3_main, k3_launches = llm_phases(torch, np, dev, parse_pipeline)
+
     main_case = cases[0]
     print(smi, flush=True)
     emit({"kernels": [{
@@ -688,6 +1234,18 @@ def main() -> int:
         "bound_ms": ssd_case["bound_ms"],
         "bound_by": ssd_case["bound_by"],
         "library_ms": None,  # no PyTorch call computes greedy NMS
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "nnstreamer_tpu/ops/pallas/decode_attention.py:178",
+        "launches": k3_launches,
+        "max_abs_err": k3_main["max_abs_err"],
+        "ms": k3_main["kernel_ms"],
+        "plain_ms": k3_main["plain_ms"],
+        "bound_ms": k3_main["bound_ms"],
+        "bound_by": k3_main["bound_by"],
+        "library_ms": k3_main["library_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

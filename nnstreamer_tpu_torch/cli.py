@@ -37,7 +37,7 @@ def main(argv=None) -> int:
         pipeline = parse_pipeline(args.description, device=args.device)
         pipeline.negotiate()
     except (ParseError, NegotiationError, ElementError, NoDeviceError,
-            KeyError, ValueError) as exc:
+            KeyError, ValueError, NotImplementedError) as exc:
         print(f"nns-launch: {exc}", file=sys.stderr)
         return 1
     if not args.quiet:

@@ -1,9 +1,9 @@
 """Layered configuration: env vars > ini file > hardcoded defaults.
 
-The part of ``nnstreamer_tpu/config.py`` that the registry reads: plugin
-search paths, the element restriction whitelist and the framework
-auto-detect priority. Env mapping: section ``filter`` key
-``framework_priority_pt`` is overridden by
+The part of ``nnstreamer_tpu/config.py`` that the port reads: plugin
+search paths, the element restriction whitelist, the framework
+auto-detect priority and the ``[llm]`` serving defaults. Env mapping:
+section ``filter`` key ``framework_priority_pt`` is overridden by
 ``NNS_TPU_FILTER_FRAMEWORK_PRIORITY_PT``. The ini file is read only from
 the path in ``NNS_TPU_CONF``.
 """
@@ -30,6 +30,21 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
     },
     "decoder": {"plugin_paths": ""},
     "converter": {"plugin_paths": ""},
+    "llm": {
+        # continuous-batching LLM serving defaults (tensor_llm_serversink
+        # props override). kv_layout: slot (one contiguous cache per slot;
+        # the only layout ported so far) | paged (not ported yet)
+        "kv_layout": "slot",
+        # decode attention: xla (inline masked attention) | pallas (the
+        # decode-attention kernel, CUDA on the card)
+        "attn_impl": "xla",
+        # paged-layout settings, kept for the reference's config files
+        "kv_attn": "auto",
+        "block_size": "16",
+        "kv_blocks": "",
+        "prefill_chunks": "1",
+        "memory_bound": "",
+    },
 }
 
 _ENV_PREFIX = "NNS_TPU_"

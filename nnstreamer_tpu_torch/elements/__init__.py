@@ -14,3 +14,4 @@ from nnstreamer_tpu_torch.elements import transform  # noqa: F401
 from nnstreamer_tpu_torch.elements import filter as filter_elem  # noqa: F401
 from nnstreamer_tpu_torch.elements import decoder  # noqa: F401
 from nnstreamer_tpu_torch.elements import sink  # noqa: F401
+from nnstreamer_tpu_torch.elements import llm_serve  # noqa: F401

@@ -1,4 +1,4 @@
-"""Sink elements: tensor_sink (callbacks), filesink, fakesink.
+"""Sink elements: tensor_sink (callbacks), appsink, filesink, fakesink.
 
 The counterpart of ``nnstreamer_tpu/elements/sink.py``. Sinks are the
 host edge: tensors leave the device here, cast to the negotiated dtypes.
@@ -6,8 +6,9 @@ host edge: tensors leave the device here, cast to the negotiated dtypes.
 
 from __future__ import annotations
 
+import queue
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -58,6 +59,35 @@ class TensorSink(Sink):
         self.eos_seen = True
         for fn in self._callbacks["eos"]:
             fn()
+
+
+@registry.element("appsink")
+class AppSink(Sink):
+    """Blocking ``pop()`` for application threads: each frame as numpy."""
+
+    FACTORY_NAME = "appsink"
+
+    PROPERTIES = {
+        "max-buffers": PropSpec("int", 0, desc="pop queue bound; 0 = unbounded"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._queue: queue.Queue = queue.Queue(
+            maxsize=int(self.get_property("max-buffers", 0)) or 0
+        )
+        self.eos_seen = False
+
+    def render(self, frame: Frame) -> None:
+        self._queue.put(frame.to_host())
+
+    def on_eos(self) -> None:
+        self.eos_seen = True
+        self._queue.put(None)
+
+    def pop(self, timeout: Optional[float] = None) -> Optional[Frame]:
+        """The next frame, or None at EOS."""
+        return self._queue.get(timeout=timeout)
 
 
 @registry.element("filesink")

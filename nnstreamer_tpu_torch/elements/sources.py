@@ -1,16 +1,18 @@
-"""Source elements: the deterministic video test source.
+"""Source elements: the deterministic video and tensor test sources, and
+appsrc.
 
 The counterpart of ``nnstreamer_tpu/elements/sources.py`` (videotestsrc /
-testsrc). Frames are born as host numpy arrays, byte-identical to the
-reference's patterns; the fused segment downstream moves them to the
-device once.
+testsrc, tensorsrc, appsrc). Frames are born as host numpy arrays,
+byte-identical to the reference's patterns; the fused segment downstream
+moves them to the device once.
 """
 
 from __future__ import annotations
 
+import queue
 import time
 from fractions import Fraction
-from typing import Optional
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 
@@ -23,6 +25,7 @@ from nnstreamer_tpu_torch.elements.base import (
     parse_bool,
 )
 from nnstreamer_tpu_torch.tensors.frame import EOS_FRAME, SECOND, Frame
+from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
 
 def _frame_pts(index: int, rate: Optional[Fraction]):
@@ -147,3 +150,118 @@ class VideoTestSrc(Source):
         if self.stamp_wall:
             meta["wall_t0"] = time.perf_counter()
         return Frame((img,), pts=pts, duration=dur, meta=meta)
+
+
+@registry.element("appsrc")
+class AppSrc(Source):
+    """Push frames (or raw arrays) from application code.
+
+    Use ``AppSrc(iterable=...)`` to pull from an iterator, or call
+    ``push(frame)`` and ``end_of_stream()`` from any thread.
+    """
+
+    FACTORY_NAME = "appsrc"
+
+    PROPERTIES = {
+        "dimensions": PropSpec("str", None, desc="output spec dims"),
+        "types": PropSpec("str", "float32"),
+    }
+
+    def __init__(self, name=None, iterable: Optional[Iterable] = None,
+                 spec: Optional[Spec] = None, **props):
+        super().__init__(name, **props)
+        self._iter: Optional[Iterator] = iter(iterable) if iterable is not None else None
+        self._spec = spec
+        self._queue: "queue.Queue" = queue.Queue(maxsize=16)
+
+    def output_spec(self) -> Spec:
+        if self._spec is not None:
+            return self._spec
+        dims = self.get_property("dimensions")
+        if dims:
+            return TensorsSpec.from_strings(dims, self.get_property("types", "float32"))
+        raise ValueError(f"{self.name}: appsrc needs spec= or dimensions= property")
+
+    @staticmethod
+    def _as_frame(item) -> Frame:
+        if isinstance(item, Frame):
+            return item
+        return Frame(tuple(item) if isinstance(item, (tuple, list)) else (item,))
+
+    def push(self, frame, timeout: Optional[float] = None) -> None:
+        self._queue.put(self._as_frame(frame), timeout=timeout)
+
+    def end_of_stream(self) -> None:
+        self._queue.put(EOS_FRAME)
+
+    def generate(self):
+        if self._iter is not None:
+            try:
+                return self._as_frame(next(self._iter))
+            except StopIteration:
+                return EOS_FRAME
+        try:
+            # bounded wait so the executor's stop event stays responsive
+            return self._queue.get(timeout=0.1)
+        except queue.Empty:
+            return None
+
+
+@registry.element("tensorsrc")
+class TensorSrc(Source):
+    """Deterministic tensors straight in ``other/tensors`` (no converter
+    needed). Props: dimensions, types, pattern (zeros/ones/counter/random),
+    num-frames, framerate, seed."""
+
+    FACTORY_NAME = "tensorsrc"
+
+    PROPERTIES = {
+        "dimensions": PropSpec("str", "1"),
+        "types": PropSpec("str", "float32"),
+        "pattern": PropSpec(
+            "enum", "counter", ("zeros", "ones", "counter", "random")
+        ),
+        "num-frames": PropSpec("int", 10),
+        "framerate": PropSpec("fraction", None),
+        "seed": PropSpec("int", 0),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.spec = TensorsSpec.from_strings(
+            str(self.get_property("dimensions", "1")),
+            str(self.get_property("types", "float32")),
+            rate=self.get_property("framerate"),
+        )
+        self.num_frames = int(self.get_property("num-frames", 10))
+        self.pattern = str(self.get_property("pattern", "counter")).lower()
+        if self.pattern not in ("zeros", "ones", "counter", "random"):
+            raise ValueError(f"{self.name}: unknown pattern {self.pattern!r}")
+        self.seed = int(self.get_property("seed", 0))
+        self._i = 0
+        self._rng = np.random.default_rng(self.seed)
+
+    def output_spec(self) -> Spec:
+        return self.spec
+
+    def start(self) -> None:
+        self._i = 0
+        self._rng = np.random.default_rng(self.seed)
+
+    def generate(self):
+        if 0 <= self.num_frames <= self._i:
+            return EOS_FRAME
+        tensors = []
+        for t in self.spec:
+            if self.pattern == "zeros":
+                a = np.zeros(t.shape, t.dtype.np_dtype)
+            elif self.pattern == "ones":
+                a = np.ones(t.shape, t.dtype.np_dtype)
+            elif self.pattern == "counter":
+                a = np.full(t.shape, self._i, dtype=np.float64).astype(t.dtype.np_dtype)
+            else:  # random
+                a = self._rng.random(t.shape).astype(t.dtype.np_dtype)
+            tensors.append(a)
+        pts, dur = _frame_pts(self._i, self.spec.rate)
+        self._i += 1
+        return Frame(tuple(tensors), pts=pts, duration=dur)

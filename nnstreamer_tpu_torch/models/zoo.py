@@ -2,7 +2,8 @@
 backend (``model=zoo:<name>``).
 
 The counterpart of ``nnstreamer_tpu/models/zoo.py`` for ``mobilenet_v2``,
-``ssd_mobilenet_v2``, ``ssd_mobilenet_v2_pp`` and ``add``. Options come
+``ssd_mobilenet_v2``, ``ssd_mobilenet_v2_pp``, ``add`` and
+``transformer_lm``. Options come
 from the filter's ``custom=`` string:
 
 - mobilenet_v2: ``size``, ``num_classes``, ``width``, ``batch``,
@@ -14,7 +15,13 @@ from the filter's ``custom=`` string:
   ``params``, ``compute_dtype`` (float32 only: bfloat16 is not ported yet);
 - ssd_mobilenet_v2_pp (batch 1, 91 classes): ``seed``, ``max_out``,
   ``threshold``, ``input_dtype``, ``params``, ``compute_dtype``;
-- add: ``const``, ``dims``.
+- add: ``const``, ``dims``;
+- transformer_lm: ``seed``, ``vocab``, ``d_model``, ``n_heads``,
+  ``n_layers``, ``n_kv_heads``, ``batch``, ``seqlen``, ``params``,
+  ``compute_dtype`` (float32 | bfloat16), ``generate`` (> 0: prompt
+  tokens in, generated tokens out), ``decode=greedy``, ``temperature``,
+  ``gen_seed``; ``attn=dense``. Not ported yet, and raising:
+  ``attn=flash`` (kernel K5), ``quantize=int8w``, ``decode=beam|ngram``.
 
 An unknown option raises: quietly ignoring, say, ``quantize:int8`` would
 serve a different model than the one asked for.
@@ -23,13 +30,16 @@ serve a different model than the one asked for.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch import nn
 
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
+from nnstreamer_tpu_torch.models import decode as dec
 from nnstreamer_tpu_torch.models import ssd_mobilenet
+from nnstreamer_tpu_torch.models import transformer as tfm
+from nnstreamer_tpu_torch.models.jax_weights import load_transformer_npz
 from nnstreamer_tpu_torch.models.mobilenet_v2 import (  # noqa: F401
     MobileNetV2,
     load_jax_npz,
@@ -44,6 +54,7 @@ class ZooModel:
     module: nn.Module  # (*tensors) -> tensor | tuple, on ``device``
     input_spec: TensorsSpec
     device: torch.device
+    params: Optional[nn.Module] = None  # the weights, where a caller needs them (LMs)
 
 
 _FACTORIES: Dict[str, Callable[..., ZooModel]] = {}
@@ -174,3 +185,92 @@ def _ssd_mobilenet_v2_pp(device: torch.device, **options) -> ZooModel:
     model = model.eval().to(device=device, memory_format=torch.channels_last)
     spec = _image_spec(1, ssd_mobilenet.INPUT_SIZE, options.get("input_dtype", "uint8"))
     return ZooModel("ssd_mobilenet_v2_pp", model, spec, device)
+
+
+class _LMApply(nn.Module):
+    """tokens [B, T] → logits [B, T, vocab] float32."""
+
+    def __init__(self, lm: tfm.TransformerLM, n_heads: int, compute_dtype: torch.dtype) -> None:
+        super().__init__()
+        self.lm, self.n_heads, self.compute_dtype = lm, n_heads, compute_dtype
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return tfm.apply(self.lm, tokens, self.n_heads, compute_dtype=self.compute_dtype)
+
+
+class _LMGenerate(nn.Module):
+    """prompt tokens [B, T] → generated tokens [B, n_new] int32 (greedy, or
+    sampled at ``temperature`` from a generator seeded ``gen_seed`` anew
+    for each call)."""
+
+    def __init__(self, lm: tfm.TransformerLM, n_heads: int, n_new: int, temperature: float,
+                 gen_seed: int, compute_dtype: torch.dtype) -> None:
+        super().__init__()
+        self.lm, self.n_heads, self.n_new = lm, n_heads, n_new
+        self.temperature, self.gen_seed, self.compute_dtype = temperature, gen_seed, compute_dtype
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        rng = torch.Generator(device=tokens.device).manual_seed(self.gen_seed)
+        return dec.generate(self.lm, tokens, self.n_heads, self.n_new,
+                            temperature=self.temperature, rng=rng,
+                            compute_dtype=self.compute_dtype)
+
+
+_LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@model_factory(
+    "transformer_lm",
+    ("seed", "vocab", "d_model", "n_heads", "n_layers", "n_kv_heads", "batch", "seqlen",
+     "params", "compute_dtype", "generate", "decode", "temperature", "gen_seed", "attn",
+     "quantize"),
+)
+def _transformer_lm(device: torch.device, **options) -> ZooModel:
+    """Decoder-only transformer LM (models/transformer.py): tokens [B, T]
+    int32 → logits [B, T, vocab], or with ``generate`` > 0 prompt tokens →
+    generated tokens. ``params`` is the :class:`TransformerLM` itself (the
+    weights a serving batcher takes)."""
+    if options.get("attn", "dense") != "dense":
+        if options["attn"] == "flash":
+            raise NotImplementedError(
+                "zoo:transformer_lm attn=flash (the flash-attention kernel K5) is not ported yet"
+            )
+        raise KeyError(f"transformer_lm: unknown attn {options['attn']!r}")
+    if options.get("quantize"):
+        raise NotImplementedError(
+            f"zoo:transformer_lm quantize={options['quantize']} (models/quantize.py) "
+            "is not ported yet"
+        )
+    compute = options.get("compute_dtype", "float32")
+    if compute not in _LM_DTYPES:
+        raise ValueError(f"zoo:transformer_lm: compute_dtype {compute!r} (float32 | bfloat16)")
+    dtype = _LM_DTYPES[compute]
+    n_heads = int(options.get("n_heads", 8))
+    gen = torch.Generator(device=device).manual_seed(int(options.get("seed", 0)))
+    lm = tfm.init_params(
+        gen, int(options.get("vocab", 1024)), int(options.get("d_model", 256)), n_heads,
+        int(options.get("n_layers", 4)), n_kv_heads=int(options.get("n_kv_heads", n_heads)),
+        device=device,
+    )
+    if options.get("params"):
+        load_transformer_npz(lm, options["params"])
+    gen_tokens = int(options.get("generate", 0))
+    if gen_tokens > 0:
+        strategy = options.get("decode", "greedy")
+        if strategy in ("beam", "ngram"):
+            raise NotImplementedError(
+                f"zoo:transformer_lm decode={strategy} is not ported yet (greedy only)"
+            )
+        if strategy != "greedy":
+            raise KeyError(
+                f"transformer_lm: unknown decode strategy {strategy!r} (greedy|beam|ngram)"
+            )
+        module = _LMGenerate(lm, n_heads, gen_tokens, float(options.get("temperature", 0.0)),
+                             int(options.get("gen_seed", 0)), dtype)
+    else:
+        module = _LMApply(lm, n_heads, dtype)
+    spec = TensorsSpec.of(
+        TensorSpec((int(options.get("batch", 1)), int(options.get("seqlen", 128))),
+                   DType.from_any("int32"), name="tokens")
+    )
+    return ZooModel("transformer_lm", module.eval(), spec, device, params=lm)

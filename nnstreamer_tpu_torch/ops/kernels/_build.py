@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into
 ``build/torch_kernels/lib<name>-<hash>.so`` at the repository root, then
-loaded with ``ctypes``. The file name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+loaded with ``ctypes``. The file name carries a hash of the source, the
+local headers it includes (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.
 Nothing is built at import time: the first call that needs a kernel
 builds it. :func:`build` starts one ``nvcc`` per source, all at once.
 """
@@ -14,12 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -46,10 +48,28 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE_RE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: List[Path]) -> List[Path]:
+    """``path`` and every local header it includes (``#include "x.cuh"``,
+    resolved beside the including file), transitively, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE_RE.findall(path.read_bytes()):
+        _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, keyed by a hash of the source,
+    the local headers it includes and the flags: an edited header yields a
+    new name, so a stale library is never loaded."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC / f"{name}.cu", []):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

@@ -72,6 +72,8 @@ class _SourceNode(_Node):
     def run(self) -> None:
         while not self.ex._stop.is_set():
             frame = self.elem.generate()
+            if frame is None:  # nothing ready yet (appsrc, an LLM server): poll again
+                continue
             if not self.put(frame) or frame is EOS_FRAME:
                 return
 
