@@ -17,7 +17,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  larger).
 3. pipeline    — the image-labeling pipeline (1280x720 gradient frames →
                  resize 224 → MobileNet-v2 1.0/224/1001 → image_labeling)
-                 for 64 frames on the GPU: K1 launched exactly once per
+                 for 32 frames on the GPU: K1 launched exactly once per
                  frame, the model's outputs on the GPU, the first labels
                  equal to the port's own CPU run; frames per second
                  free-running, and end-to-end latency p50/p99 with the
@@ -32,7 +32,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  one launch timed alone with CUDA events), time per greedy
                  step, and the bound.
 7. detection   — the detection pipeline (1280x720 → resize 300 →
-                 SSD-MobileNet-v2 → bounding_boxes postproc=device) for 64
+                 SSD-MobileNet-v2 → bounding_boxes postproc=device) for 32
                  frames: K1 and K2 each launched exactly once per frame,
                  the filter's outputs on the GPU, the first detections
                  equal to the port's own CPU run; fps and paced p50/p99;
@@ -69,12 +69,44 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  on the GPU (Mistral attention widths, 2 layers): every
                  request back with its meta, K3 launches = layers x steps,
                  generations equal to a directly built batcher's.
+14. paged_kernels — the block-table decode-attention kernel (K4) against its
+                 plain version on the same GPU inputs: the JAX kernel
+                 registry's shapes, pos 0 (the fresh column alone), pos past
+                 the table, NaN outside the live history, and the serving
+                 shape (B 8, H 32, KV 8, D 128, bs 16, nb 256, 1025 blocks,
+                 random tables) in float32, bfloat16 and int8 at fills
+                 spread over the window and at pos 600; error, kernel /
+                 plain device time, K3's time at the same fills, the bound,
+                 and a gather + scaled_dot_product_attention yardstick (two
+                 calls; no PyTorch call attends through a block table).
+15. paged_serving — ContinuousBatcher(kv_layout="paged", block_size=16,
+                 kv_blocks=1024, attn_impl="pallas") at the same Mistral-7B
+                 widths, 32 layers float32: 16 greedy requests of 64 tokens,
+                 8 of them chat prompts behind one 256-token system prompt
+                 (prefix hits, seeded chunked prefill) and one of 1500
+                 tokens (chunked prefill interleaved with decode). K4 =
+                 layers x steps, K3 = 0; every greedy token equal to the
+                 no-cache forward's argmax (near-ties exempt); logits
+                 through the arena against the full forward; no block in
+                 use after the drain; decode tok/s, TPOT, TTFT beside the
+                 slot layout's, a 16-step device profile, the arena's GB,
+                 and attn_impl="xla" on the same layout (8 requests).
+16. paged_preempt_int8 — 4 layers: a pool of 264 blocks (one max_len
+                 request and a little) under 8 requests of 600-1200 prompt
+                 tokens and 256 new ones, so decode growth preempts and
+                 re-prefills; every stream equal to its unpreempted run
+                 under the margin rule; then the int8 arena in bfloat16, K4
+                 against the inline attention under the same rule.
+17. paged_pipeline — the llm_pipeline phase with kv-layout=paged
+                 block-size=16 kv-blocks=1024: K4 = layers x steps,
+                 generations equal to a directly built paged batcher's, no
+                 block in use at the end.
 
 TF32 is off throughout (cuDNN would otherwise run float32 convolutions,
 and the LLM phases' float32 matmuls could run, in TF32), so GPU and CPU
 runs and the references compare at float32 precision. The last lines
 are the card's name and power limit (nvidia-smi), the kernel summary
-``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (K1-K4) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -91,7 +123,7 @@ import zlib
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_S = 67e12  # H100 SXM float32 outside the tensor cores
 L2_BYTES = 50 * 2**20
-FRAMES = 64
+FRAMES = 32
 PIPELINE = (
     "videotestsrc pattern=gradient width=1280 height=720 num-frames={n}{live} "
     "stamp-wall=true ! tensor_converter ! "
@@ -705,8 +737,9 @@ def pct(sorted_vals, q):
 
 
 def llm_phases(torch, np, dev, parse_pipeline):
-    """Phases 10-13, the LLM serving slice. Returns (the K3 case at the main
-    path's shape, K3 launches in the serving run)."""
+    """Phases 10-13, the LLM serving slice on the slot layout. Returns (the
+    K3 cases by name, K3 launches in the serving run, the serving run's
+    TTFT p50/p99)."""
     # 10. attn_kernels ---------------------------------------------------------
     from nnstreamer_tpu_torch.models import decode as dec
     from nnstreamer_tpu_torch.models import serving as sv
@@ -739,7 +772,6 @@ def llm_phases(torch, np, dev, parse_pipeline):
                   from_float=True),
     ]
     emit({"phase": "attn_kernels", "cases": k3_cases})
-    k3_main = next(c for c in k3_cases if c["case"] == "serve-f32-pos600")
 
     # 11. serving: the full-width engine ----------------------------------------
     t0 = time.perf_counter()
@@ -950,7 +982,626 @@ def llm_phases(torch, np, dev, parse_pipeline):
           "k3_launches": pipe_k3, "steps": pipe_steps, "layers_x_steps": 2 * pipe_steps,
           "equal_to_direct_batcher": True, "meta_returned": True,
           "tokens_first_request": got[0][:8]})
-    return k3_main, k3_launches
+    slot_ttft = {"ttft_ms_p50": pct(run["ttft_ms"], 0.5), "ttft_ms_p99": pct(run["ttft_ms"], 0.99)}
+    return {c["case"]: c for c in k3_cases}, k3_launches, slot_ttft
+
+
+# -- the paged KV slice (block arena, prefix sharing, K4) --------------------------
+
+PAGED = dict(kv_layout="paged", block_size=16)
+KV_BLOCKS = 1024  # 16 384 tokens: half the 2048 blocks 8 slots x 4096 would reserve
+SYSTEM_PROMPT = 256  # tokens (16 full blocks) shared by half the chat traffic
+PREEMPT_KV_BLOCKS = 256 + 8  # just above one max_len request
+PREEMPT_NEW = 256
+LLM_PIPELINE_PAGED = (
+    "appsrc name=src dimensions=512:1 types=int32 ! "
+    'tensor_llm_serversink id=chippg custom="{opts}" attn-impl=pallas kv-layout=paged '
+    "block-size=16 kv-blocks=1024 n-slots=8 max-len=4096 prompt-len=512 max-new-tokens=32 "
+    "tensor_llm_serversrc name=ssrc id=chippg ! tensor_sink name=out"
+)
+
+
+def paged_case(torch, np, pa, dev, name, b, h, kv, d, bs, nb, n_blocks, pos, dtype="float32",
+               from_float=False, nan=False, k3_ms=None):
+    """One K4 case on the GPU: the kernel against its plain version on the
+    same inputs, timings, the bound, and the gather + SDPA yardstick.
+    Table entries are random block ids (every live one in 1..N-1, drawn
+    from shuffled rounds of the arena, so a few repeat as shared prefix
+    blocks do); entries past a slot's history point at scratch block 0.
+    ``from_float``: an int8 arena as quantize_kv writes it from float K/V,
+    else the kernel registry's raw int8 and scales. ``nan``: every arena
+    row outside the live histories is NaN."""
+    import torch.nn.functional as F
+
+    from nnstreamer_tpu_torch.models import serving as sv
+
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+
+    hist = [min(max(x, 0), nb * bs) for x in pos]
+    n_live_blk = [-(-x // bs) for x in hist]
+    if n_blocks >= b * nb:  # the registry's tables: one permutation of the arena
+        tab = rng.permutation(n_blocks)[: b * nb].reshape(b, nb)
+    else:
+        ids = np.concatenate([rng.permutation(np.arange(1, n_blocks))
+                              for _ in range(-(-b * nb // (n_blocks - 1)))])
+        tab = ids[: b * nb].reshape(b, nb)
+    for i in range(b):
+        tab[i, n_live_blk[i]:] = 0
+    tables = torch.from_numpy(tab.astype(np.int32)).to(dev)
+    q = randn(b, 1, h, d)
+    fk, fv = randn(b, 1, kv, d), randn(b, 1, kv, d)
+    ks = vs = None
+    if dtype == "int8" and from_float:
+        ak, ks = sv.quantize_kv(randn(n_blocks, bs, kv, d))
+        av, vs = sv.quantize_kv(randn(n_blocks, bs, kv, d))
+    elif dtype == "int8":
+        ak, av = (torch.from_numpy(rng.integers(-127, 128, (n_blocks, bs, kv, d)).astype(np.int8))
+                  .to(dev) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.01, 0.1, (n_blocks, bs, kv)).astype(np.float32))
+                  .to(dev) for _ in range(2))
+    else:
+        ak, av = randn(n_blocks, bs, kv, d), randn(n_blocks, bs, kv, d)
+        if dtype == "bfloat16":
+            q, ak, av, fk, fv = (x.bfloat16() for x in (q, ak, av, fk, fv))
+    if nan:
+        live = np.zeros((n_blocks, bs), bool)
+        for i in range(b):
+            r = np.arange(hist[i])
+            live[tab[i, r // bs], r % bs] = True
+        dead = torch.from_numpy(~live).to(dev)
+        ak[dead] = float("nan")
+        av[dead] = float("nan")
+    p = torch.tensor(pos, dtype=torch.int32, device=dev)
+    args = (q, ak, av, tables, p, fk, fv, ks, vs)
+
+    def kernel(q, ak, av, tables, p, fk, fv, ks, vs):
+        return pa.paged_decode_attention(q, ak, av, tables, p, fk, fv, k_scale=ks, v_scale=vs)
+
+    def plain(q, ak, av, tables, p, fk, fv, ks, vs):
+        return pa.plain_paged_attention(q, ak, av, tables, p, fk, fv, ks, vs)
+
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    if got.shape != (b, 1, h, d) or got.dtype != torch.float32 or not err <= tol:
+        raise AssertionError(f"K4 {name}: kernel vs plain max_abs_err {err} > {tol}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K4 {name}: non-finite output")
+
+    esize = ak.element_size()
+    rows = sum(hist)
+    live_bytes = rows * kv * d * 2 * esize + (rows * kv * 2 * 4 if ks is not None else 0)
+    n_bytes = (live_bytes + sum(n_live_blk) * 4 + q.numel() * q.element_size()
+               + 2 * fk.numel() * fk.element_size() + b * h * d * 4 + b * 4)
+    n_ops = (rows + b) * h * 4 * d  # q.k and p.v over the history and the fresh column
+    copies = min(8, max(1, math.ceil(2 * L2_BYTES / max(live_bytes, 1))))
+    pool = [(q, ak.clone(), av.clone(), tables, p, fk, fv, ks, vs) for _ in range(copies)]
+    ms, records = device_ms(torch, kernel, pool, 50, per_launch=True)
+    one_ms = alone_ms(torch, kernel, pool[0])
+    plain_ms, _ = device_ms(torch, plain, pool, 5)
+
+    # yardstick, two PyTorch calls (the port calls neither): index_select of
+    # the live blocks, then scaled_dot_product_attention with the fresh
+    # column appended (float arenas only)
+    gather_ms = gather_err = None
+    note = None
+    if ks is None:
+        n_take = max(n_live_blk)
+        cols = torch.arange(n_take * bs + 1, device=dev)
+        mask = ((cols[None, :] < torch.tensor(hist, device=dev)[:, None])
+                | (cols[None, :] == n_take * bs))[:, None, None, :]
+
+        def gather_sdpa(q, ak, av, tables, p, fk, fv, ks, vs):
+            idx = tables[:, :n_take].reshape(-1)
+            kk = torch.cat([ak.index_select(0, idx).reshape(b, n_take * bs, kv, d), fk], 1)
+            vv = torch.cat([av.index_select(0, idx).reshape(b, n_take * bs, kv, d), fv], 1)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2), attn_mask=mask,
+                enable_gqa=True).transpose(1, 2)
+
+        try:
+            lib = gather_sdpa(*args)
+            torch.cuda.synchronize()
+            gather_err = (lib.float() - want).abs().max().item()
+            gather_ms, _ = device_ms(torch, gather_sdpa, pool, 20)
+        except TypeError as exc:  # a PyTorch without enable_gqa
+            note = f"scaled_dot_product_attention: {exc}"
+    del pool
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / PEAK_F32_OPS_S * 1e3
+    return {
+        "case": name, "b": b, "h": h, "kv": kv, "d": d, "bs": bs, "nb": nb, "n_blocks": n_blocks,
+        "pos_min": min(pos), "pos_max": max(pos), "history_rows": rows,
+        "dtype": dtype + (" (quantize_kv of float)" if from_float else ""),
+        "nan_outside_history": nan, "max_abs_err": err, "tolerance": tol,
+        "kernel_ms": ms, "kernel_records": records, "kernel_alone_ms": one_ms,
+        "plain_ms": plain_ms, "library_ms": None,
+        "library_note": "no PyTorch call attends through a block table",
+        "gather_sdpa_ms": gather_ms, "gather_sdpa_calls": 2 if gather_ms is not None else None,
+        "gather_sdpa_max_abs_err": gather_err, "gather_sdpa_note": note,
+        "k3_ms_same_fills": k3_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "operations": n_ops,
+        "achieved_GBps": n_bytes / (ms * 1e-3) / 1e9,
+    }
+
+
+def drive_paged(cb, prompts, budget, pump=8):
+    """Serve ``prompts`` through a paged batcher: submit while a slot is
+    free; while prompts wait in the prefill queue, ``step_pump(1)`` (one
+    prefill chunk interleaved with one decode step), else
+    ``step_pump(pump)``. Host-clock timings; every pump ends in a read of
+    the host, so it has waited for the card."""
+    queue = list(enumerate(prompts))
+    rid_of, t_sub, t_first = {}, {}, {}
+    admit_ms, pump_ms, full_ms = [], [], []
+    t_start = time.perf_counter()
+    while queue or any(cb.result(r) is None for r in rid_of.values()):
+        while queue and cb.n_free:
+            i, p = queue[0]
+            t0 = time.perf_counter()
+            rid = cb.submit(p, budget)
+            if rid is None:
+                break
+            queue.pop(0)
+            rid_of[i], t_sub[rid] = rid, t0
+        st = cb.stats()
+        t0 = time.perf_counter()
+        if st["kv_prefill_queue"]:
+            cb.step_pump(1)
+            admit_ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            cb.step_pump(pump)
+            per = (time.perf_counter() - t0) * 1e3 / pump
+            pump_ms.append(per)
+            if st["slots_occupied"] == cb.n_slots:
+                full_ms.append(per)
+        now = time.perf_counter()
+        for rid in rid_of.values():
+            if rid not in t_first and cb.partial(rid):
+                t_first[rid] = now
+    wall = time.perf_counter() - t_start
+    toks = [cb.result(rid_of[i]) for i in range(len(prompts))]
+    return {
+        "tokens": toks, "rids": [rid_of[i] for i in range(len(prompts))], "wall_s": wall,
+        "admit_step_ms": sorted(admit_ms),
+        "pump_ms_per_step": sorted(pump_ms), "full_batch_ms_per_step": sorted(full_ms),
+        "ttft_ms": sorted((t_first[r] - t_sub[r]) * 1e3 for r in rid_of.values()),
+    }
+
+
+def paged_through_cache_logits(torch, np, tfm, dec, kvg, kvb, lm, prompt, toks, attn_fn,
+                               compute_dtype=None, cache_dtype="auto"):
+    """Teacher-forced paged serving path for one request: the prefill of
+    ``prompt`` in prompt_len chunks into a stage, landed in arena blocks
+    1..n (quantized for an int8 arena), then one
+    ``batched_decode_step_block`` per generated token through the block
+    table (``attn_fn``: K4; None: the inline attention). → logits
+    [len(toks), V] float32: row j chose ``toks[j]``."""
+    dev = lm.embed.device
+    compute_dtype = compute_dtype or torch.float32
+    quantized = cache_dtype == "int8"
+    n_heads, P, max_len = MISTRAL["n_heads"], SERVE["prompt_len"], SERVE["max_len"]
+    hd, bs = lm.d_model // n_heads, PAGED["block_size"]
+    n_blk = -(-(len(prompt) + len(toks)) // bs)
+    arena = kvg.init_arena(lm.n_layers, n_blk, bs, lm.n_kv_heads, hd, quantized, compute_dtype,
+                           dev)
+    tables = torch.zeros((1, max_len // bs), dtype=torch.int32, device=dev)
+    tables[0, :n_blk] = torch.arange(1, n_blk + 1, device=dev)
+    t = len(prompt)
+    n_chunks = -(-t // P)
+    stage = tuple(torch.zeros((lm.n_layers, 1, n_chunks * P, lm.n_kv_heads, hd),
+                              dtype=compute_dtype, device=dev) for _ in range(2))
+    for c in range(n_chunks):
+        chunk = np.zeros((1, P), np.int64)
+        part = prompt[c * P:(c + 1) * P]
+        chunk[0, :len(part)] = part
+        logits, stage, _ = dec.verify_chunk(
+            lm, torch.as_tensor(chunk, device=dev), c * P, stage, n_heads,
+            compute_dtype=compute_dtype, return_logits=c == n_chunks - 1,
+        )
+    rows = [logits[0, (t - 1) % P]]
+    ids = np.zeros((n_chunks * P // bs,), np.int32)
+    valid = np.zeros(ids.shape, bool)
+    n_prompt_blk = -(-t // bs)
+    ids[:n_prompt_blk] = np.arange(1, n_prompt_blk + 1)
+    valid[:n_prompt_blk] = True
+    kvg.make_staging_ops(quantized, compute_dtype)[1](arena, stage, ids, valid)
+    pos = torch.tensor([t], dtype=torch.int32, device=dev)
+    active = torch.ones((1,), dtype=torch.bool, device=dev)
+    for j in range(len(toks) - 1):
+        tok = torch.tensor([toks[j]], dtype=torch.int32, device=dev)
+        lg, arena, pos = kvb.batched_decode_step_block(lm, tok, pos, active, arena, tables,
+                                                       n_heads, compute_dtype, attn_fn=attn_fn)
+        rows.append(lg[0])
+    return torch.stack(rows)
+
+
+def stream_check(torch, np, tfm, lm, prompt, got, want, rel, compute_dtype):
+    """``got`` against ``want`` under the margin rule: equal, or the first
+    token where they part is a near-tie of the no-cache forward on the
+    common prefix (top-2 margin below ``rel`` × max |logit|). → (True if
+    they part at a near-tie, else False; raises if they part elsewhere)."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None and len(got) == len(want):
+        return False
+    if i is None:
+        raise AssertionError(f"stream lengths differ: {len(got)} vs {len(want)}")
+    seq = torch.as_tensor(np.concatenate([prompt, np.asarray(want[:i], np.int32)])[None],
+                          device=lm.embed.device)
+    ref = tfm.apply(lm, seq, MISTRAL["n_heads"], compute_dtype=compute_dtype)[0, -1].float()
+    top2 = ref.topk(2).values
+    if not float(top2[0] - top2[1]) < rel * float(ref.abs().max()):
+        raise AssertionError(f"streams part at token {i} ({got[i]} vs {want[i]}) where the "
+                             f"no-cache forward's top-2 margin is {float(top2[0] - top2[1])}")
+    return True
+
+
+def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
+    """The paged KV slice: paged_kernels, paged_serving, paged_preempt_int8
+    and paged_pipeline. Returns (the K4 case at the main path's shape, K4
+    launches in the serving run)."""
+    from nnstreamer_tpu_torch.kv import block_attn as kvb
+    from nnstreamer_tpu_torch.kv import gather as kvg
+    from nnstreamer_tpu_torch.models import decode as dec
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def k3(name):
+        c = k3_by_name.get(name)
+        return c["kernel_ms"] if c else None
+
+    # paged_kernels ----------------------------------------------------------------
+    spread = [(i * 4095) // 7 for i in range(8)]
+    serve = dict(b=8, h=32, kv=8, d=128, bs=16, nb=256, n_blocks=1025)
+    k4_cases = [
+        # the JAX package's kernel registry shapes (paged_attention.py:385-406)
+        paged_case(torch, np, pa, dev, "b2-full-and-empty", 2, 4, 4, 16, 8, 3, 8, [0, 24]),
+        paged_case(torch, np, pa, dev, "gqa-partial-fill", 2, 4, 2, 16, 8, 4, 12, [5, 27]),
+        paged_case(torch, np, pa, dev, "int8-arena", 2, 2, 2, 16, 8, 3, 8, [9, 24], "int8"),
+        paged_case(torch, np, pa, dev, "serve-paged-2048", 8, 8, 8, 128, 128, 16, 128,
+                   [(i * 2048) // 7 for i in range(8)]),
+        # only the fresh column, a pos past the table, NaN outside the history
+        paged_case(torch, np, pa, dev, "pos0-fresh-only", 2, 4, 4, 16, 8, 3, 8, [0, 0]),
+        paged_case(torch, np, pa, dev, "pos-past-table", 2, 4, 2, 16, 8, 3, 8, [24, 90]),
+        paged_case(torch, np, pa, dev, "nan-outside-history", 2, 4, 2, 16, 8, 4, 10, [5, 27],
+                   nan=True),
+        paged_case(torch, np, pa, dev, "serve-nan-outside-history", **serve, pos=[600] * 8,
+                   nan=True),
+        # the serving shape: fills spread over the window, and at pos 600
+        paged_case(torch, np, pa, dev, "serve-f32-spread", **serve, pos=spread,
+                   k3_ms=k3("serve-f32-spread")),
+        paged_case(torch, np, pa, dev, "serve-bf16-spread", **serve, pos=spread, dtype="bfloat16",
+                   k3_ms=k3("serve-bf16-spread")),
+        paged_case(torch, np, pa, dev, "serve-int8-spread", **serve, pos=spread, dtype="int8",
+                   from_float=True, k3_ms=k3("serve-int8-spread")),
+        paged_case(torch, np, pa, dev, "serve-f32-pos600", **serve, pos=[600] * 8,
+                   k3_ms=k3("serve-f32-pos600")),
+        paged_case(torch, np, pa, dev, "serve-bf16-pos600", **serve, pos=[600] * 8,
+                   dtype="bfloat16"),
+        paged_case(torch, np, pa, dev, "serve-int8-pos600", **serve, pos=[600] * 8, dtype="int8",
+                   from_float=True, k3_ms=k3("serve-int8-pos600")),
+    ]
+    emit({"phase": "paged_kernels", "cases": k4_cases})
+    k4_main = next(c for c in k4_cases if c["case"] == "serve-f32-pos600")
+    torch.cuda.empty_cache()
+
+    # paged_serving: the full-width paged engine -----------------------------------------
+    t0 = time.perf_counter()
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_heads, n_layers, vocab = MISTRAL["n_heads"], MISTRAL["n_layers"], MISTRAL["vocab"]
+    rng = np.random.default_rng(0)
+    own = [rng.integers(1, vocab, n).astype(np.int32) for n in rng.integers(64, 513, 8)]
+    own[3] = rng.integers(1, vocab, LONG_PROMPT).astype(np.int32)
+    system = rng.integers(1, vocab, SYSTEM_PROMPT).astype(np.int32)
+    chat = [np.concatenate([system, rng.integers(1, vocab, n).astype(np.int32)])
+            for n in rng.integers(64, 257, 8)]
+    prompts = [p for pair in zip(own, chat) for p in pair]  # alternating: own, chat, ...
+    long_idx = 2 * 3
+    cb = sv.ContinuousBatcher(lm, n_heads, **SERVE, **PAGED, kv_blocks=KV_BLOCKS,
+                              attn_impl="pallas", device=dev)
+    hd = MISTRAL["d_model"] // n_heads
+    arena_gb = 2 * n_layers * (KV_BLOCKS + 1) * PAGED["block_size"] * MISTRAL["n_kv_heads"] \
+        * hd * 4 / 1e9
+    slot_cache_gb = 2 * n_layers * SERVE["n_slots"] * SERVE["max_len"] * MISTRAL["n_kv_heads"] \
+        * hd * 4 / 1e9
+    drive_paged(cb, [rng.integers(1, vocab, 64).astype(np.int32)], 4)  # warm-up
+    chunk_calls = []
+    chunk_one = cb._prefill_chunk_one
+
+    def spy(job):  # which request each chunk forward served, and past which match
+        chunk_one(job)
+        chunk_calls.append((job.req.rid, job.base, job.fill))
+
+    cb._prefill_chunk_one = spy
+    st0 = cb.stats()
+    da.decode_attention_launches.reset()
+    pa.paged_decode_attention_launches.reset()
+    run = drive_paged(cb, prompts, NEW_TOKENS)
+    k4_launches = pa.paged_decode_attention_launches.count
+    k3_in_paged = da.decode_attention_launches.count
+    st = cb.stats()
+    cb._prefill_chunk_one = chunk_one
+    steps = st["steps"] - st0["steps"]
+    if k4_launches != n_layers * steps or k3_in_paged != 0:
+        raise AssertionError(f"paged_serving: K4 launched {k4_launches} times for {n_layers} "
+                             f"layers x {steps} steps; K3 {k3_in_paged} times")
+    if any(t is None or len(t) != NEW_TOKENS for t in run["tokens"]):
+        raise AssertionError("paged_serving: a request did not return its 64 tokens")
+    long_chunks = sum(1 for r, _, _ in chunk_calls if r == run["rids"][long_idx])
+    seeded = sorted({r for r, base, _ in chunk_calls if base > 0})
+    chat_rids = run["rids"][1::2]
+    hit_tokens = st["kv_prefix_hit_tokens"] - st0["kv_prefix_hit_tokens"]
+    if hit_tokens <= 0 or not set(chat_rids[1:]) <= set(seeded):
+        raise AssertionError(f"paged_serving: prefix hits {hit_tokens} tokens; seeded chunk "
+                             f"prefills for {seeded}, want every chat request after the first")
+    if long_chunks < 2:
+        raise AssertionError(f"paged_serving: the {LONG_PROMPT}-token prompt took "
+                             f"{long_chunks} chunk forwards")
+    if st["kv_blocks_in_use"] != 0:
+        raise AssertionError(f"paged_serving: {st['kv_blocks_in_use']} blocks in use after "
+                             "the drain")
+    mismatches = exempt = 0
+    with torch.no_grad():
+        for p, toks in zip(prompts, run["tokens"]):
+            seq = torch.as_tensor(np.concatenate([p, toks[:-1]])[None], device=dev)
+            ref = tfm.apply(lm, seq, n_heads)[0, len(p) - 1:]
+            if not torch.isfinite(ref).all():
+                raise AssertionError("paged_serving: reference logits not finite")
+            bad, near = margin_check(torch, ref, toks)
+            mismatches += bad
+            exempt += near
+        if mismatches:
+            raise AssertionError(f"paged_serving: {mismatches} greedy tokens differ from the "
+                                 "no-cache reference's argmax (near-ties exempt)")
+        # logits through the arena (K4) against the full forward, teacher-
+        # forced on the long request and the second chat request
+        pre_err = dec_err = 0.0
+        for i in (long_idx, 3):
+            p, toks = prompts[i], run["tokens"][i]
+            got = paged_through_cache_logits(torch, np, tfm, dec, kvg, kvb, lm, p, toks,
+                                             pa.make_paged_attention())
+            seq = torch.as_tensor(np.concatenate([p, toks[:-1]])[None], device=dev)
+            ref = tfm.apply(lm, seq, n_heads)[0, len(p) - 1:]
+            rel = ((got - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1)).cpu()
+            pre_err = max(pre_err, float(rel[0]))
+            dec_err = max(dec_err, float(rel[1:].max()))
+        if not (pre_err <= LOGIT_REL_TOL and dec_err <= LOGIT_REL_TOL):
+            raise AssertionError(f"paged_serving: through-arena logits off the full forward: "
+                                 f"prefill {pre_err}, decode {dec_err} > {LOGIT_REL_TOL}")
+
+    # device time by class over 16 full-batch steps (two pumps of 8) at the
+    # fills of the run's first 8 prompts
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts[:SERVE["n_slots"]]:
+        cb.submit(p, 40)
+    while cb.stats()["kv_prefill_queue"]:
+        cb.step_pump(1)
+    cb.step_pump(1)  # the last activation joins
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cb.step_pump(8)
+        cb.step_pump(8)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    while cb.n_free < SERVE["n_slots"]:
+        cb.step_pump(8)
+    serve_profile = profile_classes(
+        torch, prof, prof_wall, [("paged_decode_attention (K4)", "paged_attention")],
+        main=MATMUL_KEYS)
+    del cb
+    torch.cuda.empty_cache()
+    # yardstick: the same traffic's first 8 requests with the inline
+    # attention (attn_impl="xla": a per-layer view through the tables)
+    cbx = sv.ContinuousBatcher(lm, n_heads, **SERVE, **PAGED, kv_blocks=KV_BLOCKS,
+                               attn_impl="xla", device=dev)
+    drive_paged(cbx, [prompts[0][:64]], 4)
+    yard = drive_paged(cbx, prompts[:8], NEW_TOKENS)
+    del cbx
+    gen_tokens = sum(len(t) for t in run["tokens"])
+    full = run["full_batch_ms_per_step"] or run["pump_ms_per_step"]
+    emit({
+        "phase": "paged_serving", "config": "llm-serving-mistral7b-paged", **MISTRAL, **SERVE,
+        **PAGED, "kv_blocks": KV_BLOCKS, "compute_dtype": "float32",
+        "allow_tf32": torch.backends.cuda.matmul.allow_tf32, "init_s": init_s,
+        "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
+        "shared_system_prompt": SYSTEM_PROMPT, "new_tokens": NEW_TOKENS,
+        "arena_gb": arena_gb, "slot_cache_gb": slot_cache_gb,
+        "k4_launches": k4_launches, "k3_launches": k3_in_paged, "steps": steps,
+        "layers_x_steps": n_layers * steps,
+        "greedy_mismatches": mismatches, "near_tie_exempt": exempt,
+        "prefill_logit_max_rel_err": pre_err, "decode_logit_max_rel_err": dec_err,
+        "logit_tolerance": LOGIT_REL_TOL,
+        "prefix_hit_tokens": hit_tokens,
+        "prefix_hits_blocks": st["kv_prefix_hits"] - st0["kv_prefix_hits"],
+        "cow_copies": st["kv_cow_copies"] - st0["kv_cow_copies"],
+        "seeded_chunk_prefills": len(seeded), "long_prompt_chunk_forwards": long_chunks,
+        "prefill_chunk_forwards": len(chunk_calls), "preemptions": st["kv_preemptions"],
+        "blocks_in_use_after_drain": st["kv_blocks_in_use"],
+        "decode_tok_s": SERVE["n_slots"] * 1e3 / pct(full, 0.5),
+        "full_batch_pumps": len(run["full_batch_ms_per_step"]),
+        "tpot_ms_p50": pct(run["pump_ms_per_step"], 0.5),
+        "tpot_ms_p99": pct(run["pump_ms_per_step"], 0.99),
+        "admit_step_ms_p50": pct(run["admit_step_ms"], 0.5),
+        "admit_steps": len(run["admit_step_ms"]),
+        "ttft_ms_p50": pct(run["ttft_ms"], 0.5), "ttft_ms_p99": pct(run["ttft_ms"], 0.99),
+        "served_tok_s": gen_tokens / run["wall_s"], "wall_s": run["wall_s"],
+        "slot_layout_ttft_ms": slot_serving,
+        "profile_steps": 16, **serve_profile,
+        "yardstick_xla_8req": {
+            "ms_per_step_p50": pct(yard["pump_ms_per_step"], 0.5),
+            "decode_tok_s": SERVE["n_slots"] * 1e3 / pct(
+                yard["full_batch_ms_per_step"] or yard["pump_ms_per_step"], 0.5),
+            "served_tok_s": sum(len(t) for t in yard["tokens"]) / yard["wall_s"],
+            "ttft_ms_p50": pct(yard["ttft_ms"], 0.5), "wall_s": yard["wall_s"],
+        },
+    })
+    del lm
+    torch.cuda.empty_cache()
+
+    # paged_preempt_int8: a tight pool, then the int8 arena, 4 layers --------------------
+    lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(1),
+                          **dict(MISTRAL, n_layers=4), device=dev)
+    long = [rng.integers(1, vocab, n).astype(np.int32) for n in rng.integers(600, 1201, 8)]
+    pa.paged_decode_attention_launches.reset()
+    tight = sv.ContinuousBatcher(lm4, n_heads, **SERVE, **PAGED, kv_blocks=PREEMPT_KV_BLOCKS,
+                                 attn_impl="pallas", device=dev)
+    s0 = tight.stats()["steps"]
+    run_t = drive_paged(tight, long, PREEMPT_NEW)
+    st_t = tight.stats()
+    k4_tight = pa.paged_decode_attention_launches.count
+    if k4_tight != 4 * (st_t["steps"] - s0):
+        raise AssertionError(f"paged_preempt: K4 launched {k4_tight} times for 4 x "
+                             f"{st_t['steps'] - s0}")
+    if st_t["kv_preemptions"] <= 0:
+        raise AssertionError("paged_preempt: the tight pool never ran dry")
+    del tight
+    roomy = sv.ContinuousBatcher(lm4, n_heads, **SERVE, **PAGED, attn_impl="pallas", device=dev)
+    run_r = drive_paged(roomy, long, PREEMPT_NEW)
+    if roomy.stats()["kv_preemptions"]:
+        raise AssertionError("paged_preempt: the unpreempted reference was preempted")
+    del roomy
+    parted = bad = near = 0
+    with torch.no_grad():
+        for p, got, want in zip(long, run_t["tokens"], run_r["tokens"]):
+            parted += stream_check(torch, np, tfm, lm4, p, got, want, MARGIN_REL, torch.float32)
+            seq = torch.as_tensor(np.concatenate([p, got[:-1]])[None], device=dev)
+            b_, n_ = margin_check(torch, tfm.apply(lm4, seq, n_heads)[0, len(p) - 1:], got)
+            bad += b_
+            near += n_
+    if bad:
+        raise AssertionError(f"paged_preempt: {bad} tokens differ from the no-cache argmax")
+    # int8 arena, bfloat16 compute: K4 against the inline attention
+    budget8 = NEW_TOKENS
+    streams = {}
+    launches8 = steps8 = 0
+    for impl in ("pallas", "xla"):
+        cb8 = sv.ContinuousBatcher(lm4, n_heads, **SERVE, **PAGED, attn_impl=impl,
+                                   cache_dtype="int8", compute_dtype=torch.bfloat16, device=dev)
+        pa.paged_decode_attention_launches.reset()
+        s0 = cb8.stats()["steps"]
+        streams[impl] = drive_paged(cb8, long, budget8)
+        if impl == "pallas":
+            launches8 = pa.paged_decode_attention_launches.count
+            steps8 = cb8.stats()["steps"] - s0
+        del cb8
+    if launches8 != 4 * steps8:
+        raise AssertionError(f"paged_int8: K4 launched {launches8} times for 4 x {steps8}")
+    parted8 = bad8 = near8 = 0
+    int8_f32_rel = 0.0
+    attn = pa.make_paged_attention()
+    with torch.no_grad():
+        for p, got, want in zip(long, streams["pallas"]["tokens"], streams["xla"]["tokens"]):
+            parted8 += stream_check(torch, np, tfm, lm4, p, got, want, MARGIN_REL_BF16,
+                                    torch.bfloat16)
+            # teacher-forced on the xla batcher's tokens, one request alone:
+            # K4's greedy choices equal the inline attention's on the same
+            # int8 arena (near-ties exempt), in bfloat16 and in float32
+            for dt, rel in ((torch.bfloat16, MARGIN_REL_BF16), (torch.float32, MARGIN_REL)):
+                xla = paged_through_cache_logits(torch, np, tfm, dec, kvg, kvb, lm4, p, want,
+                                                 None, dt, "int8")
+                k4 = paged_through_cache_logits(torch, np, tfm, dec, kvg, kvb, lm4, p, want,
+                                                attn, dt, "int8")
+                b_, n_ = margin_check(torch, xla, k4.argmax(dim=-1).tolist(), rel)
+                bad8 += b_
+                near8 += n_
+            int8_f32_rel = max(int8_f32_rel, float(
+                ((k4 - xla).abs().amax(-1) / xla.abs().amax(-1)).max()))
+    if bad8 or not int8_f32_rel <= INT8_F32_LOGIT_TOL:
+        raise AssertionError(f"paged_int8: {bad8} K4 choices differ from the xla path's argmax; "
+                             f"float32 logits rel err {int8_f32_rel}")
+    int8_arena_gb = 2 * 4 * (2048 + 1) * 16 * (MISTRAL["n_kv_heads"] * hd
+                                              + MISTRAL["n_kv_heads"] * 4) / 1e9
+    emit({
+        "phase": "paged_preempt_int8", "layers": 4, "requests": len(long),
+        "prompt_lengths": [len(p) for p in long],
+        "tight": {"kv_blocks": PREEMPT_KV_BLOCKS, "new_tokens": PREEMPT_NEW,
+                  "compute_dtype": "float32", "preemptions": st_t["kv_preemptions"],
+                  "prefill_chunk_forwards": st_t["kv_prefill_chunks"],
+                  "k4_launches": k4_tight, "layers_x_steps": 4 * (st_t["steps"] - s0),
+                  "streams_parted_at_near_tie": parted, "greedy_mismatches": bad,
+                  "near_tie_exempt": near, "margin_rel": MARGIN_REL,
+                  "blocks_in_use_after_drain": st_t["kv_blocks_in_use"],
+                  "wall_s": run_t["wall_s"], "unpreempted_wall_s": run_r["wall_s"]},
+        "int8": {"compute_dtype": "bfloat16", "cache_dtype": "int8", "new_tokens": budget8,
+                 "k4_launches": launches8, "layers_x_steps": 4 * steps8,
+                 "streams_parted_at_near_tie_vs_xla": parted8,
+                 "teacher_forced_mismatches": bad8, "teacher_forced_near_tie_exempt": near8,
+                 "k4_vs_xla_logit_max_rel_err_f32": int8_f32_rel,
+                 "f32_logit_tolerance": INT8_F32_LOGIT_TOL,
+                 "margin_rel_bf16": MARGIN_REL_BF16, "arena_gb": int8_arena_gb,
+                 "ms_per_step_p50": pct(streams["pallas"]["pump_ms_per_step"], 0.5),
+                 "xla_ms_per_step_p50": pct(streams["xla"]["pump_ms_per_step"], 0.5)},
+    })
+    del lm4
+    torch.cuda.empty_cache()
+
+    # paged_pipeline: the element pair with kv-layout=paged ------------------------------
+    pipe_prompts = [rng.integers(1, vocab, n).astype(np.int32)
+                    for n in rng.integers(32, 257, 12)]
+    budgets = [16 if i % 3 == 0 else 32 for i in range(len(pipe_prompts))]
+    pl = parse_pipeline(LLM_PIPELINE_PAGED.format(opts=PIPE_OPTS), device=dev)
+    pa.paged_decode_attention_launches.reset()
+    ex = pl.start()
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    for i, (p, n) in enumerate(zip(pipe_prompts, budgets)):
+        meta = {"req": i} if n == 32 else {"req": i, "max_new_tokens": n}
+        pl["src"].push(Frame((p,), meta=meta))
+    pl["src"].end_of_stream()
+    done = ex.wait(600)
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"paged_pipeline: {ex.errors or 'no EOS within 600 s'}")
+    pipe_k4 = pa.paged_decode_attention_launches.count
+    pipe_stats = pl["ssrc"].serving_stats()
+    got = {f.meta["req"]: f.tensors[0][0].tolist() for f in pl["out"].frames}
+    if sorted(got) != list(range(len(pipe_prompts))):
+        raise AssertionError(f"paged_pipeline: requests back {sorted(got)}")
+    if pipe_k4 != 2 * pipe_stats["steps"]:
+        raise AssertionError(f"paged_pipeline: K4 launched {pipe_k4} times for 2 x "
+                             f"{pipe_stats['steps']}")
+    if pipe_stats["kv_blocks_in_use"] != 0 or pipe_stats["kv_blocks"] != KV_BLOCKS:
+        raise AssertionError(f"paged_pipeline: kv stats {pipe_stats}")
+    m = zoo.get("transformer_lm", device=dev,
+                **dict(kv.split(":") for kv in PIPE_OPTS.split(",")))
+    direct = sv.ContinuousBatcher(m.params, n_heads, **SERVE, **PAGED, kv_blocks=KV_BLOCKS,
+                                  attn_impl="pallas", device=dev)
+    rids = []
+    for p, n in zip(pipe_prompts, budgets):
+        while (rid := direct.submit(p, n)) is None:
+            direct.step()
+        rids.append(rid)
+    while any(direct.result(r) is None for r in rids):
+        direct.step()
+    want = [direct.result(r) for r in rids]
+    diff = [i for i in range(len(pipe_prompts)) if got[i] != want[i]]
+    if diff:
+        raise AssertionError(f"paged_pipeline: requests {diff} differ from the direct batcher")
+    del m, direct
+    torch.cuda.empty_cache()
+    emit({"phase": "paged_pipeline", "requests": len(pipe_prompts), "layers": 2,
+          "k4_launches": pipe_k4, "steps": pipe_stats["steps"],
+          "layers_x_steps": 2 * pipe_stats["steps"], "equal_to_direct_batcher": True,
+          "meta_returned": True, "kv_blocks": pipe_stats["kv_blocks"],
+          "kv_blocks_in_use": pipe_stats["kv_blocks_in_use"],
+          "tokens_first_request": got[0][:8]})
+    return k4_main, k4_launches
 
 
 def main() -> int:
@@ -975,6 +1626,8 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    if "paged_attention" not in sources:
+        raise AssertionError(f"build: paged_attention.cu missing from {sources}")
     t0 = time.perf_counter()
     libs = _build.build(sources)
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
@@ -1206,7 +1859,9 @@ def main() -> int:
           "tolerance": pp_tol, "k2_launches": pp_k2, "invokes": invokes + 1,
           "invoke_ms_p50": sorted(times)[invokes // 2]})
 
-    k3_main, k3_launches = llm_phases(torch, np, dev, parse_pipeline)
+    k3_by_name, k3_launches, slot_ttft = llm_phases(torch, np, dev, parse_pipeline)
+    k3_main = k3_by_name["serve-f32-pos600"]
+    k4_main, k4_launches = paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_ttft)
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -1246,6 +1901,18 @@ def main() -> int:
         "bound_ms": k3_main["bound_ms"],
         "bound_by": k3_main["bound_by"],
         "library_ms": k3_main["library_ms"],
+    }, {
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "nnstreamer_tpu/ops/pallas/paged_attention.py:202",
+        "launches": k4_launches,
+        "max_abs_err": k4_main["max_abs_err"],
+        "ms": k4_main["kernel_ms"],
+        "plain_ms": k4_main["plain_ms"],
+        "bound_ms": k4_main["bound_ms"],
+        "bound_by": k4_main["bound_by"],
+        "library_ms": None,  # no PyTorch call attends through a block table
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -32,17 +32,27 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
     "converter": {"plugin_paths": ""},
     "llm": {
         # continuous-batching LLM serving defaults (tensor_llm_serversink
-        # props override). kv_layout: slot (one contiguous cache per slot;
-        # the only layout ported so far) | paged (not ported yet)
+        # props override). kv_layout: slot (one contiguous worst-case cache
+        # per slot) | paged (block arena + per-request block tables with
+        # prefix sharing, chunked prefill and preemption by eviction)
         "kv_layout": "slot",
         # decode attention: xla (inline masked attention) | pallas (the
-        # decode-attention kernel, CUDA on the card)
+        # decode-attention kernels: K3 on the slot layout, K4 on the paged
+        # one; CUDA on the card)
         "attn_impl": "xla",
-        # paged-layout settings, kept for the reference's config files
+        # paged decode formulation: auto (= block) | block (attend the
+        # arena through the block tables, in-place token writes) | gather
+        # (a contiguous view per step: the oracle, xla only)
         "kv_attn": "auto",
+        # tokens per KV block (paged); must divide prompt-len and max-len
         "block_size": "16",
+        # usable blocks in the arena (paged); empty = enough for every slot
+        # at max-len (no saving: size it below that to save memory)
         "kv_blocks": "",
+        # prefill buckets advanced per step or pump (paged chunked
+        # prefill): bounds how long one prompt can stall decoding slots
         "prefill_chunks": "1",
+        # the declared KV memory bound of the reference's lint (not ported)
         "memory_bound": "",
     },
 }

@@ -1,8 +1,9 @@
 // The online-softmax attention recurrence as device functions.
 //
 // The CUDA counterpart of nnstreamer_tpu/ops/pallas/_primitives.py, shared by
-// the port's attention kernels (decode_attention.cu now; the paged decode and
-// flash prefill kernels will include it too). Its plain PyTorch twin is
+// the port's attention kernels (decode_attention.cu and paged_attention.cu
+// through attn_tile.cuh; the flash prefill kernel will include it too). Its
+// plain PyTorch twin is
 // nnstreamer_tpu_torch/ops/kernels/_primitives.py; each function below names
 // the one it mirrors.
 //

@@ -21,13 +21,15 @@ elements:
 EOS: the sink's EOS marks the end of submissions; the src drains every
 pending request, then ends its stream.
 
-The server runs on the pipeline's device. Not ported yet, and raising when
-set: the shared serving plane (``plane``), speculative decoding
-(``speculate``, ``speculate-model``), migration and checkpoints
-(``migrate-to``, ``checkpoint-*``), disaggregated serving (``role``,
-``decode-peers``) and the paged layout (``kv-layout=paged`` and its
-``kv-attn``, ``block-size``, ``kv-blocks``, ``prefill-chunks``,
-``kv-memory-bound``).
+The server runs on the pipeline's device. ``kv-layout=paged`` builds a
+paged batcher (block arena, prefix sharing, chunked prefill, preemption),
+with ``block-size``, ``kv-blocks``, ``prefill-chunks`` and ``kv-attn``
+passed through as the reference passes them; ``serving_stats()`` then
+carries the ``kv_*`` counters. Not ported yet, and raising when set: the
+shared serving plane (``plane``), speculative decoding (``speculate``,
+``speculate-model``), migration and checkpoints (``migrate-to``,
+``checkpoint-*``), disaggregated serving (``role``, ``decode-peers``) and
+the lint's ``kv-memory-bound``.
 """
 
 from __future__ import annotations
@@ -69,11 +71,7 @@ _NOT_PORTED = {
     "checkpoint-dir": ("", "span checkpoints"),
     "role": ("", "disaggregated prefill/decode serving"),
     "decode-peers": ("", "disaggregated prefill/decode serving"),
-    "kv-attn": ("", "the paged KV layout"),
-    "block-size": (0, "the paged KV layout"),
-    "kv-blocks": (0, "the paged KV layout"),
-    "prefill-chunks": (0, "the paged KV layout"),
-    "kv-memory-bound": ("", "the paged KV layout's memory bound"),
+    "kv-memory-bound": ("", "the lint's declared KV memory bound"),
 }
 
 
@@ -105,9 +103,10 @@ def _drop_server(srv_id: str, srv: Optional["_LlmServer"]) -> None:
 
 def _build_batcher(model: str, options: Dict[str, str], n_slots: int, max_len: int,
                    prompt_len: int, cache_dtype: str, attn_impl: str,
-                   device: torch.device):
+                   device: torch.device, kv_kw: Optional[dict] = None):
     """Open the zoo model on ``device`` and build its ContinuousBatcher
-    (float32 compute, as the reference's element builds it)."""
+    (float32 compute, as the reference's element builds it); ``kv_kw``
+    carries the paged layout's settings."""
     from nnstreamer_tpu_torch.models import zoo
     from nnstreamer_tpu_torch.models.serving import ContinuousBatcher
 
@@ -119,6 +118,7 @@ def _build_batcher(model: str, options: Dict[str, str], n_slots: int, max_len: i
     return ContinuousBatcher(
         m.params, int(options.get("n_heads", 8)), n_slots=n_slots, max_len=max_len,
         prompt_len=prompt_len, cache_dtype=cache_dtype, attn_impl=attn_impl, device=device,
+        **(kv_kw or {}),
     )
 
 
@@ -128,9 +128,9 @@ class _LlmServer:
     def __init__(self, model: str, options: Dict[str, str], n_slots: int, max_len: int,
                  prompt_len: int, default_new: int, device: torch.device,
                  stream: bool = False, pump_tokens: int = 1, cache_dtype: str = "auto",
-                 attn_impl: str = "xla"):
+                 attn_impl: str = "xla", kv_kw: Optional[dict] = None):
         self.cb = _build_batcher(model, options, n_slots, max_len, prompt_len, cache_dtype,
-                                 attn_impl, device)
+                                 attn_impl, device, kv_kw)
         self.default_new = default_new
         self.stream = stream
         # pump=N: tokens per step_pump (one read of the host per pump);
@@ -225,7 +225,10 @@ class LlmServerSink(Sink):
     (one frame per new token, then a done frame), pump (tokens per launch
     of ``step_pump``; 1 = per-token steps), cache-dtype (auto | int8),
     attn-impl (xla | pallas; default from ``[llm] attn_impl``), kv-layout
-    (slot; default from ``[llm] kv_layout``)."""
+    (slot | paged; default from ``[llm] kv_layout``) and, for paged,
+    block-size, kv-blocks (0 = enough for every slot at max-len),
+    prefill-chunks and kv-attn (auto | block | gather), each 0 or empty
+    deferring to ``[llm]``."""
 
     FACTORY_NAME = "tensor_llm_serversink"
 
@@ -241,7 +244,12 @@ class LlmServerSink(Sink):
         "pump": PropSpec("int", 1, desc="tokens per launch"),
         "cache-dtype": PropSpec("str", "auto", desc="auto | int8"),
         "attn-impl": PropSpec("str", "", desc="decode attention: xla | pallas ([llm] default)"),
-        "kv-layout": PropSpec("str", "", desc="slot ([llm] default); paged is not ported yet"),
+        "kv-layout": PropSpec("str", "", desc="slot | paged ([llm] default)"),
+        "kv-attn": PropSpec("str", "",
+                            desc="paged decode path: auto | block | gather ([llm] default)"),
+        "block-size": PropSpec("int", 0, desc="tokens per KV block (paged; 0 = [llm])"),
+        "kv-blocks": PropSpec("int", 0, desc="arena blocks (paged; 0 = [llm], else auto)"),
+        "prefill-chunks": PropSpec("int", 0, desc="prefill buckets per pump (paged; 0 = [llm])"),
         **{k: PropSpec(type(v[0]).__name__, v[0], desc=f"{v[1]}: not ported yet")
            for k, v in _NOT_PORTED.items()},
     }
@@ -262,12 +270,21 @@ class LlmServerSink(Sink):
         kv_layout = str(self.get_property("kv-layout", "")).strip() or cfg.get(
             "llm", "kv_layout", "slot"
         )
-        if kv_layout == "paged":
-            raise NotImplementedError(
-                f"{self.name}: kv-layout=paged (the block arena and kernel K4) is not ported yet"
-            )
-        if kv_layout != "slot":
+        if kv_layout not in ("slot", "paged"):
             raise ValueError(f"{self.name}: unknown kv-layout {kv_layout!r}")
+        kv_kw = None
+        if kv_layout == "paged":
+            kv_kw = dict(
+                kv_layout="paged",
+                block_size=int(self.get_property("block-size", 0))
+                or int(cfg.get("llm", "block_size", "16")),
+                kv_blocks=int(self.get_property("kv-blocks", 0))
+                or int(cfg.get("llm", "kv_blocks", "0")) or None,
+                prefill_chunks=int(self.get_property("prefill-chunks", 0))
+                or int(cfg.get("llm", "prefill_chunks", "1")),
+                kv_attn=str(self.get_property("kv-attn", "")).strip()
+                or cfg.get("llm", "kv_attn", "auto"),
+            )
         self._create_kw = dict(
             model=str(self.get_property("model", "zoo:transformer_lm")),
             options=options,
@@ -281,6 +298,7 @@ class LlmServerSink(Sink):
             attn_impl=str(self.get_property("attn-impl", "")).strip() or cfg.get(
                 "llm", "attn_impl", "xla"
             ),
+            kv_kw=kv_kw,
         )
         self._server: Optional[_LlmServer] = None
 

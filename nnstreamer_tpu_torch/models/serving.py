@@ -30,10 +30,16 @@ per-slot masks and write gating by ``active`` keep the slots apart.
   pending insert that the next ``step`` applies, so submitting never waits
   for a decode step, and one read of the host fetches every queued first
   token.
+- ``kv_layout="paged"``: the cache is a block arena behind per-slot block
+  tables with prefix sharing, chunked prefill interleaved with decode and
+  preemption by eviction (``models/serving_paged.py``, ``kv/``); its
+  decode step attends the arena through the tables
+  (``kv/block_attn.py``), with ``attn_impl="pallas"`` in the K4 kernel
+  (``ops/kernels/paged_attention.py``).
 
-Not ported yet (each raises ``NotImplementedError``): the paged layout,
-windowed (ring) caches, draft models and speculative steps, meshes,
-prefixes, snapshot/restore and request migration.
+Not ported yet (each raises ``NotImplementedError``): windowed (ring)
+caches, draft models and speculative steps, meshes, prefixes,
+snapshot/restore and request migration.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch.nn.functional as F
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
 from nnstreamer_tpu_torch.models import transformer as tfm
+from nnstreamer_tpu_torch.models.serving_paged import PagedAdmission
 
 _MASK63 = (1 << 63) - 1
 
@@ -217,6 +224,7 @@ class _Request:
     seed: int = 0
     tokens: List[int] = field(default_factory=list)
     fill0: int = 0  # cache fill at admission; pos = fill0 + len(tokens) - 1
+    prompt: Optional[np.ndarray] = None  # the context (paged: what a resume re-prefills)
 
     def finished(self) -> bool:
         """Budget spent, or the stop token was emitted (it stays in the
@@ -236,14 +244,17 @@ class _Request:
 @dataclass
 class _PendingInsert:
     """A prefilled request waiting for the next step to splice its K/V
-    into the batch cache."""
+    into the batch cache (slot layout), or to point its table row at its
+    landed blocks (paged layout)."""
 
     slot: int
-    ks: torch.Tensor
-    vs: torch.Tensor
-    first_tok: torch.Tensor  # device int32 scalar, fetched at apply
+    ks: Optional[torch.Tensor]
+    vs: Optional[torch.Tensor]
+    first_tok: Union[torch.Tensor, int]  # device int32 scalar, fetched at apply
     fill: int
     req: _Request
+    blocks: Optional[List[int]] = None  # paged: the request's arena blocks
+    resumed: bool = False  # paged: a preempted request coming back
 
 
 class BatcherFailedError(RuntimeError):
@@ -260,7 +271,7 @@ def _dtype(d: Union[str, torch.dtype]) -> torch.dtype:
         raise ValueError(f"compute dtype {d!r} not supported (float32 or bfloat16)") from None
 
 
-class ContinuousBatcher:
+class ContinuousBatcher(PagedAdmission):
     """Continuous-batching server over a fixed slot batch (greedy by
     default; per-request temperature/top-k/top-p sampling via submit()).
 
@@ -269,6 +280,15 @@ class ContinuousBatcher:
     one read of the host. A finished request frees its slot for the next
     submit. ``device`` (default ``cuda``; raises without a GPU unless
     ``"cpu"``) must be where ``params`` live.
+
+    ``kv_layout="paged"`` keeps the cache as ``kv_blocks`` blocks of
+    ``block_size`` tokens (default: enough for every slot at max_len)
+    behind per-slot block tables; ``submit`` then only queues the prompt,
+    which each step or pump prefills by ≤ ``prefill_chunks`` buckets.
+    ``kv_attn`` selects its decode formulation: ``"auto"``/``"block"``
+    attend the arena through the tables, ``"gather"`` runs the slot step
+    on a gathered contiguous view (the oracle; not with
+    ``attn_impl="pallas"``).
 
     Failure: the steps update the cache in place, so a step that raises
     leaves the device state invalid; the batcher latches the error and
@@ -289,6 +309,10 @@ class ContinuousBatcher:
         windowed: bool = False,
         draft_params=None,
         kv_layout: str = "slot",
+        block_size: int = 16,
+        kv_blocks: Optional[int] = None,
+        prefill_chunks: int = 1,
+        kv_attn: str = "auto",
         device: DeviceLike = None,
     ):
         if prompt_len > max_len:
@@ -297,8 +321,38 @@ class ContinuousBatcher:
             raise ValueError(f"unknown cache_dtype {cache_dtype!r}")
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if kv_layout == "paged":
-            raise _not_ported("kv_layout='paged' (the block arena and kernel K4)")
+        if kv_attn not in ("auto", "block", "gather"):
+            raise ValueError(f"unknown kv_attn {kv_attn!r}")
+        self._paged = kv_layout == "paged"
+        self._kv_attn = ""
+        if self._paged:
+            self._kv_attn = "block" if kv_attn == "auto" else kv_attn
+            for flag, why in (
+                (windowed, "windowed (ring) caches"),
+                (mesh is not None, "mesh-sharded slots"),
+                (draft_params is not None, "draft models"),
+                (attn_impl not in ("xla", "pallas"), f"attn_impl={attn_impl!r}"),
+                (attn_impl == "pallas" and self._kv_attn == "gather",
+                 "attn_impl='pallas' with kv_attn='gather' (the paged kernel is "
+                 "block-native — drop kv_attn='gather')"),
+            ):
+                if flag:
+                    raise ValueError(
+                        f"kv_layout='paged' does not support {why}; use the slot layout"
+                    )
+            block_size = int(block_size)
+            if block_size < 1 or max_len % block_size:
+                raise ValueError(f"block_size({block_size}) must divide max_len({max_len})")
+            if prompt_len % block_size:
+                raise ValueError(
+                    f"block_size({block_size}) must divide prompt_len({prompt_len}) so "
+                    "staged prefill chunks land on block boundaries"
+                )
+        elif kv_attn != "auto":
+            raise ValueError(
+                "kv_attn selects the paged decode formulation; the slot layout has no "
+                "block table to attend through"
+            )
         for flag, what in (
             (windowed, "windowed=True (the sliding-window ring)"),
             (draft_params is not None, "draft_params (draft models)"),
@@ -306,7 +360,11 @@ class ContinuousBatcher:
         ):
             if flag:
                 raise _not_ported(what)
-        if attn_impl == "pallas":
+        if attn_impl == "pallas" and self._paged:
+            from nnstreamer_tpu_torch.ops.kernels.paged_attention import make_paged_attention
+
+            attn_fn = make_paged_attention()
+        elif attn_impl == "pallas":
             from nnstreamer_tpu_torch.ops.kernels.decode_attention import (
                 make_decode_attention,
             )
@@ -346,7 +404,10 @@ class ContinuousBatcher:
         kv = tfm.n_kv_heads_of(params.blocks[0].wqkv.weight, d, n_heads)
         shape = (params.n_layers, n_slots, max_len, kv, hd)
         dev = self.device
-        if cache_dtype == "int8":
+        if self._paged:
+            self._init_paged(params.n_layers, kv, hd, block_size, kv_blocks, prefill_chunks,
+                             cache_dtype == "int8")
+        elif cache_dtype == "int8":
             self._cache = tuple(
                 (torch.zeros(shape, dtype=torch.int8, device=dev),
                  torch.ones(shape[:-1], dtype=torch.float32, device=dev))
@@ -361,8 +422,8 @@ class ContinuousBatcher:
         self._active = np.zeros((n_slots,), bool)
         # chunked prefill stages into a cache padded to a bucket multiple,
         # plus one spare bucket
-        self._stage_shape = (params.n_layers, 1, (-(-max_len // prompt_len) + 1) * prompt_len,
-                             kv, hd)
+        self._stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
+        self._stage_shape = (params.n_layers, 1, self._stage_len, kv, hd)
         self._n_steps = 0
         self._n_tokens = 0
         self._step_time_s = 0.0
@@ -415,13 +476,23 @@ class ContinuousBatcher:
             [req.next_seed()],
         )[0]
 
+    def _new_request(self, budget: int, temperature: float, top_k: int, top_p: float,
+                     seed: Optional[int], stop_token: Optional[int], fill0: int) -> _Request:
+        """A request with the next id (caller holds _lock)."""
+        rid = self._next_rid
+        self._next_rid += 1
+        return _Request(rid, budget, temperature=temperature, top_k=top_k, top_p=top_p,
+                        stop_token=stop_token, seed=rid if seed is None else int(seed),
+                        fill0=fill0)
+
     # -- client API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, seed: Optional[int] = None,
                stop_token: Optional[int] = None, prefix: Optional[int] = None) -> Optional[int]:
         """Claim a free slot for ``prompt`` [T] and prefill it; returns a
         request id, or None when every slot is taken (the caller retries).
-        Prompts longer than ``prompt_len`` prefill in bucket-sized chunks.
+        Prompts longer than ``prompt_len`` prefill in bucket-sized chunks;
+        a paged batcher only queues the prompt here (see the class).
         Sampling is per request: temperature ≤ 0 is greedy; otherwise a
         softmax sample, optionally top-k and/or top-p filtered, seeded by
         ``seed`` (default: the request id) and the fill level."""
@@ -440,18 +511,18 @@ class ContinuousBatcher:
             raise ValueError(
                 f"{t}+{max_new_tokens} tokens would overflow max_len={self.max_len}"
             )
+        if self._paged:
+            return self._submit_paged(prompt.astype(np.int32), max_new_tokens, temperature,
+                                      top_k, top_p, seed, stop_token)
         with self._lock:
             # claim only: the slot is owned but inactive while the prefill
             # below runs outside the lock
             slot = next((i for i, r in enumerate(self._slots) if r is None), None)
             if slot is None:
                 return None
-            rid = self._next_rid
-            self._next_rid += 1
-            req = _Request(
-                rid, max_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
-                stop_token=stop_token, seed=rid if seed is None else int(seed), fill0=t,
-            )
+            req = self._new_request(max_new_tokens, temperature, top_k, top_p, seed,
+                                    stop_token, fill0=t)
+            rid = req.rid
             self._slots[slot] = req
         try:
             P = self.prompt_len
@@ -489,21 +560,30 @@ class ContinuousBatcher:
 
     def _apply_pending(self) -> None:
         """Splice queued admissions into the device state (caller holds
-        _step_lock only). Every queued first token comes back in one read."""
+        _step_lock only). Every queued first token comes back in one read
+        (a resumed paged request's is already known)."""
         with self._lock:
             batch, self._pending = self._pending, []
         if not batch:
             return
-        firsts = torch.stack([p.first_tok.reshape(()) for p in batch]).cpu().numpy()
+        firsts = torch.stack([
+            torch.as_tensor(p.first_tok, dtype=torch.int32, device=self.device).reshape(())
+            for p in batch
+        ]).cpu().numpy()
         with self._lock:
             for p, first in zip(batch, firsts):
                 if self._slots[p.slot] is not p.req:
                     continue
-                p.req.tokens.append(int(first))
-                if p.req.finished():  # a stop token on the prefill token
-                    self._finish(p.slot)
-                    continue
-                insert_slot(self._cache, p.ks, p.vs, p.slot)
+                if p.blocks is not None:
+                    # the table row first, so a finish below frees the blocks
+                    self._set_table_locked(p.slot, p.blocks)
+                if not p.resumed:
+                    p.req.tokens.append(int(first))
+                    if p.req.finished():  # budget one, or a stop token on it
+                        self._finish(p.slot)
+                        continue
+                if p.blocks is None:
+                    insert_slot(self._cache, p.ks, p.vs, p.slot)
                 self._tok[p.slot] = int(first)
                 self._pos[p.slot] = p.fill
                 self._active[p.slot] = True
@@ -537,12 +617,31 @@ class ContinuousBatcher:
         seeds = [[r.next_seed(i) if r else None for r in live] for i in range(steps)]
         return temp, topk, topp, seeds
 
-    def _decode(self, tok, pos, active, sampling, i: int):
-        """One batched step on the device → (new tokens [B], pos')."""
-        logits, _, pos2 = batched_decode_step(
-            self.params, tok, pos, active, self._cache, self.n_heads,
-            self.compute_dtype, attn_fn=self._attn_fn,
-        )
+    def _decode(self, tok, pos, active, sampling, i: int, tables=None):
+        """One batched step on the device → (new tokens [B], pos'). The
+        paged layout passes its device block tables."""
+        if not self._paged:
+            logits, _, pos2 = batched_decode_step(
+                self.params, tok, pos, active, self._cache, self.n_heads,
+                self.compute_dtype, attn_fn=self._attn_fn,
+            )
+        elif self._kv_attn == "gather":
+            from nnstreamer_tpu_torch.kv import gather as kvg
+
+            # the oracle: the slot step on a gathered view, the written
+            # window scattered back
+            view = kvg.gather_cache(self._cache, tables)
+            logits, view, pos2 = batched_decode_step(
+                self.params, tok, pos, active, view, self.n_heads, self.compute_dtype,
+            )
+            kvg.scatter_window(self._cache, tables, view, pos, 1, active)
+        else:
+            from nnstreamer_tpu_torch.kv.block_attn import batched_decode_step_block
+
+            logits, _, pos2 = batched_decode_step_block(
+                self.params, tok, pos, active, self._cache, tables, self.n_heads,
+                self.compute_dtype, attn_fn=self._attn_fn,
+            )
         if sampling is None:
             new = torch.argmax(logits, dim=-1).to(torch.int32)
         else:
@@ -550,21 +649,48 @@ class ContinuousBatcher:
             new = sample_tokens(logits, temp, topk, topp, seeds[i])
         return torch.where(active, new, tok), pos2
 
+    def _admit(self) -> None:
+        """The start of every step and pump: advance the paged prefill
+        queue, then splice the queued admissions in. Both write the cache
+        in place, so a raise latches the failure. Caller holds
+        _step_lock."""
+        try:
+            with torch.no_grad():
+                if self._paged:
+                    self._advance_prefill()
+                self._apply_pending()
+        except Exception as exc:
+            self._mark_failed(exc)
+            raise
+
+    def _begin_steps_locked(self, n: int):
+        """The paged layout's bookkeeping before ``n`` decode steps (caller
+        holds _lock): blocks for every active slot's next ``n`` writes (a
+        preemption may deactivate a slot here) → the device tables, or
+        None on the slot layout."""
+        if not self._paged:
+            return None
+        self._ensure_decode_room_locked(n)
+        if self._kv_attn == "gather":
+            self._n_gather_dispatch += 1
+        return self._tables_device_locked()
+
     def step(self) -> Dict[int, int]:
         """Advance every active slot one token; returns {rid: token}."""
         self._check_failed()
         t0 = _time.perf_counter()
         with self._step_lock:
-            self._apply_pending()
+            self._admit()
             with self._lock:
                 if not self._active.any():
                     return {}
+                tables = self._begin_steps_locked(1)
                 active_np = self._active.copy()
                 sampling = self._sampling_args(active_np, self._slots, 1)
             try:
                 with torch.no_grad():
                     active = torch.as_tensor(active_np, device=self.device)
-                    new, pos = self._decode(self._tok, self._pos, active, sampling, 0)
+                    new, pos = self._decode(self._tok, self._pos, active, sampling, 0, tables)
                     toks = new.cpu().numpy()  # [B] ids: the only read of the host
             except Exception as exc:
                 self._mark_failed(exc)
@@ -594,10 +720,11 @@ class ContinuousBatcher:
         t0 = _time.perf_counter()
         n = int(n)
         with self._step_lock:
-            self._apply_pending()
+            self._admit()
             with self._lock:
                 if not self._active.any():
                     return {}
+                tables = self._begin_steps_locked(n)
                 active_np = self._active.copy()
                 sampling = self._sampling_args(active_np, self._slots, n)
                 remaining = np.zeros((self.n_slots,), np.int32)
@@ -616,7 +743,7 @@ class ContinuousBatcher:
                     tok, pos = self._tok, self._pos
                     emits = []
                     for i in range(n):
-                        tok, pos = self._decode(tok, pos, active, sampling, i)
+                        tok, pos = self._decode(tok, pos, active, sampling, i, tables)
                         emits.append(torch.where(active, tok, torch.full_like(tok, -1)))
                         budget = budget - active.to(torch.int32)
                         active = active & (budget > 0) & ~((tok == stop_t) & (stop_t >= 0))
@@ -652,6 +779,8 @@ class ContinuousBatcher:
     def _finish(self, slot: int) -> None:
         req = self._slots[slot]
         self._active[slot] = False
+        if self._paged:
+            self._release_blocks_locked(slot)
         self._done_pool[req.rid] = req
         while len(self._done_pool) > self._keep_results:
             self._done_pool.popitem(last=False)  # evict the oldest uncollected
@@ -682,10 +811,11 @@ class ContinuousBatcher:
         return out
 
     def stats(self) -> Dict[str, Any]:
-        """Token and step counters and the slot occupancy."""
+        """Token and step counters and the slot occupancy; a paged batcher
+        adds the pool's ``kv_*`` counters."""
         with self._lock:
             occupied = sum(r is not None for r in self._slots)
-            return {
+            st = {
                 "steps": self._n_steps,
                 "tokens_emitted": self._n_tokens,
                 "tokens_per_step": self._n_tokens / self._n_steps if self._n_steps else 0.0,
@@ -695,6 +825,9 @@ class ContinuousBatcher:
                 "slots_free": self.n_slots - occupied,
                 "results_pending_pickup": len(self._done_pool),
             }
+            if self._paged:
+                st.update(self._paged_stats_locked())
+            return st
 
     @property
     def n_free(self) -> int:
@@ -722,3 +855,6 @@ class ContinuousBatcher:
 
     def adopt_request(self, *args, **kwargs):
         raise _not_ported("adopt_request (request migration)")
+
+    def resume_from_span(self, *args, **kwargs):
+        raise _not_ported("resume_from_span (request migration)")

@@ -3,8 +3,10 @@
 Replaces the Pallas TPU kernel ``nnstreamer_tpu/ops/pallas/decode_attention.py``
 (``decode_attention``, body ``_kernel``). The kernel is
 ``csrc/decode_attention.cu`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
-first use and bound with ``ctypes``), which includes the shared recurrence
-of ``csrc/attn_primitives.cuh``; its design and its bound are noted there.
+first use and bound with ``ctypes``), which runs the history loop of
+``csrc/attn_tile.cuh`` (shared with the paged kernel K4) over the
+recurrence of ``csrc/attn_primitives.cuh``; its design and its bound are
+noted there.
 :func:`plain_decode_attention` is the same function written with the plain
 primitives of ``_primitives.py`` (the port of ``decode_attention_ref``).
 

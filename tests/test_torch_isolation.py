@@ -1,9 +1,10 @@
 """The port stands alone: importing it loads neither ``jax`` nor
 ``nnstreamer_tpu``, no source file of it imports either, every entry
 point refuses to run quietly on the CPU when it was not asked to, the
-kernel wrappers (K1 crop/resize, K2 NMS, K3 decode attention) never fall
-back from the kernel to its plain version, and options that are not
-ported yet raise instead of running something else.
+kernel wrappers (K1 crop/resize, K2 NMS, K3 decode attention, K4 paged
+decode attention) never fall back from the kernel to its plain version,
+and options that are not ported yet raise instead of running something
+else.
 """
 
 import ast
@@ -20,6 +21,7 @@ from nnstreamer_tpu_torch.ops.kernels import _build
 from nnstreamer_tpu_torch.ops.kernels import decode_attention as decode_kernels
 from nnstreamer_tpu_torch.ops.kernels import image_kernels
 from nnstreamer_tpu_torch.ops.kernels import nms as nms_kernels
+from nnstreamer_tpu_torch.ops.kernels import paged_attention as paged_kernels
 
 PKG_DIR = os.path.dirname(nnstreamer_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
@@ -75,7 +77,7 @@ def test_no_source_imports_jax_or_reference():
 @pytest.mark.parametrize(
     "entry",
     ["device", "pipeline", "parse", "single", "zoo", "zoo-ssd", "single-ssd", "zoo-lm",
-     "batcher"],
+     "batcher", "batcher-paged"],
 )
 def test_entry_points_refuse_cpu_unless_asked(entry):
     if torch.cuda.is_available():
@@ -99,6 +101,9 @@ def test_entry_points_refuse_cpu_unless_asked(entry):
                                   n_layers="1"),
         "batcher": lambda: ContinuousBatcher(TransformerLM(16, 16, 2, 1), 2, max_len=8,
                                              prompt_len=4),
+        "batcher-paged": lambda: ContinuousBatcher(TransformerLM(16, 16, 2, 1), 2, max_len=8,
+                                                   prompt_len=4, kv_layout="paged",
+                                                   block_size=4),
     }
     with pytest.raises(NoDeviceError):
         calls[entry]()
@@ -196,23 +201,72 @@ def test_decode_attention_refuses_unsupported_dtypes(dtype):
     assert decode_kernels.decode_attention_launches.count == before
 
 
-def test_library_key_covers_included_headers(tmp_path, monkeypatch):
+@pytest.mark.parametrize("source", ["decode_attention", "paged_attention"])
+def test_library_key_covers_included_headers(tmp_path, monkeypatch, source):
     """An edited header changes the library name of every source that
     includes it, so a stale library is never loaded."""
-    for f in ("decode_attention.cu", "attn_primitives.cuh"):
-        (tmp_path / f).write_bytes((_build.CSRC / f).read_bytes())
+    for f in [_build.CSRC / f"{source}.cu", *_build.CSRC.glob("*.cuh")]:
+        (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    before = _build.library_path("decode_attention")
+    before = _build.library_path(source)
     with open(tmp_path / "attn_primitives.cuh", "a") as fh:
         fh.write("// edited\n")
-    after = _build.library_path("decode_attention")
-    assert before != after and after.name.startswith("libdecode_attention-")
+    after = _build.library_path(source)
+    assert before != after and after.name.startswith(f"lib{source}-")
+
+
+def _k4_operands(device, dtype=torch.float32):
+    q = torch.zeros((2, 1, 4, 16), device=device)
+    arena = torch.zeros((5, 4, 2, 16), dtype=dtype, device=device)
+    tables = torch.zeros((2, 3), dtype=torch.int32, device=device)
+    pos = torch.zeros((2,), dtype=torch.int32, device=device)
+    fresh = torch.zeros((2, 1, 2, 16), device=device)
+    return q, arena, arena, tables, pos, fresh, fresh
+
+
+def test_paged_attention_wrapper_never_falls_back():
+    """K4 on a tensor neither on the CPU nor on a CUDA card raises and
+    counts no launch; without nvcc the kernel build raises instead of
+    handing the work to the plain version."""
+    before = paged_kernels.paged_decode_attention_launches.count
+    with pytest.raises(RuntimeError, match="no implementation"):
+        paged_kernels.paged_decode_attention(*_k4_operands("meta"))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            paged_kernels._cuda_paged_attention(*_k4_operands("cpu"), None, None, 0.25)
+    assert paged_kernels.paged_decode_attention_launches.count == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.int32, torch.float64])
+def test_paged_attention_refuses_unsupported_arena_dtypes(dtype):
+    before = paged_kernels.paged_decode_attention_launches.count
+    with pytest.raises(TypeError):
+        paged_kernels.paged_decode_attention(*_k4_operands("cpu", dtype))
+    q, arena, _, tables, pos, fk, fv = _k4_operands("cpu", torch.int8)
+    with pytest.raises(TypeError, match="int8 arena needs"):  # int8 without its scales
+        paged_kernels.paged_decode_attention(q, arena, arena, tables, pos, fk, fv)
+    with pytest.raises(ValueError, match="int32"):  # int64 block tables
+        paged_kernels.paged_decode_attention(*_k4_operands("cpu")[:3], tables.long(), pos, fk, fv)
+    assert paged_kernels.paged_decode_attention_launches.count == before
+
+
+def test_paged_kernel_with_gather_oracle_raises():
+    """The paged kernel is block-native: attn_impl='pallas' with
+    kv_attn='gather' is refused, as the reference refuses it."""
+    from nnstreamer_tpu_torch.models.serving import ContinuousBatcher
+    from nnstreamer_tpu_torch.models.transformer import TransformerLM
+
+    with pytest.raises(ValueError, match="block-native"):
+        ContinuousBatcher(TransformerLM(16, 16, 2, 1), 2, max_len=8, prompt_len=4,
+                          kv_layout="paged", block_size=4, attn_impl="pallas",
+                          kv_attn="gather", device="cpu")
 
 
 @pytest.mark.parametrize(
     "call",
-    ["paged", "windowed", "draft", "mesh", "attn-flash", "int8w", "beam", "plane",
-     "kv-layout-paged", "speculate"],
+    ["paged-register-prefix", "paged-snapshot", "paged-extract-request", "paged-spec-step",
+     "windowed", "draft", "mesh", "attn-flash", "int8w", "beam", "plane",
+     "kv-memory-bound", "speculate"],
 )
 def test_unported_options_raise(call):
     from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink
@@ -225,12 +279,18 @@ def test_unported_options_raise(call):
     def batcher(**kw):
         return ContinuousBatcher(lm, 2, max_len=8, prompt_len=4, device="cpu", **kw)
 
+    def paged():
+        return batcher(kv_layout="paged", block_size=4)
+
     def lm_zoo(**kw):
         return zoo.get("transformer_lm", device="cpu", vocab="16", d_model="16",
                        n_heads="2", n_layers="1", **kw)
 
     calls = {
-        "paged": lambda: batcher(kv_layout="paged"),
+        "paged-register-prefix": lambda: paged().register_prefix([1, 2, 3]),
+        "paged-snapshot": lambda: paged().snapshot(),
+        "paged-extract-request": lambda: paged().extract_request(0),
+        "paged-spec-step": lambda: paged().spec_step(),
         "windowed": lambda: batcher(windowed=True),
         "draft": lambda: batcher(draft_params=lm),
         "mesh": lambda: batcher(mesh=object()),
@@ -238,7 +298,8 @@ def test_unported_options_raise(call):
         "int8w": lambda: lm_zoo(quantize="int8w"),
         "beam": lambda: lm_zoo(generate="2", decode="beam"),
         "plane": lambda: LlmServerSink(plane="p0"),
-        "kv-layout-paged": lambda: LlmServerSink(**{"kv-layout": "paged"}),
+        "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",
+                                                     "kv-memory-bound": "64M"}),
         "speculate": lambda: LlmServerSink(speculate="4"),
     }
     with pytest.raises(NotImplementedError, match="not ported"):
