@@ -101,12 +101,40 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  block-size=16 kv-blocks=1024: K4 = layers x steps,
                  generations equal to a directly built paged batcher's, no
                  block in use at the end.
+18. flash_kernels — the flash prefill attention kernel (K5) against its
+                 plain version on the same GPU inputs: the JAX kernel
+                 registry's six shapes, the main path's B 1, T 4096, H 32,
+                 D 128 causal in float32 and bfloat16, T 1500 (a ragged
+                 tail) and T 4096 non-causal; error (<= 2e-5), non-finite
+                 outputs, kernel / plain device time, one launch alone, the
+                 bound (operations over 67 TFLOP/s float32 or 989 bf16, or
+                 bytes) and scaled_dot_product_attention on the same data
+                 (its kernel named).
+19. flash_forward — the no-cache forward (tokens [1, 4096] → logits) of
+                 Mistral-7B's published widths, 32 layers, with attn_fn =
+                 K5 against dense attention, float32 and bfloat16 compute:
+                 K5 = 32 launches a forward (dense 0), argmax agreement at
+                 every position (near-ties exempt; in bfloat16 the gate is
+                 the drift from the float32 forward, at most twice dense's),
+                 ms a forward, prefill tokens/s, peak device memory, and a
+                 device profile of one forward by class.
+20. flash_pipeline — appsrc ! tensor_filter model=zoo:transformer_lm
+                 attn:flash (Mistral attention widths, 4 layers, the zoo's
+                 FFN 4 x d) ! tensor_sink through parse_pipeline against the
+                 same pipeline with attn:dense: K5 = 4 x frames, argmax
+                 agreement (near-ties exempt).
+21. lm_int8w_beam — 4 layers at the same widths, quantize:int8w: the flash
+                 forward against dense, the weight bytes against float32,
+                 generate through a filter pipeline equal to decode.generate
+                 on the same quantized module, decode=beam beam_width=1
+                 equal to greedy, and a width-4 beam's score equal to the
+                 teacher-forced log-prob of its tokens.
 
 TF32 is off throughout (cuDNN would otherwise run float32 convolutions,
 and the LLM phases' float32 matmuls could run, in TF32), so GPU and CPU
 runs and the references compare at float32 precision. The last lines
 are the card's name and power limit (nvidia-smi), the kernel summary
-``{"kernels": [...]}`` (K1-K4) and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (K1-K5) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -167,7 +195,10 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
     Returns (ms, the device records the profiler kept). With
     ``per_launch`` (``fn`` launches one kernel) the time is the mean over
     the records kept: a profile may lose the records of some long kernels,
-    and dividing their sum by ``reps`` would then undercount."""
+    and dividing their sum by ``reps`` would then undercount. When three
+    profiles keep no device record at all (seen late in a long run, for
+    5 ms kernels), the time is the CUDA-event stream time per call of
+    ``reps`` back-to-back calls (:func:`time_ms`) and the records are 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -187,7 +218,7 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
         records = sum(ev.count for ev in events)
         if total_us > 0:
             return total_us / 1e3 / (records if per_launch else reps), records
-    raise AssertionError("profiler recorded no device time in three profiles")
+    return time_ms(torch, fn, pool, reps), 0
 
 
 def alone_ms(torch, fn, args, reps: int = 5) -> float:
@@ -427,7 +458,7 @@ def run_detection(parse_pipeline, device, n, priors, pp="device", live=False, ho
 
 
 CONV_KEYS = ("conv", ("conv", "xmma", "fprop", "gemm", "cudnn"))
-MATMUL_KEYS = ("matmul", ("gemm", "gemv", "xmma", "cutlass", "matmul", "sm90_"))
+MATMUL_KEYS = ("matmul", ("gemm", "gemv", "xmma", "cutlass", "matmul", "sm90_", "nvjet"))
 
 
 def profile_classes(torch, prof, wall_s, extra, main=CONV_KEYS):
@@ -1604,6 +1635,388 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
     return k4_main, k4_launches
 
 
+# -- the long-context forward (flash prefill attention, K5) -----------------------------
+
+PEAK_BF16_OPS_S = 989e12  # H100 SXM bf16 dense, tensor cores
+FLASH_T = 4096  # Mistral's sliding window: causal attention over T is its windowed attention
+FLASH_PIPE_OPTS = ("vocab:32000,d_model:4096,n_heads:32,n_kv_heads:8,n_layers:4,seqlen:4096,"
+                   "seed:3")
+FLASH_PIPELINE = (
+    "appsrc name=src dimensions=4096:1 types=int32 ! "
+    'tensor_filter name=f framework=torch model=zoo:transformer_lm custom="{opts},attn:{attn}" ! '
+    "tensor_sink name=out"
+)
+FLASH_PIPE_FRAMES = 2
+INT8W_OPTS = "vocab:32000,d_model:4096,n_heads:32,n_kv_heads:8,n_layers:4,seed:4"
+INT8W_PIPELINE = (
+    "appsrc name=src dimensions=64:1 types=int32 ! "
+    'tensor_filter name=f framework=torch model=zoo:transformer_lm custom="{opts}" ! '
+    "tensor_sink name=out"
+)
+BEAM_NEW = 16
+# a beam's score against the log-probs of a teacher-forced no-cache forward
+# of its sequence, float32, 4 layers: two summation orders over 16 steps
+BEAM_SCORE_TOL = 1e-3
+
+
+def sdpa_backend(torch, fn, args) -> str:
+    """The name of the longest device kernel of one call of ``fn``: which
+    scaled_dot_product_attention backend ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    rows = sorted(((ev.self_device_time_total, ev.key) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                  reverse=True)
+    return rows[0][1][:100] if rows else "not measured"
+
+
+def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32", block=128):
+    """One K5 case on the GPU: the kernel against its plain version (tiles
+    ``block``) on the same inputs, non-finite outputs, timings, the bound
+    and scaled_dot_product_attention on the same data as the yardstick."""
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
+               .to(dev).to(tdt) for _ in range(3))
+
+    def kernel(q, k, v):
+        return fa.flash_attention(q, k, v, causal=causal)
+
+    def plain(q, k, v):
+        return fa.plain_flash_attention(q, k, v, causal, block_q=block, block_k=block)
+
+    got = kernel(q, k, v)
+    want = plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    nonfinite = int((~torch.isfinite(got)).sum())
+    tol = 2e-5
+    if got.shape != (b, t, h, d) or got.dtype != torch.float32 or nonfinite or not err <= tol:
+        raise AssertionError(f"K5 {name}: kernel vs plain max_abs_err {err} > {tol} "
+                             f"or {nonfinite} non-finite outputs")
+
+    esize = q.element_size()
+    in_bytes = 3 * b * t * h * d * esize
+    n_bytes = in_bytes + b * t * h * d * 4
+    pairs = t * (t + 1) // 2 if causal else t * t  # live (query, key) pairs a head
+    n_ops = 4 * b * h * d * pairs  # q.k and p.v: a multiply-add each per element
+    peak = PEAK_BF16_OPS_S if dtype == "bfloat16" else PEAK_F32_OPS_S
+    copies = min(4, max(1, math.ceil(2 * L2_BYTES / in_bytes)))
+    pool = [(q.clone(), k.clone(), v.clone()) for _ in range(copies)]
+    reps = 10 if t >= 1024 else 50
+    ms, records = device_ms(torch, kernel, pool, reps, per_launch=True)
+    one_ms = alone_ms(torch, kernel, pool[0])
+    plain_ms, _ = device_ms(torch, plain, pool, 2 if t >= 1024 else 5)
+
+    # yardstick, one PyTorch call the port never makes: the same data in
+    # the same dtype, [B, H, T, D] (transposed outside the timing)
+    lib_pool = [tuple(x.transpose(1, 2).contiguous() for x in args) for args in pool]
+
+    def library(qh, kh, vh):
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    lib_out = library(*lib_pool[0]).transpose(1, 2)
+    torch.cuda.synchronize()
+    library_err = (lib_out.float() - want).abs().max().item()
+    library_ms, _ = device_ms(torch, library, lib_pool, reps)
+    backend = sdpa_backend(torch, library, lib_pool[0])
+    del pool, lib_pool
+    bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
+    ops_ms = n_ops / peak * 1e3
+    return {
+        "case": name, "b": b, "t": t, "h": h, "d": d, "causal": causal, "dtype": dtype,
+        "plain_block": block, "max_abs_err": err, "tolerance": tol,
+        "nonfinite_outputs": nonfinite,
+        "kernel_ms": ms, "kernel_records": records,
+        "kernel_timing": "torch.profiler" if records else "cuda events",
+        "kernel_alone_ms": one_ms,
+        "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": library_err,
+        "library_kernel": backend,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": n_bytes, "operations": n_ops,
+        "achieved_TFLOPs": n_ops / (ms * 1e-3) / 1e12,
+    }
+
+
+def flash_kernel_cases(torch, np, fa, dev):
+    """The flash_kernels phase's cases: the JAX package's registry shapes
+    (flash_attention.py:279-318, copied), then the main path's shape."""
+    cases = [
+        flash_case(torch, np, fa, dev, "t64-causal", 2, 64, 4, 16, block=16),
+        flash_case(torch, np, fa, dev, "t64-full", 2, 64, 4, 16, causal=False, block=16),
+        flash_case(torch, np, fa, dev, "t100-pad-causal", 2, 100, 2, 32, block=32),
+        flash_case(torch, np, fa, dev, "t100-pad-full", 2, 100, 2, 32, causal=False, block=32),
+        flash_case(torch, np, fa, dev, "bf16", 2, 64, 4, 16, dtype="bfloat16", block=16),
+        flash_case(torch, np, fa, dev, "serve-512", 8, 512, 8, 128),
+        # the main path's attention: B 1, T 4096, H 32, D 128
+        flash_case(torch, np, fa, dev, "lm-t4096-f32", 1, FLASH_T, 32, 128),
+        flash_case(torch, np, fa, dev, "lm-t4096-bf16", 1, FLASH_T, 32, 128, dtype="bfloat16"),
+        flash_case(torch, np, fa, dev, "t1500-ragged", 1, 1500, 32, 128),
+        flash_case(torch, np, fa, dev, "t4096-full", 1, FLASH_T, 32, 128, causal=False),
+    ]
+    torch.cuda.empty_cache()
+    return cases
+
+
+def timed_forward(torch, fn, reps):
+    """(logits of the first call, ms a call by CUDA events over ``reps``
+    more, peak bytes allocated during the first call)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps, peak
+
+
+def flash_phases(torch, np, dev, parse_pipeline):
+    """flash_kernels, flash_forward, flash_pipeline and lm_int8w_beam.
+    Returns (the K5 case at the main path's shape, K5 launches in the
+    full-width float32 forward)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.models import decode as dec
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.models.transformer import QuantizedWeight
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # flash_kernels ----------------------------------------------------------------
+    k5_cases = flash_kernel_cases(torch, np, fa, dev)
+    emit({"phase": "flash_kernels", "cases": k5_cases})
+    k5_main = next(c for c in k5_cases if c["case"] == "lm-t4096-f32")
+
+    # flash_forward: the full-width long-context forward ----------------------------------
+    t0 = time.perf_counter()
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_heads, n_layers = MISTRAL["n_heads"], MISTRAL["n_layers"]
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(1, MISTRAL["vocab"], (1, FLASH_T)).astype(np.int32)
+    ).to(dev)
+    flash = fa.make_flash_attention()
+    fwd = {}
+    failures = []
+    k5_launches = ref32 = None
+    for name, dtype, rel in (("float32", torch.float32, MARGIN_REL),
+                             ("bfloat16", torch.bfloat16, MARGIN_REL_BF16)):
+        with torch.no_grad():
+            fa.flash_attention_launches.reset()
+            dense, dense_ms, dense_peak = timed_forward(
+                torch, lambda: tfm.apply(lm, tokens, n_heads, compute_dtype=dtype), 1)
+            dense_launches = fa.flash_attention_launches.count
+            fa.flash_attention_launches.reset()
+            got = tfm.apply(lm, tokens, n_heads, attn_fn=flash, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            launches = fa.flash_attention_launches.count
+            if name == "float32":
+                k5_launches = launches
+            got, flash_ms, flash_peak = timed_forward(
+                torch, lambda: tfm.apply(lm, tokens, n_heads, attn_fn=flash, compute_dtype=dtype),
+                2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                tp = time.perf_counter()
+                tfm.apply(lm, tokens, n_heads, attn_fn=flash, compute_dtype=dtype)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - tp
+        if launches != n_layers or dense_launches != 0:
+            failures.append(f"{name}: K5 launched {launches} times a forward (want "
+                            f"{n_layers}), dense {dense_launches}")
+        nonfinite = int((~torch.isfinite(got)).sum())
+        if got.shape != (1, FLASH_T, MISTRAL["vocab"]) or nonfinite:
+            failures.append(f"{name}: logits {tuple(got.shape)}, {nonfinite} non-finite")
+        bad, near = margin_check(torch, dense[0], got[0].argmax(dim=-1).tolist(), rel)
+        row = {
+            "k5_launches_per_forward": launches, "dense_k5_launches": dense_launches,
+            "max_abs_logit_diff": (got - dense).abs().max().item(),
+            "max_abs_logit": dense.abs().max().item(),
+            "argmax_mismatches": bad, "near_tie_exempt": near, "margin_rel": rel,
+            "argmax_differences_in_all": int((got[0].argmax(-1) != dense[0].argmax(-1)).sum()),
+            "flash_ms_per_forward": flash_ms, "dense_ms_per_forward": dense_ms,
+            "flash_prefill_tok_s": FLASH_T / (flash_ms * 1e-3),
+            "dense_prefill_tok_s": FLASH_T / (dense_ms * 1e-3),
+            "flash_peak_gb": flash_peak / 1e9, "dense_peak_gb": dense_peak / 1e9,
+            "profile": profile_classes(torch, prof, prof_wall,
+                                       [("flash_attention (K5)", "flash_attention")],
+                                       main=MATMUL_KEYS),
+        }
+        if name == "float32":
+            if bad:
+                failures.append(f"float32: {bad} argmax positions differ from the dense "
+                                "forward's (near-ties exempt)")
+            ref32 = dense
+        else:
+            # bfloat16 rounds the 32-layer stack at every cast, so one change in
+            # float32 summation order (flash against dense attention) moves the
+            # logits as far as bfloat16 itself does. The gate: the flash forward
+            # drifts from the float32 forward at most twice as far as the dense
+            # bfloat16 forward does; argmax agreement is reported
+            flash_drift = (got - ref32).abs().max().item()
+            dense_drift = (dense - ref32).abs().max().item()
+            f_bad, _ = margin_check(torch, ref32[0], got[0].argmax(dim=-1).tolist(), rel)
+            d_bad, f32_near = margin_check(torch, ref32[0], dense[0].argmax(dim=-1).tolist(), rel)
+            row.update({
+                "flash_vs_f32_max_abs_logit_diff": flash_drift,
+                "dense_vs_f32_max_abs_logit_diff": dense_drift,
+                "flash_vs_f32_argmax_mismatches": f_bad, "dense_vs_f32_argmax_mismatches": d_bad,
+                "f32_near_tie_exempt": f32_near,
+            })
+            if not flash_drift <= 2 * dense_drift:
+                failures.append(f"bfloat16: flash drifts {flash_drift} from the float32 "
+                                f"forward, over twice dense's {dense_drift}")
+        fwd[name] = row
+        del dense, got
+        torch.cuda.empty_cache()
+    del ref32
+    emit({"phase": "flash_forward", "config": "lm-forward-mistral7b-flash", **MISTRAL,
+          "batch": 1, "t": FLASH_T, "init_s": init_s,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "weights_gb": sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9,
+          **fwd})
+    if failures:
+        raise AssertionError(f"flash_forward: {failures}")
+    del lm
+    torch.cuda.empty_cache()
+
+    # flash_pipeline: zoo:transformer_lm attn=flash through parse_pipeline ---------------
+    rng = np.random.default_rng(6)
+    frames = [rng.integers(1, MISTRAL["vocab"], (1, FLASH_T)).astype(np.int32)
+              for _ in range(FLASH_PIPE_FRAMES)]
+    outs = {}
+    for attn in ("flash", "dense"):
+        pl = parse_pipeline(FLASH_PIPELINE.format(opts=FLASH_PIPE_OPTS, attn=attn), device=dev)
+        pl.negotiate()  # the filter's spec probe runs the model once: not a frame
+        fa.flash_attention_launches.reset()
+        ex = pl.start()
+        for f in frames:
+            pl["src"].push(Frame((f,)))
+        pl["src"].end_of_stream()
+        done = ex.wait(600)
+        ex.stop()
+        if ex.errors or not done:
+            raise AssertionError(f"flash_pipeline {attn}: {ex.errors or 'no EOS within 600 s'}")
+        outs[attn] = ([torch.from_numpy(np.asarray(f.tensors[0])) for f in pl["out"].frames],
+                      fa.flash_attention_launches.count)
+        del pl, ex
+        torch.cuda.empty_cache()
+    (flash_out, pipe_k5), (dense_out, dense_k5) = outs["flash"], outs["dense"]
+    if len(flash_out) != FLASH_PIPE_FRAMES or len(dense_out) != FLASH_PIPE_FRAMES:
+        raise AssertionError(f"flash_pipeline: {len(flash_out)} / {len(dense_out)} frames")
+    if pipe_k5 != 4 * FLASH_PIPE_FRAMES or dense_k5 != 0:
+        raise AssertionError(f"flash_pipeline: K5 launched {pipe_k5} times for 4 layers x "
+                             f"{FLASH_PIPE_FRAMES} frames (dense: {dense_k5})")
+    pipe_bad = pipe_near = 0
+    pipe_diff = 0.0
+    for g, w in zip(flash_out, dense_out):
+        g, w = g.reshape(FLASH_T, -1), w.reshape(FLASH_T, -1)
+        if not torch.isfinite(g).all():
+            raise AssertionError("flash_pipeline: non-finite logits")
+        bad, near = margin_check(torch, w, g.argmax(-1).tolist())
+        pipe_bad += bad
+        pipe_near += near
+        pipe_diff = max(pipe_diff, (g - w).abs().max().item())
+    if pipe_bad:
+        raise AssertionError(f"flash_pipeline: {pipe_bad} argmax positions differ from dense")
+    emit({"phase": "flash_pipeline", "frames": FLASH_PIPE_FRAMES, "layers": 4,
+          "ffn": "4 * d_model = 16384 (the zoo has no d_ff option)",
+          "k5_launches": pipe_k5, "dense_k5_launches": dense_k5,
+          "max_abs_logit_diff": pipe_diff, "argmax_mismatches": pipe_bad,
+          "near_tie_exempt": pipe_near, "logits_shape": list(flash_out[0].shape)})
+    del flash_out, dense_out, outs
+
+    # lm_int8w_beam: weight-only int8 and beam search, 4 layers ------------------------------
+    opts = dict(kv.split(":") for kv in INT8W_OPTS.split(","))
+    m = zoo.get("transformer_lm", device=dev, **opts, quantize="int8w", attn="flash",
+                seqlen=str(FLASH_T))
+    lm8 = m.params
+    qweights = [mod for mod in lm8.modules() if isinstance(mod, QuantizedWeight)]
+    int8_bytes = (sum(b.numel() * b.element_size() for b in lm8.buffers())
+                  + sum(p.numel() * p.element_size() for p in lm8.parameters()))
+    f32_bytes = (sum(q.w8.numel() * 4 for q in qweights)
+                 + sum(p.numel() * p.element_size() for p in lm8.parameters()))
+    with torch.no_grad():
+        fa.flash_attention_launches.reset()
+        q_flash = m.module(tokens)
+        torch.cuda.synchronize()
+        int8_k5 = fa.flash_attention_launches.count
+        q_dense = tfm.apply(lm8, tokens, n_heads)
+    if int8_k5 != 4:
+        raise AssertionError(f"lm_int8w_beam: K5 launched {int8_k5} times for 4 layers")
+    bad8, near8 = margin_check(torch, q_dense[0], q_flash[0].argmax(-1).tolist())
+    int8_diff = (q_flash - q_dense).abs().max().item()
+    if bad8 or not torch.isfinite(q_flash).all():
+        raise AssertionError(f"lm_int8w_beam: int8w flash vs dense: {bad8} argmax mismatches")
+    del q_flash, q_dense, m
+    prompt = np.random.default_rng(7).integers(1, MISTRAL["vocab"], (1, 64)).astype(np.int32)
+    tprompt = torch.from_numpy(prompt).to(dev)
+    # generate through the filter (a pipeline) against the batcher-free
+    # decode.generate on the same quantized module
+    gen_opts = f"{INT8W_OPTS},quantize:int8w,generate:{BEAM_NEW}"
+    pl = parse_pipeline(INT8W_PIPELINE.format(opts=gen_opts), device=dev)
+    ex = pl.start()
+    pl["src"].push(Frame((prompt,)))
+    pl["src"].end_of_stream()
+    done = ex.wait(600)
+    ex.stop()
+    if ex.errors or not done or len(pl["out"].frames) != 1:
+        raise AssertionError(f"lm_int8w_beam: generate pipeline {ex.errors or 'no frame'}")
+    pipe_toks = np.asarray(pl["out"].frames[0].tensors[0]).reshape(-1).tolist()
+    del pl, ex
+    g = zoo.get("transformer_lm", device=dev, **opts, quantize="int8w",
+                generate=str(BEAM_NEW))
+    with torch.no_grad():
+        filt = g.module(tprompt)[0].tolist()
+        alone = dec.generate(g.params, tprompt, n_heads, BEAM_NEW)[0].tolist()
+        beam1 = dec.beam_search(g.params, tprompt, n_heads, BEAM_NEW, beam_width=1)[0][0].tolist()
+        bz = zoo.get("transformer_lm", device=dev, **opts, quantize="int8w",
+                     generate=str(BEAM_NEW), decode="beam", beam_width="4")
+        beam4_zoo = bz.module(tprompt)[0].tolist()
+        del bz
+        beam4, score4 = dec.beam_search(g.params, tprompt, n_heads, BEAM_NEW, beam_width=4)
+        beam4 = beam4[0].tolist()
+        seq = torch.as_tensor(np.concatenate([prompt[0], beam4])[None], device=dev)
+        lp = torch.log_softmax(tfm.apply(g.params, seq, n_heads)[0, 63:63 + BEAM_NEW], -1)
+        forced = float(lp[torch.arange(BEAM_NEW, device=dev), torch.tensor(beam4, device=dev)]
+                       .sum())
+    if not (pipe_toks == filt == alone):
+        raise AssertionError(f"lm_int8w_beam: generate differs: pipeline {pipe_toks}, "
+                             f"filter {filt}, decode.generate {alone}")
+    if beam1 != alone:
+        raise AssertionError(f"lm_int8w_beam: beam_width=1 {beam1} != greedy {alone}")
+    if beam4_zoo != beam4 or not abs(score4 - forced) <= BEAM_SCORE_TOL:
+        raise AssertionError(f"lm_int8w_beam: beam 4 zoo {beam4_zoo} vs {beam4}; score "
+                             f"{score4} vs teacher-forced {forced}")
+    del g
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_int8w_beam", "layers": 4, "ffn": "4 * d_model = 16384 (the zoo's)",
+          "int8w_weight_gb": int8_bytes / 1e9, "f32_weight_gb": f32_bytes / 1e9,
+          "int8w_k5_launches": int8_k5, "int8w_flash_vs_dense_max_abs_logit_diff": int8_diff,
+          "int8w_flash_vs_dense_argmax_mismatches": bad8, "near_tie_exempt": near8,
+          "generate_pipeline_equals_decode_generate": True, "beam1_equals_greedy": True,
+          "beam4_tokens_first8": beam4[:8], "beam4_score": score4,
+          "beam4_teacher_forced_logprob": forced, "beam_score_tolerance": BEAM_SCORE_TOL,
+          "greedy_tokens_first8": alone[:8], "beam4_differs_from_greedy": beam4 != alone})
+    return k5_main, k5_launches
+
+
 def main() -> int:
     import torch
 
@@ -1626,8 +2039,8 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    if "paged_attention" not in sources:
-        raise AssertionError(f"build: paged_attention.cu missing from {sources}")
+    if "flash_attention" not in sources:
+        raise AssertionError(f"build: flash_attention.cu missing from {sources}")
     t0 = time.perf_counter()
     libs = _build.build(sources)
     emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0,
@@ -1862,6 +2275,8 @@ def main() -> int:
     k3_by_name, k3_launches, slot_ttft = llm_phases(torch, np, dev, parse_pipeline)
     k3_main = k3_by_name["serve-f32-pos600"]
     k4_main, k4_launches = paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_ttft)
+    torch.cuda.empty_cache()
+    k5_main, k5_launches = flash_phases(torch, np, dev, parse_pipeline)
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -1913,6 +2328,18 @@ def main() -> int:
         "bound_ms": k4_main["bound_ms"],
         "bound_by": k4_main["bound_by"],
         "library_ms": None,  # no PyTorch call attends through a block table
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "nnstreamer_tpu/ops/pallas/flash_attention.py:158",
+        "launches": k5_launches,
+        "max_abs_err": k5_main["max_abs_err"],
+        "ms": k5_main["kernel_ms"],
+        "plain_ms": k5_main["plain_ms"],
+        "bound_ms": k5_main["bound_ms"],
+        "bound_by": k5_main["bound_by"],
+        "library_ms": k5_main["library_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

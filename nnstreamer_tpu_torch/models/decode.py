@@ -10,14 +10,14 @@ cache on the card, and are returned as well so the signatures match. The
 overflow checks that the reference makes only on concrete positions are
 made on every call: a write past max_len raises.
 
-Not ported yet: ``windowed_chunk`` (the sliding-window ring) and
-``beam_search``.
+Not ported yet: ``windowed_chunk`` (the sliding-window ring).
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -132,3 +132,61 @@ def generate(model: tfm.TransformerLM, prompt: torch.Tensor, n_heads: int,
         if i + 1 < max_new_tokens:  # the last token's distribution is never read
             last, cache, pos = decode_step(model, tok, pos, cache, n_heads, compute_dtype)
     return torch.stack(toks, dim=1)
+
+
+def top_k_lower_first(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of the 1-D ``x`` and their indices, ties
+    in index order (``jax.lax.top_k``'s order; ``torch.topk`` promises
+    none): a stable descending sort."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def beam_search(model: tfm.TransformerLM, prompt: torch.Tensor, n_heads: int,
+                max_new_tokens: int, beam_width: int = 4,
+                compute_dtype: torch.dtype = torch.float32):
+    """Beam search over the KV-cache decode path.
+
+    prompt [1, T] → (tokens [1, max_new_tokens] int32 of the best beam,
+    its total log-prob). The beams are the cache's batch axis: one batched
+    :func:`decode_step` serves all of them, and a reorder is a gather on
+    that axis. Every beam decodes the whole budget (no EOS stopping), so
+    scores compare directly; ``beam_width=1`` is greedy :func:`generate`.
+    The best beam is traced back through the parent pointers on the host,
+    as in the reference."""
+    b, t = prompt.shape
+    if b != 1:
+        raise ValueError("beam_search serves one stream (B=1)")
+    W = beam_width
+    logits, (ck, cv), pos = prefill(model, prompt, n_heads, t + max_new_tokens, compute_dtype)
+    # the prompt cache, once for every beam
+    ck = ck.repeat_interleave(W, dim=1)
+    cv = cv.repeat_interleave(W, dim=1)
+    scores, tok0 = top_k_lower_first(torch.log_softmax(logits[0, -1], dim=-1), W)
+    tok = tok0.to(torch.int32)
+    n_vocab = logits.shape[-1]
+    toks, parents = [], []
+    for _ in range(max_new_tokens - 1):
+        logits, (ck, cv), pos = decode_step(model, tok, pos, (ck, cv), n_heads, compute_dtype)
+        cand = scores[:, None] + torch.log_softmax(logits, dim=-1)   # [W, V]
+        scores, flat = top_k_lower_first(cand.reshape(-1), W)
+        beam_idx = flat // n_vocab                                    # parent beam
+        tok = (flat % n_vocab).to(torch.int32)
+        ck = ck.index_select(1, beam_idx)   # the caches follow the surviving beams
+        cv = cv.index_select(1, beam_idx)
+        toks.append(tok)
+        parents.append(beam_idx)
+    # backtrack the best beam through the parent pointers (host side)
+    steps = len(toks)
+    toks_h = torch.stack(toks).cpu().numpy() if steps else np.zeros((0, W), np.int32)
+    parents_h = torch.stack(parents).cpu().numpy() if steps else np.zeros((0, W), np.int64)
+    scores_h = scores.cpu().numpy()
+    beam = int(scores_h.argmax())
+    seq = []
+    for i in range(steps - 1, -1, -1):
+        seq.append(int(toks_h[i, beam]))
+        beam = int(parents_h[i, beam])
+    seq.append(int(tok0[beam]))
+    seq.reverse()
+    return (torch.tensor(seq, dtype=torch.int32, device=prompt.device)[None, :],
+            float(scores_h.max()))

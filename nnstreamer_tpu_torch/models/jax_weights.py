@@ -81,8 +81,8 @@ def _transformer_leaf(name: str, value) -> Dict[str, torch.Tensor]:
     transposed."""
     if isinstance(value, dict):
         raise NotImplementedError(
-            f"transformer leaf {name!r} is weight-only int8 ({sorted(value)}); "
-            "models/quantize.py is not ported yet"
+            f"transformer leaf {name!r} is weight-only int8 ({sorted(value)}): carry the "
+            "float tree over, then quantize it with models/quantize.py quantize_lm_weights"
         )
     a = np.asarray(value, dtype=np.float32)
 

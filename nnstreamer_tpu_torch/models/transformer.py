@@ -10,18 +10,25 @@ The reference keeps the weights as a stacked pytree consumed by
 ``lax.scan``; here they are a :class:`TransformerLM` module whose blocks
 are an ``nn.ModuleList`` (one :class:`Block` a layer). The functions keep
 the reference's names and argument order, with the module in place of
-``params`` and without the hooks no ported caller uses (``attn_fn``,
-``ffn_fn``, ``causal``, ``apply``'s ``positions``), and its cast points:
-RMSNorm in float32, then back to the compute dtype; attention outputs
-float32, then cast to the compute dtype. Linear weights are
-``[cout, cin]`` (``nn.Linear``); ``models/jax_weights.py`` carries the
-reference's ``[cin, cout]`` leaves over.
+``params`` and without the hooks no ported caller uses (``ffn_fn`` and
+``apply``'s ``positions``); ``attn_fn`` and ``causal`` are kept
+(``attn_fn=None`` is :func:`dense_attention`; ``ops/kernels/flash_attention.py
+make_flash_attention`` plugs in the flash kernel). The cast points are
+the reference's: RMSNorm in float32, then back to the compute dtype;
+attention outputs float32, then cast to the compute dtype. Linear weights
+are ``[cout, cin]`` (``nn.Linear``); ``models/jax_weights.py`` carries
+the reference's ``[cin, cout]`` leaves over.
+
+Weight-only int8 (``models/quantize.py``) puts a :class:`QuantizedWeight`
+(int8 ``w8`` and float32 ``scale`` buffers) where a weight was, as the
+reference puts ``{"w8", "scale"}`` where an array was; :func:`wt` and
+:func:`embed_lookup` dequantize it at the matmul operand.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,24 +39,40 @@ from nnstreamer_tpu_torch.device import DeviceLike
 NEG_INF = -1e30
 
 
-def _not_ported_quantized(w) -> None:
-    if isinstance(w, dict) and "w8" in w:
-        raise NotImplementedError(
-            "weight-only int8 ({'w8', 'scale'} weights, models/quantize.py) is not ported yet"
-        )
+class QuantizedWeight(nn.Module):
+    """A weight stored as int8 ``w8`` times a float32 ``scale`` that
+    broadcasts against it (per output channel for a linear weight, per
+    feature for the embedding), both buffers. It stands where the float
+    weight stood; :func:`wt` and :func:`embed_lookup` dequantize it."""
+
+    def __init__(self, w8: torch.Tensor, scale: torch.Tensor) -> None:
+        super().__init__()
+        self.register_buffer("w8", w8)
+        self.register_buffer("scale", scale)
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.w8.shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.w8.device
 
 
 def wt(w, dtype: torch.dtype) -> torch.Tensor:
-    """A weight in the compute dtype (the reference also dequantizes
-    ``{"w8", "scale"}`` weights here; those raise until quantize.py is
-    ported)."""
-    _not_ported_quantized(w)
+    """A weight in the compute dtype; a :class:`QuantizedWeight`
+    dequantizes as ``w8.to(dtype) * scale.to(dtype)``, the reference's
+    cast order."""
+    if isinstance(w, QuantizedWeight):
+        return w.w8.to(dtype) * w.scale.to(dtype)
     return w.to(dtype)
 
 
 def embed_lookup(embed, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Embedding row gather, then the cast to the compute dtype."""
-    _not_ported_quantized(embed)
+    """Embedding row gather, then the cast to the compute dtype (a
+    quantized table: its rows, then the per-feature scales)."""
+    if isinstance(embed, QuantizedWeight):
+        return embed.w8[tokens.long()].to(dtype) * embed.scale.to(dtype)
     return embed[tokens.long()].to(dtype)
 
 
@@ -167,7 +190,6 @@ def init_params(
 def n_kv_heads_of(wqkv_weight: torch.Tensor, d_model: int, n_heads: int) -> int:
     """The kv head count from the fused projection's width (d_model query
     columns + 2·KV·Dh key/value columns)."""
-    _not_ported_quantized(wqkv_weight)
     hd = d_model // n_heads
     return (wqkv_weight.shape[0] - d_model) // (2 * hd)
 
@@ -232,12 +254,16 @@ def block_ffn(x: torch.Tensor, blk: Block) -> torch.Tensor:
     return x + F.linear(gate * up, wt(blk.w_down.weight, y.dtype))
 
 
-def block_apply(x, blk: Block, n_heads: int, positions, return_kv: bool = False):
-    """One causal block with :func:`dense_attention`; return_kv=True also
-    returns this layer's (k, v), the prefill path of the KV-cache decoder."""
+def block_apply(x, blk: Block, n_heads: int, positions, attn_fn: Optional[Callable] = None,
+                return_kv: bool = False, causal: bool = True):
+    """One block. ``attn_fn(q, k, v, causal)`` → [B,T,H,Dh] float32
+    (default :func:`dense_attention`) gets K/V repeated to H heads;
+    return_kv=True also returns this layer's (k, v), the prefill path of
+    the KV-cache decoder; causal=False makes it an encoder block."""
+    attn = attn_fn or dense_attention
     b, t, d = x.shape
     q, k, v = block_qkv(x, blk, n_heads, positions)
-    o = dense_attention(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads)).to(x.dtype)
+    o = attn(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads), causal=causal).to(x.dtype)
     x = x + F.linear(o.reshape(b, t, d), wt(blk.wo.weight, x.dtype))
     x = block_ffn(x, blk)
     if return_kv:
@@ -245,12 +271,14 @@ def block_apply(x, blk: Block, n_heads: int, positions, return_kv: bool = False)
     return x
 
 
-def apply_layers(model: TransformerLM, x, n_heads: int, positions, return_kv: bool = False):
+def apply_layers(model: TransformerLM, x, n_heads: int, positions,
+                 attn_fn: Optional[Callable] = None, return_kv: bool = False,
+                 causal: bool = True):
     """Run every block in order; return_kv=True also returns the stacked
     per-layer (k, v) [L,B,T,KV,Dh]."""
     ks, vs = [], []
     for blk in model.blocks:
-        out = block_apply(x, blk, n_heads, positions, return_kv)
+        out = block_apply(x, blk, n_heads, positions, attn_fn, return_kv, causal)
         if return_kv:
             x, (k, v) = out
             ks.append(k)
@@ -263,10 +291,11 @@ def apply_layers(model: TransformerLM, x, n_heads: int, positions, return_kv: bo
 
 
 def apply(model: TransformerLM, tokens: torch.Tensor, n_heads: int,
+          attn_fn: Optional[Callable] = None,
           compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """tokens [B, T] int → logits [B, T, vocab] float32 (causal, no cache)."""
     x = embed_lookup(model.embed, tokens, compute_dtype)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = apply_layers(model, x, n_heads, positions)
+    x = apply_layers(model, x, n_heads, positions, attn_fn)
     x = rmsnorm(x, model.ln_f)
     return F.linear(x, wt(model.head.weight, x.dtype)).float()

@@ -18,10 +18,13 @@ from the filter's ``custom=`` string:
 - add: ``const``, ``dims``;
 - transformer_lm: ``seed``, ``vocab``, ``d_model``, ``n_heads``,
   ``n_layers``, ``n_kv_heads``, ``batch``, ``seqlen``, ``params``,
-  ``compute_dtype`` (float32 | bfloat16), ``generate`` (> 0: prompt
-  tokens in, generated tokens out), ``decode=greedy``, ``temperature``,
-  ``gen_seed``; ``attn=dense``. Not ported yet, and raising:
-  ``attn=flash`` (kernel K5), ``quantize=int8w``, ``decode=beam|ngram``.
+  ``compute_dtype`` (float32 | bfloat16), ``attn=dense|flash`` (flash:
+  the flash-attention kernel K5 on the no-cache forward; with
+  ``generate`` it is accepted and unused, as in the reference),
+  ``quantize=int8w`` (weight-only int8, ``models/quantize.py``),
+  ``generate`` (> 0: prompt tokens in, generated tokens out),
+  ``decode=greedy|beam``, ``temperature``, ``gen_seed``, ``beam_width``.
+  Not ported yet, and raising: ``decode=ngram``.
 
 An unknown option raises: quietly ignoring, say, ``quantize:int8`` would
 serve a different model than the one asked for.
@@ -37,6 +40,7 @@ from torch import nn
 
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
+from nnstreamer_tpu_torch.models import quantize as qz
 from nnstreamer_tpu_torch.models import ssd_mobilenet
 from nnstreamer_tpu_torch.models import transformer as tfm
 from nnstreamer_tpu_torch.models.jax_weights import load_transformer_npz
@@ -45,6 +49,7 @@ from nnstreamer_tpu_torch.models.mobilenet_v2 import (  # noqa: F401
     load_jax_npz,
     mobilenet_v2_from_jax,
 )
+from nnstreamer_tpu_torch.ops.kernels.flash_attention import make_flash_attention
 from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
 
 
@@ -188,14 +193,18 @@ def _ssd_mobilenet_v2_pp(device: torch.device, **options) -> ZooModel:
 
 
 class _LMApply(nn.Module):
-    """tokens [B, T] → logits [B, T, vocab] float32."""
+    """tokens [B, T] → logits [B, T, vocab] float32 (``attn_fn`` None: dense
+    attention)."""
 
-    def __init__(self, lm: tfm.TransformerLM, n_heads: int, compute_dtype: torch.dtype) -> None:
+    def __init__(self, lm: tfm.TransformerLM, n_heads: int, compute_dtype: torch.dtype,
+                 attn_fn: Optional[Callable] = None) -> None:
         super().__init__()
         self.lm, self.n_heads, self.compute_dtype = lm, n_heads, compute_dtype
+        self.attn_fn = attn_fn
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return tfm.apply(self.lm, tokens, self.n_heads, compute_dtype=self.compute_dtype)
+        return tfm.apply(self.lm, tokens, self.n_heads, attn_fn=self.attn_fn,
+                         compute_dtype=self.compute_dtype)
 
 
 class _LMGenerate(nn.Module):
@@ -216,6 +225,21 @@ class _LMGenerate(nn.Module):
                             compute_dtype=self.compute_dtype)
 
 
+class _LMBeam(nn.Module):
+    """prompt tokens [1, T] → the best beam's tokens [1, n_new] int32."""
+
+    def __init__(self, lm: tfm.TransformerLM, n_heads: int, n_new: int, beam_width: int,
+                 compute_dtype: torch.dtype) -> None:
+        super().__init__()
+        self.lm, self.n_heads, self.n_new = lm, n_heads, n_new
+        self.beam_width, self.compute_dtype = beam_width, compute_dtype
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        toks, _ = dec.beam_search(self.lm, tokens, self.n_heads, self.n_new,
+                                  beam_width=self.beam_width, compute_dtype=self.compute_dtype)
+        return toks
+
+
 _LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -223,24 +247,20 @@ _LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     "transformer_lm",
     ("seed", "vocab", "d_model", "n_heads", "n_layers", "n_kv_heads", "batch", "seqlen",
      "params", "compute_dtype", "generate", "decode", "temperature", "gen_seed", "attn",
-     "quantize"),
+     "quantize", "beam_width"),
 )
 def _transformer_lm(device: torch.device, **options) -> ZooModel:
     """Decoder-only transformer LM (models/transformer.py): tokens [B, T]
     int32 → logits [B, T, vocab], or with ``generate`` > 0 prompt tokens →
     generated tokens. ``params`` is the :class:`TransformerLM` itself (the
-    weights a serving batcher takes)."""
-    if options.get("attn", "dense") != "dense":
-        if options["attn"] == "flash":
-            raise NotImplementedError(
-                "zoo:transformer_lm attn=flash (the flash-attention kernel K5) is not ported yet"
-            )
-        raise KeyError(f"transformer_lm: unknown attn {options['attn']!r}")
-    if options.get("quantize"):
-        raise NotImplementedError(
-            f"zoo:transformer_lm quantize={options['quantize']} (models/quantize.py) "
-            "is not ported yet"
-        )
+    weights a serving batcher takes), quantized in place by
+    ``quantize=int8w``."""
+    attn_kind = options.get("attn", "dense")
+    if attn_kind not in ("dense", "flash"):
+        raise KeyError(f"transformer_lm: unknown attn {attn_kind!r}")
+    quantize = options.get("quantize")
+    if quantize not in (None, "", "int8w"):
+        raise ValueError(f"zoo:transformer_lm: quantize {quantize!r} (int8w only)")
     compute = options.get("compute_dtype", "float32")
     if compute not in _LM_DTYPES:
         raise ValueError(f"zoo:transformer_lm: compute_dtype {compute!r} (float32 | bfloat16)")
@@ -254,21 +274,28 @@ def _transformer_lm(device: torch.device, **options) -> ZooModel:
     )
     if options.get("params"):
         load_transformer_npz(lm, options["params"])
+    if quantize == "int8w":
+        qz.quantize_lm_weights(lm)
     gen_tokens = int(options.get("generate", 0))
     if gen_tokens > 0:
         strategy = options.get("decode", "greedy")
-        if strategy in ("beam", "ngram"):
+        if strategy == "ngram":
             raise NotImplementedError(
-                f"zoo:transformer_lm decode={strategy} is not ported yet (greedy only)"
+                "zoo:transformer_lm decode=ngram (models/speculative.py) is not ported yet"
             )
-        if strategy != "greedy":
+        if strategy == "beam":
+            module = _LMBeam(lm, n_heads, gen_tokens, int(options.get("beam_width", 4)), dtype)
+        elif strategy == "greedy":
+            module = _LMGenerate(lm, n_heads, gen_tokens,
+                                 float(options.get("temperature", 0.0)),
+                                 int(options.get("gen_seed", 0)), dtype)
+        else:
             raise KeyError(
                 f"transformer_lm: unknown decode strategy {strategy!r} (greedy|beam|ngram)"
             )
-        module = _LMGenerate(lm, n_heads, gen_tokens, float(options.get("temperature", 0.0)),
-                             int(options.get("gen_seed", 0)), dtype)
     else:
-        module = _LMApply(lm, n_heads, dtype)
+        attn_fn = make_flash_attention() if attn_kind == "flash" else None
+        module = _LMApply(lm, n_heads, dtype, attn_fn)
     spec = TensorsSpec.of(
         TensorSpec((int(options.get("batch", 1)), int(options.get("seqlen", 128))),
                    DType.from_any("int32"), name="tokens")

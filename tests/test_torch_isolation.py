@@ -2,7 +2,8 @@
 ``nnstreamer_tpu``, no source file of it imports either, every entry
 point refuses to run quietly on the CPU when it was not asked to, the
 kernel wrappers (K1 crop/resize, K2 NMS, K3 decode attention, K4 paged
-decode attention) never fall back from the kernel to its plain version,
+decode attention, K5 flash attention) never fall back from the kernel to
+its plain version,
 and options that are not ported yet raise instead of running something
 else.
 """
@@ -19,6 +20,7 @@ import nnstreamer_tpu_torch
 from nnstreamer_tpu_torch.device import NoDeviceError, resolve_device
 from nnstreamer_tpu_torch.ops.kernels import _build
 from nnstreamer_tpu_torch.ops.kernels import decode_attention as decode_kernels
+from nnstreamer_tpu_torch.ops.kernels import flash_attention as flash_kernels
 from nnstreamer_tpu_torch.ops.kernels import image_kernels
 from nnstreamer_tpu_torch.ops.kernels import nms as nms_kernels
 from nnstreamer_tpu_torch.ops.kernels import paged_attention as paged_kernels
@@ -36,6 +38,30 @@ def test_import_leaves_jax_out():
         "for k in (registry.KIND_ELEMENT, registry.KIND_FILTER, registry.KIND_DECODER):\n"
         "    registry.available(k)\n"
         "import nnstreamer_tpu_torch.models.zoo\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'nnstreamer_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("module", [
+    "nnstreamer_tpu_torch.ops.kernels.flash_attention",
+    "nnstreamer_tpu_torch.models.quantize",
+    "nnstreamer_tpu_torch.models.decode",
+])
+def test_slice5_modules_import_alone(module):
+    """The flash-attention wrapper, the quantizer and beam search load
+    neither jax nor the reference package."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'nnstreamer_tpu'))\n"
         "print(','.join(bad))\n"
@@ -201,7 +227,7 @@ def test_decode_attention_refuses_unsupported_dtypes(dtype):
     assert decode_kernels.decode_attention_launches.count == before
 
 
-@pytest.mark.parametrize("source", ["decode_attention", "paged_attention"])
+@pytest.mark.parametrize("source", ["decode_attention", "paged_attention", "flash_attention"])
 def test_library_key_covers_included_headers(tmp_path, monkeypatch, source):
     """An edited header changes the library name of every source that
     includes it, so a stale library is never loaded."""
@@ -213,6 +239,25 @@ def test_library_key_covers_included_headers(tmp_path, monkeypatch, source):
         fh.write("// edited\n")
     after = _build.library_path(source)
     assert before != after and after.name.startswith(f"lib{source}-")
+
+
+def test_flash_attention_wrapper_never_falls_back():
+    """K5 on a tensor neither on the CPU nor on a CUDA card raises and
+    counts no launch; a view the kernel's vector loads cannot take raises
+    before anything is built; without nvcc the kernel build raises instead
+    of handing the work to the plain version."""
+    before = flash_kernels.flash_attention_launches.count
+    meta = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(RuntimeError, match="no implementation"):
+        flash_kernels.flash_attention(meta, meta, meta)
+    odd = torch.zeros((1, 8, 2, 17))[..., :16]  # rows 17 elements apart
+    with pytest.raises(ValueError, match="multiples of 4"):
+        flash_kernels._cuda_flash_attention(odd, odd, odd, True, 0.25)
+    if not torch.cuda.is_available():
+        q = torch.zeros((1, 8, 2, 16))
+        with pytest.raises(RuntimeError):
+            flash_kernels._cuda_flash_attention(q, q, q, True, 0.25)
+    assert flash_kernels.flash_attention_launches.count == before
 
 
 def _k4_operands(device, dtype=torch.float32):
@@ -265,8 +310,7 @@ def test_paged_kernel_with_gather_oracle_raises():
 @pytest.mark.parametrize(
     "call",
     ["paged-register-prefix", "paged-snapshot", "paged-extract-request", "paged-spec-step",
-     "windowed", "draft", "mesh", "attn-flash", "int8w", "beam", "plane",
-     "kv-memory-bound", "speculate"],
+     "windowed", "draft", "mesh", "ngram", "plane", "kv-memory-bound", "speculate"],
 )
 def test_unported_options_raise(call):
     from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink
@@ -294,9 +338,7 @@ def test_unported_options_raise(call):
         "windowed": lambda: batcher(windowed=True),
         "draft": lambda: batcher(draft_params=lm),
         "mesh": lambda: batcher(mesh=object()),
-        "attn-flash": lambda: lm_zoo(attn="flash"),
-        "int8w": lambda: lm_zoo(quantize="int8w"),
-        "beam": lambda: lm_zoo(generate="2", decode="beam"),
+        "ngram": lambda: lm_zoo(generate="2", decode="ngram"),
         "plane": lambda: LlmServerSink(plane="p0"),
         "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                      "kv-memory-bound": "64M"}),
