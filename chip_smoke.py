@@ -104,12 +104,16 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 18. flash_kernels — the flash prefill attention kernel (K5) against its
                  plain version on the same GPU inputs: the JAX kernel
                  registry's six shapes, the main path's B 1, T 4096, H 32,
-                 D 128 causal in float32 and bfloat16, T 1500 (a ragged
-                 tail) and T 4096 non-causal; error (<= 2e-5), non-finite
-                 outputs, kernel / plain device time, one launch alone, the
-                 bound (operations over 67 TFLOP/s float32 or 989 bf16, or
-                 bytes) and scaled_dot_product_attention on the same data
-                 (its kernel named).
+                 D 128 causal in float32, bfloat16 and float16, T 1500 (a
+                 ragged tail), T 4096 non-causal, and head dims 8, 48, 64,
+                 96 and 256; error (<= 2e-5), non-finite outputs, kernel /
+                 plain device time, one launch alone, the bound (operations
+                 at the route's tensor-core rate: a third of 495 TFLOP/s
+                 TF32 for float32's three products, 989 for 16-bit; or
+                 bytes), the CUDA-core float32 bound beside it, registers,
+                 shared memory and blocks an SM of the instance, and
+                 scaled_dot_product_attention on the same data (its kernel
+                 named); then a CUDA call at D 12 raises with no launch.
 19. flash_forward — the no-cache forward (tokens [1, 4096] → logits) of
                  Mistral-7B's published widths, 32 layers, with attn_fn =
                  K5 against dense attention, float32 and bfloat16 compute:
@@ -1637,7 +1641,8 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
 
 # -- the long-context forward (flash prefill attention, K5) -----------------------------
 
-PEAK_BF16_OPS_S = 989e12  # H100 SXM bf16 dense, tensor cores
+PEAK_BF16_OPS_S = 989e12  # H100 SXM bf16 and fp16 dense, tensor cores
+PEAK_TF32_OPS_S = 495e12  # H100 SXM TF32 dense, tensor cores
 FLASH_T = 4096  # Mistral's sliding window: causal attention over T is its windowed attention
 FLASH_PIPE_OPTS = ("vocab:32000,d_model:4096,n_heads:32,n_kv_heads:8,n_layers:4,seqlen:4096,"
                    "seed:3")
@@ -1677,11 +1682,17 @@ def sdpa_backend(torch, fn, args) -> str:
 def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32", block=128):
     """One K5 case on the GPU: the kernel against its plain version (tiles
     ``block``) on the same inputs, non-finite outputs, timings, the bound
-    and scaled_dot_product_attention on the same data as the yardstick."""
+    and scaled_dot_product_attention on the same data as the yardstick.
+    The bound is the function's operations at the tensor-core rate of the
+    dtype's route (float32: three TF32 products a pair, so a third of the
+    TF32 rate; 16-bit: the bf16/fp16 rate), or its bytes, the larger;
+    ``route_bound_ms`` counts the products the 16-bit route does (P·V
+    twice: 1.5 x), and ``bound_simt_ms`` is float32 outside the tensor
+    cores, the bound of the kernel K5 replaced."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(zlib.crc32(name.encode()))
-    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}[dtype]
     q, k, v = (torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(np.float32))
                .to(dev).to(tdt) for _ in range(3))
 
@@ -1706,7 +1717,9 @@ def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32
     n_bytes = in_bytes + b * t * h * d * 4
     pairs = t * (t + 1) // 2 if causal else t * t  # live (query, key) pairs a head
     n_ops = 4 * b * h * d * pairs  # q.k and p.v: a multiply-add each per element
-    peak = PEAK_BF16_OPS_S if dtype == "bfloat16" else PEAK_F32_OPS_S
+    # float32: three TF32 products per product (3xTF32); 16-bit: one per product
+    peak = PEAK_TF32_OPS_S / 3 if dtype == "float32" else PEAK_BF16_OPS_S
+    route_ops = n_ops if dtype == "float32" else n_ops * 3 // 2
     copies = min(4, max(1, math.ceil(2 * L2_BYTES / in_bytes)))
     pool = [(q.clone(), k.clone(), v.clone()) for _ in range(copies)]
     reps = 10 if t >= 1024 else 50
@@ -1729,6 +1742,7 @@ def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32
     del pool, lib_pool
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     ops_ms = n_ops / peak * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     return {
         "case": name, "b": b, "t": t, "h": h, "d": d, "causal": causal, "dtype": dtype,
         "plain_block": block, "max_abs_err": err, "tolerance": tol,
@@ -1738,16 +1752,23 @@ def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32
         "kernel_alone_ms": one_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": library_err,
         "library_kernel": backend,
-        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_share": bound_ms / ms,
+        "route_bound_ms": max(bytes_ms, route_ops / peak * 1e3),
+        "bound_simt_ms": max(bytes_ms, n_ops / PEAK_F32_OPS_S * 1e3),
         "bytes": n_bytes, "operations": n_ops,
         "achieved_TFLOPs": n_ops / (ms * 1e-3) / 1e12,
+        "kernel_resources": fa.kernel_info(tdt, d),
     }
 
 
 def flash_kernel_cases(torch, np, fa, dev):
     """The flash_kernels phase's cases: the JAX package's registry shapes
-    (flash_attention.py:279-318, copied), then the main path's shape."""
+    (flash_attention.py:279-318, copied), the main path's shape in each
+    dtype, other head dims (every multiple of 8 up to 256 runs on a kernel
+    built for 64, 128 or 256 columns), a ragged tail and full attention;
+    then a head dim the kernel refuses."""
     cases = [
         flash_case(torch, np, fa, dev, "t64-causal", 2, 64, 4, 16, block=16),
         flash_case(torch, np, fa, dev, "t64-full", 2, 64, 4, 16, causal=False, block=16),
@@ -1758,9 +1779,28 @@ def flash_kernel_cases(torch, np, fa, dev):
         # the main path's attention: B 1, T 4096, H 32, D 128
         flash_case(torch, np, fa, dev, "lm-t4096-f32", 1, FLASH_T, 32, 128),
         flash_case(torch, np, fa, dev, "lm-t4096-bf16", 1, FLASH_T, 32, 128, dtype="bfloat16"),
+        flash_case(torch, np, fa, dev, "lm-t4096-f16", 1, FLASH_T, 32, 128, dtype="float16"),
         flash_case(torch, np, fa, dev, "t1500-ragged", 1, 1500, 32, 128),
         flash_case(torch, np, fa, dev, "t4096-full", 1, FLASH_T, 32, 128, causal=False),
+        # head dims other than 128 (D 8 is the reference's own probe width)
+        flash_case(torch, np, fa, dev, "d8-ragged", 2, 1000, 8, 8),
+        flash_case(torch, np, fa, dev, "d48-bf16", 1, 2048, 16, 48, dtype="bfloat16"),
+        flash_case(torch, np, fa, dev, "d64", 1, FLASH_T, 32, 64),
+        flash_case(torch, np, fa, dev, "d96-f16-full", 1, 1024, 16, 96, causal=False,
+                   dtype="float16"),
+        flash_case(torch, np, fa, dev, "d256", 1, 2048, 8, 256),
+        flash_case(torch, np, fa, dev, "d256-bf16", 1, 2048, 8, 256, dtype="bfloat16"),
     ]
+    # a head dim the kernel does not take raises before any launch
+    q = torch.zeros((1, 64, 2, 12), device=dev)
+    fa.flash_attention_launches.reset()
+    try:
+        fa.flash_attention(q, q, q)
+        raise AssertionError("K5: a CUDA call at D 12 did not raise")
+    except ValueError:
+        pass
+    if fa.flash_attention_launches.count:
+        raise AssertionError("K5: the refused D 12 call counted a launch")
     torch.cuda.empty_cache()
     return cases
 
@@ -1858,6 +1898,10 @@ def flash_phases(torch, np, dev, parse_pipeline):
                                        [("flash_attention (K5)", "flash_attention")],
                                        main=MATMUL_KEYS),
         }
+        dev_ms = row["profile"]["device_ms"]
+        row["k5_share_of_device_ms"] = (
+            row["profile"]["device_ms_by_class"]["flash_attention (K5)"] / dev_ms
+            if isinstance(dev_ms, float) and dev_ms > 0 else "not measured")
         if name == "float32":
             if bad:
                 failures.append(f"float32: {bad} argmax positions differ from the dense "
@@ -2340,6 +2384,9 @@ def main() -> int:
         "bound_ms": k5_main["bound_ms"],
         "bound_by": k5_main["bound_by"],
         "library_ms": k5_main["library_ms"],
+        "redesigned": "tensor cores: wgmma with a split P·V (bf16, fp16), 3xTF32 "
+                      "mma.sync (float32)",
+        "bound_simt_ms": k5_main["bound_simt_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

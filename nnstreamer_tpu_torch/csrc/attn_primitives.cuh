@@ -42,14 +42,19 @@ __device__ __forceinline__ void online_softmax_init(float& m, float& l) {
   l = 0.0f;
 }
 
-// online_softmax_update, the rescale of the running state.
+// online_softmax_update, the rescale of the running state. The exponential
+// is taken unconditionally and the guard multiplies it by an exact 0 or 1
+// (m_prev <= m_new, so expf's argument is <= 0 and the product is finite):
+// the same values as a branch, without a branch around every exponential,
+// so a tile's exponentials pipeline.
 __device__ __forceinline__ float online_softmax_alpha(float m_prev, float m_new) {
-  return m_prev <= kNegInf ? 0.0f : expf(m_prev - m_new);
+  return expf(m_prev - m_new) * (m_prev <= kNegInf ? 0.0f : 1.0f);
 }
 
-// online_softmax_update, one column's weight.
+// online_softmax_update, one column's weight (s <= m_new; branch-free as
+// above).
 __device__ __forceinline__ float online_softmax_weight(float s, float m_new) {
-  return m_new <= kNegInf ? 0.0f : expf(s - m_new);
+  return expf(s - m_new) * (m_new <= kNegInf ? 0.0f : 1.0f);
 }
 
 // online_softmax_finalize, one output element.

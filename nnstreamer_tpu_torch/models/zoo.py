@@ -18,10 +18,12 @@ from the filter's ``custom=`` string:
 - add: ``const``, ``dims``;
 - transformer_lm: ``seed``, ``vocab``, ``d_model``, ``n_heads``,
   ``n_layers``, ``n_kv_heads``, ``batch``, ``seqlen``, ``params``,
-  ``compute_dtype`` (float32 | bfloat16), ``attn=dense|flash`` (flash:
-  the flash-attention kernel K5 on the no-cache forward; with
-  ``generate`` it is accepted and unused, as in the reference),
-  ``quantize=int8w`` (weight-only int8, ``models/quantize.py``),
+  ``compute_dtype`` (float32 | bfloat16 | float16), ``attn=dense|flash``
+  (flash: the flash-attention kernel K5 on the no-cache forward, in every
+  compute dtype, where the reference degrades float16 to dense attention;
+  with ``generate`` it is accepted and unused, as in the reference),
+  ``quantize=int8w`` (weight-only int8, ``models/quantize.py``; any other
+  value raises, where the reference ignores it),
   ``generate`` (> 0: prompt tokens in, generated tokens out),
   ``decode=greedy|beam``, ``temperature``, ``gen_seed``, ``beam_width``.
   Not ported yet, and raising: ``decode=ngram``.
@@ -240,7 +242,7 @@ class _LMBeam(nn.Module):
         return toks
 
 
-_LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 @model_factory(
@@ -263,7 +265,9 @@ def _transformer_lm(device: torch.device, **options) -> ZooModel:
         raise ValueError(f"zoo:transformer_lm: quantize {quantize!r} (int8w only)")
     compute = options.get("compute_dtype", "float32")
     if compute not in _LM_DTYPES:
-        raise ValueError(f"zoo:transformer_lm: compute_dtype {compute!r} (float32 | bfloat16)")
+        raise ValueError(
+            f"zoo:transformer_lm: compute_dtype {compute!r} (float32 | bfloat16 | float16)"
+        )
     dtype = _LM_DTYPES[compute]
     n_heads = int(options.get("n_heads", 8))
     gen = torch.Generator(device=device).manual_seed(int(options.get("seed", 0)))

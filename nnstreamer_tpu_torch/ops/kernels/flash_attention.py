@@ -4,21 +4,25 @@ Replaces the Pallas TPU kernel ``nnstreamer_tpu/ops/pallas/flash_attention.py``
 (``flash_attention``, body ``_kernel``, blocking ``_blocking``). The kernel
 is ``csrc/flash_attention.cu`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
 first use and bound with ``ctypes``) over the recurrence of
-``csrc/attn_primitives.cuh``; its design and its bound are noted there.
-:func:`plain_flash_attention` is the same function written with the plain
-primitives of ``_primitives.py``, tiled as the reference tiles it.
+``csrc/attn_primitives.cuh``: wgmma on the tensor cores for 16-bit inputs
+(P·V as a two-term split product), 3xTF32 ``mma.sync`` for float32; its
+design and its bounds are noted there. :func:`plain_flash_attention` is the
+same function written with the plain primitives of ``_primitives.py``, tiled
+as the reference tiles it.
 
 Shapes: q, k, v [B, T, H, D] (K/V already repeated to H heads) → o
 [B, T, H, D] float32, causal or full attention, scale 1/sqrt(D) unless
-given. q, k and v are float32 or bfloat16 (the reference kernel's dtypes),
-all three alike, widened to float32 before any product; D is 16, 32, 64,
-128 or 256.
+given. q, k and v are float32, bfloat16 or float16, all three alike,
+widened to float32 before any product (the kernel keeps 2e-5 of that).
+The plain version takes any D >= 1; the kernel takes D % 8 == 0 up to 256
+(:func:`kernel_takes_head_dim`), and a CUDA call with any other D raises
+before a launch.
 
 ``block_q`` and ``block_k`` set the plain version's tiles (``_blocking``:
 T padded up to a block multiple, padded key columns masked, padded query
 rows dropped), which changes only its order of summation: the function is
-the same for any value. The kernel picks its own tiles (64 x 64) and
-ignores them.
+the same for any value. The kernel picks its own tiles (64 query rows; 64
+keys for 16-bit inputs, 32 for float32) and ignores them.
 
 Dispatch is by the device of the tensors, nothing else: a CUDA tensor
 launches the kernel (and raises if the launch fails), a CPU tensor takes
@@ -45,10 +49,10 @@ from nnstreamer_tpu_torch.ops.kernels._primitives import (
     scaled_qk,
 )
 
-#: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: the largest head dim the kernel takes (it takes every multiple of 8 up to it)
+MAX_KERNEL_HEAD_DIM = 256
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: launches of the K5 CUDA kernel
 flash_attention_launches = LaunchCounter()
@@ -109,13 +113,11 @@ def _check(q, k, v) -> None:
             f"flash attention takes q, k, v [B, T, H, D] of one shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if q.shape[-1] not in HEAD_DIMS or q.shape[1] == 0:
-        raise ValueError(
-            f"flash attention takes D in {HEAD_DIMS} and T > 0, got {tuple(q.shape)}"
-        )
+    if q.shape[-1] == 0 or q.shape[1] == 0:
+        raise ValueError(f"flash attention takes D > 0 and T > 0, got {tuple(q.shape)}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash attention takes float32 or bfloat16 q, k, v of one dtype, got "
+            f"flash attention takes float32, bfloat16 or float16 q, k, v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if len({q.device, k.device, v.device}) != 1:
@@ -123,37 +125,67 @@ def _check(q, k, v) -> None:
                          f"{q.device}, {k.device}, {v.device}")
 
 
+def kernel_takes_head_dim(d: int) -> bool:
+    """Whether the CUDA kernel takes head dim ``d``: a multiple of 8 (its
+    16-byte loads) up to :data:`MAX_KERNEL_HEAD_DIM`."""
+    return 0 < d <= MAX_KERNEL_HEAD_DIM and d % 8 == 0
+
+
 @functools.cache
-def _kernel_fn():
-    """``nns_flash_attention`` from the built library, with its C signature
-    (set once, at the first launch)."""
+def _library():
+    """The built library, with the C signatures of its two entry points
+    (set once, at the first use)."""
     from nnstreamer_tpu_torch.ops.kernels import _build
 
-    fn = _build.load("flash_attention").nns_flash_attention
-    fn.restype = ctypes.c_int
-    fn.argtypes = [
+    lib = _build.load("flash_attention")
+    lib.nns_flash_attention.restype = ctypes.c_int
+    lib.nns_flash_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
-    return fn
+    lib.nns_flash_attention_info.restype = ctypes.c_int
+    lib.nns_flash_attention_info.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+    return lib
+
+
+def kernel_info(dtype: torch.dtype, d: int) -> dict:
+    """What the card's compiler and occupancy calculator say of the kernel
+    instance that serves (``dtype``, ``d``): registers a thread, dynamic
+    shared memory a block, blocks resident an SM, local (spill) bytes a
+    thread. Needs the card; builds the kernel if it is not built yet."""
+    if dtype not in _DTYPES or not kernel_takes_head_dim(d):
+        raise ValueError(f"no flash attention kernel for {dtype}, D {d}")
+    info = (ctypes.c_int * 4)()
+    err = _library().nns_flash_attention_info(_DTYPES[dtype], d, info)
+    if err != 0:
+        raise RuntimeError(f"nns_flash_attention_info failed: cudaError_t {err}")
+    return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2],
+            "spill_bytes": info[3]}
 
 
 def _cuda_flash_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """Launch the kernel on checked CUDA tensors → o [B, T, H, D] float32,
     still being computed on the current stream. Each of q, k, v may be a
     strided view whose last axis is contiguous and whose rows start on a
-    four-element boundary (the kernel's vector loads)."""
+    16-byte boundary (the kernel's cp.async loads)."""
+    b, t_len, h, d = q.shape
+    if not kernel_takes_head_dim(d):
+        raise ValueError(
+            f"the flash attention kernel takes D % 8 == 0 and D <= {MAX_KERNEL_HEAD_DIM}, "
+            f"got D {d} (the CPU's plain version takes any D)"
+        )
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]) or \
-                t.data_ptr() % (4 * t.element_size()):
+        vec = 16 // t.element_size()  # elements in 16 bytes
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
                 f"flash attention needs {name} with a contiguous last axis, strides that are "
-                f"multiples of 4 and a 4-element aligned start, got strides {t.stride()}"
+                f"multiples of {vec} elements and a 16-byte aligned start, got strides "
+                f"{t.stride()}"
             )
-    b, t_len, h, d = q.shape
     strides = (ctypes.c_longlong * 9)(*(s for x in (q, k, v) for s in x.stride()[:3]))
-    fn = _kernel_fn()
+    fn = _library().nns_flash_attention
     out = torch.empty((b, t_len, h, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

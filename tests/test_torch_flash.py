@@ -7,16 +7,20 @@ JAX weights carried over with ``transformer_from_jax`` (or ``params:``).
 Tolerances:
 
 - K5: atol 2e-5 against the reference's Pallas kernel in interpret mode
-  (and ``dense_attention`` for ``serve-512``), bfloat16 inputs included:
+  (and ``dense_attention`` for ``serve-512`` and for float16, which the
+  reference's kernel does not take), bfloat16 and float16 inputs included:
   both widen to float32 before any product, so only the summation order
   of float32 dot products differs (the reference's own tolerance,
-  ``tests/test_pallas.py``).
+  ``tests/test_pallas.py``). Head dims: the plain version takes any D.
 - Logits, float32 compute: atol 1e-4 (``tests/test_pallas.py``'s for the
   flash-plugged transformer). bfloat16 compute: within 2e-2 of max |logit|
   against the reference (bfloat16 rounds at other places in the two
   frameworks), and within 1e-2 of max |logit| against the port's own dense
   forward (the attention outputs differ in float32 summation order before
-  their cast to bfloat16).
+  their cast to bfloat16). float16 compute: within 5e-3 (about ten float16
+  roundings, 2^-11 each) of max |logit| against the reference, whose flash
+  attention degrades to dense attention in float16, and within 2.5e-3
+  against the port's own dense forward.
 - Tokens: identical.
 """
 
@@ -81,6 +85,22 @@ K5_CASES = [(c.name, c.params) for c in kernel_registry.get("flash_attention").c
     ("t5-floor", {"b": 1, "t": 5, "h": 2, "d": 16, "block_q": 16, "block_k": 16}),
     ("t37-ragged-bf16", {"b": 2, "t": 37, "h": 3, "d": 32, "block_q": 16, "block_k": 16,
                          "dtype": "bfloat16", "causal": False}),
+    # head dims outside {16, 32, 64, 128, 256}: the kernel's multiples of 8 (8 is
+    # the reference's own probe) and an odd one that only the plain version takes
+    ("d8", {"b": 1, "t": 16, "h": 1, "d": 8, "block_q": 16, "block_k": 16}),
+    ("d24-ragged", {"b": 1, "t": 40, "h": 2, "d": 24, "block_q": 16, "block_k": 16}),
+    ("d48-bf16", {"b": 2, "t": 32, "h": 2, "d": 48, "block_q": 16, "block_k": 16,
+                  "dtype": "bfloat16"}),
+    ("d80-full", {"b": 1, "t": 24, "h": 2, "d": 80, "block_q": 16, "block_k": 16,
+                  "causal": False}),
+    ("d96", {"b": 1, "t": 48, "h": 2, "d": 96, "block_q": 16, "block_k": 16}),
+    ("d12-odd", {"b": 1, "t": 20, "h": 3, "d": 12, "block_q": 16, "block_k": 16}),
+    # float16: the reference's kernel does not take it, so dense_attention on the
+    # same float16 inputs (it upcasts to float32) is the reference
+    ("f16", {"b": 2, "t": 40, "h": 2, "d": 32, "block_q": 16, "block_k": 16,
+             "dtype": "float16"}),
+    ("f16-d64-full", {"b": 1, "t": 24, "h": 2, "d": 64, "block_q": 16, "block_k": 16,
+                      "dtype": "float16", "causal": False}),
 ]
 
 
@@ -89,19 +109,18 @@ def test_k5_plain_matches_reference(name, params):
     q, k, v = _qkv(params)
     causal = params.get("causal", True)
     blocks = dict(block_q=params.get("block_q", 128), block_k=params.get("block_k", 128))
-    bf16 = params.get("dtype") == "bfloat16"
-    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
-    tq, tk, tv = (_t(a) for a in (q, k, v))
-    if bf16:
-        jq, jk, jv = (a.astype(jnp.bfloat16) for a in (jq, jk, jv))
-        tq, tk, tv = (a.to(torch.bfloat16) for a in (tq, tk, tv))
+    dtype = params.get("dtype", "float32")
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    tq, tk, tv = (_t(a).to(getattr(torch, dtype)) for a in (q, k, v))
     before = tfa.flash_attention_launches.count
     got = tfa.flash_attention(tq, tk, tv, causal=causal, **blocks)
     assert tfa.flash_attention_launches.count == before  # the CPU runs the plain version
     assert got.dtype == torch.float32 and got.shape == tq.shape and got.is_contiguous()
     torch.testing.assert_close(got, tfa.plain_flash_attention(tq, tk, tv, causal, **blocks),
                                rtol=0, atol=0)
-    if name == "serve-512":  # the interpreter would take minutes at this size
+    if name == "serve-512" or dtype == "float16":
+        # the interpreter would take minutes at serve-512's size; the reference's
+        # kernel does not take float16
         want = jax.jit(jdense, static_argnames="causal")(jq, jk, jv, causal=causal)
     else:
         want = jflash(jq, jk, jv, causal=causal, interpret=True, **blocks)
@@ -129,24 +148,43 @@ def test_k5_accepts_a_strided_view_on_the_cpu():
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.int32])
 def test_k5_refuses_unsupported_dtypes(dtype):
     q = torch.zeros((1, 8, 2, 16), dtype=dtype)
     before = tfa.flash_attention_launches.count
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         tfa.flash_attention(q, q, q)
     assert tfa.flash_attention_launches.count == before
 
 
 @pytest.mark.parametrize("shapes", [
     ((1, 8, 2, 16), (1, 8, 2, 16), (1, 9, 2, 16)),   # unequal shapes
-    ((1, 8, 2, 24),) * 3,                             # a head dim the kernel is not built for
     ((8, 2, 16),) * 3,                                # not [B, T, H, D]
 ])
 def test_k5_refuses_bad_shapes(shapes):
     q, k, v = (torch.zeros(s) for s in shapes)
     with pytest.raises(ValueError):
         tfa.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("d", [8, 24, 96, 128, 256])
+def test_k5_kernel_takes_multiples_of_8_up_to_256(d):
+    assert tfa.kernel_takes_head_dim(d)
+
+
+@pytest.mark.parametrize("d", [4, 12, 100, 264, 512])
+def test_k5_kernel_path_refuses_other_head_dims_before_a_launch(d):
+    """The CUDA path checks D before it builds or launches anything (these
+    CPU tensors never reach the card): D % 8 != 0 or D > 256 raises
+    ValueError and leaves the launch count as it was. The plain version
+    takes the same D."""
+    assert not tfa.kernel_takes_head_dim(d)
+    q = torch.zeros((1, 8, 2, d))
+    before = tfa.flash_attention_launches.count
+    with pytest.raises(ValueError, match="D % 8 == 0"):
+        tfa._cuda_flash_attention(q, q, q, True, 1.0)
+    assert tfa.flash_attention_launches.count == before
+    assert tfa.flash_attention(q, q, q).shape == q.shape
 
 
 # -- the transformer's attn_fn hook --------------------------------------------------------
@@ -246,6 +284,38 @@ def test_zoo_flash_singleshot_matches_reference(zoo_npz):
                     device="cpu") as s:
         (got,) = s.invoke(toks)
     np.testing.assert_allclose(_np(got), want, atol=1e-4, rtol=0)
+
+
+def test_zoo_flash_float16_matches_reference(zoo_npz):
+    """compute_dtype=float16 with attn=flash: the reference degrades its flash
+    attention to dense attention in float16 (its kernel takes float32 and
+    bfloat16); the port runs K5 on the float16 q, k, v (its plain version
+    on the CPU)."""
+    toks = np.random.default_rng(24).integers(0, VOCAB, (1, 40)).astype(np.int32)
+    extra = f",seqlen:40,compute_dtype:float16,params:{zoo_npz}"
+    ref = jzoo.get("transformer_lm", **_opts(extra + ",attn:flash"))
+    want = np.asarray(ref.fn(jnp.asarray(toks)), np.float32)
+    before = tfa.flash_attention_launches.count
+    got = tzoo.get("transformer_lm", device="cpu", **_opts(extra + ",attn:flash")).module(
+        _t(toks))
+    dense = tzoo.get("transformer_lm", device="cpu", **_opts(extra)).module(_t(toks))
+    assert tfa.flash_attention_launches.count == before
+    assert got.dtype == torch.float32 and got.shape == (1, 40, VOCAB)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(_np(got), want, atol=5e-3 * scale, rtol=0)
+    np.testing.assert_allclose(_np(got), _np(dense), atol=2.5e-3 * scale, rtol=0)
+
+
+def test_zoo_quantize_other_than_int8w_raises_where_the_reference_ignores_it(zoo_npz):
+    """A departure kept on purpose: the reference quietly serves float weights
+    for quantize=int8 (it knows only int8w); the port refuses it."""
+    extra = f",seqlen:16,quantize:int8,params:{zoo_npz}"
+    toks = np.random.default_rng(25).integers(0, VOCAB, (1, 16)).astype(np.int32)
+    ref = jzoo.get("transformer_lm", **_opts(extra))
+    got = np.asarray(ref.fn(jnp.asarray(toks)))
+    assert got.dtype == np.float32 and got.shape == (1, 16, VOCAB)
+    with pytest.raises(ValueError, match="int8w only"):
+        tzoo.get("transformer_lm", device="cpu", **_opts(extra))
 
 
 def test_cli_flash_pipeline_matches_reference(zoo_npz):
