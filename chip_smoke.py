@@ -110,8 +110,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  plain device time, one launch alone, the bound (operations
                  at the route's tensor-core rate: a third of 495 TFLOP/s
                  TF32 for float32's three products, 989 for 16-bit; or
-                 bytes), the CUDA-core float32 bound beside it, registers,
-                 shared memory and blocks an SM of the instance, and
+                 bytes), the CUDA-core float32 bound beside it, and
                  scaled_dot_product_attention on the same data (its kernel
                  named); then a CUDA call at D 12 raises with no launch.
 19. flash_forward — the no-cache forward (tokens [1, 4096] → logits) of
@@ -126,7 +125,10 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  attn:flash (Mistral attention widths, 4 layers, the zoo's
                  FFN 4 x d) ! tensor_sink through parse_pipeline against the
                  same pipeline with attn:dense: K5 = 4 x frames, argmax
-                 agreement (near-ties exempt).
+                 agreement (near-ties exempt); then one frame of each with
+                 compute_dtype:float16: K5 = 4 launches, finite logits, and
+                 the flash forward's drift from the float32 dense logits at
+                 most twice the dense float16 forward's.
 21. lm_int8w_beam — 4 layers at the same widths, quantize:int8w: the flash
                  forward against dense, the weight bytes against float32,
                  generate through a filter pipeline equal to decode.generate
@@ -1686,9 +1688,8 @@ def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32
     The bound is the function's operations at the tensor-core rate of the
     dtype's route (float32: three TF32 products a pair, so a third of the
     TF32 rate; 16-bit: the bf16/fp16 rate), or its bytes, the larger;
-    ``route_bound_ms`` counts the products the 16-bit route does (P·V
-    twice: 1.5 x), and ``bound_simt_ms`` is float32 outside the tensor
-    cores, the bound of the kernel K5 replaced."""
+    ``bound_simt_ms`` is float32 outside the tensor cores, the bound of the
+    kernel K5 replaced."""
     import torch.nn.functional as F
 
     rng = np.random.default_rng(zlib.crc32(name.encode()))
@@ -1719,7 +1720,6 @@ def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32
     n_ops = 4 * b * h * d * pairs  # q.k and p.v: a multiply-add each per element
     # float32: three TF32 products per product (3xTF32); 16-bit: one per product
     peak = PEAK_TF32_OPS_S / 3 if dtype == "float32" else PEAK_BF16_OPS_S
-    route_ops = n_ops if dtype == "float32" else n_ops * 3 // 2
     copies = min(4, max(1, math.ceil(2 * L2_BYTES / in_bytes)))
     pool = [(q.clone(), k.clone(), v.clone()) for _ in range(copies)]
     reps = 10 if t >= 1024 else 50
@@ -1754,12 +1754,9 @@ def flash_case(torch, np, fa, dev, name, b, t, h, d, causal=True, dtype="float32
         "library_kernel": backend,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "bound_share": bound_ms / ms,
-        "route_bound_ms": max(bytes_ms, route_ops / peak * 1e3),
         "bound_simt_ms": max(bytes_ms, n_ops / PEAK_F32_OPS_S * 1e3),
         "bytes": n_bytes, "operations": n_ops,
         "achieved_TFLOPs": n_ops / (ms * 1e-3) / 1e12,
-        "kernel_resources": fa.kernel_info(tdt, d),
     }
 
 
@@ -1945,12 +1942,17 @@ def flash_phases(torch, np, dev, parse_pipeline):
     frames = [rng.integers(1, MISTRAL["vocab"], (1, FLASH_T)).astype(np.int32)
               for _ in range(FLASH_PIPE_FRAMES)]
     outs = {}
-    for attn in ("flash", "dense"):
-        pl = parse_pipeline(FLASH_PIPELINE.format(opts=FLASH_PIPE_OPTS, attn=attn), device=dev)
+    # float32 on every frame; then one frame in float16, the zoo's compute_dtype
+    for attn, opts, n in (("flash", FLASH_PIPE_OPTS, FLASH_PIPE_FRAMES),
+                          ("dense", FLASH_PIPE_OPTS, FLASH_PIPE_FRAMES),
+                          ("flash16", FLASH_PIPE_OPTS + ",compute_dtype:float16", 1),
+                          ("dense16", FLASH_PIPE_OPTS + ",compute_dtype:float16", 1)):
+        pl = parse_pipeline(FLASH_PIPELINE.format(opts=opts, attn=attn.removesuffix("16")),
+                            device=dev)
         pl.negotiate()  # the filter's spec probe runs the model once: not a frame
         fa.flash_attention_launches.reset()
         ex = pl.start()
-        for f in frames:
+        for f in frames[:n]:
             pl["src"].push(Frame((f,)))
         pl["src"].end_of_stream()
         done = ex.wait(600)
@@ -1962,6 +1964,7 @@ def flash_phases(torch, np, dev, parse_pipeline):
         del pl, ex
         torch.cuda.empty_cache()
     (flash_out, pipe_k5), (dense_out, dense_k5) = outs["flash"], outs["dense"]
+    (flash16_out, pipe16_k5), (dense16_out, dense16_k5) = outs["flash16"], outs["dense16"]
     if len(flash_out) != FLASH_PIPE_FRAMES or len(dense_out) != FLASH_PIPE_FRAMES:
         raise AssertionError(f"flash_pipeline: {len(flash_out)} / {len(dense_out)} frames")
     if pipe_k5 != 4 * FLASH_PIPE_FRAMES or dense_k5 != 0:
@@ -1979,12 +1982,32 @@ def flash_phases(torch, np, dev, parse_pipeline):
         pipe_diff = max(pipe_diff, (g - w).abs().max().item())
     if pipe_bad:
         raise AssertionError(f"flash_pipeline: {pipe_bad} argmax positions differ from dense")
+    # float16: as in flash_forward's bfloat16 gate, the flash forward may drift
+    # from the float32 logits at most twice as far as the dense float16 one
+    if len(flash16_out) != 1 or len(dense16_out) != 1 or pipe16_k5 != 4 or dense16_k5 != 0:
+        raise AssertionError(f"flash_pipeline float16: {len(flash16_out)} / {len(dense16_out)} "
+                             f"frames, K5 launched {pipe16_k5} times (dense: {dense16_k5})")
+    g16, d16 = (x[0].reshape(FLASH_T, -1).float() for x in (flash16_out, dense16_out))
+    if not (torch.isfinite(g16).all() and torch.isfinite(d16).all()):
+        raise AssertionError("flash_pipeline float16: non-finite logits")
+    ref = dense_out[0].reshape(FLASH_T, -1)
+    flash16_drift = (g16 - ref).abs().max().item()
+    dense16_drift = (d16 - ref).abs().max().item()
+    if not flash16_drift <= 2 * dense16_drift:
+        raise AssertionError(f"flash_pipeline float16: flash drifts {flash16_drift} from the "
+                             f"float32 logits, over twice dense's {dense16_drift}")
+    f16_bad, f16_near = margin_check(torch, ref, g16.argmax(-1).tolist())
     emit({"phase": "flash_pipeline", "frames": FLASH_PIPE_FRAMES, "layers": 4,
           "ffn": "4 * d_model = 16384 (the zoo has no d_ff option)",
           "k5_launches": pipe_k5, "dense_k5_launches": dense_k5,
           "max_abs_logit_diff": pipe_diff, "argmax_mismatches": pipe_bad,
-          "near_tie_exempt": pipe_near, "logits_shape": list(flash_out[0].shape)})
-    del flash_out, dense_out, outs
+          "near_tie_exempt": pipe_near, "logits_shape": list(flash_out[0].shape),
+          "float16": {"frames": 1, "k5_launches": pipe16_k5, "dense_k5_launches": dense16_k5,
+                      "flash_vs_f32_max_abs_logit_diff": flash16_drift,
+                      "dense_vs_f32_max_abs_logit_diff": dense16_drift,
+                      "flash_vs_f32_argmax_mismatches": f16_bad,
+                      "f32_near_tie_exempt": f16_near}})
+    del flash_out, dense_out, flash16_out, dense16_out, outs
 
     # lm_int8w_beam: weight-only int8 and beam search, 4 layers ------------------------------
     opts = dict(kv.split(":") for kv in INT8W_OPTS.split(","))
@@ -2386,7 +2409,6 @@ def main() -> int:
         "library_ms": k5_main["library_ms"],
         "redesigned": "tensor cores: wgmma with a split P·V (bf16, fp16), 3xTF32 "
                       "mma.sync (float32)",
-        "bound_simt_ms": k5_main["bound_simt_ms"],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -72,12 +72,16 @@
 //   branches per element: the guards of attn_primitives.cuh are branch-free
 //   and the mask is one block-uniform branch, so a tile's exponentials,
 //   loads and products pipeline.
-// Resources (H100, the sm_90a build; nns_flash_attention_info reads them
-// from the card, the same figures as -Xptxas -v, and chip_smoke.py's
-// flash_kernels reports them): at DP 128, 225 registers and 82,944 bytes of
-// shared memory a block for 16-bit inputs, 216 and 101,376 for float32,
-// two blocks an SM, no spills; at DP 64, three blocks an SM; at DP 256, one
-// block an SM, 255 registers and about 300 bytes of spills a thread.
+// Resources a block of 128 threads (registers and spills a thread from
+// nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xptxas -v, CUDA 12.8;
+// shared memory from smem16_bytes / smem32_bytes; blocks an SM from these
+// against the H100's 65,536 registers and 228 KB an SM):
+//   DP 64:  bf16/fp16 161 registers, 41,984 B, 3 blocks an SM;
+//           float32 137 registers, 52,224 B, 3 blocks; no spills.
+//   DP 128: bf16 225, fp16 223 registers, 82,944 B, 2 blocks;
+//           float32 216 registers, 101,376 B, 2 blocks; no spills.
+//   DP 256: 255 registers, 164,864 B (16-bit) or 199,680 B (float32),
+//           1 block; 304 B (16-bit) and 360 B (float32) of spills.
 // What is left between this design and its route bound (3.3x at the main
 // shape in 16-bit, 3.5x in float32, on an H100): the two products and the
 // softmax of a tile run one after the other in each warpgroup, between two
@@ -682,24 +686,3 @@ extern "C" int nns_flash_attention(const void* q, const void* k, const void* v, 
   return cudaGetLastError();
 }
 
-// What the compiler and the occupancy calculator say of the kernel for
-// (dtype, D): info = {registers a thread, dynamic shared memory bytes,
-// blocks an SM, local (spill) bytes a thread}. Returns a cudaError_t.
-extern "C" int nns_flash_attention_info(int dtype, int D, int* info) {
-  const Instance in = instance(dtype, D);
-  if (in.fn == nullptr) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(in.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(in.smem));
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, in.fn);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, in.fn, kThreads, in.smem);
-  if (err != cudaSuccess) return err;
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(in.smem);
-  info[2] = blocks;
-  info[3] = static_cast<int>(attr.localSizeBytes);
-  return cudaSuccess;
-}

@@ -132,37 +132,19 @@ def kernel_takes_head_dim(d: int) -> bool:
 
 
 @functools.cache
-def _library():
-    """The built library, with the C signatures of its two entry points
-    (set once, at the first use)."""
+def _kernel_fn():
+    """``nns_flash_attention`` from the built library, with its C signature
+    (set once, at the first launch)."""
     from nnstreamer_tpu_torch.ops.kernels import _build
 
-    lib = _build.load("flash_attention")
-    lib.nns_flash_attention.restype = ctypes.c_int
-    lib.nns_flash_attention.argtypes = [
+    fn = _build.load("flash_attention").nns_flash_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
-    lib.nns_flash_attention_info.restype = ctypes.c_int
-    lib.nns_flash_attention_info.argtypes = [ctypes.c_int, ctypes.c_int,
-                                             ctypes.POINTER(ctypes.c_int)]
-    return lib
-
-
-def kernel_info(dtype: torch.dtype, d: int) -> dict:
-    """What the card's compiler and occupancy calculator say of the kernel
-    instance that serves (``dtype``, ``d``): registers a thread, dynamic
-    shared memory a block, blocks resident an SM, local (spill) bytes a
-    thread. Needs the card; builds the kernel if it is not built yet."""
-    if dtype not in _DTYPES or not kernel_takes_head_dim(d):
-        raise ValueError(f"no flash attention kernel for {dtype}, D {d}")
-    info = (ctypes.c_int * 4)()
-    err = _library().nns_flash_attention_info(_DTYPES[dtype], d, info)
-    if err != 0:
-        raise RuntimeError(f"nns_flash_attention_info failed: cudaError_t {err}")
-    return {"registers": info[0], "smem_bytes": info[1], "blocks_per_sm": info[2],
-            "spill_bytes": info[3]}
+    return fn
 
 
 def _cuda_flash_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
@@ -185,7 +167,7 @@ def _cuda_flash_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
                 f"{t.stride()}"
             )
     strides = (ctypes.c_longlong * 9)(*(s for x in (q, k, v) for s in x.stride()[:3]))
-    fn = _library().nns_flash_attention
+    fn = _kernel_fn()
     out = torch.empty((b, t_len, h, d), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
