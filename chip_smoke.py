@@ -41,13 +41,19 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 8. detection_profile — device time by class over 16 detection frames.
 9. single_ssd  — SingleShot zoo:ssd_mobilenet_v2_pp (NMS inside the model)
                  on the GPU against the CPU, K2 once per invoke.
-10. attn_kernels — the decode-attention kernel (K3) against its plain
-                 version on the same GPU inputs: the JAX kernel registry's
-                 shapes, a wrapped absolute pos, and the serving shape
-                 (B 8, H 32, KV 8, D 128, S 4096) in float32, bfloat16 and
-                 int8, fills spread over the window and at pos 600; error,
-                 kernel / plain / library (scaled_dot_product_attention)
-                 device time, and the bound (cache bytes over 3.35 TB/s).
+10. attn_kernels — the decode-attention kernel (K3: the split kernel and
+                 its combine) against its plain version on the same GPU
+                 inputs: the JAX kernel registry's shapes, a wrapped
+                 absolute pos, the serving shape (B 8, H 32, KV 8, D 128,
+                 S 4096) in float32, bfloat16 and int8, fills spread over
+                 the window and at pos 600, one slot at pos 4095 (long1),
+                 and the kernel's other instances (D 256 and 64, head
+                 groups of 32, 16 and 3, 24- and 20-byte rows); error,
+                 kernel device time (the sum of each kernel's mean) with
+                 the CUDA-event stream time of back-to-back calls beside
+                 it, plain and library (scaled_dot_product_attention) time,
+                 the bound (cache bytes over 3.35 TB/s), and the split
+                 launch (chunk rows, splits, blocks, workspace bytes).
 11. serving    — ContinuousBatcher at Mistral-7B's published widths (32
                  layers, d 4096, 32/8 heads, FFN 14336, vocab 32000),
                  float32, 8 slots, max_len 4096, prompt_len 512, random
@@ -69,16 +75,18 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  on the GPU (Mistral attention widths, 2 layers): every
                  request back with its meta, K3 launches = layers x steps,
                  generations equal to a directly built batcher's.
-14. paged_kernels — the block-table decode-attention kernel (K4) against its
-                 plain version on the same GPU inputs: the JAX kernel
-                 registry's shapes, pos 0 (the fresh column alone), pos past
-                 the table, NaN outside the live history, and the serving
-                 shape (B 8, H 32, KV 8, D 128, bs 16, nb 256, 1025 blocks,
-                 random tables) in float32, bfloat16 and int8 at fills
-                 spread over the window and at pos 600; error, kernel /
-                 plain device time, K3's time at the same fills, the bound,
-                 and a gather + scaled_dot_product_attention yardstick (two
-                 calls; no PyTorch call attends through a block table).
+14. paged_kernels — the block-table decode-attention kernel (K4: the split
+                 kernel and its combine) against its plain version on the
+                 same GPU inputs: the JAX kernel registry's shapes, pos 0
+                 (the fresh column alone), pos past the table, NaN outside
+                 the live history, the serving shape (B 8, H 32, KV 8,
+                 D 128, bs 16, nb 256, 1025 blocks, random tables) in
+                 float32, bfloat16 and int8 at fills spread over the window
+                 and at pos 600, one slot at pos 4095, and the instances of
+                 phase 10; error, kernel / stream / plain time, K3's time at
+                 the same fills, the bound, the split launch, and a gather +
+                 scaled_dot_product_attention yardstick (two calls; no
+                 PyTorch call attends through a block table).
 15. paged_serving — ContinuousBatcher(kv_layout="paged", block_size=16,
                  kv_blocks=1024, attn_impl="pallas") at the same Mistral-7B
                  widths, 32 layers float32: 16 greedy requests of 64 tokens,
@@ -199,9 +207,11 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
     copy the calls ran (torch.profiler), over ``reps`` calls cycling through
     ``pool`` (inputs larger than L2, so each call reads cold memory).
     Returns (ms, the device records the profiler kept). With
-    ``per_launch`` (``fn`` launches one kernel) the time is the mean over
-    the records kept: a profile may lose the records of some long kernels,
-    and dividing their sum by ``reps`` would then undercount. When three
+    ``per_launch`` (``fn`` launches a fixed set of kernels, each once) the
+    time is the sum over kernel names of that name's mean over the records
+    kept: a profile may lose the records of some long kernels, and
+    dividing their sum by ``reps`` would then undercount, while dividing by
+    the records kept would time a call of two kernels as half a call. When three
     profiles keep no device record at all (seen late in a long run, for
     5 ms kernels), the time is the CUDA-event stream time per call of
     ``reps`` back-to-back calls (:func:`time_ms`) and the records are 0."""
@@ -222,8 +232,10 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
         ]
         total_us = sum(ev.self_device_time_total for ev in events)
         records = sum(ev.count for ev in events)
+        if total_us > 0 and per_launch:
+            return sum(ev.self_device_time_total / ev.count for ev in events) / 1e3, records
         if total_us > 0:
-            return total_us / 1e3 / (records if per_launch else reps), records
+            return total_us / 1e3 / reps, records
     return time_ms(torch, fn, pool, reps), 0
 
 
@@ -540,6 +552,25 @@ LLM_PIPELINE = (
 )
 
 
+def split_report(da, b, h, kv, d, rows, live):
+    """The split launch of K3/K4 for a history of ``rows`` rows and these
+    live lengths: chunk rows, splits, blocks launched and attending, and
+    the partials' workspace (allocated; written and read back by the live
+    chunks: the design's overhead, outside the bytes bound)."""
+    plan = da.split_plan(rows)
+    g = h // kv
+    heads = 1 if g <= 1 else 2 if g <= 2 else 4 if g <= 4 else 8  # attn_tile.cuh heads_per_block
+    live_chunks = sum(da.live_splits(x, plan.chunk) for x in live)
+    return {
+        "chunk_rows": plan.chunk, "splits": plan.splits,
+        "blocks": kv * -(-g // heads) * b * plan.splits,
+        "blocks_attending": kv * -(-g // heads) * live_chunks,
+        "combine_blocks": b * h,
+        "workspace_bytes": b * h * plan.splits * (d + 2) * 4,
+        "partial_bytes_moved": 2 * live_chunks * h * (d + 2) * 4,
+    }
+
+
 def attn_case(torch, np, da, name, b, h, kv, d, s_len, pos, dtype="float32",
               from_float=False):
     """One K3 case on the GPU: the kernel against its plain version on the
@@ -585,6 +616,8 @@ def attn_case(torch, np, da, name, b, h, kv, d, s_len, pos, dtype="float32",
     tol = 2e-2 if dtype == "bfloat16" else 2e-5
     if got.shape != (b, 1, h, d) or got.dtype != torch.float32 or not err <= tol:
         raise AssertionError(f"K3 {name}: kernel vs plain max_abs_err {err} > {tol}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"K3 {name}: non-finite output")
 
     live = [min(x + 1, s_len) for x in pos]
     esize = ck.element_size()
@@ -594,6 +627,7 @@ def attn_case(torch, np, da, name, b, h, kv, d, s_len, pos, dtype="float32",
     copies = min(8, max(1, math.ceil(2 * L2_BYTES / live_bytes)))
     pool = [(q, ck.clone(), cv.clone(), p, ks, vs) for _ in range(copies)]
     ms, records = device_ms(torch, kernel, pool, 50, per_launch=True)
+    stream_ms = time_ms(torch, kernel, pool, 50)
     one_ms = alone_ms(torch, kernel, pool[0])
     plain_ms, _ = device_ms(torch, plain, pool, 5)
 
@@ -630,14 +664,16 @@ def attn_case(torch, np, da, name, b, h, kv, d, s_len, pos, dtype="float32",
         "case": name, "b": b, "h": h, "kv": kv, "d": d, "s": s_len,
         "pos_min": min(pos), "pos_max": max(pos), "live_rows": sum(live),
         "dtype": dtype + (" (quantize_kv of float)" if from_float else ""),
-        "max_abs_err": err, "tolerance": tol,
-        "kernel_ms": ms, "kernel_records": records, "kernel_alone_ms": one_ms,
+        "max_abs_err": err, "tolerance": tol, "non_finite": 0,
+        "kernel_ms": ms, "kernel_records": records, "kernel_stream_ms": stream_ms,
+        "kernel_alone_ms": one_ms,
         "plain_ms": plain_ms, "library_ms": library_ms, "library_max_abs_err": library_err,
         "library_note": note,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes, "operations": n_ops,
         "achieved_GBps": n_bytes / (ms * 1e-3) / 1e9,
+        **split_report(da, b, h, kv, d, s_len, live),
     }
 
 
@@ -773,22 +809,10 @@ def pct(sorted_vals, q):
     return sorted_vals[min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))]
 
 
-def llm_phases(torch, np, dev, parse_pipeline):
-    """Phases 10-13, the LLM serving slice on the slot layout. Returns (the
-    K3 cases by name, K3 launches in the serving run, the serving run's
-    TTFT p50/p99)."""
-    # 10. attn_kernels ---------------------------------------------------------
-    from nnstreamer_tpu_torch.models import decode as dec
-    from nnstreamer_tpu_torch.models import serving as sv
-    from nnstreamer_tpu_torch.models import transformer as tfm
-    from nnstreamer_tpu_torch.models import zoo
-    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
-
-    # float32 matmuls in full float32 for every LLM phase (set above, and
-    # stated again here: the references compare at float32 precision)
-    torch.backends.cuda.matmul.allow_tf32 = False
+def k3_kernel_cases(torch, np, da):
+    """The attn_kernels phase's K3 cases (phase 10)."""
     spread = [(i * 4095) // 7 for i in range(8)]
-    k3_cases = [
+    return [
         # the JAX package's kernel registry shapes (decode_attention.py:359-381)
         attn_case(torch, np, da, "s64-bk16", 3, 4, 4, 16, 64, [0, 31, 63]),
         attn_case(torch, np, da, "s40-bk128", 3, 4, 4, 16, 40, [0, 19, 39]),
@@ -807,7 +831,37 @@ def llm_phases(torch, np, dev, parse_pipeline):
         attn_case(torch, np, da, "serve-f32-pos600", 8, 32, 8, 128, 4096, [600] * 8),
         attn_case(torch, np, da, "serve-int8-pos600", 8, 32, 8, 128, 4096, [600] * 8, "int8",
                   from_float=True),
+        attn_case(torch, np, da, "serve-bf16-pos600", 8, 32, 8, 128, 4096, [600] * 8,
+                  "bfloat16"),
+        # one slot at the end of the window: one (slot, kv head) pair per
+        # kv head holds all the work, which the split spreads over blocks
+        attn_case(torch, np, da, "serve-f32-long1", 1, 32, 8, 128, 4096, [4095]),
+        # the kernel's other instances: padded head dims 64 and 256, head
+        # groups of 8 split over blocks (g 16, 32) and of 3 (a padded head),
+        # and rows of 24 and 20 bytes (bf16 D 12, int8 D 20), copied in
+        # 8- and 4-byte pieces
+        attn_case(torch, np, da, "g32-d256", 2, 32, 1, 256, 300, [150, 299]),
+        attn_case(torch, np, da, "g16-d64-bf16", 2, 32, 2, 64, 500, [37, 499], "bfloat16"),
+        attn_case(torch, np, da, "g3-d20-int8", 2, 6, 2, 20, 260, [128, 259], "int8"),
+        attn_case(torch, np, da, "d12-bf16", 2, 4, 2, 12, 200, [126, 127], "bfloat16"),
     ]
+
+
+def llm_phases(torch, np, dev, parse_pipeline):
+    """Phases 10-13, the LLM serving slice on the slot layout. Returns (the
+    K3 cases by name, K3 launches in the serving run, the serving run's
+    TTFT p50/p99)."""
+    # 10. attn_kernels ---------------------------------------------------------
+    from nnstreamer_tpu_torch.models import decode as dec
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+
+    # float32 matmuls in full float32 for every LLM phase (set above, and
+    # stated again here: the references compare at float32 precision)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k3_cases = k3_kernel_cases(torch, np, da)
     emit({"phase": "attn_kernels", "cases": k3_cases})
 
     # 11. serving: the full-width engine ----------------------------------------
@@ -1051,6 +1105,7 @@ def paged_case(torch, np, pa, dev, name, b, h, kv, d, bs, nb, n_blocks, pos, dty
     import torch.nn.functional as F
 
     from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
 
     rng = np.random.default_rng(zlib.crc32(name.encode()))
 
@@ -1119,6 +1174,7 @@ def paged_case(torch, np, pa, dev, name, b, h, kv, d, bs, nb, n_blocks, pos, dty
     copies = min(8, max(1, math.ceil(2 * L2_BYTES / max(live_bytes, 1))))
     pool = [(q, ak.clone(), av.clone(), tables, p, fk, fv, ks, vs) for _ in range(copies)]
     ms, records = device_ms(torch, kernel, pool, 50, per_launch=True)
+    stream_ms = time_ms(torch, kernel, pool, 50)
     one_ms = alone_ms(torch, kernel, pool[0])
     plain_ms, _ = device_ms(torch, plain, pool, 5)
 
@@ -1155,8 +1211,9 @@ def paged_case(torch, np, pa, dev, name, b, h, kv, d, bs, nb, n_blocks, pos, dty
         "case": name, "b": b, "h": h, "kv": kv, "d": d, "bs": bs, "nb": nb, "n_blocks": n_blocks,
         "pos_min": min(pos), "pos_max": max(pos), "history_rows": rows,
         "dtype": dtype + (" (quantize_kv of float)" if from_float else ""),
-        "nan_outside_history": nan, "max_abs_err": err, "tolerance": tol,
-        "kernel_ms": ms, "kernel_records": records, "kernel_alone_ms": one_ms,
+        "nan_outside_history": nan, "max_abs_err": err, "tolerance": tol, "non_finite": 0,
+        "kernel_ms": ms, "kernel_records": records, "kernel_stream_ms": stream_ms,
+        "kernel_alone_ms": one_ms,
         "plain_ms": plain_ms, "library_ms": None,
         "library_note": "no PyTorch call attends through a block table",
         "gather_sdpa_ms": gather_ms, "gather_sdpa_calls": 2 if gather_ms is not None else None,
@@ -1166,6 +1223,7 @@ def paged_case(torch, np, pa, dev, name, b, h, kv, d, bs, nb, n_blocks, pos, dty
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "bytes": n_bytes, "operations": n_ops,
         "achieved_GBps": n_bytes / (ms * 1e-3) / 1e9,
+        **split_report(da, b, h, kv, d, nb * bs, hist),
     }
 
 
@@ -1280,29 +1338,12 @@ def stream_check(torch, np, tfm, lm, prompt, got, want, rel, compute_dtype):
     return True
 
 
-def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
-    """The paged KV slice: paged_kernels, paged_serving, paged_preempt_int8
-    and paged_pipeline. Returns (the K4 case at the main path's shape, K4
-    launches in the serving run)."""
-    from nnstreamer_tpu_torch.kv import block_attn as kvb
-    from nnstreamer_tpu_torch.kv import gather as kvg
-    from nnstreamer_tpu_torch.models import decode as dec
-    from nnstreamer_tpu_torch.models import serving as sv
-    from nnstreamer_tpu_torch.models import transformer as tfm
-    from nnstreamer_tpu_torch.models import zoo
-    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
-    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-    def k3(name):
-        c = k3_by_name.get(name)
-        return c["kernel_ms"] if c else None
-
-    # paged_kernels ----------------------------------------------------------------
+def k4_kernel_cases(torch, np, pa, dev, k3):
+    """The paged_kernels phase's K4 cases; ``k3(name)``: K3's time in the
+    attn_kernels case of that name, or None."""
     spread = [(i * 4095) // 7 for i in range(8)]
     serve = dict(b=8, h=32, kv=8, d=128, bs=16, nb=256, n_blocks=1025)
-    k4_cases = [
+    return [
         # the JAX package's kernel registry shapes (paged_attention.py:385-406)
         paged_case(torch, np, pa, dev, "b2-full-and-empty", 2, 4, 4, 16, 8, 3, 8, [0, 24]),
         paged_case(torch, np, pa, dev, "gqa-partial-fill", 2, 4, 2, 16, 8, 4, 12, [5, 27]),
@@ -1326,10 +1367,43 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
         paged_case(torch, np, pa, dev, "serve-f32-pos600", **serve, pos=[600] * 8,
                    k3_ms=k3("serve-f32-pos600")),
         paged_case(torch, np, pa, dev, "serve-bf16-pos600", **serve, pos=[600] * 8,
-                   dtype="bfloat16"),
+                   dtype="bfloat16", k3_ms=k3("serve-bf16-pos600")),
         paged_case(torch, np, pa, dev, "serve-int8-pos600", **serve, pos=[600] * 8, dtype="int8",
                    from_float=True, k3_ms=k3("serve-int8-pos600")),
+        paged_case(torch, np, pa, dev, "serve-f32-long1", **dict(serve, b=1), pos=[4095],
+                   k3_ms=k3("serve-f32-long1")),
+        # the kernel's other instances, as in attn_kernels: head dims 256
+        # and 64, head groups of 32, 16 and 3, rows of 24 and 20 bytes
+        paged_case(torch, np, pa, dev, "g32-d256", 2, 32, 1, 256, 16, 20, 41, [150, 320]),
+        paged_case(torch, np, pa, dev, "g16-d64-bf16", 2, 32, 2, 64, 16, 32, 65, [37, 499],
+                   dtype="bfloat16"),
+        paged_case(torch, np, pa, dev, "g3-d20-int8", 2, 6, 2, 20, 8, 33, 67, [128, 259],
+                   dtype="int8"),
+        paged_case(torch, np, pa, dev, "d12-bf16", 2, 4, 2, 12, 16, 13, 27, [127, 128],
+                   dtype="bfloat16"),
     ]
+
+def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
+    """The paged KV slice: paged_kernels, paged_serving, paged_preempt_int8
+    and paged_pipeline. Returns (the K4 case at the main path's shape, K4
+    launches in the serving run)."""
+    from nnstreamer_tpu_torch.kv import block_attn as kvb
+    from nnstreamer_tpu_torch.kv import gather as kvg
+    from nnstreamer_tpu_torch.models import decode as dec
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def k3(name):
+        c = k3_by_name.get(name)
+        return c["kernel_ms"] if c else None
+
+    # paged_kernels ----------------------------------------------------------------
+    k4_cases = k4_kernel_cases(torch, np, pa, dev, k3)
     emit({"phase": "paged_kernels", "cases": k4_cases})
     k4_main = next(c for c in k4_cases if c["case"] == "serve-f32-pos600")
     torch.cuda.empty_cache()
@@ -2383,6 +2457,8 @@ def main() -> int:
         "bound_ms": k3_main["bound_ms"],
         "bound_by": k3_main["bound_by"],
         "library_ms": k3_main["library_ms"],
+        "redesigned": "history split across blocks with a combine kernel, cp.async ring, "
+                      "every warp busy",
     }, {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -2395,6 +2471,8 @@ def main() -> int:
         "bound_ms": k4_main["bound_ms"],
         "bound_by": k4_main["bound_by"],
         "library_ms": None,  # no PyTorch call attends through a block table
+        "redesigned": "history split across blocks with a combine kernel, cp.async ring, "
+                      "every warp busy",
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -2,8 +2,7 @@
 //
 // The CUDA counterpart of nnstreamer_tpu/ops/pallas/_primitives.py, shared by
 // the port's attention kernels (decode_attention.cu and paged_attention.cu
-// through attn_tile.cuh; the flash prefill kernel will include it too). Its
-// plain PyTorch twin is
+// through attn_tile.cuh, and flash_attention.cu). Its plain PyTorch twin is
 // nnstreamer_tpu_torch/ops/kernels/_primitives.py; each function below names
 // the one it mirrors.
 //
@@ -55,6 +54,17 @@ __device__ __forceinline__ float online_softmax_alpha(float m_prev, float m_new)
 // above).
 __device__ __forceinline__ float online_softmax_weight(float s, float m_new) {
   return expf(s - m_new) * (m_new <= kNegInf ? 0.0f : 1.0f);
+}
+
+// online_softmax_merge: the state of the union of n disjoint column sets
+// from their states (m_i, l_i, acc_i) is m = max_i m_i,
+// l = sum_i w_i l_i, acc = sum_i w_i acc_i, with
+// w_i = online_softmax_merge_weight(m_i, m): the update's rescale, so a
+// state at NEG_INF (nothing attended) weighs exactly 0 and a merge of
+// empty states stays (NEG_INF, 0, 0). The split decode kernels merge their
+// lane groups' states and then their history chunks with it.
+__device__ __forceinline__ float online_softmax_merge_weight(float m_i, float m) {
+  return online_softmax_alpha(m_i, m);
 }
 
 // online_softmax_finalize, one output element.

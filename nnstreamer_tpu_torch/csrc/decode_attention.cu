@@ -14,31 +14,48 @@
 // Bound. Memory: the kernel must read each live cache row once,
 // bytes = sum_b live_b * KV * D * 2 (K and V) * bytes per element, plus the
 // int8 scales (sum_b live_b * KV * 2 * 4), plus q and out, at 3.35 TB/s.
-// The operations (4 * D per live row and query head) sit far below the
-// card's rate.
+// The operations (4 * D per live row and query head, two per byte in
+// float32 at g = 4) sit far below the card's rate, so the tensor cores are
+// not used: the memory is the limit. The partial states the split leaves
+// (H * (D + 2) floats a live chunk, written once and read once by the
+// combine: 3.2 % of a full 128-row chunk's float32 bytes at g 4, D 128)
+// are the design's overhead, outside the bound.
 //
-// Design (the first, simple version).
-// - Grid: one block per (kv head, slot), B * KV blocks. The TPU grid is
-//   (b, h, k-blocks), and its index map hi // group re-reads each K/V block
-//   once for every query head of the group. Here one block serves all
-//   g = H / KV query heads of its kv head, so every live row leaves device
-//   memory once.
-// - Loop: the block walks the live key tiles (64 rows) in order
-//   (attn_tile.cuh attend_history, shared with the paged kernel K4; here
-//   history row r is cache row r of the slot). That loop replaces the TPU's
-//   sequential "arbitrary" grid axis; the running (m, l, acc) of each query
-//   head stays in registers across it. live_len is read from pos on the
-//   device (no host sync); tiles at or past live_len are never loaded, and
-//   the ragged last tile is masked as mask_dead_columns does, which covers
-//   any S.
-// - Later work, not here: split-K over S with a combine pass
-//   (flash-decoding) to fill more than 64 of the 132 SMs, cp.async / TMA
-//   double buffering of the tiles, and tensor-core mma for the g x D by
-//   D x tile product.
+// Design (redesigned for Hopper; the history loop is attn_tile.cuh's,
+// shared with the paged kernel K4, and its note gives the details).
+// - Split: grid (KV * head groups, B, splits), one block a chunk of
+//   `chunk` (128) history rows of one (kv head, slot), so pos 600 at B 8,
+//   KV 8 runs 320 blocks on the 132 SMs, and a slot at pos 4095 is 32
+//   blocks, not one serial walk. The split count, ceil(S / chunk), comes
+//   from the cache's shape (split_plan in ops/kernels/decode_attention.py);
+//   live = min(pos + 1, S) is read on the device (no host sync), and a
+//   block whose chunk starts at or past it returns at once. The TPU grid
+//   (b, h, k-blocks) carried the running state along its sequential key
+//   axis; here the chunks' partial (m, l, acc) go to a float32 workspace
+//   the wrapper allocates, [B, H, splits, D + 2].
+// - Heads: one block serves all g = H / KV query heads of its kv head (up
+//   to 8; larger groups take several blocks), so every live row leaves
+//   device memory once, where the TPU's index map hi // group re-read each
+//   K/V block once a query head.
+// - Combine: decode_attention_combine_kernel, one block a (query head,
+//   slot), merges the ceil(live / chunk) live partials (online_softmax_merge
+//   of attn_primitives.cuh: every chunk rescaled to the largest max), then
+//   the l == 0 guard of the finalize. Both kernels are queued by one C call
+//   on the caller's stream.
+// - Resources a block of 128 threads at the main shape (D 128, g 4;
+//   registers and spills from nvcc -gencode arch=compute_90a,code=sm_90a
+//   -O3 -Xptxas -v, CUDA 12.8; shared memory from chunk_smem_bytes; blocks
+//   an SM from both against 65,536 registers and 228 KB): float32 130
+//   registers, 65,536 B (a 4-stage ring of 16-row tiles), 3 blocks; bf16
+//   128, 32,768 B, 4 blocks; int8 127, 16,896 B, 4 blocks. No instance
+//   spills (the largest, 8 heads a block, uses 222-254 registers); the
+//   combine uses 95.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "attn_tile.cuh"
 
@@ -46,79 +63,107 @@ using namespace nns_attn;
 
 namespace {
 
-template <typename QT, typename CT, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const QT* __restrict__ q, const CT* __restrict__ ck,
-                            const CT* __restrict__ cv, const float* __restrict__ ks,
-                            const float* __restrict__ vs, const int* __restrict__ pos,
-                            float* __restrict__ out, int S, int H, int KV, int D, float scale) {
-  extern __shared__ float smem[];
-  const int kh = blockIdx.x;
+struct Args {
+  const void* q;
+  int q_bf16;
+  const void* ck;
+  const void* cv;
+  const float* ks;
+  const float* vs;
+  const int* pos;
+  float* ws;
+  float* out;
+  int B, S, H, KV, D, chunk, splits;
+  float scale;
+};
+
+// Positions 0 .. pos are attendable; a wrapped ring passes absolute pos, so
+// clamp to the cache length.
+__device__ __forceinline__ int live_rows(int p, int S) { return p < 0 ? 0 : (p < S ? p + 1 : S); }
+
+// One block: chunk blockIdx.z of slot blockIdx.y's history, for the query
+// heads of head group blockIdx.x % n_groups of kv head blockIdx.x / n_groups.
+template <typename CT, bool kQuant, int DP, int GH>
+__global__ void __launch_bounds__(kThreads) decode_attention_split_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = a.H / a.KV;
+  const int n_groups = (g + GH - 1) / GH;
+  const int kh = blockIdx.x / n_groups;
+  const int hg = blockIdx.x % n_groups;
   const int b = blockIdx.y;
-  const int g = H / KV;
-  float* q_s = smem + 2 * kTile * (D + 1);  // [g][D], after attend_history's tiles
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int sp = blockIdx.z;
+  const int live = live_rows(a.pos[b], a.S);
+  const int c0 = sp * a.chunk;
+  if (c0 >= live) return;  // an empty chunk: the combine reads chunks below live only
+  const int h0 = kh * g + hg * GH;
+  const size_t slot_row = static_cast<size_t>(b) * a.S;
+  const int KV = a.KV;
+  attend_chunk<CT, kQuant, DP, GH>(
+      a.q, a.q_bf16, static_cast<size_t>(b) * a.H + h0, min(GH, g - hg * GH),
+      static_cast<const CT*>(a.ck), static_cast<const CT*>(a.cv), a.ks, a.vs,
+      [=](int r) { return (slot_row + r) * KV + kh; }, c0, a.chunk, live, a.D, a.scale, a.ws,
+      (static_cast<size_t>(b) * a.H + h0) * a.splits + sp, a.splits, smem);
+}
 
-  // the group's query rows: heads kh * g .. kh * g + g - 1 of slot b
-  const size_t qrow = static_cast<size_t>(b) * H + static_cast<size_t>(kh) * g;
-  for (int i = tid; i < g * D; i += kThreads) q_s[i] = to_f(q[qrow * D + i]);
-
-  // positions 0 .. pos are attendable; a wrapped ring passes absolute pos,
-  // so clamp to the cache length
-  const int p = pos[b];
-  const int live = p < S ? p + 1 : S;
-  const size_t slot_row = static_cast<size_t>(b) * S;
-  HeadState st;
-  st.init();
-  attend_history<CT, kQuant>(
-      ck, cv, ks, vs, [=](int r) { return (slot_row + r) * KV + kh; }, live, D, g, scale,
-      smem, st);
-
+// One block a (query head blockIdx.x, slot blockIdx.y): merge the live
+// chunks' partials, then the l == 0 guard of the finalize.
+__global__ void __launch_bounds__(kCombineThreads) decode_attention_combine_kernel(const Args a) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int n_live = (live_rows(a.pos[b], a.S) + a.chunk - 1) / a.chunk;
+  const size_t row = static_cast<size_t>(b) * a.H + h;
+  float m, l, acc[kMaxD / kCombineThreads];
+  combine_chunks(a.ws + row * a.splits * (a.D + 2), n_live, a.D, m, l, acc);
 #pragma unroll
-  for (int hi = 0; hi < kHeadsPerWarp; ++hi) {
-    const int hh = warp + hi * kWarps;
-    if (hh >= g) break;
-    float* o = out + (qrow + hh) * D;
-#pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) o[d] = online_softmax_finalize(st.l[hi], st.acc[hi][i]);
-    }
+  for (int k = 0; k < kMaxD / kCombineThreads; ++k) {
+    const int d = threadIdx.x + k * kCombineThreads;
+    if (d < a.D) a.out[row * a.D + d] = online_softmax_finalize(l, acc[k]);
   }
 }
 
-template <typename QT, typename CT, bool kQuant>
-int launch(const void* q, const void* ck, const void* cv, const float* ks, const float* vs,
-           const int* pos, float* out, int B, int S, int H, int KV, int D, float scale,
-           cudaStream_t stream) {
-  const size_t smem = history_smem_bytes(D, H / KV);
-  auto kernel = decode_attention_kernel<QT, CT, kQuant>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename CT, bool kQuant, int DP, int GH>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = decode_attention_split_kernel<CT, kQuant, DP, GH>;
+  constexpr size_t smem = chunk_smem_bytes<CT, kQuant, DP, GH>();
+  // the attribute is per device: set once for each
+  static std::atomic<unsigned> allowed{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(ck), static_cast<const CT*>(cv), ks, vs,
-      pos, out, S, H, KV, D, scale);
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  const int g = a.H / a.KV;
+  kernel<<<dim3(a.KV * ((g + GH - 1) / GH), a.B, a.splits), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_attention_combine_kernel<<<dim3(a.H, a.B), kCombineThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename QT>
-int launch_cache(int cache_dtype, const void* q, const void* ck, const void* cv,
-                 const float* ks, const float* vs, const int* pos, float* out, int B, int S,
-                 int H, int KV, int D, float scale, cudaStream_t stream) {
-  switch (cache_dtype) {
-    case kF32:
-      return launch<QT, float, false>(q, ck, cv, ks, vs, pos, out, B, S, H, KV, D, scale, stream);
-    case kBF16:
-      return launch<QT, __nv_bfloat16, false>(q, ck, cv, ks, vs, pos, out, B, S, H, KV, D, scale,
-                                              stream);
-    case kI8:
-      return launch<QT, int8_t, true>(q, ck, cv, ks, vs, pos, out, B, S, H, KV, D, scale, stream);
+template <typename CT, bool kQuant, int DP>
+int launch_group(const Args& a, cudaStream_t stream) {
+  switch (heads_per_block(a.H / a.KV)) {
+    case 1:
+      return launch<CT, kQuant, DP, 1>(a, stream);
+    case 2:
+      return launch<CT, kQuant, DP, 2>(a, stream);
+    case 4:
+      return launch<CT, kQuant, DP, 4>(a, stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch<CT, kQuant, DP, 8>(a, stream);
   }
+}
+
+template <typename CT, bool kQuant>
+int launch_dim(const Args& a, cudaStream_t stream) {
+  if (a.D <= 64) return launch_group<CT, kQuant, 64>(a, stream);
+  if (a.D <= 128) return launch_group<CT, kQuant, 128>(a, stream);
+  return launch_group<CT, kQuant, 256>(a, stream);
 }
 
 }  // namespace
@@ -126,25 +171,35 @@ int launch_cache(int cache_dtype, const void* q, const void* ck, const void* cv,
 // Plain C entry point (bound with ctypes). q: [B, 1, H, D] (q_dtype 0 = f32,
 // 1 = bf16); ck, cv: [B, S, KV, D] contiguous (cache_dtype 0 = f32, 1 = bf16,
 // 2 = int8 with ks, vs [B, S, KV] float32, else ks = vs = NULL); pos: [B]
-// int32; out: [B, 1, H, D] float32. Needs H % KV == 0, H / KV <= 32,
-// D % 4 == 0, D <= 256, 16-byte aligned cache rows for f32. Returns the
-// cudaError_t of the launch; 0 means it was queued on `stream`.
+// int32; ws: float32 workspace [B, H, splits, D + 2]; out: [B, 1, H, D]
+// float32. History rows are split in chunks of `chunk` rows (a multiple of
+// 32, at most 1024), splits * chunk >= S. Needs H % KV == 0, H / KV <= 32,
+// D % 4 == 0, D <= 256, 16-byte aligned caches. Queues the split kernel and
+// its combine on `stream`; returns the first cudaError_t, 0 when both are
+// queued.
 extern "C" int nns_decode_attention(const void* q, int q_dtype, const void* ck, const void* cv,
                                     int cache_dtype, const float* ks, const float* vs,
-                                    const int* pos, float* out, int B, int S, int H, int KV,
-                                    int D, float scale, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || KV > 65535 || H % KV != 0 ||
-      H / KV > kMaxGroup || D <= 0 || D > kMaxD || D % 4 != 0)
+                                    const int* pos, float* out, float* ws, int B, int S, int H,
+                                    int KV, int D, int chunk, int splits, float scale,
+                                    void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || KV <= 0 || H % KV != 0 || H / KV > kMaxGroup ||
+      H > 65535 || D <= 0 || D > kMaxD || D % 4 != 0)
+    return cudaErrorInvalidValue;
+  if (chunk <= 0 || chunk > kMaxChunk || chunk % kChunkAlign != 0 || splits <= 0 ||
+      splits > 65535 || static_cast<long long>(splits) * chunk < S || ws == nullptr)
     return cudaErrorInvalidValue;
   if ((cache_dtype == kI8) != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
+  if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
+  const Args a{q, q_dtype == kBF16, ck, cv, ks, vs, pos, ws, out, B, S, H, KV, D, chunk, splits,
+               scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
+  switch (cache_dtype) {
     case kF32:
-      return launch_cache<float>(cache_dtype, q, ck, cv, ks, vs, pos, out, B, S, H, KV, D, scale,
-                                 s);
+      return launch_dim<float, false>(a, s);
     case kBF16:
-      return launch_cache<__nv_bfloat16>(cache_dtype, q, ck, cv, ks, vs, pos, out, B, S, H, KV, D,
-                                         scale, s);
+      return launch_dim<__nv_bfloat16, false>(a, s);
+    case kI8:
+      return launch_dim<int8_t, true>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -19,34 +19,45 @@
 // int8 scales (sum_b hist_b * KV * 2 * 4), plus the table entries it uses
 // (sum_b ceil(hist_b / bs) * 4), plus q, fresh_k/v and out, at 3.35 TB/s.
 // The operations (4 * D per live row and query head) sit far below the
-// card's rate.
+// card's rate, so the tensor cores are not used: the memory is the limit.
+// The chunks' partial states (H * (D + 2) floats a live chunk, written and
+// read once) are the design's overhead, outside the bound.
 //
-// Design (the first, simple version).
-// - Grid: one block per (kv head, slot), B * KV blocks. The TPU grid is
-//   (b, h, arena block) and its index map hi // group re-reads each arena
-//   block once for every query head of the group. Here one block serves all
-//   g = H / KV query heads of its kv head, so every live row leaves device
-//   memory once.
-// - Indices: the block reads its own table row (the TPU prefetched it as a
-//   scalar operand). hist is read from pos on the device (no host sync);
-//   table entries at or past ceil(hist / bs) are never read, nor are their
-//   arena blocks (they point at scratch block 0).
-// - Tiles of rows, not of arena blocks: the block walks the history in
-//   64-row tiles whatever bs is (attn_tile.cuh attend_history, the loop the
-//   slot kernel K3 runs too), each row addressed through the table. At bs 16
-//   a tile spans four arena blocks; any bs works. A loop of one iteration
-//   per 16-row arena block would pay the per-tile round trip (~8.6 us in
-//   K3) four times as often. The ragged last tile is masked as
-//   mask_dead_columns does, so NaN in scratch or stale rows never reaches
-//   the output.
-// - The pending token: after the last tile its fresh_k / fresh_v go through
-//   the same online-softmax update, then the l == 0 guard of the finalize.
-// - Later work, not here: split-K over long histories with a combine pass,
-//   cp.async / TMA double buffering, tensor-core mma.
+// Design (redesigned for Hopper, as the slot kernel K3 is; the history loop
+// is attn_tile.cuh's and its note gives the details).
+// - Split: grid (KV * head groups, B, splits), one block a chunk of
+//   `chunk` (128) history rows, splits = ceil(nb * bs / chunk) from the
+//   table's shape (split_plan in ops/kernels/decode_attention.py); hist is
+//   read from pos on the device (no host sync) and a block whose chunk
+//   starts at or past it returns at once. The partial (m, l, acc) of each
+//   live chunk goes to a float32 workspace [B, H, splits, D + 2].
+// - Indices: a block reads the table entries of its chunk's live rows
+//   once, into shared memory (the TPU prefetched the table as a scalar
+//   operand), and addresses each row through them: history row r is row
+//   r % bs of arena block tables[b, r / bs], rows of one arena block
+//   contiguous at stride KV * D. Entries at or past ceil(hist / bs) are
+//   never read, nor are their arena blocks (they point at scratch block 0).
+//   Tiles are of rows, not of arena blocks, so any bs works.
+// - Heads: one block serves all g = H / KV query heads of its kv head (up
+//   to 8; larger groups take several blocks), so every live row leaves
+//   device memory once.
+// - Combine and the pending token: paged_attention_combine_kernel, one
+//   block a (query head, slot), merges the live chunks' partials
+//   (online_softmax_merge), then folds the pending token's fresh_k /
+//   fresh_v (position pos, always live) through the same online-softmax
+//   update, after every history position, then the l == 0 guard of the
+//   finalize. With no history (pos 0) it is the fresh column alone.
+// - Resources a block of 128 threads at the main shape (D 128, g 4; the
+//   same nvcc -Xptxas -v report as K3's; shared memory from
+//   chunk_smem_bytes plus the chunk's table entries): float32 124
+//   registers, 66,064 B, 3 blocks an SM; bf16 106, 33,296 B, 4 blocks;
+//   int8 127, 17,424 B, 4 blocks. No instance spills; the combine uses 96.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "attn_tile.cuh"
 
@@ -54,116 +65,156 @@ using namespace nns_attn;
 
 namespace {
 
-// One element of the pending token's K or V (float32 or bfloat16).
-__device__ __forceinline__ float fresh_at(const void* p, int fresh_bf16, size_t i) {
-  return fresh_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-                    : static_cast<const float*>(p)[i];
+struct Args {
+  const void* q;
+  int q_bf16;
+  const void* ak;
+  const void* av;
+  const float* ks;
+  const float* vs;
+  const int* tables;
+  const int* pos;
+  const void* fk;
+  const void* fv;
+  int fresh_bf16;
+  float* ws;
+  float* out;
+  int B, nb, bs, H, KV, D, chunk, splits;
+  float scale;
+};
+
+// History rows 0 .. hist-1 live in arena blocks, clamped to the table's
+// reach so a stale lane never walks past it.
+__device__ __forceinline__ int history_rows(int p, int nb, int bs) {
+  return p <= 0 ? 0 : min(p, nb * bs);
 }
 
-template <typename QT, typename CT, bool kQuant>
-__global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const QT* __restrict__ q, const CT* __restrict__ ak,
-                           const CT* __restrict__ av, const float* __restrict__ ks,
-                           const float* __restrict__ vs, const int* __restrict__ tables,
-                           const int* __restrict__ pos, const void* __restrict__ fk,
-                           const void* __restrict__ fv, int fresh_bf16,
-                           float* __restrict__ out, int nb, int bs, int H, int KV, int D,
-                           float scale) {
-  extern __shared__ float smem[];
-  const int kh = blockIdx.x;
+// Bytes past the chunk's shared memory for its table entries: at most
+// chunk / bs + 2 of them, so chunk + 2 covers every bs.
+__host__ __device__ constexpr size_t table_bytes(int chunk) {
+  return sizeof(int) * (static_cast<size_t>(chunk) + 4);
+}
+
+// One block: chunk blockIdx.z of slot blockIdx.y's history, for the query
+// heads of head group blockIdx.x % n_groups of kv head blockIdx.x / n_groups.
+template <typename CT, bool kQuant, int DP, int GH>
+__global__ void __launch_bounds__(kThreads) paged_attention_split_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = a.H / a.KV;
+  const int n_groups = (g + GH - 1) / GH;
+  const int kh = blockIdx.x / n_groups;
+  const int hg = blockIdx.x % n_groups;
   const int b = blockIdx.y;
-  const int g = H / KV;
-  float* q_s = smem + 2 * kTile * (D + 1);           // [g][D], after the tiles
-  float* fk_s = smem + history_smem_bytes(D, g) / sizeof(float);  // [D]
-  float* fv_s = fk_s + D;                                           // [D]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
+  const int sp = blockIdx.z;
+  const int hist = history_rows(a.pos[b], a.nb, a.bs);
+  const int c0 = sp * a.chunk;
+  if (c0 >= hist) return;  // an empty chunk: the combine reads chunks below hist only
 
-  // the group's query rows: heads kh * g .. kh * g + g - 1 of slot b
-  const size_t qrow = static_cast<size_t>(b) * H + static_cast<size_t>(kh) * g;
-  for (int i = tid; i < g * D; i += kThreads) q_s[i] = to_f(q[qrow * D + i]);
-  const size_t frow = (static_cast<size_t>(b) * KV + kh) * D;
-  for (int i = tid; i < D; i += kThreads) {
-    fk_s[i] = fresh_at(fk, fresh_bf16, frow + i);
-    fv_s[i] = fresh_at(fv, fresh_bf16, frow + i);
-  }
+  // the table entries of this chunk's live rows, read once; entries past
+  // the history are never read
+  const int bs = a.bs;
+  const int e0 = c0 / bs;
+  const int n_entries = (min(c0 + a.chunk, hist) - 1) / bs - e0 + 1;
+  int* tab_s = reinterpret_cast<int*>(smem + chunk_smem_bytes<CT, kQuant, DP, GH>());
+  const int* tab = a.tables + static_cast<size_t>(b) * a.nb + e0;
+  for (int i = threadIdx.x; i < n_entries; i += kThreads) tab_s[i] = __ldg(tab + i);
+  __syncthreads();
 
-  // history rows 0 .. hist-1 live in arena blocks, clamped to the table's
-  // reach so a stale lane never walks past it
-  const int p = pos[b];
-  const int hist = p <= 0 ? 0 : min(p, nb * bs);
-  const int* tab = tables + static_cast<size_t>(b) * nb;
-  HeadState st;
-  st.init();
-  attend_history<CT, kQuant>(
-      ak, av, ks, vs,
+  const int h0 = kh * g + hg * GH;
+  const int KV = a.KV;
+  attend_chunk<CT, kQuant, DP, GH>(
+      a.q, a.q_bf16, static_cast<size_t>(b) * a.H + h0, min(GH, g - hg * GH),
+      static_cast<const CT*>(a.ak), static_cast<const CT*>(a.av), a.ks, a.vs,
       [=](int r) {
         const int lb = r / bs;
-        return (static_cast<size_t>(__ldg(tab + lb)) * bs + (r - lb * bs)) * KV + kh;
+        return (static_cast<size_t>(tab_s[lb - e0]) * bs + (r - lb * bs)) * KV + kh;
       },
-      hist, D, g, scale, smem, st);
+      c0, a.chunk, hist, a.D, a.scale, a.ws,
+      (static_cast<size_t>(b) * a.H + h0) * a.splits + sp, a.splits, smem);
+}
 
-  // the pending token's column (position pos, always live), folded last,
-  // then the l == 0 guard of the finalize
+// One block a (query head blockIdx.x, slot blockIdx.y): merge the live
+// chunks' partials, fold the pending token's column (position pos, always
+// live) after them, then the l == 0 guard of the finalize.
+__global__ void __launch_bounds__(kCombineThreads) paged_attention_combine_kernel(const Args a) {
+  __shared__ float warp_dots[kCombineThreads / 32];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int kh = h / (a.H / a.KV);
+  const int n_live = (history_rows(a.pos[b], a.nb, a.bs) + a.chunk - 1) / a.chunk;
+  const size_t row = static_cast<size_t>(b) * a.H + h;
+  const size_t frow = (static_cast<size_t>(b) * a.KV + kh) * a.D;
+
+  float dot = 0.0f;
+  for (int d = threadIdx.x; d < a.D; d += kCombineThreads)
+    dot = fmaf(f32_or_bf16(a.q, a.q_bf16, row * a.D + d),
+               f32_or_bf16(a.fk, a.fresh_bf16, frow + d), dot);
+  dot = warp_sum(dot);
+  if ((threadIdx.x & 31) == 0) warp_dots[threadIdx.x >> 5] = dot;
+  __syncthreads();
+  dot = 0.0f;
 #pragma unroll
-  for (int hi = 0; hi < kHeadsPerWarp; ++hi) {
-    const int hh = warp + hi * kWarps;
-    if (hh >= g) break;
-    const float* qh = q_s + hh * D;
-    float dot = 0.0f;
-    for (int d = lane; d < D; d += 32) dot = fmaf(qh[d], fk_s[d], dot);
-    const float s1 = scaled(warp_sum(dot), scale);
-    const float m_new = fmaxf(st.m[hi], s1);
-    const float alpha = online_softmax_alpha(st.m[hi], m_new);
-    const float p1 = online_softmax_weight(s1, m_new);
-    const float lf = st.l[hi] * alpha + p1;
-    float* o = out + (qrow + hh) * D;
+  for (int w = 0; w < kCombineThreads / 32; ++w) dot += warp_dots[w];
+  const float s1 = scaled(dot, a.scale);
+
+  float m, l, acc[kMaxD / kCombineThreads];
+  combine_chunks(a.ws + row * a.splits * (a.D + 2), n_live, a.D, m, l, acc);
+  const float m_new = fmaxf(m, s1);
+  const float alpha = online_softmax_alpha(m, m_new);
+  const float p1 = online_softmax_weight(s1, m_new);
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) {
-        o[d] = online_softmax_finalize(lf, fmaf(p1, fv_s[d], st.acc[hi][i] * alpha));
-      }
-    }
+  for (int k = 0; k < kMaxD / kCombineThreads; ++k) {
+    const int d = threadIdx.x + k * kCombineThreads;
+    if (d < a.D)
+      a.out[row * a.D + d] = online_softmax_finalize(
+          l * alpha + p1, fmaf(p1, f32_or_bf16(a.fv, a.fresh_bf16, frow + d), acc[k] * alpha));
   }
 }
 
-template <typename QT, typename CT, bool kQuant>
-int launch(const void* q, const void* ak, const void* av, const float* ks, const float* vs,
-           const int* tables, const int* pos, const void* fk, const void* fv, int fresh_bf16,
-           float* out, int B, int nb, int bs, int H, int KV, int D, float scale,
-           cudaStream_t stream) {
-  const size_t smem = history_smem_bytes(D, H / KV) + sizeof(float) * 2 * D;
-  auto kernel = paged_attention_kernel<QT, CT, kQuant>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <typename CT, bool kQuant, int DP, int GH>
+int launch(const Args& a, cudaStream_t stream) {
+  auto kernel = paged_attention_split_kernel<CT, kQuant, DP, GH>;
+  constexpr size_t smem_max = chunk_smem_bytes<CT, kQuant, DP, GH>() + table_bytes(kMaxChunk);
+  // the attribute is per device: set once for each
+  static std::atomic<unsigned> allowed{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(KV, B), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const CT*>(ak), static_cast<const CT*>(av), ks, vs,
-      tables, pos, fk, fv, fresh_bf16, out, nb, bs, H, KV, D, scale);
+  const unsigned bit = dev < 32 ? 1u << dev : 0u;
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_max));
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  const size_t smem = chunk_smem_bytes<CT, kQuant, DP, GH>() + table_bytes(a.chunk);
+  const int g = a.H / a.KV;
+  kernel<<<dim3(a.KV * ((g + GH - 1) / GH), a.B, a.splits), kThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_attention_combine_kernel<<<dim3(a.H, a.B), kCombineThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename QT>
-int launch_arena(int arena_dtype, const void* q, const void* ak, const void* av,
-                 const float* ks, const float* vs, const int* tables, const int* pos,
-                 const void* fk, const void* fv, int fresh_bf16, float* out, int B, int nb,
-                 int bs, int H, int KV, int D, float scale, cudaStream_t stream) {
-  switch (arena_dtype) {
-    case kF32:
-      return launch<QT, float, false>(q, ak, av, ks, vs, tables, pos, fk, fv, fresh_bf16, out,
-                                      B, nb, bs, H, KV, D, scale, stream);
-    case kBF16:
-      return launch<QT, __nv_bfloat16, false>(q, ak, av, ks, vs, tables, pos, fk, fv,
-                                              fresh_bf16, out, B, nb, bs, H, KV, D, scale,
-                                              stream);
-    case kI8:
-      return launch<QT, int8_t, true>(q, ak, av, ks, vs, tables, pos, fk, fv, fresh_bf16, out,
-                                      B, nb, bs, H, KV, D, scale, stream);
+template <typename CT, bool kQuant, int DP>
+int launch_group(const Args& a, cudaStream_t stream) {
+  switch (heads_per_block(a.H / a.KV)) {
+    case 1:
+      return launch<CT, kQuant, DP, 1>(a, stream);
+    case 2:
+      return launch<CT, kQuant, DP, 2>(a, stream);
+    case 4:
+      return launch<CT, kQuant, DP, 4>(a, stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch<CT, kQuant, DP, 8>(a, stream);
   }
+}
+
+template <typename CT, bool kQuant>
+int launch_dim(const Args& a, cudaStream_t stream) {
+  if (a.D <= 64) return launch_group<CT, kQuant, 64>(a, stream);
+  if (a.D <= 128) return launch_group<CT, kQuant, 128>(a, stream);
+  return launch_group<CT, kQuant, 256>(a, stream);
 }
 
 }  // namespace
@@ -174,30 +225,40 @@ int launch_arena(int arena_dtype, const void* q, const void* ak, const void* av,
 // else ks = vs = NULL); tables: [B, nb] int32 block ids, every entry below
 // ceil(min(pos[b], nb * bs) / bs) in 0 .. N-1 (the caller's contract, not
 // checked here); pos: [B] int32 history lengths; fk, fv: [B, 1, KV, D] the
-// pending token's K/V (fresh_dtype 0 = f32, 1 = bf16); out: [B, 1, H, D]
-// float32. Needs H % KV == 0, H / KV <= 32, D % 4 == 0, D <= 256, 16-byte
-// aligned arena rows for f32. Returns the cudaError_t of the launch; 0 means
-// it was queued on `stream`.
+// pending token's K/V (fresh_dtype 0 = f32, 1 = bf16); ws: float32
+// workspace [B, H, splits, D + 2]; out: [B, 1, H, D] float32. History rows
+// are split in chunks of `chunk` rows (a multiple of 32, at most 1024),
+// splits * chunk >= nb * bs. Needs H % KV == 0, H / KV <= 32, D % 4 == 0,
+// D <= 256, 16-byte aligned arenas. Queues the split kernel and its
+// combine on `stream`; returns the first cudaError_t, 0 when both are
+// queued.
 extern "C" int nns_paged_attention(const void* q, int q_dtype, const void* ak, const void* av,
                                    int arena_dtype, const float* ks, const float* vs,
                                    const int* tables, const int* pos, const void* fk,
-                                   const void* fv, int fresh_dtype, float* out, int B, int nb,
-                                   int bs, int H, int KV, int D, float scale, void* stream) {
-  if (B <= 0 || B > 65535 || nb <= 0 || bs <= 0 || KV <= 0 || KV > 65535 || H % KV != 0 ||
-      H / KV > kMaxGroup || D <= 0 || D > kMaxD || D % 4 != 0)
+                                   const void* fv, int fresh_dtype, float* out, float* ws, int B,
+                                   int nb, int bs, int H, int KV, int D, int chunk, int splits,
+                                   float scale, void* stream) {
+  if (B <= 0 || B > 65535 || nb <= 0 || bs <= 0 || KV <= 0 || H % KV != 0 ||
+      H / KV > kMaxGroup || H > 65535 || D <= 0 || D > kMaxD || D % 4 != 0)
     return cudaErrorInvalidValue;
   if (nb > (1 << 30) / bs) return cudaErrorInvalidValue;  // nb * bs must fit an int
+  if (chunk <= 0 || chunk > kMaxChunk || chunk % kChunkAlign != 0 || splits <= 0 ||
+      splits > 65535 || static_cast<long long>(splits) * chunk < static_cast<long long>(nb) * bs ||
+      ws == nullptr)
+    return cudaErrorInvalidValue;
   if ((arena_dtype == kI8) != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
+  if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
   if (fresh_dtype != kF32 && fresh_dtype != kBF16) return cudaErrorInvalidValue;
-  const int fresh_bf16 = fresh_dtype == kBF16;
+  const Args a{q, q_dtype == kBF16, ak, av, ks, vs, tables, pos, fk, fv, fresh_dtype == kBF16,
+               ws, out, B, nb, bs, H, KV, D, chunk, splits, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
+  switch (arena_dtype) {
     case kF32:
-      return launch_arena<float>(arena_dtype, q, ak, av, ks, vs, tables, pos, fk, fv,
-                                 fresh_bf16, out, B, nb, bs, H, KV, D, scale, s);
+      return launch_dim<float, false>(a, s);
     case kBF16:
-      return launch_arena<__nv_bfloat16>(arena_dtype, q, ak, av, ks, vs, tables, pos, fk, fv,
-                                         fresh_bf16, out, B, nb, bs, H, KV, D, scale, s);
+      return launch_dim<__nv_bfloat16, false>(a, s);
+    case kI8:
+      return launch_dim<int8_t, true>(a, s);
     default:
       return cudaErrorInvalidValue;
   }

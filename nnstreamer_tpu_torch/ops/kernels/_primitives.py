@@ -1,10 +1,12 @@
 """The online-softmax attention primitives, as plain PyTorch.
 
 The counterpart of ``nnstreamer_tpu/ops/pallas/_primitives.py``: the one
-recurrence the attention kernels (decode now; paged decode and flash
-prefill later) are built from. The CUDA kernels include the same
-recurrence as device functions from ``csrc/attn_primitives.cuh``; the
-functions here are the plain versions the kernels are held against.
+recurrence the attention kernels (decode, paged decode and flash
+prefill) are built from, plus the merge of partial states with which the
+split decode kernels combine their history chunks. The CUDA kernels
+include the same recurrence as device functions from
+``csrc/attn_primitives.cuh``; the functions here are the plain versions
+the kernels are held against.
 
 Each takes leading batch dimensions in front of the reference's 2-D
 shapes (``q [..., m, d]``, ``k [..., n, d]``), and the numerics are the
@@ -62,6 +64,18 @@ def online_softmax_update(s, v, m_prev, l_prev, acc_prev):
     l_new = l_prev * alpha + p.sum(dim=-1)
     acc_new = acc_prev * alpha[..., None] + torch.matmul(p, v.float())
     return m_new, l_new, acc_new
+
+
+def online_softmax_merge(m, l, acc):
+    """The state of the union of n disjoint column sets from their states,
+    stacked on a split axis: m [..., n], l [..., n], acc [..., n, d] →
+    (m [...], l [...], acc [..., d]). Each state is rescaled to the largest
+    max with the update's guard, so a state at NEG_INF (nothing attended)
+    weighs exactly 0 and a merge of empty states stays (NEG_INF, 0, 0). The
+    split decode kernels merge their history chunks with it."""
+    m_new = m.amax(dim=-1)
+    w = torch.where(m <= NEG_INF, torch.zeros_like(m), torch.exp(m - m_new[..., None]))
+    return m_new, (l * w).sum(dim=-1), (acc * w[..., None]).sum(dim=-2)
 
 
 def online_softmax_finalize(l, acc, dtype=torch.float32):

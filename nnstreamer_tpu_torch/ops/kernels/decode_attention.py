@@ -3,10 +3,13 @@
 Replaces the Pallas TPU kernel ``nnstreamer_tpu/ops/pallas/decode_attention.py``
 (``decode_attention``, body ``_kernel``). The kernel is
 ``csrc/decode_attention.cu`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
-first use and bound with ``ctypes``), which runs the history loop of
-``csrc/attn_tile.cuh`` (shared with the paged kernel K4) over the
-recurrence of ``csrc/attn_primitives.cuh``; its design and its bound are
-noted there.
+first use and bound with ``ctypes``), which splits each slot's history in
+chunks of :data:`SPLIT_ROWS` rows across blocks (the history loop of
+``csrc/attn_tile.cuh``, shared with the paged kernel K4, over the
+recurrence of ``csrc/attn_primitives.cuh``) and merges the chunks' partial
+states in a combine kernel; its design and its bound are noted there.
+:func:`split_plan` is the launch plan, and the wrapper allocates the
+partials' workspace.
 :func:`plain_decode_attention` is the same function written with the plain
 primitives of ``_primitives.py`` (the port of ``decode_attention_ref``).
 
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,8 +51,32 @@ MAX_GROUP = 32
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+#: history rows one block of K3 or K4 attends: a multiple of 32, as the
+#: kernels require (every tile height of ``csrc/attn_tile.cuh`` divides it)
+SPLIT_ROWS = 128
+
 #: launches of the K3 CUDA kernel
 decode_attention_launches = LaunchCounter()
+
+
+class SplitPlan(NamedTuple):
+    """How K3 and K4 cut a history of up to ``rows`` rows: chunk ``i``
+    holds rows ``i * chunk .. (i + 1) * chunk - 1``, one block each."""
+
+    chunk: int
+    splits: int
+
+
+def split_plan(rows: int) -> SplitPlan:
+    """The launch plan for a history of at most ``rows`` rows (S for K3,
+    nb·bs for K4): shapes the host knows, so no read of the device."""
+    return SplitPlan(SPLIT_ROWS, max(1, -(-rows // SPLIT_ROWS)))
+
+
+def live_splits(live: int, chunk: int) -> int:
+    """Chunks that hold a live row when ``live`` rows are live: the blocks
+    that attend, and the partials the combine merges."""
+    return -(-max(live, 0) // chunk)
 
 
 def plain_decode_attention(
@@ -137,9 +164,9 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
 
@@ -158,7 +185,10 @@ def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale) ->
     q = q.contiguous()
     pos = pos.to(torch.int32).contiguous()
     fn = _kernel_fn()
+    plan = split_plan(s_len)
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    # the chunks' partial states: acc [D], then m and l
+    ws = torch.empty((b, h, plan.splits, d + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
@@ -166,7 +196,8 @@ def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale) ->
             _CACHE_DTYPES[cache_k.dtype],
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
-            pos.data_ptr(), out.data_ptr(), b, s_len, h, n_kv, d, float(scale), stream,
+            pos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, s_len, h, n_kv, d,
+            plan.chunk, plan.splits, float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"nns_decode_attention launch failed: cudaError_t {err}")

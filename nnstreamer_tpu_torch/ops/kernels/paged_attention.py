@@ -4,9 +4,12 @@ plain version.
 Replaces the Pallas TPU kernel ``nnstreamer_tpu/ops/pallas/paged_attention.py``
 (``paged_decode_attention``, body ``_kernel``). The kernel is
 ``csrc/paged_attention.cu`` (CUDA C++ for ``sm_90a``, built by ``nvcc`` at
-first use and bound with ``ctypes``), which runs the history loop of
-``csrc/attn_tile.cuh`` (shared with the slot kernel K3) over the recurrence
-of ``csrc/attn_primitives.cuh``; its design and its bound are noted there.
+first use and bound with ``ctypes``), which splits each slot's history in
+chunks across blocks as K3 does (the history loop of ``csrc/attn_tile.cuh``
+over the recurrence of ``csrc/attn_primitives.cuh``, the launch plan
+``decode_attention.split_plan``), then merges the chunks and folds the
+pending token last in a combine kernel; its design and its bound are noted
+there.
 :func:`plain_paged_attention` is the same function written with the plain
 primitives of ``_primitives.py`` (the port of
 ``nnstreamer_tpu/kv/block_attn.py paged_attention_ref``).
@@ -49,6 +52,7 @@ from nnstreamer_tpu_torch.ops.kernels._primitives import (
     online_softmax_update,
     scaled_qk,
 )
+from nnstreamer_tpu_torch.ops.kernels.decode_attention import split_plan
 
 #: largest head dim and query heads per kv head the kernel takes
 MAX_HEAD_DIM = 256
@@ -173,8 +177,8 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [
-        p, i, p, p, i, p, p, p, p, p, p, i, p,
-        i, i, i, i, i, i, ctypes.c_float, p,
+        p, i, p, p, i, p, p, p, p, p, p, i, p, p,
+        i, i, i, i, i, i, i, i, ctypes.c_float, p,
     ]
     return fn
 
@@ -195,7 +199,10 @@ def _cuda_paged_attention(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
     fresh_k, fresh_v = fresh_k.contiguous(), fresh_v.contiguous()
     pos = pos.to(torch.int32).contiguous()
     fn = _kernel_fn()
+    plan = split_plan(tables.shape[1] * bs)
     out = torch.empty((b, 1, h, d), dtype=torch.float32, device=q.device)
+    # the chunks' partial states: acc [D], then m and l
+    ws = torch.empty((b, h, plan.splits, d + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
@@ -204,8 +211,8 @@ def _cuda_paged_attention(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
             k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None,
             tables.data_ptr(), pos.data_ptr(), fresh_k.data_ptr(), fresh_v.data_ptr(),
-            _Q_DTYPES[fresh_k.dtype], out.data_ptr(),
-            b, tables.shape[1], bs, h, n_kv, d, float(scale), stream,
+            _Q_DTYPES[fresh_k.dtype], out.data_ptr(), ws.data_ptr(),
+            b, tables.shape[1], bs, h, n_kv, d, plan.chunk, plan.splits, float(scale), stream,
         )
     if err != 0:
         raise RuntimeError(f"nns_paged_attention launch failed: cudaError_t {err}")
