@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port (nnstreamer_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab PARENT   # K1 and K2: the checkout PARENT against this one
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -24,13 +25,17 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  source paced at 30 fps.
 4. profile     — device time by kernel over 16 labeling frames.
 5. single      — SingleShot invoke on the GPU, logits against the CPU's.
-6. nms_kernels — the greedy NMS kernel (K2) against its plain version on
-                 the same GPU inputs (registry shapes n = 32 and 100, the
-                 1917 candidates of a real SSD output frame, n = 6300 and
-                 25200, a case of tied scores): alive masks, keep_idx and
-                 keep_score bit-identical; kernel / plain device time (and
-                 one launch timed alone with CUDA events), time per greedy
-                 step, and the bound.
+6. nms_kernels — the greedy NMS kernel (K2: the mask kernel and the scan)
+                 against its plain version on the same GPU inputs (registry
+                 shapes n = 32 and 100, the 1917 candidates of a real SSD
+                 output frame, n = 6300 and 25200, a case of tied scores,
+                 n = 63, 64, 65 and 129 at the word edges, 2000 with 90 %
+                 dead): alive masks, keep_idx and keep_score bit-identical;
+                 up to n = 2048 every mask word the kernel wrote equal to the
+                 plain twin's (plain_nms_bitmask); kernel device time (the
+                 sum of both kernels' means) and plain device time (and one
+                 call timed alone with CUDA events), time per greedy step,
+                 the scan's word blocks (rounds), the workspace, the bound.
 7. detection   — the detection pipeline (1280x720 → resize 300 →
                  SSD-MobileNet-v2 → bounding_boxes postproc=device) for 32
                  frames: K1 and K2 each launched exactly once per frame,
@@ -144,6 +149,13 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  equal to greedy, and a width-4 beam's score equal to the
                  teacher-forced log-prob of its tokens.
 
+``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
+candidates with the kernels of the checkout at PARENT (an unpacked `git
+archive` of another commit) and with this one's, in four processes of one
+call (parent, change, change, parent), each building its own kernels;
+beside them the floor of a launch (a one-element ``fill_``); last a summary
+of the means and the change / parent ratios.
+
 TF32 is off throughout (cuDNN would otherwise run float32 convolutions,
 and the LLM phases' float32 matmuls could run, in TF32), so GPU and CPU
 runs and the references compare at float32 precision. The last lines
@@ -188,6 +200,7 @@ SSD_FRAME = (
 )
 NMS_IOU = 0.5
 NMS_OPS_PER_COLUMN = 12  # one masked IoU column: 4 min/max, 5 sub/mul, add, div, compare
+NMS_WORDS_CHECK_N = 2048  # up to this n, the kernel's mask words are held against the twin's
 
 
 def emit(obj) -> None:
@@ -381,12 +394,32 @@ def run_pipeline(parse_pipeline, device, n, live=False, hook=None):
     return labels, wall, lat_ms
 
 
+def nms_times(torch, nk, sboxes, sscores):
+    """K2's times on ranked GPU inputs: (device ms of a call, the sum of
+    the mask and scan kernels' means, with the records kept and the reps;
+    stream ms of back-to-back calls; one call alone)."""
+    pool = [(sboxes, sscores)]
+
+    def kernel(b, s):
+        return nk._cuda_nms(b, s, NMS_IOU)
+
+    reps = 50 if sboxes.shape[0] <= 8192 else 10
+    ms, records = device_ms(torch, kernel, pool, reps, per_launch=True)
+    return ms, records, reps, time_ms(torch, kernel, pool, reps), alone_ms(torch, kernel, pool[0])
+
+
 def nms_case(torch, det, nk, name, boxes, scores, max_out=100):
     """One K2 case on the GPU: the kernel and the plain version on the
     same ranked inputs (masks and packed results bit-identical, and the
-    whole ``nms`` equal to the port's CPU run), timings, bound."""
+    whole ``nms`` equal to the port's CPU run); up to NMS_WORDS_CHECK_N
+    candidates, every mask word the kernel wrote (the live rows, from the
+    diagonal block on: all the scan can read) equal to the plain twin's;
+    timings, bound, the scan's word blocks and the workspace."""
     order, sboxes, sscores = det.rank(boxes, scores)
-    alive_k, live = nk._cuda_nms(sboxes, sscores, NMS_IOU)
+    n = boxes.shape[0]
+    plan = nk.nms_plan(n)
+    words = torch.empty((n, plan.words), dtype=torch.int64, device=sboxes.device)
+    alive_k, live = nk._cuda_nms(sboxes, sscores, NMS_IOU, words=words)
     got_mask = alive_k > 0
     want_mask = nk.plain_nms_mask(sboxes, sscores, NMS_IOU)
     got = det.pack_kept(order, sscores, got_mask, max_out)
@@ -406,7 +439,19 @@ def nms_case(torch, det, nk, name, boxes, scores, max_out=100):
         raise AssertionError(f"nms {name}: kernel differs from plain (max_abs_err {err})")
     if not (torch.equal(got[0].cpu(), cpu[0]) and torch.equal(got[1].cpu(), cpu[1])):
         raise AssertionError(f"nms {name}: GPU keep_idx/keep_score differ from the CPU run")
-    n = boxes.shape[0]
+    words_checked = 0
+    if n <= NMS_WORDS_CHECK_N:
+        twin_words, twin_alive = nk.plain_nms_bitmask(sboxes.cpu(), sscores.cpu(), NMS_IOU)
+        rows = torch.arange(n)
+        written = (sscores.cpu() > 0)[:, None] & (
+            torch.arange(plan.words)[None, :] >= (rows // nk.WORD_BITS)[:, None]
+        )
+        if not torch.equal(words.cpu()[written], twin_words[written]):
+            raise AssertionError(f"nms {name}: mask words differ from the plain twin's")
+        if not torch.equal(twin_alive, want_mask.cpu()):
+            raise AssertionError(f"nms {name}: the plain twin's mask differs from plain")
+        words_checked = int(written.sum())
+    del words
     kept = torch.nonzero(want_mask).flatten().cpu()
     # IoU columns the live steps of these inputs visit: j in (i, m) per kept i
     columns = int((m - 1 - kept).sum())
@@ -414,28 +459,25 @@ def nms_case(torch, det, nk, name, boxes, scores, max_out=100):
     n_ops = NMS_OPS_PER_COLUMN * columns
     bytes_ms = n_bytes / PEAK_BYTES_S * 1e3
     ops_ms = n_ops / PEAK_F32_OPS_S * 1e3
-    pool = [(sboxes, sscores)]
-
-    def kernel(b, s):
-        return nk._cuda_nms(b, s, NMS_IOU)
+    ms, records, reps, stream_ms, one_ms = nms_times(torch, nk, sboxes, sscores)
 
     def plain(b, s):
         return nk.plain_nms_mask(b, s, NMS_IOU)
 
-    reps = 50 if n <= 8192 else 10
-    ms, records = device_ms(torch, kernel, pool, reps, per_launch=True)
-    stream_ms = time_ms(torch, kernel, pool, reps)
-    one_ms = alone_ms(torch, kernel, pool[0])
     # the plain version launches ~12 kernels per live step and reads a
     # flag back per step: one profiled call, its stream time beside it
+    pool = [(sboxes, sscores)]
     plain_ms, _ = device_ms(torch, plain, pool, 1)
     plain_stream_ms = time_ms(torch, plain, pool, 1)
     return {
         "case": name, "n": n, "m": m, "kept": int(len(kept)), "max_out": max_out,
         "max_abs_err": err, "bit_identical": True, "cpu_identical": True,
+        "words_checked": words_checked,
         "kernel_ms": ms, "kernel_records": records, "kernel_reps": reps,
         "kernel_stream_ms": stream_ms, "kernel_alone_ms": one_ms,
         "ms_per_step": ms / max(m, 1),
+        "rounds": -(-m // nk.WORD_BITS), "mask_tiles": plan.tiles,
+        "workspace_bytes": plan.workspace_bytes,
         "plain_ms": plain_ms, "plain_stream_ms": plain_stream_ms,
         "library_ms": None,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -2158,6 +2200,132 @@ def flash_phases(torch, np, dev, parse_pipeline):
     return k5_main, k5_launches
 
 
+def ssd_frame_candidates(torch, parse_pipeline, dev):
+    """The 1917 (box, score) NMS candidates of one SSD output frame (the
+    detection pipeline's source frame, through its resize and model)."""
+    from nnstreamer_tpu_torch.models import ssd_mobilenet
+    from nnstreamer_tpu_torch.ops import detection as det
+
+    frame = parse_pipeline(SSD_FRAME, device=dev)
+    frame.run(timeout=600)
+    loc, cls = (torch.from_numpy(t).to(dev) for t in frame["out"].frames[0].tensors)
+    priors = torch.from_numpy(ssd_mobilenet.generate_anchors()).to(dev)
+    boxes, _, scores = det.ssd_candidates(loc[0], cls[0], priors)
+    return boxes, scores
+
+
+def k1_cases(torch, np, ik):
+    """The K1 cases: both entry points at the pipelines' shapes and others."""
+    crop_boxes = np.array([
+        [0, 0, 1280, 720], [100.5, 50.25, 400.75, 300.5], [-20, -10, 200, 150],
+        [640, 360, 640, 360],  # degenerate
+        [900, 500, 1279, 719], [10, 600, 300, 719.5], [500, 0, 780, 720],
+        [1200.5, 700.5, 1300, 760],
+    ], np.float32)
+    return [
+        kernel_case(torch, np, ik, "resize-u8-720p-224", torch.uint8,
+                    (1, 720, 1280, 3), (224, 224)),
+        kernel_case(torch, np, ik, "resize-u8-720p-300", torch.uint8,
+                    (1, 720, 1280, 3), (300, 300)),
+        kernel_case(torch, np, ik, "resize-f32-480p-300", torch.float32,
+                    (2, 480, 640, 3), (300, 300)),
+        kernel_case(torch, np, ik, "resize-bf16-480p-300", torch.bfloat16,
+                    (2, 480, 640, 3), (300, 300)),
+        kernel_case(torch, np, ik, "crop-u8-720p-8box-112", torch.uint8,
+                    (720, 1280, 3), (112, 112), boxes=crop_boxes),
+        kernel_case(torch, np, ik, "resize-u8-720p-224-normalize", torch.uint8,
+                    (1, 720, 1280, 3), (224, 224), scale=1 / 255, offset=-0.5),
+    ]
+
+
+def ab_turn(tree: str, npz: str) -> int:
+    """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
+    25200 candidates with the kernels of the checkout at ``tree`` (its own
+    build), plus the floor of a launch: the device time of a one-element
+    ``fill_``, the nearest PyTorch comes to an empty kernel. Prints one
+    JSON line."""
+    sys.path[0] = os.path.abspath(tree)
+    import numpy as np
+    import torch
+
+    from nnstreamer_tpu_torch.ops import detection as det
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.ops.kernels import nms as nk
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(["image_kernels", "nms"])
+    k1 = [{k: c[k] for k in ("case", "max_abs_err", "kernel_ms", "kernel_records",
+                             "kernel_stream_ms", "library_ms", "bound_ms")}
+          for c in k1_cases(torch, np, ik)]
+    saved = np.load(npz)
+    inputs = {"ssd-frame-1917": (saved["boxes"], saved["scores"]),
+              "synthetic-6300": synthetic_boxes(np, 6300, 6300),
+              "synthetic-25200": synthetic_boxes(np, 25200, 25200)}
+    k2 = []
+    for name, arrays in inputs.items():
+        boxes, scores = (torch.from_numpy(a).cuda() for a in arrays)
+        _, sboxes, sscores = det.rank(boxes, scores)
+        alive, _ = nk._cuda_nms(sboxes, sscores, NMS_IOU)
+        if not torch.equal(alive > 0, nk.plain_nms_mask(sboxes, sscores, NMS_IOU)):
+            raise AssertionError(f"ab {name}: kernel differs from plain")
+        ms, records, reps, stream_ms, one_ms = nms_times(torch, nk, sboxes, sscores)
+        k2.append({"case": name, "kernel_ms": ms, "kernel_records": records,
+                   "kernel_reps": reps, "kernel_stream_ms": stream_ms,
+                   "kernel_alone_ms": one_ms})
+    one = torch.empty(1, device="cuda")
+    floor_ms, floor_records = device_ms(torch, lambda x: x.fill_(1.0), [(one,)], 100,
+                                        per_launch=True)
+    emit({"ab_turn": os.path.abspath(tree), "k1": k1, "k2": k2,
+          "floor_fill1_ms": floor_ms, "floor_records": floor_records})
+    return 0
+
+
+def ab_main(parent: str) -> int:
+    """``--ab PARENT``: K1 and K2 of the checkout at PARENT against this
+    one's, on one card in four turns (parent, change, change, parent), each
+    a process of its own; prints each turn's line, then a summary of the
+    means and change / parent ratios."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(gpu_info(), flush=True)
+    boxes, scores = ssd_frame_candidates(torch, parse_pipeline, torch.device("cuda"))
+    turns = []
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "ssd_frame.npz")
+        np.savez(npz, boxes=boxes.cpu().numpy(), scores=scores.cpu().numpy())
+        for label, tree in (("parent", parent), ("change", here), ("change", here),
+                            ("parent", parent)):
+            run = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--ab-turn", tree, npz],
+                capture_output=True, text=True, timeout=900,
+            )
+            if run.returncode != 0:
+                print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
+                raise AssertionError(f"ab turn {label} failed (rc {run.returncode})")
+            turn = json.loads(run.stdout.strip().splitlines()[-1])
+            turn["label"] = label
+            emit(turn)
+            turns.append(turn)
+    summary = {}
+    for kernel in ("k1", "k2"):
+        for i, case in enumerate(turns[0][kernel]):
+            mean = {lab: sum(t[kernel][i]["kernel_ms"] for t in turns if t["label"] == lab) / 2
+                    for lab in ("parent", "change")}
+            summary[case["case"]] = {**mean, "ratio": mean["change"] / mean["parent"]}
+    emit({"ab_summary": summary,
+          "floor_fill1_ms": [t["floor_fill1_ms"] for t in turns]})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2188,26 +2356,7 @@ def main() -> int:
           "libraries": [str(p.name) for p in libs.values()]})
 
     # 2. kernels -------------------------------------------------------------
-    crop_boxes = np.array([
-        [0, 0, 1280, 720], [100.5, 50.25, 400.75, 300.5], [-20, -10, 200, 150],
-        [640, 360, 640, 360],  # degenerate
-        [900, 500, 1279, 719], [10, 600, 300, 719.5], [500, 0, 780, 720],
-        [1200.5, 700.5, 1300, 760],
-    ], np.float32)
-    cases = [
-        kernel_case(torch, np, ik, "resize-u8-720p-224", torch.uint8,
-                    (1, 720, 1280, 3), (224, 224)),
-        kernel_case(torch, np, ik, "resize-u8-720p-300", torch.uint8,
-                    (1, 720, 1280, 3), (300, 300)),
-        kernel_case(torch, np, ik, "resize-f32-480p-300", torch.float32,
-                    (2, 480, 640, 3), (300, 300)),
-        kernel_case(torch, np, ik, "resize-bf16-480p-300", torch.bfloat16,
-                    (2, 480, 640, 3), (300, 300)),
-        kernel_case(torch, np, ik, "crop-u8-720p-8box-112", torch.uint8,
-                    (720, 1280, 3), (112, 112), boxes=crop_boxes),
-        kernel_case(torch, np, ik, "resize-u8-720p-224-normalize", torch.uint8,
-                    (1, 720, 1280, 3), (224, 224), scale=1 / 255, offset=-0.5),
-    ]
+    cases = k1_cases(torch, np, ik)
     emit({"phase": "kernels", "cases": cases})
 
     # 3. pipeline ------------------------------------------------------------
@@ -2280,11 +2429,7 @@ def main() -> int:
     from nnstreamer_tpu_torch.ops import detection as det
     from nnstreamer_tpu_torch.ops.kernels import nms as nk
 
-    frame = parse_pipeline(SSD_FRAME, device=dev)
-    frame.run(timeout=600)
-    loc, cls = (torch.from_numpy(t).to(dev) for t in frame["out"].frames[0].tensors)
-    priors = torch.from_numpy(ssd_mobilenet.generate_anchors()).to(dev)
-    ssd_boxes, _, ssd_scores = det.ssd_candidates(loc[0], cls[0], priors)
+    ssd_boxes, ssd_scores = ssd_frame_candidates(torch, parse_pipeline, dev)
 
     def on_dev(boxes, scores):
         return torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
@@ -2306,6 +2451,12 @@ def main() -> int:
         nms_case(torch, det, nk, "synthetic-6300", *on_dev(*synthetic_boxes(np, 6300, 6300))),
         nms_case(torch, det, nk, "synthetic-25200", *on_dev(*synthetic_boxes(np, 25200, 25200))),
         nms_case(torch, det, nk, "ties-512", *on_dev(tie_boxes, tie_scores)),
+        # the word edges: one word short, one, one and a bit, two and a bit
+        *(nms_case(torch, det, nk, f"edge-n{n}",
+                   *on_dev(*synthetic_boxes(np, n, n, size=(0.05, 0.5))))
+          for n in (63, 64, 65, 129)),
+        nms_case(torch, det, nk, "dead-tail-2000",
+                 *on_dev(*synthetic_boxes(np, 2000, 2000, zero_below=0.9))),
     ]
     emit({"phase": "nms_kernels", "iou_threshold": NMS_IOU, "cases": nms_cases})
     ssd_case = nms_cases[2]
@@ -2445,6 +2596,8 @@ def main() -> int:
         "bound_ms": ssd_case["bound_ms"],
         "bound_by": ssd_case["bound_by"],
         "library_ms": None,  # no PyTorch call computes greedy NMS
+        "redesigned": "IoU bitmask in 64x64 tiles across the SMs, then a one-block scan "
+                      "of 64-bit words (one barrier a word block)",
     }, {
         "name": "decode_attention",
         "route": "cuda",
@@ -2494,4 +2647,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:
+        sys.exit(ab_turn(sys.argv[2], sys.argv[3]))
     sys.exit(main())
