@@ -15,7 +15,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  (torch.profiler; the stream time of back-to-back calls,
                  host dispatch gaps included, beside it), and the bound
                  (bytes over 3.35 TB/s vs float ops over 67 TFLOP/s, the
-                 larger).
+                 larger); and the crop entry at the routing phase's
+                 first region frame (16 boxes → 112x112).
 3. pipeline    — the image-labeling pipeline (1280x720 gradient frames →
                  resize 224 → MobileNet-v2 1.0/224/1001 → image_labeling)
                  for 32 frames on the GPU: K1 launched exactly once per
@@ -25,7 +26,21 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  source paced at 30 fps.
 4. profile     — device time by kernel over 16 labeling frames.
 5. single      — SingleShot invoke on the GPU, logits against the CPU's.
-6. nms_kernels — the greedy NMS kernel (K2: the mask kernel and the scan)
+6. routing     — the crop cascade routing-crop-720p: videotestsrc
+                 device=true (1280x720) → tee → queue → tensor_crop
+                 out-size=112:112 max-crops=16 (regions from an appsrc,
+                 numpy seed 9, 3 of 16 zero-size, 2 past the edge) and
+                 tee → queue → resize 224 → tensor_mux slowest →
+                 tensor_demux → two sinks, 32 frames: K1's crop entry and
+                 resize entry each launched once a frame, every sink
+                 tensor and the regions on the GPU, crops and thumbnails
+                 equal to the port's CPU run within K1's tolerance, the
+                 zero-size regions' rows all zero; fps, paced p50/p99,
+                 device-to-host copies a frame over 16 profiled frames (the
+                 sinks' own only) and device time by class; then the 16
+                 goldens of the element surface on CUDA tensors, byte for
+                 byte against tests/golden.
+7. nms_kernels — the greedy NMS kernel (K2: the mask kernel and the scan)
                  against its plain version on the same GPU inputs (registry
                  shapes n = 32 and 100, the 1917 candidates of a real SSD
                  output frame, n = 6300 and 25200, a case of tied scores,
@@ -36,17 +51,17 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  sum of both kernels' means) and plain device time (and one
                  call timed alone with CUDA events), time per greedy step,
                  the scan's word blocks (rounds), the workspace, the bound.
-7. detection   — the detection pipeline (1280x720 → resize 300 →
+8. detection   — the detection pipeline (1280x720 → resize 300 →
                  SSD-MobileNet-v2 → bounding_boxes postproc=device) for 32
                  frames: K1 and K2 each launched exactly once per frame,
                  the filter's outputs on the GPU, the first detections
                  equal to the port's own CPU run; fps and paced p50/p99;
                  then the host-render form (postproc=auto, RGBA overlay)
                  for 4 frames, K2 once per frame.
-8. detection_profile — device time by class over 16 detection frames.
-9. single_ssd  — SingleShot zoo:ssd_mobilenet_v2_pp (NMS inside the model)
+9. detection_profile — device time by class over 16 detection frames.
+10. single_ssd  — SingleShot zoo:ssd_mobilenet_v2_pp (NMS inside the model)
                  on the GPU against the CPU, K2 once per invoke.
-10. attn_kernels — the decode-attention kernel (K3: the split kernel and
+11. attn_kernels — the decode-attention kernel (K3: the split kernel and
                  its combine) against its plain version on the same GPU
                  inputs: the JAX kernel registry's shapes, a wrapped
                  absolute pos, the serving shape (B 8, H 32, KV 8, D 128,
@@ -59,7 +74,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  it, plain and library (scaled_dot_product_attention) time,
                  the bound (cache bytes over 3.35 TB/s), and the split
                  launch (chunk rows, splits, blocks, workspace bytes).
-11. serving    — ContinuousBatcher at Mistral-7B's published widths (32
+12. serving    — ContinuousBatcher at Mistral-7B's published widths (32
                  layers, d 4096, 32/8 heads, FFN 14336, vocab 32000),
                  float32, 8 slots, max_len 4096, prompt_len 512, random
                  weights from a seed: 16 greedy requests of 64 tokens
@@ -70,17 +85,17 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  the full forward; decode tok/s, TPOT p50/p99, TTFT p50,
                  a 16-step device profile; the same 8-request traffic
                  with attn_impl="xla" beside it.
-12. serving_int8 — the int8 cache at the same widths, 4 layers, bfloat16:
+13. serving_int8 — the int8 cache at the same widths, 4 layers, bfloat16:
                  K3 launches exact; teacher-forced on the batcher's
                  tokens, K3's greedy choices equal the inline attention's
                  on the same cache (near-ties exempt), in bfloat16 and in
                  float32, and the float32 logits agree.
-13. llm_pipeline — appsrc ! tensor_llm_serversink attn-impl=pallas ...
+14. llm_pipeline — appsrc ! tensor_llm_serversink attn-impl=pallas ...
                  tensor_llm_serversrc ! tensor_sink through parse_pipeline
                  on the GPU (Mistral attention widths, 2 layers): every
                  request back with its meta, K3 launches = layers x steps,
                  generations equal to a directly built batcher's.
-14. paged_kernels — the block-table decode-attention kernel (K4: the split
+15. paged_kernels — the block-table decode-attention kernel (K4: the split
                  kernel and its combine) against its plain version on the
                  same GPU inputs: the JAX kernel registry's shapes, pos 0
                  (the fresh column alone), pos past the table, NaN outside
@@ -88,11 +103,11 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  D 128, bs 16, nb 256, 1025 blocks, random tables) in
                  float32, bfloat16 and int8 at fills spread over the window
                  and at pos 600, one slot at pos 4095, and the instances of
-                 phase 10; error, kernel / stream / plain time, K3's time at
+                 phase 11; error, kernel / stream / plain time, K3's time at
                  the same fills, the bound, the split launch, and a gather +
                  scaled_dot_product_attention yardstick (two calls; no
                  PyTorch call attends through a block table).
-15. paged_serving — ContinuousBatcher(kv_layout="paged", block_size=16,
+16. paged_serving — ContinuousBatcher(kv_layout="paged", block_size=16,
                  kv_blocks=1024, attn_impl="pallas") at the same Mistral-7B
                  widths, 32 layers float32: 16 greedy requests of 64 tokens,
                  8 of them chat prompts behind one 256-token system prompt
@@ -104,17 +119,17 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  use after the drain; decode tok/s, TPOT, TTFT beside the
                  slot layout's, a 16-step device profile, the arena's GB,
                  and attn_impl="xla" on the same layout (8 requests).
-16. paged_preempt_int8 — 4 layers: a pool of 264 blocks (one max_len
+17. paged_preempt_int8 — 4 layers: a pool of 264 blocks (one max_len
                  request and a little) under 8 requests of 600-1200 prompt
                  tokens and 256 new ones, so decode growth preempts and
                  re-prefills; every stream equal to its unpreempted run
                  under the margin rule; then the int8 arena in bfloat16, K4
                  against the inline attention under the same rule.
-17. paged_pipeline — the llm_pipeline phase with kv-layout=paged
+18. paged_pipeline — the llm_pipeline phase with kv-layout=paged
                  block-size=16 kv-blocks=1024: K4 = layers x steps,
                  generations equal to a directly built paged batcher's, no
                  block in use at the end.
-18. flash_kernels — the flash prefill attention kernel (K5) against its
+19. flash_kernels — the flash prefill attention kernel (K5) against its
                  plain version on the same GPU inputs: the JAX kernel
                  registry's six shapes, the main path's B 1, T 4096, H 32,
                  D 128 causal in float32, bfloat16 and float16, T 1500 (a
@@ -126,7 +141,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  bytes), the CUDA-core float32 bound beside it, and
                  scaled_dot_product_attention on the same data (its kernel
                  named); then a CUDA call at D 12 raises with no launch.
-19. flash_forward — the no-cache forward (tokens [1, 4096] → logits) of
+20. flash_forward — the no-cache forward (tokens [1, 4096] → logits) of
                  Mistral-7B's published widths, 32 layers, with attn_fn =
                  K5 against dense attention, float32 and bfloat16 compute:
                  K5 = 32 launches a forward (dense 0), argmax agreement at
@@ -134,7 +149,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  the drift from the float32 forward, at most twice dense's),
                  ms a forward, prefill tokens/s, peak device memory, and a
                  device profile of one forward by class.
-20. flash_pipeline — appsrc ! tensor_filter model=zoo:transformer_lm
+21. flash_pipeline — appsrc ! tensor_filter model=zoo:transformer_lm
                  attn:flash (Mistral attention widths, 4 layers, the zoo's
                  FFN 4 x d) ! tensor_sink through parse_pipeline against the
                  same pipeline with attn:dense: K5 = 4 x frames, argmax
@@ -142,7 +157,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  compute_dtype:float16: K5 = 4 launches, finite logits, and
                  the flash forward's drift from the float32 dense logits at
                  most twice the dense float16 forward's.
-21. lm_int8w_beam — 4 layers at the same widths, quantize:int8w: the flash
+22. lm_int8w_beam — 4 layers at the same widths, quantize:int8w: the flash
                  forward against dense, the weight bytes against float32,
                  generate through a filter pipeline equal to decode.generate
                  on the same quantized module, decode=beam beam_width=1
@@ -201,6 +216,112 @@ SSD_FRAME = (
 NMS_IOU = 0.5
 NMS_OPS_PER_COLUMN = 12  # one masked IoU column: 4 min/max, 5 sub/mul, add, div, compare
 NMS_WORDS_CHECK_N = 2048  # up to this n, the kernel's mask words are held against the twin's
+# the routing phase: a detect → crop → per-object cascade beside a thumbnail
+# branch, without its models (the labeling cell's 720p source)
+ROUTING = (
+    "videotestsrc device=true pattern=gradient width=1280 height=720 num-frames={n}{live} "
+    "stamp-wall=true ! tensor_converter ! tee name=t "
+    "t. ! queue ! crop.sink_0 "
+    "appsrc name=regions dimensions=4:16 types=uint32 ! crop.sink_1 "
+    "tensor_crop name=crop out-size=112:112 max-crops=16 ! mux.sink_0 "
+    "t. ! queue ! tensor_transform mode=resize option=224:224 ! mux.sink_1 "
+    "tensor_mux name=mux sync-mode=slowest ! tensor_demux name=d "
+    "d.src_0 ! tensor_sink name=crops d.src_1 ! tensor_sink name=thumbs"
+)
+ROUTING_SINKS = ("crops", "thumbs")
+# the goldens of the routing and host-side element surface ({out}: the
+# dump, {fix}: tests/fixtures), each held to tests/golden/<name>.raw
+ROUTING_GOLDENS = {
+    "mux_slowest": (
+        "videotestsrc pattern=counter num-frames=4 width=4 height=4 framerate=20/1 ! "
+        "tensor_converter ! mux.sink_0 "
+        "videotestsrc pattern=gradient num-frames=2 width=4 height=4 framerate=10/1 ! "
+        "tensor_converter ! mux.sink_1 "
+        "tensor_mux name=mux sync-mode=slowest ! filesink location={out}"
+    ),
+    "mux_basepad": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 framerate=10/1 ! "
+        "tensor_converter ! mux.sink_0 "
+        "videotestsrc pattern=gradient num-frames=4 width=4 height=4 framerate=20/1 ! "
+        "tensor_converter ! mux.sink_1 "
+        "tensor_mux name=mux sync-mode=basepad sync-option=0:0 ! filesink location={out}"
+    ),
+    "mux_refresh": (
+        "videotestsrc pattern=counter num-frames=4 width=4 height=4 framerate=20/1 ! "
+        "tensor_converter ! mux.sink_0 "
+        "videotestsrc pattern=gradient num-frames=1 width=4 height=4 framerate=10/1 ! "
+        "tensor_converter ! mux.sink_1 "
+        "tensor_mux name=mux sync-mode=refresh ! filesink location={out}"
+    ),
+    "demux_tensorpick": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! "
+        "tensor_converter ! mux.sink_0 "
+        "videotestsrc pattern=gradient num-frames=2 width=4 height=4 ! "
+        "tensor_converter ! mux.sink_1 "
+        "tensor_mux name=mux sync-mode=nosync ! tensor_demux tensorpick=1 ! "
+        "filesink location={out}"
+    ),
+    "demux_grouped": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! "
+        "tensor_converter ! mux.sink_0 "
+        "videotestsrc pattern=gradient num-frames=2 width=4 height=4 ! "
+        "tensor_converter ! mux.sink_1 "
+        "videotestsrc pattern=solid num-frames=2 width=4 height=4 ! "
+        "tensor_converter ! mux.sink_2 "
+        "tensor_mux name=mux sync-mode=nosync ! tensor_demux tensorpick=0:1 ! "
+        "filesink location={out}"
+    ),
+    "split_merge": (
+        "videotestsrc pattern=counter num-frames=2 width=8 height=4 ! tensor_converter ! "
+        "tensor_split tensorseg=3:8:2:1,3:8:2:1 name=sp sp.src_0 ! m.sink_0 sp.src_1 ! m.sink_1 "
+        "tensor_merge name=m mode=linear option=2 sync-mode=nosync ! filesink location={out}"
+    ),
+    "if_branch": (
+        "videotestsrc pattern=counter num-frames=4 width=4 height=4 ! tensor_converter ! "
+        "tensor_transform mode=typecast option=float32 ! "
+        "tensor_if compared-value=TENSOR_AVERAGE_VALUE compared-value-option=0 operator=GT "
+        "supplied-value=1.5 then=PASSTHROUGH else=FILL_ZERO ! filesink location={out}"
+    ),
+    "if_fill_file": (
+        "videotestsrc pattern=counter num-frames=3 width=4 height=4 ! tensor_converter ! "
+        "tensor_if compared-value=TENSOR_AVERAGE_VALUE compared-value-option=0 operator=GE "
+        "supplied-value=1 then=PASSTHROUGH else=FILL_WITH_FILE_RPT "
+        "else-option={fix}/octet20.bin ! filesink location={out}"
+    ),
+    "rate_drop": (
+        "videotestsrc pattern=counter num-frames=6 width=4 height=4 framerate=20/1 ! "
+        "tensor_converter ! tensor_rate framerate=10/1 ! filesink location={out}"
+    ),
+    "aggregator_window": (
+        "videotestsrc pattern=counter num-frames=4 width=4 height=4 ! tensor_converter ! "
+        "tensor_aggregator frames-in=1 frames-out=2 frames-flush=2 ! filesink location={out}"
+    ),
+    "aggregator_overlap": (
+        "videotestsrc pattern=counter num-frames=5 width=4 height=4 ! tensor_converter ! "
+        "tensor_aggregator frames-in=1 frames-out=3 frames-flush=1 ! filesink location={out}"
+    ),
+    "sparse_roundtrip": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        "tensor_sparse_enc ! tensor_sparse_dec ! filesink location={out}"
+    ),
+    "converter_batch": (
+        "videotestsrc pattern=counter num-frames=4 width=4 height=4 ! "
+        "tensor_converter frames-per-tensor=2 ! filesink location={out}"
+    ),
+    "converter_octet": (
+        "filesrc location={fix}/octet20.bin blocksize=5 ! "
+        "tensor_converter input-dim=5 input-type=uint8 ! filesink location={out}"
+    ),
+    "converter_audio": (
+        "audiotestsrc samples-per-buffer=32 num-buffers=2 channels=2 ! "
+        "tensor_converter ! filesink location={out}"
+    ),
+    "videotestsrc_device": (
+        "videotestsrc pattern=gradient device=true num-frames=3 width=8 height=8 ! "
+        "tensor_converter ! tensor_transform mode=typecast option=uint8 ! "
+        "filesink location={out}"
+    ),
+}
 
 
 def emit(obj) -> None:
@@ -392,6 +513,144 @@ def run_pipeline(parse_pipeline, device, n, live=False, hook=None):
     labels = [int(f.tensors[0][0]) for f in frames]
     lat_ms = sorted((f.meta["render_t"] - f.meta["wall_t0"]) * 1e3 for f in frames)
     return labels, wall, lat_ms
+
+
+def routing_regions(np, n_frames):
+    """One [16, 4] uint32 (x, y, w, h) region frame a video frame, from
+    numpy seed 9: 3 of 16 zero-size, 2 running past the 1280x720 frame's
+    edge, the rest inside it."""
+    rng = np.random.default_rng(9)
+    frames = []
+    for _ in range(n_frames):
+        xy = np.stack([rng.integers(0, 1000, 16), rng.integers(0, 500, 16)], 1)
+        wh = np.stack([rng.integers(16, 280, 16), rng.integers(16, 220, 16)], 1)
+        wh[:3] = [[0, 40], [40, 0], [0, 0]]
+        xy[3:5] = [[1200, 650], [1000, 690]]
+        wh[3:5] = [[200, 150], [400, 100]]
+        frames.append(np.concatenate([xy, wh], 1).astype(np.uint32))
+    return frames
+
+
+def run_routing(parse_pipeline, device, regions, live=False, on_render=None):
+    """The routing description for len(regions) frames, the regions pushed
+    into its appsrc with the video's timestamps; returns (pipeline, wall s)."""
+    from nnstreamer_tpu_torch.tensors.frame import SECOND, Frame
+
+    p = parse_pipeline(
+        ROUTING.format(n=len(regions), live=" is-live=true framerate=30/1" if live else ""),
+        device=device,
+    )
+    p.negotiate()
+    if on_render is not None:
+        for name in ROUTING_SINKS:
+            render = p[name].render
+            p[name].render = lambda f, r=render: (on_render(f), r(f))
+    dur = int(SECOND / 30)
+    t0 = time.perf_counter()
+    ex = p.start()
+    for i, r in enumerate(regions):
+        p["regions"].push(Frame((r,), pts=i * dur, duration=dur), timeout=600)
+    p["regions"].end_of_stream()
+    done = ex.wait(600)
+    wall = time.perf_counter() - t0
+    ex.stop()
+    if ex.errors:
+        raise ex.errors[0]
+    if not done:
+        raise AssertionError("routing: the pipeline did not reach EOS in 600 s")
+    return p, wall
+
+
+def routing_phase(torch, np, dev, parse_pipeline, ik):
+    """Phase 6: the crop cascade (tee, queues, tensor_crop out-size → K1's
+    crop entry, resize → K1's resize entry, mux, demux) on the card, then
+    every golden of the element surface on CUDA tensors."""
+    from torch.profiler import ProfilerActivity, profile
+
+    regions = routing_regions(np, FRAMES)
+    run_routing(parse_pipeline, dev, regions[:4])  # warm-up
+    cpu, _ = run_routing(parse_pipeline, "cpu", regions[:4])
+    seen = set()
+
+    def on_render(frame):
+        seen.update(t.device.type for t in frame.tensors)
+        if "crop_regions" in frame.meta:
+            seen.add("regions:" + frame.meta["crop_regions"].device.type)
+
+    for c in (ik.crop_resize_launches, ik.crop_entry_launches, ik.resize_entry_launches):
+        c.reset()
+    p, wall = run_routing(parse_pipeline, dev, regions, on_render=on_render)
+    crop_k1, resize_k1 = ik.crop_entry_launches.count, ik.resize_entry_launches.count
+    if (crop_k1, resize_k1) != (FRAMES, FRAMES):
+        raise AssertionError(
+            f"routing: K1 crop entry {crop_k1}, resize entry {resize_k1} launches "
+            f"for {FRAMES} frames"
+        )
+    if seen != {dev.type, "regions:" + dev.type}:
+        raise AssertionError(f"routing: sink tensors and regions on {seen}, want {dev.type}")
+    crops, thumbs = (p[n].frames for n in ROUTING_SINKS)
+    if len(crops) != FRAMES or len(thumbs) != FRAMES:
+        raise AssertionError(f"routing: {len(crops)}/{len(thumbs)} frames of {FRAMES}")
+    tol = ik.interp_atol(torch.uint8, 720, 1280)
+    err = 0.0
+    for name, got in (("crops", crops), ("thumbs", thumbs)):
+        for g, c in zip(got, cpu[name].frames):
+            g, c = g.tensors[0], c.tensors[0]
+            if g.shape != c.shape or g.dtype != c.dtype:
+                raise AssertionError(f"routing {name}: {g.shape} {g.dtype} vs CPU {c.shape}")
+            err = max(err, float(np.abs(g.astype(np.int16) - c.astype(np.int16)).max()))
+    if not err <= tol:
+        raise AssertionError(f"routing: GPU vs CPU max abs err {err} > {tol}")
+    for f in crops:
+        if f.tensors[0].shape != (16, 112, 112, 3) or f.tensors[0][:3].any():
+            raise AssertionError("routing: zero-size regions must give all-zero rows")
+        if not f.tensors[0][3:].reshape(13, -1).any(1).all():
+            raise AssertionError("routing: a region with an area gave an all-zero row")
+    lat_free = sorted((f.meta["render_t"] - f.meta["wall_t0"]) * 1e3 for f in crops)
+    paced, _ = run_routing(parse_pipeline, dev, regions, live=True)
+    lat_live = sorted((f.meta["render_t"] - f.meta["wall_t0"]) * 1e3 for f in paced["crops"].frames)
+
+    n_prof = 16
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, prof_wall = run_routing(parse_pipeline, dev, regions[:n_prof])
+    from torch.autograd import DeviceType
+
+    d2h = sum(ev.count for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and "dtoh" in ev.key.lower())
+    # the sinks' own copies: one tensor a sink a frame; any more would be a
+    # frame or region tensor read back between the source and the sinks
+    if d2h > len(ROUTING_SINKS) * n_prof:
+        raise AssertionError(f"routing: {d2h} D2H copies over {n_prof} frames, "
+                             f"more than the sinks' {len(ROUTING_SINKS) * n_prof}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fix = os.path.join(here, "tests", "fixtures")
+    goldens = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, desc in ROUTING_GOLDENS.items():
+            out = os.path.join(tmp, f"{name}.raw")
+            parse_pipeline(desc.format(out=out, fix=fix), device=dev).run(timeout=120)
+            with open(out, "rb") as f, open(os.path.join(here, "tests", "golden",
+                                                         f"{name}.raw"), "rb") as g:
+                goldens[name] = f.read() == g.read()
+    if not all(goldens.values()):
+        raise AssertionError(f"routing goldens differ on CUDA: "
+                             f"{[n for n, ok in goldens.items() if not ok]}")
+    return {
+        "phase": "routing", "config": "routing-crop-720p", "frames": FRAMES,
+        "k1_crop_launches": crop_k1, "k1_resize_launches": resize_k1,
+        "sink_devices": sorted(seen),
+        "gpu_vs_cpu_max_abs_err": err, "tolerance": tol, "compared_frames": 4,
+        "fps": FRAMES / wall, "wall_s": wall,
+        "free_latency_ms_p50": pct(lat_free, 0.5), "free_latency_ms_p99": pct(lat_free, 0.99),
+        "paced30_latency_ms_p50": pct(lat_live, 0.5),
+        "paced30_latency_ms_p99": pct(lat_live, 0.99),
+        "d2h_records": d2h, "d2h_per_frame": d2h / n_prof,
+        "d2h_at_sinks_per_frame": len(ROUTING_SINKS),
+        "profile_frames": n_prof,
+        **profile_classes(torch, prof, prof_wall, [("crop_resize (K1)", "crop_resize")]),
+        "goldens_cuda_byte_exact": goldens,
+    }
 
 
 def nms_times(torch, nk, sboxes, sscores):
@@ -852,7 +1111,7 @@ def pct(sorted_vals, q):
 
 
 def k3_kernel_cases(torch, np, da):
-    """The attn_kernels phase's K3 cases (phase 10)."""
+    """The attn_kernels phase's K3 cases (phase 11)."""
     spread = [(i * 4095) // 7 for i in range(8)]
     return [
         # the JAX package's kernel registry shapes (decode_attention.py:359-381)
@@ -893,7 +1152,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     """Phases 10-13, the LLM serving slice on the slot layout. Returns (the
     K3 cases by name, K3 launches in the serving run, the serving run's
     TTFT p50/p99)."""
-    # 10. attn_kernels ---------------------------------------------------------
+    # 11. attn_kernels ---------------------------------------------------------
     from nnstreamer_tpu_torch.models import decode as dec
     from nnstreamer_tpu_torch.models import serving as sv
     from nnstreamer_tpu_torch.models import transformer as tfm
@@ -906,7 +1165,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     k3_cases = k3_kernel_cases(torch, np, da)
     emit({"phase": "attn_kernels", "cases": k3_cases})
 
-    # 11. serving: the full-width engine ----------------------------------------
+    # 12. serving: the full-width engine ----------------------------------------
     t0 = time.perf_counter()
     lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
     torch.cuda.synchronize()
@@ -1005,7 +1264,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     del lm
     torch.cuda.empty_cache()
 
-    # 12. serving_int8: int8 cache, bfloat16 compute, 4 layers ---------------------
+    # 13. serving_int8: int8 cache, bfloat16 compute, 4 layers ---------------------
     lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(1),
                           **dict(MISTRAL, n_layers=4), device=dev)
     cb8 = sv.ContinuousBatcher(lm4, n_heads, **SERVE, attn_impl="pallas", cache_dtype="int8",
@@ -1071,7 +1330,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     del lm4
     torch.cuda.empty_cache()
 
-    # 13. llm_pipeline: the element pair through parse_pipeline ------------------
+    # 14. llm_pipeline: the element pair through parse_pipeline ------------------
     pipe_prompts = [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32)
                     for n in rng.integers(32, 257, 12)]
     budgets = [16 if i % 3 == 0 else 32 for i in range(len(pipe_prompts))]
@@ -2235,7 +2494,17 @@ def k1_cases(torch, np, ik):
                     (720, 1280, 3), (112, 112), boxes=crop_boxes),
         kernel_case(torch, np, ik, "resize-u8-720p-224-normalize", torch.uint8,
                     (1, 720, 1280, 3), (224, 224), scale=1 / 255, offset=-0.5),
+        # the routing phase's crop: a region frame as tensor_crop hands it on
+        kernel_case(torch, np, ik, "crop-u8-720p-16box-112-routing", torch.uint8,
+                    (720, 1280, 3), (112, 112), boxes=routing_xyxy(np)),
     ]
+
+
+def routing_xyxy(np):
+    """The routing phase's first region frame as tensor_crop passes it to
+    K1: float32 pixel corners (x, y, x + w, y + h), zero-size ones kept."""
+    xywh = routing_regions(np, 1)[0].astype(np.float32)
+    return np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], 1)
 
 
 def ab_turn(tree: str, npz: str) -> int:
@@ -2424,7 +2693,11 @@ def main() -> int:
     emit({"phase": "single", "max_abs_err": err, "tolerance": tol,
           "top1": int(gpu_logits.argmax()), "invoke_ms_p50": sorted(times)[10]})
 
-    # 6. nms_kernels ---------------------------------------------------------
+    # 6. routing ---------------------------------------------------------------
+    routing = routing_phase(torch, np, dev, parse_pipeline, ik)
+    emit(routing)
+
+    # 7. nms_kernels ---------------------------------------------------------
     from nnstreamer_tpu_torch.models import ssd_mobilenet
     from nnstreamer_tpu_torch.ops import detection as det
     from nnstreamer_tpu_torch.ops.kernels import nms as nk
@@ -2461,7 +2734,7 @@ def main() -> int:
     emit({"phase": "nms_kernels", "iou_threshold": NMS_IOU, "cases": nms_cases})
     ssd_case = nms_cases[2]
 
-    # 7. detection -------------------------------------------------------------
+    # 8. detection -------------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
         priors_path = os.path.join(tmp, "box-priors.txt")
         ssd_mobilenet.write_box_priors(priors_path)
@@ -2520,7 +2793,7 @@ def main() -> int:
                             "boxes_first_frame": len(host_frames[0].meta["detections"])},
         })
 
-        # 8. detection_profile -------------------------------------------------
+        # 9. detection_profile -------------------------------------------------
         p = parse_pipeline(
             DET_PIPELINE.format(n=16, live="", priors=priors_path, pp="device"), device=dev
         )
@@ -2534,7 +2807,7 @@ def main() -> int:
         [("nms (K2)", "nms_kernel"), ("crop_resize (K1)", "crop_resize")],
     )})
 
-    # 9. single_ssd ------------------------------------------------------------
+    # 10. single_ssd ------------------------------------------------------------
     x = np.random.default_rng(1).integers(0, 256, (1, 300, 300, 3)).astype(np.uint8)
     invokes = 20
     with SingleShot(framework="torch", model="zoo:ssd_mobilenet_v2_pp", device=dev) as s:
@@ -2578,6 +2851,10 @@ def main() -> int:
         "source": "nnstreamer_tpu_torch/csrc/image_kernels.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/image_kernels.py:165",
         "launches": launches,
+        "launches_routing": {"crop_entry": routing["k1_crop_launches"],
+                             "resize_entry": routing["k1_resize_launches"]},
+        "routing_crop_case": {k: cases[-1][k] for k in (
+            "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],

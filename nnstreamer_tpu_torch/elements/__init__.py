@@ -2,8 +2,10 @@
 
 from nnstreamer_tpu_torch.elements.base import (  # noqa: F401
     Element,
+    HostElement,
     MediaSpec,
     NegotiationError,
+    Routing,
     Sink,
     Source,
     TensorOp,
@@ -15,3 +17,8 @@ from nnstreamer_tpu_torch.elements import filter as filter_elem  # noqa: F401
 from nnstreamer_tpu_torch.elements import decoder  # noqa: F401
 from nnstreamer_tpu_torch.elements import sink  # noqa: F401
 from nnstreamer_tpu_torch.elements import llm_serve  # noqa: F401
+from nnstreamer_tpu_torch.elements import flow  # noqa: F401
+from nnstreamer_tpu_torch.elements import routing  # noqa: F401
+from nnstreamer_tpu_torch.elements import control  # noqa: F401
+from nnstreamer_tpu_torch.elements import windowing  # noqa: F401
+from nnstreamer_tpu_torch.elements import sparse_elems  # noqa: F401

@@ -1,7 +1,6 @@
 """Element model: the composable stages of a pipeline.
 
-The counterpart of ``nnstreamer_tpu/elements/base.py``, reduced to what the
-image-labeling path needs:
+The counterpart of ``nnstreamer_tpu/elements/base.py``:
 
 - ``negotiate(in_specs) -> out_specs`` runs once at pipeline build time
   over the whole graph (topological order), producing static specs;
@@ -9,6 +8,12 @@ image-labeling path needs:
   (tensor_converter, tensor_transform, tensor_filter, tensor-math
   decoders). Consecutive TensorOps fuse into one callable per segment
   (pipeline/graph.py).
+- :class:`HostElement` — 1→1 per-frame element with its own state
+  (tensor_if, tensor_aggregator, tensor_rate, the sparse codecs): a
+  fusion barrier.
+- :class:`Routing` — N→M element with its own buffering and sync
+  (mux, demux, tee, merge, split, join, crop); its pad counts may be
+  request pads (``None``), fixed by the links at build time.
 - :class:`Source` / :class:`Sink` — stream endpoints.
 
 Media (non-tensor) links carry :class:`MediaSpec`; converters translate
@@ -56,6 +61,11 @@ class ElementError(RuntimeError):
     pass
 
 
+# Wildcard key: an element whose PROPERTIES contains PROPS_ANY accepts
+# arbitrary extra properties (capsfilter carries raw caps fields).
+PROPS_ANY = "*"
+
+
 @dataclass(frozen=True)
 class PropSpec:
     """Declared schema of one element property (GObject GParamSpec
@@ -75,13 +85,19 @@ def parse_bool(v) -> bool:
 
 
 class Element:
-    """Base element. Subclasses set N_SINKS/N_SRCS and implement
-    negotiate(). ``device`` is the pipeline's torch device, assigned when
-    the element is added to a :class:`~nnstreamer_tpu_torch.pipeline.graph.Pipeline`."""
+    """Base element. Subclasses set N_SINKS/N_SRCS (None = request pads,
+    decided at link time) and implement negotiate(). ``device`` is the
+    pipeline's torch device, assigned when the element is added to a
+    :class:`~nnstreamer_tpu_torch.pipeline.graph.Pipeline`."""
 
     FACTORY_NAME = "element"
-    N_SINKS: int = 1
-    N_SRCS: int = 1
+    N_SINKS: Optional[int] = 1
+    N_SRCS: Optional[int] = 1
+
+    # Pure plumbing (queue): never reads tensor bytes, so a host-path
+    # node passes its frames on where they are instead of moving them
+    # to the device.
+    DEVICE_PASSTHROUGH: bool = False
 
     PROPERTIES: Dict[str, PropSpec] = {
         "name": PropSpec("str", None, desc="element instance name"),
@@ -115,9 +131,12 @@ class Element:
         self.device = torch.device("cpu")
         self.queue_size = int(props.pop("queue-size", props.pop("queue_size", 64)))
         self.silent = parse_bool(props.pop("silent", True))
+        # downstream QoS publishers (tensor_rate's drop-ahead hint):
+        # producers consult these and skip frames the limiter would drop
+        self.qos_sources: List[Any] = []
         schema = self.property_schema()
         for k, v in props.items():
-            if k.replace("_", "-") not in schema:
+            if k.replace("_", "-") not in schema and PROPS_ANY not in schema:
                 raise ValueError(f"{self.name}: unknown property {k!r}")
             self.set_property(k, v)
 
@@ -136,6 +155,16 @@ class Element:
         self.in_specs = list(in_specs)
         self.out_specs = list(self.negotiate(list(in_specs)))
         return self.out_specs
+
+    def add_qos_source(self, qos: Any) -> None:
+        if qos not in self.qos_sources:
+            self.qos_sources.append(qos)
+
+    def qos_would_drop(self, frame: Frame) -> bool:
+        """True if a downstream rate limiter will certainly drop this
+        frame, so the producer may skip its work (the reference's upstream
+        QoS event, pulled instead of pushed)."""
+        return any(q.would_drop(frame.pts, frame.duration) for q in self.qos_sources)
 
     def start(self) -> None:
         """Transition to streaming (open devices/models). Idempotent."""
@@ -164,9 +193,33 @@ class TensorOp(Element):
         segment of its own (a fusion barrier)."""
         return True
 
-    def host_process(self, frame: Frame) -> Frame:
+    def host_process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
+        """Per-frame execution of a non-traceable op: a frame, a list of
+        frames, or None (absorbed, e.g. a batching converter mid-batch)."""
         out = self.make_fn()(frame.tensors)
         return frame.with_tensors(out)
+
+    def flush(self) -> List[Frame]:
+        """Called at EOS on the host path; emit any buffered frames."""
+        return []
+
+
+class HostElement(Element):
+    """1→1 host-path element with per-frame state (fusion barrier). Its
+    frames arrive as they were produced: torch tensors on the device
+    from a segment, numpy arrays from a source; an element that computes
+    on them moves them with :meth:`Frame.to_device` itself."""
+
+    N_SINKS = 1
+    N_SRCS = 1
+
+    def process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
+        """Process one frame; return 0..n output frames."""
+        raise NotImplementedError
+
+    def flush(self) -> List[Frame]:
+        """Called at EOS; emit any buffered frames."""
+        return []
 
 
 class Source(Element):
@@ -205,3 +258,28 @@ class Sink(Element):
         """The frame as numpy, cast to the negotiated input dtypes."""
         spec = self.in_specs[0] if self.in_specs else None
         return frame.to_host(spec if isinstance(spec, TensorsSpec) else None)
+
+
+class Routing(Element):
+    """N→M element owning its buffering/sync semantics (mux, demux, tee,
+    merge, split, join, crop). The executor feeds it per pad and forwards
+    its (src_pad, frame) emissions; EOS goes downstream once every sink
+    pad saw it."""
+
+    N_SINKS: Optional[int] = None
+    N_SRCS: Optional[int] = None
+
+    def set_pad_counts(self, n_sinks: int, n_srcs: int) -> None:
+        """Called at negotiation once the link counts are known (request
+        pads)."""
+        self._n_sinks = n_sinks
+        self._n_srcs = n_srcs
+
+    def receive(self, pad: int, frame: Frame) -> List[Tuple[int, Frame]]:
+        """Handle one input frame on ``pad``; return (src_pad, frame)
+        pairs to emit now."""
+        raise NotImplementedError
+
+    def eos(self, pad: int) -> List[Tuple[int, Frame]]:
+        """Handle EOS on ``pad``; return final emissions."""
+        return []

@@ -1,10 +1,11 @@
-"""Source elements: the deterministic video and tensor test sources, and
-appsrc.
+"""Source elements: the deterministic video, audio and tensor test
+sources, appsrc and filesrc.
 
 The counterpart of ``nnstreamer_tpu/elements/sources.py`` (videotestsrc /
-testsrc, tensorsrc, appsrc). Frames are born as host numpy arrays,
-byte-identical to the reference's patterns; the fused segment downstream
-moves them to the device once.
+testsrc, audiotestsrc, tensorsrc, appsrc, filesrc). Frames are born as host
+numpy arrays, byte-identical to the reference's patterns; the fused
+segment downstream moves them to the device once. ``videotestsrc
+device=true`` makes its pattern directly on the pipeline's device instead.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from fractions import Fraction
 from typing import Iterable, Iterator, Optional
 
 import numpy as np
+import torch
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.elements.base import (
@@ -48,8 +50,10 @@ class VideoTestSrc(Source):
     - ``counter``: every pixel = frame index % 256 (golden-test friendly)
 
     ``is-live=true`` paces generation at ``framerate`` (a camera's clock);
-    ``stamp-wall=true`` records the generation time in ``meta["wall_t0"]``
-    for sink-side end-to-end latency.
+    ``device=true`` makes each frame on the pipeline's device (one small
+    op a frame, the same bytes; ``random`` is drawn on the host and copied
+    up); ``stamp-wall=true`` records the generation time in
+    ``meta["wall_t0"]`` for sink-side end-to-end latency.
     """
 
     FACTORY_NAME = "videotestsrc"
@@ -69,6 +73,7 @@ class VideoTestSrc(Source):
         "framerate": PropSpec("fraction", "30/1"),
         "seed": PropSpec("int", 0, desc="rng seed for pattern=random"),
         "foreground-color": PropSpec("int", 128, desc="pattern=solid fill"),
+        "device": PropSpec("bool", False, desc="frames born on the pipeline's device"),
         "stamp-wall": PropSpec("bool", False, desc="record generation wall-clock"),
         "is-live": PropSpec("bool", False, desc="pace generation at framerate"),
     }
@@ -88,10 +93,11 @@ class VideoTestSrc(Source):
         self.seed = int(self.get_property("seed", 0))
         self.stamp_wall = parse_bool(self.get_property("stamp-wall", False))
         self.is_live = parse_bool(self.get_property("is-live", False))
+        self.on_device = parse_bool(self.get_property("device", False))
         self._t_live0 = None
         self._i = 0
         self._rng = np.random.default_rng(self.seed)
-        self._base = None  # host pattern base (uint8, wraps mod 256)
+        self._base = None  # pattern base (uint8, wraps mod 256), host or device
 
     def output_spec(self) -> Spec:
         return MediaSpec(
@@ -123,20 +129,28 @@ class VideoTestSrc(Source):
             self._base = np.full((h, w, c), color, np.uint8)
         else:
             self._base = None
+        if self.on_device and self._base is not None:
+            self._base = torch.from_numpy(self._base).to(self.device)
 
     def generate(self):
         if 0 <= self.num_frames <= self._i:
             return EOS_FRAME
         c = MediaSpec("video", format=self.format).channels_per_pixel
         h, w = self.height, self.width
+        shift = self._i % 256
         if self.pattern in ("smpte", "gradient"):
-            img = self._base + np.uint8(self._i % 256)
+            # uint8 + shift wraps mod 256 in numpy and in torch alike
+            img = self._base + (shift if self.on_device else np.uint8(shift))
         elif self.pattern == "solid":
             img = self._base
         elif self.pattern == "random":
             img = self._rng.integers(0, 256, (h, w, c), dtype=np.uint8)
-        else:  # counter
-            img = np.full((h, w, c), self._i % 256, np.uint8)
+            if self.on_device:
+                img = torch.from_numpy(img).to(self.device)
+        elif self.on_device:  # counter
+            img = torch.full((h, w, c), shift, dtype=torch.uint8, device=self.device)
+        else:
+            img = np.full((h, w, c), shift, np.uint8)
         pts, dur = _frame_pts(self._i, self.rate)
         if self.is_live and self.rate:
             # frame i is due at t0 + i/rate on the monotonic clock (no drift)
@@ -150,6 +164,57 @@ class VideoTestSrc(Source):
         if self.stamp_wall:
             meta["wall_t0"] = time.perf_counter()
         return Frame((img,), pts=pts, duration=dur, meta=meta)
+
+
+@registry.element("audiotestsrc")
+class AudioTestSrc(Source):
+    """Deterministic audio source: sine wave chunks of ``samples-per-buffer``
+    S16LE samples, ``channels`` interleaved. The sine is computed in
+    float64 on the host as the reference computes it, so the int16 bytes
+    are the same."""
+
+    FACTORY_NAME = "audiotestsrc"
+
+    PROPERTIES = {
+        "rate": PropSpec("int", 16000, desc="sample rate (Hz)"),
+        "channels": PropSpec("int", 1),
+        "samples-per-buffer": PropSpec("int", 1024),
+        "num-buffers": PropSpec("int", 10),
+        "freq": PropSpec("float", 440.0, desc="sine frequency (Hz)"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.sample_rate = int(self.get_property("rate", 16000))
+        self.channels = int(self.get_property("channels", 1))
+        self.spb = int(self.get_property("samples-per-buffer", 1024))
+        self.num_buffers = int(self.get_property("num-buffers", 10))
+        self.freq = float(self.get_property("freq", 440.0))
+        self._i = 0
+
+    def output_spec(self) -> Spec:
+        return MediaSpec(
+            "audio",
+            channels=self.channels,
+            sample_rate=self.sample_rate,
+            sample_format="S16LE",
+        )
+
+    def start(self) -> None:
+        self._i = 0
+
+    def generate(self):
+        if 0 <= self.num_buffers <= self._i:
+            return EOS_FRAME
+        t0 = self._i * self.spb
+        t = (np.arange(self.spb) + t0) / self.sample_rate
+        wave = np.sin(2 * np.pi * self.freq * t) * 0.5
+        samples = (wave * 32767).astype(np.int16)
+        chunk = np.repeat(samples[:, None], self.channels, axis=1)
+        pts = int(t0 * SECOND / self.sample_rate)
+        dur = int(self.spb * SECOND / self.sample_rate)
+        self._i += 1
+        return Frame((chunk,), pts=pts, duration=dur, meta={"media_type": "audio"})
 
 
 @registry.element("appsrc")
@@ -205,6 +270,52 @@ class AppSrc(Source):
             return self._queue.get(timeout=0.1)
         except queue.Empty:
             return None
+
+
+@registry.element("filesrc")
+class FileSrc(Source):
+    """Read a file as one octet buffer (or fixed ``blocksize`` chunks),
+    feeding tensor_converter's application/octet-stream path."""
+
+    FACTORY_NAME = "filesrc"
+
+    PROPERTIES = {
+        "location": PropSpec("str", "", desc="file path to read"),
+        "blocksize": PropSpec("int", 0, desc="0 = whole file in one buffer"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.location = str(self.get_property("location", ""))
+        self.blocksize = int(self.get_property("blocksize", 0))
+        self._file = None
+        self._done = False
+
+    def output_spec(self) -> Spec:
+        return MediaSpec("octet")
+
+    def start(self) -> None:
+        if not self.location:
+            raise ValueError(f"{self.name}: filesrc needs location=")
+        self._file = open(self.location, "rb")
+        self._done = False
+
+    def stop(self) -> None:
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+    def generate(self):
+        if self._done:
+            return EOS_FRAME
+        data = self._file.read(self.blocksize if self.blocksize > 0 else -1)
+        if self.blocksize <= 0:
+            self._done = True  # the whole file is one buffer
+        if not data:
+            self._done = True
+            return EOS_FRAME
+        arr = np.frombuffer(bytearray(data), dtype=np.uint8)
+        return Frame((arr,), meta={"media_type": "octet"})
 
 
 @registry.element("tensorsrc")

@@ -31,6 +31,10 @@ _IN_DTYPES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 
 #: launches of the K1 CUDA kernel (both entry points share it)
 crop_resize_launches = LaunchCounter()
+#: the same launches by entry point: crop_and_resize (boxes given) and
+#: resize_bilinear (the full image)
+crop_entry_launches = LaunchCounter()
+resize_entry_launches = LaunchCounter()
 
 
 def interp_atol(dtype: torch.dtype, h: int, w: int) -> float:
@@ -144,6 +148,7 @@ def _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype):
     if err != 0:
         raise RuntimeError(f"nns_crop_resize launch failed: cudaError_t {err}")
     crop_resize_launches.add()
+    (resize_entry_launches if boxes is None else crop_entry_launches).add()
     return out
 
 

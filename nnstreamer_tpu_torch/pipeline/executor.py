@@ -1,12 +1,20 @@
-"""Streaming executor: one thread per node, bounded queues between them.
+"""Streaming executor: one thread per node, bounded per-pad queues.
 
-The counterpart of ``nnstreamer_tpu/pipeline/executor.py``, with three
-node kinds only: sources, fused segments and sinks (GStreamer's
-streaming-thread model: pipeline parallelism across nodes, backpressure
-through the bounded queues). A source thread generates host frames, a
-segment thread moves each frame to the device and queues its work there,
-and a sink thread waits for the results and renders them, so the host
-work of frame N+1 overlaps the device work of frame N.
+The counterpart of ``nnstreamer_tpu/pipeline/executor.py`` with five node
+kinds: sources, fused segments, host elements, routing elements and sinks
+(GStreamer's streaming-thread model: pipeline parallelism across nodes,
+backpressure through the bounded queues). A source thread generates host
+frames, a segment thread moves each frame to the device and queues its
+work there, and a sink thread waits for the results and renders them, so
+the host work of frame N+1 overlaps the device work of frame N.
+
+Every node has one inbox per sink pad. A node's src pad fans out to every
+link of that pad (``outs[pad] → [(node, dst_pad)]``); a frame sent down
+two links is the same object on both, so no element writes its input in
+place. A routing node drains all of its pads in turn and sleeps until a
+producer notifies it, so a fan-in (tee → two queues → mux) never waits on
+one pad while the other's inbox is full. EOS leaves a node on every src
+pad, and a routing node sends it only after every sink pad saw it.
 
 The first error in any node stops every node; :meth:`Executor.wait`
 returns and :attr:`Executor.errors` holds it.
@@ -17,9 +25,9 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
-from nnstreamer_tpu_torch.elements.base import Element, Sink, Source
+from nnstreamer_tpu_torch.elements.base import Element, HostElement, Routing, Sink, Source
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.pipeline.graph import ExecPlan, FusedSegment
 from nnstreamer_tpu_torch.tensors.frame import EOS_FRAME
@@ -30,11 +38,12 @@ _POLL_S = 0.05  # bounded waits keep every thread responsive to stop()
 
 
 class _Node:
-    def __init__(self, ex: "Executor", name: str, inbox: Optional[queue.Queue]) -> None:
+    def __init__(self, ex: "Executor", name: str, n_inboxes: int, depth: int) -> None:
         self.ex = ex
         self.name = name
-        self.inbox = inbox
-        self.outbox: Optional[queue.Queue] = None
+        self.inboxes = [queue.Queue(maxsize=max(1, depth)) for _ in range(n_inboxes)]
+        # src pad → [(downstream node, its sink pad)]
+        self.outs: Dict[int, List[Tuple["_Node", int]]] = {}
         self.thread = threading.Thread(target=self._main, name=f"nns-{name}", daemon=True)
 
     def _main(self) -> None:
@@ -43,30 +52,63 @@ class _Node:
         except BaseException as exc:  # noqa: BLE001 — reported, never lost
             self.ex._fail(self.name, exc)
 
-    def get(self):
+    def notify(self) -> None:
+        """A producer put a frame into one of this node's inboxes."""
+
+    def get(self, pad: int = 0):
         while not self.ex._stop.is_set():
             try:
-                return self.inbox.get(timeout=_POLL_S)
+                return self.inboxes[pad].get(timeout=_POLL_S)
             except queue.Empty:
                 continue
         return None
 
-    def put(self, item) -> bool:
-        while not self.ex._stop.is_set():
-            try:
-                self.outbox.put(item, timeout=_POLL_S)
-                return True
-            except queue.Full:
-                continue
-        return False
+    def push_out(self, pad: int, item) -> bool:
+        """Send ``item`` down every link of src ``pad``; False once the
+        executor is stopping."""
+        for node, dst_pad in self.outs.get(pad, ()):
+            box = node.inboxes[dst_pad]
+            while True:
+                if self.ex._stop.is_set():
+                    return False
+                try:
+                    box.put(item, timeout=_POLL_S)
+                    break
+                except queue.Full:
+                    continue
+            node.notify()
+        return True
+
+    def push_all(self, items) -> bool:
+        """Send an element's output (a frame, a list, or None) on pad 0."""
+        if items is None:
+            return True
+        for f in items if isinstance(items, list) else [items]:
+            if not self.push_out(0, f):
+                return False
+        return True
+
+    def broadcast_eos(self) -> None:
+        for pad in self.outs:
+            self.push_out(pad, EOS_FRAME)
 
     def run(self) -> None:
         raise NotImplementedError
 
 
+def _qos_skip(elem: Element, frame) -> bool:
+    """True (and counted) when a downstream rate limiter will drop the
+    frame anyway."""
+    if elem.qos_would_drop(frame):
+        for q in elem.qos_sources:
+            q.skipped_upstream += 1
+        return True
+    return False
+
+
 class _SourceNode(_Node):
     def __init__(self, ex, elem: Source) -> None:
-        super().__init__(ex, elem.name, None)
+        super().__init__(ex, elem.name, 0, 1)
         self.elem = elem
 
     def run(self) -> None:
@@ -74,13 +116,16 @@ class _SourceNode(_Node):
             frame = self.elem.generate()
             if frame is None:  # nothing ready yet (appsrc, an LLM server): poll again
                 continue
-            if not self.put(frame) or frame is EOS_FRAME:
+            if frame is EOS_FRAME:
+                self.broadcast_eos()
+                return
+            if not self.push_out(0, frame):
                 return
 
 
 class _SegmentNode(_Node):
-    def __init__(self, ex, seg: FusedSegment, inbox: queue.Queue) -> None:
-        super().__init__(ex, seg.name, inbox)
+    def __init__(self, ex, seg: FusedSegment, depth: int) -> None:
+        super().__init__(ex, seg.name, 1, depth)
         self.seg = seg
 
     def run(self) -> None:
@@ -89,15 +134,80 @@ class _SegmentNode(_Node):
             if frame is None:
                 return
             if frame is EOS_FRAME:
-                self.put(frame)
+                if self.push_all(self.seg.first.flush() if not self.seg.fused else None):
+                    self.broadcast_eos()
                 return
-            if not self.put(self.seg.process(frame)):
+            if _qos_skip(self.seg.first, frame):
+                continue
+            if not self.push_all(self.seg.process(frame)):
                 return
+
+
+class _HostNode(_Node):
+    def __init__(self, ex, elem: HostElement, depth: int) -> None:
+        super().__init__(ex, elem.name, 1, depth)
+        self.elem = elem
+
+    def run(self) -> None:
+        while True:
+            frame = self.get()
+            if frame is None:
+                return
+            if frame is EOS_FRAME:
+                if self.push_all(self.elem.flush()):
+                    self.broadcast_eos()
+                return
+            if _qos_skip(self.elem, frame):
+                continue
+            if not self.push_all(self.elem.process(frame)):
+                return
+
+
+class _RoutingNode(_Node):
+    def __init__(self, ex, elem: Routing, n_sinks: int, depth: int) -> None:
+        super().__init__(ex, elem.name, n_sinks, depth)
+        self.elem = elem
+        # producers notify() on push, so an idle node sleeps until there
+        # is data instead of polling every pad
+        self._wake = threading.Event()
+
+    def notify(self) -> None:
+        self._wake.set()
+
+    def _emit(self, pairs) -> bool:
+        return all(self.push_out(pad, f) for pad, f in pairs)
+
+    def run(self) -> None:
+        eos_seen = [False] * len(self.inboxes)
+        while not all(eos_seen):
+            self._wake.clear()
+            progressed = False
+            for pad, box in enumerate(self.inboxes):
+                while not eos_seen[pad]:  # drain the pad without waiting
+                    try:
+                        item = box.get_nowait()
+                    except queue.Empty:
+                        break
+                    progressed = True
+                    if item is EOS_FRAME:
+                        eos_seen[pad] = True
+                        pairs = self.elem.eos(pad)
+                    else:
+                        pairs = self.elem.receive(pad, item)
+                    if not self._emit(pairs):
+                        return
+            if self.ex._stop.is_set():
+                return
+            if not progressed and not all(eos_seen):
+                # bounded, so a lost notify costs one period and stop()
+                # is still honoured
+                self._wake.wait(timeout=0.1)
+        self.broadcast_eos()
 
 
 class _SinkNode(_Node):
-    def __init__(self, ex, elem: Sink, inbox: queue.Queue) -> None:
-        super().__init__(ex, elem.name, inbox)
+    def __init__(self, ex, elem: Sink, depth: int) -> None:
+        super().__init__(ex, elem.name, 1, depth)
         self.elem = elem
         self.done = threading.Event()
 
@@ -117,7 +227,7 @@ class _SinkNode(_Node):
 class Executor:
     def __init__(self, plan: ExecPlan) -> None:
         self.plan = plan
-        self.pipeline = plan.pipeline
+        self.pipeline = p = plan.pipeline
         self.errors: List[BaseException] = []
         self._stop = threading.Event()
         self._finished = threading.Event()
@@ -125,11 +235,9 @@ class Executor:
         self.nodes: List[_Node] = []
         self.sinks: List[_SinkNode] = []
         self._started = False
-        # the node that owns each element, and the queue in front of it
+        # the node that owns each element (a fused segment's ops share one)
         node_of: Dict[Element, _Node] = {}
-        for e in self.pipeline._toposort():
-            ups = self.pipeline.in_links(e)
-            inbox = queue.Queue(maxsize=max(1, e.queue_size)) if ups else None
+        for e in p._toposort():
             seg = plan.seg_of.get(e)
             if seg is not None and e is not seg.first:
                 node_of[e] = node_of[seg.first]
@@ -137,16 +245,25 @@ class Executor:
             if isinstance(e, Source):
                 node = _SourceNode(self, e)
             elif seg is not None:
-                node = _SegmentNode(self, seg, inbox)
+                node = _SegmentNode(self, seg, e.queue_size)
+            elif isinstance(e, Routing):
+                node = _RoutingNode(self, e, p.n_sinks(e), e.queue_size)
+            elif isinstance(e, HostElement):
+                node = _HostNode(self, e, e.queue_size)
             elif isinstance(e, Sink):
-                node = _SinkNode(self, e, inbox)
+                node = _SinkNode(self, e, e.queue_size)
                 self.sinks.append(node)
             else:  # pragma: no cover - every ported element is one of the above
                 raise TypeError(f"{e.name}: no executor node for {type(e).__name__}")
-            for l in ups:
-                node_of[l.src].outbox = inbox
             node_of[e] = node
             self.nodes.append(node)
+        # wire each link from the node that emits its src pad (a segment
+        # emits what its last op emits) to the node that owns its sink pad
+        for l in p.links:
+            dst = node_of[l.dst]
+            if dst is node_of[l.src]:
+                continue  # a link inside a fused segment
+            node_of[l.src].outs.setdefault(l.src_pad, []).append((dst, l.dst_pad))
         if not self.sinks:
             self._finished.set()
 

@@ -5,8 +5,14 @@ The counterpart of ``nnstreamer_tpu/pipeline/graph.py``:
     Pipeline.add/link (or pipeline/parse.py from a description string)
     → negotiate(): one topological pass propagating TensorsSpec/MediaSpec
     → compile_plan(): FUSE maximal linear chains of TensorOps into one
-      torch callable per segment (:class:`FusedSegment`)
-    → Executor (pipeline/executor.py): one thread per node, bounded queues.
+      torch callable per segment (:class:`FusedSegment`); routing and
+      host elements, and ``queue`` (a thread boundary, as in GStreamer),
+      get nodes of their own
+    → Executor (pipeline/executor.py): one thread per node, bounded
+      per-pad queues, fan-out to every link of a src pad.
+
+Request pads: an element class with ``N_SINKS``/``N_SRCS`` of ``None``
+(tee, mux, demux, ...) takes as many pads as it has links, numbered from 0.
 
 A Pipeline lives on one ``torch.device`` (default ``cuda``; without a GPU
 it raises unless ``device="cpu"`` was asked for). Every element added to
@@ -16,7 +22,7 @@ it takes that device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -24,6 +30,7 @@ from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.elements.base import (
     Element,
     NegotiationError,
+    Routing,
     Spec,
     TensorOp,
 )
@@ -72,17 +79,17 @@ class Pipeline:
     ) -> "Pipeline":
         self.add(src, dst)
         if src_pad is None:
-            src_pad = len(self.out_links(src))
+            src_pad = _next_free({l.src_pad for l in self.links if l.src is src})
         if dst_pad is None:
-            dst_pad = len(self.in_links(dst))
+            dst_pad = _next_free({l.dst_pad for l in self.links if l.dst is dst})
         for l in self.links:
             if l.src is src and l.src_pad == src_pad:
                 raise ValueError(f"{src.name} src pad {src_pad} already linked")
             if l.dst is dst and l.dst_pad == dst_pad:
                 raise ValueError(f"{dst.name} sink pad {dst_pad} already linked")
-        if src_pad >= src.N_SRCS:
+        if src.N_SRCS is not None and src_pad >= src.N_SRCS:
             raise ValueError(f"{src.name} has no src pad {src_pad}")
-        if dst_pad >= dst.N_SINKS:
+        if dst.N_SINKS is not None and dst_pad >= dst.N_SINKS:
             raise ValueError(f"{dst.name} has no sink pad {dst_pad}")
         self.links.append(Link(src, src_pad, dst, dst_pad))
         return self
@@ -98,6 +105,12 @@ class Pipeline:
 
     def in_links(self, e: Element) -> List[Link]:
         return sorted((l for l in self.links if l.dst is e), key=lambda l: l.dst_pad)
+
+    def n_srcs(self, e: Element) -> int:
+        return e.N_SRCS if e.N_SRCS is not None else len(self.out_links(e))
+
+    def n_sinks(self, e: Element) -> int:
+        return e.N_SINKS if e.N_SINKS is not None else len(self.in_links(e))
 
     # -- negotiation -------------------------------------------------------
     def _toposort(self) -> List[Element]:
@@ -120,14 +133,17 @@ class Pipeline:
         """One topological pass: propagate specs, validate links (the
         reference's PAUSED-state caps negotiation)."""
         for e in self.elements:
-            for n_pads, links, what in (
-                (e.N_SINKS, self.in_links(e), "sink"),
-                (e.N_SRCS, self.out_links(e), "src"),
+            for n_pads, pads, what in (
+                (self.n_sinks(e), [l.dst_pad for l in self.in_links(e)], "sink"),
+                (self.n_srcs(e), [l.src_pad for l in self.out_links(e)], "src"),
             ):
-                if len(links) != n_pads:
+                # every pad linked once; request pads numbered 0..n-1
+                if pads != list(range(n_pads)):
                     raise NegotiationError(
-                        f"{e.name}: {len(links)}/{n_pads} {what} pads linked"
+                        f"{e.name}: {what} pads {pads} linked, want 0..{n_pads - 1}"
                     )
+            if isinstance(e, Routing):
+                e.set_pad_counts(self.n_sinks(e), self.n_srcs(e))
         for e in self._toposort():
             in_specs: List[Spec] = [l.src.out_specs[l.src_pad] for l in self.in_links(e)]
             try:
@@ -136,8 +152,40 @@ class Pipeline:
                 raise
             except Exception as exc:
                 raise NegotiationError(f"{e.name}: {exc}") from exc
+            if len(e.out_specs) != self.n_srcs(e):
+                raise NegotiationError(
+                    f"{e.name}: negotiated {len(e.out_specs)} specs for "
+                    f"{self.n_srcs(e)} src pads"
+                )
+        self._wire_qos()
         self._negotiated = True
         return self
+
+    def _wire_qos(self) -> None:
+        """Attach each tensor_rate's drop-ahead hint to its upstream linear
+        path, so producers there skip frames the rate limiter would drop.
+        The walk stops at fan-in and fan-out (a tee's other branches still
+        need the frame) and at any element that is not known to keep
+        timestamps 1:1 (filter, transform, queue)."""
+        from nnstreamer_tpu_torch.elements.filter import TensorFilter
+        from nnstreamer_tpu_torch.elements.flow import Queue
+        from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+        passthrough_timing = (TensorFilter, TensorTransform, Queue)
+        for e in self.elements:
+            qos = getattr(e, "qos", None)
+            if qos is None or not qos.enabled:
+                continue
+            cur = e
+            while True:
+                ins = self.in_links(cur)
+                if len(ins) != 1:
+                    break
+                up = ins[0].src
+                if len(self.out_links(up)) != 1 or not isinstance(up, passthrough_timing):
+                    break
+                up.add_qos_source(qos)
+                cur = up
 
     # -- plan: fuse linear TensorOp chains ---------------------------------
     def compile_plan(self) -> "ExecPlan":
@@ -150,9 +198,12 @@ class Pipeline:
                 continue
             fusable = e.is_traceable()
             ups = self.in_links(e)
-            up = ups[0].src if ups else None
+            up = ups[0].src if len(ups) == 1 else None
             prev = seg_of.get(up)
-            if fusable and prev is not None and prev.fused:
+            if (
+                fusable and prev is not None and prev.fused
+                and len(self.out_links(up)) == 1
+            ):
                 prev.ops.append(e)
                 seg_of[e] = prev
             else:
@@ -194,6 +245,13 @@ class Pipeline:
             self._executor.stop()
 
 
+def _next_free(used) -> int:
+    pad = 0
+    while pad in used:
+        pad += 1
+    return pad
+
+
 class FusedSegment:
     """A maximal linear chain of TensorOps run as ONE callable per frame.
 
@@ -201,7 +259,9 @@ class FusedSegment:
     segment's entry (:meth:`Frame.to_device`: pinned host memory,
     ``non_blocking``), then every op's fn runs on device tensors under
     ``torch.inference_mode``. A segment with ``fused=False`` holds one
-    non-traceable op and calls its ``host_process`` per frame."""
+    non-traceable op and calls its ``host_process`` per frame; an op that
+    never reads tensor bytes (``DEVICE_PASSTHROUGH``: queue) gets the frame
+    where it is."""
 
     def __init__(self, ops: List[TensorOp], device: torch.device, fused: bool = True) -> None:
         self.ops = ops
@@ -227,8 +287,11 @@ class FusedSegment:
 
         return composed
 
-    def process(self, frame: Frame) -> Frame:
-        frame = frame.to_device(self.device)
+    def process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
+        """The segment's output for one frame: a frame, or for an unfused
+        op whatever its ``host_process`` returns (a list, or None)."""
+        if not (self.first.DEVICE_PASSTHROUGH and not self.fused):
+            frame = frame.to_device(self.device)
         with torch.inference_mode():
             if not self.fused:
                 return self.first.host_process(frame)

@@ -9,7 +9,7 @@ This parser covers the practically-used grammar:
     chain    := node ( '!' node )*
     node     := element | caps | ref
     element  := NAME (key=value)*          # value may be 'quoted'
-    caps     := media/type[,key=value...]  # not ported yet: a ParseError
+    caps     := media/type[,key=value...]  # becomes a capsfilter
     ref      := NAME. | NAME.src_N | NAME.sink_N | NAME.N
 
 Branches: a chain starting with ``name.`` continues from that named
@@ -46,6 +46,36 @@ def _tokenize(description: str) -> List[str]:
     lex.whitespace_split = True
     lex.commenters = "#"
     return list(lex)
+
+
+def _parse_caps(token: str) -> Tuple[str, Dict[str, str]]:
+    parts = token.split(",")
+    media = parts[0]
+    fields: Dict[str, str] = {}
+    for p in parts[1:]:
+        if "=" not in p:
+            raise ParseError(f"bad caps field {p!r} in {token!r}")
+        k, v = p.split("=", 1)
+        # strip any '(type)' annotation: (string), (int), (fraction), ...
+        v = re.sub(r"^\([A-Za-z]\w*\)", "", v.strip())
+        fields[k.strip()] = v
+    return media, fields
+
+
+def _make_caps_element(media: str, fields: Dict[str, str]) -> Element:
+    cls = registry.get(registry.KIND_ELEMENT, "capsfilter")
+    props: Dict[str, str] = {}
+    if media in ("other/tensors", "other/tensor"):
+        for key, alias in (("dimensions", "dimension"), ("types", "type")):
+            if key in fields or alias in fields:
+                props[key] = fields.get(key, fields.get(alias))
+        for key in ("format", "framerate"):
+            if key in fields:
+                props[key] = fields[key]
+    else:
+        props["media"] = media.split("/", 1)[0]
+        props.update(fields)
+    return cls(**props)
 
 
 class _Builder:
@@ -172,7 +202,10 @@ def parse_pipeline(description: str, device: DeviceLike = None) -> Pipeline:
             b.pipeline.add(elem)
             instances.append(elem)
         elif item[0] == "caps":
-            raise ParseError(f"caps filters are not ported yet: {item[1]!r}")
+            media, fields = _parse_caps(item[1])
+            elem = _make_caps_element(media, fields)
+            b.pipeline.add(elem)
+            instances.append(elem)
         else:
             instances.append(None)
     # pass 2: wire links

@@ -45,6 +45,14 @@ def _to_numpy(t: Any, dtype: Optional[DType]) -> np.ndarray:
     return a
 
 
+def host_array(t: Any) -> np.ndarray:
+    """One tensor as a numpy array of its own dtype (a bfloat16 tensor as
+    an ``ml_dtypes.bfloat16`` array), for host codecs that need the type."""
+    if isinstance(t, torch.Tensor) and t.dtype is torch.bfloat16:
+        return _to_numpy(t, None).view(DType.BFLOAT16.np_dtype)
+    return _to_numpy(t, None)
+
+
 @dataclass
 class Frame:
     """One multi-tensor frame with stream timing and per-frame metadata.
@@ -80,6 +88,12 @@ class Frame:
         m.update(kw)
         return replace(self, meta=m)
 
+    def with_pts(self, pts: Optional[int], duration: Optional[int] = None) -> "Frame":
+        """Same payload and meta, new timing (tensor_rate's dup/drop)."""
+        return replace(
+            self, pts=pts, duration=self.duration if duration is None else duration
+        )
+
     def to_host(self, spec: Optional[TensorsSpec] = None) -> "Frame":
         """Materialize every tensor as numpy (egress boundary only), cast
         to the dtypes of ``spec`` when given."""
@@ -100,7 +114,10 @@ class Frame:
         out = []
         for t in self.tensors:
             if not isinstance(t, torch.Tensor):
-                t = torch.from_numpy(np.ascontiguousarray(t))
+                a = np.ascontiguousarray(t)
+                # a read-only array (np.frombuffer of bytes) is copied: the
+                # tensor would share memory it must not write
+                t = torch.from_numpy(a if a.flags.writeable else a.copy())
             if t.device != device:
                 if device.type == "cuda" and t.device.type == "cpu":
                     t = t.pin_memory().to(device, non_blocking=True)

@@ -75,6 +75,35 @@ def test_slice5_modules_import_alone(module):
     assert proc.stdout.strip() == ""
 
 
+@pytest.mark.parametrize("module", [
+    "nnstreamer_tpu_torch.elements.routing",
+    "nnstreamer_tpu_torch.elements.control",
+    "nnstreamer_tpu_torch.elements.flow",
+    "nnstreamer_tpu_torch.elements.windowing",
+    "nnstreamer_tpu_torch.elements.sparse_elems",
+    "nnstreamer_tpu_torch.pipeline.executor",
+    "nnstreamer_tpu_torch.tensors.meta",
+    "nnstreamer_tpu_torch.tensors.sparse",
+])
+def test_routing_modules_import_alone(module):
+    """The routing and host-side element surface, the executor and the
+    wire codecs load neither jax nor the reference package."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'nnstreamer_tpu'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
 def _py_files():
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
@@ -142,6 +171,8 @@ def test_kernel_wrapper_never_falls_back():
     without nvcc the kernel build itself raises instead of handing the work
     to the plain version."""
     before = image_kernels.crop_resize_launches.count
+    entries = (image_kernels.crop_entry_launches.count,
+               image_kernels.resize_entry_launches.count)
     img = torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta")
     with pytest.raises(RuntimeError, match="no implementation"):
         image_kernels.resize_bilinear(img, 4, 4)
@@ -152,6 +183,8 @@ def test_kernel_wrapper_never_falls_back():
                 None, None, torch.uint8,
             )
     assert image_kernels.crop_resize_launches.count == before
+    assert (image_kernels.crop_entry_launches.count,
+            image_kernels.resize_entry_launches.count) == entries
 
 
 def test_kernel_build_is_lazy_and_keyed_by_source():
