@@ -164,6 +164,36 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  equal to greedy, and a width-4 beam's score equal to the
                  teacher-forced log-prob of its tokens.
 
+Then the vision group (queue A.3), at the zoo's full default widths:
+
+10a. face_cascade — routing-crop-720p with its models: videotestsrc
+                 device=true 1280x720 → tee; queue → resize 128 →
+                 zoo:face_detect output=regions frame_size=1280:720
+                 threshold 0.0 → tensor_crop's regions; queue → its image;
+                 tensor_crop out-size=112:112 max-crops=16 →
+                 zoo:face_landmark batch 16 → sink, 32 frames: K1's crop
+                 and resize entries once a frame each, landmarks against
+                 the CPU run (1e-3), D2H copies only the sink's (16
+                 profiled frames), fps, paced p50/p99, device ms by class.
+10b. composite_fused — zoo:face_composite at 128 through a filter, float32
+                 and bfloat16: K1's crop entry once a frame on the float
+                 image, outputs against the CPU run, fps.
+10c. yolo_detection — 720p → resize 320 → zoo:yolov5 (80 classes, width
+                 32) → bounding_boxes yolov5 postproc=device: K1 and K2
+                 once a frame, K2 at n = 6300, detections equal to the CPU
+                 run's, fps, paced p50/p99, device ms by class.
+10d. pose_segment — zoo:posenet → pose_estimation heatmap-offset and
+                 zoo:deeplab_v3 → image_segment tflite-deeplab, postproc
+                 device, 257: against the CPU run, fps each.
+10e. mobilenet_int8 — zoo:mobilenet_v2 224/1001 quantize int8 and int8w:
+                 logits against the CPU (int8 10 % of max |logit|: quantum
+                 flips; int8w 1e-3), top-1 agreement with the float model,
+                 fps; int8 at size 96 (9-row int8 GEMMs) against the CPU.
+10f. vision_kernels — K1 at the composite's crop (its detector's boxes on
+                 128², float32 and bfloat16 → 16 x 112²) and at the face
+                 detector's 720p regions (uint8); K2 on a real YOLO frame's
+                 6300 candidates; each against its plain version.
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -2459,6 +2489,379 @@ def flash_phases(torch, np, dev, parse_pipeline):
     return k5_main, k5_launches
 
 
+# -- the vision families and cascades (queue A.3) ------------------------------
+
+LIVE = " is-live=true framerate=30/1"
+# routing-crop-720p with its two models: the detector's regions feed the crop
+FACE_CASCADE = (
+    "videotestsrc device=true pattern=gradient width=1280 height=720 num-frames={n}{live} "
+    "stamp-wall=true ! tensor_converter ! tee name=t "
+    "t. ! queue ! tensor_transform mode=resize option=128:128 ! "
+    "tensor_filter framework=torch model=zoo:face_detect "
+    'custom="output:regions,frame_size:1280:720,threshold:0.0" ! crop.sink_1 '
+    "t. ! queue ! crop.sink_0 "
+    "tensor_crop name=crop out-size=112:112 max-crops=16 ! "
+    'tensor_filter framework=torch model=zoo:face_landmark custom="batch:16" ! '
+    "tensor_sink name=out"
+)
+FACE_REGIONS = (
+    "videotestsrc device=true pattern=gradient width=1280 height=720 num-frames=1 ! "
+    "tensor_converter ! tensor_transform mode=resize option=128:128 ! "
+    "tensor_filter framework=torch model=zoo:face_detect "
+    'custom="output:regions,frame_size:1280:720,threshold:0.0" ! tensor_sink name=out'
+)
+COMPOSITE = (
+    "videotestsrc device=true pattern=gradient width=128 height=128 num-frames={n} ! "
+    "tensor_converter ! tensor_filter framework=torch model=zoo:face_composite "
+    'custom="threshold:0.0,compute_dtype:{dtype}" ! tensor_sink name=out'
+)
+_HD_RESIZE = (
+    "videotestsrc pattern=gradient width=1280 height=720 num-frames={n}{live} stamp-wall=true ! "
+    "tensor_converter ! tensor_transform mode=resize option={size}:{size} ! "
+)
+YOLO_PIPELINE = _HD_RESIZE.replace("{size}", "320") + (
+    "tensor_filter name=f framework=torch model=zoo:yolov5 ! "
+    "tensor_decoder mode=bounding_boxes option1=yolov5 option5=320:320 postproc=device ! "
+    "tensor_sink name=out"
+)
+POSE_PIPELINE = _HD_RESIZE.replace("{size}", "257") + (
+    "tensor_filter framework=torch model=zoo:posenet output-combination=o0,o1 ! "
+    "tensor_decoder mode=pose_estimation option1=640:480 option2=257:257 "
+    "option4=heatmap-offset postproc=device ! tensor_sink name=out"
+)
+SEG_PIPELINE = _HD_RESIZE.replace("{size}", "257") + (
+    "tensor_filter framework=torch model=zoo:deeplab_v3 ! "
+    "tensor_decoder mode=image_segment option1=tflite-deeplab postproc=device ! "
+    "tensor_sink name=out"
+)
+INT8_PIPELINE = _HD_RESIZE.replace("{size}", "224") + (
+    'tensor_filter framework=torch model=zoo:mobilenet_v2 custom="quantize:{q}" ! '
+    "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+)
+FACE_LMK_TOL = 1e-3  # a region a pixel over (int truncation) moves a landmark ~1e-4
+COMPOSITE_F32_TOL = 1e-4  # float32, cuDNN against the CPU's convs and K1 against plain
+POSE_TOL_PX = 1e-3  # keypoints in 640x480 pixels: float32 offsets
+SEG_FLIP_SHARE = 1e-3  # label pixels allowed to differ: argmax near-ties at class borders
+INT8_REL = 0.10  # of max |logit|: one-quantum flips grow through the int8 layers
+INT8W_REL = 1e-3  # of max |logit|: float32 products in another order
+
+
+def run_desc(parse_pipeline, desc, device, hook=None, counters=()):
+    """Build, negotiate (the models built and warmed outside the timing:
+    a filter runs its model once there), set ``counters`` to 0, run;
+    (pipeline, wall seconds). ``hook`` is a forward hook for the filter
+    named ``f``."""
+    p = parse_pipeline(desc, device=device)
+    p.negotiate()
+    for c in counters:
+        c.reset()
+    if hook is not None:
+        p["f"].backend.module.register_forward_hook(hook)
+    t0 = time.perf_counter()
+    p.run(timeout=600)
+    return p, time.perf_counter() - t0
+
+
+def out_tensors(p, i=0):
+    return [f.tensors[i] for f in p["out"].frames]
+
+
+def latencies(p):
+    """Source-to-sink latency (ms) of every frame, in frame order."""
+    return [(f.meta["render_t"] - f.meta["wall_t0"]) * 1e3 for f in p["out"].frames]
+
+
+def profiled(torch, parse_pipeline, desc, dev, extra):
+    """A 16-frame run under torch.profiler: (device time by class, D2H
+    copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p = parse_pipeline(desc, device=dev)
+    p.negotiate()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        wall = time.perf_counter() - t0
+    d2h = sum(ev.count for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and "dtoh" in ev.key.lower())
+    return profile_classes(torch, prof, wall, extra), d2h
+
+
+def sorted_cols(np, a):
+    """Rows sorted column by column: a comparison that a swap of two
+    near-tied top-k rows does not move."""
+    return np.sort(np.asarray(a, np.float64), axis=0)
+
+
+def max_err(np, a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def face_cascade_phase(torch, np, dev, parse_pipeline, ik):
+    """routing-crop-720p with its models: 720p → tee → resize 128 →
+    face_detect regions → tensor_crop's regions pad; the frame → its image
+    pad; 16 crops of 112² → face_landmark batch 16 → sink."""
+    def desc(n, live=False):
+        return FACE_CASCADE.format(n=n, live=LIVE if live else "")
+
+    run_desc(parse_pipeline, desc(4), dev)  # warm-up
+    cpu, _ = run_desc(parse_pipeline, desc(4), "cpu")
+    p, wall = run_desc(parse_pipeline, desc(FRAMES), dev,
+                       counters=(ik.crop_entry_launches, ik.resize_entry_launches))
+    crop_k1, resize_k1 = ik.crop_entry_launches.count, ik.resize_entry_launches.count
+    if (crop_k1, resize_k1) != (FRAMES, FRAMES):
+        raise AssertionError(f"face_cascade: K1 crop entry {crop_k1}, resize entry "
+                             f"{resize_k1} launches for {FRAMES} frames")
+    got = out_tensors(p)
+    if len(got) != FRAMES or any(g.shape != (16, 136) or not np.isfinite(g).all() for g in got):
+        raise AssertionError("face_cascade: want 32 finite [16, 136] landmark frames")
+    err = max(max_err(np, g, c) for g, c in zip(got, out_tensors(cpu)))
+    if not err <= FACE_LMK_TOL:
+        raise AssertionError(f"face_cascade: GPU vs CPU landmarks {err} > {FACE_LMK_TOL}")
+    lat_free = sorted(latencies(p))
+    paced, _ = run_desc(parse_pipeline, desc(FRAMES, live=True), dev)
+    lat_live = latencies(paced)
+    frame0, lat_live = lat_live[0], sorted(lat_live)
+    n_prof = 16
+    classes, d2h = profiled(torch, parse_pipeline, desc(n_prof), dev,
+                            [("crop_resize (K1)", "crop_resize")])
+    if d2h > n_prof:  # the sink's own copy, one a frame
+        raise AssertionError(f"face_cascade: {d2h} D2H copies over {n_prof} frames, "
+                             f"more than the sink's {n_prof}")
+    return {
+        "phase": "face_cascade", "config": "face-cascade-720p", "frames": FRAMES,
+        "k1_crop_launches": crop_k1, "k1_resize_launches": resize_k1,
+        "gpu_vs_cpu_max_abs_err": err, "tolerance": FACE_LMK_TOL, "compared_frames": 4,
+        "fps": FRAMES / wall, "wall_s": wall,
+        "free_latency_ms_p50": pct(lat_free, 0.5), "free_latency_ms_p99": pct(lat_free, 0.99),
+        "paced30_latency_ms_p50": pct(lat_live, 0.5),
+        "paced30_latency_ms_p99": pct(lat_live, 0.99), "paced30_latency_ms_frame0": frame0,
+        "d2h_records": d2h, "d2h_per_frame": d2h / n_prof, "d2h_at_sinks_per_frame": 1,
+        "profile_frames": n_prof, **classes,
+    }
+
+
+def composite_phase(torch, np, dev, parse_pipeline, ik):
+    """zoo:face_composite through a filter at 128², float32 then bfloat16:
+    K1's crop entry once a frame on the normalized float image."""
+    out, cpu32 = {}, None
+    for dtype in ("float32", "bfloat16"):
+        run_desc(parse_pipeline, COMPOSITE.format(n=2, dtype=dtype), dev)  # warm-up
+        cpu, _ = run_desc(parse_pipeline, COMPOSITE.format(n=2, dtype=dtype), "cpu")
+        p, wall = run_desc(parse_pipeline, COMPOSITE.format(n=FRAMES, dtype=dtype), dev,
+                           counters=(ik.crop_entry_launches, ik.crop_resize_launches))
+        launches = (ik.crop_entry_launches.count, ik.crop_resize_launches.count)
+        if launches != (FRAMES, FRAMES):
+            raise AssertionError(f"composite {dtype}: K1 launches {launches} for {FRAMES} frames")
+        errs, gates = [], []
+        for i in (0, 1):  # landmarks, detections
+            got, want = out_tensors(p, i)[:2], out_tensors(cpu, i)
+            if any(not np.isfinite(g).all() for g in got):
+                raise AssertionError(f"composite {dtype}: non-finite output {i}")
+            if dtype == "float32":
+                errs.append(max(max_err(np, g, w) for g, w in zip(got, want)))
+                gates.append(COMPOSITE_F32_TOL)
+            else:  # the gate: the CPU's own bfloat16 drift from its float32
+                # run, or one bfloat16 ulp at the output's scale if larger
+                errs.append(max(max_err(np, sorted_cols(np, g), sorted_cols(np, w))
+                                for g, w in zip(got, want)))
+                drift = max(max_err(np, sorted_cols(np, w), sorted_cols(np, f))
+                            for w, f in zip(want, out_tensors(cpu32, i)))
+                ulp = 2.0 ** -7 * max(float(np.abs(w).max()) for w in want)
+                gates.append(max(drift, ulp))
+        if not all(e <= g for e, g in zip(errs, gates)):
+            raise AssertionError(f"composite {dtype}: GPU vs CPU {errs} > {gates}")
+        if dtype == "float32":
+            cpu32 = cpu
+            det = out_tensors(p, 1)[0]
+        out[dtype] = {"k1_crop_launches": launches[0], "fps": FRAMES / wall, "wall_s": wall,
+                      "gpu_vs_cpu_max_abs_err": errs, "tolerance": gates}
+    boxes = (det[:, 3:7] * np.float32(128)).astype(np.float32)
+    return {"phase": "composite_fused", "frames": FRAMES, "size": 128, **out}, boxes
+
+
+def yolo_phase(torch, np, dev, parse_pipeline, ik, nk, det):
+    """720p → resize 320 → zoo:yolov5 (80 classes, width 32) → bounding_boxes
+    yolov5 postproc=device: K1 and K2 once a frame, K2 at n = 6300."""
+    def desc(n, live=False):
+        return YOLO_PIPELINE.format(n=n, live=LIVE if live else "")
+
+    run_desc(parse_pipeline, desc(4), dev)
+    cpu, _ = run_desc(parse_pipeline, desc(2), "cpu")
+    seen_n, preds = [], []
+    cuda_nms = nk._cuda_nms
+
+    def counting_nms(boxes, scores, iou, words=None):
+        seen_n.append(int(boxes.shape[0]))
+        return cuda_nms(boxes, scores, iou, words)
+
+    nk._cuda_nms = counting_nms
+    try:
+        p, wall = run_desc(parse_pipeline, desc(FRAMES), dev,
+                           hook=lambda m, i, o: preds.append(o),
+                           counters=(ik.crop_resize_launches, nk.nms_launches))
+    finally:
+        nk._cuda_nms = cuda_nms
+    k1, k2 = ik.crop_resize_launches.count, nk.nms_launches.count
+    if (k1, k2) != (FRAMES, FRAMES) or set(seen_n) != {6300}:
+        raise AssertionError(f"yolo: K1 {k1}, K2 {k2} launches for {FRAMES} frames, "
+                             f"K2 n {sorted(set(seen_n))}")
+    got = out_tensors(p)
+    err = 0.0
+    for g, c in zip(got[:2], out_tensors(cpu)):
+        if g.shape != (100, 6) or not np.isfinite(g).all():
+            raise AssertionError(f"yolo: bad detections {g.shape}")
+        if not np.array_equal(g[:, 4], c[:, 4]):
+            raise AssertionError("yolo: classes or their order differ from the CPU run")
+        err = max(err, max_err(np, g, c))
+    if not err <= 1e-5:
+        raise AssertionError(f"yolo: GPU vs CPU max abs err {err} > 1e-5")
+    paced, _ = run_desc(parse_pipeline, desc(FRAMES, live=True), dev)
+    lat = latencies(paced)
+    frame0, lat = lat[0], sorted(lat)
+    classes, _ = profiled(torch, parse_pipeline, desc(16), dev,
+                          [("nms (K2)", "nms_kernel"), ("crop_resize (K1)", "crop_resize")])
+    # the last frame's 6300 candidates, as the decoder ranks them
+    pred = preds[-1][0].to(torch.float32)
+    cls = pred[:, 5:] * pred[:, 4:5]
+    best = torch.amax(cls, dim=-1)
+    cx, cy, w, h = pred[:, 0], pred[:, 1], pred[:, 2], pred[:, 3]
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1).contiguous()
+    scores = torch.where(best >= det.YOLOV5_CONF_THRESHOLD, best, torch.zeros_like(best))
+    return {
+        "phase": "yolo_detection", "config": "yolov5-720p", "frames": FRAMES,
+        "k1_launches": k1, "k2_launches": k2, "k2_n": 6300,
+        "detections_first_frame": int((got[0][:, 5] > 0).sum()),
+        "gpu_vs_cpu_max_abs_err": err, "fps": FRAMES / wall, "wall_s": wall,
+        "paced30_latency_ms_p50": pct(lat, 0.5), "paced30_latency_ms_p99": pct(lat, 0.99),
+        "paced30_latency_ms_frame0": frame0, "profile_frames": 16, **classes,
+    }, (boxes, scores.contiguous())
+
+
+def pose_segment_phase(torch, np, dev, parse_pipeline, ik):
+    """posenet → pose_estimation heatmap-offset and deeplab_v3 →
+    image_segment tflite-deeplab, both at 257 with postproc=device."""
+    out = {}
+    for name, template in (("pose", POSE_PIPELINE), ("segment", SEG_PIPELINE)):
+        def desc(n):
+            return template.format(n=n, live="")
+
+        run_desc(parse_pipeline, desc(2), dev)
+        cpu, _ = run_desc(parse_pipeline, desc(2), "cpu")
+        p, wall = run_desc(parse_pipeline, desc(FRAMES), dev,
+                           counters=(ik.crop_resize_launches,))
+        k1 = ik.crop_resize_launches.count
+        if k1 != FRAMES:
+            raise AssertionError(f"{name}: K1 launched {k1} times for {FRAMES} frames")
+        got, want = out_tensors(p)[:2], out_tensors(cpu)
+        if name == "pose":
+            if any(g.shape != (17, 3) or not np.isfinite(g).all() for g in got):
+                raise AssertionError("pose: want finite [17, 3] keypoints")
+            err = max(max_err(np, g, w) for g, w in zip(got, want))
+            if not err <= POSE_TOL_PX:
+                raise AssertionError(f"pose: GPU vs CPU keypoints {err} > {POSE_TOL_PX} px")
+            out[name] = {"gpu_vs_cpu_max_abs_err_px": err, "tolerance_px": POSE_TOL_PX}
+        else:
+            if any(g.shape != (257, 257) or g.dtype != np.uint8 for g in got):
+                raise AssertionError("segment: want [257, 257] uint8 label maps")
+            share = max(float((g != w).mean()) for g, w in zip(got, want))
+            if not share <= SEG_FLIP_SHARE:
+                raise AssertionError(f"segment: {share} of labels differ from the CPU run")
+            out[name] = {"labels_differing_share": share, "tolerance": SEG_FLIP_SHARE,
+                         "classes_first_frame": int(len(np.unique(got[0])))}
+        out[name].update({"k1_launches": k1, "fps": FRAMES / wall, "wall_s": wall})
+    return {"phase": "pose_segment", "frames": FRAMES, "size": 257, **out}
+
+
+def int8_phase(torch, np, dev, parse_pipeline, ik):
+    """zoo:mobilenet_v2 (224, 1001 classes) with quantize:int8 and int8w:
+    logits against the CPU, top-1 against the float model, fps; and the
+    int8 golden's size 96 (9-row int8 GEMMs, padded) against the CPU."""
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    rng = np.random.default_rng(11)
+    xs = [rng.integers(0, 256, (1, 224, 224, 3)).astype(np.uint8) for _ in range(16)]
+
+    def logits(custom, device, images):
+        with SingleShot(framework="torch", model="zoo:mobilenet_v2", custom=custom,
+                        device=device) as s:
+            return [s.invoke(x)[0].cpu().numpy() for x in images]
+
+    float_top1 = [int(a.argmax()) for a in logits("", dev, xs)]
+    out = {}
+    for q, rel in (("int8", INT8_REL), ("int8w", INT8W_REL)):
+        gpu = logits(f"quantize:{q}", dev, xs)
+        cpu = logits(f"quantize:{q}", "cpu", xs[:2])
+        scale = max(float(np.abs(c).max()) for c in cpu)
+        err = max(max_err(np, g, c) for g, c in zip(gpu, cpu))
+        if not err <= rel * scale or any(g.argmax() != c.argmax() for g, c in zip(gpu, cpu)):
+            raise AssertionError(f"{q}: GPU vs CPU logits {err} > {rel * scale} or top-1 differs")
+        run_desc(parse_pipeline, INT8_PIPELINE.format(n=4, live="", q=q), dev)
+        _, wall = run_desc(parse_pipeline, INT8_PIPELINE.format(n=FRAMES, live="", q=q), dev,
+                           counters=(ik.crop_resize_launches,))
+        if ik.crop_resize_launches.count != FRAMES:
+            raise AssertionError(f"{q}: K1 not once a frame")
+        agree = sum(int(g.argmax()) == f for g, f in zip(gpu, float_top1)) / len(xs)
+        out[q] = {"gpu_vs_cpu_max_abs_err": err, "tolerance": rel * scale,
+                  "top1_agreement_with_float": agree, "fps": FRAMES / wall, "wall_s": wall}
+    small = [x[:, :96, :96] .copy() for x in xs[:2]]
+    custom = "quantize:int8,size:96,num_classes:16"
+    gpu, cpu = logits(custom, dev, small), logits(custom, "cpu", small)
+    err = max(max_err(np, g, c) for g, c in zip(gpu, cpu))
+    scale = max(float(np.abs(c).max()) for c in cpu)
+    if not err <= INT8_REL * scale:
+        raise AssertionError(f"int8 size 96: GPU vs CPU {err} > {INT8_REL * scale}")
+    out["int8_size96"] = {"gpu_vs_cpu_max_abs_err": err, "tolerance": INT8_REL * scale}
+    return {"phase": "mobilenet_int8", "size": 224, "classes": 1001, "images": len(xs), **out}
+
+
+def vision_k1_cases(torch, np, parse_pipeline, ik, dev, composite_boxes):
+    """K1 at the vision paths' crops: the composite's float crops (its own
+    detector's boxes on 128², float32 and bfloat16) and the 720p uint8
+    crop at the face detector's regions."""
+    frame = parse_pipeline(FACE_REGIONS, device=dev)
+    frame.run(timeout=600)
+    xywh = frame["out"].frames[0].tensors[0].astype(np.float32)
+    xyxy = np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], 1)
+    return [
+        kernel_case(torch, np, ik, "crop-f32-128-16box-112-composite", torch.float32,
+                    (128, 128, 3), (112, 112), boxes=composite_boxes),
+        kernel_case(torch, np, ik, "crop-bf16-128-16box-112-composite", torch.bfloat16,
+                    (128, 128, 3), (112, 112), boxes=composite_boxes),
+        kernel_case(torch, np, ik, "crop-u8-720p-16box-112-face", torch.uint8,
+                    (720, 1280, 3), (112, 112), boxes=xyxy),
+    ]
+
+
+def vision_phases(torch, np, dev, parse_pipeline, ik, nk, det):
+    """The vision phase group; returns what the kernel summary needs."""
+    cascade = face_cascade_phase(torch, np, dev, parse_pipeline, ik)
+    emit(cascade)
+    composite, composite_boxes = composite_phase(torch, np, dev, parse_pipeline, ik)
+    emit(composite)
+    yolo, (yboxes, yscores) = yolo_phase(torch, np, dev, parse_pipeline, ik, nk, det)
+    emit(yolo)
+    pose_seg = pose_segment_phase(torch, np, dev, parse_pipeline, ik)
+    emit(pose_seg)
+    emit(int8_phase(torch, np, dev, parse_pipeline, ik))
+    k1 = vision_k1_cases(torch, np, parse_pipeline, ik, dev, composite_boxes)
+    k2 = nms_case(torch, det, nk, "yolo-frame-6300", yboxes, yscores)
+    emit({"phase": "vision_kernels", "k1_cases": k1, "k2_cases": [k2]})
+    return {
+        "k1_launches": {
+            "face_cascade": {"crop_entry": cascade["k1_crop_launches"],
+                             "resize_entry": cascade["k1_resize_launches"]},
+            "composite_fused": {d: composite[d]["k1_crop_launches"]
+                                for d in ("float32", "bfloat16")},
+            "yolo": yolo["k1_launches"],
+            "pose": pose_seg["pose"]["k1_launches"],
+            "segment": pose_seg["segment"]["k1_launches"],
+        },
+        "k1_cases": k1, "k2_launches": yolo["k2_launches"], "k2_case": k2,
+    }
+
+
 def ssd_frame_candidates(torch, parse_pipeline, dev):
     """The 1917 (box, score) NMS candidates of one SSD output frame (the
     detection pipeline's source frame, through its resize and model)."""
@@ -2612,8 +3015,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = gpu_info()
     kind = torch.cuda.get_device_name(0)
+    # the host's cores and load: the pipelines' fps and latency are host-bound
     emit({"phase": "device", "nvidia_smi": smi, "kind": kind,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
 
     # 1. build -------------------------------------------------------------
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -2837,6 +3242,11 @@ def main() -> int:
           "tolerance": pp_tol, "k2_launches": pp_k2, "invokes": invokes + 1,
           "invoke_ms_p50": sorted(times)[invokes // 2]})
 
+    # 10a-10f. the vision families and cascades -------------------------------
+    emit({"phase": "host", "host_loadavg_1_5_15": os.getloadavg()})
+    vision = vision_phases(torch, np, dev, parse_pipeline, ik, nk, det)
+    torch.cuda.empty_cache()
+
     k3_by_name, k3_launches, slot_ttft = llm_phases(torch, np, dev, parse_pipeline)
     k3_main = k3_by_name["serve-f32-pos600"]
     k4_main, k4_launches = paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_ttft)
@@ -2855,6 +3265,10 @@ def main() -> int:
                              "resize_entry": routing["k1_resize_launches"]},
         "routing_crop_case": {k: cases[-1][k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+        "launches_vision": vision["k1_launches"],
+        "vision_cases": [{k: c[k] for k in (
+            "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for c in vision["k1_cases"]],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"],
         "plain_ms": main_case["plain_ms"],
@@ -2873,6 +3287,10 @@ def main() -> int:
         "bound_ms": ssd_case["bound_ms"],
         "bound_by": ssd_case["bound_by"],
         "library_ms": None,  # no PyTorch call computes greedy NMS
+        "launches_yolo": vision["k2_launches"],
+        "yolo_case": {k: vision["k2_case"][k] for k in (
+            "case", "n", "m", "kept", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
         "redesigned": "IoU bitmask in 64x64 tiles across the SMs, then a one-block scan "
                       "of 64-bit words (one barrier a word block)",
     }, {

@@ -1,3 +1,8 @@
 """Decoder subplugins. Importing registers the built-ins."""
 
-from nnstreamer_tpu_torch.decoders import bounding_box, image_labeling  # noqa: F401
+from nnstreamer_tpu_torch.decoders import (  # noqa: F401
+    bounding_box,
+    image_labeling,
+    image_segment,
+    pose,
+)

@@ -86,10 +86,6 @@ class _OnDevice:
         return t
 
 
-def _as_tensor(t) -> torch.Tensor:
-    return t if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
-
-
 @registry.decoder_plugin("bounding_boxes")
 class BoundingBoxDecoder:
     def __init__(self) -> None:
@@ -283,7 +279,7 @@ class BoundingBoxDecoder:
     def _detections(self, frame: Frame) -> torch.Tensor:
         """[max_out, 6] detections of one frame, computed on the device its
         tensors are on (a host frame decodes on the CPU)."""
-        ts = [_as_tensor(t).squeeze() for t in frame.tensors]
+        ts = [render.as_tensor(t).squeeze() for t in frame.tensors]
         return self._decode_fn()(ts)
 
     def decode(self, frame: Frame, options: dict) -> Frame:

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # Red 100% in RGBA — the reference's box color (tensordec-boundingbox.c:128)
 PIXEL_RGBA = (255, 0, 0, 255)
@@ -22,6 +23,11 @@ def load_labels(path: str) -> List[str]:
     """One label per line (tensordecutil.c loadImageLabels)."""
     with open(path) as f:
         return [line.strip() for line in f if line.strip()]
+
+
+def as_tensor(t) -> torch.Tensor:
+    """A frame tensor as a torch tensor where it is (numpy → CPU tensor)."""
+    return t if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
 
 
 def parse_wh(s: str, what: str) -> Tuple[int, int]:
@@ -145,3 +151,26 @@ def render_detections(
             name = labels[ci] if 0 <= ci < len(labels) else str(ci)
             draw_text(canvas, name, x1 * width, max(y1 * height - 12, 0))
     return canvas
+
+
+def voc_colormap(num_labels: int = 21) -> np.ndarray:
+    """The Pascal-VOC palette (the deeplab colours; the reference's
+    image-segment decoder sets grey or random ones)."""
+    cmap = np.zeros((num_labels, 3), np.uint8)
+    for i in range(num_labels):
+        c, r, g, b = i, 0, 0, 0
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        cmap[i] = (r, g, b)
+    return cmap
+
+
+def render_segmentation(label_map: np.ndarray, num_labels: int = 21) -> np.ndarray:
+    """[H, W] uint8 label map → RGBA (label 0, the background, transparent)."""
+    cmap = voc_colormap(max(num_labels, int(label_map.max()) + 1))
+    rgb = cmap[label_map]
+    alpha = np.where(label_map > 0, 255, 0).astype(np.uint8)[..., None]
+    return np.concatenate([rgb, alpha], axis=-1)

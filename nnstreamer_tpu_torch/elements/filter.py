@@ -8,12 +8,15 @@ converter → transform → filter → decoder runs as one callable with the
 tensors on the card throughout.
 
 Properties: framework, model, input/inputtype/inputname (input spec
-override), custom (backend options ``k:v,k2:v2``).
+override), custom (backend options ``k:v,k2:v2``), input-combination
+(which input tensors the model takes, ``i0,i2``) and output-combination
+(the frame out, from model outputs and input tensors: ``o0,i1,o2``),
+applied inside the fused callable.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.backends.base import Backend, FilterProps
@@ -24,6 +27,29 @@ from nnstreamer_tpu_torch.elements.base import (
     TensorOp,
 )
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
+
+Combination = Optional[List[Tuple[str, int]]]
+
+
+def _parse_combination(s: str) -> Combination:
+    """``'i0,o1,i2'`` → ``[('i', 0), ('o', 1), ('i', 2)]``; a bare index
+    (kind ``''``) means an input in input-combination and a model output
+    in output-combination. Empty → None (no rewiring)."""
+    s = (s or "").strip()
+    if not s:
+        return None
+    out = []
+    for part in s.split(","):
+        part = part.strip().lower()
+        if not part:
+            raise ValueError(f"empty token in combination string {s!r}")
+        if part[0] in ("i", "o") and part[1:].isdigit():
+            out.append((part[0], int(part[1:])))
+        elif part.isdigit():
+            out.append(("", int(part)))
+        else:
+            raise ValueError(f"bad combination token {part!r}")
+    return out
 
 
 @registry.element("tensor_filter")
@@ -37,6 +63,8 @@ class TensorFilter(TensorOp):
         "inputtype": PropSpec("str", "float32"),
         "inputname": PropSpec("str", ""),
         "custom": PropSpec("str", "", desc="backend options 'k:v,k2:v2'"),
+        "input-combination": PropSpec("str", "", desc="model inputs: 'i0,i2'"),
+        "output-combination": PropSpec("str", "", desc="frame out: 'o0,i1'"),
     }
 
     def __init__(self, name=None, **props):
@@ -64,6 +92,9 @@ class TensorFilter(TensorOp):
             input_spec=in_override,
             custom=str(self.get_property("custom", "")),
         )
+        self.in_combination = _parse_combination(str(self.get_property("input-combination", "")))
+        self.out_combination = _parse_combination(
+            str(self.get_property("output-combination", "")))
         self.backend: Optional[Backend] = None
 
     def _ensure_open(self) -> Backend:
@@ -89,12 +120,53 @@ class TensorFilter(TensorOp):
         if not spec.is_static:
             raise NegotiationError(f"{self.name}: flexible input is not ported yet")
         b = self._ensure_open()
+        model_in = self._select_model_inputs_spec(spec)
         cur_in, _ = b.get_model_info()
-        if cur_in.is_compatible(spec):
+        if cur_in.is_compatible(model_in):
             _, out = b.get_model_info()
         else:
-            out = b.set_input_info(spec)
-        return [out.with_rate(spec.rate)]
+            out = b.set_input_info(model_in)
+        return [self._compose_output_spec(spec, out).with_rate(spec.rate)]
+
+    def _select_model_inputs_spec(self, spec: TensorsSpec) -> TensorsSpec:
+        if self.in_combination is None:
+            return spec
+        picks = []
+        for kind, idx in self.in_combination:
+            if kind == "o":
+                raise NegotiationError(f"{self.name}: 'o' not valid in input-combination")
+            if idx >= spec.num_tensors:
+                raise NegotiationError(f"{self.name}: input-combination index {idx} out of range")
+            picks.append(spec[idx])
+        return TensorsSpec(tuple(picks), spec.format, spec.rate)
+
+    def _compose_output_spec(self, in_spec: TensorsSpec, model_out: TensorsSpec) -> TensorsSpec:
+        if self.out_combination is None:
+            return model_out
+        outs = []
+        for kind, idx in self.out_combination:
+            src = in_spec if kind == "i" else model_out
+            if idx >= src.num_tensors:
+                raise NegotiationError(
+                    f"{self.name}: output-combination index {idx} out of range")
+            outs.append(src[idx])
+        return TensorsSpec(tuple(outs), model_out.format, in_spec.rate)
+
+    def _apply_combinations(self, invoke: Callable) -> Callable:
+        """``invoke`` (model inputs → model outputs) wrapped to take and give
+        the frame's tensors under the pad combinations."""
+        in_comb, out_comb = self.in_combination, self.out_combination
+        if in_comb is None and out_comb is None:
+            return invoke
+
+        def fn(tensors: Tuple[Any, ...]) -> Tuple[Any, ...]:
+            model_in = tensors if in_comb is None else tuple(tensors[i] for _, i in in_comb)
+            model_out = tuple(invoke(model_in))
+            if out_comb is None:
+                return model_out
+            return tuple(tensors[i] if kind == "i" else model_out[i] for kind, i in out_comb)
+
+        return fn
 
     def is_traceable(self) -> bool:
         return self._ensure_open().traceable_fn() is not None
@@ -103,7 +175,8 @@ class TensorFilter(TensorOp):
         fn = self._ensure_open().traceable_fn()
         if fn is None:
             raise RuntimeError(f"{self.name}: backend not traceable")
-        return fn
+        return self._apply_combinations(fn)
 
     def host_process(self, frame):
-        return frame.with_tensors(self._ensure_open().invoke_timed(frame.tensors))
+        invoke = self._apply_combinations(self._ensure_open().invoke_timed)
+        return frame.with_tensors(tuple(invoke(frame.tensors)))

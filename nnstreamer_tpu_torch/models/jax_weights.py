@@ -28,6 +28,23 @@ from torch import nn
 
 BN_LEAVES = ("bias", "mean", "scale", "var")  # sorted: tree-flatten order
 
+#: skeletons of the reference's param subtrees (leaves None), for
+#: :func:`tree_paths`: a conv + batch norm, a ``sep_conv``, a biased conv
+#: or dense layer
+CONV_BN = {"w": None, "bn": dict.fromkeys(BN_LEAVES)}
+SEP_CONV = {"dw": CONV_BN, "pw": CONV_BN}
+BIASED = {"w": None, "b": None}
+
+
+def tree_paths(tree, prefix: Tuple = ()) -> List[Tuple]:
+    """Leaf paths of a param-tree skeleton in ``jax.tree_util`` flatten
+    order: dict keys sorted, lists in order, anything else a leaf."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], (*prefix, k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, (*prefix, i))]
+    return [prefix]
+
 
 def conv_bn_paths(prefix: Tuple) -> List[Tuple]:
     """Leaf paths of one ``{"w", "bn": {...}}`` conv in flatten order."""

@@ -20,11 +20,13 @@ import torch
 from torch import nn
 
 from nnstreamer_tpu_torch.models.jax_weights import (
-    conv_bn_paths,
+    BIASED,
+    CONV_BN,
     load_npz,
     state_dict_from_tree,
+    tree_paths,
 )
-from nnstreamer_tpu_torch.models.nn import ConvBN, init_dense
+from nnstreamer_tpu_torch.models.nn import ConvBN, init_dense, normalize_uint8
 
 # (expansion t, out channels c, repeats n, first stride s) — table 2 of the
 # paper (Sandler et al. 2018, arXiv:1801.04381)
@@ -91,26 +93,30 @@ class MobileNetV2(nn.Module):
         self.input_quant: Optional[Tuple[float, float]] = None
 
     def _input(self, x: torch.Tensor) -> torch.Tensor:
-        """uint8/float NHWC batch → normalized float32 NCHW view whose
-        memory stays channels-last."""
+        """uint8/float NHWC batch → normalized NCHW view in the compute
+        dtype (the weights' dtype) whose memory stays channels-last."""
+        dtype = self.stem.weight.dtype
         if x.dtype == torch.uint8:
-            x = x.to(torch.float32)
             if self.input_quant is not None:
                 scale, zp = self.input_quant
-                x = (x - zp) * scale
+                x = (x.to(dtype) - zp) * scale
             else:
-                x = (x - 127.5) / 127.5
+                x = normalize_uint8(x, dtype)
         else:
-            x = x.to(torch.float32)
+            x = x.to(dtype)
         return x.permute(0, 3, 1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """Stem and blocks: the 320-channel map before the head (NCHW)."""
         y = self.stem(self._input(x))
         for blk in self.blocks:
             y = blk(y)
-        y = self.head(y)
+        return y
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.head(self.trunk(x))
         y = y.mean(dim=(2, 3))  # global average pool
-        return self.classifier(y)
+        return self.classifier(y).to(torch.float32)
 
     def features(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """The two maps an SSD head taps (``nnstreamer_tpu/models/
@@ -129,22 +135,21 @@ class MobileNetV2(nn.Module):
 # -- weights carried over from the JAX package --------------------------------
 
 
+def jax_tree() -> Dict:
+    """Skeleton of the reference param tree (leaves None), for
+    :func:`~.jax_weights.tree_paths`."""
+    blocks = []
+    for t, _, n, _ in _INVERTED_RESIDUAL_CFG:
+        parts = ("expand", "dw", "project") if t != 1 else ("dw", "project")
+        blocks.extend([dict.fromkeys(parts, CONV_BN)] * n)
+    return {"stem": CONV_BN, "blocks": blocks, "head": CONV_BN, "classifier": BIASED}
+
+
 def jax_leaf_paths() -> List[Tuple]:
     """Paths of the reference param tree's leaves in ``jax.tree_util``
     flatten order (dict keys sorted, lists in order) — the ``p{i}`` order
     of a ``params:<npz>`` file."""
-    blocks = []
-    for t, _, n, _ in _INVERTED_RESIDUAL_CFG:
-        blocks.extend([t] * n)
-    paths: List[Tuple] = []
-    for i, t in enumerate(blocks):
-        names = ("dw", "expand", "project") if t != 1 else ("dw", "project")
-        for name in names:
-            paths.extend(conv_bn_paths(("blocks", i, name)))
-    paths += [("classifier", "b"), ("classifier", "w")]
-    paths += conv_bn_paths(("head",))
-    paths += conv_bn_paths(("stem",))
-    return paths
+    return tree_paths(jax_tree())
 
 
 def mobilenet_v2_from_jax(params) -> Dict[str, torch.Tensor]:

@@ -6,6 +6,11 @@ Convolutions are cuDNN convolutions through ``torch.nn.functional.conv2d``
 ``channels_last`` memory format, which is the NHWC layout of the
 reference in memory.
 
+A model runs in its ``compute_dtype`` (float32 or bfloat16) the way the
+reference's ``cast_params`` does: every float weight and batch-norm vector
+is cast (``module.to(dtype)``), the input is normalized in that dtype
+(:func:`image_input`), and the outputs are cast back to float32.
+
 Two numerics of the reference are kept on purpose:
 
 - TF-style ``SAME`` padding: a stride-2 3×3 conv on an even input pads
@@ -27,6 +32,34 @@ from torch import nn
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 6.0)
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(name: str) -> torch.dtype:
+    """``compute_dtype=`` option → torch dtype (float32 | bfloat16)."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r} (float32 | bfloat16)")
+    return COMPUTE_DTYPES[name]
+
+
+def normalize_uint8(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 [0, 255] → [-1, 1] in ``dtype``: ``(x - 127.5) / 127.5`` (the
+    reference's ``mobilenet_v2.normalize_uint8``)."""
+    return (x.to(dtype) - 127.5) / 127.5
+
+
+def image_input(x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8/float NHWC batch → normalized ``dtype`` NCHW view whose memory
+    stays channels-last (uint8 normalized, floats only cast)."""
+    x = normalize_uint8(x, dtype) if x.dtype == torch.uint8 else x.to(dtype)
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW (channels-last memory) → the reference's NHWC view."""
+    return x.permute(0, 2, 3, 1)
 
 
 def same_padding(n: int, k: int, stride: int, dilation: int = 1) -> Tuple[int, int]:
@@ -61,25 +94,63 @@ class ConvBN(nn.Module):
     def __init__(
         self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
         act: bool = True, eps: float = 1e-3,
-        generator: Optional[torch.Generator] = None,
+        generator: Optional[torch.Generator] = None, dilation: int = 1,
     ) -> None:
         super().__init__()
         self.stride, self.groups, self.act, self.eps = stride, groups, act, eps
-        fan_in = (cin // groups) * k * k
-        std = math.sqrt(2.0 / max(fan_in, 1))
-        w = torch.randn((cout, cin // groups, k, k), generator=generator) * std
-        self.weight = nn.Parameter(w, requires_grad=False)
+        self.dilation = dilation  # the atrous rate (DeepLab's output stride)
+        self.weight = nn.Parameter(init_conv(cin, cout, k, groups, generator),
+                                   requires_grad=False)
         self.register_buffer("scale", torch.ones(cout))
         self.register_buffer("bias", torch.zeros(cout))
         self.register_buffer("mean", torch.zeros(cout))
         self.register_buffer("var", torch.ones(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = conv2d_same(x, self.weight, self.stride, self.groups)
+        y = conv2d_same(x, self.weight, self.stride, self.groups, self.dilation)
         inv = torch.rsqrt(self.var + self.eps) * self.scale
         shift = self.bias - self.mean * inv
         y = y * inv[:, None, None] + shift[:, None, None]
         return relu6(y) if self.act else y
+
+
+def init_conv(cin: int, cout: int, k: int, groups: int = 1,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """OIHW conv weight with the reference's He init: N(0, 2/fan_in)."""
+    fan_in = (cin // groups) * k * k
+    std = math.sqrt(2.0 / max(fan_in, 1))
+    return torch.randn((cout, cin // groups, k, k), generator=generator) * std
+
+
+class SepConv(nn.Module):
+    """Depthwise 3×3 + pointwise 1×1, batch norm and ReLU6 after each (the
+    reference's ``sep_conv``: a MobileNet-v1 block). State ``dw.*`` and
+    ``pw.*`` as its ``{"dw": {...}, "pw": {...}}``."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, dilation: int = 1,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.dw = ConvBN(cin, cin, 3, stride=stride, groups=cin, generator=generator,
+                         dilation=dilation)
+        self.pw = ConvBN(cin, cout, 1, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pw(self.dw(x))
+
+
+class BiasConv(nn.Module):
+    """A biased SAME conv (no batch norm, no activation): a detection head.
+    State ``weight`` [O, I, k, k] and ``bias`` [O], as the reference's
+    ``{"w", "b"}``."""
+
+    def __init__(self, cin: int, cout: int, k: int,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(init_conv(cin, cout, k, 1, generator), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_same(x, self.weight) + self.bias[:, None, None]
 
 
 def init_dense(cin: int, cout: int, generator: Optional[torch.Generator] = None) -> nn.Linear:

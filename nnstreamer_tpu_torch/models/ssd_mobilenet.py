@@ -128,7 +128,8 @@ class ExtraLayer(nn.Module):
 
 class SSDMobileNetV2(nn.Module):
     """uint8/float NHWC [N, 300, 300, 3] → (locations [N, 1917, 4],
-    scores [N, 1917, num_classes]), float32."""
+    scores [N, 1917, num_classes]), float32 whatever the compute dtype
+    (the weights' dtype)."""
 
     def __init__(
         self, num_classes: int = NUM_CLASSES, generator: Optional[torch.Generator] = None
@@ -165,7 +166,8 @@ class SSDMobileNetV2(nn.Module):
             # NCHW (channels-last memory) → NHWC rows (y, x, anchor)
             locs.append(lh(fmap).permute(0, 2, 3, 1).reshape(n, -1, 4))
             scores.append(ch(fmap).permute(0, 2, 3, 1).reshape(n, -1, self.num_classes))
-        return torch.cat(locs, dim=1), torch.cat(scores, dim=1)
+        return (torch.cat(locs, dim=1).to(torch.float32),
+                torch.cat(scores, dim=1).to(torch.float32))
 
 
 class SSDMobileNetV2PP(nn.Module):

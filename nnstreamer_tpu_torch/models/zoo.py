@@ -2,19 +2,32 @@
 backend (``model=zoo:<name>``).
 
 The counterpart of ``nnstreamer_tpu/models/zoo.py`` for ``mobilenet_v2``,
-``ssd_mobilenet_v2``, ``ssd_mobilenet_v2_pp``, ``add`` and
-``transformer_lm``. Options come
-from the filter's ``custom=`` string:
+``ssd_mobilenet_v2``, ``ssd_mobilenet_v2_pp``, ``yolov5``, ``posenet``,
+``deeplab_v3``, ``face_detect``, ``face_landmark``, ``face_composite``,
+``add`` and ``transformer_lm``. Options come from the filter's
+``custom=`` string. Every vision model takes ``seed`` (a
+``torch.Generator`` seed — these random weights are NOT the JAX
+package's, whose generator differs), ``params:<path.npz>`` (leaves
+``p{i}`` in the reference's tree-flatten order: the way to run the JAX
+weights here), ``input_dtype`` and ``compute_dtype`` (float32 |
+bfloat16), and:
 
 - mobilenet_v2: ``size``, ``num_classes``, ``width``, ``batch``,
-  ``input_dtype``, ``seed`` (a ``torch.Generator`` seed — these random
-  weights are NOT the JAX package's, whose generator differs) and
-  ``params:<path.npz>`` (leaves ``p{i}`` in the reference's tree-flatten
-  order: the way to run the JAX weights here);
-- ssd_mobilenet_v2: ``seed``, ``batch``, ``num_classes``, ``input_dtype``,
-  ``params``, ``compute_dtype`` (float32 only: bfloat16 is not ported yet);
-- ssd_mobilenet_v2_pp (batch 1, 91 classes): ``seed``, ``max_out``,
-  ``threshold``, ``input_dtype``, ``params``, ``compute_dtype``;
+  ``quantize=int8|int8w`` (``models/quantize.py``; int8 calibrates on
+  ``calib_batches`` seeded batches, default 2);
+- ssd_mobilenet_v2: ``batch``, ``num_classes``;
+- ssd_mobilenet_v2_pp (batch 1, 91 classes): ``max_out``, ``threshold``;
+- yolov5: ``size`` (a multiple of 32, default 320), ``num_classes`` (80),
+  ``width`` (32), ``batch``;
+- posenet, deeplab_v3 (257 × 257): ``batch``;
+- face_detect (batch 1, 128 × 128): ``output=ov|regions|regions+image``,
+  ``threshold`` (0.5), ``frame_size=W:H`` (the regions' frame, default
+  128:128), ``max_faces`` (16);
+- face_landmark: ``batch``, ``size`` (112);
+- face_composite (batch 1): ``size`` (128), ``threshold``, ``max_faces``;
+  its ``params`` npz is the whole ``{"detect", "landmark"}`` tree, the
+  detector's leaves first (an npz of the detector alone overlays it
+  alone, as in the reference, which overlays the detector only);
 - add: ``const``, ``dims``;
 - transformer_lm: ``seed``, ``vocab``, ``d_model``, ``n_heads``,
   ``n_layers``, ``n_kv_heads``, ``batch``, ``seqlen``, ``params``,
@@ -42,10 +55,12 @@ from torch import nn
 
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
+from nnstreamer_tpu_torch.models import deeplab_v3, posenet, ssd_mobilenet, yolo
+from nnstreamer_tpu_torch.models import face_pipeline as fp
 from nnstreamer_tpu_torch.models import quantize as qz
-from nnstreamer_tpu_torch.models import ssd_mobilenet
 from nnstreamer_tpu_torch.models import transformer as tfm
-from nnstreamer_tpu_torch.models.jax_weights import load_transformer_npz
+from nnstreamer_tpu_torch.models.jax_weights import load_npz, load_transformer_npz
+from nnstreamer_tpu_torch.models.nn import compute_dtype_of
 from nnstreamer_tpu_torch.models.mobilenet_v2 import (  # noqa: F401
     MobileNetV2,
     load_jax_npz,
@@ -115,24 +130,58 @@ def _add(device: torch.device, **options) -> ZooModel:
     return ZooModel("add", _Add(const).to(device), spec, device)
 
 
+_VISION = ("seed", "params", "input_dtype", "compute_dtype")
+
+
+def _generator(options) -> torch.Generator:
+    return torch.Generator().manual_seed(int(options.get("seed", 0)))
+
+
+def _load(model: nn.Module, options, paths) -> nn.Module:
+    if options.get("params"):
+        load_npz(model, options["params"], paths)
+    return model
+
+
+def _on(model: nn.Module, device: torch.device, options) -> nn.Module:
+    """float32 weights → eval mode on ``device`` in the compute dtype,
+    activations in ``channels_last`` memory (the reference's NHWC)."""
+    dtype = compute_dtype_of(options.get("compute_dtype", "float32"))
+    return model.eval().to(device=device, dtype=dtype, memory_format=torch.channels_last)
+
+
 @model_factory(
     "mobilenet_v2",
-    ("seed", "num_classes", "width", "batch", "size", "input_dtype", "params"),
+    _VISION + ("num_classes", "width", "batch", "size", "quantize", "calib_batches"),
 )
 def _mobilenet_v2(device: torch.device, **options) -> ZooModel:
-    gen = torch.Generator().manual_seed(int(options.get("seed", 0)))
     model = MobileNetV2(
         num_classes=int(options.get("num_classes", 1001)),
         width=float(options.get("width", 1.0)),
-        generator=gen,
+        generator=_generator(options),
     )
     if options.get("params"):
         load_jax_npz(model, options["params"])
-    model = model.eval().to(device=device, memory_format=torch.channels_last)
-    spec = _image_spec(
-        int(options.get("batch", 1)), int(options.get("size", 224)),
-        options.get("input_dtype", "uint8"),
-    )
+    batch, size = int(options.get("batch", 1)), int(options.get("size", 224))
+    quantize = options.get("quantize", "")
+    if quantize not in ("", "int8", "int8w"):
+        raise ValueError(f"zoo:mobilenet_v2: quantize {quantize!r} (int8 | int8w)")
+    if "calib_batches" in options and quantize != "int8":
+        raise ValueError("zoo:mobilenet_v2: calib_batches goes with quantize:int8")
+    if quantize:
+        dtype = compute_dtype_of(options.get("compute_dtype", "float32"))
+        folded = qz.fold_mobilenet(model.eval())
+        if quantize == "int8":
+            calib = qz.calibration_batches(int(options.get("seed", 0)),
+                                           int(options.get("calib_batches", 2)), batch, size)
+            scales = qz.calibrate_mobilenet(folded, (torch.from_numpy(c) for c in calib))
+            model = qz.quantize_mobilenet(folded, scales, dtype)
+        else:
+            model = qz.quantize_mobilenet_weights(folded, dtype)
+        model = model.eval().to(device=device)
+    else:
+        model = _on(model, device, options)
+    spec = _image_spec(batch, size, options.get("input_dtype", "uint8"))
     return ZooModel("mobilenet_v2", model, spec, device)
 
 
@@ -142,33 +191,19 @@ def _image_spec(batch: int, size: int, in_dtype: str) -> TensorsSpec:
     )
 
 
-def _check_float32(name: str, options) -> None:
-    compute = options.get("compute_dtype", "float32")
-    if compute != "float32":
-        raise ValueError(
-            f"zoo:{name}: compute_dtype {compute!r} is not ported yet (float32 only)"
-        )
-
-
 def _ssd(options, num_classes: int) -> ssd_mobilenet.SSDMobileNetV2:
-    gen = torch.Generator().manual_seed(int(options.get("seed", 0)))
-    model = ssd_mobilenet.SSDMobileNetV2(num_classes=num_classes, generator=gen)
+    model = ssd_mobilenet.SSDMobileNetV2(num_classes=num_classes, generator=_generator(options))
     if options.get("params"):
         ssd_mobilenet.load_jax_npz(model, options["params"])
     return model
 
 
-@model_factory(
-    "ssd_mobilenet_v2",
-    ("seed", "batch", "num_classes", "input_dtype", "params", "compute_dtype"),
-)
+@model_factory("ssd_mobilenet_v2", _VISION + ("batch", "num_classes"))
 def _ssd_mobilenet_v2(device: torch.device, **options) -> ZooModel:
     """Raw two-tensor SSD (locations + class logits) for the decoder's
     mobilenet-ssd mode; the analogue of ssd_mobilenet_v2_coco.tflite."""
-    _check_float32("ssd_mobilenet_v2", options)
     num_classes = int(options.get("num_classes", ssd_mobilenet.NUM_CLASSES))
-    model = _ssd(options, num_classes)
-    model = model.eval().to(device=device, memory_format=torch.channels_last)
+    model = _on(_ssd(options, num_classes), device, options)
     spec = _image_spec(
         int(options.get("batch", 1)), ssd_mobilenet.INPUT_SIZE,
         options.get("input_dtype", "uint8"),
@@ -176,22 +211,106 @@ def _ssd_mobilenet_v2(device: torch.device, **options) -> ZooModel:
     return ZooModel("ssd_mobilenet_v2", model, spec, device)
 
 
-@model_factory(
-    "ssd_mobilenet_v2_pp",
-    ("seed", "max_out", "threshold", "input_dtype", "params", "compute_dtype"),
-)
+@model_factory("ssd_mobilenet_v2_pp", _VISION + ("max_out", "threshold"))
 def _ssd_mobilenet_v2_pp(device: torch.device, **options) -> ZooModel:
     """SSD + on-device decode and NMS → the TFLite detection-postprocess
     4-tensor layout (decoder mode=mobilenet-ssd-postprocess). Batch 1."""
-    _check_float32("ssd_mobilenet_v2_pp", options)
     model = ssd_mobilenet.SSDMobileNetV2PP(
-        _ssd(options, ssd_mobilenet.NUM_CLASSES),
+        _on(_ssd(options, ssd_mobilenet.NUM_CLASSES), device, options),
         max_out=int(options.get("max_out", 10)),
         threshold=float(options.get("threshold", 0.001)),
     )
-    model = model.eval().to(device=device, memory_format=torch.channels_last)
+    model = model.eval().to(device=device)  # the priors stay float32
     spec = _image_spec(1, ssd_mobilenet.INPUT_SIZE, options.get("input_dtype", "uint8"))
     return ZooModel("ssd_mobilenet_v2_pp", model, spec, device)
+
+
+@model_factory("yolov5", _VISION + ("batch", "size", "num_classes", "width"))
+def _yolov5(device: torch.device, **options) -> ZooModel:
+    """YOLOv5-style detector (models/yolo.py): [B, S, S, 3] → decoded
+    [B, rows, 5 + C] predictions for the decoder's yolov5 mode."""
+    size = int(options.get("size", 320))
+    if size % 32:
+        raise ValueError(f"yolov5 size must be a multiple of 32, got {size}")
+    model = yolo.YOLOv5(num_classes=int(options.get("num_classes", 80)),
+                        width=int(options.get("width", 32)), generator=_generator(options))
+    model = _on(_load(model, options, yolo.jax_leaf_paths()), device, options)
+    spec = _image_spec(int(options.get("batch", 1)), size, options.get("input_dtype", "uint8"))
+    return ZooModel("yolov5", model, spec, device)
+
+
+@model_factory("posenet", _VISION + ("batch",))
+def _posenet(device: torch.device, **options) -> ZooModel:
+    """PoseNet MobileNet-v1 257x257 (heatmap, offsets, displacements) for
+    the pose_estimation decoder."""
+    model = posenet.PoseNet(generator=_generator(options))
+    model = _on(_load(model, options, posenet.jax_leaf_paths()), device, options)
+    spec = _image_spec(int(options.get("batch", 1)), posenet.INPUT_SIZE,
+                       options.get("input_dtype", "uint8"))
+    return ZooModel("posenet", model, spec, device)
+
+
+@model_factory("deeplab_v3", _VISION + ("batch",))
+def _deeplab_v3(device: torch.device, **options) -> ZooModel:
+    """DeepLab-v3 MobileNet-v2 257x257x21 for the image_segment decoder
+    (tflite-deeplab)."""
+    model = deeplab_v3.DeepLabV3(generator=_generator(options))
+    model = _on(_load(model, options, deeplab_v3.jax_leaf_paths()), device, options)
+    spec = _image_spec(int(options.get("batch", 1)), deeplab_v3.INPUT_SIZE,
+                       options.get("input_dtype", "uint8"))
+    return ZooModel("deeplab_v3", model, spec, device)
+
+
+_FACE_OUTPUTS = ("ov", "regions", "regions+image", "regions_image")
+
+
+@model_factory("face_detect",
+               _VISION + ("max_faces", "output", "threshold", "frame_size"))
+def _face_detect(device: torch.device, **options) -> ZooModel:
+    """Face detector: [max_faces, 7] OV rows (output=ov, the default), int32
+    [max_faces, 4] pixel regions of a ``frame_size`` frame
+    (output=regions), or (image, regions) (output=regions+image). Any
+    other output raises (the reference serves OV rows for it)."""
+    out_mode = options.get("output", "ov")
+    if out_mode not in _FACE_OUTPUTS:
+        raise ValueError(f"zoo:face_detect: output {out_mode!r} ({' | '.join(_FACE_OUTPUTS)})")
+    fw, fh = (int(v) for v in options.get(
+        "frame_size", f"{fp.DETECT_SIZE}:{fp.DETECT_SIZE}").split(":"))
+    detect = fp.FaceDetect(int(options.get("max_faces", fp.MAX_FACES)), _generator(options))
+    model = _load(detect, options, fp.detect_leaf_paths())
+    if out_mode != "ov":
+        model = fp.DetectRegions(detect, fw, fh, float(options.get("threshold", 0.5)),
+                                 with_image=out_mode != "regions")
+    model = _on(model, device, options)
+    spec = _image_spec(1, fp.DETECT_SIZE, options.get("input_dtype", "uint8"))
+    return ZooModel("face_detect", model, spec, device)
+
+
+@model_factory("face_landmark", _VISION + ("batch", "size"))
+def _face_landmark(device: torch.device, **options) -> ZooModel:
+    """68-point landmark net on face crops (global-pooled trunk, so any
+    crop size >= 16 works; the spec advertises the canonical 112)."""
+    model = fp.FaceLandmark(generator=_generator(options))
+    model = _on(_load(model, options, fp.landmark_leaf_paths()), device, options)
+    spec = _image_spec(int(options.get("batch", 1)), int(options.get("size", fp.LANDMARK_SIZE)),
+                       options.get("input_dtype", "uint8"))
+    return ZooModel("face_landmark", model, spec, device)
+
+
+@model_factory("face_composite", _VISION + ("max_faces", "threshold", "size"))
+def _face_composite(device: torch.device, **options) -> ZooModel:
+    """detect → crop+resize (K1's crop entry) → landmark on the device:
+    uint8 [1, S, S, 3] → (landmarks [max, 136], detections [max, 7])."""
+    gen = _generator(options)
+    model = fp.FaceComposite(
+        fp.FaceDetect(int(options.get("max_faces", fp.MAX_FACES)), gen),
+        fp.FaceLandmark(generator=gen),
+        threshold=float(options.get("threshold", 0.5)),
+    )
+    model = _on(_load(model, options, fp.composite_leaf_paths()), device, options)
+    spec = _image_spec(1, int(options.get("size", fp.DETECT_SIZE)),
+                       options.get("input_dtype", "uint8"))
+    return ZooModel("face_composite", model, spec, device)
 
 
 class _LMApply(nn.Module):

@@ -38,14 +38,14 @@ YOLOV5_IOU_THRESHOLD = 0.6
 OV_CONF_THRESHOLD = 0.8
 
 
-def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """``x / d`` as a true float32 division on every device: a Python
     scalar divisor may become a multiply by its reciprocal on CUDA, one
     ulp off. The divisor is filled on the device (no host copy, no sync)."""
     return torch.div(x, torch.full_like(x, float(d)))
 
 
-def _argsort_desc(x: torch.Tensor) -> torch.Tensor:
+def argsort_desc(x: torch.Tensor) -> torch.Tensor:
     """Indices of ``x`` in descending order, ties by index (the stable
     ``jnp.argsort(-x)``)."""
     return torch.argsort(-x, descending=False, stable=True)
@@ -63,10 +63,10 @@ def ssd_decode_boxes(
     [4, N] rows (ycenter, xcenter, h, w) → boxes [N, 4] x1, y1, x2, y2."""
     loc = locations.to(torch.float32)
     pr = priors.to(torch.float32)
-    ycenter = _div(loc[:, 0], y_scale) * pr[2] + pr[0]
-    xcenter = _div(loc[:, 1], x_scale) * pr[3] + pr[1]
-    h = torch.exp(_div(loc[:, 2], h_scale)) * pr[2]
-    w = torch.exp(_div(loc[:, 3], w_scale)) * pr[3]
+    ycenter = true_div(loc[:, 0], y_scale) * pr[2] + pr[0]
+    xcenter = true_div(loc[:, 1], x_scale) * pr[3] + pr[1]
+    h = torch.exp(true_div(loc[:, 2], h_scale)) * pr[2]
+    w = torch.exp(true_div(loc[:, 3], w_scale)) * pr[3]
     x1 = xcenter - w / 2.0
     y1 = ycenter - h / 2.0
     return torch.stack([x1, y1, x1 + w, y1 + h], dim=-1)
@@ -103,7 +103,7 @@ def nms(
 def rank(boxes: torch.Tensor, scores: torch.Tensor):
     """NMS ranking: (order [N], boxes [N, 4] and scores [N] float32 in
     descending score order, ties by index)."""
-    order = _argsort_desc(scores)
+    order = argsort_desc(scores)
     return order, boxes.to(torch.float32)[order], scores.to(torch.float32)[order]
 
 
@@ -119,7 +119,7 @@ def pack_kept(
     padded with index -1 and score 0."""
     k = min(max_out, order.shape[0])
     kept = torch.where(alive, sscores, torch.zeros_like(sscores))
-    top = _argsort_desc(kept)[:k]
+    top = argsort_desc(kept)[:k]
     sel_scores = kept[top]
     sel_idx = torch.where(sel_scores > 0, order[top], torch.full_like(top, -1))
     if k < max_out:
@@ -209,7 +209,7 @@ def ssd_pp_postprocess(
     valid = torch.arange(n, device=loc.device) < num.to(torch.int32).reshape(())
     s = scores.to(torch.float32)
     s = torch.where(valid & (s >= threshold), s, torch.zeros_like(s))
-    top = _argsort_desc(s)[:k]
+    top = argsort_desc(s)[:k]
     keep_idx = torch.where(s[top] > 0, top, torch.full_like(top, -1)).to(torch.int32)
     det = _pack_detections(boxes, classes.to(torch.float32), keep_idx, s[top])
     if k < max_out:
@@ -255,7 +255,7 @@ def ov_detection_postprocess(
     score = torch.where(p[:, 2] >= conf_threshold, p[:, 2], torch.zeros_like(p[:, 2]))
     n = p.shape[0]
     k = min(max_out, n)
-    top = _argsort_desc(score)[:k]
+    top = argsort_desc(score)[:k]
     keep_idx = torch.where(score[top] > 0, top, torch.full_like(top, -1)).to(torch.int32)
     det = _pack_detections(boxes, p[:, 1], keep_idx, score[top])
     if k < max_out:
@@ -317,10 +317,10 @@ def mp_palm_postprocess(
     [max_out, 6]."""
     b = raw_boxes.to(torch.float32)
     a = anchors.to(torch.float32)
-    cx = _div(b[:, 0], input_size) + a[:, 1]
-    cy = _div(b[:, 1], input_size) + a[:, 0]
-    w = _div(b[:, 2], input_size)
-    h = _div(b[:, 3], input_size)
+    cx = true_div(b[:, 0], input_size) + a[:, 1]
+    cy = true_div(b[:, 1], input_size) + a[:, 0]
+    w = true_div(b[:, 2], input_size)
+    h = true_div(b[:, 3], input_size)
     boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
     probs = torch.sigmoid(raw_scores.to(torch.float32).reshape(-1))
     score = torch.where(probs >= score_threshold, probs, torch.zeros_like(probs))

@@ -384,9 +384,27 @@ def test_ssd_pp_matches_jax(tmp_path):
     np.testing.assert_allclose(scores, ws, rtol=0, atol=1e-4)
 
 
-def test_zoo_ssd_options():
-    with pytest.raises(ValueError, match="not ported yet"):
-        tzoo.get("ssd_mobilenet_v2", device="cpu", compute_dtype="bfloat16")
+def test_zoo_ssd_options(ssd_zoo):
+    """compute_dtype=bfloat16 runs the reference's bfloat16 SSD: the port's
+    outputs no farther from the reference's bfloat16 outputs than those
+    are from its float32 ones; any other dtype, or an unknown option,
+    raises."""
+    m = tzoo.get("ssd_mobilenet_v2", device="cpu", compute_dtype="bfloat16",
+                 num_classes=str(SSD_CLASSES), params=ssd_zoo["npz"])
+    x = np.random.default_rng(6).integers(0, 256, (1, 300, 300, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        got = [t.numpy() for t in m.module(_t(x))]
+    params = ssd_zoo["model"].params
+    want = {
+        dt: [np.asarray(t) for t in jax.jit(lambda p, im, dt=dt: jssd.apply(
+            p, im, compute_dtype=dt, num_classes=SSD_CLASSES))(params, x)]
+        for dt in (jnp.float32, jnp.bfloat16)
+    }
+    for g, w16, w32 in zip(got, want[jnp.bfloat16], want[jnp.float32]):
+        assert g.dtype == np.float32 and g.shape == w16.shape
+        assert np.abs(g - w16).max() <= np.abs(w16 - w32).max()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tzoo.get("ssd_mobilenet_v2", device="cpu", compute_dtype="float16")
     with pytest.raises(ValueError, match="unsupported option"):
         tzoo.get("ssd_mobilenet_v2_pp", device="cpu", quantize="int8")
 

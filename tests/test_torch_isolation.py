@@ -104,6 +104,21 @@ def test_routing_modules_import_alone(module):
     assert proc.stdout.strip() == ""
 
 
+@pytest.mark.parametrize("module", [
+    "nnstreamer_tpu_torch.models.face_pipeline",
+    "nnstreamer_tpu_torch.models.yolo",
+    "nnstreamer_tpu_torch.models.posenet",
+    "nnstreamer_tpu_torch.models.deeplab_v3",
+    "nnstreamer_tpu_torch.ops.heatmap",
+    "nnstreamer_tpu_torch.decoders.pose",
+    "nnstreamer_tpu_torch.decoders.image_segment",
+])
+def test_vision_modules_import_alone(module):
+    """The vision families, the heatmap ops and their decoders load
+    neither jax nor the reference package."""
+    test_routing_modules_import_alone(module)
+
+
 def _py_files():
     for root, _, files in os.walk(PKG_DIR):
         for f in files:

@@ -73,7 +73,9 @@ def test_zoo_loads_jax_npz(jax_params, tmp_path):
 
 def test_zoo_rejects_unknown_options():
     with pytest.raises(ValueError, match="quantize"):
-        tzoo.get("mobilenet_v2", device="cpu", quantize="int8")
+        tzoo.get("mobilenet_v2", device="cpu", quantize="int4")
+    with pytest.raises(ValueError, match="unsupported option"):
+        tzoo.get("mobilenet_v2", device="cpu", mesh="dp2")
 
 
 @pytest.mark.parametrize("n,k,stride,want", [
