@@ -194,6 +194,36 @@ Then the vision group (queue A.3), at the zoo's full default widths:
                  detector's 720p regions (uint8); K2 on a real YOLO frame's
                  6300 candidates; each against its plain version.
 
+Then the codecs group (queues A.1 and A.2: wire codecs, script
+subplugins, fake backends, the flexible-input filter):
+
+10g. codec_goldens — the nine goldens of A.1 through parse_pipeline on
+                 CUDA, byte for byte; composite_face with both filters on
+                 device:0 against the port's CPU run (1e-3), and the
+                 golden's own device:1 refused before the landmark model
+                 loads.
+10h. codec_roundtrip — codec-roundtrip-720p: 1280x720 frames →
+                 tensor_decoder mode=M → tensor_converter mode=M → sink for
+                 M in flexbuf, protobuf, flatbuf, 32 frames: every sink
+                 tensor on the GPU and equal to its source frame, frame 0's
+                 wire bytes equal to the CPU encoding; fps, encode and
+                 decode host ms a frame, D2H and H2D copies a frame over 16
+                 profiled frames (limit: the decoder's D2H and the
+                 converter's H2D, beside the sink's and the ingress's).
+10i. codec_labeling — codec-labeling-720p: the labeling pipeline with a
+                 protobuf decoder → converter pair between resize and
+                 MobileNet-v2, whose filter takes the flexible stream: K1
+                 once a frame, labels equal to the pipeline phase's,
+                 logits against the codec-free run (8 frames), fps, paced
+                 p50/p99 beside the pipeline phase's.
+10j. codec_cli — the CLI in four subprocesses on the card, no --device:
+                 filter_python3 and filter_scaler byte for byte,
+                 composite_face (device:0) within 1e-3 of the CPU run (the
+                 CLI leaves TF32 as the port's device setup has it),
+                 bad_mesh refused naming 999 devices without a traceback;
+                 then the python3 filter script on 16 720p frames: 255 -
+                 frame, copies a frame, fps.
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -2862,6 +2892,374 @@ def vision_phases(torch, np, dev, parse_pipeline, ik, nk, det):
     }
 
 
+# -- the wire codecs, script subplugins and flexible input (queue A.1, A.2) ------
+
+CODECS = ("flexbuf", "protobuf", "flatbuf")
+HD_SOURCE = "videotestsrc pattern=gradient width=1280 height=720 num-frames={n}"
+CODEC_ROUNDTRIP = (
+    HD_SOURCE + " ! tensor_converter ! tensor_decoder name=enc mode={m} ! "
+    "tensor_converter name=dec mode={m} ! tensor_sink name=out"
+)
+# the labeling cell with the edge layer's wire format between resize and model
+CODEC_LABELING = _HD_RESIZE.replace("{size}", "224") + (
+    "tensor_decoder name=enc mode={m} ! tensor_converter name=dec mode={m} ! "
+    "tensor_filter name=f framework=torch model=zoo:mobilenet_v2 ! "
+    "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+)
+SCRIPT_720P = (
+    HD_SOURCE + " ! tensor_converter ! tensor_filter framework=custom "
+    "model={fix}/negate_filter.py ! tensor_sink name=out"
+)
+# the goldens of queue A.1 ({out}: the dump, {fix}: tests/fixtures)
+CODEC_GOLDENS = {
+    "filter_scaler": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        "tensor_transform mode=typecast option=float32 ! "
+        'tensor_filter framework=scaler custom="factor:0.5" ! filesink location={out}'
+    ),
+    "decoder_direct_video": (
+        "videotestsrc pattern=counter num-frames=2 width=8 height=8 ! tensor_converter ! "
+        "tensor_decoder mode=direct_video ! filesink location={out}"
+    ),
+    **{f"decoder_{m}": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        f"tensor_decoder mode={m} ! filesink location={{out}}"
+    ) for m in CODECS},
+    "decoder_octet": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        "tensor_decoder mode=octet_stream ! filesink location={out}"
+    ),
+    "converter_flexbuf_roundtrip": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        "tensor_decoder mode=flexbuf ! tensor_converter mode=flexbuf ! filesink location={out}"
+    ),
+    "decoder_python3": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        "tensor_decoder mode=python3 option1={fix}/double_decoder.py ! filesink location={out}"
+    ),
+    "filter_python3": (
+        "videotestsrc pattern=counter num-frames=2 width=4 height=4 ! tensor_converter ! "
+        "tensor_filter framework=custom model={fix}/negate_filter.py ! filesink location={out}"
+    ),
+}
+# the composite_face golden: host-mode crop into invoke-dynamic, both filters
+# pinned ({lmk}: the landmark filter's card)
+COMPOSITE_FACE = (
+    "videotestsrc pattern=gradient num-frames=2 width=128 height=128 ! "
+    "tensor_converter ! tee name=t "
+    "t. ! queue ! tensor_filter framework=jax model=zoo:face_detect "
+    'custom="output:regions,threshold:0.0,frame_size:128:128,device:0" '
+    "! crop.sink_1 "
+    "t. ! queue ! crop.sink_0 "
+    "tensor_crop name=crop ! "
+    'tensor_filter framework=jax model=zoo:face_landmark custom="device:{lmk}" '
+    "invoke-dynamic=true input-combination=0 ! {sink}"
+)
+BAD_MESH = (
+    "videotestsrc num-frames=1 width=64 height=64 ! tensor_converter ! "
+    "tensor_filter framework=jax model=zoo:mobilenet_v2 "
+    'custom="size:64,mesh:dp999" ! fakesink'
+)
+
+
+def repo_paths():
+    here = os.path.dirname(os.path.abspath(__file__))
+    return here, os.path.join(here, "tests", "fixtures"), os.path.join(here, "tests", "golden")
+
+
+def golden_bytes(name):
+    with open(os.path.join(repo_paths()[2], f"{name}.raw"), "rb") as f:
+        return f.read()
+
+
+def copies(prof):
+    """(device-to-host, host-to-device) memcpy records of a profile."""
+    from torch.autograd import DeviceType
+
+    keys = [(ev.key.lower(), ev.count) for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA]
+    return (sum(n for k, n in keys if "dtoh" in k), sum(n for k, n in keys if "htod" in k))
+
+
+def timed_calls(obj, name, sink):
+    """Wrap ``obj.name`` so each call's host ms lands in ``sink``."""
+    real = getattr(obj, name)
+
+    def wrapped(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        sink.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def codec_goldens(parse_pipeline, dev):
+    """The nine A.1 goldens through parse_pipeline on the card, byte for byte."""
+    _, fix, _ = repo_paths()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, desc in CODEC_GOLDENS.items():
+            path = os.path.join(tmp, f"{name}.raw")
+            parse_pipeline(desc.format(out=path, fix=fix), device=dev).run(timeout=120)
+            with open(path, "rb") as f:
+                out[name] = f.read() == golden_bytes(name)
+    if not all(out.values()):
+        bad = [n for n, ok in out.items() if not ok]
+        raise AssertionError(f"codec goldens differ on CUDA: {bad}")
+    return out
+
+
+def composite_face_phase(np, dev, parse_pipeline):
+    """composite_face with both filters on device:0, against the port's CPU
+    run; then the golden's own device:1 must raise before the landmark
+    model loads or anything runs."""
+    from nnstreamer_tpu_torch.models import zoo
+
+    desc = COMPOSITE_FACE.format(lmk=0, sink="tensor_sink name=out")
+    gpu, wall = run_desc(parse_pipeline, desc, dev)
+    cpu, _ = run_desc(parse_pipeline, desc, "cpu")
+    got, want = out_tensors(gpu), out_tensors(cpu)
+    if len(got) != 2 or any(g.shape != (1, 136) or not np.isfinite(g).all() for g in got):
+        raise AssertionError(f"composite_face: want 2 finite [1, 136] frames, got {len(got)}")
+    err = max(max_err(np, g, w) for g, w in zip(got, want))
+    if not err <= FACE_LMK_TOL:
+        raise AssertionError(f"composite_face: GPU vs CPU landmarks {err} > {FACE_LMK_TOL}")
+    golden = np.frombuffer(golden_bytes("composite_face"), np.float32)
+    loads, real_get = [], zoo.get
+    zoo.get = lambda name, *a, **k: (loads.append(name), real_get(name, *a, **k))[1]
+    try:
+        raised = None
+        parse_pipeline(COMPOSITE_FACE.format(lmk=1, sink="fakesink"), device=dev).negotiate()
+    except Exception as exc:  # noqa: BLE001 — the refusal is the check
+        raised = f"{type(exc).__name__}: {exc}"
+    finally:
+        zoo.get = real_get
+    if raised is None or "device:1 out of range (have 1)" not in raised:
+        raise AssertionError(f"composite_face device:1: want an out-of-range refusal, got {raised}")
+    if "face_landmark" in loads:
+        raise AssertionError("composite_face device:1: the landmark model loaded "
+                             "before the refusal")
+    return {
+        "landmarks_gpu_vs_cpu_max_abs_err": err, "tolerance": FACE_LMK_TOL,
+        "frames": len(got), "wall_s": wall,
+        # the golden was made with the reference's jax.random seed-0 trees, which
+        # only JAX draws: the card runs the port's seeded weights, so this error
+        # measures the weights' difference (tests/test_torch_custom.py holds the
+        # port to the golden within 1e-5 on the reference's trees, on the CPU)
+        "landmarks_vs_golden_max_abs_err": max_err(
+            np, np.concatenate([g.reshape(-1) for g in got]), golden),
+        "device1_refusal": raised, "models_loaded_before_refusal": loads,
+    }
+
+
+def codec_roundtrip_phase(torch, np, dev, parse_pipeline, source):
+    """codec-roundtrip-720p: 720p frames → decoder mode=M → converter mode=M
+    → sink, for M in flexbuf, protobuf, flatbuf: every frame back on the
+    card, byte for byte; frame 0's wire bytes as the CPU encodes them;
+    encode and decode host ms; copies a frame over a 16-frame profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for m in CODECS:
+        desc = CODEC_ROUNDTRIP.format(n=FRAMES, m=m)
+        wires = {}
+        for device, n in (("cpu", 1), (dev, FRAMES)):
+            p = parse_pipeline(CODEC_ROUNDTRIP.format(n=n, m=m), device=device)
+            p.negotiate()
+            enc_ms, dec_ms, seen, wire = [], [], set(), []
+            timed_calls(p["enc"]._sub, "decode", enc_ms)
+            real = p["dec"]._subplugin.convert
+            p["dec"]._subplugin.convert = lambda f, props, r=real: (
+                wire.append(bytes(f.tensors[0])) if not wire else None, r(f, props))[1]
+            timed_calls(p["dec"]._subplugin, "convert", dec_ms)
+            render = p["out"].render
+            p["out"].render = lambda f, r=render: (
+                seen.update(t.device.type for t in f.tensors), r(f))
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            wall = time.perf_counter() - t0
+            wires[str(device)] = wire[0]
+        got = [f.tensors[0] for f in p["out"].frames]
+        if len(got) != FRAMES or seen != {dev.type}:
+            raise AssertionError(f"codec {m}: {len(got)} frames on {seen}, want {FRAMES} on cuda")
+        bad = [i for i, (g, s) in enumerate(zip(got, source)) if not (
+            g.shape == s.shape and g.dtype == s.dtype and np.array_equal(g, s))]
+        if bad:
+            raise AssertionError(f"codec {m}: frames {bad[:4]} differ from the source")
+        if wires[str(dev)] != wires["cpu"]:
+            raise AssertionError(f"codec {m}: frame 0's wire bytes differ from the CPU encoding")
+        n_prof = 16
+        pp = parse_pipeline(CODEC_ROUNDTRIP.format(n=n_prof, m=m), device=dev)
+        pp.negotiate()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pp.run(timeout=600)
+        d2h, h2d = copies(prof)
+        # one D2H (the decoder's) and one H2D (the converter's) a frame,
+        # beside the sink's D2H and the ingress segment's H2D
+        if d2h > 2 * n_prof or h2d > 2 * n_prof:
+            raise AssertionError(f"codec {m}: {d2h} D2H / {h2d} H2D over {n_prof} frames, "
+                                 f"limit {2 * n_prof} each")
+        out[m] = {
+            "fps": FRAMES / wall, "wall_s": wall, "wire_bytes_frame": len(wires["cpu"]),
+            "encode_host_ms_mean": sum(enc_ms) / len(enc_ms),
+            "decode_host_ms_mean": sum(dec_ms) / len(dec_ms),
+            "d2h_per_frame": d2h / n_prof, "h2d_per_frame": h2d / n_prof,
+            "copy_limit_per_frame": {"d2h": 2, "h2d": 2}, "sink_devices": sorted(seen),
+        }
+    return {"phase": "codec_roundtrip", "config": "codec-roundtrip-720p", "frames": FRAMES,
+            "profile_frames": 16, "byte_exact": True, "codecs": out}
+
+
+def codec_labeling_phase(torch, np, dev, parse_pipeline, ik, pipeline_phase):
+    """codec-labeling-720p: the labeling cell with a protobuf decoder →
+    converter pair between resize and model; the filter takes the flexible
+    stream. K1 once a frame; labels and logits against the same frames
+    without the pair."""
+    def desc(n, live=False):
+        return CODEC_LABELING.format(n=n, m="protobuf", live=LIVE if live else "")
+
+    run_desc(parse_pipeline, desc(4), dev)  # warm-up
+    p = parse_pipeline(desc(FRAMES), device=dev)
+    p.negotiate()
+    if not p["f"]._flexible_input:
+        raise AssertionError("codec_labeling: the filter did not take a flexible stream")
+    ik.crop_resize_launches.reset()
+    t0 = time.perf_counter()
+    p.run(timeout=600)
+    wall = time.perf_counter() - t0
+    k1 = ik.crop_resize_launches.count
+    if k1 != FRAMES:
+        raise AssertionError(f"codec_labeling: K1 launched {k1} times for {FRAMES} frames")
+    labels = [int(t[0]) for t in out_tensors(p)]
+    if labels != pipeline_phase["labels"]:
+        raise AssertionError(f"codec_labeling: labels {labels[:4]} != the pipeline phase's "
+                             f"{pipeline_phase['labels'][:4]}")
+    # the logits of 8 frames each way (the hook reads them back: not timed)
+    logits = {"codec": [], "plain": []}
+
+    def grab(key):
+        return lambda m, i, o: logits[key].append(o.detach().float().cpu())
+
+    run_desc(parse_pipeline, PIPELINE.format(n=8, live=""), dev, hook=grab("plain"))
+    run_desc(parse_pipeline, desc(8), dev, hook=grab("codec"))
+    if len(logits["codec"]) != 8 or len(logits["plain"]) != 8:
+        raise AssertionError("codec_labeling: want 8 logit frames each way")
+    err = max(float((a - b).abs().max()) for a, b in zip(logits["codec"], logits["plain"]))
+    paced, _ = run_desc(parse_pipeline, desc(FRAMES, live=True), dev)
+    lat = sorted(latencies(paced))
+    return {
+        "phase": "codec_labeling", "config": "codec-labeling-720p", "codec": "protobuf",
+        "frames": FRAMES, "k1_launches": k1, "filter_flexible_input": True,
+        "labels_equal_codec_free": True, "logits_max_abs_err_vs_codec_free": err,
+        "fps": FRAMES / wall, "wall_s": wall,
+        "paced30_latency_ms_p50": pct(lat, 0.5), "paced30_latency_ms_p99": pct(lat, 0.99),
+        "paced30_limit_ms": 33.0,
+        "pipeline_phase_same_call": {k: pipeline_phase[k] for k in (
+            "fps", "paced30_latency_ms_p50", "paced30_latency_ms_p99")},
+    }
+
+
+def cli_card_phase(np, dev, parse_pipeline):
+    """The port's CLI in subprocesses on the card, without --device, all at
+    once: filter_python3 and filter_scaler byte for byte; composite_face
+    (device:0) against the port's CPU run (the CLI sets no TF32 switch of
+    its own); bad_mesh refused with its device count and no traceback."""
+    here, fix, _ = repo_paths()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {n: os.path.join(tmp, f"{n}.raw") for n in ("filter_python3", "filter_scaler",
+                                                           "composite_face")}
+        descs = {n: CODEC_GOLDENS[n].format(out=outs[n], fix=fix)
+                 for n in ("filter_python3", "filter_scaler")}
+        descs["composite_face"] = COMPOSITE_FACE.format(
+            lmk=0, sink=f"filesink location={outs['composite_face']}")
+        descs["bad_mesh"] = BAD_MESH
+        t0 = time.perf_counter()
+        procs = {n: subprocess.Popen(
+            [sys.executable, "-m", "nnstreamer_tpu_torch.cli", "-q", d], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for n, d in descs.items()}
+        res = {}
+        for n, proc in procs.items():
+            try:
+                _, err = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            res[n] = (proc.returncode, err)
+        wall = time.perf_counter() - t0
+        for n in ("filter_python3", "filter_scaler"):
+            rc, err = res[n]
+            with open(outs[n], "rb") as f:
+                if rc != 0 or f.read() != golden_bytes(n):
+                    raise AssertionError(f"cli {n}: rc {rc} or bytes differ from the golden: {err}")
+        rc, err = res["composite_face"]
+        if rc != 0:
+            raise AssertionError(f"cli composite_face: rc {rc}: {err}")
+        with open(outs["composite_face"], "rb") as f:
+            got = np.frombuffer(f.read(), np.float32)
+    cpu, _ = run_desc(parse_pipeline, COMPOSITE_FACE.format(lmk=0, sink="tensor_sink name=out"),
+                      "cpu")
+    want = np.concatenate([t.reshape(-1) for t in out_tensors(cpu)])
+    if got.shape != want.shape:
+        raise AssertionError(f"cli composite_face: {got.shape} values, CPU run {want.shape}")
+    cf_err = max_err(np, got, want)
+    if not cf_err <= FACE_LMK_TOL:
+        raise AssertionError(f"cli composite_face: GPU vs CPU landmarks {cf_err} > {FACE_LMK_TOL}")
+    rc, err = res["bad_mesh"]
+    if rc == 0 or "needs 999 devices" not in err or "Traceback" in err:
+        raise AssertionError(f"cli bad_mesh: rc {rc}, stderr {err[-400:]!r}")
+    return {"subprocesses": len(procs), "wall_s": wall,
+            "byte_exact": ["filter_python3", "filter_scaler"],
+            "composite_face_gpu_vs_cpu_max_abs_err": cf_err, "tolerance": FACE_LMK_TOL,
+            "bad_mesh": err.strip().splitlines()[-1]}
+
+
+def script_720p_phase(torch, np, dev, parse_pipeline, source):
+    """filter_python3's script (numpy, on the host) on 720p frames: the
+    output is 255 - frame, one D2H and one H2D a frame for the filter."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, fix, _ = repo_paths()
+    n = 16
+    desc = SCRIPT_720P.format(n=n, fix=fix)
+    run_desc(parse_pipeline, SCRIPT_720P.format(n=2, fix=fix), dev)  # warm-up
+    p, wall = run_desc(parse_pipeline, desc, dev)
+    got = out_tensors(p)
+    if len(got) != n or len(source) < n or any(
+            not np.array_equal(g, 255 - s) for g, s in zip(got, source)):
+        raise AssertionError("script_720p: the output is not 255 - frame")
+    pp = parse_pipeline(desc, device=dev)
+    pp.negotiate()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pp.run(timeout=600)
+    d2h, h2d = copies(prof)
+    # the filter's D2H and H2D, beside the sink's D2H and the ingress H2D
+    if d2h > 2 * n or h2d > 2 * n:
+        raise AssertionError(f"script_720p: {d2h} D2H / {h2d} H2D over {n} frames")
+    return {"frames": n, "fps": n / wall, "wall_s": wall,
+            "d2h_per_frame": d2h / n, "h2d_per_frame": h2d / n,
+            "copy_limit_per_frame": {"d2h": 2, "h2d": 2}}
+
+
+def codecs_phases(torch, np, dev, parse_pipeline, ik, pipeline_phase):
+    """The codecs group: the A.1 goldens on CUDA, composite_face on one
+    card, codec-roundtrip-720p, codec-labeling-720p, the CLI on the card,
+    the python3 filter at 720p. Returns K1's launches on codec-labeling."""
+    t0 = time.perf_counter()
+    goldens = codec_goldens(parse_pipeline, dev)
+    face = composite_face_phase(np, dev, parse_pipeline)
+    emit({"phase": "codec_goldens", "goldens_cuda_byte_exact": goldens, "composite_face": face})
+    src, _ = run_desc(parse_pipeline, HD_SOURCE.format(n=FRAMES) + " ! tensor_converter ! "
+                      "tensor_sink name=out", dev)
+    source = out_tensors(src)
+    emit(codec_roundtrip_phase(torch, np, dev, parse_pipeline, source))
+    labeling = codec_labeling_phase(torch, np, dev, parse_pipeline, ik, pipeline_phase)
+    emit(labeling)
+    emit({"phase": "codec_cli", **cli_card_phase(np, dev, parse_pipeline),
+          "script_720p": script_720p_phase(torch, np, dev, parse_pipeline, source),
+          "group_seconds": time.perf_counter() - t0})
+    return labeling["k1_launches"]
+
+
 def ssd_frame_candidates(torch, parse_pipeline, dev):
     """The 1917 (box, score) NMS candidates of one SSD output frame (the
     detection pipeline's source frame, through its resize and model)."""
@@ -3247,6 +3645,12 @@ def main() -> int:
     vision = vision_phases(torch, np, dev, parse_pipeline, ik, nk, det)
     torch.cuda.empty_cache()
 
+    # 10g-10j. the wire codecs, script subplugins and flexible input -------------
+    codecs_k1 = codecs_phases(torch, np, dev, parse_pipeline, ik, {
+        "labels": labels, "fps": FRAMES / wall,
+        "paced30_latency_ms_p50": pct(lat_live, 0.5),
+        "paced30_latency_ms_p99": pct(lat_live, 0.99)})
+
     k3_by_name, k3_launches, slot_ttft = llm_phases(torch, np, dev, parse_pipeline)
     k3_main = k3_by_name["serve-f32-pos600"]
     k4_main, k4_launches = paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_ttft)
@@ -3266,6 +3670,7 @@ def main() -> int:
         "routing_crop_case": {k: cases[-1][k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "launches_vision": vision["k1_launches"],
+        "launches_codec_labeling": codecs_k1,
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],

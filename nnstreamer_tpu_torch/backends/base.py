@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
 
@@ -34,6 +35,7 @@ class FilterProps:
     input_spec: Optional[TensorsSpec] = None  # user override
     output_spec: Optional[TensorsSpec] = None
     custom: str = ""  # backend-specific option string (custom= prop)
+    invoke_dynamic: bool = False  # input and output shapes may vary per frame
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     options: Dict[str, str] = field(default_factory=dict)
 
@@ -58,6 +60,14 @@ class FilterProps:
 
 class BackendError(RuntimeError):
     pass
+
+
+def host_invoke(fn: Callable, tensors: Tuple[Any, ...], device: torch.device) -> Tuple[Any, ...]:
+    """Run a host function (numpy in, numpy or tensors out) on a frame's
+    tensors: each input crosses to the host once, each output back to
+    ``device`` once."""
+    outs = fn(Frame(tensors).to_host().tensors)
+    return Frame(tuple(outs)).to_device(device).tensors
 
 
 class Backend(ABC):

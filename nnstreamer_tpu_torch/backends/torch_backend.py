@@ -8,11 +8,25 @@ golden pipelines included) run unchanged. Model sources (``model=``):
 
 The module's function is handed to the fused segment whole
 (:meth:`traceable_fn`); convolutions run in cuDNN.
+
+Placement options, taken out of ``custom=`` before the zoo sees it (as the
+reference's ``jax_backend.py`` does):
+
+- ``device:N`` pins the filter to ``cuda:N`` (out of range raises before
+  any load). The pinned filter is a fusion barrier whose inputs move to
+  its card. On the CPU every ``device:N`` is the one CPU device (the
+  reference's CPU run has 8 virtual devices).
+- ``mesh:<axes>`` (``dp2tp4``): a mesh larger than the devices at hand
+  raises "needs N devices"; one that fits raises too, since mesh sharding
+  is not ported yet. Neither loads a model; ``device:`` with ``mesh:``
+  raises.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+import math
+import re
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -38,10 +52,14 @@ class TorchBackend(Backend):
         self.module: Optional[torch.nn.Module] = None
         self._in_spec: Optional[TensorsSpec] = None
         self._out_spec: Optional[TensorsSpec] = None
+        self._pinned: Optional[torch.device] = None
 
     def open(self, props: FilterProps) -> None:
         self.props = props
         path = props.model_path
+        options = props.custom_dict()
+        self._pinned = self._placement(options, props.device)
+        self._device = self._pinned if self._pinned is not None else props.device
         if not path.startswith("zoo:"):
             raise BackendError(
                 f"torch: unsupported model source {path!r} (the port loads "
@@ -49,13 +67,41 @@ class TorchBackend(Backend):
             )
         from nnstreamer_tpu_torch.models import zoo
 
+        opts = {k: v for k, v in options.items() if k not in ("device", "mesh")}
         try:
-            m = zoo.get(path[len("zoo:"):], device=props.device, **props.custom_dict())
+            m = zoo.get(path[len("zoo:"):], device=self._device, **opts)
         except (KeyError, ValueError) as exc:
             raise BackendError(f"torch: {exc}") from exc
         self.module = m.module
         self._in_spec = props.input_spec or m.input_spec
         self._out_spec = None
+
+    @staticmethod
+    def _placement(options: Dict[str, str], device: torch.device) -> Optional[torch.device]:
+        """The device ``device:N`` pins the filter to (None when unpinned);
+        refuses ``mesh:`` before anything is loaded."""
+        pinned = None
+        if "device" in options:
+            idx = int(options["device"])
+            have = torch.cuda.device_count() if device.type == "cuda" else 1
+            if idx < 0 or (device.type == "cuda" and idx >= have):
+                raise BackendError(f"torch: device:{idx} out of range (have {have})")
+            pinned = torch.device("cuda", idx) if device.type == "cuda" else device
+        mesh = options.get("mesh")
+        if mesh:
+            if pinned is not None:
+                raise BackendError("torch: device: and mesh: are exclusive")
+            pairs = re.findall(r"([a-z]+)(\d+)", mesh)
+            if not pairs or "".join(a + n for a, n in pairs) != mesh:
+                raise BackendError(f"torch: bad mesh spec {mesh!r} (want e.g. dp2tp4)")
+            n = math.prod(int(k) for _, k in pairs)
+            have = torch.cuda.device_count() if device.type == "cuda" else 1
+            if n > have:
+                raise BackendError(f"torch: mesh {mesh} needs {n} devices, have {have}")
+            raise BackendError(
+                f"torch: mesh {mesh}: mesh sharding is not ported yet (ROADMAP A.8)"
+            )
+        return pinned
 
     def close(self) -> None:
         self.module = None
@@ -65,7 +111,8 @@ class TorchBackend(Backend):
         spec (which also warms the device: cuDNN picks its algorithms
         here, not on the first frame)."""
         zeros = tuple(
-            torch.zeros(t.shape, dtype=t.dtype.torch_dtype, device=self.props.device)
+            torch.zeros(t.shape, dtype=t.dtype.torch_dtype,
+                        device=self._device)
             for t in self._in_spec
         )
         with torch.inference_mode():
@@ -105,16 +152,21 @@ class TorchBackend(Backend):
             raise BackendError(
                 f"torch: expected {in_spec.num_tensors} tensors, got {len(tensors)}"
             )
-        for t, s in zip(tensors, in_spec):
-            if tuple(t.shape) != s.shape:
-                raise BackendError(
-                    f"torch: input shape {tuple(t.shape)} != negotiated {s.shape}"
-                )
+        if not self.props.invoke_dynamic:
+            for t, s in zip(tensors, in_spec):
+                if tuple(t.shape) != s.shape:
+                    raise BackendError(
+                        f"torch: input shape {tuple(t.shape)} != negotiated {s.shape}"
+                    )
+        if self._pinned is not None:
+            tensors = tuple(t.to(self._pinned) for t in tensors)
         with torch.inference_mode():
             return _as_tuple(self.module(*tensors))
 
     def traceable_fn(self) -> Optional[Callable]:
         module = self.module
-        if module is None:
+        if module is None or self._pinned is not None:
+            # a pinned filter is a fusion barrier: fused into a neighbour's
+            # segment, its placement would be lost
             return None
         return lambda tensors: _as_tuple(module(*tensors))

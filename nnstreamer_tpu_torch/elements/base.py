@@ -94,9 +94,10 @@ class Element:
     N_SINKS: Optional[int] = 1
     N_SRCS: Optional[int] = 1
 
-    # Pure plumbing (queue): never reads tensor bytes, so a host-path
-    # node passes its frames on where they are instead of moving them
-    # to the device.
+    # A host-path node that places its frames itself gets them where they
+    # arrive instead of moved to the device first: pure plumbing (queue)
+    # never reads tensor bytes; a converter subplugin parses them on the
+    # host and moves its output tensors up.
     DEVICE_PASSTHROUGH: bool = False
 
     PROPERTIES: Dict[str, PropSpec] = {

@@ -14,7 +14,13 @@ The counterpart of ``nnstreamer_tpu/elements/converter.py``:
 - octet/text: the bytes framed into the ``input-dim``/``input-type``
   tensors;
 - flexible → static: each tensor reshaped to the declared ``input-dim``;
-- a static tensor stream passes through unchanged.
+- a static tensor stream passes through unchanged;
+- ``mode=NAME``: a converter subplugin (converters/: flexbuf, protobuf,
+  flatbuf, python3), ``mode=custom-script:<path.py>`` (python3 on that
+  script) or ``mode=custom-code:<name>`` (an in-process callable
+  registered with :func:`register_custom_converter`). The subplugin reads
+  the input's bytes on the host, where they arrive, and its tensors cross
+  to the element's device once each. The output is flexible.
 
 All but the first and the last run per frame on the host path (a fusion
 barrier), with torch ops on the pipeline's device.
@@ -22,7 +28,8 @@ barrier), with torch ops on the pipeline's device.
 
 from __future__ import annotations
 
-from typing import List, Union
+import threading
+from typing import Callable, Dict, List, Union
 
 import torch
 
@@ -39,6 +46,23 @@ from nnstreamer_tpu_torch.tensors.spec import DType, TensorFormat, TensorSpec, T
 
 _AUDIO_DTYPES = {"S16LE": DType.INT16, "U8": DType.UINT8, "F32LE": DType.FLOAT32}
 
+_custom_lock = threading.Lock()
+_custom_converters: Dict[str, Callable] = {}
+
+
+def register_custom_converter(name: str, fn: Callable[[Frame, dict], Frame]) -> None:
+    """An in-process callable ``fn(frame, props) -> Frame`` for
+    ``mode=custom-code:<name>`` (the reference's
+    nnstreamer_converter_custom_register); its frames are flexible
+    downstream."""
+    with _custom_lock:
+        _custom_converters[name] = fn
+
+
+def unregister_custom_converter(name: str) -> bool:
+    with _custom_lock:
+        return _custom_converters.pop(name, None) is not None
+
 
 @registry.element("tensor_converter")
 class TensorConverter(TensorOp):
@@ -46,6 +70,11 @@ class TensorConverter(TensorOp):
 
     PROPERTIES = {
         "frames-per-tensor": PropSpec("int", 1, desc="batch N frames"),
+        "mode": PropSpec(
+            "str", None,
+            desc="converter subplugin, custom-code:<name>, or custom-script:<path.py>",
+        ),
+        "script": PropSpec("str", None, desc="python3 subplugin script path"),
         "input-dim": PropSpec("str", None, desc="octet/text framing dims"),
         "input-type": PropSpec("str", "uint8"),
         "input-norm": PropSpec(
@@ -62,6 +91,7 @@ class TensorConverter(TensorOp):
             raise ValueError(
                 f"{self.name}: frames-per-tensor={self.frames_per_tensor} (want >= 1)"
             )
+        self.mode = self.get_property("mode")
         self.input_dims = self.get_property("input-dim")
         self.input_types = str(self.get_property("input-type", "uint8"))
         raw_norm = self.get_property("input-norm")
@@ -79,18 +109,25 @@ class TensorConverter(TensorOp):
             if self.input_norm[1] == 0.0:
                 raise ValueError(f"{self.name}: input-norm STD must be nonzero")
         self._fn = None
+        self._subplugin = None
+        self._custom_fn = None
         self._batch: List[torch.Tensor] = []
         self._batch_pts = None
 
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:
         (spec,) = in_specs
         self._fn = None
-        if self.input_norm is not None and not (
-            isinstance(spec, MediaSpec) and spec.media_type == "video"
+        if self.input_norm is not None and (
+            self.mode or not (isinstance(spec, MediaSpec) and spec.media_type == "video")
         ):
+            # a normalization that silently did not apply would feed a model
+            # unnormalized pixels; subplugin modes convert on their own terms
             raise NegotiationError(
-                f"{self.name}: input-norm applies to video input only, got {spec}"
+                f"{self.name}: input-norm applies to direct video conversion "
+                f"only, got mode={self.mode!r} over {spec}"
             )
+        if self.mode:
+            return [self._negotiate_mode(spec)]
         if isinstance(spec, MediaSpec):
             if spec.media_type == "video":
                 return [self._negotiate_video(spec)]
@@ -119,6 +156,27 @@ class TensorConverter(TensorOp):
                 return [spec]
         raise NegotiationError(f"{self.name}: cannot convert {spec!r}")
 
+    def _negotiate_mode(self, spec: Spec) -> TensorsSpec:
+        # the subplugin reads the bytes on the host: its node takes each
+        # frame where it arrives instead of moving it to the device first
+        self.DEVICE_PASSTHROUGH = True
+        kind, _, arg = str(self.mode).partition(":")
+        if kind == "custom-code":
+            with _custom_lock:
+                self._custom_fn = _custom_converters.get(arg)
+            if self._custom_fn is None:
+                raise NegotiationError(f"{self.name}: custom converter {arg!r} not registered")
+            # a callback declares no static shape: its frames describe themselves
+            return TensorsSpec(format=TensorFormat.FLEXIBLE, rate=getattr(spec, "rate", None))
+        if kind == "custom-script":
+            # the reference's spelling of the python3 subplugin on a script
+            if arg:
+                self.props.setdefault("script", arg)
+            self.mode = "python3"
+        sub = registry.get(registry.KIND_CONVERTER, self.mode)
+        self._subplugin = sub() if isinstance(sub, type) else sub
+        return self._subplugin.negotiate(spec, dict(self.props))
+
     def _negotiate_video(self, spec: MediaSpec) -> TensorsSpec:
         if spec.width is None or spec.height is None:
             raise NegotiationError(f"{self.name}: video size unknown")
@@ -143,6 +201,10 @@ class TensorConverter(TensorOp):
 
     # -- host path: batching, audio, byte framing, flexible → static ----------
     def host_process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
+        if self._custom_fn is not None:
+            return self._custom_fn(frame, dict(self.props)).to_device(self.device)
+        if self._subplugin is not None:
+            return self._subplugin.convert(frame, dict(self.props)).to_device(self.device)
         in_spec = self.in_specs[0]
         if isinstance(in_spec, MediaSpec):
             if in_spec.media_type in ("octet", "text"):

@@ -11,7 +11,13 @@ Properties: framework, model, input/inputtype/inputname (input spec
 override), custom (backend options ``k:v,k2:v2``), input-combination
 (which input tensors the model takes, ``i0,i2``) and output-combination
 (the frame out, from model outputs and input tensors: ``o0,i1,o2``),
-applied inside the fused callable.
+applied inside the fused callable, and invoke-dynamic (per-frame input
+shapes pass the backend's shape check).
+
+A flexible input stream (a converter subplugin's, a host-mode
+``tensor_crop``'s) negotiates against the model's own spec; each frame
+is checked at invoke, and such a filter runs per frame on the host path,
+never fused.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from nnstreamer_tpu_torch.backends.base import Backend, FilterProps
 from nnstreamer_tpu_torch.elements.base import (
     NegotiationError,
     PropSpec,
+    parse_bool,
     Spec,
     TensorOp,
 )
@@ -63,6 +70,7 @@ class TensorFilter(TensorOp):
         "inputtype": PropSpec("str", "float32"),
         "inputname": PropSpec("str", ""),
         "custom": PropSpec("str", "", desc="backend options 'k:v,k2:v2'"),
+        "invoke-dynamic": PropSpec("bool", False, desc="input shapes may vary per frame"),
         "input-combination": PropSpec("str", "", desc="model inputs: 'i0,i2'"),
         "output-combination": PropSpec("str", "", desc="frame out: 'o0,i1'"),
     }
@@ -91,11 +99,13 @@ class TensorFilter(TensorOp):
             model=model_list,
             input_spec=in_override,
             custom=str(self.get_property("custom", "")),
+            invoke_dynamic=parse_bool(self.get_property("invoke-dynamic", False)),
         )
         self.in_combination = _parse_combination(str(self.get_property("input-combination", "")))
         self.out_combination = _parse_combination(
             str(self.get_property("output-combination", "")))
         self.backend: Optional[Backend] = None
+        self._flexible_input = False
 
     def _ensure_open(self) -> Backend:
         if self.backend is None:
@@ -117,19 +127,34 @@ class TensorFilter(TensorOp):
             raise NegotiationError(
                 f"{self.name}: needs other/tensors input (add tensor_converter), got {spec}"
             )
-        if not spec.is_static:
-            raise NegotiationError(f"{self.name}: flexible input is not ported yet")
         b = self._ensure_open()
         model_in = self._select_model_inputs_spec(spec)
-        cur_in, _ = b.get_model_info()
-        if cur_in.is_compatible(model_in):
-            _, out = b.get_model_info()
+        self._flexible_input = not model_in.is_static
+        if self._flexible_input:
+            # per-frame shapes: the model's own spec governs, and each
+            # frame is checked at invoke
+            try:
+                _, out = b.get_model_info()
+            except Exception as exc:
+                raise NegotiationError(
+                    f"{self.name}: flexible input needs a model with a known "
+                    f"input spec (or input=/inputtype= properties): {exc}"
+                ) from exc
         else:
-            out = b.set_input_info(model_in)
+            try:
+                cur_in, _ = b.get_model_info()
+            except Exception:
+                cur_in = None  # shape-polymorphic: the model info needs the input
+            if cur_in is not None and cur_in.is_compatible(model_in):
+                _, out = b.get_model_info()
+            else:
+                out = b.set_input_info(model_in)
         return [self._compose_output_spec(spec, out).with_rate(spec.rate)]
 
     def _select_model_inputs_spec(self, spec: TensorsSpec) -> TensorsSpec:
-        if self.in_combination is None:
+        if self.in_combination is None or not spec.is_static:
+            # a flexible frame's tensor count is known only at invoke,
+            # where the combination is applied and bounds-checked
             return spec
         picks = []
         for kind, idx in self.in_combination:
@@ -158,8 +183,17 @@ class TensorFilter(TensorOp):
         in_comb, out_comb = self.in_combination, self.out_combination
         if in_comb is None and out_comb is None:
             return invoke
+        # input tensors the combinations read: checked per frame, since a
+        # flexible frame's tensor count is known only here
+        reads = [i for _, i in in_comb or ()] + [i for k, i in out_comb or () if k == "i"]
+        needed = max(reads, default=-1) + 1
 
         def fn(tensors: Tuple[Any, ...]) -> Tuple[Any, ...]:
+            if len(tensors) < needed:
+                raise IndexError(
+                    f"{self.name}: combination index {needed - 1} out of range "
+                    f"for a frame of {len(tensors)} tensors"
+                )
             model_in = tensors if in_comb is None else tuple(tensors[i] for _, i in in_comb)
             model_out = tuple(invoke(model_in))
             if out_comb is None:
@@ -169,6 +203,8 @@ class TensorFilter(TensorOp):
         return fn
 
     def is_traceable(self) -> bool:
+        if self._flexible_input:
+            return False
         return self._ensure_open().traceable_fn() is not None
 
     def make_fn(self) -> Callable:

@@ -260,8 +260,8 @@ class FusedSegment:
     ``non_blocking``), then every op's fn runs on device tensors under
     ``torch.inference_mode``. A segment with ``fused=False`` holds one
     non-traceable op and calls its ``host_process`` per frame; an op that
-    never reads tensor bytes (``DEVICE_PASSTHROUGH``: queue) gets the frame
-    where it is."""
+    places its frames itself (``DEVICE_PASSTHROUGH``: queue, a converter
+    subplugin) gets the frame where it is."""
 
     def __init__(self, ops: List[TensorOp], device: torch.device, fused: bool = True) -> None:
         self.ops = ops

@@ -6,7 +6,7 @@ without their element and backend names colliding. Lookups load lazily,
 in order, on a miss:
 
 1. built-in modules (``nnstreamer_tpu_torch.backends`` / ``.decoders`` /
-   ``.elements``),
+   ``.converters`` / ``.elements``),
 2. Python entry points (group ``nnstreamer_tpu_torch.<kind>``),
 3. ``*.py`` files named ``nns_<kind>_<name>.py`` on the config search paths,
    executed and expected to call :func:`register`.
@@ -34,7 +34,7 @@ KINDS = (KIND_FILTER, KIND_DECODER, KIND_CONVERTER, KIND_ELEMENT)
 _BUILTIN_MODULES: Dict[str, List[str]] = {
     KIND_FILTER: ["nnstreamer_tpu_torch.backends"],
     KIND_DECODER: ["nnstreamer_tpu_torch.decoders"],
-    KIND_CONVERTER: [],
+    KIND_CONVERTER: ["nnstreamer_tpu_torch.converters"],
     KIND_ELEMENT: ["nnstreamer_tpu_torch.elements"],
 }
 
@@ -148,6 +148,13 @@ def filter_backend(*names: str):
 def decoder_plugin(name: str):
     def deco(obj):
         return register(KIND_DECODER, name, obj)
+
+    return deco
+
+
+def converter_plugin(name: str):
+    def deco(obj):
+        return register(KIND_CONVERTER, name, obj)
 
     return deco
 

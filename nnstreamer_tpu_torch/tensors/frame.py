@@ -96,9 +96,11 @@ class Frame:
 
     def to_host(self, spec: Optional[TensorsSpec] = None) -> "Frame":
         """Materialize every tensor as numpy (egress boundary only), cast
-        to the dtypes of ``spec`` when given."""
+        to the dtypes of ``spec`` when it describes this frame's tensors
+        (a flexible frame may carry another count)."""
         dtypes = (
-            [t.dtype for t in spec] if spec is not None and spec.num_tensors
+            [t.dtype for t in spec]
+            if spec is not None and spec.num_tensors == len(self.tensors)
             else [None] * len(self.tensors)
         )
         return self.with_tensors(

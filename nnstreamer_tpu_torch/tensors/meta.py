@@ -22,6 +22,7 @@ Layout (little-endian, 96 bytes fixed):
 
 from __future__ import annotations
 
+import math
 import struct
 from dataclasses import dataclass
 from typing import Tuple
@@ -144,15 +145,50 @@ class FlexTensorMeta:
 
 def array_bytes(array) -> Tuple[DType, Tuple[int, ...], bytes]:
     """(dtype, shape, C-order bytes) of a numpy array or a torch tensor; a
-    device tensor is copied to the host (a wire codec runs there)."""
+    device tensor is copied to the host (a wire codec runs there). A 0-d
+    tensor goes out as shape (1,), as ``np.ascontiguousarray`` makes it in
+    the reference's codecs."""
     if isinstance(array, torch.Tensor):
         t = array.detach().cpu().contiguous()
         dtype = DType.from_any(t.dtype)
         # bfloat16 has no numpy type: its bits go out as uint16
         a = t.view(torch.uint16) if t.dtype is torch.bfloat16 else t
-        return dtype, tuple(t.shape), a.numpy().tobytes()
+        return dtype, tuple(t.shape) or (1,), a.numpy().tobytes()
     a = np.ascontiguousarray(np.asarray(array))
     return DType.from_any(a.dtype), tuple(int(d) for d in a.shape), a.tobytes()
+
+
+def host_bytes(t) -> memoryview:
+    """The bytes of one tensor (a wire frame: uint8) on the host, as a flat
+    memoryview: no copy for a host array or CPU tensor, one device-to-host
+    copy for a device tensor."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu().contiguous()
+        t = t.view(torch.uint16) if t.dtype is torch.bfloat16 else t
+        t = t.numpy()
+    return memoryview(np.ascontiguousarray(t)).cast("B")
+
+
+def tensor_from_bytes(
+    buf, offset: int, size: int, dtype: DType, shape: Tuple[int, ...]
+) -> torch.Tensor:
+    """``size`` payload bytes at ``offset`` of ``buf`` → a CPU tensor of
+    ``dtype`` (one copy of the payload, so the tensor owns aligned memory),
+    shaped ``shape`` when that shape holds exactly its elements and flat
+    otherwise, as the reference's wire decoders leave it. A torch tensor,
+    so bfloat16 needs no numpy type."""
+    if size % dtype.itemsize:
+        raise ValueError(
+            f"{size} payload bytes are not a whole number of {dtype.value} elements"
+        )
+    if size == 0:
+        t = torch.empty((0,), dtype=dtype.torch_dtype)
+    else:
+        raw = np.frombuffer(buf, np.uint8, count=size, offset=offset)
+        t = torch.from_numpy(raw.copy()).view(dtype.torch_dtype)
+    if shape and math.prod(shape) == t.numel():
+        t = t.reshape(shape)
+    return t
 
 
 def encode_frame_tensors(tensors) -> bytes:

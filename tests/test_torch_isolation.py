@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither ``jax`` nor
-``nnstreamer_tpu``, no source file of it imports either, every entry
+``nnstreamer_tpu`` (nor a protobuf or flatbuffers runtime: its wire codecs
+are its own), no source file of it imports any of them, every entry
 point refuses to run quietly on the CPU when it was not asked to, the
 kernel wrappers (K1 crop/resize, K2 NMS, K3 decode attention, K4 paged
 decode attention, K5 flash attention) never fall back from the kernel to
@@ -28,6 +29,8 @@ from nnstreamer_tpu_torch.ops.kernels import paged_attention as paged_kernels
 PKG_DIR = os.path.dirname(nnstreamer_tpu_torch.__file__)
 REPO = os.path.dirname(PKG_DIR)
 FORBIDDEN = ("jax", "jaxlib", "nnstreamer_tpu")
+# the wire codecs are written by hand: the card's machine has neither runtime
+FORBIDDEN_MODULES = ("google.protobuf", "flatbuffers")
 
 
 def test_import_leaves_jax_out():
@@ -84,6 +87,12 @@ def test_slice5_modules_import_alone(module):
     "nnstreamer_tpu_torch.pipeline.executor",
     "nnstreamer_tpu_torch.tensors.meta",
     "nnstreamer_tpu_torch.tensors.sparse",
+    "nnstreamer_tpu_torch.converters",
+    "nnstreamer_tpu_torch.decoders.protobuf",
+    "nnstreamer_tpu_torch.decoders.flatbuf",
+    "nnstreamer_tpu_torch.backends.custom",
+    "nnstreamer_tpu_torch.backends.fakes",
+    "nnstreamer_tpu_torch.script",
 ])
 def test_routing_modules_import_alone(module):
     """The routing and host-side element surface, the executor and the
@@ -140,8 +149,33 @@ def test_no_source_imports_jax_or_reference():
             offenders += [
                 f"{path}:{node.lineno} {n}" for n in names
                 if n.split(".")[0] in FORBIDDEN
+                or any(n == m or n.startswith(m + ".") for m in FORBIDDEN_MODULES)
             ]
     assert offenders == []
+
+
+def test_codecs_load_no_protobuf_or_flatbuffers_runtime():
+    """The port's converters and decoders, the CLI and the registry's
+    every subplugin load neither google.protobuf nor flatbuffers (nor jax
+    or the reference package)."""
+    code = (
+        "import sys\n"
+        "import nnstreamer_tpu_torch.cli\n"
+        "from nnstreamer_tpu_torch import registry\n"
+        "for k in registry.KINDS:\n"
+        "    registry.available(k)\n"
+        "import nnstreamer_tpu_torch.converters.protobuf, nnstreamer_tpu_torch.converters.flatbuf\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'nnstreamer_tpu', 'flatbuffers') or m.startswith('google.protobuf'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
 
 
 @pytest.mark.parametrize(

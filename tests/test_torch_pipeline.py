@@ -1,8 +1,8 @@
 """Port parity through the user entry point: the port's CLI
 (``nnstreamer_tpu_torch.cli`` with ``--device cpu``) reproduces the JAX
 package's golden dumps byte for byte, its resize pipeline matches the JAX
-CLI path, the image-labeling slice gives the JAX labels, and broken
-pipelines fail with an ``nns-launch:`` diagnostic.
+CLI path, the image-labeling slice gives the JAX labels, and every broken
+pipeline of ``FAIL_PIPELINES`` fails with an ``nns-launch:`` diagnostic.
 
 The label goldens were made with the JAX zoo's seeded weights; the port
 runs those same weights through ``custom="...,params:<npz>"``.
@@ -17,6 +17,7 @@ import jax
 from nnstreamer_tpu.models import mobilenet_v2 as jmobilenet
 from nnstreamer_tpu.pipeline.parse import parse_pipeline as jax_parse
 from nnstreamer_tpu_torch import cli
+from nnstreamer_tpu_torch.models import zoo
 from nnstreamer_tpu_torch.ops.kernels.image_kernels import interp_atol
 from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
 
@@ -140,13 +141,18 @@ def test_main_path_fuses_into_one_segment():
     assert len(plan.segments) == 1 and len(plan.segments[0].ops) == 4
 
 
-@pytest.mark.parametrize(
-    "name", ["unknown_element", "filter_without_converter", "dangling_bang"]
-)
-def test_expect_fail(name, capsys):
+@pytest.mark.parametrize("name", sorted(FAIL_PIPELINES))
+def test_expect_fail(name, capsys, monkeypatch):
+    """Every FAIL pipeline exits nonzero with an ``nns-launch:`` line and no
+    traceback; ``bad_mesh`` names its 999 devices and loads no model."""
+    loads = []
+    real_get = zoo.get
+    monkeypatch.setattr(zoo, "get", lambda *a, **k: (loads.append(a), real_get(*a, **k))[1])
     assert _run_cli(FAIL_PIPELINES[name]) != 0
     err = capsys.readouterr().err
     assert "nns-launch:" in err and "Traceback" not in err
+    if name == "bad_mesh":
+        assert "needs 999 devices" in err and loads == []
 
 
 def test_cli_without_gpu_asks_for_device(capsys):
