@@ -24,6 +24,23 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  equal to the port's own CPU run; frames per second
                  free-running, and end-to-end latency p50/p99 with the
                  source paced at 30 fps.
+3a. segments   — every fused segment is one program per (signature,
+                 bucket, fn version), on the card a captured CUDA graph
+                 replayed once a frame (ROADMAP A.1): labeling-720p,
+                 detection-720p and face-cascade-720p, 32 frames each,
+                 every segment's replay bit for bit against
+                 process_eager on the same input, K1 (and K2) counted once
+                 a frame as replays, which segments replay and which stay
+                 eager (an op's CAPTURABLE = False), host launches a frame
+                 eager against replay (torch.profiler, 16 frames), fps,
+                 paced p50/p99 with frame 0 apart, busy share and device
+                 ms by class (16 frames); a replayed segment into a
+                 depth-8 queue and a slow sink, every frame equal to its
+                 eager output (no replay overwrote a frame in flight);
+                 labeling with batching=true max-batch=8 bit for bit
+                 against batching=false (logits), avg-batch-size,
+                 pad-waste-pct, one replay a window, K1 a row, fps. Every
+                 later phase runs its pipelines' segments captured too.
 4. profile     — device time by kernel over 16 labeling frames.
 5. single      — SingleShot invoke on the GPU, logits against the CPU's.
 6. routing     — the crop cascade routing-crop-720p: videotestsrc
@@ -2894,6 +2911,255 @@ def vision_phases(torch, np, dev, parse_pipeline, ik, nk, det):
 
 # -- the wire codecs, script subplugins and flexible input (queue A.1, A.2) ------
 
+# -- the segments group (ROADMAP A.1 + A.6 batching): captured programs -------
+
+LAUNCH_APIS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx")
+# a replayed segment feeding a deep queue into a slow sink: outputs still in
+# flight when later replays run
+ALIAS_PIPELINE = (
+    "videotestsrc pattern=gradient width=1280 height=720 num-frames={n} ! tensor_converter ! "
+    "tensor_transform mode=resize option=224:224 ! queue max-size-buffers=8 ! "
+    "tensor_sink name=out"
+)
+ALIAS_SINK_MS = 20  # the slow sink's delay a frame, before it reads the frame
+BATCH_PROPS = " batching=true max-batch=8"
+
+
+def host_launches(prof):
+    """(kernel launches, graph launches, memcpy calls) the host made in a
+    torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    k = g = m = 0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        if ev.key in LAUNCH_APIS:
+            k += ev.count
+        elif ev.key == "cudaGraphLaunch":
+            g += ev.count
+        elif ev.key.startswith("cudaMemcpy"):
+            m += ev.count
+    return k, g, m
+
+
+class SegmentLog:
+    """Records every fused segment's (input frame, output frame) while
+    installed: the replays a check holds against ``process_eager``."""
+
+    def __init__(self, FusedSegment):
+        self.cls, self.real, self.pairs = FusedSegment, FusedSegment.process, {}
+
+    def __enter__(self):
+        real, pairs = self.real, self.pairs
+
+        def process(seg, frame):
+            out = real(seg, frame)
+            if seg.fused:
+                pairs.setdefault(seg, []).append((frame, out))
+            return out
+
+        self.cls.process = process
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.process = self.real
+
+
+def replay_vs_eager(torch, pairs):
+    """Every recorded replay output against ``process_eager`` on the same
+    input, bit for bit; (frames compared, tensors compared)."""
+    frames = tensors = 0
+    for seg, rows in pairs.items():
+        for fin, fout in rows:
+            want = seg.process_eager(fin)
+            if len(want.tensors) != len(fout.tensors):
+                raise AssertionError(f"segments: {seg.name} gave {len(fout.tensors)} tensors, "
+                                     f"eager {len(want.tensors)}")
+            for a, b in zip(fout.tensors, want.tensors):
+                if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                    raise AssertionError(f"segments: {seg.name} replay differs from "
+                                         f"process_eager at frame {frames}")
+                tensors += 1
+            frames += 1
+    return frames, tensors
+
+
+def segment_rows(plan):
+    """Which fused segments replay, which stay eager, and why."""
+    rows = []
+    for seg in plan.segments:
+        if not seg.fused:
+            continue
+        rows.append({"segment": seg.name, "captured": seg.captured, "n_traces": seg.n_traces,
+                     "warmup_launches": seg.warmup_launches, "build_s": seg.build_s,
+                     "eager_because": [f"{op.name}: CAPTURABLE = False" for op in seg.ops
+                                       if not op.CAPTURABLE]})
+    return rows
+
+
+def launches_eager_vs_replay(torch, pairs, n):
+    """Host launch calls a frame of the cells' segments over ``n`` frames:
+    process_eager against process (replays), same inputs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for mode in ("eager", "replay"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for seg, rows in pairs.items():
+                for fin, _ in rows[:n]:
+                    (seg.process_eager if mode == "eager" else seg.process)(fin)
+            torch.cuda.synchronize()
+        k, g, m = host_launches(prof)
+        out[mode] = {"kernel_launches_per_frame": k / n, "graph_launches_per_frame": g / n,
+                     "memcpy_calls_per_frame": m / n}
+    return out
+
+
+def segment_cell(torch, np, dev, parse_pipeline, FusedSegment, name, desc, counters, extra):
+    """One cell with its segments captured: 32 frames recorded (every
+    replay against process_eager), the kernels' counts, fps; launches a
+    frame eager against replay; paced p50/p99 with frame 0 apart; a
+    16-frame profile (busy share, device ms by class)."""
+    run_desc(parse_pipeline, desc(4), dev)  # warm-up: cuDNN, allocator, models
+    with SegmentLog(FusedSegment) as log:
+        p, wall = run_desc(parse_pipeline, desc(FRAMES), dev, counters=counters.values())
+    counts = {k: c.count for k, c in counters.items()}
+    if any(v != FRAMES for v in counts.values()):
+        raise AssertionError(f"segments {name}: launches {counts} for {FRAMES} frames")
+    plan = p._executor.plan
+    rows = segment_rows(plan)
+    if not any(r["captured"] for r in rows):
+        raise AssertionError(f"segments {name}: no segment replays a graph: {rows}")
+    sink = len(p["out"].frames)
+    if sink != FRAMES:
+        raise AssertionError(f"segments {name}: {sink} frames at the sink")
+    n_frames, n_tensors = replay_vs_eager(torch, log.pairs)
+    launches = launches_eager_vs_replay(torch, log.pairs, 16)
+    paced, _ = run_desc(parse_pipeline, desc(FRAMES, live=True), dev)
+    lat = latencies(paced)
+    rest = sorted(lat[1:])
+    classes, _ = profiled(torch, parse_pipeline, desc(16), dev, extra)
+    build_s = sum(r["build_s"] for r in rows)
+    return {
+        "cell": name, "frames": FRAMES, "launches": counts, "segments": rows,
+        "replays_vs_eager_bit_equal": {"frames": n_frames, "tensors": n_tensors},
+        "launches_per_frame_16": launches,
+        "fps": FRAMES / wall, "wall_s": wall, "build_s": build_s,
+        "fps_after_build": FRAMES / (wall - build_s),
+        "paced30_latency_ms_frame0": lat[0],
+        "paced30_latency_ms_p50_after0": pct(rest, 0.5),
+        "paced30_latency_ms_p99_after0": pct(rest, 0.99),
+        "paced30_latency_ms_p99": pct(sorted(lat), 0.99),
+        "profile_frames": 16, **classes,
+    }
+
+
+def aliasing_check(torch, np, dev, parse_pipeline, FusedSegment):
+    """A replayed segment → queue (depth 8) → a sink that waits 20 ms before
+    it reads each frame: every frame at the sink equals its eager output,
+    so no replay overwrote a frame still in flight."""
+    p = parse_pipeline(ALIAS_PIPELINE.format(n=16), device=dev)
+    p.negotiate()
+    render = p["out"].render
+    p["out"].render = lambda f: (time.sleep(ALIAS_SINK_MS / 1e3), render(f))
+    with SegmentLog(FusedSegment) as log:
+        p.run(timeout=600)
+    ((seg, pairs),) = log.pairs.items()
+    got = [f.tensors[0] for f in p["out"].frames]
+    if not seg.captured or len(got) != 16 or len(pairs) != 16:
+        raise AssertionError(f"aliasing: captured {seg.captured}, {len(got)} frames")
+    distinct = len({zlib.crc32(np.ascontiguousarray(g).tobytes()) for g in got})
+    for g, (fin, _) in zip(got, pairs):
+        want = seg.process_eager(fin).tensors[0].cpu().numpy()
+        if not np.array_equal(g, want):
+            raise AssertionError("aliasing: a frame at the sink differs from its eager output")
+    return {"frames": 16, "queue_depth": 8, "sink_delay_ms": ALIAS_SINK_MS,
+            "distinct_frames": distinct, "equal_to_eager": True}
+
+
+def batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik):
+    """labeling-720p with batching=true max-batch=8 against batching=false:
+    the logits (the description without its decoder) bit for bit, every
+    frame; avg-batch-size, pad-waste-pct, replays a window, K1 a row, fps."""
+    logits_desc = PIPELINE.replace("tensor_decoder mode=image_labeling ! ", "")
+
+    def desc(n, props="", base=PIPELINE):
+        return base.format(n=n, live="").replace(
+            "model=zoo:mobilenet_v2", "model=zoo:mobilenet_v2" + props)
+
+    plain, _ = run_desc(parse_pipeline, desc(FRAMES, base=logits_desc), dev)
+    batched, _ = run_desc(parse_pipeline, desc(FRAMES, BATCH_PROPS, logits_desc), dev)
+    a, b = out_tensors(plain), out_tensors(batched)
+    if len(a) != FRAMES or len(b) != FRAMES or not all(np.array_equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError("batched labeling: logits differ from batching=false")
+    run_desc(parse_pipeline, desc(4, BATCH_PROPS), dev)  # warm-up
+    replays = []
+    real = FusedSegment._replay
+    FusedSegment._replay = lambda seg, prog: (replays.append(seg), real(seg, prog))[1]
+    try:
+        p, wall = run_desc(parse_pipeline, desc(FRAMES, BATCH_PROPS), dev,
+                           counters=(ik.crop_resize_launches,))
+    finally:
+        FusedSegment._replay = real
+    k1 = ik.crop_resize_launches.count
+    unb, unb_wall = run_desc(parse_pipeline, desc(FRAMES), dev)
+    f = p["f"]
+    stats = f.batch_stats
+    (seg,) = [s for s in p._executor.plan.segments if s.fused]
+    labels = [int(t[0]) for t in out_tensors(p)]
+    if labels != [int(t[0]) for t in out_tensors(unb)] or stats.frames != FRAMES:
+        raise AssertionError("batched labeling: labels differ or frames lost")
+    if len(replays) != stats.batches or k1 != stats.bucket_rows:
+        raise AssertionError(f"batched labeling: {len(replays)} replays for {stats.batches} "
+                             f"windows, K1 {k1} for {stats.bucket_rows} rows")
+    return {
+        "frames": FRAMES, "logits_bit_equal": True, "labels_equal": True,
+        "avg_batch_size": f.get_property("avg-batch-size"),
+        "pad_waste_pct": f.get_property("pad-waste-pct"),
+        "batch_wait_ms": f.get_property("batch-wait-ms"),
+        "windows": stats.batches, "replays_per_window": len(replays) / stats.batches,
+        "rows_run": stats.bucket_rows, "k1_launches": k1,
+        "programs": seg.n_traces, "build_s": seg.build_s,
+        "fps": FRAMES / wall, "fps_after_builds": FRAMES / (wall - seg.build_s),
+        "fps_unbatched_same_call": FRAMES / unb_wall,
+    }
+
+
+def segments_phases(torch, np, dev, parse_pipeline, ik, nk):
+    """The segments group: labeling-720p, detection-720p and
+    face-cascade-720p with every fused segment replaying a CUDA graph; the
+    in-flight aliasing check; batched labeling."""
+    from nnstreamer_tpu_torch.models import ssd_mobilenet
+    from nnstreamer_tpu_torch.pipeline.graph import FusedSegment
+
+    t0 = time.perf_counter()
+    out = {"phase": "segments"}
+    with tempfile.TemporaryDirectory() as tmp:
+        priors = os.path.join(tmp, "box-priors.txt")
+        ssd_mobilenet.write_box_priors(priors)
+        cells = [
+            ("labeling-720p",
+             lambda n, live=False: PIPELINE.format(n=n, live=LIVE if live else ""),
+             {"k1": ik.crop_resize_launches}, [("crop_resize (K1)", "crop_resize")]),
+            ("detection-720p",
+             lambda n, live=False: DET_PIPELINE.format(n=n, live=LIVE if live else "",
+                                                       priors=priors, pp="device"),
+             {"k1": ik.crop_resize_launches, "k2": nk.nms_launches},
+             [("nms (K2)", "nms_kernel"), ("crop_resize (K1)", "crop_resize")]),
+            ("face-cascade-720p",
+             lambda n, live=False: FACE_CASCADE.format(n=n, live=LIVE if live else ""),
+             {"k1_crop": ik.crop_entry_launches, "k1_resize": ik.resize_entry_launches},
+             [("crop_resize (K1)", "crop_resize")]),
+        ]
+        out["cells"] = [segment_cell(torch, np, dev, parse_pipeline, FusedSegment, *c)
+                        for c in cells]
+    out["aliasing"] = aliasing_check(torch, np, dev, parse_pipeline, FusedSegment)
+    out["batched_labeling"] = batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 CODECS = ("flexbuf", "protobuf", "flatbuf")
 HD_SOURCE = "videotestsrc pattern=gradient width=1280 height=720 num-frames={n}"
 CODEC_ROUNDTRIP = (
@@ -3135,14 +3401,16 @@ def codec_labeling_phase(torch, np, dev, parse_pipeline, ik, pipeline_phase):
     if labels != pipeline_phase["labels"]:
         raise AssertionError(f"codec_labeling: labels {labels[:4]} != the pipeline phase's "
                              f"{pipeline_phase['labels'][:4]}")
-    # the logits of 8 frames each way (the hook reads them back: not timed)
+    # the logits of 8 frames each way (not timed): the codec run's filter is
+    # a host node, read by a forward hook; the codec-free run drops the
+    # decoder and its sink takes the logits (its segment replays a CUDA
+    # graph, where a forward hook fires only at the capture)
     logits = {"codec": [], "plain": []}
-
-    def grab(key):
-        return lambda m, i, o: logits[key].append(o.detach().float().cpu())
-
-    run_desc(parse_pipeline, PIPELINE.format(n=8, live=""), dev, hook=grab("plain"))
-    run_desc(parse_pipeline, desc(8), dev, hook=grab("codec"))
+    plain, _ = run_desc(parse_pipeline, PIPELINE.format(n=8, live="").replace(
+        "tensor_decoder mode=image_labeling ! ", ""), dev)
+    logits["plain"] = [torch.from_numpy(t).float() for t in out_tensors(plain)]
+    run_desc(parse_pipeline, desc(8), dev,
+             hook=lambda m, i, o: logits["codec"].append(o.detach().float().cpu()))
     if len(logits["codec"]) != 8 or len(logits["plain"]) != 8:
         raise AssertionError("codec_labeling: want 8 logit frames each way")
     err = max(float((a - b).abs().max()) for a, b in zip(logits["codec"], logits["plain"]))
@@ -3462,6 +3730,11 @@ def main() -> int:
         "paced30_latency_ms_p99": pct(lat_live, 0.99),
     })
 
+    # 3a. segments: the cells' fused segments as replayed CUDA graphs ----------
+    from nnstreamer_tpu_torch.ops.kernels import nms as nk
+
+    emit(segments_phases(torch, np, dev, parse_pipeline, ik, nk))
+
     # 4. profile -------------------------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
@@ -3503,7 +3776,6 @@ def main() -> int:
     # 7. nms_kernels ---------------------------------------------------------
     from nnstreamer_tpu_torch.models import ssd_mobilenet
     from nnstreamer_tpu_torch.ops import detection as det
-    from nnstreamer_tpu_torch.ops.kernels import nms as nk
 
     ssd_boxes, ssd_scores = ssd_frame_candidates(torch, parse_pipeline, dev)
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -75,6 +75,21 @@ class Backend(ABC):
 
     name: str = "base"
 
+    #: whether invoke_batched() may take a window of frames in one call
+    #: (pipeline/batching.py). A backend whose invoke is strictly per
+    #: frame, or which keeps state across frames, leaves this False and
+    #: keeps per-frame invokes.
+    batchable: bool = False
+
+    #: whether invoke() is the identity over its tensors (the passthrough
+    #: fake): a fused segment of only identity ops runs no program.
+    IS_IDENTITY: bool = False
+
+    #: whether traceable_fn() may be captured into a CUDA graph: False for
+    #: a model that reads values back to the host or sizes its work by
+    #: the data (an LM's generate loop).
+    CAPTURABLE: bool = True
+
     def __init__(self) -> None:
         self.props: Optional[FilterProps] = None
         self.stats = InvokeStats()
@@ -108,6 +123,12 @@ class Backend(ABC):
         """The model as a fn over device tensors, or None for a fusion
         barrier."""
         return None
+
+    def invoke_batched(self, batch: Sequence[Tuple[Any, ...]]) -> List[Tuple[Any, ...]]:
+        """Inference on a window of frames' tensors in ONE call (used only
+        when ``batchable``). The default chains invoke(); an engine with a
+        real batched entry point overrides it."""
+        return [tuple(self.invoke(ts)) for ts in batch]
 
     def invoke_timed(self, tensors: Tuple[Any, ...]) -> Tuple[Any, ...]:
         t0 = time.perf_counter_ns()

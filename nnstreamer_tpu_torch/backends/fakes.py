@@ -46,6 +46,7 @@ class PassthroughBackend(_SameSpec):
     """Identity filter (custom_example_passthrough)."""
 
     name = "passthrough"
+    IS_IDENTITY = True
 
     def traceable_fn(self) -> Callable:
         return lambda tensors: tuple(tensors)

@@ -163,6 +163,12 @@ class TorchBackend(Backend):
         with torch.inference_mode():
             return _as_tuple(self.module(*tensors))
 
+    @property
+    def CAPTURABLE(self) -> bool:  # noqa: N802 — the Backend attribute, per model
+        """A zoo module may declare ``CAPTURABLE = False`` (an LM's generate
+        loop or beam search: data-sized loops and reads back)."""
+        return bool(getattr(self.module, "CAPTURABLE", True))
+
     def traceable_fn(self) -> Optional[Callable]:
         module = self.module
         if module is None or self._pinned is not None:

@@ -2,7 +2,8 @@
 
 The part of ``nnstreamer_tpu/config.py`` that the port reads: plugin
 search paths, the element restriction whitelist, the framework
-auto-detect priority and the ``[llm]`` serving defaults. Env mapping:
+auto-detect priority, the ``[executor]`` micro-batching defaults and the
+``[llm]`` serving defaults. Env mapping:
 section ``filter`` key ``framework_priority_pt`` is overridden by
 ``NNS_TPU_FILTER_FRAMEWORK_PRIORITY_PT``. The ini file is read only from
 the path in ``NNS_TPU_CONF``.
@@ -29,6 +30,17 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "framework_priority_pth": "torch",
     },
     "decoder": {"plugin_paths": ""},
+    "executor": {
+        # micro-batching defaults for fused segments and batchable filters
+        # (pipeline/batching.py); tensor_filter's batching=, max-batch=,
+        # batch-timeout-ms= and batch-buckets= override them. Env:
+        # NNS_TPU_EXECUTOR_BATCHING etc.
+        "batching": "false",
+        "max_batch": "8",
+        "batch_timeout_ms": "1.0",
+        # comma list of padded batch sizes; empty = 1,2,4,...,max_batch
+        "batch_buckets": "",
+    },
     "converter": {"plugin_paths": ""},
     "llm": {
         # continuous-batching LLM serving defaults (tensor_llm_serversink
@@ -92,6 +104,12 @@ class Config:
     def get(self, section: str, key: str, default: str = "") -> str:
         val = self._layered(section, key, use_env=self.env_enabled)
         return val if val != "" else default
+
+    def get_bool(self, section: str, key: str, default: bool = False) -> bool:
+        raw = self.get(section, key, "")
+        if raw == "":
+            return default
+        return raw.strip().lower() in ("1", "true", "yes", "on")
 
     def get_list(self, section: str, key: str, sep: str = ",") -> List[str]:
         raw = self.get(section, key, "")

@@ -184,6 +184,22 @@ class TensorOp(Element):
     N_SINKS = 1
     N_SRCS = 1
 
+    # Whether the op's fn may be captured into a CUDA graph (the fused
+    # segment's program on CUDA, pipeline/graph.py). An op whose fn reads
+    # a value back to the host, or allocates by a size the data decides,
+    # sets this False; its segment then runs its ops eagerly on CUDA.
+    CAPTURABLE: bool = True
+
+    # Bumped whenever make_fn()'s result changes without a shape change
+    # (a model hot swap through reload_model): part of the fused
+    # segment's program cache key, so a same-shape reload is never served
+    # the stale program.
+    fn_version: int = 0
+
+    # the node's batching counters (pipeline/batching.py BatchStats),
+    # shared at plan time with the segment that runs this op
+    batch_stats: Optional[Any] = None
+
     def make_fn(self) -> Callable[[Tuple[Any, ...]], Tuple[Any, ...]]:
         """The fn (tensors) -> tensors over torch tensors on ``device``,
         for the negotiated specs."""
@@ -193,6 +209,18 @@ class TensorOp(Element):
         """False → the op runs per frame through :meth:`host_process` in a
         segment of its own (a fusion barrier)."""
         return True
+
+    def is_identity(self) -> bool:
+        """True → the op's fn is the identity over its tensors (the
+        passthrough backend): a segment of only-identity ops hands its
+        frames on without running any program."""
+        return False
+
+    def is_batch_capable(self) -> bool:
+        """True → the host path may collect a micro-batch and call the
+        op's ``host_process_batch`` (a filter with a ``batchable``
+        backend). Fused ops batch through their segment instead."""
+        return False
 
     def host_process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
         """Per-frame execution of a non-traceable op: a frame, a list of

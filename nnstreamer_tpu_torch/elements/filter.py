@@ -12,7 +12,12 @@ override), custom (backend options ``k:v,k2:v2``), input-combination
 (which input tensors the model takes, ``i0,i2``) and output-combination
 (the frame out, from model outputs and input tensors: ``o0,i1,o2``),
 applied inside the fused callable, and invoke-dynamic (per-frame input
-shapes pass the backend's shape check).
+shapes pass the backend's shape check). Micro-batching (batching,
+max-batch, batch-timeout-ms, batch-buckets; read-only avg-batch-size,
+pad-waste-pct, batch-wait-ms) is resolved at plan time
+(pipeline/batching.py): a fused filter batches through its segment, a host
+one through ``invoke_batched`` when its backend declares ``batchable``.
+``reload_model`` swaps the model under the same specs.
 
 A flexible input stream (a converter subplugin's, a host-mode
 ``tensor_crop``'s) negotiates against the model's own spec; each frame
@@ -22,6 +27,7 @@ never fused.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, List, Optional, Tuple
 
 from nnstreamer_tpu_torch import registry
@@ -33,6 +39,7 @@ from nnstreamer_tpu_torch.elements.base import (
     Spec,
     TensorOp,
 )
+from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
 Combination = Optional[List[Tuple[str, int]]]
@@ -73,7 +80,24 @@ class TensorFilter(TensorOp):
         "invoke-dynamic": PropSpec("bool", False, desc="input shapes may vary per frame"),
         "input-combination": PropSpec("str", "", desc="model inputs: 'i0,i2'"),
         "output-combination": PropSpec("str", "", desc="frame out: 'o0,i1'"),
+        # micro-batching (pipeline/batching.py): per-element overrides of
+        # the [executor] defaults. Unset = inherit.
+        "batching": PropSpec(
+            "bool", None, desc="micro-batch queued frames into one device invoke"
+        ),
+        "max-batch": PropSpec("int", None, desc="micro-batch frame cap (default 8)"),
+        "batch-timeout-ms": PropSpec(
+            "float", None,
+            desc="straggler wait when trickle-fed (default 1.0; 0 = never wait)",
+        ),
+        "batch-buckets": PropSpec(
+            "str", None,
+            desc="comma list of padded batch sizes (default 1,2,4,...,max-batch)",
+        ),
     }
+
+    # read-only properties: the node's batching counters (pipeline/batching.py)
+    READ_ONLY = ("avg-batch-size", "pad-waste-pct", "batch-wait-ms")
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
@@ -120,6 +144,93 @@ class TensorFilter(TensorOp):
         if self.backend is not None:
             self.backend.close()
             self.backend = None
+
+    @property
+    def CAPTURABLE(self) -> bool:  # noqa: N802 — TensorOp's attribute, per backend
+        """Whether the backend's fn may be captured into a CUDA graph."""
+        return bool(self._ensure_open().CAPTURABLE)
+
+    def is_identity(self) -> bool:
+        """True when the backend is the identity (``IS_IDENTITY``) and no
+        pad combination rewires tensors."""
+        if self.in_combination is not None or self.out_combination is not None:
+            return False
+        return bool(self._ensure_open().IS_IDENTITY)
+
+    def reload_model(self, model: str) -> None:
+        """Hot swap: reopen the backend on ``model`` (comma-separated
+        paths) for the negotiated input, and tick ``fn_version`` so a
+        fused segment builds its program anew (same shapes, so the
+        signature alone would serve the old one). The output spec must
+        stay as negotiated."""
+        old_out = list(self.out_specs)
+        if self.backend is not None:
+            self.backend.close()
+            self.backend = None
+        self.fprops.model = tuple(m for m in model.split(",") if m)
+        if self.in_specs:
+            out = self.negotiate(list(self.in_specs))
+            if old_out and out != old_out:
+                raise NegotiationError(
+                    f"{self.name}: reloaded model gives {out[0]}, negotiated {old_out[0]}"
+                )
+        self.fn_version += 1
+
+    # -- micro-batching (pipeline/batching.py) -----------------------------
+    def get_property(self, key: str, default: Any = None) -> Any:
+        key = key.replace("_", "-")
+        if key in self.READ_ONLY:
+            return getattr(self, key.replace("-", "_"))
+        return super().get_property(key, default)
+
+    @property
+    def avg_batch_size(self) -> float:
+        s = self.batch_stats
+        return s.avg_batch_size if s is not None else 0.0
+
+    @property
+    def pad_waste_pct(self) -> float:
+        s = self.batch_stats
+        return s.pad_waste_pct if s is not None else 0.0
+
+    @property
+    def batch_wait_ms(self) -> float:
+        s = self.batch_stats
+        return s.batch_wait_ms if s is not None else 0.0
+
+    def is_batch_capable(self) -> bool:
+        """The host path may batch only when the backend declared
+        ``batchable``; a flexible stream's per-frame shapes cannot share
+        one invoke."""
+        if self._flexible_input:
+            return False
+        return bool(getattr(self._ensure_open(), "batchable", False))
+
+    def host_process_batch(self, frames: List[Frame]) -> List[Frame]:
+        """One invoke_batched() call for the window, the combinations
+        applied per frame. A window of mixed shapes runs per frame."""
+        sig0 = tuple((tuple(t.shape), t.dtype) for t in frames[0].tensors)
+        if any(tuple((tuple(t.shape), t.dtype) for t in f.tensors) != sig0 for f in frames[1:]):
+            return [self.host_process(f) for f in frames]
+        b = self._ensure_open()
+        in_comb, out_comb = self.in_combination, self.out_combination
+        model_ins = [
+            f.tensors if in_comb is None else tuple(f.tensors[i] for _, i in in_comb)
+            for f in frames
+        ]
+        t0 = time.perf_counter_ns()
+        model_outs = b.invoke_batched(model_ins)
+        per = (time.perf_counter_ns() - t0) // max(1, len(frames))
+        outs: List[Frame] = []
+        for f, model_out in zip(frames, model_outs):
+            b.stats.record(per)
+            model_out = tuple(model_out)
+            if out_comb is not None:
+                model_out = tuple(
+                    f.tensors[i] if kind == "i" else model_out[i] for kind, i in out_comb
+                )
+            outs.append(f.with_tensors(model_out))
+        return outs
 
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:
         (spec,) = in_specs

@@ -33,7 +33,7 @@ Image modes, through the K1 kernel (ops/image.py):
 from __future__ import annotations
 
 import re
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -341,9 +341,7 @@ class TensorTransform(TensorOp):
                 if img_rank4:
                     img = img[0]
                 b = tensors[box_idx].to(torch.float32)
-                scale = torch.tensor(
-                    [iw, ih, iw, ih], dtype=torch.float32, device=b.device
-                )
+                scale = _const((iw, ih, iw, ih), torch.float32, b.device)
                 if bcols == 4 and box_is_int:
                     # tensor_crop pixel regions (x, y, w, h)
                     xyxy = torch.cat([b[:, :2], b[:, :2] + b[:, 2:4]], dim=-1)
@@ -391,10 +389,25 @@ class TensorTransform(TensorOp):
         return fn
 
 
+_CONSTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _const(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` (a number or a tuple) as a ``dtype`` tensor on ``device``,
+    cast on the host from float64 and copied up once. Later calls reuse the
+    copy, so an op's fn copies nothing from the host while a CUDA graph
+    captures it (a segment's warm-up call makes the constant first)."""
+    key = (repr(value), dtype, device)  # repr: -0.0 and nan are keys of their own
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(value, dtype=torch.float64).to(dtype).to(device)
+    return t
+
+
 def _arith(y: torch.Tensor, op: str, num: float) -> torch.Tensor:
     # the constant takes the operand's dtype (integers truncate it), as
     # jnp.asarray(num, dtype=y.dtype) does in the reference
-    const = torch.tensor(num, dtype=torch.float64).to(y.dtype).to(y.device)
+    const = _const(num, y.dtype, y.device)
     if op == "add":
         return y + const
     if op == "sub":

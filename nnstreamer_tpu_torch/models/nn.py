@@ -17,7 +17,9 @@ Two numerics of the reference are kept on purpose:
   (0, 1) on each axis, not torch's symmetric (1, 1), which would shift
   every output by one pixel;
 - batch norm in the reference's form ``x·inv + (bias − mean·inv)`` with
-  ``inv = rsqrt(var + eps)·scale`` and ``eps = 1e-3``.
+  ``inv = rsqrt(var + eps)·scale`` and ``eps = 1e-3``. ``inv`` and the
+  shift are computed once (:meth:`ConvBN.fold_bn`), not at every call;
+  they are not folded into the conv weights, which would round otherwise.
 """
 
 from __future__ import annotations
@@ -89,7 +91,11 @@ class ConvBN(nn.Module):
 
     State: ``weight`` [O, I/groups, kh, kw] and the batch-norm vectors
     ``scale``, ``bias``, ``mean``, ``var`` [O] — one-to-one with the
-    reference's ``{"w", "bn": {"scale", "bias", "mean", "var"}}``."""
+    reference's ``{"w", "bn": {"scale", "bias", "mean", "var"}}``. The
+    per-channel ``inv`` and ``shift`` are derived buffers (not in the
+    state dict), refreshed by :meth:`fold_bn` whenever the batch-norm
+    vectors change: after ``load_state_dict`` and after a move or cast
+    (``.to``), so they are computed on the model's device in its dtype."""
 
     def __init__(
         self, cin: int, cout: int, k: int, stride: int = 1, groups: int = 1,
@@ -105,12 +111,31 @@ class ConvBN(nn.Module):
         self.register_buffer("bias", torch.zeros(cout))
         self.register_buffer("mean", torch.zeros(cout))
         self.register_buffer("var", torch.ones(cout))
+        self.register_buffer("inv", torch.empty(cout), persistent=False)
+        self.register_buffer("shift", torch.empty(cout), persistent=False)
+        self.fold_bn()
+
+    @torch.no_grad()
+    def fold_bn(self) -> None:
+        """``inv = rsqrt(var + eps)·scale`` and ``shift = bias − mean·inv``
+        from the current batch-norm vectors: the ops the forward used to
+        run at every call, on the same inputs."""
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        self.inv = inv
+        self.shift = self.bias - self.mean * inv
+
+    def _apply(self, fn, *args, **kwargs):
+        super()._apply(fn, *args, **kwargs)
+        self.fold_bn()
+        return self
+
+    def _load_from_state_dict(self, *args, **kwargs) -> None:
+        super()._load_from_state_dict(*args, **kwargs)
+        self.fold_bn()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv2d_same(x, self.weight, self.stride, self.groups, self.dilation)
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        shift = self.bias - self.mean * inv
-        y = y * inv[:, None, None] + shift[:, None, None]
+        y = y * self.inv[:, None, None] + self.shift[:, None, None]
         return relu6(y) if self.act else y
 
 

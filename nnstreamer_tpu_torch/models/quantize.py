@@ -88,10 +88,10 @@ Folded = Tuple[torch.Tensor, torch.Tensor]  # (OIHW weight, bias) in float32
 
 @torch.no_grad()
 def fold_bn(conv: ConvBN) -> Folded:
-    """conv → batch norm ≡ conv(w·inv) + b, with inv = scale·rsqrt(var + eps)
-    (inference moments)."""
-    inv = conv.scale * torch.rsqrt(conv.var + conv.eps)
-    return conv.weight * inv[:, None, None, None], conv.bias - conv.mean * inv
+    """conv → batch norm ≡ conv(w·inv) + b, with the conv's own folded
+    ``inv = rsqrt(var + eps)·scale`` and ``b = bias − mean·inv``
+    (:meth:`ConvBN.fold_bn`, inference moments)."""
+    return conv.weight * conv.inv[:, None, None, None], conv.shift.clone()
 
 
 @torch.no_grad()

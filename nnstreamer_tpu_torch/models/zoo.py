@@ -333,6 +333,8 @@ class _LMGenerate(nn.Module):
     sampled at ``temperature`` from a generator seeded ``gen_seed`` anew
     for each call)."""
 
+    CAPTURABLE = False  # a generator made anew each call, sampling on it
+
     def __init__(self, lm: tfm.TransformerLM, n_heads: int, n_new: int, temperature: float,
                  gen_seed: int, compute_dtype: torch.dtype) -> None:
         super().__init__()
@@ -348,6 +350,8 @@ class _LMGenerate(nn.Module):
 
 class _LMBeam(nn.Module):
     """prompt tokens [1, T] → the best beam's tokens [1, n_new] int32."""
+
+    CAPTURABLE = False  # the best beam is traced back on the host
 
     def __init__(self, lm: tfm.TransformerLM, n_heads: int, n_new: int, beam_width: int,
                  compute_dtype: torch.dtype) -> None:

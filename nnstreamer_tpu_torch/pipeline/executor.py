@@ -16,6 +16,11 @@ producer notifies it, so a fan-in (tee → two queues → mux) never waits on
 one pad while the other's inbox is full. EOS leaves a node on every src
 pad, and a routing node sends it only after every sink pad saw it.
 
+A segment node with micro-batching active (pipeline/batching.py) collects
+a window of queued frames and runs it as one program. Every fused
+segment's negotiated program is built in :meth:`Executor.start`, before
+any node thread starts (on CUDA: captured as a CUDA graph).
+
 The first error in any node stops every node; :meth:`Executor.wait`
 returns and :attr:`Executor.errors` holds it.
 """
@@ -29,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 from nnstreamer_tpu_torch.elements.base import Element, HostElement, Routing, Sink, Source
 from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.pipeline.batching import BatchCollector
 from nnstreamer_tpu_torch.pipeline.graph import ExecPlan, FusedSegment
 from nnstreamer_tpu_torch.tensors.frame import EOS_FRAME
 
@@ -128,7 +134,17 @@ class _SegmentNode(_Node):
         super().__init__(ex, seg.name, 1, depth)
         self.seg = seg
 
+    def batched(self) -> bool:
+        """Whether this node collects windows: batching active, and a fused
+        segment or an op whose backend declared ``batchable``."""
+        cfg = self.seg.batch_config
+        return bool(cfg is not None and cfg.active
+                    and (self.seg.fused or self.seg.first.is_batch_capable()))
+
     def run(self) -> None:
+        if self.batched():
+            self._run_batched(self.seg.batch_config)
+            return
         while True:
             frame = self.get()
             if frame is None:
@@ -141,6 +157,28 @@ class _SegmentNode(_Node):
                 continue
             if not self.push_all(self.seg.process(frame)):
                 return
+
+    def _run_batched(self, cfg) -> None:
+        """Micro-batched loop: collect up to max-batch frames, ONE program
+        for the window (:meth:`FusedSegment.process_batch`), its frames on
+        in order; a partial window flushes at EOS. A failed window raises,
+        as a failed frame does."""
+        seg = self.seg
+        collector = BatchCollector(self.inboxes[0], self.ex._stop, cfg,
+                                   drop=lambda f: _qos_skip(seg.first, f))
+        while True:
+            frames, eos, wait_s = collector.collect()
+            if frames:
+                outs, rows = seg.process_batch(frames, cfg)
+                seg.batch_stats.record(len(frames), rows, wait_s)
+                if not self.push_all(outs):
+                    return
+            if eos:
+                break
+        if collector.stopped:
+            return
+        if self.push_all(seg.first.flush() if not seg.fused else None):
+            self.broadcast_eos()
 
 
 class _HostNode(_Node):
@@ -277,8 +315,35 @@ class Executor:
         self._started = True
         for e in self.pipeline.elements:
             e.start()
+        # every negotiated program exists before the first frame: on CUDA
+        # each is captured here, before any node thread launches. A build
+        # that fails raises, after the elements are stopped again.
+        try:
+            for seg in self.plan.segments:
+                seg.build()
+        except BaseException:
+            for e in self.pipeline.elements:
+                e.stop()
+            raise
         for n in self.nodes:
             n.thread.start()
+
+    def stats(self) -> Dict[str, dict]:
+        """Per node: its programs (``n_traces``, whether they are CUDA
+        graphs) for a fused segment, and the batch snapshot of a node that
+        collects windows."""
+        out: Dict[str, dict] = {}
+        for n in self.nodes:
+            seg = getattr(n, "seg", None)
+            if seg is None:
+                continue
+            row: dict = {}
+            if seg.fused:
+                row.update(n_traces=seg.n_traces, captured=seg.captured)
+            if n.batched():
+                row.update(seg.batch_stats.snapshot())
+            out[n.name] = row
+        return out
 
     def _fail(self, where: str, exc: BaseException) -> None:
         _log.error("%s: %s", where, exc)

@@ -21,6 +21,8 @@ it takes that device.
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
@@ -29,12 +31,15 @@ import torch
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.elements.base import (
     Element,
+    MediaSpec,
     NegotiationError,
     Routing,
     Spec,
     TensorOp,
 )
+from nnstreamer_tpu_torch.pipeline.batching import BatchStats, resolve_batch_config
 from nnstreamer_tpu_torch.tensors.frame import Frame
+from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
 
 @dataclass(frozen=True)
@@ -210,6 +215,11 @@ class Pipeline:
                 seg = FusedSegment([e], self.device, fused=fusable)
                 segments.append(seg)
                 seg_of[e] = seg
+        for seg in segments:
+            # a bad batching property fails here, naming the element
+            seg.batch_config = resolve_batch_config(seg.ops)
+            for op in seg.ops:
+                op.batch_stats = seg.batch_stats
         return ExecPlan(self, segments, seg_of)
 
     # -- run ---------------------------------------------------------------
@@ -252,22 +262,74 @@ def _next_free(used) -> int:
     return pad
 
 
+class _Program:
+    """One entry of a segment's program cache: the composed fn (over one
+    frame's tensors, or with a bucket over stacked columns, one list entry
+    a row), and on CUDA the graph it was captured into, with its static
+    input buffers, its outputs in the graph's pool and the launch counts
+    (:class:`~nnstreamer_tpu_torch.ops.kernels.LaunchCounter`) one replay
+    stands for."""
+
+    __slots__ = ("fn", "graph", "inputs", "outputs", "launches")
+
+    def __init__(self, fn: Callable) -> None:
+        self.fn = fn
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.inputs: Tuple[torch.Tensor, ...] = ()
+        self.outputs = None
+        self.launches: Dict = {}
+
+
+# One capture at a time in the process: a capture on a node's thread while
+# another segment captures would tie their allocations together.
+_CAPTURE_LOCK = threading.Lock()
+
+
 class FusedSegment:
-    """A maximal linear chain of TensorOps run as ONE callable per frame.
+    """A maximal linear chain of TensorOps run as ONE program per frame.
 
     The frame's tensors move to the pipeline's device once, at the
     segment's entry (:meth:`Frame.to_device`: pinned host memory,
-    ``non_blocking``), then every op's fn runs on device tensors under
-    ``torch.inference_mode``. A segment with ``fused=False`` holds one
+    ``non_blocking``). A segment with ``fused=False`` holds one
     non-traceable op and calls its ``host_process`` per frame; an op that
     places its frames itself (``DEVICE_PASSTHROUGH``: queue, a converter
-    subplugin) gets the frame where it is."""
+    subplugin) gets the frame where it is.
+
+    A fused segment's programs are cached by (signature, batch bucket, op
+    fn versions), the reference's ``jax.jit`` cache: a new shape or dtype
+    (renegotiation), a new bucket, or a same-shape model swap
+    (``reload_model`` ticks the op's ``fn_version``) makes a new entry from
+    the ops' current fns, so a stale program is never served;
+    ``n_traces`` counts the fills. On CUDA each entry is a CUDA graph: the
+    composed fn runs once eagerly on a side stream (the kernels' build and
+    load, cuDNN's algorithm choice, the allocator, constants an op makes
+    on first use), then is captured, and every frame copies its tensors
+    into the graph's input buffers and replays it. Outputs are cloned out
+    of the graph's pool, so a frame still in flight downstream is never
+    overwritten by the next replay. A segment with an op that declares
+    ``CAPTURABLE = False`` runs its composed fn eagerly on CUDA instead; on
+    the CPU every program is the composed fn, under the same cache.
+    """
 
     def __init__(self, ops: List[TensorOp], device: torch.device, fused: bool = True) -> None:
         self.ops = ops
         self.device = device
         self.fused = fused
-        self._fn: Optional[Callable] = None
+        # (sig, bucket, fn versions) -> program; bucket 0 = one frame
+        self._cache: Dict[tuple, _Program] = {}
+        self._last: Optional[Tuple[tuple, _Program]] = None
+        self.n_traces = 0
+        # build work, kept apart: the warm-ups' kernel launches (out of the
+        # launch counters, which count the launches that serve frames) and
+        # the host seconds of warm-up and capture
+        self.warmup_launches = 0
+        self.build_s = 0.0
+        self._eager: Optional[Tuple[tuple, Callable]] = None
+        self._identity: Optional[bool] = None
+        # micro-batching (pipeline/batching.py), resolved at plan time;
+        # the stats are shared with the ops so tensor_filter can show them
+        self.batch_config = None
+        self.batch_stats = BatchStats()
 
     @property
     def first(self) -> TensorOp:
@@ -277,7 +339,22 @@ class FusedSegment:
     def name(self) -> str:
         return "+".join(o.name for o in self.ops)
 
+    @property
+    def captured(self) -> bool:
+        """True when the programs are CUDA graphs: a fused segment on CUDA
+        whose every op is ``CAPTURABLE``."""
+        return (
+            self.fused and self.device.type == "cuda"
+            and all(op.CAPTURABLE for op in self.ops)
+        )
+
+    @staticmethod
+    def _sig_of(tensors) -> tuple:
+        return tuple((tuple(t.shape), t.dtype) for t in tensors)
+
     def _compose(self) -> Callable:
+        """The ops' CURRENT fns chained (collected anew for each cache
+        fill, so a renegotiated or reloaded op gives its fresh fn)."""
         fns = [op.make_fn() for op in self.ops]
 
         def composed(tensors: Tuple) -> Tuple:
@@ -287,6 +364,108 @@ class FusedSegment:
 
         return composed
 
+    def is_identity(self) -> bool:
+        """True when every op declares is_identity(): :meth:`process` then
+        hands the frame on without running a program."""
+        if self._identity is None:
+            self._identity = all(op.is_identity() for op in self.ops)
+        return self._identity
+
+    def _program_for(self, sig: tuple, bucket: int = 0) -> _Program:
+        versions = tuple(op.fn_version for op in self.ops)
+        key = (sig, bucket, versions)
+        last = self._last
+        if last is not None and last[0] == key:
+            return last[1]
+        prog = self._cache.get(key)
+        if prog is None:
+            composed = self._compose()
+            if bucket:
+                # the per-frame fn over each row: every row runs the
+                # per-frame kernels at the per-frame shapes, so a window's
+                # outputs equal the frames' own bit for bit
+                def rows(cols: Tuple) -> List[Tuple]:
+                    return [composed(tuple(c[j] for c in cols)) for j in range(bucket)]
+
+                prog = _Program(rows)
+            else:
+                prog = _Program(composed)
+            if self.captured:
+                self._capture(prog, sig, bucket)
+            self._cache[key] = prog
+            self.n_traces += 1
+        self._last = (key, prog)
+        return prog
+
+    def _capture(self, prog: _Program, sig: tuple, bucket: int) -> None:
+        """Warm ``prog.fn`` up on zeros, then capture it into a CUDA graph
+        over static input buffers. A failure raises: no segment falls
+        back to eager execution. The capture is thread-local, so other
+        nodes' threads may go on launching on the card meanwhile."""
+        from nnstreamer_tpu_torch.ops.kernels import launch_tally
+
+        t0 = time.perf_counter()
+        inputs = tuple(
+            torch.zeros(((bucket,) + shape) if bucket else shape, dtype=dtype, device=self.device)
+            for shape, dtype in sig
+        )
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        with _CAPTURE_LOCK, torch.cuda.stream(side), torch.inference_mode():
+            with launch_tally() as warm:
+                prog.fn(inputs)
+            with launch_tally() as tally:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outputs = prog.fn(inputs)
+                finally:
+                    graph.capture_end()
+        cur.wait_stream(side)
+        self.warmup_launches += sum(warm.values())
+        self.build_s += time.perf_counter() - t0
+        prog.graph, prog.inputs, prog.outputs = graph, inputs, outputs
+        prog.launches = dict(tally)
+
+    def _replay(self, prog: _Program) -> None:
+        prog.graph.replay()
+        for counter, n in prog.launches.items():
+            counter.add(n)
+
+    def _negotiated_sig(self) -> Optional[tuple]:
+        """The signature the first frame will have, from the negotiated
+        input spec: a static tensor spec, or a raw video frame [H, W, C]
+        uint8 of known size. None = fill on the first frame."""
+        spec = self.first.in_specs[0] if self.first.in_specs else None
+        if isinstance(spec, TensorsSpec):
+            if not spec.is_static:
+                return None
+            return tuple((tuple(t.shape), t.dtype.torch_dtype) for t in spec)
+        if (
+            isinstance(spec, MediaSpec) and spec.media_type == "video"
+            and spec.width is not None and spec.height is not None
+        ):
+            return (((spec.height, spec.width, spec.channels_per_pixel), torch.uint8),)
+        return None
+
+    def build(self) -> Optional[_Program]:
+        """Fill the per-frame program of the negotiated signature before
+        the first frame (the PAUSED state's negotiated program); with
+        batching active also the max-batch bucket, the program of steady
+        state under load. Other keys (a small bucket at EOS, a
+        renegotiation) fill on the node's thread when they first come."""
+        if not self.fused or self.is_identity():
+            return None
+        sig = self._negotiated_sig()
+        if sig is None:
+            return None
+        prog = self._program_for(sig)
+        cfg = self.batch_config
+        if cfg is not None and cfg.active:
+            self._program_for(sig, cfg.buckets[-1])
+        return prog
+
     def process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
         """The segment's output for one frame: a frame, or for an unfused
         op whatever its ``host_process`` returns (a list, or None)."""
@@ -295,9 +474,64 @@ class FusedSegment:
         with torch.inference_mode():
             if not self.fused:
                 return self.first.host_process(frame)
-            if self._fn is None:
-                self._fn = self._compose()
-            return frame.with_tensors(self._fn(frame.tensors))
+            if self.is_identity():
+                return frame
+            prog = self._program_for(self._sig_of(frame.tensors))
+            if prog.graph is None:
+                return frame.with_tensors(prog.fn(frame.tensors))
+            for dst, src in zip(prog.inputs, frame.tensors):
+                dst.copy_(src)
+            self._replay(prog)
+            return frame.with_tensors(tuple(o.clone() for o in prog.outputs))
+
+    def process_eager(self, frame: Frame) -> Frame:
+        """The composed ops run eagerly, never captured: the oracle a
+        replay is held against. Semantics identical to :meth:`process`."""
+        versions = tuple(op.fn_version for op in self.ops)
+        if self._eager is None or self._eager[0] != versions:
+            self._eager = (versions, self._compose())
+        frame = frame.to_device(self.device)
+        with torch.inference_mode():
+            return frame.with_tensors(self._eager[1](frame.tensors))
+
+    def process_batch(self, frames: List[Frame], cfg) -> Tuple[List[Frame], int]:
+        """ONE program for a window of frames → (output frames in order,
+        rows run).
+
+        Stacks each tensor index on a new leading axis and pads up to the
+        window's bucket with replicas of the last frame (rows computed and
+        discarded: the price of a bounded program count); on CUDA the
+        window is one replay. A window of mixed signatures runs per frame.
+        An unfused op takes the window through ``host_process_batch``."""
+        n = len(frames)
+        if not self.fused:
+            if not self.first.DEVICE_PASSTHROUGH:
+                frames = [f.to_device(self.device) for f in frames]
+            with torch.inference_mode():
+                return self.first.host_process_batch(frames), n
+        if self.is_identity():
+            return [self.process(f) for f in frames], n
+        frames = [f.to_device(self.device) for f in frames]
+        sig = self._sig_of(frames[0].tensors)
+        if any(self._sig_of(f.tensors) != sig for f in frames[1:]):
+            return [self.process(f) for f in frames], n
+        bucket = cfg.bucket_for(n)
+        with torch.inference_mode():
+            prog = self._program_for(sig, bucket)
+            cols = []
+            for i in range(len(sig)):
+                rows = [f.tensors[i] for f in frames]
+                rows.extend([rows[-1]] * (bucket - n))
+                if prog.graph is None:
+                    cols.append(torch.stack(rows))
+                else:
+                    torch.stack(rows, out=prog.inputs[i])
+            if prog.graph is None:
+                outs = prog.fn(tuple(cols))[:n]
+            else:
+                self._replay(prog)
+                outs = [tuple(o.clone() for o in row) for row in prog.outputs[:n]]
+        return [f.with_tensors(o) for f, o in zip(frames, outs)], bucket
 
 
 @dataclass

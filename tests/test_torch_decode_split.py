@@ -248,7 +248,9 @@ def test_k3_split_ignores_nan_past_the_live_rows():
     (and to the reference's on the clean cache)."""
     q, ck, cv, pos, _, _ = _k3_inputs(2, 4, 2, 16, 64, [9, 40])
     clean = split_decode_attention(_t(q), _t(ck), _t(cv), pos, chunk=16)
-    want = decode_attention_ref(*(jnp.asarray(a) for a in (q, ck, cv, pos)))
+    # read back before the NaN writes: on the CPU jnp.asarray may share the
+    # numpy buffers, and JAX's dispatch is asynchronous
+    want = np.asarray(decode_attention_ref(*(jnp.asarray(a) for a in (q, ck, cv, pos))))
     for i, p in enumerate(pos):
         ck[i, p + 1:] = np.nan
         cv[i, p + 1:] = np.nan
