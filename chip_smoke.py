@@ -31,16 +31,20 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  every segment's replay bit for bit against
                  process_eager on the same input, K1 (and K2) counted once
                  a frame as replays, which segments replay and which stay
-                 eager (an op's CAPTURABLE = False), host launches a frame
-                 eager against replay (torch.profiler, 16 frames), fps,
-                 paced p50/p99 with frame 0 apart, busy share and device
-                 ms by class (16 frames); a replayed segment into a
-                 depth-8 queue and a slow sink, every frame equal to its
-                 eager output (no replay overwrote a frame in flight);
-                 labeling with batching=true max-batch=8 bit for bit
-                 against batching=false (logits), avg-batch-size,
-                 pad-waste-pct, one replay a window, K1 a row, fps. Every
-                 later phase runs its pipelines' segments captured too.
+                 eager (an op's CAPTURABLE = False, recorded when the
+                 program was filled), host launches a frame eager against
+                 replay (torch.profiler, 16 frames) with K1's and K2's
+                 device records equal to their counts in both modes, fps
+                 over 1536 frames, paced p50/p99 with frame 0 apart, busy
+                 share and device ms by class (16 frames); a replayed
+                 segment into a depth-8 queue and a slow sink, every frame
+                 equal to its eager output (no replay overwrote a frame in
+                 flight); labeling with batching=true max-batch=8 bit for
+                 bit against batching=false (logits, 32 frames), then 1536
+                 frames a run unbatched / batched / batched / unbatched:
+                 labels equal, one replay a window, K1 a row,
+                 avg-batch-size, pad-waste-pct, fps. Every later phase
+                 runs its pipelines' segments captured too.
 4. profile     — device time by kernel over 16 labeling frames.
 5. single      — SingleShot invoke on the GPU, logits against the CPU's.
 6. routing     — the crop cascade routing-crop-720p: videotestsrc
@@ -2923,6 +2927,12 @@ ALIAS_PIPELINE = (
 )
 ALIAS_SINK_MS = 20  # the slow sink's delay a frame, before it reads the frame
 BATCH_PROPS = " batching=true max-batch=8"
+# frames of the segments group's fps runs: 2 s or more at the cells' rates (up to
+# ~700 fps), so a run's wall is not within a build's or a tick's reach
+FPS_FRAMES = 1536
+# the kernels a segment's replay must run on the device, as torch.profiler
+# names them: (counter name, key substring, device kernels a launch)
+REPLAY_KERNELS = (("k1", "crop_resize_kernel", 1), ("k2", "nms_kernel", 2))
 
 
 def host_launches(prof):
@@ -2993,37 +3003,69 @@ def segment_rows(plan):
             continue
         rows.append({"segment": seg.name, "captured": seg.captured, "n_traces": seg.n_traces,
                      "warmup_launches": seg.warmup_launches, "build_s": seg.build_s,
-                     "eager_because": [f"{op.name}: CAPTURABLE = False" for op in seg.ops
-                                       if not op.CAPTURABLE]})
+                     "eager_because": [f"{name}: CAPTURABLE = False"
+                                       for name in seg.uncapturable]})
     return rows
 
 
-def launches_eager_vs_replay(torch, pairs, n):
+def launches_eager_vs_replay(torch, pairs, n, counters):
     """Host launch calls a frame of the cells' segments over ``n`` frames:
-    process_eager against process (replays), same inputs."""
-    from torch.profiler import ProfilerActivity, profile
+    process_eager against process (replays), same inputs. In both modes
+    each kernel's device records (``REPLAY_KERNELS``) must equal the
+    launches its counter took: a replay adds the counts its capture
+    recorded, so this shows those counts are the kernels the replays ran.
+    A profile can drop a kernel at either edge of its window (a kernel
+    whose device time, on the host's clock, falls just outside it), so one
+    frame a segment runs in a warm-up step whose records are dropped, and
+    the counted frames start and end 10 ms inside the recorded window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def run(mode, rows_of):
+        for seg, rows in pairs.items():
+            for fin, _ in rows_of(rows):
+                (seg.process_eager if mode == "eager" else seg.process)(fin)
+        torch.cuda.synchronize()
 
     out = {}
     for mode in ("eager", "replay"):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for seg, rows in pairs.items():
-                for fin, _ in rows[:n]:
-                    (seg.process_eager if mode == "eager" else seg.process)(fin)
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            run(mode, lambda rows: rows[-1:])
+            prof.step()
+            for c in counters.values():
+                c.reset()
+            time.sleep(0.01)
+            run(mode, lambda rows: rows[:n])
+            time.sleep(0.01)
         k, g, m = host_launches(prof)
+        counted = {name: c.count for name, c in counters.items()}
+        records = {}
+        for name, sub, per in REPLAY_KERNELS:
+            if name not in counters:
+                continue
+            records[name] = sum(ev.count for ev in prof.key_averages()
+                                if ev.device_type == DeviceType.CUDA and sub in ev.key)
+            if records[name] != counted[name] * per or counted[name] < n:
+                raise AssertionError(f"segments {mode}: {name} counted {counted[name]} "
+                                     f"launches, {records[name]} device records "
+                                     f"({per} a launch), {n} frames")
         out[mode] = {"kernel_launches_per_frame": k / n, "graph_launches_per_frame": g / n,
-                     "memcpy_calls_per_frame": m / n}
+                     "memcpy_calls_per_frame": m / n, "counted": counted,
+                     "device_records": records}
     return out
 
 
-def segment_cell(torch, np, dev, parse_pipeline, FusedSegment, name, desc, counters, extra):
+def segment_cell(torch, np, dev, parse_pipeline, FusedSegment, name, desc, counters, extra,
+                 kernels):
     """One cell with its segments captured: 32 frames recorded (every
-    replay against process_eager), the kernels' counts, fps; launches a
-    frame eager against replay; paced p50/p99 with frame 0 apart; a
+    replay against process_eager), the kernels' counts; launches a frame
+    eager against replay, with the kernels' device records against their
+    counts; fps over FPS_FRAMES; paced p50/p99 with frame 0 apart; a
     16-frame profile (busy share, device ms by class)."""
     run_desc(parse_pipeline, desc(4), dev)  # warm-up: cuDNN, allocator, models
     with SegmentLog(FusedSegment) as log:
-        p, wall = run_desc(parse_pipeline, desc(FRAMES), dev, counters=counters.values())
+        p, _ = run_desc(parse_pipeline, desc(FRAMES), dev, counters=counters.values())
     counts = {k: c.count for k, c in counters.items()}
     if any(v != FRAMES for v in counts.values()):
         raise AssertionError(f"segments {name}: launches {counts} for {FRAMES} frames")
@@ -3035,18 +3077,21 @@ def segment_cell(torch, np, dev, parse_pipeline, FusedSegment, name, desc, count
     if sink != FRAMES:
         raise AssertionError(f"segments {name}: {sink} frames at the sink")
     n_frames, n_tensors = replay_vs_eager(torch, log.pairs)
-    launches = launches_eager_vs_replay(torch, log.pairs, 16)
+    launches = launches_eager_vs_replay(torch, log.pairs, 16, kernels)
+    fp, wall = run_desc(parse_pipeline, desc(FPS_FRAMES), dev)
+    build_s = sum(r["build_s"] for r in segment_rows(fp._executor.plan))
+    if len(fp["out"].frames) != FPS_FRAMES:
+        raise AssertionError(f"segments {name}: {len(fp['out'].frames)} of {FPS_FRAMES} frames")
     paced, _ = run_desc(parse_pipeline, desc(FRAMES, live=True), dev)
     lat = latencies(paced)
     rest = sorted(lat[1:])
     classes, _ = profiled(torch, parse_pipeline, desc(16), dev, extra)
-    build_s = sum(r["build_s"] for r in rows)
     return {
         "cell": name, "frames": FRAMES, "launches": counts, "segments": rows,
         "replays_vs_eager_bit_equal": {"frames": n_frames, "tensors": n_tensors},
         "launches_per_frame_16": launches,
-        "fps": FRAMES / wall, "wall_s": wall, "build_s": build_s,
-        "fps_after_build": FRAMES / (wall - build_s),
+        "fps_frames": FPS_FRAMES, "fps": FPS_FRAMES / wall, "wall_s": wall,
+        "build_s": build_s, "fps_after_build": FPS_FRAMES / (wall - build_s),
         "paced30_latency_ms_frame0": lat[0],
         "paced30_latency_ms_p50_after0": pct(rest, 0.5),
         "paced30_latency_ms_p99_after0": pct(rest, 0.99),
@@ -3094,36 +3139,43 @@ def batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik):
     if len(a) != FRAMES or len(b) != FRAMES or not all(np.array_equal(x, y) for x, y in zip(a, b)):
         raise AssertionError("batched labeling: logits differ from batching=false")
     run_desc(parse_pipeline, desc(4, BATCH_PROPS), dev)  # warm-up
-    replays = []
+    # FPS_FRAMES a run, unbatched / batched / batched / unbatched in turn:
+    # the two runs of a mode bracket the other's, so their spread is the
+    # call's own noise
+    replays, runs, labels0 = [], [], None
     real = FusedSegment._replay
     FusedSegment._replay = lambda seg, prog: (replays.append(seg), real(seg, prog))[1]
     try:
-        p, wall = run_desc(parse_pipeline, desc(FRAMES, BATCH_PROPS), dev,
-                           counters=(ik.crop_resize_launches,))
+        for mode in ("unbatched", "batched", "batched", "unbatched"):
+            replays.clear()
+            p, wall = run_desc(parse_pipeline,
+                               desc(FPS_FRAMES, BATCH_PROPS if mode == "batched" else ""),
+                               dev, counters=(ik.crop_resize_launches,))
+            k1 = ik.crop_resize_launches.count
+            (seg,) = [s for s in p._executor.plan.segments if s.fused]
+            stats = p["f"].batch_stats
+            labels = [int(t[0]) for t in out_tensors(p)]
+            labels0 = labels if labels0 is None else labels0
+            if len(labels) != FPS_FRAMES or labels != labels0:
+                raise AssertionError(f"batched labeling: {mode} labels differ or frames lost")
+            windows = stats.batches if mode == "batched" else FPS_FRAMES
+            rows = stats.bucket_rows if mode == "batched" else FPS_FRAMES
+            if len(replays) != windows or k1 != rows:
+                raise AssertionError(f"batched labeling {mode}: {len(replays)} replays for "
+                                     f"{windows} windows, K1 {k1} for {rows} rows")
+            row = {"mode": mode, "fps": FPS_FRAMES / wall, "wall_s": wall,
+                   "programs": seg.n_traces, "build_s": seg.build_s,
+                   "fps_after_builds": FPS_FRAMES / (wall - seg.build_s),
+                   "replays": len(replays), "k1_launches": k1}
+            if mode == "batched":
+                row.update({k: p["f"].get_property(k)
+                            for k in ("avg-batch-size", "pad-waste-pct", "batch-wait-ms")},
+                           windows=stats.batches, rows_run=stats.bucket_rows)
+            runs.append(row)
     finally:
         FusedSegment._replay = real
-    k1 = ik.crop_resize_launches.count
-    unb, unb_wall = run_desc(parse_pipeline, desc(FRAMES), dev)
-    f = p["f"]
-    stats = f.batch_stats
-    (seg,) = [s for s in p._executor.plan.segments if s.fused]
-    labels = [int(t[0]) for t in out_tensors(p)]
-    if labels != [int(t[0]) for t in out_tensors(unb)] or stats.frames != FRAMES:
-        raise AssertionError("batched labeling: labels differ or frames lost")
-    if len(replays) != stats.batches or k1 != stats.bucket_rows:
-        raise AssertionError(f"batched labeling: {len(replays)} replays for {stats.batches} "
-                             f"windows, K1 {k1} for {stats.bucket_rows} rows")
-    return {
-        "frames": FRAMES, "logits_bit_equal": True, "labels_equal": True,
-        "avg_batch_size": f.get_property("avg-batch-size"),
-        "pad_waste_pct": f.get_property("pad-waste-pct"),
-        "batch_wait_ms": f.get_property("batch-wait-ms"),
-        "windows": stats.batches, "replays_per_window": len(replays) / stats.batches,
-        "rows_run": stats.bucket_rows, "k1_launches": k1,
-        "programs": seg.n_traces, "build_s": seg.build_s,
-        "fps": FRAMES / wall, "fps_after_builds": FRAMES / (wall - seg.build_s),
-        "fps_unbatched_same_call": FRAMES / unb_wall,
-    }
+    return {"frames_bit_equal": FRAMES, "logits_bit_equal": True, "labels_equal": True,
+            "fps_frames": FPS_FRAMES, "replays_per_window": 1.0, "runs": runs}
 
 
 def segments_phases(torch, np, dev, parse_pipeline, ik, nk):
@@ -3141,16 +3193,18 @@ def segments_phases(torch, np, dev, parse_pipeline, ik, nk):
         cells = [
             ("labeling-720p",
              lambda n, live=False: PIPELINE.format(n=n, live=LIVE if live else ""),
-             {"k1": ik.crop_resize_launches}, [("crop_resize (K1)", "crop_resize")]),
+             {"k1": ik.crop_resize_launches}, [("crop_resize (K1)", "crop_resize")],
+             {"k1": ik.crop_resize_launches}),
             ("detection-720p",
              lambda n, live=False: DET_PIPELINE.format(n=n, live=LIVE if live else "",
                                                        priors=priors, pp="device"),
              {"k1": ik.crop_resize_launches, "k2": nk.nms_launches},
-             [("nms (K2)", "nms_kernel"), ("crop_resize (K1)", "crop_resize")]),
+             [("nms (K2)", "nms_kernel"), ("crop_resize (K1)", "crop_resize")],
+             {"k1": ik.crop_resize_launches, "k2": nk.nms_launches}),
             ("face-cascade-720p",
              lambda n, live=False: FACE_CASCADE.format(n=n, live=LIVE if live else ""),
              {"k1_crop": ik.crop_entry_launches, "k1_resize": ik.resize_entry_launches},
-             [("crop_resize (K1)", "crop_resize")]),
+             [("crop_resize (K1)", "crop_resize")], {"k1": ik.crop_resize_launches}),
         ]
         out["cells"] = [segment_cell(torch, np, dev, parse_pipeline, FusedSegment, *c)
                         for c in cells]

@@ -110,7 +110,6 @@ class CustomScriptBackend(Backend):
             def setInputDim(self, in_spec) -> TensorsSpec: ...  # returns out
             def invoke(self, tensors) -> tuple: ...
             TRACEABLE = False  # optional
-            CAPTURABLE = True  # optional: False if a traceable invoke reads back
 
     Shape-fixed filters implement the two getters, shape-polymorphic ones
     ``setInputDim`` (tensor_filter_python3.cc:402-583).
@@ -138,7 +137,6 @@ class CustomScriptBackend(Backend):
                 f"custom: {path} must define setInputDim or getInputDim+getOutputDim"
             )
         self._traceable = bool(getattr(self._obj, "TRACEABLE", False))
-        self.CAPTURABLE = bool(getattr(self._obj, "CAPTURABLE", True))
         self._in: Optional[TensorsSpec] = None
         self._out: Optional[TensorsSpec] = None
         if has_get:

@@ -147,8 +147,12 @@ class TensorFilter(TensorOp):
 
     @property
     def CAPTURABLE(self) -> bool:  # noqa: N802 — TensorOp's attribute, per backend
-        """Whether the backend's fn may be captured into a CUDA graph."""
-        return bool(self._ensure_open().CAPTURABLE)
+        """Whether the backend's fn may be captured into a CUDA graph. Read
+        by the segment right after :meth:`make_fn`, which opened the
+        backend; reading it never opens one."""
+        if self.backend is None:
+            raise RuntimeError(f"{self.name}: CAPTURABLE read with no backend open")
+        return bool(self.backend.CAPTURABLE)
 
     def is_identity(self) -> bool:
         """True when the backend is the identity (``IS_IDENTITY``) and no

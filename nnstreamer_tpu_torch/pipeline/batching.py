@@ -77,14 +77,6 @@ class BatchConfig:
         return self.enabled and self.max_batch > 1
 
 
-def chain_window_config(unroll: int) -> BatchConfig:
-    """Window-collection config for a service loop that takes up to
-    ``unroll`` queued frames a window and never waits for one to fill
-    (timeout 0), on the standard ladder 1, 2, 4, ..., unroll."""
-    u = max(1, int(unroll))
-    return BatchConfig(enabled=True, max_batch=u, timeout_ms=0.0, buckets=default_buckets(u))
-
-
 def _executor_defaults() -> dict:
     """The ``[executor]`` batching defaults (env ``NNS_TPU_EXECUTOR_*``
     over ini). A malformed config value falls back to the built-in default

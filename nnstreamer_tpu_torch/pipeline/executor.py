@@ -330,8 +330,9 @@ class Executor:
 
     def stats(self) -> Dict[str, dict]:
         """Per node: its programs (``n_traces``, whether they are CUDA
-        graphs) for a fused segment, and the batch snapshot of a node that
-        collects windows."""
+        graphs, the ops that kept them eager) for a fused segment, and the
+        batch snapshot of a node that collects windows. Reads what the
+        fills recorded; opens no backend."""
         out: Dict[str, dict] = {}
         for n in self.nodes:
             seg = getattr(n, "seg", None)
@@ -339,7 +340,8 @@ class Executor:
                 continue
             row: dict = {}
             if seg.fused:
-                row.update(n_traces=seg.n_traces, captured=seg.captured)
+                row.update(n_traces=seg.n_traces, captured=seg.captured,
+                           uncapturable=list(seg.uncapturable))
             if n.batched():
                 row.update(seg.batch_stats.snapshot())
             out[n.name] = row

@@ -21,6 +21,7 @@ it takes that device.
 
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from dataclasses import dataclass
@@ -326,6 +327,10 @@ class FusedSegment:
         self.build_s = 0.0
         self._eager: Optional[Tuple[tuple, Callable]] = None
         self._identity: Optional[bool] = None
+        # the ops that declared CAPTURABLE = False at the last fill (read
+        # then, with the ops' fns just made, never recomputed): on CUDA
+        # they keep the segment's programs eager
+        self.uncapturable: Tuple[str, ...] = ()
         # micro-batching (pipeline/batching.py), resolved at plan time;
         # the stats are shared with the ops so tensor_filter can show them
         self.batch_config = None
@@ -341,12 +346,8 @@ class FusedSegment:
 
     @property
     def captured(self) -> bool:
-        """True when the programs are CUDA graphs: a fused segment on CUDA
-        whose every op is ``CAPTURABLE``."""
-        return (
-            self.fused and self.device.type == "cuda"
-            and all(op.CAPTURABLE for op in self.ops)
-        )
+        """True when a program that was filled is a CUDA graph."""
+        return any(p.graph is not None for p in self._cache.values())
 
     @staticmethod
     def _sig_of(tensors) -> tuple:
@@ -390,7 +391,8 @@ class FusedSegment:
                 prog = _Program(rows)
             else:
                 prog = _Program(composed)
-            if self.captured:
+            self.uncapturable = tuple(op.name for op in self.ops if not op.CAPTURABLE)
+            if self.device.type == "cuda" and not self.uncapturable:
                 self._capture(prog, sig, bucket)
             self._cache[key] = prog
             self.n_traces += 1
@@ -417,11 +419,20 @@ class FusedSegment:
             with launch_tally() as warm:
                 prog.fn(inputs)
             with launch_tally() as tally:
-                graph.capture_begin(capture_error_mode="thread_local")
+                # no collection while capturing: one could free an earlier
+                # segment's graph on this thread, a call that invalidates
+                # the capture
+                gc_on = gc.isenabled()
+                gc.disable()
                 try:
-                    outputs = prog.fn(inputs)
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        outputs = prog.fn(inputs)
+                    finally:
+                        graph.capture_end()
                 finally:
-                    graph.capture_end()
+                    if gc_on:
+                        gc.enable()
         cur.wait_stream(side)
         self.warmup_launches += sum(warm.values())
         self.build_s += time.perf_counter() - t0

@@ -265,3 +265,30 @@ def test_transform_constants_made_once():
         ttransform._const(0.0, torch.float32, torch.device("cpu"))
     assert ttransform._const(300.7, torch.uint8, torch.device("cpu")).item() == \
         torch.tensor(300.7, dtype=torch.float64).to(torch.uint8).item()
+
+
+def test_uncapturable_recorded_at_fill_and_stats_open_no_backend():
+    """The ops that declare CAPTURABLE = False are read when a program is
+    filled (the LM's generate module here) and reported from that record:
+    Executor.stats() after stop() reopens no filter's backend."""
+    desc = ("tensorsrc dimensions=8:1 types=int32 num-frames=2 ! "
+            "tensor_filter name=f framework=torch model=zoo:transformer_lm "
+            'custom="vocab:32,d_model:16,n_heads:2,n_layers:1,seqlen:8,generate:2" ! '
+            "tensor_sink name=out")
+    p = parse_pipeline(desc, device="cpu")
+    ex = p.run(timeout=120)
+    (seg,) = [s for s in ex.plan.segments if s.fused]
+    assert seg.uncapturable == ("f",) and not seg.captured
+    assert len(p["out"].frames) == 2
+    assert p["f"].backend is None  # closed at stop
+    (row,) = [r for r in ex.stats().values() if "n_traces" in r]
+    assert row["uncapturable"] == ["f"] and row["captured"] is False
+    assert p["f"].backend is None  # stats() read the record, opened nothing
+    with pytest.raises(RuntimeError, match="no backend open"):
+        p["f"].CAPTURABLE
+
+
+def test_capturable_segment_records_no_op():
+    seg = segment(parse_pipeline, device="cpu")
+    seg.build()
+    assert seg.uncapturable == ()
