@@ -150,6 +150,31 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  block-size=16 kv-blocks=1024: K4 = layers x steps,
                  generations equal to a directly built paged batcher's, no
                  block in use at the end.
+18a. serving_graphs — the serving engine's one-program pump (ROADMAP
+                 A.2): every step() and step_pump(n) is one pump program,
+                 on the card a CUDA graph replayed with K3 / K4 inside it,
+                 so phases 12-18 above run captured. At Mistral-7B's full
+                 width (32 layers, float32), for the slot (K3) and the paged
+                 (K4) layout, the phase's 16-request x 64-token traffic on a
+                 fresh batcher per run, eager oracle (step_eager /
+                 step_pump_eager) and replays in turns (eager, replay,
+                 replay, eager): every stream equal to the first eager
+                 run's (near-ties exempt by the no-cache forward's top-2
+                 margin), K3 / K4 counted = layers x steps in every run,
+                 every replayed program captured; TPOT p50/p99, decode and
+                 served tok/s, admit step and TTFT per run; the programs'
+                 build_s, warm-up launches, allocated and reserved pool
+                 bytes, host_state_builds; then a full batch for 16 steps
+                 (two pumps of 8) eager and replayed under torch.profiler:
+                 host kernel / graph launches and memcpy calls a pump
+                 (replayed: exactly one cudaGraphLaunch a pump), device ms a
+                 step by class and busy share, beside the matmuls' bound a
+                 step (every weight read once at 3.35 TB/s). Each of the
+                 decode step's five matmul shapes at M = 8, eager against a
+                 replay (bit-equal or not, reported). Then 4 layers, 12
+                 requests sampling (top-k, top-p, greedy mixed), both
+                 layouts: the replayed sampling pump's tokens equal the
+                 eager oracle's.
 19. flash_kernels — the flash prefill attention kernel (K5) against its
                  plain version on the same GPU inputs: the JAX kernel
                  registry's six shapes, the main path's B 1, T 4096, H 32,
@@ -1059,11 +1084,14 @@ def attn_case(torch, np, da, name, b, h, kv, d, s_len, pos, dtype="float32",
     }
 
 
-def drive_requests(cb, prompts, budget, pump=8, on_round=None):
+def drive_requests(cb, prompts, budget, pump=8, eager=False):
     """Serve ``prompts`` through ``cb``: submit while a slot is free (per-
     token steps while admissions are pending), then drain with
-    ``step_pump``. Host-clock timings; every step ends in a read of the
-    host, so it has waited for the card."""
+    ``step_pump``; ``eager``: the programs' bodies uncaptured
+    (``step_eager`` / ``step_pump_eager``, the oracle). Host-clock timings;
+    every step ends in a read of the host, so it has waited for the card."""
+    step, step_pump = ((cb.step_eager, cb.step_pump_eager) if eager
+                       else (cb.step, cb.step_pump))
     queue = list(enumerate(prompts))
     rid_of, t_sub, t_first = {}, {}, {}
     step_ms, admit_ms, pump_ms = [], [], []
@@ -1081,10 +1109,10 @@ def drive_requests(cb, prompts, budget, pump=8, on_round=None):
             admitted = True
         t0 = time.perf_counter()
         if queue or admitted:
-            cb.step()
+            step()
             (admit_ms if admitted else step_ms).append((time.perf_counter() - t0) * 1e3)
         else:
-            cb.step_pump(pump)
+            step_pump(pump)
             pump_ms.append((time.perf_counter() - t0) * 1e3 / pump)
         now = time.perf_counter()
         for rid in rid_of.values():
@@ -1187,6 +1215,15 @@ def margin_check(torch, logits, toks, rel=MARGIN_REL):
     return int((wrong & ~near).sum()), int(near.sum())
 
 
+def replayed_programs(st, phase):
+    """The pump programs a batcher's stats() lists, each captured as a CUDA
+    graph (raises otherwise): {name: replays}."""
+    progs = st["programs"]
+    if not progs or not all(p["captured"] for p in progs.values()):
+        raise AssertionError(f"{phase}: pump programs not all captured: {progs}")
+    return {name: p["replays"] for name, p in progs.items()}
+
+
 def pct(sorted_vals, q):
     return sorted_vals[min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))]
 
@@ -1229,6 +1266,14 @@ def k3_kernel_cases(torch, np, da):
     ]
 
 
+def slot_traffic(np, rng):
+    """The slot layout's 16 prompts: 64-512 tokens, the fourth 1500 (the
+    chunked prefill)."""
+    lengths = rng.integers(64, 513, 16)
+    lengths[3] = LONG_PROMPT
+    return [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32) for n in lengths]
+
+
 def llm_phases(torch, np, dev, parse_pipeline):
     """Phases 10-13, the LLM serving slice on the slot layout. Returns (the
     K3 cases by name, K3 launches in the serving run, the serving run's
@@ -1253,9 +1298,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     init_s = time.perf_counter() - t0
     n_heads, n_layers = MISTRAL["n_heads"], MISTRAL["n_layers"]
     rng = np.random.default_rng(0)
-    lengths = rng.integers(64, 513, 16)
-    lengths[3] = LONG_PROMPT
-    prompts = [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32) for n in lengths]
+    prompts = slot_traffic(np, rng)
     cb = sv.ContinuousBatcher(lm, n_heads, **SERVE, attn_impl="pallas", device=dev)
     weights_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
     kv_row = MISTRAL["n_kv_heads"] * (MISTRAL["d_model"] // n_heads)  # values a cache row holds
@@ -1267,6 +1310,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     run = drive_requests(cb, prompts, NEW_TOKENS)
     k3_launches = da.decode_attention_launches.count
     steps = cb.stats()["steps"] - steps0
+    programs = replayed_programs(cb.stats(), "serving")
     if k3_launches != n_layers * steps:
         raise AssertionError(f"serving: K3 launched {k3_launches} times, "
                              f"{n_layers} layers x {steps} steps = {n_layers * steps}")
@@ -1318,10 +1362,11 @@ def llm_phases(torch, np, dev, parse_pipeline):
     emit({
         "phase": "serving", "config": "llm-serving-mistral7b", **MISTRAL, **SERVE,
         "compute_dtype": "float32", "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-        "requests": len(prompts), "prompt_lengths": [int(n) for n in lengths],
+        "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
         "new_tokens": NEW_TOKENS, "init_s": init_s,
         "weights_gb": weights_gb, "cache_gb": cache_gb,
         "k3_launches": k3_launches, "steps": steps, "layers_x_steps": n_layers * steps,
+        "program_replays": programs,
         "greedy_mismatches": mismatches, "near_tie_exempt": exempt,
         "prefill_logit_max_rel_err": pre_err, "decode_logit_max_rel_err": dec_err,
         "logit_tolerance": LOGIT_REL_TOL,
@@ -1430,6 +1475,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
         raise AssertionError(f"llm_pipeline: {ex.errors or 'no EOS within 600 s'}")
     pipe_k3 = da.decode_attention_launches.count
     pipe_steps = pl["ssrc"].serving_stats()["steps"]
+    pipe_programs = replayed_programs(pl["ssrc"].serving_stats(), "llm_pipeline")
     got = {f.meta["req"]: f.tensors[0][0].tolist() for f in pl["out"].frames}
     if sorted(got) != list(range(len(pipe_prompts))):
         raise AssertionError(f"llm_pipeline: requests back {sorted(got)}")
@@ -1453,7 +1499,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
     torch.cuda.empty_cache()
     emit({"phase": "llm_pipeline", "requests": len(pipe_prompts), "layers": 2,
           "k3_launches": pipe_k3, "steps": pipe_steps, "layers_x_steps": 2 * pipe_steps,
-          "equal_to_direct_batcher": True, "meta_returned": True,
+          "program_replays": pipe_programs, "equal_to_direct_batcher": True, "meta_returned": True,
           "tokens_first_request": got[0][:8]})
     slot_ttft = {"ttft_ms_p50": pct(run["ttft_ms"], 0.5), "ttft_ms_p99": pct(run["ttft_ms"], 0.99)}
     return {c["case"]: c for c in k3_cases}, k3_launches, slot_ttft
@@ -1609,12 +1655,14 @@ def paged_case(torch, np, pa, dev, name, b, h, kv, d, bs, nb, n_blocks, pos, dty
     }
 
 
-def drive_paged(cb, prompts, budget, pump=8):
+def drive_paged(cb, prompts, budget, pump=8, eager=False):
     """Serve ``prompts`` through a paged batcher: submit while a slot is
     free; while prompts wait in the prefill queue, ``step_pump(1)`` (one
     prefill chunk interleaved with one decode step), else
-    ``step_pump(pump)``. Host-clock timings; every pump ends in a read of
-    the host, so it has waited for the card."""
+    ``step_pump(pump)``; ``eager``: ``step_pump_eager``, the oracle.
+    Host-clock timings; every pump ends in a read of the host, so it has
+    waited for the card."""
+    step_pump = cb.step_pump_eager if eager else cb.step_pump
     queue = list(enumerate(prompts))
     rid_of, t_sub, t_first = {}, {}, {}
     admit_ms, pump_ms, full_ms = [], [], []
@@ -1631,10 +1679,10 @@ def drive_paged(cb, prompts, budget, pump=8):
         st = cb.stats()
         t0 = time.perf_counter()
         if st["kv_prefill_queue"]:
-            cb.step_pump(1)
+            step_pump(1)
             admit_ms.append((time.perf_counter() - t0) * 1e3)
         else:
-            cb.step_pump(pump)
+            step_pump(pump)
             per = (time.perf_counter() - t0) * 1e3 / pump
             pump_ms.append(per)
             if st["slots_occupied"] == cb.n_slots:
@@ -1765,6 +1813,19 @@ def k4_kernel_cases(torch, np, pa, dev, k3):
                    dtype="bfloat16"),
     ]
 
+def paged_traffic(np, rng):
+    """The paged layout's 16 prompts, alternating: 8 of their own (64-512
+    tokens, the fourth 1500) and 8 chat prompts behind one 256-token
+    system prompt."""
+    vocab = MISTRAL["vocab"]
+    own = [rng.integers(1, vocab, n).astype(np.int32) for n in rng.integers(64, 513, 8)]
+    own[3] = rng.integers(1, vocab, LONG_PROMPT).astype(np.int32)
+    system = rng.integers(1, vocab, SYSTEM_PROMPT).astype(np.int32)
+    chat = [np.concatenate([system, rng.integers(1, vocab, n).astype(np.int32)])
+            for n in rng.integers(64, 257, 8)]
+    return [p for pair in zip(own, chat) for p in pair]
+
+
 def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
     """The paged KV slice: paged_kernels, paged_serving, paged_preempt_int8
     and paged_pipeline. Returns (the K4 case at the main path's shape, K4
@@ -1797,12 +1858,7 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
     init_s = time.perf_counter() - t0
     n_heads, n_layers, vocab = MISTRAL["n_heads"], MISTRAL["n_layers"], MISTRAL["vocab"]
     rng = np.random.default_rng(0)
-    own = [rng.integers(1, vocab, n).astype(np.int32) for n in rng.integers(64, 513, 8)]
-    own[3] = rng.integers(1, vocab, LONG_PROMPT).astype(np.int32)
-    system = rng.integers(1, vocab, SYSTEM_PROMPT).astype(np.int32)
-    chat = [np.concatenate([system, rng.integers(1, vocab, n).astype(np.int32)])
-            for n in rng.integers(64, 257, 8)]
-    prompts = [p for pair in zip(own, chat) for p in pair]  # alternating: own, chat, ...
+    prompts = paged_traffic(np, rng)
     long_idx = 2 * 3
     cb = sv.ContinuousBatcher(lm, n_heads, **SERVE, **PAGED, kv_blocks=KV_BLOCKS,
                               attn_impl="pallas", device=dev)
@@ -1827,7 +1883,8 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
     k4_launches = pa.paged_decode_attention_launches.count
     k3_in_paged = da.decode_attention_launches.count
     st = cb.stats()
-    cb._prefill_chunk_one = chunk_one
+    programs = replayed_programs(st, "paged_serving")
+    del cb._prefill_chunk_one  # the class's method again: no cycle keeps cb alive
     steps = st["steps"] - st0["steps"]
     if k4_launches != n_layers * steps or k3_in_paged != 0:
         raise AssertionError(f"paged_serving: K4 launched {k4_launches} times for {n_layers} "
@@ -1916,7 +1973,7 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
         "shared_system_prompt": SYSTEM_PROMPT, "new_tokens": NEW_TOKENS,
         "arena_gb": arena_gb, "slot_cache_gb": slot_cache_gb,
         "k4_launches": k4_launches, "k3_launches": k3_in_paged, "steps": steps,
-        "layers_x_steps": n_layers * steps,
+        "layers_x_steps": n_layers * steps, "program_replays": programs,
         "greedy_mismatches": mismatches, "near_tie_exempt": exempt,
         "prefill_logit_max_rel_err": pre_err, "decode_logit_max_rel_err": dec_err,
         "logit_tolerance": LOGIT_REL_TOL,
@@ -2063,6 +2120,7 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
         raise AssertionError(f"paged_pipeline: {ex.errors or 'no EOS within 600 s'}")
     pipe_k4 = pa.paged_decode_attention_launches.count
     pipe_stats = pl["ssrc"].serving_stats()
+    pipe_programs = replayed_programs(pipe_stats, "paged_pipeline")
     got = {f.meta["req"]: f.tensors[0][0].tolist() for f in pl["out"].frames}
     if sorted(got) != list(range(len(pipe_prompts))):
         raise AssertionError(f"paged_pipeline: requests back {sorted(got)}")
@@ -2090,11 +2148,238 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
     torch.cuda.empty_cache()
     emit({"phase": "paged_pipeline", "requests": len(pipe_prompts), "layers": 2,
           "k4_launches": pipe_k4, "steps": pipe_stats["steps"],
-          "layers_x_steps": 2 * pipe_stats["steps"], "equal_to_direct_batcher": True,
+          "layers_x_steps": 2 * pipe_stats["steps"], "program_replays": pipe_programs,
+          "equal_to_direct_batcher": True,
           "meta_returned": True, "kv_blocks": pipe_stats["kv_blocks"],
           "kv_blocks_in_use": pipe_stats["kv_blocks_in_use"],
           "tokens_first_request": got[0][:8]})
     return k4_main, k4_launches
+
+
+# -- the serving engine's one-program pump (CUDA graphs of the decode steps) --------------
+
+# eager oracle and replays in turns, each run on a fresh batcher
+GRAPH_MODES = ("eager", "replay", "replay", "eager")
+GRAPH_PROFILE_PUMPS = 2  # two pumps of 8: a 16-step window
+# the sampling check's per-request settings, cycled
+SAMPLING_KW = (dict(temperature=0.8, top_k=40, seed=1), dict(temperature=1.0, top_p=0.9, seed=2),
+               {}, dict(temperature=0.6, top_k=5, top_p=0.95, seed=4))
+
+
+def sampling_traffic(np):
+    """The sampling check's 12 prompts of 64-256 tokens."""
+    rng = np.random.default_rng(5)
+    return [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32)
+            for n in rng.integers(64, 257, 12)]
+
+
+def settle(cb, pump):
+    """Pumps of one until every claimed slot decodes (the paged layout
+    admits one prefilled request a pump)."""
+    while any(r is not None and not cb._active[s] for s, r in enumerate(cb._slots)):
+        pump(1)
+
+
+def graph_profile(torch, cb, prompts, eager, extra):
+    """A full batch (the run's first 8 prompts, 40 new tokens each) for
+    GRAPH_PROFILE_PUMPS pumps of 8 in one mode under torch.profiler: host
+    runtime-API launches a pump, device time a step by class, the busy
+    share. One pump of 8 runs before the window (in replay mode it fills
+    the n = 8 program, outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pump = cb.step_pump_eager if eager else cb.step_pump
+    for p in prompts[:SERVE["n_slots"]]:
+        cb.submit(p, 40)
+    settle(cb, pump)
+    pump(8)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(GRAPH_PROFILE_PUMPS):
+            pump(8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    while cb.n_free < SERVE["n_slots"]:
+        pump(8)
+    k, g, m = host_launches(prof)
+    steps = 8 * GRAPH_PROFILE_PUMPS
+    prof_cls = profile_classes(torch, prof, wall, extra, main=MATMUL_KEYS)
+    return {
+        "kernel_launches_per_pump": k / GRAPH_PROFILE_PUMPS,
+        "graph_launches_per_pump": g / GRAPH_PROFILE_PUMPS,
+        "memcpy_calls_per_pump": m / GRAPH_PROFILE_PUMPS,
+        "window_steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+        **per_step(prof_cls, steps),
+    }
+
+
+def matmul_capture_check(torch, capture, lm, dev):
+    """Each matmul shape of the decode step (layer 0's four and the head) at
+    M = 8, eager against one CUDA-graph replay on the same input: whether
+    cuBLAS gives the same bits under capture."""
+    import torch.nn.functional as F
+
+    blk = lm.blocks[0]
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(3)
+    for name, w in (("wqkv", blk.wqkv.weight), ("wo", blk.wo.weight),
+                    ("w_gate", blk.w_gate.weight), ("w_down", blk.w_down.weight),
+                    ("head", lm.head.weight)):
+        x = torch.randn((8, 1, w.shape[1]), generator=g, device=dev)
+        with torch.no_grad():
+            want = F.linear(x, w)
+            cap = capture(lambda x=x, w=w: F.linear(x, w), dev)
+            cap.graph.replay()
+            torch.cuda.synchronize()
+            out[name] = {"shape": list(w.shape),
+                         "bit_equal": bool(torch.equal(cap.outputs, want)),
+                         "max_abs_diff": float((cap.outputs - want).abs().max())}
+        del cap
+    return out
+
+
+def graphs_cell(torch, np, sv, tfm, lm, dev, name, prompts, kw, counter, zero_counter, extra):
+    """One layout at full width: its 16-request traffic on a fresh batcher
+    per mode of GRAPH_MODES, each after the same warm-up (which fills the
+    n = 1 and n = 8 programs in replay mode); counted launches = layers x
+    steps in every run; every run's streams against the first eager run's
+    under the margin rule; then the eager and replay profiles."""
+    paged = kw.get("kv_layout") == "paged"
+    drive = drive_paged if paged else drive_requests
+    n_layers = lm.n_layers
+    runs, parted, programs = [], 0, None
+    for mode in GRAPH_MODES:
+        eager = mode == "eager"
+        cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **kw, attn_impl="pallas",
+                                  device=dev)
+        drive(cb, [prompts[0][:64]], 4, eager=eager)  # warm-up: cuBLAS, the programs' fills
+        st0 = cb.stats()
+        counter.reset()
+        zero_counter.reset()
+        run = drive(cb, prompts, NEW_TOKENS, eager=eager)
+        st = cb.stats()
+        steps = st["steps"] - st0["steps"]
+        if counter.count != n_layers * steps or zero_counter.count:
+            raise AssertionError(f"serving_graphs {name} {mode}: counted {counter.count} "
+                                 f"launches for {n_layers} x {steps} steps "
+                                 f"(the other kernel {zero_counter.count})")
+        if any(t is None or len(t) != NEW_TOKENS for t in run["tokens"]):
+            raise AssertionError(f"serving_graphs {name} {mode}: a request came back short")
+        progs = st["programs"]
+        if eager and progs:
+            raise AssertionError(f"serving_graphs {name}: the eager oracle filled {list(progs)}")
+        if not eager:
+            if not progs or not all(p["captured"] for p in progs.values()):
+                raise AssertionError(f"serving_graphs {name}: programs not captured: {progs}")
+            if programs is None:
+                programs = {"programs": progs, "build_s": st["build_s"],
+                            "host_state_builds": st["host_state_builds"]}
+        if runs:
+            for p, got, want in zip(prompts, run["tokens"], runs[0]["tokens"]):
+                parted += stream_check(torch, np, tfm, lm, p, got, want, MARGIN_REL,
+                                       torch.float32)
+        full = run.get("full_batch_ms_per_step") or run["pump_ms_per_step"]
+        tpot = run["pump_ms_per_step"] if paged else run["step_ms"]
+        runs.append({
+            "mode": mode, "tokens": run["tokens"], "steps": steps,
+            "launches": counter.count, "layers_x_steps": n_layers * steps,
+            "tpot_ms_p50": pct(tpot, 0.5), "tpot_ms_p99": pct(tpot, 0.99),
+            "pump_ms_per_step_p50": pct(run["pump_ms_per_step"], 0.5),
+            "pump_ms_per_step_p99": pct(run["pump_ms_per_step"], 0.99),
+            "decode_tok_s": SERVE["n_slots"] * 1e3 / pct(full if paged else tpot, 0.5),
+            "served_tok_s": sum(len(t) for t in run["tokens"]) / run["wall_s"],
+            "wall_s": run["wall_s"], "admit_step_ms_p50": pct(run["admit_step_ms"], 0.5),
+            "ttft_ms_p50": pct(run["ttft_ms"], 0.5),
+            "host_state_builds": st["host_state_builds"] - st0["host_state_builds"],
+        })
+        del cb
+        torch.cuda.empty_cache()
+    cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **kw, attn_impl="pallas",
+                              device=dev)
+    drive(cb, [prompts[0][:64]], 4)
+    prof = {mode: graph_profile(torch, cb, prompts, mode == "eager", extra)
+            for mode in ("eager", "replay")}
+    del cb
+    torch.cuda.empty_cache()
+    if prof["replay"]["graph_launches_per_pump"] != 1:
+        raise AssertionError(f"serving_graphs {name}: {prof['replay']['graph_launches_per_pump']}"
+                             " cudaGraphLaunch records a replayed pump, want 1")
+    for r in runs:
+        del r["tokens"]
+    return {"runs": runs, "streams_parted_at_near_tie": parted, "profile": prof, **programs}
+
+
+def serving_graphs_phases(torch, np, dev):
+    """The serving_graphs group: slot (K3) and paged (K4) at Mistral-7B's
+    full width, eager oracle against replays; the matmuls under capture;
+    the sampling pump at 4 layers, replayed against eager."""
+    from nnstreamer_tpu_torch.capture import capture
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_group = time.perf_counter()
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    weights_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
+    matmul_gb = sum(m.weight.numel() * m.weight.element_size() for m in lm.modules()
+                    if isinstance(m, torch.nn.Linear)) / 1e9
+    out = {"phase": "serving_graphs", **MISTRAL, **SERVE, "compute_dtype": "float32",
+           "new_tokens": NEW_TOKENS, "modes": list(GRAPH_MODES), "weights_gb": weights_gb,
+           "matmul_weights_gb": matmul_gb,
+           # the matmuls read every weight once a step: their bound a step
+           "matmul_bound_ms_per_step": matmul_gb * 1e9 / PEAK_BYTES_S * 1e3,
+           "matmul_capture": matmul_capture_check(torch, capture, lm, dev)}
+    with torch.no_grad():
+        out["slot"] = graphs_cell(
+            torch, np, sv, tfm, lm, dev, "slot", slot_traffic(np, np.random.default_rng(0)), {},
+            da.decode_attention_launches, pa.paged_decode_attention_launches,
+            [("decode_attention (K3)", "decode_attention")])
+        emit({"phase": "serving_graphs_slot", **out["slot"]})
+        out["paged"] = graphs_cell(
+            torch, np, sv, tfm, lm, dev, "paged", paged_traffic(np, np.random.default_rng(0)),
+            dict(PAGED, kv_blocks=KV_BLOCKS), pa.paged_decode_attention_launches,
+            da.decode_attention_launches, [("paged_decode_attention (K4)", "paged_attention")])
+        emit({"phase": "serving_graphs_paged", **out["paged"]})
+    del lm
+    torch.cuda.empty_cache()
+    # the sampling pump, 4 layers: replayed tokens equal the eager oracle's
+    lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(1),
+                          **dict(MISTRAL, n_layers=4), device=dev)
+    prompts = sampling_traffic(np)
+    sampled = {}
+    for name, kw in (("slot", {}), ("paged", dict(PAGED, kv_blocks=KV_BLOCKS))):
+        streams = []
+        for mode in ("eager", "replay"):
+            cb = sv.ContinuousBatcher(lm4, MISTRAL["n_heads"], **SERVE, **kw, attn_impl="pallas",
+                                      device=dev)
+            pump = cb.step_pump_eager if mode == "eager" else cb.step_pump
+            rids, todo = [], list(enumerate(prompts))
+            while todo or any(cb.result(r) is None for r in rids):
+                while todo and (rid := cb.submit(todo[0][1], 48,
+                                                 **SAMPLING_KW[todo[0][0] % 4])) is not None:
+                    rids.append(rid)
+                    todo.pop(0)
+                pump(8)
+            streams.append([cb.result(r) for r in rids])
+            keys = sorted(cb.stats()["programs"])
+            del cb
+        if streams[0] != streams[1]:
+            diff = [i for i, (a, b) in enumerate(zip(*streams)) if a != b]
+            raise AssertionError(f"serving_graphs sampling {name}: requests {diff} differ "
+                                 "between the replays and the eager oracle")
+        if not any("sampling" in k for k in keys):
+            raise AssertionError(f"serving_graphs sampling {name}: no sampling program: {keys}")
+        sampled[name] = {"requests": len(prompts), "tokens": sum(len(t) for t in streams[1]),
+                         "programs": keys, "equal": True}
+    del lm4
+    torch.cuda.empty_cache()
+    emit({"phase": "serving_graphs_sampling", "layers": 4, **sampled})
+    out["sampling"] = sampled
+    out["seconds"] = time.perf_counter() - t_group
+    return out
 
 
 # -- the long-context forward (flash prefill attention, K5) -----------------------------
@@ -3981,6 +4266,8 @@ def main() -> int:
     k3_main = k3_by_name["serve-f32-pos600"]
     k4_main, k4_launches = paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_ttft)
     torch.cuda.empty_cache()
+    graphs = serving_graphs_phases(torch, np, dev)
+    emit({k: v for k, v in graphs.items() if k not in ("slot", "paged")})
     k5_main, k5_launches = flash_phases(torch, np, dev, parse_pipeline)
 
     main_case = cases[0]

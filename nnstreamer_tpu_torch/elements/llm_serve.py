@@ -16,7 +16,10 @@ elements:
 - ``tensor_llm_serversrc`` (a Source, on its own thread, so decoding goes
   on while no prompt arrives) steps the batcher and emits one frame per
   completed request: tokens [1, n] int32 with the request frame's meta.
-  ``stream=true`` emits one frame per new token, then a done frame.
+  ``stream=true`` emits one frame per new token, then a done frame. Each
+  step or pump is one of the batcher's pump programs, on CUDA a CUDA-graph
+  replay (captured on whichever element thread first runs it, under the
+  process-wide capture lock the pipeline's segments share).
 
 EOS: the sink's EOS marks the end of submissions; the src drains every
 pending request, then ends its stream.

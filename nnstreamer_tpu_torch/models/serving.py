@@ -22,10 +22,23 @@ per-slot masks and write gating by ``active`` keep the slots apart.
   unchanged: ``"xla"`` is the inline masked ``cache_attention`` (the
   default), ``"pallas"`` the K3 kernel (``ops/kernels/decode_attention.py``),
   which on CUDA tensors launches the CUDA kernel.
-- Sampling (temperature / top-k / top-p) runs on the device with explicit
-  ``torch.Generator``s seeded from (request seed, fill level), so a
+- Sampling (temperature / top-k / top-p) runs on the device: Gumbel
+  noise from a counter-based hash of (request seed, fill level, vocab
+  index), computed with tensor ops (:func:`sample_tokens`), so a
   request's stream depends only on its seed and its positions, never on
-  the batch it shares. Only [B] token ids cross to the host per step.
+  the batch it shares.
+- The decode hot loop is one program a pump (the reference's jitted
+  ``pump_impl`` / ``paged_pump_impl``): ``step_pump(n)`` runs ``n``
+  steps of batched decode, token choice and budget / stop / active
+  update over per-slot state that stays on the device between pumps, in
+  buffers with fixed addresses; ``step()`` is the ``n = 1`` program. On
+  CUDA each (n, greedy or sampling) program is captured once into a CUDA
+  graph (``nnstreamer_tpu_torch/capture.py``) and replayed, K3 or K4
+  inside it; on the CPU the same program runs eagerly. The host ships the
+  pump state only after it changed outside a pump (admission, finish,
+  preemption, a per-token step), and reads back one [B, n] token block a
+  pump. ``step_eager`` / ``step_pump_eager`` run the body uncaptured:
+  the oracle.
 - Admission: ``submit`` prefills outside the state lock and queues a
   pending insert that the next ``step`` applies, so submitting never waits
   for a decode step, and one read of the host fetches every queued first
@@ -54,12 +67,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nnstreamer_tpu_torch.capture import capture, replay
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
 from nnstreamer_tpu_torch.models import transformer as tfm
 from nnstreamer_tpu_torch.models.serving_paged import PagedAdmission
 
-_MASK63 = (1 << 63) - 1
+_M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
 
 
 def _not_ported(what: str):
@@ -158,36 +173,59 @@ def _filtered_logits(logits, temp, top_k, top_p):
     return torch.where((top_p < 1.0)[:, None] & (probs < cutoff), neg, scaled)
 
 
-def sample_seed(seed: int, fill: int) -> int:
-    """The generator seed of the token sampled at cache fill ``fill`` of a
-    request seeded ``seed`` (a splitmix64 mix of the pair)."""
-    z = ((int(seed) & 0xFFFFFFFF) << 32 | (int(fill) & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15
-    z &= (1 << 64) - 1
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & ((1 << 64) - 1)
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & ((1 << 64) - 1)
-    return (z ^ (z >> 31)) & _MASK63
+def seed_key(seed: int) -> int:
+    """The 32-bit key the device sampler hashes for a request seeded
+    ``seed`` (any Python int): the high half of its splitmix64 mix."""
+    z = (int(seed) + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 32
 
 
-def sample_tokens(logits, temp, top_k, top_p, seeds: List[Optional[int]]) -> torch.Tensor:
-    """Per-slot token choice on the logits' device.
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x · c) mod 2^32 for int64 ``x`` in [0, 2^32) and a 32-bit constant:
+    ``c`` in two 16-bit halves, so that no int64 product overflows."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer finalizer, a bijection of [0, 2^32), on int64
+    tensors."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_noise(keys: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel noise [B, V] float32 from a counter-based hash of (slot key,
+    position, vocab index), computed with tensor ops on the keys' device:
+    the same triple always gives the same value, whatever batch it is
+    computed in. keys [B] (:func:`seed_key` values), pos [B]."""
+    row = _mix32(_mix32(keys.long()) ^ (pos.long() & _M32))
+    cols = torch.arange(vocab, dtype=torch.int64, device=keys.device)
+    h = _mix32(_mix32((row[:, None] + cols[None, :]) & _M32))
+    # the top 24 bits, centred in their bin: u in (0, 1), exact in float32
+    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits, temp, top_k, top_p, keys, pos) -> torch.Tensor:
+    """Per-slot token choice on the logits' device, with tensor ops only
+    (no host read, so a CUDA graph captures it).
 
     logits [B, V] float32; temp [B] float32 (≤ 0 → greedy); top_k [B]
     (0 → off); top_p [B] float32 (1.0 → off; the nucleus keeps the
-    smallest most-probable set with mass ≥ top_p); seeds: one generator
-    seed per slot (None for greedy slots) → tok [B] int32. A sampling slot
-    draws Gumbel noise from its own ``torch.Generator`` and takes the
-    argmax of the filtered logits plus the noise: an exact categorical
-    sample."""
+    smallest most-probable set with mass ≥ top_p); keys [B] the slots'
+    :func:`seed_key`; pos [B] the cache fill the token is sampled at →
+    tok [B] int32. A sampling slot takes the argmax of the filtered logits
+    plus :func:`gumbel_noise` keyed by (key, pos): an exact categorical
+    sample whose stream depends only on the request's seed and positions
+    (the reference keys ``jax.random`` by ``fold_in(key, pos)``)."""
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
     scaled = _filtered_logits(logits, temp, top_k, top_p)
-    noise = torch.zeros_like(scaled)
-    for b, seed in enumerate(seeds):
-        if seed is None:
-            continue
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(seed)
-        u = torch.rand(scaled.shape[-1], generator=gen, device=logits.device)
-        noise[b] = -torch.log(-torch.log(u))
+    noise = gumbel_noise(keys, pos, scaled.shape[-1])
     sampled = torch.argmax(scaled + noise, dim=-1).to(torch.int32)
     return torch.where(temp > 0, sampled, greedy)
 
@@ -233,13 +271,6 @@ class _Request:
             return True
         return bool(self.tokens) and self.tokens[-1] == self.stop_token
 
-    def next_seed(self, ahead: int = 0) -> Optional[int]:
-        """Generator seed of the token ``ahead`` steps from now (None when
-        greedy): fill level fill0 + len(tokens) + ahead."""
-        if self.temperature <= 0:
-            return None
-        return sample_seed(self.seed, self.fill0 + len(self.tokens) + ahead)
-
 
 @dataclass
 class _PendingInsert:
@@ -255,6 +286,41 @@ class _PendingInsert:
     req: _Request
     blocks: Optional[List[int]] = None  # paged: the request's arena blocks
     resumed: bool = False  # paged: a preempted request coming back
+
+
+class _PumpProgram:
+    """One entry of the batcher's program cache: the pump of ``n`` decode
+    steps, greedy or sampling (the reference jits one program per
+    ``n_steps``). On CUDA it holds the CUDA graph its body was captured
+    into, the emitted-token buffer in the graph's pool, the launches one
+    replay stands for, and what the fill cost: the warm-up's launches, host
+    seconds, and device bytes allocated and reserved across it. Elsewhere
+    ``graph`` stays None and :meth:`run` runs the body."""
+
+    __slots__ = ("n", "sampling", "graph", "emits", "launches", "warmup_launches", "build_s",
+                 "allocated_bytes", "reserved_bytes", "replays")
+
+    def __init__(self, n: int, sampling: bool) -> None:
+        self.n = n
+        self.sampling = sampling
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.emits: Optional[torch.Tensor] = None
+        self.launches: Dict = {}
+        self.warmup_launches = 0
+        self.build_s = 0.0
+        self.allocated_bytes = 0
+        self.reserved_bytes = 0
+        self.replays = 0
+
+    def run(self, cb: "ContinuousBatcher") -> torch.Tensor:
+        """One run over ``cb``'s state → the emitted tokens [B, n]: a
+        replay of the graph (its buffer, valid until the next replay), or
+        the body where nothing was captured."""
+        if self.graph is None:
+            return cb._pump_body(self.n, self.sampling)
+        replay(self.graph, self.launches)
+        self.replays += 1
+        return self.emits
 
 
 class BatcherFailedError(RuntimeError):
@@ -277,9 +343,10 @@ class ContinuousBatcher(PagedAdmission):
 
     ``submit`` may be called at any time from any thread; ``step``
     advances every active slot one token, ``step_pump(n)`` n tokens with
-    one read of the host. A finished request frees its slot for the next
-    submit. ``device`` (default ``cuda``; raises without a GPU unless
-    ``"cpu"``) must be where ``params`` live.
+    one read of the host, each one pump program (a CUDA-graph replay on
+    the card). A finished request frees its slot for the next submit.
+    ``device`` (default ``cuda``; raises without a GPU unless ``"cpu"``)
+    must be where ``params`` live.
 
     ``kv_layout="paged"`` keeps the cache as ``kv_blocks`` blocks of
     ``block_size`` tokens (default: enough for every slot at max_len)
@@ -291,8 +358,9 @@ class ContinuousBatcher(PagedAdmission):
     ``attn_impl="pallas"``).
 
     Failure: the steps update the cache in place, so a step that raises
-    leaves the device state invalid; the batcher latches the error and
-    every later step/submit raises :class:`BatcherFailedError`."""
+    (a failed capture or replay included: nothing falls back to eager
+    steps) leaves the device state invalid; the batcher latches the error
+    and every later step/submit raises :class:`BatcherFailedError`."""
 
     def __init__(
         self,
@@ -417,9 +485,30 @@ class ContinuousBatcher(PagedAdmission):
             self._cache = tuple(
                 torch.zeros(shape, dtype=self.compute_dtype, device=dev) for _ in range(2)
             )
-        self._tok = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        self._pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        # per-slot state on the device, the pump programs' operands: fixed
+        # addresses for the batcher's life, only ever written in place
+        # (admission sets a slot's entries; the programs write the carried
+        # state back), so a captured program never reads a stale buffer
+        i32 = dict(dtype=torch.int32, device=dev)
+        self._tok = torch.zeros((n_slots,), **i32)
+        self._pos = torch.zeros((n_slots,), **i32)
+        self._temp = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
+        self._topk = torch.zeros((n_slots,), **i32)
+        self._topp = torch.ones((n_slots,), dtype=torch.float32, device=dev)
+        self._keys = torch.zeros((n_slots,), dtype=torch.int64, device=dev)  # seed_key per slot
         self._active = np.zeros((n_slots,), bool)
+        # device-carried pump state: budgets left, stop ids and the active
+        # mask. The programs compute their next values, so the host rebuilds
+        # and ships them only when the dirty flag says a slot changed outside
+        # a pump (admission, finish, preemption, a per-token step); a steady
+        # pump-only drain ships none (_host_state_builds counts the builds)
+        self._active_dev = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
+        self._budget_dev = torch.zeros((n_slots,), **i32)
+        self._stop_dev = torch.full((n_slots,), -1, **i32)
+        self._pump_state_dirty = True
+        self._host_state_builds = 0
+        # (n, sampling) -> the pump program (the reference's jit cache)
+        self._programs: Dict[Tuple[int, bool], _PumpProgram] = {}
         # chunked prefill stages into a cache padded to a bucket multiple,
         # plus one spare bucket
         self._stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
@@ -464,7 +553,8 @@ class ContinuousBatcher(PagedAdmission):
         return logits, stage
 
     def _sample1(self, logits_row, req: _Request) -> torch.Tensor:
-        """The first token, from the prefill's last logits row."""
+        """The first token, from the prefill's last logits row, sampled at
+        fill ``fill0`` as the decode steps sample at theirs."""
         if req.temperature <= 0:
             return torch.argmax(logits_row).to(torch.int32)
         dev = logits_row.device
@@ -473,7 +563,8 @@ class ContinuousBatcher(PagedAdmission):
             torch.tensor([req.temperature], dtype=torch.float32, device=dev),
             torch.tensor([req.top_k], dtype=torch.int32, device=dev),
             torch.tensor([req.top_p], dtype=torch.float32, device=dev),
-            [req.next_seed()],
+            torch.tensor([seed_key(req.seed)], dtype=torch.int64, device=dev),
+            torch.tensor([req.fill0 + len(req.tokens)], dtype=torch.int32, device=dev),
         )[0]
 
     def _new_request(self, budget: int, temperature: float, top_k: int, top_p: float,
@@ -571,6 +662,7 @@ class ContinuousBatcher(PagedAdmission):
             for p in batch
         ]).cpu().numpy()
         with self._lock:
+            self._pump_state_dirty = True  # admission changes the pump state
             for p, first in zip(batch, firsts):
                 if self._slots[p.slot] is not p.req:
                     continue
@@ -584,8 +676,13 @@ class ContinuousBatcher(PagedAdmission):
                         continue
                 if p.blocks is None:
                     insert_slot(self._cache, p.ks, p.vs, p.slot)
+                req = p.req
                 self._tok[p.slot] = int(first)
                 self._pos[p.slot] = p.fill
+                self._temp[p.slot] = req.temperature
+                self._topk[p.slot] = req.top_k
+                self._topp[p.slot] = req.top_p
+                self._keys[p.slot] = seed_key(req.seed)
                 self._active[p.slot] = True
 
     def _mark_failed(self, exc: BaseException) -> None:
@@ -600,26 +697,9 @@ class ContinuousBatcher(PagedAdmission):
                 "build a new batcher"
             ) from self._failed
 
-    def _sampling_args(self, active_np, reqs, steps: int):
-        """Per-slot temperature/top-k/top-p tensors and, for each of the
-        next ``steps`` steps, the slots' generator seeds; None when every
-        active slot is greedy."""
-        if not any(r is not None and active_np[s] and r.temperature > 0
-                   for s, r in enumerate(reqs)):
-            return None
-        live = [r if (r is not None and active_np[s]) else None for s, r in enumerate(reqs)]
-        dev = self.device
-        temp = torch.tensor([r.temperature if r else 0.0 for r in live],
-                            dtype=torch.float32, device=dev)
-        topk = torch.tensor([r.top_k if r else 0 for r in live], dtype=torch.int32, device=dev)
-        topp = torch.tensor([r.top_p if r else 1.0 for r in live],
-                            dtype=torch.float32, device=dev)
-        seeds = [[r.next_seed(i) if r else None for r in live] for i in range(steps)]
-        return temp, topk, topp, seeds
-
-    def _decode(self, tok, pos, active, sampling, i: int, tables=None):
-        """One batched step on the device → (new tokens [B], pos'). The
-        paged layout passes its device block tables."""
+    def _decode_logits(self, tok, pos, active, tables):
+        """One batched decode step on the device → (logits [B, V], pos').
+        The paged layout attends through its device block tables."""
         if not self._paged:
             logits, _, pos2 = batched_decode_step(
                 self.params, tok, pos, active, self._cache, self.n_heads,
@@ -642,12 +722,63 @@ class ContinuousBatcher(PagedAdmission):
                 self.params, tok, pos, active, self._cache, tables, self.n_heads,
                 self.compute_dtype, attn_fn=self._attn_fn,
             )
-        if sampling is None:
-            new = torch.argmax(logits, dim=-1).to(torch.int32)
-        else:
-            temp, topk, topp, seeds = sampling
-            new = sample_tokens(logits, temp, topk, topp, seeds[i])
-        return torch.where(active, new, tok), pos2
+        return logits, pos2
+
+    def _pump_body(self, n: int, sampling: bool) -> torch.Tensor:
+        """The pump program's body (the reference's ``pump_impl`` /
+        ``paged_pump_impl`` scan, unrolled ``n`` times): each step the
+        batched decode, the token choice, then the budget / stop / active
+        update, over the device-carried state; the carried state is written
+        back into its buffers → the emitted tokens [B, n] int32, -1 on a
+        lane that was idle. Only device work and no host read: on CUDA it
+        is captured, elsewhere (and as the oracle) it runs as it is."""
+        tok, pos = self._tok, self._pos
+        active, budget, stop = self._active_dev, self._budget_dev, self._stop_dev
+        tables = self._tables_dev if self._paged else None
+        emits = []
+        for _ in range(n):
+            logits, pos2 = self._decode_logits(tok, pos, active, tables)
+            if sampling:
+                # keyed by the fill the token is sampled at, as fold_in(key, pos2)
+                new = sample_tokens(logits, self._temp, self._topk, self._topp, self._keys, pos2)
+            else:
+                new = torch.argmax(logits, dim=-1).to(torch.int32)
+            new = torch.where(active, new, tok)
+            emits.append(torch.where(active, new, torch.full_like(new, -1)))
+            budget = budget - active.to(torch.int32)
+            active = active & (budget > 0) & ~((new == stop) & (stop >= 0))
+            tok, pos = new, pos2
+        self._tok.copy_(tok)
+        self._pos.copy_(pos)
+        self._active_dev.copy_(active)
+        self._budget_dev.copy_(budget)
+        return torch.stack(emits, dim=1)
+
+    def _program(self, n: int, sampling: bool) -> "_PumpProgram":
+        """The pump program of (n, sampling), filled at its first use: on
+        CUDA a CUDA graph of :meth:`_pump_body`. The warm-up and the
+        capture run with every lane idle, so they leave the live state as
+        it was: idle slots write back their own cache rows, idle paged
+        lanes scratch block 0's init values, and tok, pos and budget stay.
+        Caller holds _step_lock."""
+        key = (n, sampling)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = _PumpProgram(n, sampling)
+            dev = self.device
+            if dev.type == "cuda":
+                allocated = torch.cuda.memory_allocated(dev)
+                reserved = torch.cuda.memory_reserved(dev)
+                live = self._active_dev.clone()
+                self._active_dev.zero_()
+                cap = capture(lambda: self._pump_body(n, sampling), dev)
+                self._active_dev.copy_(live)
+                prog.graph, prog.emits, prog.launches = cap.graph, cap.outputs, cap.launches
+                prog.warmup_launches, prog.build_s = cap.warmup_launches, cap.build_s
+                prog.allocated_bytes = torch.cuda.memory_allocated(dev) - allocated
+                prog.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
+            self._programs[key] = prog
+        return prog
 
     def _admit(self) -> None:
         """The start of every step and pump: advance the paged prefill
@@ -663,122 +794,135 @@ class ContinuousBatcher(PagedAdmission):
             self._mark_failed(exc)
             raise
 
-    def _begin_steps_locked(self, n: int):
-        """The paged layout's bookkeeping before ``n`` decode steps (caller
-        holds _lock): blocks for every active slot's next ``n`` writes (a
-        preemption may deactivate a slot here) → the device tables, or
-        None on the slot layout."""
-        if not self._paged:
-            return None
-        self._ensure_decode_room_locked(n)
-        if self._kv_attn == "gather":
-            self._n_gather_dispatch += 1
-        return self._tables_device_locked()
+    def _pump_state_locked(self) -> None:
+        """Bring the device-carried pump state (budgets left, stop ids,
+        the active mask) up to date: rebuilt from the host and shipped only
+        when the dirty flag is set (reference ``_pump_state_locked``).
+        Caller holds _lock."""
+        if not self._pump_state_dirty:
+            return
+        budget = np.zeros((self.n_slots,), np.int32)
+        stop = np.full((self.n_slots,), -1, np.int32)
+        for s, req in enumerate(self._slots):
+            if req is not None and self._active[s]:
+                budget[s] = req.budget - len(req.tokens)
+                if req.stop_token is not None:
+                    stop[s] = req.stop_token
+        self._budget_dev.copy_(torch.from_numpy(budget))
+        self._stop_dev.copy_(torch.from_numpy(stop))
+        self._active_dev.copy_(torch.from_numpy(self._active))
+        self._pump_state_dirty = False
+        self._host_state_builds += 1
+
+    def _pump(self, n: int, eager: bool):
+        """Run ``n`` decode steps of every active slot as one program:
+        admissions first, then (paged) blocks for the next ``n`` writes,
+        the pump state and tables shipped if they changed, one run of the
+        program (a replay on CUDA; ``eager`` runs the body instead, the
+        oracle) and ONE [B, n] read of the host. → (the active mask the
+        program started from, the emitted tokens [B, n]), or None when no
+        slot is active. Caller holds _step_lock."""
+        self._admit()
+        with self._lock:
+            if not self._active.any():
+                return None
+            if self._paged:
+                # may preempt, which marks the pump state and tables dirty
+                self._ensure_decode_room_locked(n)
+                if self._kv_attn == "gather":
+                    self._n_gather_dispatch += 1
+                self._tables_device_locked()
+            active_np = self._active.copy()
+            sampling = any(r is not None and active_np[s] and r.temperature > 0
+                           for s, r in enumerate(self._slots))
+            self._pump_state_locked()
+        try:
+            with torch.no_grad():
+                if eager:
+                    emits = self._pump_body(n, sampling)
+                else:
+                    prog = self._program(n, sampling)
+                    emits = prog.run(self)
+                emits_np = emits.cpu().numpy()  # the pump's one read of the host
+        except Exception as exc:
+            self._mark_failed(exc)
+            raise
+        return active_np, emits_np
+
+    def _harvest_locked(self, active_np, emits_np, t0: float) -> Dict[int, List[int]]:
+        """Append each slot's emitted tokens to its request up to its
+        finish (budget or stop token; the lanes after it are -1), finish
+        those requests → {rid: tokens this run}. Caller holds _lock."""
+        out: Dict[int, List[int]] = {}
+        n_em = 0
+        for s, req in enumerate(self._slots):
+            if req is None or not active_np[s]:
+                continue
+            got = []
+            for t in emits_np[s]:
+                if t < 0:
+                    break
+                req.tokens.append(int(t))
+                got.append(int(t))
+                if req.finished():
+                    break
+            n_em += len(got)
+            if got:
+                out[req.rid] = got
+            if req.finished():
+                self._finish(s)
+        self._n_steps += emits_np.shape[1]
+        self._n_tokens += n_em
+        self._step_time_s += _time.perf_counter() - t0
+        return out
 
     def step(self) -> Dict[int, int]:
-        """Advance every active slot one token; returns {rid: token}."""
-        self._check_failed()
-        t0 = _time.perf_counter()
-        with self._step_lock:
-            self._admit()
-            with self._lock:
-                if not self._active.any():
-                    return {}
-                tables = self._begin_steps_locked(1)
-                active_np = self._active.copy()
-                sampling = self._sampling_args(active_np, self._slots, 1)
-            try:
-                with torch.no_grad():
-                    active = torch.as_tensor(active_np, device=self.device)
-                    new, pos = self._decode(self._tok, self._pos, active, sampling, 0, tables)
-                    toks = new.cpu().numpy()  # [B] ids: the only read of the host
-            except Exception as exc:
-                self._mark_failed(exc)
-                raise
-            with self._lock:
-                self._tok, self._pos = new, pos
-                emitted: Dict[int, int] = {}
-                for slot, req in enumerate(self._slots):
-                    if req is None or not active_np[slot]:
-                        continue
-                    req.tokens.append(int(toks[slot]))
-                    emitted[req.rid] = int(toks[slot])
-                    if req.finished():
-                        self._finish(slot)
-                self._n_steps += 1
-                self._n_tokens += len(emitted)
-                self._step_time_s += _time.perf_counter() - t0
-                return emitted
+        """Advance every active slot one token (the n = 1 pump program);
+        returns {rid: token}."""
+        return self._run(1, eager=False, per_token=True)
+
+    def step_eager(self) -> Dict[int, int]:
+        """:meth:`step` with the program's body run eagerly, never
+        captured: the oracle a replay is held against."""
+        return self._run(1, eager=True, per_token=True)
 
     def step_pump(self, n: int = 8) -> Dict[int, List[int]]:
-        """Advance every active slot by up to ``n`` tokens with one read of
-        the host at the end: budgets and stop tokens are tracked on the
-        device, and a slot that finishes mid-pump idles (emits -1) for the
-        rest of it. Admissions join at the next pump. Returns {rid: [tokens
-        emitted this pump]}."""
+        """Advance every active slot by up to ``n`` tokens in one program
+        (one CUDA-graph replay on the card) with one read of the host at
+        the end: budgets and stop tokens are tracked on the device, and a
+        slot that finishes mid-pump idles (emits -1) for the rest of it.
+        Admissions join at the next pump. Returns {rid: [tokens emitted
+        this pump]}."""
+        return self._run(n, eager=False, per_token=False)
+
+    def step_pump_eager(self, n: int = 8) -> Dict[int, List[int]]:
+        """:meth:`step_pump` with the program's body run eagerly, never
+        captured: the oracle a replay is held against."""
+        return self._run(n, eager=True, per_token=False)
+
+    def _run(self, n: int, eager: bool, per_token: bool):
         self._check_failed()
         t0 = _time.perf_counter()
         n = int(n)
+        if n < 1:
+            raise ValueError(f"step_pump needs n >= 1, got {n}")
         with self._step_lock:
-            self._admit()
+            got = self._pump(n, eager)
+            if got is None:
+                return {}
             with self._lock:
-                if not self._active.any():
-                    return {}
-                tables = self._begin_steps_locked(n)
-                active_np = self._active.copy()
-                sampling = self._sampling_args(active_np, self._slots, n)
-                remaining = np.zeros((self.n_slots,), np.int32)
-                stop = np.full((self.n_slots,), -1, np.int32)
-                for s, req in enumerate(self._slots):
-                    if req is not None and active_np[s]:
-                        remaining[s] = req.budget - len(req.tokens)
-                        if req.stop_token is not None:
-                            stop[s] = req.stop_token
-            try:
-                with torch.no_grad():
-                    dev = self.device
-                    active = torch.as_tensor(active_np, device=dev)
-                    budget = torch.as_tensor(remaining, device=dev)
-                    stop_t = torch.as_tensor(stop, device=dev)
-                    tok, pos = self._tok, self._pos
-                    emits = []
-                    for i in range(n):
-                        tok, pos = self._decode(tok, pos, active, sampling, i, tables)
-                        emits.append(torch.where(active, tok, torch.full_like(tok, -1)))
-                        budget = budget - active.to(torch.int32)
-                        active = active & (budget > 0) & ~((tok == stop_t) & (stop_t >= 0))
-                    emits_np = torch.stack(emits, dim=1).cpu().numpy()  # one [B, n] read
-            except Exception as exc:
-                self._mark_failed(exc)
-                raise
-            with self._lock:
-                self._tok, self._pos = tok, pos
-                out: Dict[int, List[int]] = {}
-                n_em = 0
-                for s, req in enumerate(self._slots):
-                    if req is None or not active_np[s]:
-                        continue
-                    got = []
-                    for t in emits_np[s]:
-                        if t < 0:
-                            break
-                        req.tokens.append(int(t))
-                        got.append(int(t))
-                        if req.finished():
-                            break
-                    n_em += len(got)
-                    if got:
-                        out[req.rid] = got
-                    if req.finished():
-                        self._finish(s)
-                self._n_steps += n
-                self._n_tokens += n_em
-                self._step_time_s += _time.perf_counter() - t0
-                return out
+                out = self._harvest_locked(*got, t0)
+                if not per_token:
+                    return out
+                # the host-stepped path (reference _plain_step_locked): the
+                # pump state rebuilds at the next pump
+                self._pump_state_dirty = True
+                return {rid: toks[0] for rid, toks in out.items()}
 
     def _finish(self, slot: int) -> None:
         req = self._slots[slot]
         self._active[slot] = False
+        self._pump_state_dirty = True  # the slot leaves the batch
         if self._paged:
             self._release_blocks_locked(slot)
         self._done_pool[req.rid] = req
@@ -810,11 +954,30 @@ class ContinuousBatcher(PagedAdmission):
                     out[rid] = list(self._done_pool[rid].tokens)
         return out
 
+    def _program_name(self, n: int, sampling: bool) -> str:
+        """The name of a pump program: layout, n, greedy or sampling,
+        cache dtype, attn_impl (the first and the last two are the
+        batcher's own)."""
+        layout = f"paged-{self._kv_attn}" if self._paged else "slot"
+        cache = "int8" if self.cache_dtype == "int8" else str(self.compute_dtype)[6:]
+        return "/".join((layout, f"n{n}", "sampling" if sampling else "greedy", cache,
+                         self.attn_impl))
+
     def stats(self) -> Dict[str, Any]:
-        """Token and step counters and the slot occupancy; a paged batcher
-        adds the pool's ``kv_*`` counters."""
+        """Token and step counters and the slot occupancy; the pump
+        programs filled, by key (captured or not, replays, the fill's host
+        seconds, warm-up launches and device bytes), their total
+        ``build_s`` and ``host_state_builds``; a paged batcher adds the
+        pool's ``kv_*`` counters."""
         with self._lock:
             occupied = sum(r is not None for r in self._slots)
+            programs = {
+                self._program_name(p.n, p.sampling): {
+                    "captured": p.graph is not None, "replays": p.replays,
+                    "build_s": p.build_s, "warmup_launches": p.warmup_launches,
+                    "allocated_bytes": p.allocated_bytes, "reserved_bytes": p.reserved_bytes,
+                } for p in list(self._programs.values())
+            }
             st = {
                 "steps": self._n_steps,
                 "tokens_emitted": self._n_tokens,
@@ -824,6 +987,10 @@ class ContinuousBatcher(PagedAdmission):
                 "slots_occupied": occupied,
                 "slots_free": self.n_slots - occupied,
                 "results_pending_pickup": len(self._done_pool),
+                "programs": programs,
+                "programs_filled": len(programs),
+                "build_s": sum(p["build_s"] for p in programs.values()),
+                "host_state_builds": self._host_state_builds,
             }
             if self._paged:
                 st.update(self._paged_stats_locked())

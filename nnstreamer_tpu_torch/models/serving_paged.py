@@ -323,6 +323,7 @@ class PagedAdmission:
         req = self._slots[slot]
         self._release_blocks_locked(slot)
         self._active[slot] = False
+        self._pump_state_dirty = True
         self._n_preemptions += 1
         context = req.prompt
         if len(req.tokens) > 1:
@@ -346,9 +347,10 @@ class PagedAdmission:
         self._tables_dirty = True
 
     def _tables_device_locked(self) -> torch.Tensor:
-        """The device copy of the block tables, shipped again only after
-        an allocation, preemption, admission or finish changed a row."""
+        """The device copy of the block tables, copied into its buffer
+        (whose address the pump programs hold) only after an allocation,
+        preemption, admission or finish changed a row."""
         if self._tables_dirty:
-            self._tables_dev = torch.tensor(self._tables, dtype=torch.int32, device=self.device)
+            self._tables_dev.copy_(torch.from_numpy(self._tables))
             self._tables_dirty = False
         return self._tables_dev

@@ -21,14 +21,12 @@ it takes that device.
 
 from __future__ import annotations
 
-import gc
-import threading
-import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from nnstreamer_tpu_torch.capture import capture, replay
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.elements.base import (
     Element,
@@ -281,11 +279,6 @@ class _Program:
         self.launches: Dict = {}
 
 
-# One capture at a time in the process: a capture on a node's thread while
-# another segment captures would tie their allocations together.
-_CAPTURE_LOCK = threading.Lock()
-
-
 class FusedSegment:
     """A maximal linear chain of TensorOps run as ONE program per frame.
 
@@ -400,49 +393,22 @@ class FusedSegment:
         return prog
 
     def _capture(self, prog: _Program, sig: tuple, bucket: int) -> None:
-        """Warm ``prog.fn`` up on zeros, then capture it into a CUDA graph
-        over static input buffers. A failure raises: no segment falls
-        back to eager execution. The capture is thread-local, so other
-        nodes' threads may go on launching on the card meanwhile."""
-        from nnstreamer_tpu_torch.ops.kernels import launch_tally
-
-        t0 = time.perf_counter()
+        """Capture ``prog.fn`` over zeroed static input buffers
+        (:func:`~nnstreamer_tpu_torch.capture.capture`: an eager warm-up on
+        a side stream, then the capture). A failure raises: no segment
+        falls back to eager execution."""
         inputs = tuple(
             torch.zeros(((bucket,) + shape) if bucket else shape, dtype=dtype, device=self.device)
             for shape, dtype in sig
         )
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK, torch.cuda.stream(side), torch.inference_mode():
-            with launch_tally() as warm:
-                prog.fn(inputs)
-            with launch_tally() as tally:
-                # no collection while capturing: one could free an earlier
-                # segment's graph on this thread, a call that invalidates
-                # the capture
-                gc_on = gc.isenabled()
-                gc.disable()
-                try:
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        outputs = prog.fn(inputs)
-                    finally:
-                        graph.capture_end()
-                finally:
-                    if gc_on:
-                        gc.enable()
-        cur.wait_stream(side)
-        self.warmup_launches += sum(warm.values())
-        self.build_s += time.perf_counter() - t0
-        prog.graph, prog.inputs, prog.outputs = graph, inputs, outputs
-        prog.launches = dict(tally)
+        cap = capture(lambda: prog.fn(inputs), self.device)
+        self.warmup_launches += cap.warmup_launches
+        self.build_s += cap.build_s
+        prog.graph, prog.inputs, prog.outputs = cap.graph, inputs, cap.outputs
+        prog.launches = cap.launches
 
     def _replay(self, prog: _Program) -> None:
-        prog.graph.replay()
-        for counter, n in prog.launches.items():
-            counter.add(n)
+        replay(prog.graph, prog.launches)
 
     def _negotiated_sig(self) -> Optional[tuple]:
         """The signature the first frame will have, from the negotiated
