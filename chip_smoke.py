@@ -167,7 +167,10 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  bytes, host_state_builds; then a full batch for 16 steps
                  (two pumps of 8) eager and replayed under torch.profiler:
                  host kernel / graph launches and memcpy calls a pump
-                 (replayed: exactly one cudaGraphLaunch a pump), device ms a
+                 (replayed: exactly one cudaGraphLaunch a pump), K3's / K4's
+                 split and combine device records equal to 2 x their
+                 counted launches = layers x steps in both modes (replayed,
+                 the counts are the capture's tally), device ms a
                  step by class and busy share, beside the matmuls' bound a
                  step (every weight read once at 3.35 TB/s). Each of the
                  decode step's five matmul shapes at M = 8, eager against a
@@ -895,9 +898,12 @@ def profile_classes(torch, prof, wall_s, extra, main=CONV_KEYS):
     against the frames shows how many were kept."""
     from torch.autograd import DeviceType
 
+    # a profiler schedule's step also shows as a device-side annotation
+    # spanning the whole step: no kernel, so not device time
     rows = sorted(
         ((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
-         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+         and not ev.key.startswith("ProfilerStep")),
         reverse=True,
     )
     main_cls, main_subs = main
@@ -2180,36 +2186,61 @@ def settle(cb, pump):
         pump(1)
 
 
-def graph_profile(torch, cb, prompts, eager, extra):
-    """A full batch (the run's first 8 prompts, 40 new tokens each) for
+def graph_profile(torch, cb, prompts, eager, extra, counter, n_layers):
+    """A full batch (the run's first 8 prompts, 48 new tokens each) for
     GRAPH_PROFILE_PUMPS pumps of 8 in one mode under torch.profiler: host
     runtime-API launches a pump, device time a step by class, the busy
-    share. One pump of 8 runs before the window (in replay mode it fills
-    the n = 8 program, outside it)."""
-    from torch.profiler import ProfilerActivity, profile
+    share. One pump of 8 runs before the profile (in replay mode it fills
+    the n = 8 program) and one in the profiler's warm-up step, whose
+    records are dropped. The attention kernel's device records in the
+    window (its split and its combine kernel, ``extra``'s key) must equal
+    2 x the launches ``counter`` took, and those layers x steps: in replay
+    mode the counts come from the capture's tally, so this shows they are
+    the kernels the replays ran. As in ``launches_eager_vs_replay``, the
+    counted pumps start and end 10 ms inside the recorded window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     pump = cb.step_pump_eager if eager else cb.step_pump
     for p in prompts[:SERVE["n_slots"]]:
-        cb.submit(p, 40)
+        cb.submit(p, 48)
     settle(cb, pump)
     pump(8)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        pump(8)
+        torch.cuda.synchronize()
+        prof.step()
+        counter.reset()
+        time.sleep(0.01)
         t0 = time.perf_counter()
         for _ in range(GRAPH_PROFILE_PUMPS):
             pump(8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        time.sleep(0.01)
+    launched = counter.count
+    if not all(cb._active):
+        raise AssertionError("serving_graphs: a slot went idle inside the profiled window")
     while cb.n_free < SERVE["n_slots"]:
         pump(8)
     k, g, m = host_launches(prof)
     steps = 8 * GRAPH_PROFILE_PUMPS
+    (cls, sub), = extra
+    records = sum(ev.count for ev in prof.key_averages()
+                  if ev.device_type == DeviceType.CUDA and sub in ev.key)
+    if launched != n_layers * steps or records != 2 * launched:
+        raise AssertionError(f"serving_graphs {'eager' if eager else 'replay'}: {cls} counted "
+                             f"{launched} launches for {n_layers} x {steps} steps, "
+                             f"{records} device records (2 a launch)")
     prof_cls = profile_classes(torch, prof, wall, extra, main=MATMUL_KEYS)
     return {
         "kernel_launches_per_pump": k / GRAPH_PROFILE_PUMPS,
         "graph_launches_per_pump": g / GRAPH_PROFILE_PUMPS,
         "memcpy_calls_per_pump": m / GRAPH_PROFILE_PUMPS,
         "window_steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+        "attention_launches": launched, "attention_device_records": records,
         **per_step(prof_cls, steps),
     }
 
@@ -2298,7 +2329,7 @@ def graphs_cell(torch, np, sv, tfm, lm, dev, name, prompts, kw, counter, zero_co
     cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **kw, attn_impl="pallas",
                               device=dev)
     drive(cb, [prompts[0][:64]], 4)
-    prof = {mode: graph_profile(torch, cb, prompts, mode == "eager", extra)
+    prof = {mode: graph_profile(torch, cb, prompts, mode == "eager", extra, counter, n_layers)
             for mode in ("eager", "replay")}
     del cb
     torch.cuda.empty_cache()
@@ -3408,7 +3439,7 @@ def aliasing_check(torch, np, dev, parse_pipeline, FusedSegment):
             "distinct_frames": distinct, "equal_to_eager": True}
 
 
-def batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik):
+def batched_labeling(torch, np, dev, parse_pipeline, ik):
     """labeling-720p with batching=true max-batch=8 against batching=false:
     the logits (the description without its decoder) bit for bit, every
     frame; avg-batch-size, pad-waste-pct, replays a window, K1 a row, fps."""
@@ -3427,9 +3458,11 @@ def batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik):
     # FPS_FRAMES a run, unbatched / batched / batched / unbatched in turn:
     # the two runs of a mode bracket the other's, so their spread is the
     # call's own noise
+    import nnstreamer_tpu_torch.pipeline.graph as graph_mod
+
     replays, runs, labels0 = [], [], None
-    real = FusedSegment._replay
-    FusedSegment._replay = lambda seg, prog: (replays.append(seg), real(seg, prog))[1]
+    real = graph_mod.replay
+    graph_mod.replay = lambda graph, launches: (replays.append(graph), real(graph, launches))[1]
     try:
         for mode in ("unbatched", "batched", "batched", "unbatched"):
             replays.clear()
@@ -3458,7 +3491,7 @@ def batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik):
                            windows=stats.batches, rows_run=stats.bucket_rows)
             runs.append(row)
     finally:
-        FusedSegment._replay = real
+        graph_mod.replay = real
     return {"frames_bit_equal": FRAMES, "logits_bit_equal": True, "labels_equal": True,
             "fps_frames": FPS_FRAMES, "replays_per_window": 1.0, "runs": runs}
 
@@ -3494,7 +3527,7 @@ def segments_phases(torch, np, dev, parse_pipeline, ik, nk):
         out["cells"] = [segment_cell(torch, np, dev, parse_pipeline, FusedSegment, *c)
                         for c in cells]
     out["aliasing"] = aliasing_check(torch, np, dev, parse_pipeline, FusedSegment)
-    out["batched_labeling"] = batched_labeling(torch, np, dev, parse_pipeline, FusedSegment, ik)
+    out["batched_labeling"] = batched_labeling(torch, np, dev, parse_pipeline, ik)
     out["seconds"] = time.perf_counter() - t0
     return out
 

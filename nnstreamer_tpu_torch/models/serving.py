@@ -67,7 +67,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from nnstreamer_tpu_torch.capture import capture, replay
+from nnstreamer_tpu_torch.capture import Captured, capture, replay
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
 from nnstreamer_tpu_torch.models import transformer as tfm
@@ -205,9 +205,15 @@ def gumbel_noise(keys: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Ten
     computed in. keys [B] (:func:`seed_key` values), pos [B]."""
     row = _mix32(_mix32(keys.long()) ^ (pos.long() & _M32))
     cols = torch.arange(vocab, dtype=torch.int64, device=keys.device)
-    h = _mix32(_mix32((row[:, None] + cols[None, :]) & _M32))
-    # the top 24 bits, centred in their bin: u in (0, 1), exact in float32
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+    return _gumbel_of_hash(_mix32(_mix32((row[:, None] + cols[None, :]) & _M32)))
+
+
+def _gumbel_of_hash(h: torch.Tensor) -> torch.Tensor:
+    """Gumbel noise float32 from 32-bit hashes ``h`` (int64 in [0, 2^32)).
+    The top 23 bits centred in their bin give u in [2^-24, 1 - 2^-24]:
+    every value below 2^23 plus one half is exact in float32, so u never
+    rounds to 1 (nor reaches 0), and the noise is finite for every hash."""
+    u = ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
     return -torch.log(-torch.log(u))
 
 
@@ -291,23 +297,18 @@ class _PendingInsert:
 class _PumpProgram:
     """One entry of the batcher's program cache: the pump of ``n`` decode
     steps, greedy or sampling (the reference jits one program per
-    ``n_steps``). On CUDA it holds the CUDA graph its body was captured
-    into, the emitted-token buffer in the graph's pool, the launches one
-    replay stands for, and what the fill cost: the warm-up's launches, host
-    seconds, and device bytes allocated and reserved across it. Elsewhere
-    ``graph`` stays None and :meth:`run` runs the body."""
+    ``n_steps``). On CUDA ``cap`` holds what the capture made (the graph,
+    the emitted-token buffer in the graph's pool, the launches one replay
+    stands for, the warm-up's launches and host seconds), beside the
+    device bytes allocated and reserved across the fill. Elsewhere ``cap``
+    stays None and :meth:`run` runs the body."""
 
-    __slots__ = ("n", "sampling", "graph", "emits", "launches", "warmup_launches", "build_s",
-                 "allocated_bytes", "reserved_bytes", "replays")
+    __slots__ = ("n", "sampling", "cap", "allocated_bytes", "reserved_bytes", "replays")
 
     def __init__(self, n: int, sampling: bool) -> None:
         self.n = n
         self.sampling = sampling
-        self.graph: Optional["torch.cuda.CUDAGraph"] = None
-        self.emits: Optional[torch.Tensor] = None
-        self.launches: Dict = {}
-        self.warmup_launches = 0
-        self.build_s = 0.0
+        self.cap: Optional[Captured] = None
         self.allocated_bytes = 0
         self.reserved_bytes = 0
         self.replays = 0
@@ -316,11 +317,11 @@ class _PumpProgram:
         """One run over ``cb``'s state → the emitted tokens [B, n]: a
         replay of the graph (its buffer, valid until the next replay), or
         the body where nothing was captured."""
-        if self.graph is None:
+        if self.cap is None:
             return cb._pump_body(self.n, self.sampling)
-        replay(self.graph, self.launches)
+        replay(self.cap.graph, self.cap.launches)
         self.replays += 1
-        return self.emits
+        return self.cap.outputs
 
 
 class BatcherFailedError(RuntimeError):
@@ -771,10 +772,8 @@ class ContinuousBatcher(PagedAdmission):
                 reserved = torch.cuda.memory_reserved(dev)
                 live = self._active_dev.clone()
                 self._active_dev.zero_()
-                cap = capture(lambda: self._pump_body(n, sampling), dev)
+                prog.cap = capture(lambda: self._pump_body(n, sampling), dev)
                 self._active_dev.copy_(live)
-                prog.graph, prog.emits, prog.launches = cap.graph, cap.outputs, cap.launches
-                prog.warmup_launches, prog.build_s = cap.warmup_launches, cap.build_s
                 prog.allocated_bytes = torch.cuda.memory_allocated(dev) - allocated
                 prog.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
             self._programs[key] = prog
@@ -973,8 +972,9 @@ class ContinuousBatcher(PagedAdmission):
             occupied = sum(r is not None for r in self._slots)
             programs = {
                 self._program_name(p.n, p.sampling): {
-                    "captured": p.graph is not None, "replays": p.replays,
-                    "build_s": p.build_s, "warmup_launches": p.warmup_launches,
+                    "captured": p.cap is not None, "replays": p.replays,
+                    "build_s": p.cap.build_s if p.cap else 0.0,
+                    "warmup_launches": p.cap.warmup_launches if p.cap else 0,
                     "allocated_bytes": p.allocated_bytes, "reserved_bytes": p.reserved_bytes,
                 } for p in list(self._programs.values())
             }

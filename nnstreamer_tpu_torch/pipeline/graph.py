@@ -407,9 +407,6 @@ class FusedSegment:
         prog.graph, prog.inputs, prog.outputs = cap.graph, inputs, cap.outputs
         prog.launches = cap.launches
 
-    def _replay(self, prog: _Program) -> None:
-        replay(prog.graph, prog.launches)
-
     def _negotiated_sig(self) -> Optional[tuple]:
         """The signature the first frame will have, from the negotiated
         input spec: a static tensor spec, or a raw video frame [H, W, C]
@@ -458,7 +455,7 @@ class FusedSegment:
                 return frame.with_tensors(prog.fn(frame.tensors))
             for dst, src in zip(prog.inputs, frame.tensors):
                 dst.copy_(src)
-            self._replay(prog)
+            replay(prog.graph, prog.launches)
             return frame.with_tensors(tuple(o.clone() for o in prog.outputs))
 
     def process_eager(self, frame: Frame) -> Frame:
@@ -506,7 +503,7 @@ class FusedSegment:
             if prog.graph is None:
                 outs = prog.fn(tuple(cols))[:n]
             else:
-                self._replay(prog)
+                replay(prog.graph, prog.launches)
                 outs = [tuple(o.clone() for o in row) for row in prog.outputs[:n]]
         return [f.with_tensors(o) for f, o in zip(frames, outs)], bucket
 

@@ -463,3 +463,65 @@ def test_gumbel_noise_is_keyed_by_seed_position_and_index_only():
         full[0], tsv.gumbel_noise(keys[:1], pos[:1] + 1, 50)[0])
     assert len({tsv.seed_key(s) for s in range(1000)}) == 1000
     assert all(0 <= tsv.seed_key(s) < 2**32 for s in (0, -1, 2**70))
+
+
+def _unmix32(x: int) -> int:
+    """The inverse of ``tsv._mix32`` on one Python int."""
+
+    def unshift(y: int, s: int) -> int:
+        out, k = y, s
+        while k < 32:
+            out ^= y >> k
+            k += s
+        return out
+
+    x = unshift(x, 16)
+    x = (x * pow(0x846CA68B, -1, 2**32)) % 2**32
+    x = unshift(x, 15)
+    x = (x * pow(0x7FEB352D, -1, 2**32)) % 2**32
+    return unshift(x, 16)
+
+
+def _key_hashing_to(h: int, pos: int, col: int) -> int:
+    """A sampler key whose (key, pos, col) noise hash is ``h``: the hash
+    is a bijection of row + col, and the row of (mix(key) ^ pos)."""
+    row = (_unmix32(_unmix32(h)) - col) % 2**32
+    return _unmix32(_unmix32(row) ^ pos)
+
+
+@pytest.mark.parametrize("h", [0, 1, 0x1FF, 0x200, 0x7FFFFFFF, 0xFFFFFE00, 0xFFFFFEFF, 0xFFFFFFFF])
+def test_gumbel_noise_is_finite_at_every_hash(h):
+    """The hash → noise map at the ends of its range: u stays inside
+    (0, 1) in float32, so neither log reaches 0 or infinity, and the
+    noise rises with the hash."""
+    hs = torch.tensor([h, max(h - 0x200, 0)], dtype=torch.int64)
+    noise = tsv._gumbel_of_hash(hs)
+    assert torch.isfinite(noise).all(), (h, noise)
+    assert noise[0] >= noise[1]
+    x = torch.tensor([12345, 0, 2**32 - 1], dtype=torch.int64)
+    assert [_unmix32(int(v)) for v in tsv._mix32(x)] == x.tolist()
+
+
+@pytest.mark.parametrize("top_k,top_p", [(1, 1.0), (1, 0.5), (0, 1e-6)])
+def test_a_one_token_filter_is_greedy_where_the_noise_is_largest(top_k, top_p):
+    """A sampling slot whose filter keeps one token (top_k=1, or a tiny
+    nucleus) takes the greedy token even at the (key, position, index)
+    whose hash is the largest 32-bit value: there the noise is at its
+    maximum and still finite, so a filtered-out index (-inf + noise)
+    never wins, and a kept one wins only when it is the greedy one."""
+    vocab, pos, col = 64, 5, 17
+    key = _key_hashing_to(0xFFFFFFFF, pos, col)
+    keys = torch.tensor([key, key], dtype=torch.int64)
+    poss = torch.tensor([pos, pos], dtype=torch.int32)
+    noise = tsv.gumbel_noise(keys, poss, vocab)
+    top = tsv._gumbel_of_hash(torch.tensor([0xFFFFFFFF], dtype=torch.int64))[0]
+    assert torch.isfinite(noise).all() and int(noise[0].argmax()) == col
+    assert torch.equal(noise[0, col], top)
+    logits = torch.from_numpy(np.random.default_rng(3).normal(size=(2, vocab)).astype(np.float32))
+    logits[0, col] = logits[0].min() - 1.0  # row 0: the largest noise on a filtered index
+    logits[1, col] = logits[1].max() + 1.0  # row 1: ... on the greedy one
+    toks = tsv.sample_tokens(logits, torch.full((2,), 0.8),
+                             torch.full((2,), top_k, dtype=torch.int32),
+                             torch.full((2,), top_p), keys, poss)
+    assert toks.tolist() == logits.argmax(dim=-1).tolist()
+    assert int(toks[1]) == col
