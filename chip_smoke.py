@@ -178,6 +178,35 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  requests sampling (top-k, top-p, greedy mixed), both
                  layouts: the replayed sampling pump's tokens equal the
                  eager oracle's.
+18b. speculative — speculative decoding and registered prefixes (ROADMAP
+                 A.4, first half): every spec_step / spec_pump(rounds, k,
+                 ngram) is one spec program of whole rounds (propose →
+                 verify → accept → commit), on the card a CUDA graph.
+                 spec_ngram, slot and paged (block), Mistral-7B widths, 32
+                 layers, float32, 16 requests x 64 tokens, half of them
+                 periodic prompts: the plain pump's streams (K3 / K4 =
+                 layers x steps) as the oracle, then spec_pump(2, 4, 2)
+                 eager and replayed on fresh batchers: replayed = eager
+                 token for token, spec = plain (near-ties exempt by the
+                 no-cache forward's top-2 margin), accepted tokens > 0,
+                 acceptance rate, tokens a round, ms a stream waits for a
+                 token spec against plain (p50/p99 over full-batch runs),
+                 the spec programs and their pool bytes; a full batch of
+                 two spec pumps under torch.profiler: one cudaGraphLaunch
+                 and no kernel launch a replayed pump, device ms a round by
+                 class (weight matmuls / verify attention / other, from the
+                 eager profile with the verify attention annotated) and
+                 the busy share. spec_draft_self: the target as its own
+                 draft (shared weights, its own cache), 8 requests, spec
+                 pumps between plain pumps: acceptance 1.0 (a rejection
+                 only where the no-cache forward has a near-tie), streams =
+                 plain. spec_sampling (4 layers, both layouts, greedy /
+                 top-k / top-p mixed): replayed = eager token for token.
+                 prefixes (both layouts, full width): a 256-token
+                 registered prefix and 8 prefix= requests against the same
+                 requests concatenated on a fresh batcher: streams equal
+                 (margin rule), admission ms with and without the prefix,
+                 K3 / K4 = layers x steps on the decode that follows.
 19. flash_kernels — the flash prefill attention kernel (K5) against its
                  plain version on the same GPU inputs: the JAX kernel
                  registry's six shapes, the main path's B 1, T 4096, H 32,
@@ -889,13 +918,15 @@ CONV_KEYS = ("conv", ("conv", "xmma", "fprop", "gemm", "cudnn"))
 MATMUL_KEYS = ("matmul", ("gemm", "gemv", "xmma", "cutlass", "matmul", "sm90_", "nvjet"))
 
 
-def profile_classes(torch, prof, wall_s, extra, main=CONV_KEYS):
+def profile_classes(torch, prof, wall_s, extra, main=CONV_KEYS, annotations=()):
     """Device time (ms) by class from a torch.profiler run, the records
     kept in each class, and the busy share of ``wall_s``. ``extra``:
     (class name, key substring) pairs checked first; ``main``: the class
-    of the model's dense work and its key substrings. A profile may lose
-    some records, so the times are lower bounds: a class's record count
-    against the frames shows how many were kept."""
+    of the model's dense work and its key substrings; ``annotations``: the
+    names of ``record_function`` ranges, whose device-side records span
+    kernels already counted. A profile may lose some records, so the
+    times are lower bounds: a class's record count against the frames
+    shows how many were kept."""
     from torch.autograd import DeviceType
 
     # a profiler schedule's step also shows as a device-side annotation
@@ -903,7 +934,7 @@ def profile_classes(torch, prof, wall_s, extra, main=CONV_KEYS):
     rows = sorted(
         ((ev.self_device_time_total, ev.key, ev.count) for ev in prof.key_averages()
          if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-         and not ev.key.startswith("ProfilerStep")),
+         and not ev.key.startswith("ProfilerStep") and ev.key not in annotations),
         reverse=True,
     )
     main_cls, main_subs = main
@@ -2410,6 +2441,420 @@ def serving_graphs_phases(torch, np, dev):
     emit({"phase": "serving_graphs_sampling", "layers": 4, **sampled})
     out["sampling"] = sampled
     out["seconds"] = time.perf_counter() - t_group
+    return out
+
+
+# -- speculative decoding and registered prefixes (ROADMAP A.4, first half) ------------
+
+SPEC_ROUNDS, SPEC_K, SPEC_G = 2, 4, 2  # the spec pump of every speculative phase
+SPEC_PROFILE_PUMPS = 2
+SPEC_PROFILE_NEW = 200  # the profiled batch's budget: no slot finishes in the window
+DRAFT_REQUESTS, DRAFT_NEW = 8, 32
+PREFIX_LEN, PREFIX_REQUESTS, PREFIX_NEW = 256, 8, 32
+
+
+def spec_traffic(np, rng):
+    """The speculative group's 16 prompts of 64-256 tokens, alternating: a
+    periodic one (a random 3-7-token pattern tiled, as
+    tests/test_speculative.py builds them: n-gram lookup can hit it) and a
+    random one."""
+    vocab = MISTRAL["vocab"]
+    out = []
+    for i, n in enumerate(rng.integers(64, 257, 16)):
+        if i % 2 == 0:
+            pat = rng.integers(1, vocab, int(rng.integers(3, 8)))
+            out.append(np.tile(pat, -(-int(n) // len(pat)))[:n].astype(np.int32))
+        else:
+            out.append(rng.integers(1, vocab, n).astype(np.int32))
+    return out
+
+
+def spec_pump_of(eager, rounds=SPEC_ROUNDS, k=SPEC_K, g=SPEC_G):
+    if eager:
+        return lambda cb: cb.spec_pump_eager(rounds, k, g)
+    return lambda cb: cb.spec_pump(rounds, k, g)
+
+
+def drive_runs(cb, prompts, budget, run):
+    """Serve ``prompts`` through ``cb``: submit while a slot is free, then
+    one ``run(cb)`` (a pump or a spec pump → {rid: tokens}) a turn. For
+    each run on a full batch (every slot decoding, nothing queued, every
+    slot emitting): its wall ms over the tokens it emitted a slot, the
+    time a stream waits for each token. Host clock; every run ends in a
+    read of the host."""
+    queue = list(enumerate(prompts))
+    rid_of, per_token = {}, []
+    t_start = time.perf_counter()
+    while queue or any(cb.result(r) is None for r in rid_of.values()):
+        while queue and cb.n_free:
+            rid = cb.submit(queue[0][1], budget)
+            if rid is None:
+                break
+            rid_of[queue.pop(0)[0]] = rid
+        full = (not cb.n_free and not cb._pending and cb._active.all()
+                and not (cb._paged and cb._prefill_q))
+        t0 = time.perf_counter()
+        got = run(cb)
+        ms = (time.perf_counter() - t0) * 1e3
+        n = sum(len(t) for t in got.values())
+        if full and len(got) == cb.n_slots:
+            per_token.append(ms * cb.n_slots / n)
+    return {"tokens": [cb.result(rid_of[i]) for i in range(len(prompts))],
+            "wall_s": time.perf_counter() - t_start, "ms_per_token": sorted(per_token)}
+
+
+def wait_pcts(per_token):
+    """p50 and p99 of a drive's full-batch ms a token, None without one."""
+    if not per_token:
+        return {"ms_per_token_p50": None, "ms_per_token_p99": None}
+    return {"ms_per_token_p50": pct(per_token, 0.5), "ms_per_token_p99": pct(per_token, 0.99)}
+
+
+def spec_counters(st, st0=None):
+    """The speculative counters of ``st`` (less those of ``st0``)."""
+    keys = ("spec_rounds", "spec_accepted_tokens", "spec_columns", "tokens_emitted", "steps")
+    out = {k: st[k] - (st0[k] if st0 else 0) for k in keys}
+    out["spec_acceptance_rate"] = (out["spec_accepted_tokens"] / out["spec_columns"]
+                                   if out["spec_columns"] else 0.0)
+    out["tokens_per_round"] = (out["tokens_emitted"] / out["spec_rounds"]
+                               if out["spec_rounds"] else 0.0)
+    return out
+
+
+def spec_programs(st):
+    """The spec programs a batcher filled: {name: (captured, replays,
+    allocated bytes, reserved bytes)} and their reserved bytes in all."""
+    progs = {n: [p["captured"], p["replays"], p["allocated_bytes"], p["reserved_bytes"]]
+             for n, p in st["programs"].items() if "/spec-" in n}
+    return {"programs": progs, "reserved_bytes": sum(p[3] for p in progs.values())}
+
+
+def kernel_subtree(ev):
+    """The device kernels a profiler event and its CPU children launched."""
+    yield from ev.kernels
+    for child in ev.cpu_children:
+        yield from kernel_subtree(child)
+
+
+def spec_profile(torch, tfm, make, prompts, eager):
+    """A full batch (8 of ``prompts``) for SPEC_PROFILE_PUMPS spec pumps in
+    one mode under torch.profiler, after the batch settled and one pump
+    more (the replay mode's fill), a warm-up step dropped: host kernel /
+    graph launches and memcpy calls a pump, device ms a round and the busy
+    share. In the eager mode the verify attention (``cache_attention``) is
+    annotated, so its kernels are told from the weight matmuls'."""
+    from torch.profiler import ProfilerActivity, profile, record_function, schedule
+
+    cb = make()
+    run = spec_pump_of(eager)
+    for p in prompts[:SERVE["n_slots"]]:
+        cb.submit(p, SPEC_PROFILE_NEW)
+    settle(cb, lambda n: run(cb))
+    run(cb)
+    torch.cuda.synchronize()
+    orig = tfm.cache_attention
+
+    def annotated(*a, **kw):
+        with record_function("verify_attention"):
+            return orig(*a, **kw)
+
+    if eager:
+        tfm.cache_attention = annotated
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            run(cb)
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.01)
+            t0 = time.perf_counter()
+            for _ in range(SPEC_PROFILE_PUMPS):
+                run(cb)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            time.sleep(0.01)
+    finally:
+        tfm.cache_attention = orig
+    if not cb._active.all():
+        raise AssertionError("speculative: a slot went idle inside the profiled window")
+    del cb
+    k, g, m = host_launches(prof)
+    rounds = SPEC_PROFILE_PUMPS * SPEC_ROUNDS
+    cls = profile_classes(torch, prof, wall, [], main=MATMUL_KEYS,
+                          annotations=("verify_attention",))
+    out = {"kernel_launches_per_pump": k / SPEC_PROFILE_PUMPS,
+           "graph_launches_per_pump": g / SPEC_PROFILE_PUMPS,
+           "memcpy_calls_per_pump": m / SPEC_PROFILE_PUMPS, "window_rounds": rounds,
+           "wall_ms_per_round": wall * 1e3 / rounds,
+           "device_busy_share": cls["device_busy_share"],
+           "top_kernels": cls["top_kernels"][:5]}
+    if not cls["device_kernels"]:
+        out["device_ms_per_round"] = "not measured"
+        return out
+    out["device_ms_per_round"] = cls["device_ms"] / rounds
+    if eager:
+        att = [kk for ev in prof.events() if ev.name == "verify_attention"
+               for kk in kernel_subtree(ev)]
+        att_ms = sum(kk.duration for kk in att) / 1e3
+        att_mm = sum(kk.duration for kk in att
+                     if any(t in kk.name.lower() for t in MATMUL_KEYS[1])) / 1e3
+        mm = cls["device_ms_by_class"]["matmul"]
+        out["device_ms_per_round_by_class"] = (
+            {"matmul": (mm - att_mm) / rounds, "verify_attention": att_ms / rounds,
+             "other": (cls["device_ms"] - mm - att_ms + att_mm) / rounds}
+            if att else "not measured (no kernel linked to the annotation)")
+    return out
+
+
+def near_ties(torch, np, tfm, lm, prompt, toks, rel=MARGIN_REL):
+    """Positions of ``toks`` whose no-cache top-2 margin (teacher-forced on
+    the prompt and the stream) is below ``rel`` x max |logit|."""
+    seq = torch.as_tensor(np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])[None],
+                          device=lm.embed.device)
+    logits = tfm.apply(lm, seq, MISTRAL["n_heads"])[0, len(prompt) - 1:].float()
+    return margin_check(torch, logits, toks, rel)[1]
+
+
+def spec_ngram_cell(torch, np, sv, tfm, lm, dev, name, prompts, kw, counter, zero_counter):
+    """One layout at full width: the plain pump's streams (the oracle,
+    counted K3 / K4 = layers x steps), then spec pumps eager and replayed
+    on fresh batchers; the checks and numbers of phase 18b's spec_ngram."""
+    n_layers = lm.n_layers
+
+    def make(**extra):
+        return sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **kw, **extra,
+                                    attn_impl="pallas", device=dev)
+
+    cb = make()
+    drive_runs(cb, [prompts[0][:64]], 4, lambda c: c.step_pump(8))  # fills, cuBLAS
+    st0 = cb.stats()
+    counter.reset()
+    zero_counter.reset()
+    plain = drive_runs(cb, prompts, NEW_TOKENS, lambda c: c.step_pump(8))
+    steps = cb.stats()["steps"] - st0["steps"]
+    if counter.count != n_layers * steps or zero_counter.count:
+        raise AssertionError(f"speculative {name} plain: counted {counter.count} launches for "
+                             f"{n_layers} x {steps} steps (the other kernel {zero_counter.count})")
+    plain_launches = counter.count
+    del cb
+    torch.cuda.empty_cache()
+    runs = {}
+    for mode in ("eager", "replay"):
+        cb = make()
+        run = spec_pump_of(mode == "eager")
+        drive_runs(cb, [prompts[0][:64]], 4, run)
+        st0 = cb.stats()
+        counter.reset()
+        res = drive_runs(cb, prompts, NEW_TOKENS, run)
+        st = cb.stats()
+        runs[mode] = {"tokens": res["tokens"], "wall_s": res["wall_s"],
+                      **wait_pcts(res["ms_per_token"]),
+                      "full_batch_runs": len(res["ms_per_token"]),
+                      "attention_kernel_launches": counter.count,
+                      **spec_counters(st, st0), **spec_programs(st)}
+        if mode == "replay" and not all(p[0] for p in runs[mode]["programs"].values()):
+            raise AssertionError(f"speculative {name}: spec programs not captured: "
+                                 f"{runs[mode]['programs']}")
+        if mode == "eager" and runs[mode]["programs"]:
+            raise AssertionError(f"speculative {name}: the eager oracle filled programs")
+        del cb
+        torch.cuda.empty_cache()
+    if runs["eager"]["tokens"] != runs["replay"]["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(runs["eager"]["tokens"],
+                                                 runs["replay"]["tokens"])) if a != b]
+        raise AssertionError(f"speculative {name}: replayed spec streams {diff} differ from eager")
+    if any(t is None or len(t) != NEW_TOKENS for t in runs["replay"]["tokens"]):
+        raise AssertionError(f"speculative {name}: a request came back short")
+    parted = sum(stream_check(torch, np, tfm, lm, p, got, want, MARGIN_REL, torch.float32)
+                 for p, got, want in zip(prompts, runs["replay"]["tokens"], plain["tokens"]))
+    if runs["replay"]["spec_accepted_tokens"] <= 0:
+        raise AssertionError(f"speculative {name}: no proposal accepted on periodic prompts")
+    prof = {mode: spec_profile(torch, tfm, make, prompts, mode == "eager")
+            for mode in ("replay", "eager")}
+    if prof["replay"]["graph_launches_per_pump"] != 1 or prof["replay"]["kernel_launches_per_pump"]:
+        raise AssertionError(f"speculative {name}: a replayed spec pump launched "
+                             f"{prof['replay']['graph_launches_per_pump']} graphs and "
+                             f"{prof['replay']['kernel_launches_per_pump']} kernels, want 1 and 0")
+    for r in runs.values():
+        del r["tokens"]
+    return {"plain": {**wait_pcts(plain["ms_per_token"]),
+                      "full_batch_runs": len(plain["ms_per_token"]), "wall_s": plain["wall_s"],
+                      "steps": steps,
+                      "attention_launches": plain_launches, "layers_x_steps": n_layers * steps},
+            "spec": runs, "streams_parted_at_near_tie": parted, "profile": prof}
+
+
+def draft_self_phase(torch, np, sv, tfm, lm, dev, prompts, want):
+    """spec_draft_self: the target as its own draft, spec pumps with plain
+    pumps between them (which step the draft too): every proposal is
+    accepted unless the no-cache forward has a near-tie there, and the
+    streams are the plain pump's (``want``) under the margin rule."""
+    cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, attn_impl="pallas", device=dev,
+                              draft_params=lm, draft_n_heads=MISTRAL["n_heads"])
+    turn = [0]
+
+    def run(c):
+        turn[0] += 1
+        return c.step_pump(2) if turn[0] % 3 == 0 else c.spec_pump(SPEC_ROUNDS, SPEC_K)
+
+    drive_runs(cb, [prompts[0][:64]], 8, run)
+    st0 = cb.stats()
+    res = drive_runs(cb, prompts, DRAFT_NEW, run)
+    st = cb.stats()
+    out = {"requests": len(prompts), "new_tokens": DRAFT_NEW, **spec_counters(st, st0),
+           **spec_programs(st), "wall_s": res["wall_s"], **wait_pcts(res["ms_per_token"])}
+    del cb
+    torch.cuda.empty_cache()
+    rejected = out["spec_columns"] - out["spec_accepted_tokens"]
+    ties = sum(near_ties(torch, np, tfm, lm, p, t) for p, t in zip(prompts, res["tokens"])
+               ) if rejected else 0
+    if rejected > ties:
+        raise AssertionError(f"spec_draft_self: {rejected} proposals rejected, {ties} near-ties")
+    out["rejected"], out["near_ties"] = rejected, ties
+    out["streams_parted_at_near_tie"] = sum(
+        stream_check(torch, np, tfm, lm, p, got, w[:DRAFT_NEW], MARGIN_REL, torch.float32)
+        for p, got, w in zip(prompts, res["tokens"], want))
+    return out
+
+
+def prefix_cell(torch, np, sv, tfm, lm, dev, name, kw, counter, system, tails):
+    """One layout: the registered prefix and PREFIX_REQUESTS prefix=
+    requests, then the same requests concatenated on a fresh batcher;
+    admission ms (submits until every request decodes), K3 / K4 = layers x
+    steps on the decode that follows, the streams under the margin rule."""
+    out, streams = {}, {}
+    for mode in ("prefix", "concatenated"):
+        cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **kw, attn_impl="pallas",
+                                  device=dev)
+        drive_runs(cb, [tails[0][:64]], 4, lambda c: c.step_pump(8))  # fills, cuBLAS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pid = cb.register_prefix(system) if mode == "prefix" else None
+        torch.cuda.synchronize()
+        register_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rids = [cb.submit(t, PREFIX_NEW, prefix=pid) if pid is not None
+                else cb.submit(np.concatenate([system, t]), PREFIX_NEW) for t in tails]
+        if None in rids:
+            raise AssertionError(f"prefixes {name}: {len(tails)} requests, {cb.n_slots} slots")
+        settle(cb, cb.step_pump)
+        torch.cuda.synchronize()
+        admit_ms = (time.perf_counter() - t0) * 1e3
+        st0 = cb.stats()
+        counter.reset()
+        while any(cb.result(r) is None for r in rids):
+            cb.step_pump(8)
+        steps = cb.stats()["steps"] - st0["steps"]
+        if counter.count != lm.n_layers * steps:
+            raise AssertionError(f"prefixes {name} {mode}: counted {counter.count} launches "
+                                 f"for {lm.n_layers} x {steps} steps")
+        streams[mode] = [cb.result(r) for r in rids]
+        out[mode] = {"admission_ms": admit_ms, "register_ms": register_ms,
+                     "decode_steps": steps, "attention_launches": counter.count,
+                     "prefix_hits": cb.stats().get("kv_prefix_hits"),
+                     "prefixes_registered": cb.stats()["prefixes_registered"]}
+        del cb
+        torch.cuda.empty_cache()
+    out["streams_parted_at_near_tie"] = sum(
+        stream_check(torch, np, tfm, lm, np.concatenate([system, t]), a, b, MARGIN_REL,
+                     torch.float32)
+        for t, a, b in zip(tails, streams["prefix"], streams["concatenated"]))
+    return out
+
+
+def speculative_phases(torch, np, dev):
+    """The speculative group (phase 18b): spec_ngram (slot K3 / paged K4
+    oracles), spec_draft_self and prefixes at Mistral-7B's full width;
+    spec_sampling at 4 layers. → the group's summary, with K3's and K4's
+    counted launches on its plain pumps."""
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_group = time.perf_counter()
+    out = {"phase": "speculative", **MISTRAL, **SERVE, "compute_dtype": "float32",
+           "rounds": SPEC_ROUNDS, "k": SPEC_K, "ngram": SPEC_G, "new_tokens": NEW_TOKENS}
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    prompts = spec_traffic(np, np.random.default_rng(14))
+    k3 = da.decode_attention_launches
+    k4 = pa.paged_decode_attention_launches
+    with torch.no_grad():
+        cells = {}
+        for name, kw, counter, other in (("slot", {}, k3, k4),
+                                         ("paged", dict(PAGED, kv_blocks=KV_BLOCKS), k4, k3)):
+            cells[name] = spec_ngram_cell(torch, np, sv, tfm, lm, dev, name, prompts, kw,
+                                          counter, other)
+            emit({"phase": f"spec_ngram_{name}", **cells[name]})
+        out["spec_ngram"] = cells
+        # the plain streams of the first DRAFT_REQUESTS prompts, 32 tokens: what
+        # the plain pump gave (greedy streams do not depend on the batch)
+        ref = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, attn_impl="pallas",
+                                   device=dev)
+        want = drive_runs(ref, prompts[:DRAFT_REQUESTS], DRAFT_NEW,
+                          lambda c: c.step_pump(8))["tokens"]
+        del ref
+        torch.cuda.empty_cache()
+        draft = draft_self_phase(torch, np, sv, tfm, lm, dev, prompts[:DRAFT_REQUESTS], want)
+        emit({"phase": "spec_draft_self", **draft})
+        out["spec_draft_self"] = draft
+        rng = np.random.default_rng(15)
+        system = rng.integers(1, MISTRAL["vocab"], PREFIX_LEN).astype(np.int32)
+        tails = [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32)
+                 for n in rng.integers(64, 257, PREFIX_REQUESTS)]
+        prefixes = {}
+        for name, kw, counter in (("slot", {}, k3),
+                                  ("paged", dict(PAGED, kv_blocks=KV_BLOCKS), k4)):
+            prefixes[name] = prefix_cell(torch, np, sv, tfm, lm, dev, name, kw, counter,
+                                         system, tails)
+        emit({"phase": "prefixes", "prefix_len": PREFIX_LEN, "requests": PREFIX_REQUESTS,
+              "new_tokens": PREFIX_NEW, **prefixes})
+        out["prefixes"] = prefixes
+    del lm
+    torch.cuda.empty_cache()
+    # the sampling spec pump, 4 layers: replayed tokens equal the eager oracle's
+    lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(1),
+                          **dict(MISTRAL, n_layers=4), device=dev)
+    sprompts = sampling_traffic(np)
+    sampled = {}
+    for name, kw in (("slot", {}), ("paged", dict(PAGED, kv_blocks=KV_BLOCKS))):
+        streams, keys = [], []
+        for eager in (True, False):
+            cb = sv.ContinuousBatcher(lm4, MISTRAL["n_heads"], **SERVE, **kw, attn_impl="pallas",
+                                      device=dev)
+            run = spec_pump_of(eager)
+            rids, todo = [], list(enumerate(sprompts))
+            while todo or any(cb.result(r) is None for r in rids):
+                while todo and (rid := cb.submit(todo[0][1], 48,
+                                                 **SAMPLING_KW[todo[0][0] % 4])) is not None:
+                    rids.append(rid)
+                    todo.pop(0)
+                run(cb)
+            streams.append([cb.result(r) for r in rids])
+            st = cb.stats()
+            keys = sorted(st["programs"])
+            counters = spec_counters(st)
+            del cb
+        if streams[0] != streams[1]:
+            diff = [i for i, (a, b) in enumerate(zip(*streams)) if a != b]
+            raise AssertionError(f"spec_sampling {name}: requests {diff} differ between the "
+                                 "replays and the eager oracle")
+        if not any("spec-" in k and "sampling" in k for k in keys):
+            raise AssertionError(f"spec_sampling {name}: no sampling spec program: {keys}")
+        sampled[name] = {"requests": len(sprompts), "tokens": sum(len(t) for t in streams[1]),
+                         "programs": keys, "equal": True, **counters}
+    del lm4
+    torch.cuda.empty_cache()
+    emit({"phase": "spec_sampling", "layers": 4, **sampled})
+    out["spec_sampling"] = sampled
+    out["seconds"] = time.perf_counter() - t_group
+    out["k3_launches"] = (cells["slot"]["plain"]["attention_launches"]
+                          + sum(prefixes["slot"][m]["attention_launches"]
+                                for m in ("prefix", "concatenated")))
+    out["k4_launches"] = (cells["paged"]["plain"]["attention_launches"]
+                          + sum(prefixes["paged"][m]["attention_launches"]
+                                for m in ("prefix", "concatenated")))
     return out
 
 
@@ -4301,6 +4746,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     graphs = serving_graphs_phases(torch, np, dev)
     emit({k: v for k, v in graphs.items() if k not in ("slot", "paged")})
+    spec = speculative_phases(torch, np, dev)
+    emit({k: v for k, v in spec.items() if k not in ("spec_ngram", "prefixes", "spec_draft_self",
+                                                     "spec_sampling")})
     k5_main, k5_launches = flash_phases(torch, np, dev, parse_pipeline)
 
     main_case = cases[0]
@@ -4350,6 +4798,7 @@ def main() -> int:
         "source": "nnstreamer_tpu_torch/csrc/decode_attention.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/decode_attention.py:178",
         "launches": k3_launches,
+        "launches_speculative": spec["k3_launches"],
         "max_abs_err": k3_main["max_abs_err"],
         "ms": k3_main["kernel_ms"],
         "plain_ms": k3_main["plain_ms"],
@@ -4364,6 +4813,7 @@ def main() -> int:
         "source": "nnstreamer_tpu_torch/csrc/paged_attention.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/paged_attention.py:202",
         "launches": k4_launches,
+        "launches_speculative": spec["k4_launches"],
         "max_abs_err": k4_main["max_abs_err"],
         "ms": k4_main["kernel_ms"],
         "plain_ms": k4_main["plain_ms"],

@@ -44,14 +44,22 @@ class Captured(NamedTuple):
     build_s: float
 
 
-def capture(fn: Callable[[], Any], device: torch.device) -> Captured:
+def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
     """Warm ``fn`` up once on a side stream, then capture it into a CUDA
     graph. ``fn`` takes no arguments: it reads and writes tensors whose
     addresses stay fixed for the graph's life. A failure raises; no caller
     falls back to eager execution. The capture is thread-local, so other
     threads may go on launching on the card meanwhile; Python's garbage
     collector is off while capturing, since a collection could free
-    another graph on this thread, a call that invalidates the capture."""
+    another graph on this thread, a call that invalidates the capture.
+
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``) lets graphs share one
+    memory pool: a later capture reuses what earlier ones freed (their
+    intermediates), never their live outputs. So a graph's outputs may lie
+    where another graph of the pool keeps intermediates: the owner replays
+    one graph of a pool at a time, reads its outputs before the next
+    replay, and keeps all state that outlives a replay in buffers made
+    outside the captures."""
     t0 = time.perf_counter()
     cur = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -64,7 +72,7 @@ def capture(fn: Callable[[], Any], device: torch.device) -> Captured:
             gc_on = gc.isenabled()
             gc.disable()
             try:
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     outputs = fn()
                 finally:

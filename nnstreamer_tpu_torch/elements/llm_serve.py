@@ -28,11 +28,15 @@ The server runs on the pipeline's device. ``kv-layout=paged`` builds a
 paged batcher (block arena, prefix sharing, chunked prefill, preemption),
 with ``block-size``, ``kv-blocks``, ``prefill-chunks`` and ``kv-attn``
 passed through as the reference passes them; ``serving_stats()`` then
-carries the ``kv_*`` counters. Not ported yet, and raising when set: the
-shared serving plane (``plane``), speculative decoding (``speculate``,
-``speculate-model``), migration and checkpoints (``migrate-to``,
-``checkpoint-*``), disaggregated serving (``role``, ``decode-peers``) and
-the lint's ``kv-memory-bound``.
+carries the ``kv_*`` counters. ``speculate=k`` (k ≥ 2) pumps with the
+batcher's speculative rounds (``spec_step``, or ``spec_pump`` with
+``pump`` > 1), ``speculate=auto`` adapts k in 2..8 from an EMA of the
+acceptance rate over proposal columns, and ``speculate-model=zoo:<name>``
+proposes with a draft model whose options ride in ``custom`` under
+``draft_``-prefixed keys (a draft alone implies k = 4). Not ported yet, and
+raising when set: the shared serving plane (``plane``), migration and
+checkpoints (``migrate-to``, ``checkpoint-*``), disaggregated serving
+(``role``, ``decode-peers``) and the lint's ``kv-memory-bound``.
 """
 
 from __future__ import annotations
@@ -67,8 +71,6 @@ _table_lock = threading.Lock()
 _NOT_PORTED = {
     "plane": ("", "the shared LLM serving plane"),
     "plane-weight": (1.0, "the shared LLM serving plane"),
-    "speculate": ("0", "speculative decoding"),
-    "speculate-model": ("", "draft-model speculative decoding"),
     "migrate-to": ("", "live KV-span migration"),
     "checkpoint-every-tokens": (0, "span checkpoints"),
     "checkpoint-dir": ("", "span checkpoints"),
@@ -106,22 +108,34 @@ def _drop_server(srv_id: str, srv: Optional["_LlmServer"]) -> None:
 
 def _build_batcher(model: str, options: Dict[str, str], n_slots: int, max_len: int,
                    prompt_len: int, cache_dtype: str, attn_impl: str,
-                   device: torch.device, kv_kw: Optional[dict] = None):
+                   device: torch.device, kv_kw: Optional[dict] = None,
+                   speculate_model: str = ""):
     """Open the zoo model on ``device`` and build its ContinuousBatcher
     (float32 compute, as the reference's element builds it); ``kv_kw``
-    carries the paged layout's settings."""
+    carries the paged layout's settings, ``speculate_model`` a draft zoo
+    model configured by the ``draft_``-prefixed options (the vocabulary
+    is the target's unless given)."""
     from nnstreamer_tpu_torch.models import zoo
     from nnstreamer_tpu_torch.models.serving import ContinuousBatcher
 
-    if not model.startswith("zoo:"):
-        raise ElementError(f"tensor_llm_serversink: model must be zoo:<name>, got {model!r}")
-    m = zoo.get(model[len("zoo:"):], device=device, **options)
+    for name, what in ((model, "model"), (speculate_model or "zoo:", "speculate-model")):
+        if not name.startswith("zoo:"):
+            raise ElementError(f"tensor_llm_serversink: {what} must be zoo:<name>, got {name!r}")
+    target = {k: v for k, v in options.items() if not k.startswith("draft_")}
+    m = zoo.get(model[len("zoo:"):], device=device, **target)
     if m.params is None:
         raise ElementError(f"tensor_llm_serversink: {model} is not a language model")
+    draft_kw = {}
+    if speculate_model:
+        d_opts = {k[len("draft_"):]: v for k, v in options.items() if k.startswith("draft_")}
+        if "vocab" in options and "vocab" not in d_opts:
+            d_opts["vocab"] = options["vocab"]
+        dm = zoo.get(speculate_model[len("zoo:"):], device=device, **d_opts)
+        draft_kw = dict(draft_params=dm.params, draft_n_heads=int(d_opts.get("n_heads", 8)))
     return ContinuousBatcher(
         m.params, int(options.get("n_heads", 8)), n_slots=n_slots, max_len=max_len,
         prompt_len=prompt_len, cache_dtype=cache_dtype, attn_impl=attn_impl, device=device,
-        **(kv_kw or {}),
+        **(kv_kw or {}), **draft_kw,
     )
 
 
@@ -131,14 +145,24 @@ class _LlmServer:
     def __init__(self, model: str, options: Dict[str, str], n_slots: int, max_len: int,
                  prompt_len: int, default_new: int, device: torch.device,
                  stream: bool = False, pump_tokens: int = 1, cache_dtype: str = "auto",
-                 attn_impl: str = "xla", kv_kw: Optional[dict] = None):
+                 attn_impl: str = "xla", kv_kw: Optional[dict] = None, speculate: int = 0,
+                 speculate_model: str = ""):
         self.cb = _build_batcher(model, options, n_slots, max_len, prompt_len, cache_dtype,
-                                 attn_impl, device, kv_kw)
+                                 attn_impl, device, kv_kw, speculate_model)
         self.default_new = default_new
         self.stream = stream
         # pump=N: tokens per step_pump (one read of the host per pump);
-        # 1 keeps per-token stepping, the least admission latency
+        # 1 keeps per-token stepping, the least admission latency. With
+        # speculation: spec_pump(rounds=ceil(N / k)), or spec_step at N = 1
         self.pump_tokens = max(1, int(pump_tokens))
+        if speculate_model and speculate != -1 and speculate < 2:
+            speculate = 4  # a draft exists only to propose the chunks
+        # speculate=k pumps with speculative rounds; -1 (auto) adapts k in
+        # 2..8 from the acceptance EMA over proposal columns
+        self.speculate = speculate
+        self._spec_k = 4
+        self._acc_ema = 0.5
+        self._spec_seen = (0, 0)  # (columns, accepted) at the last adaptation
         self._lock = threading.Lock()
         self._pending: Dict[int, dict] = {}  # rid -> request meta
         self._sent: Dict[int, int] = {}      # rid -> tokens already streamed
@@ -174,7 +198,14 @@ class _LlmServer:
         """One step (or pump); harvest finished requests and, when
         streaming, every new token. True if anything advanced."""
         n = self.pump_tokens
-        emitted = self.cb.step_pump(n) if n > 1 else self.cb.step()
+        k = self._spec_k if self.speculate == -1 else self.speculate
+        if k > 1:
+            emitted = (self.cb.spec_pump(rounds=-(-n // k), k=k) if n > 1
+                       else self.cb.spec_step(k=k))
+            if self.speculate == -1:
+                self._adapt_k()
+        else:
+            emitted = self.cb.step_pump(n) if n > 1 else self.cb.step()
         harvested = False
         with self._lock:
             if self.stream:
@@ -205,8 +236,27 @@ class _LlmServer:
         self._sent[rid] = len(toks)
         return len(toks) > n0
 
+    def _adapt_k(self) -> None:
+        """speculate=auto: move k with an EMA of the acceptance rate over
+        the proposal columns offered since the last pump (a rate over
+        rounds would saturate on busy batches)."""
+        st = self.cb.stats()
+        cols, acc = st["spec_columns"], st["spec_accepted_tokens"]
+        dc = cols - self._spec_seen[0]
+        if dc > 0:
+            rate = (acc - self._spec_seen[1]) / dc
+            self._acc_ema = 0.7 * self._acc_ema + 0.3 * rate
+            self._spec_k = min(8, max(2, 2 + int(round(self._acc_ema * 6))))
+            self._spec_seen = (cols, acc)
+
     def stats(self) -> Dict:
-        return self.cb.stats()
+        st = self.cb.stats()
+        if self.speculate == -1:
+            st["spec_k"] = self._spec_k
+            st["spec_acceptance_ema"] = self._acc_ema
+        elif self.speculate > 1:
+            st["spec_k"] = self.speculate
+        return st
 
     def pop(self):
         with self._lock:
@@ -226,7 +276,9 @@ class LlmServerSink(Sink):
     options "k:v,k2:v2"), n-slots, max-len, prompt-len, max-new-tokens
     (per-request default; frame meta ``max_new_tokens`` overrides), stream
     (one frame per new token, then a done frame), pump (tokens per launch
-    of ``step_pump``; 1 = per-token steps), cache-dtype (auto | int8),
+    of ``step_pump``; 1 = per-token steps), speculate (k ≥ 2 or auto:
+    speculative rounds), speculate-model (zoo:<draft>, options under
+    ``draft_`` keys in custom), cache-dtype (auto | int8),
     attn-impl (xla | pallas; default from ``[llm] attn_impl``), kv-layout
     (slot | paged; default from ``[llm] kv_layout``) and, for paged,
     block-size, kv-blocks (0 = enough for every slot at max-len),
@@ -253,6 +305,8 @@ class LlmServerSink(Sink):
         "block-size": PropSpec("int", 0, desc="tokens per KV block (paged; 0 = [llm])"),
         "kv-blocks": PropSpec("int", 0, desc="arena blocks (paged; 0 = [llm], else auto)"),
         "prefill-chunks": PropSpec("int", 0, desc="prefill buckets per pump (paged; 0 = [llm])"),
+        "speculate": PropSpec("str", "0", desc="k, or 'auto'"),
+        "speculate-model": PropSpec("str", "", desc="zoo:<draft model>"),
         **{k: PropSpec(type(v[0]).__name__, v[0], desc=f"{v[1]}: not ported yet")
            for k, v in _NOT_PORTED.items()},
     }
@@ -302,6 +356,9 @@ class LlmServerSink(Sink):
                 "llm", "attn_impl", "xla"
             ),
             kv_kw=kv_kw,
+            speculate=(-1 if str(self.get_property("speculate", "0")) == "auto"
+                       else int(self.get_property("speculate", "0"))),
+            speculate_model=str(self.get_property("speculate-model", "")),
         )
         self._server: Optional[_LlmServer] = None
 

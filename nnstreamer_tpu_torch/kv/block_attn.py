@@ -20,8 +20,11 @@ the paged batcher runs by default (``ContinuousBatcher(kv_attn="auto" |
 
 :func:`paged_attention_ref` is the plain version of K4 under the
 reference's name; :func:`block_attention` dispatches ``impl="auto" |
-"jnp" | "pallas"``. Not ported yet: ``batched_verify_step_block`` (it comes
-with speculative decoding).
+"jnp" | "pallas"``. :func:`batched_verify_step_block` is the speculative
+round's k-column verify on the arena: each layer's view through the
+tables, the chunk written into it for the inline masked attention, and the
+chunk's K/V landed with one :func:`write_fresh_window` of width k (a window
+that crosses a block boundary takes the next table entry).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from nnstreamer_tpu_torch.models import transformer as tfm
-from nnstreamer_tpu_torch.models.serving import _write_rows, dequantize_kv, quantize_kv
+from nnstreamer_tpu_torch.models.serving import dequantize_kv, quantize_kv, write_cols
 from nnstreamer_tpu_torch.ops.kernels.paged_attention import (
     make_paged_attention,
     plain_paged_attention,
@@ -127,7 +130,6 @@ def batched_decode_step_block(model: tfm.TransformerLM, tok, pos, active, arena,
         ka, va = arena
     max_len = tables.shape[1] * ka.shape[2]
     x = tfm.embed_lookup(model.embed, tok, compute_dtype)[:, None, :]
-    wpos = torch.clamp(pos.long(), 0, max_len - 1)
     mask = None
     fresh = []
     for layer, blk in enumerate(model.blocks):
@@ -144,8 +146,8 @@ def batched_decode_step_block(model: tfm.TransformerLM, tok, pos, active, arena,
                 views = []
                 for pay, sc, x8, xs in ((ka, ksc, k8, ks), (va, vsc, v8, vs)):
                     pv, sv = _take_layer(pay[layer], tables), _take_layer(sc[layer], tables)
-                    _write_rows(pv, x8, wpos, active)
-                    _write_rows(sv, xs, wpos, active)
+                    write_cols(pv, x8[:, None], pos, active)
+                    write_cols(sv, xs[:, None], pos, active)
                     views.append(dequantize_kv(pv, sv))
                 ck, cv = views
         else:
@@ -154,8 +156,8 @@ def batched_decode_step_block(model: tfm.TransformerLM, tok, pos, active, arena,
                 o = attn_fn(q, ka[layer], va[layer], tables, pos, (k, v))
             else:
                 ck, cv = _take_layer(ka[layer], tables), _take_layer(va[layer], tables)
-                _write_rows(ck, k[:, 0], wpos, active)
-                _write_rows(cv, v[:, 0], wpos, active)
+                write_cols(ck, k, pos, active)
+                write_cols(cv, v, pos, active)
         if attn_fn is None:
             if mask is None:
                 mask = torch.arange(max_len, device=pos.device)[None, :] <= pos[:, None]
@@ -168,6 +170,55 @@ def batched_decode_step_block(model: tfm.TransformerLM, tok, pos, active, arena,
     x = tfm.rmsnorm(x, model.ln_f)
     logits = F.linear(x, tfm.wt(model.head.weight, x.dtype)).float()[:, 0]
     return logits, arena, pos + active.to(pos.dtype)
+
+
+def batched_verify_step_block(model: tfm.TransformerLM, toks, pos, active, arena, tables,
+                              n_heads: int, compute_dtype: torch.dtype = torch.float32):
+    """Score per-slot k-token chunks in one forward against the block
+    arena: the block-native sibling of ``models/serving_spec
+    .batched_verify_step`` (the same write-then-mask invariant). toks
+    [B, k] → (logits [B, k, V] float32, arena). Each layer attends its
+    view through ``tables`` with the chunk written into it; the chunk's
+    K/V land in their owning blocks with one :func:`write_fresh_window`
+    after the layer loop, in place. The caller keeps pos + k ≤ max_len for
+    active lanes and their blocks allocated."""
+    quantized = isinstance(arena[0], tuple)
+    if quantized:
+        (ka, ksc), (va, vsc) = arena
+    else:
+        ka, va = arena
+    max_len = tables.shape[1] * ka.shape[2]
+    b, k = toks.shape
+    x = tfm.embed_lookup(model.embed, toks, compute_dtype)
+    positions = pos[:, None] + torch.arange(k, dtype=pos.dtype, device=pos.device)[None, :]
+    mask = torch.arange(max_len, device=pos.device)[None, None, :] <= positions[:, :, None]
+    fresh = []
+    for layer, blk in enumerate(model.blocks):
+        q, kk, v = tfm.block_qkv(x, blk, n_heads, positions)
+        if quantized:
+            k8, ks = quantize_kv(kk)
+            v8, vs = quantize_kv(v)
+            fresh.append((k8, ks, v8, vs))
+            views = []
+            for pay, sc, x8, xs in ((ka, ksc, k8, ks), (va, vsc, v8, vs)):
+                pv, sv = _take_layer(pay[layer], tables), _take_layer(sc[layer], tables)
+                write_cols(pv, x8, pos, active)
+                write_cols(sv, xs, pos, active)
+                views.append(dequantize_kv(pv, sv))
+            ck, cv = views
+        else:
+            fresh.append((kk, v))
+            ck, cv = _take_layer(ka[layer], tables), _take_layer(va[layer], tables)
+            write_cols(ck, kk, pos, active)
+            write_cols(cv, v, pos, active)
+        o = tfm.cache_attention(q, ck, cv, mask)
+        o = o.to(x.dtype).reshape(b, k, -1)
+        x = x + F.linear(o, tfm.wt(blk.wo.weight, x.dtype))
+        x = tfm.block_ffn(x, blk)
+    stacked = tuple(torch.stack(leaves) for leaves in zip(*fresh))
+    write_fresh_window(arena, tables, stacked, pos, k, active, quantized)
+    x = tfm.rmsnorm(x, model.ln_f)
+    return F.linear(x, tfm.wt(model.head.weight, x.dtype)).float(), arena
 
 
 def block_attention(q, cache_k, cache_v, tables, pos, fresh_kv, impl: str = "auto"):

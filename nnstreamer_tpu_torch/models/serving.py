@@ -50,9 +50,16 @@ per-slot masks and write gating by ``active`` keep the slots apart.
   (``kv/block_attn.py``), with ``attn_impl="pallas"`` in the K4 kernel
   (``ops/kernels/paged_attention.py``).
 
+- Speculative decoding (``models/serving_spec.py``): ``spec_step`` and
+  ``spec_pump(rounds, k, ngram)`` run whole propose → verify → accept
+  rounds as one program each, with n-gram proposals mined from a per-slot
+  token history on the device (``_hist``, which every pump and admission
+  writes) or from a draft model (``draft_params``, slot layout) whose own
+  cache every plain step advances too; ``register_prefix`` prefills a
+  shared prefix once for ``submit(prefix=)`` on both layouts.
+
 Not ported yet (each raises ``NotImplementedError``): windowed (ring)
-caches, draft models and speculative steps, meshes, prefixes,
-snapshot/restore and request migration.
+caches, meshes, snapshot/restore and request migration.
 """
 
 from __future__ import annotations
@@ -72,6 +79,7 @@ from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
 from nnstreamer_tpu_torch.models import transformer as tfm
 from nnstreamer_tpu_torch.models.serving_paged import PagedAdmission
+from nnstreamer_tpu_torch.models.serving_spec import SpecDecoding, hist_write_row
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
@@ -95,13 +103,18 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale[..., None]
 
 
-def _write_rows(c: torch.Tensor, new: torch.Tensor, wpos: torch.Tensor,
-                active: torch.Tensor) -> None:
-    """In place: c [B, max_len, ...][b, wpos[b]] ← new[b] where active[b];
-    an idle slot's row is written back unchanged."""
-    idx = torch.arange(c.shape[0], device=c.device)
-    gate = active.view(-1, *([1] * (new.dim() - 1)))
-    c[idx, wpos] = torch.where(gate, new.to(c.dtype), c[idx, wpos])
+def write_cols(c: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
+               active: torch.Tensor) -> None:
+    """In place: c [B, S, ...][b, start[b] + j] ← new[b, j] for the k
+    columns of ``new`` [B, k, ...] where active[b]; an idle slot's rows
+    are written back unchanged. ``start`` is clamped so that the k
+    columns fit, as the reference's ``dynamic_update_slice`` clamps."""
+    b, k = new.shape[:2]
+    st = torch.clamp(start.long(), 0, c.shape[1] - k)
+    idx = st[:, None] + torch.arange(k, device=c.device)[None, :]
+    lanes = torch.arange(b, device=c.device)[:, None]
+    gate = active.view(-1, 1, *([1] * (new.dim() - 2)))
+    c[lanes, idx] = torch.where(gate, new.to(c.dtype), c[lanes, idx])
 
 
 def batched_decode_step(model: tfm.TransformerLM, tok, pos, active, cache, n_heads: int,
@@ -124,22 +137,21 @@ def batched_decode_step(model: tfm.TransformerLM, tok, pos, active, cache, n_hea
         ck_all, cv_all = cache
         max_len = ck_all.shape[2]
     x = tfm.embed_lookup(model.embed, tok, compute_dtype)[:, None, :]
-    wpos = torch.clamp(pos.long(), 0, max_len - 1)
     mask = None
     for layer, blk in enumerate(model.blocks):
         bsz, _, d = x.shape
         q, k, v = tfm.block_qkv(x, blk, n_heads, pos[:, None])
         if quantized:
-            k8, ks = quantize_kv(k[:, 0])
-            v8, vs = quantize_kv(v[:, 0])
-            _write_rows(ck8[layer], k8, wpos, active)
-            _write_rows(ksc[layer], ks, wpos, active)
-            _write_rows(cv8[layer], v8, wpos, active)
-            _write_rows(vsc[layer], vs, wpos, active)
+            k8, ks = quantize_kv(k)
+            v8, vs = quantize_kv(v)
+            write_cols(ck8[layer], k8, pos, active)
+            write_cols(ksc[layer], ks, pos, active)
+            write_cols(cv8[layer], v8, pos, active)
+            write_cols(vsc[layer], vs, pos, active)
             lk, lv = (ck8[layer], ksc[layer]), (cv8[layer], vsc[layer])
         else:
-            _write_rows(ck_all[layer], k[:, 0], wpos, active)
-            _write_rows(cv_all[layer], v[:, 0], wpos, active)
+            write_cols(ck_all[layer], k, pos, active)
+            write_cols(cv_all[layer], v, pos, active)
             lk, lv = ck_all[layer], cv_all[layer]
         if attn_fn is not None:
             o = attn_fn(q, lk, lv, pos)
@@ -292,33 +304,38 @@ class _PendingInsert:
     req: _Request
     blocks: Optional[List[int]] = None  # paged: the request's arena blocks
     resumed: bool = False  # paged: a preempted request coming back
+    draft_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None  # the draft's K/V
+    hist_row: Optional[np.ndarray] = None  # the token history: context, then the first
 
 
 class _PumpProgram:
-    """One entry of the batcher's program cache: the pump of ``n`` decode
-    steps, greedy or sampling (the reference jits one program per
-    ``n_steps``). On CUDA ``cap`` holds what the capture made (the graph,
-    the emitted-token buffer in the graph's pool, the launches one replay
-    stands for, the warm-up's launches and host seconds), beside the
-    device bytes allocated and reserved across the fill. Elsewhere ``cap``
-    stays None and :meth:`run` runs the body."""
+    """One entry of the batcher's program cache (the reference jits one
+    program per static argument set): a pump of ``n`` decode steps keyed
+    (n, sampling), or a spec pump keyed ("spec", rounds, k, g, sampling,
+    source). On CUDA ``cap`` holds what the capture made (the graph, the
+    output buffer in the graph's pool, the launches one replay stands
+    for, the warm-up's launches and host seconds), beside the device
+    bytes allocated and reserved across the fill. Elsewhere ``cap`` stays
+    None and :meth:`run` runs the body. The program keeps no reference to
+    its body, which holds the batcher: a batcher dropped by its owner is
+    freed at once, with its cache, not at the next cyclic collection."""
 
-    __slots__ = ("n", "sampling", "cap", "allocated_bytes", "reserved_bytes", "replays")
+    __slots__ = ("key", "cap", "allocated_bytes", "reserved_bytes", "replays")
 
-    def __init__(self, n: int, sampling: bool) -> None:
-        self.n = n
-        self.sampling = sampling
+    def __init__(self, key: tuple) -> None:
+        self.key = key
         self.cap: Optional[Captured] = None
         self.allocated_bytes = 0
         self.reserved_bytes = 0
         self.replays = 0
 
-    def run(self, cb: "ContinuousBatcher") -> torch.Tensor:
-        """One run over ``cb``'s state → the emitted tokens [B, n]: a
-        replay of the graph (its buffer, valid until the next replay), or
-        the body where nothing was captured."""
+    def run(self, body) -> torch.Tensor:
+        """One run over the batcher's state → the program's output (the
+        emitted tokens [B, n], or a spec pump's packed vector): a replay
+        of the graph (its buffer, valid until the next replay), or
+        ``body`` where nothing was captured."""
         if self.cap is None:
-            return cb._pump_body(self.n, self.sampling)
+            return body()
         replay(self.cap.graph, self.cap.launches)
         self.replays += 1
         return self.cap.outputs
@@ -338,7 +355,7 @@ def _dtype(d: Union[str, torch.dtype]) -> torch.dtype:
         raise ValueError(f"compute dtype {d!r} not supported (float32 or bfloat16)") from None
 
 
-class ContinuousBatcher(PagedAdmission):
+class ContinuousBatcher(PagedAdmission, SpecDecoding):
     """Continuous-batching server over a fixed slot batch (greedy by
     default; per-request temperature/top-k/top-p sampling via submit()).
 
@@ -357,6 +374,10 @@ class ContinuousBatcher(PagedAdmission):
     attend the arena through the tables, ``"gather"`` runs the slot step
     on a gathered contiguous view (the oracle; not with
     ``attn_impl="pallas"``).
+
+    ``draft_params`` (a :class:`TransformerLM` with the target's vocabulary
+    and ``draft_n_heads`` heads, slot layout only) makes the speculative
+    rounds propose with a draft model instead of n-gram lookup.
 
     Failure: the steps update the cache in place, so a step that raises
     (a failed capture or replay included: nothing falls back to eager
@@ -377,6 +398,7 @@ class ContinuousBatcher(PagedAdmission):
         mesh=None,
         windowed: bool = False,
         draft_params=None,
+        draft_n_heads: Optional[int] = None,
         kv_layout: str = "slot",
         block_size: int = 16,
         kv_blocks: Optional[int] = None,
@@ -424,7 +446,6 @@ class ContinuousBatcher(PagedAdmission):
             )
         for flag, what in (
             (windowed, "windowed=True (the sliding-window ring)"),
-            (draft_params is not None, "draft_params (draft models)"),
             (mesh is not None, "mesh= (slot-sharded meshes)"),
         ):
             if flag:
@@ -506,10 +527,20 @@ class ContinuousBatcher(PagedAdmission):
         self._active_dev = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
         self._budget_dev = torch.zeros((n_slots,), **i32)
         self._stop_dev = torch.full((n_slots,), -1, **i32)
+        # the per-slot token history (-1 padded; hist[pos] the pending
+        # token): what the n-gram miner scans. Admission writes a slot's
+        # context, every plain and spec program the tokens it emits, so a
+        # spec round after plain steps mines the whole context
+        self._hist = torch.full((n_slots, max_len), -1, **i32)
         self._pump_state_dirty = True
         self._host_state_builds = 0
-        # (n, sampling) -> the pump program (the reference's jit cache)
-        self._programs: Dict[Tuple[int, bool], _PumpProgram] = {}
+        # (n, sampling) or ("spec", rounds, k, g, sampling, source) -> the
+        # program (the reference's jit cache); on CUDA every program's graph
+        # draws on one memory pool (replays are serialized by _step_lock and
+        # each output is read before the next run), so the pool holds the
+        # largest program's intermediates, not their sum over the keys
+        self._programs: Dict[tuple, _PumpProgram] = {}
+        self._graph_pool = None
         # chunked prefill stages into a cache padded to a bucket multiple,
         # plus one spare bucket
         self._stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
@@ -517,6 +548,7 @@ class ContinuousBatcher(PagedAdmission):
         self._n_steps = 0
         self._n_tokens = 0
         self._step_time_s = 0.0
+        self._init_spec(draft_params, draft_n_heads)
 
     # -- prefill -------------------------------------------------------------
     def _empty_stage(self):
@@ -587,25 +619,36 @@ class ContinuousBatcher(PagedAdmission):
         a paged batcher only queues the prompt here (see the class).
         Sampling is per request: temperature ≤ 0 is greedy; otherwise a
         softmax sample, optionally top-k and/or top-p filtered, seeded by
-        ``seed`` (default: the request id) and the fill level."""
+        ``seed`` (default: the request id) and the fill level. ``prefix``
+        (a :meth:`register_prefix` id) puts the registered tokens before
+        ``prompt``: the slot layout starts from their stored K/V, the
+        paged layout's prefix index finds their blocks."""
         self._check_failed()
-        if prefix is not None:
-            raise _not_ported("prefix caching (register_prefix / prefix=)")
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         t = prompt.shape[0]
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be ≥ 1, got {max_new_tokens}")
         if t == 0:
             raise ValueError("empty prompt")
-        if t > self.max_len:
-            raise ValueError(f"prompt({t}) > max_len {self.max_len}")
-        if t + max_new_tokens > self.max_len:
+        pfx = None
+        plen = 0
+        context = prompt
+        if prefix is not None:
+            with self._lock:
+                pfx = self._prefix_locked(prefix)
+            pfx_tokens = pfx[0] if self._paged else pfx[2]
+            plen = int(pfx_tokens.shape[0])
+            context = np.concatenate([pfx_tokens.astype(np.int64), prompt])
+        if plen + t > self.max_len:
+            raise ValueError(f"prefix({plen}) + prompt({t}) > max_len {self.max_len}")
+        if plen + t + max_new_tokens > self.max_len:
             raise ValueError(
-                f"{t}+{max_new_tokens} tokens would overflow max_len={self.max_len}"
+                f"{plen}+{t}+{max_new_tokens} tokens would overflow max_len={self.max_len}"
             )
         if self._paged:
-            return self._submit_paged(prompt.astype(np.int32), max_new_tokens, temperature,
+            return self._submit_paged(context.astype(np.int32), max_new_tokens, temperature,
                                       top_k, top_p, seed, stop_token)
+        fill = plen + t
         with self._lock:
             # claim only: the slot is owned but inactive while the prefill
             # below runs outside the lock
@@ -613,13 +656,21 @@ class ContinuousBatcher(PagedAdmission):
             if slot is None:
                 return None
             req = self._new_request(max_new_tokens, temperature, top_k, top_p, seed,
-                                    stop_token, fill0=t)
+                                    stop_token, fill0=fill)
+            req.prompt = context.astype(np.int32)
             rid = req.rid
             self._slots[slot] = req
         try:
             P = self.prompt_len
             with torch.no_grad():
-                if t <= P:
+                if pfx is not None:
+                    # chunked from the prefix's stored K/V at position plen
+                    logits, stage = self._stage_chunks(prompt, plen, self._load_prefix(pfx),
+                                                       True)
+                    logits_row = logits[0, (t - 1) % P]
+                    ks = stage[0][:, :, : self.max_len]
+                    vs = stage[1][:, :, : self.max_len]
+                elif t <= P:
                     padded = np.zeros((1, P), np.int64)
                     padded[0, :t] = prompt
                     logits, (ks, vs), _ = dec.prefill(
@@ -640,6 +691,9 @@ class ContinuousBatcher(PagedAdmission):
                     req.tokens.append(first)
                     self._finish(slot)
                 return rid
+            # the draft's K/V of the whole context, outside the state lock
+            draft_kv = (self._draft.prefill_tokens(req.prompt)
+                        if self._draft is not None else None)
         except Exception:
             # release the claimed slot, or failed prefills would leave
             # every slot claimed and never active
@@ -647,8 +701,17 @@ class ContinuousBatcher(PagedAdmission):
                 self._slots[slot] = None
             raise
         with self._lock:
-            self._pending.append(_PendingInsert(slot, ks, vs, first_dev, t, req))
+            self._pending.append(_PendingInsert(slot, ks, vs, first_dev, fill, req,
+                                                draft_kv=draft_kv,
+                                                hist_row=self._hist_row(req.prompt)))
         return rid
+
+    def _hist_row(self, context: np.ndarray) -> np.ndarray:
+        """A slot's token-history row: the context, -1 after it (the
+        first token joins at admission)."""
+        row = np.full((self.max_len,), -1, np.int32)
+        row[:context.shape[0]] = context[:self.max_len]
+        return row
 
     def _apply_pending(self) -> None:
         """Splice queued admissions into the device state (caller holds
@@ -677,6 +740,12 @@ class ContinuousBatcher(PagedAdmission):
                         continue
                 if p.blocks is None:
                     insert_slot(self._cache, p.ks, p.vs, p.slot)
+                if p.draft_kv is not None:
+                    self._draft.admit(p.slot, p.draft_kv)
+                if p.hist_row is not None:
+                    if p.fill < self.max_len:
+                        p.hist_row[p.fill] = first
+                    self._hist[p.slot].copy_(torch.from_numpy(p.hist_row))
                 req = p.req
                 self._tok[p.slot] = int(first)
                 self._pos[p.slot] = p.fill
@@ -728,16 +797,21 @@ class ContinuousBatcher(PagedAdmission):
     def _pump_body(self, n: int, sampling: bool) -> torch.Tensor:
         """The pump program's body (the reference's ``pump_impl`` /
         ``paged_pump_impl`` scan, unrolled ``n`` times): each step the
-        batched decode, the token choice, then the budget / stop / active
-        update, over the device-carried state; the carried state is written
-        back into its buffers → the emitted tokens [B, n] int32, -1 on a
-        lane that was idle. Only device work and no host read: on CUDA it
-        is captured, elsewhere (and as the oracle) it runs as it is."""
+        draft's step (with a draft model), the batched decode, the token
+        choice, its entry in the token history, then the budget / stop /
+        active update, over the device-carried state; the carried state is
+        written back into its buffers → the emitted tokens [B, n] int32, -1
+        on a lane that was idle. Only device work and no host read: on CUDA
+        it is captured, elsewhere (and as the oracle) it runs as it is."""
         tok, pos = self._tok, self._pos
         active, budget, stop = self._active_dev, self._budget_dev, self._stop_dev
         tables = self._tables_dev if self._paged else None
         emits = []
         for _ in range(n):
+            if self._draft is not None:
+                # the draft takes the pending token's K/V in lockstep, so a
+                # later spec round proposes from a whole cache
+                self._draft.advance_one(tok, pos, active)
             logits, pos2 = self._decode_logits(tok, pos, active, tables)
             if sampling:
                 # keyed by the fill the token is sampled at, as fold_in(key, pos2)
@@ -746,6 +820,7 @@ class ContinuousBatcher(PagedAdmission):
                 new = torch.argmax(logits, dim=-1).to(torch.int32)
             new = torch.where(active, new, tok)
             emits.append(torch.where(active, new, torch.full_like(new, -1)))
+            hist_write_row(self._hist, new[:, None], pos2, active.to(torch.int32))
             budget = budget - active.to(torch.int32)
             active = active & (budget > 0) & ~((new == stop) & (stop >= 0))
             tok, pos = new, pos2
@@ -755,24 +830,25 @@ class ContinuousBatcher(PagedAdmission):
         self._budget_dev.copy_(budget)
         return torch.stack(emits, dim=1)
 
-    def _program(self, n: int, sampling: bool) -> "_PumpProgram":
-        """The pump program of (n, sampling), filled at its first use: on
-        CUDA a CUDA graph of :meth:`_pump_body`. The warm-up and the
-        capture run with every lane idle, so they leave the live state as
-        it was: idle slots write back their own cache rows, idle paged
-        lanes scratch block 0's init values, and tok, pos and budget stay.
+    def _program(self, key: tuple, body) -> "_PumpProgram":
+        """The program of ``key``, filled at its first use: on CUDA a CUDA
+        graph of ``body``. The warm-up and the capture run with every lane
+        idle, so they leave the live state as it was: idle slots write
+        back their own cache, history and draft rows, idle paged lanes
+        scratch block 0's init values, and tok, pos and budget stay.
         Caller holds _step_lock."""
-        key = (n, sampling)
         prog = self._programs.get(key)
         if prog is None:
-            prog = _PumpProgram(n, sampling)
+            prog = _PumpProgram(key)
             dev = self.device
             if dev.type == "cuda":
                 allocated = torch.cuda.memory_allocated(dev)
                 reserved = torch.cuda.memory_reserved(dev)
                 live = self._active_dev.clone()
                 self._active_dev.zero_()
-                prog.cap = capture(lambda: self._pump_body(n, sampling), dev)
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+                prog.cap = capture(body, dev, pool=self._graph_pool)
                 self._active_dev.copy_(live)
                 prog.allocated_bytes = torch.cuda.memory_allocated(dev) - allocated
                 prog.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -813,56 +889,74 @@ class ContinuousBatcher(PagedAdmission):
         self._pump_state_dirty = False
         self._host_state_builds += 1
 
+    def _prepare_locked(self, room: int):
+        """Ready the device state for one program: (paged) blocks for the
+        next ``room`` token writes of every active slot, the tables and
+        the pump state shipped if they changed → (the active mask the
+        program starts from, whether any active slot samples). Caller
+        holds _lock (and _step_lock)."""
+        if self._paged:
+            if room > 0:
+                # may preempt, which marks the pump state and tables dirty
+                self._ensure_decode_room_locked(room)
+            if self._kv_attn == "gather":
+                self._n_gather_dispatch += 1
+            self._tables_device_locked()
+        active_np = self._active.copy()
+        sampling = any(r is not None and active_np[s] and r.temperature > 0
+                       for s, r in enumerate(self._slots))
+        self._pump_state_locked()
+        return active_np, sampling
+
+    def _launch(self, key: tuple, body, eager: bool) -> np.ndarray:
+        """One run of the program of ``key`` (a replay on CUDA; ``eager``
+        runs ``body`` instead, the oracle) and its one read of the host.
+        A raise latches the failure: the cache was written in place."""
+        try:
+            with torch.no_grad():
+                out = body() if eager else self._program(key, body).run(body)
+                return out.cpu().numpy()
+        except Exception as exc:
+            self._mark_failed(exc)
+            raise
+
     def _pump(self, n: int, eager: bool):
         """Run ``n`` decode steps of every active slot as one program:
         admissions first, then (paged) blocks for the next ``n`` writes,
         the pump state and tables shipped if they changed, one run of the
-        program (a replay on CUDA; ``eager`` runs the body instead, the
-        oracle) and ONE [B, n] read of the host. → (the active mask the
+        program and ONE [B, n] read of the host. → (the active mask the
         program started from, the emitted tokens [B, n]), or None when no
         slot is active. Caller holds _step_lock."""
         self._admit()
         with self._lock:
             if not self._active.any():
                 return None
-            if self._paged:
-                # may preempt, which marks the pump state and tables dirty
-                self._ensure_decode_room_locked(n)
-                if self._kv_attn == "gather":
-                    self._n_gather_dispatch += 1
-                self._tables_device_locked()
-            active_np = self._active.copy()
-            sampling = any(r is not None and active_np[s] and r.temperature > 0
-                           for s, r in enumerate(self._slots))
-            self._pump_state_locked()
-        try:
-            with torch.no_grad():
-                if eager:
-                    emits = self._pump_body(n, sampling)
-                else:
-                    prog = self._program(n, sampling)
-                    emits = prog.run(self)
-                emits_np = emits.cpu().numpy()  # the pump's one read of the host
-        except Exception as exc:
-            self._mark_failed(exc)
-            raise
+            active_np, sampling = self._prepare_locked(n)
+        emits_np = self._launch((n, sampling), lambda: self._pump_body(n, sampling), eager)
         return active_np, emits_np
 
-    def _harvest_locked(self, active_np, emits_np, t0: float) -> Dict[int, List[int]]:
+    def _harvest_locked(self, active_np, emits_np, steps: int,
+                        t0: float) -> Dict[int, List[int]]:
         """Append each slot's emitted tokens to its request up to its
-        finish (budget or stop token; the lanes after it are -1), finish
-        those requests → {rid: tokens this run}. Caller holds _lock."""
+        finish (budget or stop token) → {rid: tokens this run}, finishing
+        those requests. ``emits_np`` is [B, n] (a pump: -1 once a lane
+        idles) or [B, rounds, k] (a spec pump: each round's row ends at
+        its first -1). Caller holds _lock."""
         out: Dict[int, List[int]] = {}
         n_em = 0
+        rows_of = emits_np if emits_np.ndim == 3 else emits_np[:, None, :]
         for s, req in enumerate(self._slots):
             if req is None or not active_np[s]:
                 continue
             got = []
-            for t in emits_np[s]:
-                if t < 0:
-                    break
-                req.tokens.append(int(t))
-                got.append(int(t))
+            for row in rows_of[s]:
+                for t in row:
+                    if t < 0:
+                        break
+                    req.tokens.append(int(t))
+                    got.append(int(t))
+                    if req.finished():
+                        break
                 if req.finished():
                     break
             n_em += len(got)
@@ -870,7 +964,7 @@ class ContinuousBatcher(PagedAdmission):
                 out[req.rid] = got
             if req.finished():
                 self._finish(s)
-        self._n_steps += emits_np.shape[1]
+        self._n_steps += steps
         self._n_tokens += n_em
         self._step_time_s += _time.perf_counter() - t0
         return out
@@ -906,17 +1000,21 @@ class ContinuousBatcher(PagedAdmission):
         if n < 1:
             raise ValueError(f"step_pump needs n >= 1, got {n}")
         with self._step_lock:
-            got = self._pump(n, eager)
-            if got is None:
-                return {}
-            with self._lock:
-                out = self._harvest_locked(*got, t0)
-                if not per_token:
-                    return out
-                # the host-stepped path (reference _plain_step_locked): the
-                # pump state rebuilds at the next pump
-                self._pump_state_dirty = True
-                return {rid: toks[0] for rid, toks in out.items()}
+            return self._run_locked(n, eager, per_token, t0)
+
+    def _run_locked(self, n: int, eager: bool, per_token: bool, t0: float):
+        """A pump of ``n`` and its harvest; caller holds _step_lock."""
+        got = self._pump(n, eager)
+        if got is None:
+            return {}
+        with self._lock:
+            out = self._harvest_locked(*got, n, t0)
+            if not per_token:
+                return out
+            # the host-stepped path (reference _plain_step_locked): the
+            # pump state rebuilds at the next pump
+            self._pump_state_dirty = True
+            return {rid: toks[0] for rid, toks in out.items()}
 
     def _finish(self, slot: int) -> None:
         req = self._slots[slot]
@@ -953,25 +1051,33 @@ class ContinuousBatcher(PagedAdmission):
                     out[rid] = list(self._done_pool[rid].tokens)
         return out
 
-    def _program_name(self, n: int, sampling: bool) -> str:
-        """The name of a pump program: layout, n, greedy or sampling,
-        cache dtype, attn_impl (the first and the last two are the
-        batcher's own)."""
+    def _program_name(self, key: tuple) -> str:
+        """The name of a program: layout, n (a pump) or spec-r<rounds>-
+        k<k>-g<g>-<source> (a spec pump), greedy or sampling, cache dtype,
+        attn_impl (the first and the last two are the batcher's own)."""
         layout = f"paged-{self._kv_attn}" if self._paged else "slot"
         cache = "int8" if self.cache_dtype == "int8" else str(self.compute_dtype)[6:]
-        return "/".join((layout, f"n{n}", "sampling" if sampling else "greedy", cache,
+        if key[0] == "spec":
+            _, r, k, g, sampling, source = key
+            what = f"spec-r{r}-k{k}-g{g}-{source}"
+        else:
+            n, sampling = key
+            what = f"n{n}"
+        return "/".join((layout, what, "sampling" if sampling else "greedy", cache,
                          self.attn_impl))
 
     def stats(self) -> Dict[str, Any]:
-        """Token and step counters and the slot occupancy; the pump
-        programs filled, by key (captured or not, replays, the fill's host
-        seconds, warm-up launches and device bytes), their total
-        ``build_s`` and ``host_state_builds``; a paged batcher adds the
-        pool's ``kv_*`` counters."""
+        """Token and step counters and the slot occupancy; the programs
+        filled, by key (captured or not, replays, the fill's host seconds,
+        warm-up launches and device bytes), their total ``build_s`` and
+        ``host_state_builds``; the speculative counters (rounds, accepted
+        tokens, proposal columns, the acceptance rate, the spec programs
+        filled, each fallback of ``spec_step``) and the registered
+        prefixes; a paged batcher adds the pool's ``kv_*`` counters."""
         with self._lock:
             occupied = sum(r is not None for r in self._slots)
             programs = {
-                self._program_name(p.n, p.sampling): {
+                self._program_name(p.key): {
                     "captured": p.cap is not None, "replays": p.replays,
                     "build_s": p.cap.build_s if p.cap else 0.0,
                     "warmup_launches": p.cap.warmup_launches if p.cap else 0,
@@ -991,6 +1097,8 @@ class ContinuousBatcher(PagedAdmission):
                 "programs_filled": len(programs),
                 "build_s": sum(p["build_s"] for p in programs.values()),
                 "host_state_builds": self._host_state_builds,
+                "spec_programs_filled": sum(k[0] == "spec" for k in self._programs),
+                **self._spec_stats_locked(),
             }
             if self._paged:
                 st.update(self._paged_stats_locked())
@@ -1002,15 +1110,6 @@ class ContinuousBatcher(PagedAdmission):
             return sum(r is None for r in self._slots)
 
     # -- not ported yet --------------------------------------------------------
-    def spec_step(self, *args, **kwargs):
-        raise _not_ported("spec_step (speculative decoding)")
-
-    def spec_pump(self, *args, **kwargs):
-        raise _not_ported("spec_pump (speculative decoding)")
-
-    def register_prefix(self, *args, **kwargs):
-        raise _not_ported("register_prefix (prefix caching)")
-
     def snapshot(self, *args, **kwargs):
         raise _not_ported("snapshot (warm restart)")
 

@@ -283,7 +283,8 @@ class PagedAdmission:
 
         with self._lock:
             self._pending.append(_PendingInsert(job.slot, None, None, first, t, req,
-                                                blocks=blocks, resumed=job.resumed))
+                                                blocks=blocks, resumed=job.resumed,
+                                                hist_row=self._hist_row(job.tokens)))
         return True
 
     def _ensure_decode_room_locked(self, n: int) -> None:

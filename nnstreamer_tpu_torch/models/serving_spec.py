@@ -1,0 +1,669 @@
+"""Speculative decoding and registered prefixes for the serving engine.
+
+The speculative half of ``nnstreamer_tpu/models/serving.py``, kept in a
+module of its own beside ``serving_paged.py``: the device-side helpers of a
+speculative round, the batched draft model, and the batcher methods
+(``spec_step``, ``spec_pump``, ``register_prefix``, ...) mixed into
+:class:`~nnstreamer_tpu_torch.models.serving.ContinuousBatcher`.
+
+A round: each active slot offers its pending token plus ``k - 1`` proposals
+(the most recent earlier occurrence of its suffix ``g``-gram in its token
+history, :func:`device_ngram_propose`, or ``k`` greedy steps of a draft
+model, :class:`_DraftEngine`); one ``k``-column forward of the target
+(:func:`batched_verify_step`, or ``kv/block_attn.py
+batched_verify_step_block`` / the gather oracle on the paged layout) scores
+them and writes their K/V; :func:`spec_accept` keeps the accepted prefix
+plus one correction or bonus token; :func:`spec_emit_hist` records the
+emitted tokens in the history. Everything is device work gated by masks,
+with no read of the host and no shape that depends on the acceptance, so a
+pump of ``R`` rounds is one program: on CUDA a captured CUDA graph.
+
+Greedy slots accept while the proposal equals the target's argmax, so
+their streams are the plain steps' (up to the verify forward's summation
+order against K3 / K4, as the reference says of its XLA verify against its
+Pallas kernels). Sampling slots use point-mass rejection sampling against
+the filtered distribution ``sample_tokens`` draws from, with uniforms and
+residual draws from the sampler's counter-based hash keyed by (request
+seed, fill, draw), so their streams are distribution-exact, not
+byte-identical to ``step()``'s, as in the reference.
+
+The verify attention is the reference's inline formulation (masked matmul
+and softmax over the cache), not a kernel.
+
+Not ported yet: the windowed ring's verify, draft and prefixes
+(``batched_windowed_verify``, ``commit_ring_chunk``,
+``draft_windowed_propose``).
+"""
+
+from __future__ import annotations
+
+import time as _time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from nnstreamer_tpu_torch.models import decode as dec
+from nnstreamer_tpu_torch.models import transformer as tfm
+from nnstreamer_tpu_torch.models.speculative import ngram_lookup
+
+_M32 = 0xFFFFFFFF
+_GOLDEN32 = 0x9E3779B9
+
+
+# -- device helpers ----------------------------------------------------------------------
+
+
+def batched_verify_step(model: tfm.TransformerLM, toks, pos, active, cache, n_heads: int,
+                        compute_dtype: torch.dtype = torch.float32):
+    """Score per-slot k-token chunks in one forward: toks [B, k] (column
+    0 the pending token, columns 1.. the proposals), pos [B] the fill,
+    active [B] → (logits [B, k, V] float32, cache). Column j sits at
+    position pos + j and attends cache positions ≤ pos + j; the chunk's
+    K/V are written in place at pos .. pos + k - 1 for active slots
+    (quantized for an int8 cache, then attended dequantized). The caller
+    keeps pos + k ≤ max_len for every active slot; rejected columns are
+    overwritten before any mask reaches them."""
+    from nnstreamer_tpu_torch.models.serving import dequantize_kv, quantize_kv, write_cols
+
+    quantized = isinstance(cache[0], tuple)
+    if quantized:
+        (ck8, ksc), (cv8, vsc) = cache
+        max_len = ck8.shape[2]
+    else:
+        ck_all, cv_all = cache
+        max_len = ck_all.shape[2]
+    b, k = toks.shape
+    x = tfm.embed_lookup(model.embed, toks, compute_dtype)
+    positions = pos[:, None] + torch.arange(k, dtype=pos.dtype, device=pos.device)[None, :]
+    mask = torch.arange(max_len, device=pos.device)[None, None, :] <= positions[:, :, None]
+    for layer, blk in enumerate(model.blocks):
+        q, kk, v = tfm.block_qkv(x, blk, n_heads, positions)
+        if quantized:
+            k8, ks = quantize_kv(kk)
+            v8, vs = quantize_kv(v)
+            write_cols(ck8[layer], k8, pos, active)
+            write_cols(ksc[layer], ks, pos, active)
+            write_cols(cv8[layer], v8, pos, active)
+            write_cols(vsc[layer], vs, pos, active)
+            ck = dequantize_kv(ck8[layer], ksc[layer])
+            cv = dequantize_kv(cv8[layer], vsc[layer])
+        else:
+            write_cols(ck_all[layer], kk, pos, active)
+            write_cols(cv_all[layer], v, pos, active)
+            ck, cv = ck_all[layer], cv_all[layer]
+        o = tfm.cache_attention(q, ck, cv, mask)
+        o = o.to(x.dtype).reshape(b, k, -1)
+        x = x + F.linear(o, tfm.wt(blk.wo.weight, x.dtype))
+        x = tfm.block_ffn(x, blk)
+    x = tfm.rmsnorm(x, model.ln_f)
+    return F.linear(x, tfm.wt(model.head.weight, x.dtype)).float(), cache
+
+
+def _draw_row(keys: torch.Tensor, fill: torch.Tensor, draw: int) -> torch.Tensor:
+    """The 32-bit row hash of (slot key, fill, draw): the sampler's
+    (key, fill) row mixed once more with the draw number, so a round's
+    acceptance uniform (draw 1) and residual sample (draw 2) at a fill
+    never share noise with each other or with a plain step's."""
+    from nnstreamer_tpu_torch.models.serving import _mix32
+
+    row = _mix32(_mix32(keys.long()) ^ (fill.long() & _M32))
+    return _mix32(row ^ ((draw * _GOLDEN32) & _M32))
+
+
+def uniform_draw(keys: torch.Tensor, fill: torch.Tensor, draw: int) -> torch.Tensor:
+    """One uniform in (0, 1) float32 a slot, keyed by (key, fill, draw):
+    the top 23 bits of the row's hash centred in their bin."""
+    from nnstreamer_tpu_torch.models.serving import _mix32
+
+    h = _mix32(_draw_row(keys, fill, draw))
+    return ((h >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
+def gumbel_draw(keys: torch.Tensor, fill: torch.Tensor, vocab: int, draw: int) -> torch.Tensor:
+    """Gumbel noise [B, V] keyed by (key, fill, draw, vocab index), the
+    construction of ``serving.gumbel_noise`` on the draw's row."""
+    from nnstreamer_tpu_torch.models.serving import _gumbel_of_hash, _mix32
+
+    row = _draw_row(keys, fill, draw)
+    cols = torch.arange(vocab, dtype=torch.int64, device=keys.device)
+    return _gumbel_of_hash(_mix32(_mix32((row[:, None] + cols[None, :]) & _M32)))
+
+
+def spec_accept(logits, toks, temp, topk, topp, keys, pos, sampling: bool):
+    """Device-side acceptance of one speculative round.
+
+    logits [B, k, V] (column j conditioned on toks[:, :j+1]), toks
+    [B, k] (column 0 the pending token, -1 a column with no proposal),
+    the slots' sampling settings and keys, pos [B] → (m [B] int32, final
+    [B] int32): the round commits m chunk columns and emits toks[:, 1:m]
+    then ``final``. Greedy slots accept while the proposal equals the
+    previous column's argmax. Sampling slots (temp > 0) accept a proposal
+    x with probability p̃(x) under the filtered distribution, else draw
+    from p̃ with x removed (a plain p̃ draw for a column with no
+    proposal); on full acceptance the bonus token is drawn from the last
+    column. ``sampling`` False: the greedy-only program, without the
+    filtering and the noise."""
+    from nnstreamer_tpu_torch.models.serving import _filtered_logits
+
+    b, k, v = logits.shape
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    if not sampling:
+        match = toks[:, 1:] == greedy[:, :-1]
+        m = 1 + torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        final = torch.gather(greedy, 1, (m - 1).long()[:, None])[:, 0]
+        return m, final
+    is_sampling = temp > 0
+    m = torch.ones((b,), dtype=torch.int32, device=logits.device)
+    done = torch.zeros((b,), dtype=torch.bool, device=logits.device)
+    final = torch.zeros((b,), dtype=torch.int32, device=logits.device)
+    vocab = torch.arange(v, device=logits.device)
+    for j in range(1, k):
+        lg = logits[:, j - 1]
+        prop = toks[:, j]
+        greedy_col = greedy[:, j - 1]
+        valid = prop >= 0
+        safe = torch.clamp(prop, 0, v - 1).long()
+        filt = _filtered_logits(lg, temp, topk, topp)
+        p_prop = torch.gather(torch.softmax(filt, dim=-1), 1, safe[:, None])[:, 0]
+        fill = pos + j
+        acc = torch.where(is_sampling, uniform_draw(keys, fill, 1) < p_prop,
+                          greedy_col == prop) & valid
+        residual = torch.where((vocab[None, :] == safe[:, None]) & valid[:, None],
+                               torch.full_like(filt, float("-inf")), filt)
+        resampled = torch.argmax(residual + gumbel_draw(keys, fill, v, 2), dim=-1)
+        final_rej = torch.where(is_sampling, resampled.to(torch.int32), greedy_col)
+        rejecting = ~done & ~acc
+        final = torch.where(rejecting, final_rej, final)
+        m = m + (~done & acc).to(torch.int32)
+        done = done | rejecting
+    last = logits[:, k - 1]
+    bonus_s = torch.argmax(_filtered_logits(last, temp, topk, topp)
+                           + gumbel_draw(keys, pos + k, v, 1), dim=-1).to(torch.int32)
+    bonus = torch.where(is_sampling, bonus_s, greedy[:, k - 1])
+    return m, torch.where(done, final, bonus)
+
+
+def hist_write_row(hist: torch.Tensor, row: torch.Tensor, start: torch.Tensor,
+                   count: torch.Tensor) -> None:
+    """In place: hist [B, H][b, start[b] + j] ← row[b, j] for the first
+    count[b] columns of ``row`` [B, K]; writes past H - 1 clamp onto the
+    last cell (unreachable: submit keeps fill + budget ≤ max_len)."""
+    b, h = hist.shape
+    kk = row.shape[1]
+    cols = torch.arange(kk, device=hist.device)
+    idx = torch.clamp(start.long()[:, None] + cols[None, :], 0, h - 1)
+    keep = cols[None, :] < count[:, None]
+    lanes = torch.arange(b, device=hist.device)[:, None]
+    hist[lanes, idx] = torch.where(keep, row.to(hist.dtype), hist[lanes, idx])
+
+
+def device_ngram_propose(hist: torch.Tensor, pos: torch.Tensor, k: int, g: int) -> torch.Tensor:
+    """Prompt-lookup proposals on the device: hist [B, H] int32 the slots'
+    token histories (-1 padded, hist[pos] the pending token), pos [B] →
+    [B, k - 1] int32: the tokens that followed the most recent earlier
+    occurrence of the suffix ``g``-gram ending at ``pos``, -1 where the
+    lookup finds nothing or runs past ``pos``. A fixed-width scan of the
+    whole history: no data-dependent shape."""
+    b, h = hist.shape
+    idx = torch.arange(h, device=hist.device)
+    p = pos.long()[:, None]
+    ok = idx[None, :] < p
+    for i in range(g):
+        shifted = hist[:, torch.clamp(idx - i, min=0)]
+        tgt = torch.gather(hist, 1, torch.clamp(p - i, 0, h - 1))
+        ok = ok & (shifted == tgt) & (shifted >= 0) & (idx - i >= 0)[None, :] & (p - i >= 0)
+    j = torch.max(torch.where(ok, idx[None, :], torch.full_like(idx[None, :], -1)), dim=1).values
+    cols = j[:, None] + 1 + torch.arange(k - 1, device=hist.device)[None, :]
+    valid = (j >= 0)[:, None] & (cols <= p)
+    got = torch.gather(hist, 1, torch.clamp(cols, 0, h - 1))
+    return torch.where(valid, got, torch.full_like(got, -1))
+
+
+def spec_emit_hist(toks, m, final, active, hist, pos) -> torch.Tensor:
+    """The emitted row [B, k] of one round (the m - 1 accepted proposals,
+    then the correction or bonus token, -1 beyond and on idle slots),
+    recorded in ``hist`` at pos + 1 .. pos + m in place, so later rounds
+    mine the whole context."""
+    b, kk = toks.shape
+    j = torch.arange(kk, device=toks.device)[None, :]
+    prop_part = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -1)], dim=1)
+    neg = torch.full_like(toks, -1)
+    emit = torch.where(j < (m - 1)[:, None], prop_part,
+                       torch.where(j == (m - 1)[:, None], final[:, None].expand_as(toks), neg))
+    emit = torch.where(active[:, None], emit, neg)
+    hist_write_row(hist, emit, pos + 1, m)
+    return emit
+
+
+# -- the batched draft model -------------------------------------------------------------
+
+
+class _DraftEngine:
+    """A draft model proposing for every slot at once (reference
+    ``serving.py _DraftEngine``): its own slot cache [L, B, max_len, KV,
+    Dh] in the compute dtype (never quantized), filled at admission with
+    the request's whole context and kept at the target's positions.
+    Proposing runs k greedy batched steps, writing as it goes: rejected
+    positions are overwritten before a mask reaches them, and the k-th
+    step's write covers the last proposal on full acceptance. Every plain
+    step of the target steps the draft too (:meth:`advance_one`), so the
+    draft never falls behind. Its steps take no attention kernel, as in
+    the reference."""
+
+    def __init__(self, params: tfm.TransformerLM, n_heads: int, n_slots: int, max_len: int,
+                 prompt_len: int, compute_dtype: torch.dtype, device: torch.device) -> None:
+        self.params = params
+        self.n_heads = n_heads
+        self.max_len = max_len
+        self.prompt_len = prompt_len
+        self.compute_dtype = compute_dtype
+        self.device = device
+        d = params.d_model
+        hd = d // n_heads
+        kv = tfm.n_kv_heads_of(params.blocks[0].wqkv.weight, d, n_heads)
+        shape = (params.n_layers, n_slots, max_len, kv, hd)
+        self._cache = tuple(torch.zeros(shape, dtype=compute_dtype, device=device)
+                            for _ in range(2))
+        stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
+        self._stage_shape = (params.n_layers, 1, stage_len, kv, hd)
+
+    def prefill_tokens(self, tokens: np.ndarray):
+        """The draft's K/V of a request's whole context (prefix + prompt),
+        in prompt_len buckets → (ks, vs) [L, 1, max_len, KV, Dh]. No
+        logits: the first pending token is the target's."""
+        P = self.prompt_len
+        stage = tuple(torch.zeros(self._stage_shape, dtype=self.compute_dtype,
+                                  device=self.device) for _ in range(2))
+        t = int(tokens.shape[0])
+        cpos = 0
+        while cpos < t:
+            n = min(P, t - cpos)
+            chunk = np.zeros((1, P), np.int64)
+            chunk[0, :n] = tokens[cpos:cpos + n]
+            _, stage, _ = dec.verify_chunk(
+                self.params, torch.as_tensor(chunk, device=self.device), cpos, stage,
+                self.n_heads, compute_dtype=self.compute_dtype, return_logits=False,
+            )
+            cpos += n
+        return stage[0][:, :, :self.max_len], stage[1][:, :, :self.max_len]
+
+    def admit(self, slot: int, draft_kv) -> None:
+        from nnstreamer_tpu_torch.models.serving import insert_slot
+
+        insert_slot(self._cache, draft_kv[0], draft_kv[1], slot)
+
+    def _step(self, tok, pos, active):
+        from nnstreamer_tpu_torch.models.serving import batched_decode_step
+
+        logits, _, pos2 = batched_decode_step(self.params, tok, pos, active, self._cache,
+                                              self.n_heads, self.compute_dtype)
+        return torch.argmax(logits, dim=-1).to(torch.int32), pos2
+
+    def propose(self, tok, pos, active, k: int) -> torch.Tensor:
+        """k greedy steps from the pending tokens → proposals [B, k - 1]
+        int32 (the k-th step exists for its write)."""
+        cur, p = tok, pos
+        props = []
+        for _ in range(k):
+            cur, p = self._step(cur, p, active)
+            props.append(cur)
+        return torch.stack(props[:k - 1], dim=1)
+
+    def advance_one(self, tok, pos, active) -> None:
+        """Write the pending tokens' K/V without proposing: the draft's
+        half of a plain step."""
+        self._step(tok, pos, active)
+
+
+# -- the batcher's speculative and prefix methods ------------------------------------------
+
+class SpecDecoding:
+    """Speculative rounds and registered prefixes, mixed into
+    ``ContinuousBatcher``, which provides the slot state, the device
+    buffers, ``_prepare_locked``, ``_launch``, ``_harvest_locked``,
+    ``_run_locked`` and the staging helpers."""
+
+    def _init_spec(self, draft_params, draft_n_heads: Optional[int]) -> None:
+        self._draft = None
+        if draft_params is not None:
+            if draft_params.embed.device != self.device:
+                raise ValueError(
+                    f"draft params live on {draft_params.embed.device}, the batcher runs on "
+                    f"{self.device}"
+                )
+            self._draft = _DraftEngine(draft_params, draft_n_heads or self.n_heads,
+                                       self.n_slots, self.max_len, self.prompt_len,
+                                       self.compute_dtype, self.device)
+        # slot layout: id → ((ks, vs) trimmed to the prefix, its length, its tokens);
+        # paged: id → (tokens, pinned blocks)
+        self._prefixes: Dict[int, Tuple] = {}
+        self._next_prefix = 0
+        self._n_spec_rounds = 0
+        self._n_spec_accepted = 0
+        self._n_spec_columns = 0  # proposal columns offered (the rate's normalizer)
+        # the reference's plain-step fallbacks inside spec_step, counted
+        self._n_spec_fallback_no_room = 0
+        self._n_spec_fallback_no_proposal = 0
+        self._n_spec_sentinel_rounds = 0
+
+    # -- registered prefixes ---------------------------------------------------------------
+    def register_prefix(self, tokens) -> int:
+        """Prefill a shared prompt prefix (a system prompt) once and return
+        its id; ``submit(prefix=id)`` then starts from its K/V. The slot
+        layout keeps the staged K/V trimmed to the prefix on the device
+        and loads it into each request's stage; the paged layout prefills
+        it into pool blocks, registers them in the prefix index and pins
+        them until :meth:`unregister_prefix`, so later submits hit the
+        index whether or not they pass ``prefix=``."""
+        self._check_failed()
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        plen = int(tokens.shape[0])
+        if not 0 < plen < self.max_len:
+            raise ValueError(f"prefix length {plen} not in (0, max_len={self.max_len})")
+        if self._paged:
+            # the block writes land in the live arena: serialized with the steps
+            with self._step_lock, torch.no_grad():
+                _, stage = self._stage_chunks(tokens, 0, self._empty_stage(), False)
+                bs = self.block_size
+                n_blocks = -(-plen // bs)
+                with self._lock:
+                    blocks = self._pool.alloc(n_blocks)
+                ids = np.zeros((self._stage_len // bs,), np.int32)
+                valid = np.zeros((self._stage_len // bs,), bool)
+                ids[:n_blocks] = blocks
+                valid[:n_blocks] = True
+                try:
+                    self._land_stage(self._cache, stage, ids, valid)
+                except Exception as exc:
+                    self._mark_failed(exc)  # the arena was written in place
+                    raise
+                with self._lock:
+                    self._pool.register(tokens, blocks)
+                    pid = self._next_prefix
+                    self._next_prefix += 1
+                    self._prefixes[pid] = (tokens, blocks)
+            return pid
+        with torch.no_grad():
+            _, stage = self._stage_chunks(tokens, 0, self._empty_stage(), False)
+            stored = (stage[0][:, :, :plen].clone(), stage[1][:, :, :plen].clone())
+        with self._lock:
+            pid = self._next_prefix
+            self._next_prefix += 1
+            self._prefixes[pid] = (stored, plen, tokens)
+        return pid
+
+    def unregister_prefix(self, pid: int) -> bool:
+        """Release a registered prefix (requests already admitted keep
+        their copy or their own block references)."""
+        with self._lock:
+            item = self._prefixes.pop(pid, None)
+            if item is None:
+                return False
+            if self._paged:
+                self._pool.free(item[1])
+            return True
+
+    def probe_prefix(self, tokens) -> int:
+        """Leading tokens of ``tokens`` whose K/V the pool holds in full
+        indexed blocks (read-only; 0 on the slot layout)."""
+        if not self._paged:
+            return 0
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        with self._lock:
+            m = self._pool.match(toks)
+        return len(m.full) * self.block_size
+
+    def _prefix_locked(self, prefix: Optional[int]):
+        """The registered prefix's entry (caller holds _lock)."""
+        if prefix not in self._prefixes:
+            raise ValueError(f"unknown prefix id {prefix}")
+        return self._prefixes[prefix]
+
+    def _load_prefix(self, pfx) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A fresh stage with a registered prefix's K/V at positions 0.."""
+        (ks, vs), plen, _ = pfx
+        stage = self._empty_stage()
+        stage[0][:, :, :plen] = ks
+        stage[1][:, :, :plen] = vs
+        return stage
+
+    # -- the spec programs -----------------------------------------------------------------
+    def _verify(self, toks, pos, active):
+        """The k-column verify forward over this layout's cache → logits
+        [B, k, V] (the cache written in place)."""
+        if not self._paged:
+            return batched_verify_step(self.params, toks, pos, active, self._cache,
+                                       self.n_heads, self.compute_dtype)[0]
+        tables = self._tables_dev
+        if self._kv_attn == "gather":
+            from nnstreamer_tpu_torch.kv import gather as kvg
+
+            view = kvg.gather_cache(self._cache, tables)
+            logits, _ = batched_verify_step(self.params, toks, pos, active, view,
+                                            self.n_heads, self.compute_dtype)
+            kvg.scatter_window(self._cache, tables, view, pos, toks.shape[1], active)
+            return logits
+        from nnstreamer_tpu_torch.kv.block_attn import batched_verify_step_block
+
+        return batched_verify_step_block(self.params, toks, pos, active, self._cache, tables,
+                                         self.n_heads, self.compute_dtype)[0]
+
+    def _spec_body(self, rounds: int, k: int, g: int, sampling: bool, source: str):
+        """The spec program's body (the reference's ``spec_pump_impl`` /
+        ``paged_spec_pump_impl`` scan, unrolled ``rounds`` times): each
+        round propose → verify → accept → emit into the history → budget
+        / stop / active update, over the device-carried state, written
+        back into its buffers → one packed int32 vector: the emitted
+        tokens [B, rounds, k] flattened ‖ accepted proposals ‖ proposal
+        columns. Device work only: on CUDA it is captured."""
+        tok, pos = self._tok, self._pos
+        active, budget, stop = self._active_dev, self._budget_dev, self._stop_dev
+        hist = self._hist
+        zero = torch.zeros((), dtype=torch.int32, device=tok.device)
+        acc, cols = zero, zero
+        emits = []
+        for _ in range(rounds):
+            if source == "draft":
+                props = self._draft.propose(tok, pos, active, k)
+            elif source == "ngram":
+                props = device_ngram_propose(hist, pos, k, g)
+            else:
+                props = torch.full((tok.shape[0], k - 1), -1, dtype=torch.int32,
+                                   device=tok.device)
+            props = torch.where(active[:, None], props, torch.full_like(props, -1))
+            toks = torch.cat([tok[:, None], props], dim=1)
+            logits = self._verify(toks, pos, active)
+            m, final = spec_accept(logits, toks, self._temp, self._topk, self._topp,
+                                   self._keys, pos, sampling)
+            m = torch.where(active, m, torch.zeros_like(m))
+            emit = spec_emit_hist(toks, m, final, active, hist, pos)
+            acc = acc + torch.clamp(m - 1, min=0).sum().to(torch.int32)
+            cols = cols + (props >= 0).sum().to(torch.int32)
+            budget = budget - m
+            hit_stop = ((emit == stop[:, None]) & (stop[:, None] >= 0)).any(dim=1)
+            active = active & (budget > 0) & ~hit_stop
+            tok = torch.where(m > 0, final, tok)
+            pos = pos + m
+            emits.append(emit)
+        self._tok.copy_(tok)
+        self._pos.copy_(pos)
+        self._active_dev.copy_(active)
+        self._budget_dev.copy_(budget)
+        return torch.cat([torch.stack(emits, dim=1).reshape(-1), torch.stack([acc, cols])])
+
+    def _spec_launch_locked(self, plan, rounds: int, k: int, g: int, source: str,
+                            eager: bool, t0):
+        """Run one spec program over the state ``plan`` (what
+        _prepare_locked returned) describes and commit its packed result
+        (caller holds _step_lock) → {rid: tokens emitted}."""
+        active_np, sampling = plan
+        if source != "ngram":
+            g = 0  # the miner's width keys only the n-gram programs
+        key = ("spec", rounds, k, g, sampling, source)
+        packed = self._launch(key, lambda: self._spec_body(rounds, k, g, sampling, source),
+                              eager)
+        acc, cols = int(packed[-2]), int(packed[-1])
+        emits = packed[:-2].reshape(self.n_slots, rounds, k)
+        with self._lock:
+            out = self._harvest_locked(active_np, emits, rounds, t0)
+            self._n_spec_rounds += rounds
+            self._n_spec_accepted += acc
+            self._n_spec_columns += cols
+        return out
+
+    # -- the client API ----------------------------------------------------------------------
+    def spec_step(self, k: int = 4, ngram: int = 2) -> Dict[int, int]:
+        """One speculative round (the rounds = 1 spec program): every
+        active slot verifies k - 1 proposals in one batched forward and
+        commits its accepted prefix plus one correction or bonus token.
+        The reference's fallbacks, each counted in ``stats()``: when the
+        tightest slot has room for fewer than two columns, a plain step;
+        when no slot's n-gram lookup finds anything, a plain step on an
+        ``attn_impl="xla"`` batcher and a width-2 verify of sentinels
+        (never accepted, so it emits the plain step's token) on a
+        ``"pallas"`` one. Returns {rid: last emitted token}; use
+        partials() for the whole stream."""
+        return self._spec_step(k, ngram, eager=False)
+
+    def spec_step_eager(self, k: int = 4, ngram: int = 2) -> Dict[int, int]:
+        """:meth:`spec_step` with the program's body run eagerly, never
+        captured: the oracle a replay is held against."""
+        return self._spec_step(k, ngram, eager=True)
+
+    def _spec_step(self, k: int, ngram: int, eager: bool) -> Dict[int, int]:
+        self._check_failed()
+        t0 = _time.perf_counter()
+        k = int(k)
+        with self._step_lock:
+            self._admit()
+            with self._lock:
+                if not self._active.any():
+                    return {}
+                if self._paged:
+                    # before the active snapshot: may preempt a victim
+                    self._ensure_decode_room_locked(k)
+                live = [(s, r) for s, r in enumerate(self._slots)
+                        if r is not None and self._active[s]]
+                room = min(self.max_len - (r.fill0 + len(r.tokens) - 1) for _, r in live)
+                k_round = max(1, min(k, room))
+                source = "draft" if self._draft is not None else "ngram"
+                if k_round < 2:
+                    self._n_spec_fallback_no_room += room < 2
+                elif source == "ngram" and not any(
+                        _found(ngram_lookup(np.concatenate(
+                            [r.prompt, np.asarray(r.tokens, np.int32)]), k_round - 1, ngram))
+                        for _, r in live):
+                    if self.attn_impl == "pallas":
+                        # a Pallas batcher keeps every token of a speculative
+                        # generation certified by the verify forward
+                        k_round, source = 2, "none"
+                        self._n_spec_sentinel_rounds += 1
+                    else:
+                        k_round = 1
+                        self._n_spec_fallback_no_proposal += 1
+            if k_round < 2:
+                return self._run_locked(1, eager, per_token=True, t0=t0)
+            with self._lock:
+                plan = self._prepare_locked(0)
+            out = self._spec_launch_locked(plan, 1, k_round, int(ngram), source, eager, t0)
+            with self._lock:
+                self._pump_state_dirty = True  # a host-stepped round, as the reference's
+            return {rid: toks[-1] for rid, toks in out.items()}
+
+    def spec_pump(self, rounds: int = 8, k: int = 4, ngram: int = 2) -> Dict[int, List[int]]:
+        """``rounds`` whole speculative rounds as one program (a CUDA-graph
+        replay on the card) with one read of the host: the emitted tokens
+        and the acceptance counts in one packed vector. ``rounds`` is
+        clamped so the worst-case verify writes stay inside max_len (from
+        the host's own record of each slot's fill) and quantized down to a
+        power of two, which bounds the number of programs; when not even
+        one round fits, rounds of :meth:`spec_step` finish the tail.
+        Slots that spend their budget or emit their stop token idle on the
+        device. Returns {rid: [tokens emitted]}."""
+        return self._spec_pump(rounds, k, ngram, eager=False)
+
+    def spec_pump_eager(self, rounds: int = 8, k: int = 4,
+                        ngram: int = 2) -> Dict[int, List[int]]:
+        """:meth:`spec_pump` with the program's body run eagerly, never
+        captured: the oracle a replay is held against."""
+        return self._spec_pump(rounds, k, ngram, eager=True)
+
+    def _spec_pump(self, rounds: int, k: int, ngram: int, eager: bool):
+        self._check_failed()
+        t0 = _time.perf_counter()
+        k = max(2, int(k))
+        with self._step_lock:
+            self._admit()
+            with self._lock:
+                if not self._active.any():
+                    return {}
+                pos_max = max(r.fill0 + len(r.tokens) - 1 for s, r in enumerate(self._slots)
+                              if r is not None and self._active[s])
+                r = min(int(rounds), (self.max_len - pos_max) // k)
+                if r >= 1:
+                    # blocks for the clamped rounds, before the floor (the reference's order)
+                    plan = self._prepare_locked(r * k)
+                    while r & (r - 1):  # the power-of-two floor
+                        r &= r - 1
+            if r >= 1:
+                source = "draft" if self._draft is not None else "ngram"
+                return self._spec_launch_locked(plan, r, k, int(ngram), source, eager, t0)
+        # no verify room at any width ≥ 2 for a whole round: spec_step's
+        # shrinking width finishes the tail
+        return self._spec_fallback_rounds(1, k, ngram, eager)
+
+    def _spec_fallback_rounds(self, rounds: int, k: int, ngram: int,
+                              eager: bool) -> Dict[int, List[int]]:
+        """``rounds`` of :meth:`spec_step` with spec_pump's return contract
+        ({rid: every token emitted}), rebuilt from each request's growth;
+        request objects are held from the first time each is seen, so a
+        request evicted from the result pool meanwhile keeps its tokens."""
+        before: Dict[int, int] = {}
+        refs = {}
+        with self._lock:
+            for req in self._slots:
+                if req is not None:
+                    # token 0 is the prefill's, never pump output
+                    before[req.rid] = max(1, len(req.tokens))
+        emitted = set()
+        for _ in range(int(rounds)):
+            with self._lock:
+                for req in [r for r in self._slots if r is not None] + [
+                        p.req for p in self._pending]:
+                    refs.setdefault(req.rid, req)
+            em = self._spec_step(k, ngram, eager)
+            if not em:
+                break
+            emitted |= set(em)
+            with self._lock:
+                for rid in em:
+                    if rid not in refs:
+                        live = {r.rid: r for r in self._slots if r is not None}
+                        req = live.get(rid) or self._done_pool.get(rid)
+                        if req is not None:
+                            refs[rid] = req
+        with self._lock:
+            out = {rid: list(req.tokens[before.get(rid, 1):])
+                   for rid, req in refs.items() if rid in emitted}
+        return {rid: toks for rid, toks in out.items() if toks}
+
+    def _spec_stats_locked(self) -> Dict:
+        return {
+            "spec_rounds": self._n_spec_rounds,
+            "spec_accepted_tokens": self._n_spec_accepted,
+            # accepted / columns: the per-proposal acceptance rate whatever
+            # the occupancy or k of each round (sentinels count in neither)
+            "spec_columns": self._n_spec_columns,
+            "spec_acceptance_rate": (self._n_spec_accepted / self._n_spec_columns
+                                     if self._n_spec_columns else 0.0),
+            "spec_fallback_no_room": self._n_spec_fallback_no_room,
+            "spec_fallback_no_proposal": self._n_spec_fallback_no_proposal,
+            "spec_sentinel_rounds": self._n_spec_sentinel_rounds,
+            "prefixes_registered": len(self._prefixes),
+        }
+
+
+def _found(cand) -> bool:
+    return cand is not None and cand.size > 0

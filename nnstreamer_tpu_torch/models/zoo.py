@@ -38,8 +38,9 @@ bfloat16), and:
   ``quantize=int8w`` (weight-only int8, ``models/quantize.py``; any other
   value raises, where the reference ignores it),
   ``generate`` (> 0: prompt tokens in, generated tokens out),
-  ``decode=greedy|beam``, ``temperature``, ``gen_seed``, ``beam_width``.
-  Not ported yet, and raising: ``decode=ngram``.
+  ``decode=greedy|beam|ngram``, ``temperature``, ``gen_seed``,
+  ``beam_width``, ``spec_k`` and ``spec_ngram`` (``decode=ngram``: the
+  chunk width and the n-gram the lookup matches).
 
 An unknown option raises: quietly ignoring, say, ``quantize:int8`` would
 serve a different model than the one asked for.
@@ -365,6 +366,27 @@ class _LMBeam(nn.Module):
         return toks
 
 
+class _LMNgram(nn.Module):
+    """prompt tokens [1, T] → generated tokens [1, n_new] int32 by n-gram
+    speculation (``speculative.ngram_generate_scanned``): the target's
+    greedy stream."""
+
+    CAPTURABLE = False  # the rounds' loop condition is read on the host
+
+    def __init__(self, lm: tfm.TransformerLM, n_heads: int, n_new: int, k: int, g: int,
+                 compute_dtype: torch.dtype) -> None:
+        super().__init__()
+        self.lm, self.n_heads, self.n_new = lm, n_heads, n_new
+        self.k, self.g, self.compute_dtype = k, g, compute_dtype
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        from nnstreamer_tpu_torch.models.speculative import ngram_generate_scanned
+
+        toks, _ = ngram_generate_scanned(self.lm, tokens, self.n_heads, self.n_new, k=self.k,
+                                         g=self.g, compute_dtype=self.compute_dtype)
+        return toks
+
+
 _LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -372,7 +394,7 @@ _LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": t
     "transformer_lm",
     ("seed", "vocab", "d_model", "n_heads", "n_layers", "n_kv_heads", "batch", "seqlen",
      "params", "compute_dtype", "generate", "decode", "temperature", "gen_seed", "attn",
-     "quantize", "beam_width"),
+     "quantize", "beam_width", "spec_k", "spec_ngram"),
 )
 def _transformer_lm(device: torch.device, **options) -> ZooModel:
     """Decoder-only transformer LM (models/transformer.py): tokens [B, T]
@@ -407,10 +429,9 @@ def _transformer_lm(device: torch.device, **options) -> ZooModel:
     if gen_tokens > 0:
         strategy = options.get("decode", "greedy")
         if strategy == "ngram":
-            raise NotImplementedError(
-                "zoo:transformer_lm decode=ngram (models/speculative.py) is not ported yet"
-            )
-        if strategy == "beam":
+            module = _LMNgram(lm, n_heads, gen_tokens, int(options.get("spec_k", 4)),
+                              int(options.get("spec_ngram", 2)), dtype)
+        elif strategy == "beam":
             module = _LMBeam(lm, n_heads, gen_tokens, int(options.get("beam_width", 4)), dtype)
         elif strategy == "greedy":
             module = _LMGenerate(lm, n_heads, gen_tokens,

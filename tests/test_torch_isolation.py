@@ -391,12 +391,11 @@ def test_paged_kernel_with_gather_oracle_raises():
 
 @pytest.mark.parametrize(
     "call",
-    ["paged-register-prefix", "paged-snapshot", "paged-extract-request", "paged-spec-step",
-     "windowed", "draft", "mesh", "ngram", "plane", "kv-memory-bound", "speculate"],
+    ["paged-snapshot", "paged-extract-request", "windowed", "mesh", "plane",
+     "kv-memory-bound"],
 )
 def test_unported_options_raise(call):
     from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink
-    from nnstreamer_tpu_torch.models import zoo
     from nnstreamer_tpu_torch.models.serving import ContinuousBatcher
     from nnstreamer_tpu_torch.models.transformer import TransformerLM
 
@@ -408,23 +407,14 @@ def test_unported_options_raise(call):
     def paged():
         return batcher(kv_layout="paged", block_size=4)
 
-    def lm_zoo(**kw):
-        return zoo.get("transformer_lm", device="cpu", vocab="16", d_model="16",
-                       n_heads="2", n_layers="1", **kw)
-
     calls = {
-        "paged-register-prefix": lambda: paged().register_prefix([1, 2, 3]),
         "paged-snapshot": lambda: paged().snapshot(),
         "paged-extract-request": lambda: paged().extract_request(0),
-        "paged-spec-step": lambda: paged().spec_step(),
         "windowed": lambda: batcher(windowed=True),
-        "draft": lambda: batcher(draft_params=lm),
         "mesh": lambda: batcher(mesh=object()),
-        "ngram": lambda: lm_zoo(generate="2", decode="ngram"),
         "plane": lambda: LlmServerSink(plane="p0"),
         "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                      "kv-memory-bound": "64M"}),
-        "speculate": lambda: LlmServerSink(speculate="4"),
     }
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[call]()

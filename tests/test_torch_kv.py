@@ -613,10 +613,10 @@ def test_paged_batcher_validates_like_reference(models):
     with pytest.raises(ValueError, match="kv_attn"):
         tsv.ContinuousBatcher(lm, N_HEADS, device="cpu", kv_attn="block", **BATCHER)
     cb = paged()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown prefix"):
         cb.submit(_prompt(4, 0), 2, prefix=0)
-    for method in ("register_prefix", "snapshot", "restore", "extract_request",
-                   "adopt_request", "resume_from_span", "spec_step", "spec_pump"):
+    for method in ("snapshot", "restore", "extract_request", "adopt_request",
+                   "resume_from_span"):
         with pytest.raises(NotImplementedError, match="not ported"):
             getattr(cb, method)()
 

@@ -414,12 +414,11 @@ def test_batcher_validates_and_refuses_unported(models):
     cb = tsv.ContinuousBatcher(lm, N_HEADS, n_slots=1, max_len=16, prompt_len=8, device="cpu")
     with pytest.raises(ValueError, match="overflow"):
         cb.submit(np.ones(10, np.int32), 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown prefix"):
         cb.submit(np.ones(3, np.int32), 2, prefix=0)
     rid = cb.submit(np.ones(3, np.int32), 1)  # budget one: done at submit
     assert cb.result(rid) is not None and cb.n_free == 1
-    for method in ("spec_step", "spec_pump", "register_prefix", "snapshot", "restore",
-                   "extract_request", "adopt_request"):
+    for method in ("snapshot", "restore", "extract_request", "adopt_request"):
         with pytest.raises(NotImplementedError):
             getattr(cb, method)()
 

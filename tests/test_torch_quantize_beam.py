@@ -268,8 +268,3 @@ def test_zoo_decode_beam_matches_reference(beam_npz, extra):
     want = jzoo.get("transformer_lm", **opts).fn(jnp.asarray(p))
     assert got[0].tolist() == np.asarray(want)[0].tolist()
 
-
-def test_zoo_decode_ngram_still_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tzoo.get("transformer_lm", device="cpu", vocab="16", d_model="16", n_heads="2",
-                 n_layers="1", generate="2", decode="ngram")
