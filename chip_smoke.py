@@ -153,8 +153,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 18a. serving_graphs — the serving engine's one-program pump (ROADMAP
                  A.2): every step() and step_pump(n) is one pump program,
                  on the card a CUDA graph replayed with K3 / K4 inside it,
-                 so phases 12-18 above run captured. At Mistral-7B's full
-                 width (32 layers, float32), for the slot (K3) and the paged
+                 so phases 12-18 above run captured. At Mistral-7B's widths
+                 (8 layers since PR 15, float32), for the slot (K3) and the paged
                  (K4) layout, the phase's 16-request x 64-token traffic on a
                  fresh batcher per run, eager oracle (step_eager /
                  step_pump_eager) and replays in turns (eager, replay,
@@ -196,17 +196,56 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  and no kernel launch a replayed pump, device ms a round by
                  class (weight matmuls / verify attention / other, from the
                  eager profile with the verify attention annotated) and
-                 the busy share. spec_draft_self: the target as its own
-                 draft (shared weights, its own cache), 8 requests, spec
-                 pumps between plain pumps: acceptance 1.0 (a rejection
-                 only where the no-cache forward has a near-tie), streams =
-                 plain. spec_sampling (4 layers, both layouts, greedy /
-                 top-k / top-p mixed): replayed = eager token for token.
+                 the busy share. spec_draft_self (4 layers since PR 15):
+                 the target as its own draft (shared weights, its own
+                 cache), 8 requests, spec pumps between plain pumps:
+                 acceptance 1.0 (a rejection only where the no-cache
+                 forward has a near-tie), streams = plain. spec_sampling
+                 (4 layers, both layouts, greedy / top-k / top-p mixed):
+                 replayed = eager token for token.
                  prefixes (both layouts, full width): a 256-token
                  registered prefix and 8 prefix= requests against the same
                  requests concatenated on a fresh batcher: streams equal
                  (margin rule), admission ms with and without the prefix,
                  K3 / K4 = layers x steps on the decode that follows.
+18c. serving_state — the sliding-window ring, snapshot/restore and KV-span
+                 migration (ROADMAP A.4b). windowed_ring: Mistral-7B widths
+                 (32 layers, float32) on its published window (max_len =
+                 sliding_window = 4096, prompt_len 512, K3), 8 requests of
+                 3584 prompt tokens (7 ring-prefill buckets; half periodic)
+                 and 1024 new ones, so every slot wraps the ring at its
+                 512th token: replayed pumps of 8 (K3 = layers x steps, one
+                 cudaGraphLaunch a pump before and after the wrap, device
+                 bytes allocated flat across it), a snapshot at 480 tokens;
+                 from it the eager oracle for 64 steps across the wrap and a
+                 restored replayed run to the end, both equal to the
+                 uninterrupted streams; every stream held to a
+                 teacher-forced sliding-window forward (a causal band of
+                 width 4096 at T 4608) under the margin rule; TPOT before and
+                 after the wrap, ring prefill ms, snapshot / restore ms and
+                 host bytes, device ms a step by class; K3 at pos 3600 and
+                 saturated (wrapped-s4096) against its plain version.
+                 windowed_spec: spec_pump(2, 4, 2) for 32 rounds from the
+                 snapshot, replayed = eager, streams = the uninterrupted
+                 ones (margin rule), acceptance on the periodic half, one
+                 cudaGraphLaunch a spec pump; the ring self-draft at 4 layers
+                 (replayed = eager, every proposal accepted but at
+                 near-ties). snapshot_restore_paged: the paged_serving
+                 configuration, a snapshot with 8 live requests restored
+                 into a fresh batcher and into one that has replayed its
+                 programs: the pool's accounting equal to the snapshot's,
+                 continued streams bitwise, K4 = layers x steps.
+                 migrate_spans: two paged batchers, 4 requests behind a
+                 256-token system prompt extracted, encoded, decoded and
+                 adopted cold (bitwise), warm (the destination holds the
+                 system prompt: fewer bytes by the stripped blocks exactly,
+                 bitwise) and by resume_from_span (margin rule): ms and
+                 GB/s a request; the int8 arena at 4 layers. checkpoints:
+                 tensor_llm_serversink kv-layout=paged
+                 checkpoint-every-tokens=8 at 4 layers, the server dropped
+                 without a drain, a new one on the same directory adopts
+                 every span (no prefill queued) and finishes the streams
+                 bitwise, reaping the files.
 19. flash_kernels — the flash prefill attention kernel (K5) against its
                  plain version on the same GPU inputs: the JAX kernel
                  registry's six shapes, the main path's B 1, T 4096, H 32,
@@ -2197,6 +2236,11 @@ def paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_serving):
 
 # eager oracle and replays in turns, each run on a fresh batcher
 GRAPH_MODES = ("eager", "replay", "replay", "eager")
+# serving_graphs' depth: its checks (eager = replayed streams, launches,
+# device records, one graph launch a pump) do not depend on it, and the
+# full-width replayed step is measured by serving, paged_serving and
+# windowed_ring; cut from 32 so that the whole script keeps its time limit
+GRAPH_LAYERS = 8
 GRAPH_PROFILE_PUMPS = 2  # two pumps of 8: a 16-step window
 # the sampling check's per-request settings, cycled
 SAMPLING_KW = (dict(temperature=0.8, top_k=40, seed=1), dict(temperature=1.0, top_p=0.9, seed=2),
@@ -2374,8 +2418,8 @@ def graphs_cell(torch, np, sv, tfm, lm, dev, name, prompts, kw, counter, zero_co
 
 def serving_graphs_phases(torch, np, dev):
     """The serving_graphs group: slot (K3) and paged (K4) at Mistral-7B's
-    full width, eager oracle against replays; the matmuls under capture;
-    the sampling pump at 4 layers, replayed against eager."""
+    widths, GRAPH_LAYERS layers, eager oracle against replays; the matmuls
+    under capture; the sampling pump at 4 layers, replayed against eager."""
     from nnstreamer_tpu_torch.capture import capture
     from nnstreamer_tpu_torch.models import serving as sv
     from nnstreamer_tpu_torch.models import transformer as tfm
@@ -2384,11 +2428,13 @@ def serving_graphs_phases(torch, np, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_group = time.perf_counter()
-    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                         **dict(MISTRAL, n_layers=GRAPH_LAYERS), device=dev)
     weights_gb = sum(p.numel() * p.element_size() for p in lm.parameters()) / 1e9
     matmul_gb = sum(m.weight.numel() * m.weight.element_size() for m in lm.modules()
                     if isinstance(m, torch.nn.Linear)) / 1e9
-    out = {"phase": "serving_graphs", **MISTRAL, **SERVE, "compute_dtype": "float32",
+    out = {"phase": "serving_graphs", **MISTRAL, "n_layers": GRAPH_LAYERS, **SERVE,
+           "compute_dtype": "float32",
            "new_tokens": NEW_TOKENS, "modes": list(GRAPH_MODES), "weights_gb": weights_gb,
            "matmul_weights_gb": matmul_gb,
            # the matmuls read every weight once a step: their bound a step
@@ -2788,17 +2834,6 @@ def speculative_phases(torch, np, dev):
                                           counter, other)
             emit({"phase": f"spec_ngram_{name}", **cells[name]})
         out["spec_ngram"] = cells
-        # the plain streams of the first DRAFT_REQUESTS prompts, 32 tokens: what
-        # the plain pump gave (greedy streams do not depend on the batch)
-        ref = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, attn_impl="pallas",
-                                   device=dev)
-        want = drive_runs(ref, prompts[:DRAFT_REQUESTS], DRAFT_NEW,
-                          lambda c: c.step_pump(8))["tokens"]
-        del ref
-        torch.cuda.empty_cache()
-        draft = draft_self_phase(torch, np, sv, tfm, lm, dev, prompts[:DRAFT_REQUESTS], want)
-        emit({"phase": "spec_draft_self", **draft})
-        out["spec_draft_self"] = draft
         rng = np.random.default_rng(15)
         system = rng.integers(1, MISTRAL["vocab"], PREFIX_LEN).astype(np.int32)
         tails = [rng.integers(1, MISTRAL["vocab"], n).astype(np.int32)
@@ -2813,9 +2848,22 @@ def speculative_phases(torch, np, dev):
         out["prefixes"] = prefixes
     del lm
     torch.cuda.empty_cache()
-    # the sampling spec pump, 4 layers: replayed tokens equal the eager oracle's
+    # the self-draft and the sampling spec pump, 4 layers
     lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(1),
                           **dict(MISTRAL, n_layers=4), device=dev)
+    with torch.no_grad():
+        # the plain streams of the first DRAFT_REQUESTS prompts, 32 tokens: what
+        # the plain pump gave (greedy streams do not depend on the batch)
+        ref = sv.ContinuousBatcher(lm4, MISTRAL["n_heads"], **SERVE, attn_impl="pallas",
+                                   device=dev)
+        want = drive_runs(ref, prompts[:DRAFT_REQUESTS], DRAFT_NEW,
+                          lambda c: c.step_pump(8))["tokens"]
+        del ref
+        torch.cuda.empty_cache()
+        draft = draft_self_phase(torch, np, sv, tfm, lm4, dev, prompts[:DRAFT_REQUESTS], want)
+    emit({"phase": "spec_draft_self", "layers": 4, **draft})
+    out["spec_draft_self"] = draft
+    # the sampling spec pump: replayed tokens equal the eager oracle's
     sprompts = sampling_traffic(np)
     sampled = {}
     for name, kw in (("slot", {}), ("paged", dict(PAGED, kv_blocks=KV_BLOCKS))):
@@ -2855,6 +2903,704 @@ def speculative_phases(torch, np, dev):
     out["k4_launches"] = (cells["paged"]["plain"]["attention_launches"]
                           + sum(prefixes["paged"][m]["attention_launches"]
                                 for m in ("prefix", "concatenated")))
+    return out
+
+
+# -- the serving engine's state: the sliding-window ring, snapshot/restore, spans ----------
+
+RING_PROMPT, RING_NEW = 3584, 1024  # 7 prefill buckets; every slot wraps at its 512th token
+RING_SNAP_AT = 480  # new tokens a request has when the ring phase snapshots
+RING_PROFILE_AT = 576  # ... when the wrapped ring's profile runs (every slot past the wrap)
+RING_EAGER_STEPS = 64  # the eager oracle's steps from the snapshot, across the wrap
+RING_SPEC_ROUNDS = 32  # the spec phase's rounds from the snapshot, across the wrap
+RING_PROFILE_PUMPS = 2
+STATE_NEW = 64  # new tokens a request in the paged, span and checkpoint phases
+SPAN_REQUESTS = 4
+CKPT_OPTS = "vocab:32000,d_model:4096,n_heads:32,n_kv_heads:8,n_layers:4,seed:0"
+
+
+def ring_traffic(np, rng):
+    """The ring phase's 8 prompts of RING_PROMPT tokens, alternating a
+    periodic one (a random 3-7-token pattern tiled, as spec_traffic builds
+    them) and a random one."""
+    vocab = MISTRAL["vocab"]
+    out = []
+    for i in range(SERVE["n_slots"]):
+        if i % 2 == 0:
+            pat = rng.integers(1, vocab, int(rng.integers(3, 8)))
+            out.append(np.tile(pat, -(-RING_PROMPT // len(pat)))[:RING_PROMPT].astype(np.int32))
+        else:
+            out.append(rng.integers(1, vocab, RING_PROMPT).astype(np.int32))
+    return out
+
+
+def snapshot_bytes(snap):
+    """The host bytes of a snapshot's arrays (device state and prefixes)."""
+    def size(x):
+        if isinstance(x, (tuple, list)):
+            return sum(size(t) for t in x)
+        if isinstance(x, dict):
+            return sum(size(t) for t in x.values())
+        return getattr(x, "nbytes", 0)
+
+    return size(snap["device"]) + size(snap.get("prefixes", {}))
+
+
+def timed(torch, fn):
+    """(fn's result, its ms): the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def slot_positions(cb):
+    """The fill of every occupied slot, from the host's record."""
+    return [r.fill0 + len(r.tokens) - 1 for r in cb._slots if r is not None]
+
+
+def pump_profile(torch, run, n_layers, counter, steps_per_pump, extra):
+    """RING_PROFILE_PUMPS runs of ``run`` (one warm-up run in the profiler's
+    first step, dropped) under torch.profiler: host kernel / graph launches
+    a run, device ms a step by class, the busy share; the attention kernel's
+    counted launches over the window (the counter runs on)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        c0 = counter.count
+        time.sleep(0.01)
+        t0 = time.perf_counter()
+        for _ in range(RING_PROFILE_PUMPS):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(0.01)
+    k, g, m = host_launches(prof)
+    steps = RING_PROFILE_PUMPS * steps_per_pump
+    cls = profile_classes(torch, prof, wall, extra, main=MATMUL_KEYS)
+    return {"kernel_launches_per_pump": k / RING_PROFILE_PUMPS,
+            "graph_launches_per_pump": g / RING_PROFILE_PUMPS,
+            "memcpy_calls_per_pump": m / RING_PROFILE_PUMPS,
+            "window_steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "attention_launches": counter.count - c0, **per_step(cls, steps),
+            "top_kernels": cls["top_kernels"][:5]}
+
+
+def sliding_oracle(torch, np, tfm, lm, prompt, toks, window):
+    """Teacher-forced sliding-window logits of ``toks`` after ``prompt``:
+    the no-cache forward of prompt ‖ toks[:-1] with each position attending
+    itself and the window - 1 before it (a causal band of width
+    ``window``), plain torch, float32 → [len(toks), V]."""
+    import torch.nn.functional as F
+
+    def band(q, k, v, causal=True):
+        t = q.shape[1]
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+        i = torch.arange(t, device=q.device)
+        keep = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        s = s.masked_fill_(~keep[None, None], float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        del s
+        return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+
+    seq = torch.as_tensor(np.concatenate([prompt, np.asarray(toks[:-1], np.int32)])[None],
+                          device=lm.embed.device)
+    x = tfm.embed_lookup(lm.embed, seq, torch.float32)
+    x = tfm.apply_layers(lm, x, MISTRAL["n_heads"], torch.arange(seq.shape[1],
+                                                                  device=seq.device), band)
+    x = tfm.rmsnorm(x[:, len(prompt) - 1:], lm.ln_f)
+    return F.linear(x, tfm.wt(lm.head.weight, x.dtype)).float()[0]
+
+
+def parted_at_tie(torch, logits, got, want, start, rel=MARGIN_REL):
+    """``got`` against ``want`` (token lists from ``start`` on), ``logits``
+    the oracle teacher-forced on ``want``: equal, or the first token where
+    they part has a top-2 margin below ``rel`` × max |logit| there. → True
+    if they part at a near-tie (raises if elsewhere)."""
+    i = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    if i is None:
+        return False
+    row = logits[start + i]
+    top2 = row.topk(2).values
+    if not float(top2[0] - top2[1]) < rel * float(row.abs().max()):
+        raise AssertionError(f"streams part at token {start + i} ({got[i]} vs {want[i]}) where "
+                             f"the oracle's top-2 margin is {float(top2[0] - top2[1])}")
+    return True
+
+
+def drive_to(cb, rids, pump, until, pump_ms=None, before=None, after=None):
+    """Pumps until ``until()``; each pump's ms a step into ``before`` (every
+    slot's writes inside the first W positions), ``after`` (every slot past
+    the wrap) or neither."""
+    W = cb.max_len
+    while not until():
+        pos = slot_positions(cb)
+        t0 = time.perf_counter()
+        n = pump(cb)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        if before is not None and pos and max(pos) + n <= W:
+            before.append(ms)
+        elif after is not None and pos and min(pos) >= W:
+            after.append(ms)
+    return [list(cb.result(r) or cb.partial(r)) for r in rids]
+
+
+def ring_phase(torch, np, sv, tfm, da, lm, dev):
+    """windowed_ring and windowed_spec (phase 18c): Mistral-7B's full width
+    on its published window, 8 requests that wrap the ring; → (the phase
+    summary, K3's counted launches)."""
+    n_layers = lm.n_layers
+    k3 = da.decode_attention_launches
+    prompts = ring_traffic(np, np.random.default_rng(16))
+
+    def make(**kw):
+        return sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, windowed=True,
+                                    attn_impl="pallas", device=dev, **kw)
+
+    def pump8(c):
+        c.step_pump(8)
+        return 8
+
+    out = {}
+    t_phase = time.perf_counter()
+    cb = make()
+    prefill_ms = []
+    rids = []
+    for p in prompts:
+        rid, ms = timed(torch, lambda p=p: cb.submit(p, RING_NEW))
+        rids.append(rid)
+        prefill_ms.append(ms)
+    k3.reset()
+    st0 = cb.stats()
+    before, after = [], []
+
+    def n_tok():
+        return min(len(cb.partial(r) or ()) for r in rids)
+
+    drive_to(cb, rids, pump8, lambda: n_tok() >= RING_SNAP_AT // 2, before=before)
+    prof_before = pump_profile(torch, lambda: cb.step_pump(8), n_layers, k3, 8,
+                               [("decode_attention (K3)", "decode_attention")])
+    drive_to(cb, rids, pump8, lambda: n_tok() >= RING_SNAP_AT, before=before)
+    torch.cuda.synchronize()
+    mem_before_wrap = torch.cuda.memory_allocated(dev)
+    snap, snapshot_ms = timed(torch, cb.snapshot)
+    snap_pos = slot_positions(cb)
+    snap_tokens = {r: list(cb.partial(r)) for r in rids}
+    drive_to(cb, rids, pump8, lambda: n_tok() >= RING_PROFILE_AT, after=after)
+    prof_after = pump_profile(torch, lambda: cb.step_pump(8), n_layers, k3, 8,
+                              [("decode_attention (K3)", "decode_attention")])
+    R = drive_to(cb, rids, pump8, lambda: all(cb.result(r) is not None for r in rids),
+                 after=after)
+    torch.cuda.synchronize()
+    mem_end = torch.cuda.memory_allocated(dev)
+    st = cb.stats()
+    steps = st["steps"] - st0["steps"]
+    launches = k3.count
+    progs = replayed_programs(st, "windowed_ring")
+    del cb
+    torch.cuda.empty_cache()
+    if launches != n_layers * steps:
+        raise AssertionError(f"windowed_ring: K3 counted {launches} launches for {n_layers} x "
+                             f"{steps} steps")
+    if any(len(t) != RING_NEW for t in R):
+        raise AssertionError("windowed_ring: a request came back short")
+    for name, prof in (("before", prof_before), ("after", prof_after)):
+        if prof["graph_launches_per_pump"] != 1 or prof["kernel_launches_per_pump"]:
+            raise AssertionError(f"windowed_ring {name} the wrap: a replayed pump launched "
+                                 f"{prof['graph_launches_per_pump']} graphs and "
+                                 f"{prof['kernel_launches_per_pump']} kernels, want 1 and 0")
+    if mem_end != mem_before_wrap:
+        raise AssertionError(f"windowed_ring: {mem_before_wrap} bytes allocated before the wrap, "
+                             f"{mem_end} after the last step")
+    for r, got in zip(rids, R):
+        if got[:len(snap_tokens[r])] != snap_tokens[r]:
+            raise AssertionError("windowed_ring: a stream changed before the snapshot point")
+
+    # the eager oracle from the snapshot, across the wrap
+    cb = make()
+    _, restore_ms = timed(torch, lambda: cb.restore(snap))
+    for _ in range(RING_EAGER_STEPS // 8):
+        cb.step_pump_eager(8)
+    eager = [list(cb.partial(r)) for r in rids]
+    eager_pos = slot_positions(cb)
+    if cb._programs:
+        raise AssertionError(f"windowed_ring: the eager oracle filled {list(cb._programs)}")
+    del cb
+    torch.cuda.empty_cache()
+    for r, got, want in zip(rids, eager, R):
+        if got != want[:len(got)] or len(got) < len(snap_tokens[r]) + RING_EAGER_STEPS:
+            raise AssertionError("windowed_ring: the eager steps across the wrap differ from R")
+    # restored and replayed to the end: R bit for bit
+    cb = make()
+    cb.restore(snap)
+    k3.reset()
+    st0 = cb.stats()
+    restored = drive_to(cb, rids, pump8, lambda: all(cb.result(r) is not None for r in rids))
+    st = cb.stats()
+    if k3.count != n_layers * (st["steps"] - st0["steps"]):
+        raise AssertionError("windowed_ring restored: K3 launches != layers x steps")
+    del cb
+    torch.cuda.empty_cache()
+    if restored != R:
+        raise AssertionError("windowed_ring: the restored streams differ from R")
+
+    # the sliding-window oracle at T = prompt + new tokens
+    t_oracle = time.perf_counter()
+    parted = 0
+    oracle = []
+    with torch.no_grad():
+        for p, toks in zip(prompts, R):
+            logits = sliding_oracle(torch, np, tfm, lm, p, toks, SERVE["max_len"])
+            wrong, ties = margin_check(torch, logits, toks)
+            if wrong:
+                raise AssertionError(f"windowed_ring: {wrong} tokens differ from the "
+                                     f"sliding-window oracle outside near-ties ({ties} near-ties)")
+            parted += ties
+            oracle.append(logits)
+            torch.cuda.empty_cache()
+    t_oracle = time.perf_counter() - t_oracle
+    # K3 at the ring's positions against its plain version
+    k3_cases = [
+        attn_case(torch, np, da, "ring-pos3600", 8, 32, 8, 128, 4096, [3600] * 8),
+        attn_case(torch, np, da, "wrapped-s4096", 8, 32, 8, 128, 4096,
+                  [4096 + (i * 4095) // 7 for i in range(8)]),
+    ]
+    out["windowed_ring"] = {
+        "requests": len(prompts), "prompt_tokens": RING_PROMPT, "new_tokens": RING_NEW,
+        "window": SERVE["max_len"], "snapshot_at_tokens": RING_SNAP_AT,
+        "ring_prefill_ms_per_request": prefill_ms,
+        "ring_prefill_ms_per_request_p50": pct(sorted(prefill_ms), 0.5),
+        "tpot_ms_before_wrap_p50": pct(sorted(before), 0.5),
+        "tpot_ms_before_wrap_p99": pct(sorted(before), 0.99),
+        "tpot_ms_after_wrap_p50": pct(sorted(after), 0.5),
+        "tpot_ms_after_wrap_p99": pct(sorted(after), 0.99),
+        "pumps_before_wrap": len(before), "pumps_after_wrap": len(after),
+        "steps": steps, "k3_launches": launches, "layers_x_steps": n_layers * steps,
+        "programs": progs,
+        "allocated_bytes_before_wrap": mem_before_wrap, "allocated_bytes_end": mem_end,
+        "snapshot_ms": snapshot_ms, "restore_ms": restore_ms,
+        "snapshot_host_bytes": snapshot_bytes(snap), "snapshot_positions": snap_pos,
+        "eager_steps": RING_EAGER_STEPS, "eager_positions_end": eager_pos,
+        "eager_equal": True, "restored_equal": True,
+        "oracle_near_ties": parted, "oracle_mismatches_outside_near_ties": 0,
+        "profile_before_wrap": prof_before, "profile_after_wrap": prof_after,
+        "k3_cases": k3_cases, "oracle_seconds": t_oracle,
+        "seconds": time.perf_counter() - t_phase,
+    }
+    emit({"phase": "windowed_ring", **out["windowed_ring"]})
+
+    # windowed_spec: the same state, spec pumps across the wrap
+    t_phase = time.perf_counter()
+    runs = {}
+    for mode in ("replay", "eager"):
+        cb = make()
+        cb.restore(snap)
+        st0 = cb.stats()
+        run = spec_pump_of(mode == "eager")
+        for _ in range(RING_SPEC_ROUNDS // SPEC_ROUNDS):
+            run(cb)
+        st = cb.stats()
+        toks = [list(cb.partial(r)) for r in rids]
+        runs[mode] = {"tokens": toks, "positions_end": slot_positions(cb),
+                      **spec_counters(st, st0), **spec_programs(st)}
+        if mode == "replay":
+            runs[mode]["profile"] = pump_profile(
+                torch, lambda: run(cb), n_layers, k3, SPEC_ROUNDS,
+                [("decode_attention (K3)", "decode_attention")])
+        del cb
+        torch.cuda.empty_cache()
+    if runs["replay"]["tokens"] != runs["eager"]["tokens"]:
+        raise AssertionError("windowed_spec: replayed spec streams differ from eager")
+    prof = runs["replay"]["profile"]
+    if prof["graph_launches_per_pump"] != 1 or prof["kernel_launches_per_pump"]:
+        raise AssertionError(f"windowed_spec: a replayed spec pump launched "
+                             f"{prof['graph_launches_per_pump']} graphs and "
+                             f"{prof['kernel_launches_per_pump']} kernels, want 1 and 0")
+    spec_parted = 0
+    accepted_periodic = 0
+    for i, (r, got, want, logits) in enumerate(zip(rids, runs["replay"]["tokens"], R, oracle)):
+        start = len(snap_tokens[r])
+        spec_parted += parted_at_tie(torch, logits, got[start:], want[start:], start)
+        if i % 2 == 0:
+            accepted_periodic += len(got) - start - RING_SPEC_ROUNDS
+    if accepted_periodic <= 0:
+        raise AssertionError("windowed_spec: no proposal accepted on the periodic half")
+    for r in runs.values():
+        del r["tokens"]
+    out["windowed_spec"] = {"rounds": RING_SPEC_ROUNDS, "k": SPEC_K, "ngram": SPEC_G,
+                            "accepted_tokens_periodic_half": accepted_periodic,
+                            "streams_parted_at_near_tie": spec_parted, "replay_equal_eager": True,
+                            **runs, "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "windowed_spec", **out["windowed_spec"]})
+    return out, launches
+
+
+def ring_self_draft(torch, np, sv, tfm, dev):
+    """windowed_spec's self-draft at 4 layers: the target as its own draft
+    on the ring (its spec_pump runs spec_step rounds, each one replayed
+    program), from a snapshot at RING_SNAP_AT tokens, replayed and eager."""
+    lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(2),
+                          **dict(MISTRAL, n_layers=4), device=dev)
+    prompts = ring_traffic(np, np.random.default_rng(17))
+
+    def make():
+        return sv.ContinuousBatcher(lm4, MISTRAL["n_heads"], **SERVE, windowed=True,
+                                    attn_impl="pallas", device=dev, draft_params=lm4,
+                                    draft_n_heads=MISTRAL["n_heads"])
+
+    cb = make()
+    rids = [cb.submit(p, RING_SNAP_AT + 2 * RING_SPEC_ROUNDS * SPEC_K) for p in prompts]
+    while min(len(cb.partial(r) or ()) for r in rids) < RING_SNAP_AT:
+        cb.step_pump(8)
+    snap = cb.snapshot()
+    start = {r: len(cb.partial(r)) for r in rids}
+    del cb
+    runs = {}
+    for mode in ("replay", "eager"):
+        cb = make()
+        cb.restore(snap)
+        st0 = cb.stats()
+        for _ in range(RING_SPEC_ROUNDS // SPEC_ROUNDS):
+            (cb.spec_pump_eager if mode == "eager" else cb.spec_pump)(SPEC_ROUNDS, SPEC_K)
+        st = cb.stats()
+        runs[mode] = {"tokens": [list(cb.partial(r)) for r in rids],
+                      "positions_end": slot_positions(cb), **spec_counters(st, st0),
+                      **spec_programs(st)}
+        del cb
+        torch.cuda.empty_cache()
+    if runs["replay"]["tokens"] != runs["eager"]["tokens"]:
+        raise AssertionError("windowed_spec self-draft: replayed rounds differ from eager")
+    rep = runs["replay"]
+    rejected = rep["spec_columns"] - rep["spec_accepted_tokens"]
+    ties = 0
+    if rejected:
+        with torch.no_grad():
+            for p, r, toks in zip(prompts, rids, rep["tokens"]):
+                logits = sliding_oracle(torch, np, tfm, lm4, p, toks, SERVE["max_len"])
+                ties += margin_check(torch, logits[start[r]:], toks[start[r]:])[1]
+    if rejected > ties:
+        raise AssertionError(f"windowed_spec self-draft: {rejected} proposals rejected, "
+                             f"{ties} near-ties")
+    for r in runs.values():
+        del r["tokens"]
+    del lm4
+    torch.cuda.empty_cache()
+    return {"layers": 4, "rejected": rejected, "near_ties": ties, **runs}
+
+
+def paged_state_phase(torch, np, sv, tfm, pa, lm, dev):
+    """snapshot_restore_paged (phase 18c): the paged_serving configuration
+    at full width, a snapshot with 8 live requests, restored into a fresh
+    batcher and into one that has replayed its programs."""
+    n_layers = lm.n_layers
+    k4 = pa.paged_decode_attention_launches
+    prompts = paged_traffic(np, np.random.default_rng(18))
+
+    def make():
+        return sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **PAGED,
+                                    kv_blocks=KV_BLOCKS, attn_impl="pallas", device=dev)
+
+    def run_rest(cb, rids, queue):
+        """Submit the queue as slots free; pump to the end → streams in
+        order, steps, K4 launches."""
+        k4.reset()
+        st0 = cb.stats()
+        rids = list(rids)
+        queue = list(queue)
+        while queue or any(cb.result(r) is None for r in rids):
+            while queue and cb.n_free and (rid := cb.submit(queue[0], STATE_NEW)) is not None:
+                rids.append(rid)
+                queue.pop(0)
+            cb.step_pump(1 if cb.stats()["kv_prefill_queue"] else 8)
+        steps = cb.stats()["steps"] - st0["steps"]
+        if k4.count != n_layers * steps:
+            raise AssertionError(f"snapshot_restore_paged: K4 counted {k4.count} launches for "
+                                 f"{n_layers} x {steps} steps")
+        return [list(cb.result(r)) for r in rids], steps
+
+    cb = make()
+    rids = [cb.submit(p, STATE_NEW) for p in prompts[:SERVE["n_slots"]]]
+    while cb.stats()["kv_prefill_queue"] or cb._pending:
+        cb.step_pump(1)
+    cb.step_pump(8)
+    if not cb._active.all():
+        raise AssertionError("snapshot_restore_paged: a request finished before the snapshot")
+    snap, snapshot_ms = timed(torch, cb.snapshot)
+    pool_snap = snap["pool"]
+    want, steps_a = run_rest(cb, rids, prompts[SERVE["n_slots"]:])
+    del cb
+    torch.cuda.empty_cache()
+    out = {"requests": len(prompts), "live_at_snapshot": len(rids), "new_tokens": STATE_NEW,
+           "snapshot_ms": snapshot_ms, "snapshot_host_bytes": snapshot_bytes(snap),
+           "uninterrupted_steps": steps_a}
+    n_live = len(rids)
+    for name in ("fresh", "after_replays"):
+        cb = make()
+        if name == "after_replays":
+            warm = cb.submit(prompts[1][:64], 16)
+            while cb.result(warm) is None:
+                cb.step_pump(8 if not cb.stats()["kv_prefill_queue"] else 1)
+            replayed_programs(cb.stats(), "snapshot_restore_paged")
+            progs = sorted(cb._programs)
+        _, ms = timed(torch, lambda: cb.restore(snap))
+        if cb._pool.snapshot() != pool_snap:
+            raise AssertionError(f"snapshot_restore_paged {name}: the restored pool's refcounts, "
+                                 "cached tier or prefix index differ from the snapshot's")
+        got, steps = run_rest(cb, rids, prompts[SERVE["n_slots"]:])
+        if name == "after_replays" and sorted(cb._programs) != progs:
+            raise AssertionError("snapshot_restore_paged: the restore filled new programs")
+        del cb
+        torch.cuda.empty_cache()
+        if got[:n_live] != want[:n_live]:
+            raise AssertionError(f"snapshot_restore_paged {name}: continued streams differ")
+        parted = sum(stream_check(torch, np, tfm, lm, p, g, w, MARGIN_REL, torch.float32)
+                     for p, g, w in zip(prompts[n_live:], got[n_live:], want[n_live:]))
+        out[name] = {"restore_ms": ms, "steps": steps, "k4_launches": n_layers * steps,
+                     "continued_equal": True,
+                     "later_requests_equal": got[n_live:] == want[n_live:],
+                     "later_parted_at_near_tie": parted}
+    return out, steps_a + sum(out[n]["steps"] for n in ("fresh", "after_replays"))
+
+
+def span_phase(torch, np, sv, tfm, pa, lm, dev, n_layers_note="full"):
+    """migrate_spans (phase 18c): two paged batchers sharing one weight set;
+    SPAN_REQUESTS requests behind a shared 256-token system prompt moved
+    cold, warm (the destination holds the system prompt) and by
+    resume_from_span; → the flows' numbers."""
+    from nnstreamer_tpu_torch.kv import migrate
+
+    k4 = pa.paged_decode_attention_launches
+    rng = np.random.default_rng(19)
+    vocab = MISTRAL["vocab"]
+    system = rng.integers(1, vocab, SYSTEM_PROMPT).astype(np.int32)
+    prompts = [np.concatenate([system, rng.integers(1, vocab, int(n)).astype(np.int32)])
+               for n in rng.integers(100, 300, SPAN_REQUESTS)]
+    cache_dtype = "int8" if n_layers_note == "int8" else "auto"
+
+    def make():
+        return sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, **PAGED,
+                                    kv_blocks=KV_BLOCKS // 2, attn_impl="pallas", device=dev,
+                                    cache_dtype=cache_dtype)
+
+    def serve(cb, rids):
+        while any(cb.result(r) is None for r in rids):
+            cb.step_pump(1 if cb.stats()["kv_prefill_queue"] else 8)
+        return [list(cb.result(r)) for r in rids]
+
+    def mid(cb):
+        rids = [cb.submit(p, STATE_NEW) for p in prompts]
+        while cb.stats()["kv_prefill_queue"] or not all(
+                cb._active[s] for s, r in enumerate(cb._slots) if r is not None):
+            cb.step_pump(1)
+        cb.step_pump(8)
+        return rids
+
+    src, dst = make(), make()
+    # the unmigrated streams, from a second run: its prompts hit the prefix
+    # index the first run filled, as every later run on src does (an int8
+    # arena's matched blocks seed the prefill dequantized, so a run with
+    # hits is the reference of runs with hits)
+    serve(src, [src.submit(p, STATE_NEW) for p in prompts])
+    ref = serve(src, [src.submit(p, STATE_NEW) for p in prompts])
+    out = {"requests": SPAN_REQUESTS, "system_prompt": SYSTEM_PROMPT,
+           "cache_dtype": cache_dtype}
+    for flow in ("cold", "warm", "resume"):
+        if flow == "warm":
+            dst.register_prefix(system)
+        rids = mid(src)
+        out0, in0 = src.stats()["kv_migrations_out"], dst.stats()["kv_migrations_in"]
+        per, new = [], []
+        for rid in rids:
+            span, t_ext = timed(torch, lambda rid=rid: src.extract_request(rid))
+            row = {"extract_ms": t_ext, "kv_positions": span.n_kv}
+            if flow == "warm":
+                shared = dst.probe_prefix(span.kv_tokens)
+                warm = span.strip_shared(shared)
+                stripped = sum(len(b) for r, w in zip(span.blocks, warm.blocks)
+                               if w.payload is None for b in r.payload)
+                cold_bytes = len(migrate.encode_span(span))
+                row.update(shared_tokens=shared, stripped_payload_bytes=stripped,
+                           cold_wire_bytes=cold_bytes)
+                if shared < SYSTEM_PROMPT or span.payload_bytes() - warm.payload_bytes() \
+                        != stripped or stripped <= 0:
+                    raise AssertionError(f"migrate_spans warm: {shared} tokens shared, "
+                                         f"{stripped} bytes stripped")
+                span = warm
+            wire, t_enc = timed(torch, lambda span=span: migrate.encode_span(span))
+            back, t_dec = timed(torch, lambda: migrate.decode_span(wire))
+            if flow == "resume":
+                nr, t_adopt = timed(torch, lambda: dst.resume_from_span(back))
+            else:
+                nr, t_adopt = timed(torch, lambda: dst.adopt_request(back))
+            if flow == "warm":
+                # the payloads stripped, and each stripped record's header
+                # flag one byte shorter ("true" for "false")
+                n_strip = sum(w.payload is None for w in span.blocks)
+                row.update(wire_bytes_saved=row["cold_wire_bytes"] - len(wire),
+                           blocks_stripped=n_strip)
+                if row["wire_bytes_saved"] != row["stripped_payload_bytes"] + n_strip:
+                    raise AssertionError("migrate_spans warm: the stripped span is not smaller "
+                                         "by its stripped blocks")
+            row.update(encode_ms=t_enc, decode_ms=t_dec, adopt_ms=t_adopt,
+                       wire_mb=len(wire) / 1e6,
+                       gbps=len(wire) / 1e9 / ((t_ext + t_enc + t_dec + t_adopt) / 1e3))
+            per.append(row)
+            new.append(nr)
+        k4.reset()
+        st0 = dst.stats()
+        got = serve(dst, new)
+        steps = dst.stats()["steps"] - st0["steps"]
+        if k4.count != lm.n_layers * steps:
+            raise AssertionError(f"migrate_spans {flow}: K4 {k4.count} != layers x steps")
+        parted = 0
+        if flow == "resume":
+            # a re-prefill chunks the context at other bucket edges: its K/V
+            # may differ in the last bits, so the margin rule
+            parted = sum(stream_check(torch, np, tfm, lm, p, g, w, MARGIN_REL, torch.float32)
+                         for p, g, w in zip(prompts, got, ref))
+        elif got != ref:
+            raise AssertionError(f"migrate_spans {flow}: continued streams differ from the "
+                                 "unmigrated run")
+        moved = (src.stats()["kv_migrations_out"] - out0, dst.stats()["kv_migrations_in"] - in0)
+        if moved != (SPAN_REQUESTS, 0 if flow == "resume" else SPAN_REQUESTS):
+            raise AssertionError(f"migrate_spans {flow}: migrations out/in {moved}")
+        out[flow] = {"per_request": per, "migrations_out_in": list(moved),
+                     "bitwise_equal": got == ref, "parted_at_near_tie": parted,
+                     "decode_steps": steps, "k4_launches": k4.count}
+    del src, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_phase(torch, np, dev):
+    """checkpoints (phase 18c): tensor_llm_serversink kv-layout=paged
+    checkpoint-every-tokens=8 at 4 layers; the server dropped without a
+    drain, a new one on the same directory adopts every span and finishes
+    the streams as the uninterrupted run, reaping the files."""
+    import gc
+
+    from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink, _LlmServer
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, MISTRAL["vocab"], int(n)).astype(np.int32)
+               for n in rng.integers(100, 400, 4)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ckdir = os.path.join(tmp, "spans")
+        props = {"id": "ckpt", "custom": CKPT_OPTS, "kv-layout": "paged", "block-size": 16,
+                 "kv-blocks": 512, "n-slots": 4, "max-len": 1024, "prompt-len": 256,
+                 "max-new-tokens": STATE_NEW, "attn-impl": "pallas"}
+        kw = dict(LlmServerSink(**props)._create_kw, device=dev)
+        ck_kw = dict(LlmServerSink(**props, **{"checkpoint-every-tokens": 8,
+                                                 "checkpoint-dir": ckdir})._create_kw, device=dev)
+
+        def submit_all(srv):
+            for i, p in enumerate(prompts):
+                srv.submit(Frame((p,), meta={"req": f"c{i}"}))
+
+        def finish(srv):
+            out = {}
+            while len(out) < len(prompts):
+                srv.pump()
+                while (item := srv.pop()) is not None:
+                    out[item[1]["req"]] = [int(t) for t in item[0]]
+            return out
+
+        srv = _LlmServer(**kw)
+        submit_all(srv)
+        want = finish(srv)
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv = _LlmServer(**ck_kw)
+        submit_all(srv)
+        while min(len(srv.cb.partial(r) or ()) for r in srv._pending) < STATE_NEW // 2:
+            srv.pump()
+        files = sorted(os.listdir(ckdir))
+        del srv  # no drain, no extraction: only the files survive
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv, build_ms = timed(torch, lambda: _LlmServer(**ck_kw))
+        adopted = len(srv._pending)
+        queue = srv.cb.stats()["kv_prefill_queue"]
+        migrations_in = srv.cb.stats()["kv_migrations_in"]
+        got = finish(srv)
+        left = [f for f in os.listdir(ckdir) if f.endswith(".span")]
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    if len(files) != len(prompts) or adopted != len(prompts) or queue or migrations_in != 4:
+        raise AssertionError(f"checkpoints: {len(files)} files, {adopted} adopted, prefill "
+                             f"queue {queue}, migrations in {migrations_in}")
+    if got != want:
+        raise AssertionError("checkpoints: the restarted streams differ from the uninterrupted run")
+    if left:
+        raise AssertionError(f"checkpoints: files not reaped: {left}")
+    return {"layers": 4, "requests": len(prompts), "every_tokens": 8, "files": len(files),
+            "adopted": adopted, "kv_prefill_queue": queue, "restart_build_ms": build_ms,
+            "equal": True, "files_left": 0}
+
+
+def serving_state_phases(torch, np, dev):
+    """The serving_state group (phase 18c): windowed_ring, windowed_spec,
+    snapshot_restore_paged, migrate_spans at Mistral-7B's full width; the
+    ring self-draft, the int8 spans and checkpoints at 4 layers. → the
+    group's summary with K3's and K4's counted launches."""
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_group = time.perf_counter()
+    out = {"phase": "serving_state", **MISTRAL, **SERVE, "compute_dtype": "float32"}
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ring, k3_launches = ring_phase(torch, np, sv, tfm, da, lm, dev)
+        out.update(ring)
+        out["ring_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paged, paged_steps = paged_state_phase(torch, np, sv, tfm, pa, lm, dev)
+        paged["seconds"] = time.perf_counter() - t0
+        emit({"phase": "snapshot_restore_paged", **paged})
+        out["snapshot_restore_paged"] = paged
+        t0 = time.perf_counter()
+        spans = span_phase(torch, np, sv, tfm, pa, lm, dev)
+        spans["seconds"] = time.perf_counter() - t0
+        emit({"phase": "migrate_spans", **spans})
+        out["migrate_spans"] = spans
+    del lm
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        draft = ring_self_draft(torch, np, sv, tfm, dev)
+        draft["seconds"] = time.perf_counter() - t0
+        emit({"phase": "windowed_spec_self_draft", **draft})
+        out["windowed_spec"]["self_draft"] = draft
+        t0 = time.perf_counter()
+        lm4 = tfm.init_params(torch.Generator(device=dev).manual_seed(3),
+                              **dict(MISTRAL, n_layers=4), device=dev)
+        spans8 = span_phase(torch, np, sv, tfm, pa, lm4, dev, "int8")
+        spans8["seconds"] = time.perf_counter() - t0
+        emit({"phase": "migrate_spans_int8", "layers": 4, **spans8})
+        out["migrate_spans_int8"] = spans8
+        del lm4
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ck = checkpoint_phase(torch, np, dev)
+    ck["seconds"] = time.perf_counter() - t0
+    emit({"phase": "checkpoints", **ck})
+    out["checkpoints"] = ck
+    out["k3_launches"] = k3_launches
+    out["k4_launches"] = (MISTRAL["n_layers"] * paged_steps
+                          + sum(spans[f]["k4_launches"] for f in ("cold", "warm", "resume")))
+    out["seconds"] = time.perf_counter() - t_group
     return out
 
 
@@ -4749,6 +5495,9 @@ def main() -> int:
     spec = speculative_phases(torch, np, dev)
     emit({k: v for k, v in spec.items() if k not in ("spec_ngram", "prefixes", "spec_draft_self",
                                                      "spec_sampling")})
+    state = serving_state_phases(torch, np, dev)
+    emit({"phase": "serving_state", "seconds": state["seconds"],
+          "k3_launches": state["k3_launches"], "k4_launches": state["k4_launches"]})
     k5_main, k5_launches = flash_phases(torch, np, dev, parse_pipeline)
 
     main_case = cases[0]
@@ -4799,6 +5548,10 @@ def main() -> int:
         "replaces": "nnstreamer_tpu/ops/pallas/decode_attention.py:178",
         "launches": k3_launches,
         "launches_speculative": spec["k3_launches"],
+        "launches_windowed_ring": state["k3_launches"],
+        "ring_cases": [{k: c[k] for k in (
+            "case", "pos_min", "pos_max", "live_rows", "max_abs_err", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")} for c in state["windowed_ring"]["k3_cases"]],
         "max_abs_err": k3_main["max_abs_err"],
         "ms": k3_main["kernel_ms"],
         "plain_ms": k3_main["plain_ms"],
@@ -4814,6 +5567,7 @@ def main() -> int:
         "replaces": "nnstreamer_tpu/ops/pallas/paged_attention.py:202",
         "launches": k4_launches,
         "launches_speculative": spec["k4_launches"],
+        "launches_serving_state": state["k4_launches"],
         "max_abs_err": k4_main["max_abs_err"],
         "ms": k4_main["kernel_ms"],
         "plain_ms": k4_main["plain_ms"],

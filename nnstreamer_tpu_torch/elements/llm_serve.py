@@ -33,14 +33,24 @@ batcher's speculative rounds (``spec_step``, or ``spec_pump`` with
 ``pump`` > 1), ``speculate=auto`` adapts k in 2..8 from an EMA of the
 acceptance rate over proposal columns, and ``speculate-model=zoo:<name>``
 proposes with a draft model whose options ride in ``custom`` under
-``draft_``-prefixed keys (a draft alone implies k = 4). Not ported yet, and
-raising when set: the shared serving plane (``plane``), migration and
-checkpoints (``migrate-to``, ``checkpoint-*``), disaggregated serving
-(``role``, ``decode-peers``) and the lint's ``kv-memory-bound``.
+``draft_``-prefixed keys (a draft alone implies k = 4).
+
+Span checkpoints (``kv-layout=paged``): ``checkpoint-every-tokens=N``
+writes each in-flight request's KV span (``kv/migrate.py``) to
+``checkpoint-dir`` every N new tokens, atomically; a server built on a
+directory that holds spans adopts them at construction (their K/V lands
+in the arena, no prefill runs again) and finishes them, and a finished
+request's file is removed. ``drain()`` stops admitting (a submit then
+raises ``draining``), settles the prefill queue and lets the kept requests
+finish in place. Not ported yet, and raising when set: the shared serving
+plane (``plane``), migration to a peer (``migrate-to``,
+``drain(migrate_to=...)``: they need the edge layer), disaggregated
+serving (``role``, ``decode-peers``) and the lint's ``kv-memory-bound``.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -71,9 +81,8 @@ _table_lock = threading.Lock()
 _NOT_PORTED = {
     "plane": ("", "the shared LLM serving plane"),
     "plane-weight": (1.0, "the shared LLM serving plane"),
-    "migrate-to": ("", "live KV-span migration"),
-    "checkpoint-every-tokens": (0, "span checkpoints"),
-    "checkpoint-dir": ("", "span checkpoints"),
+    "migrate-to": ("", "live KV-span migration to a peer, which needs the edge layer "
+                       "(ROADMAP A.7)"),
     "role": ("", "disaggregated prefill/decode serving"),
     "decode-peers": ("", "disaggregated prefill/decode serving"),
     "kv-memory-bound": ("", "the lint's declared KV memory bound"),
@@ -104,6 +113,37 @@ def _drop_server(srv_id: str, srv: Optional["_LlmServer"]) -> None:
     with _table_lock:
         if srv is not None and _table.get(srv_id) is srv:
             _table.pop(srv_id, None)
+
+
+def _not_ported_peer(what: str) -> str:
+    return (f"tensor_llm_serversink: {what} (live KV-span migration to a peer) is not "
+            "ported yet: it needs the edge layer (ROADMAP A.7)")
+
+
+def drain_server(srv_id: str, migrate_to: Optional[str] = None) -> Dict:
+    """Drain the server registered under ``srv_id`` (:meth:`_LlmServer.drain`)
+    → its summary."""
+    with _table_lock:
+        srv = _table.get(str(srv_id))
+    if srv is None:
+        raise ElementError(f"tensor_llm_server id={srv_id}: no server registered")
+    return srv.drain(migrate_to)
+
+
+# meta keys that mean nothing outside the submitting process (the
+# reference's hop-local set): a span or checkpoint never carries them
+_SPAN_META_SKIP = frozenset({
+    "client_id", "wall_t0", "admit_t", "_nns_srv", "_nns_budget_released",
+})
+
+
+def _span_meta(meta: dict) -> dict:
+    """The JSON-scalar, cross-process subset of a request's frame meta:
+    what rides ``RequestSpan.meta`` (and the checkpoint files), so the
+    server that adopts a request emits it with its identity (``req``,
+    ``frame_id``) intact."""
+    return {k: v for k, v in meta.items() if k not in _SPAN_META_SKIP
+            and (v is None or isinstance(v, (str, int, float, bool)))}
 
 
 def _build_batcher(model: str, options: Dict[str, str], n_slots: int, max_len: int,
@@ -146,7 +186,17 @@ class _LlmServer:
                  prompt_len: int, default_new: int, device: torch.device,
                  stream: bool = False, pump_tokens: int = 1, cache_dtype: str = "auto",
                  attn_impl: str = "xla", kv_kw: Optional[dict] = None, speculate: int = 0,
-                 speculate_model: str = ""):
+                 speculate_model: str = "", srv_id: str = "0", migrate_to: str = "",
+                 checkpoint_every_tokens: int = 0, checkpoint_dir: str = ""):
+        self._paged = bool(kv_kw) and kv_kw.get("kv_layout") == "paged"
+        if (migrate_to or checkpoint_dir or checkpoint_every_tokens) and not self._paged:
+            # spans are block-table slices: the slot cache has none
+            raise ElementError(
+                "tensor_llm_serversink: migrate-to / checkpoint-every-tokens / checkpoint-dir "
+                "need kv-layout=paged (spans are block-table slices)"
+            )
+        if migrate_to:
+            raise NotImplementedError(_not_ported_peer("migrate-to"))
         self.cb = _build_batcher(model, options, n_slots, max_len, prompt_len, cache_dtype,
                                  attn_impl, device, kv_kw, speculate_model)
         self.default_new = default_new
@@ -169,8 +219,20 @@ class _LlmServer:
         self._out: deque = deque()
         self.eos = False
         self.stopped = False
+        self.srv_id = str(srv_id)
+        self.draining = False
+        self._ckpt_every = max(0, int(checkpoint_every_tokens))
+        self._ckpt_dir = str(checkpoint_dir or "")
+        self._ckpt_seen: Dict[int, int] = {}  # rid -> tokens at its last checkpoint
+        if self._ckpt_dir:
+            self._restore_checkpoints()
 
     def submit(self, frame: Frame) -> None:
+        if self.draining:
+            raise ElementError(
+                "tensor_llm_serversink: draining — not accepting new requests "
+                "(resubmit to another endpoint)"
+            )
         prompt = np.asarray(frame.to_host().tensors[0]).reshape(-1).astype(np.int32)
         budget = int(frame.meta.get("max_new_tokens", self.default_new))
         kw = dict(
@@ -207,6 +269,7 @@ class _LlmServer:
         else:
             emitted = self.cb.step_pump(n) if n > 1 else self.cb.step()
         harvested = False
+        finished: List[int] = []
         with self._lock:
             if self.stream:
                 parts = self.cb.partials(list(self._pending))
@@ -223,7 +286,13 @@ class _LlmServer:
                     meta = {**meta, "stream": True, "done": True}
                 self._sent.pop(rid, None)
                 self._out.append((toks, meta))
+                finished.append(rid)
                 harvested = True
+        if self._ckpt_dir:
+            for rid in finished:
+                self._ckpt_drop(rid)
+            if self._ckpt_every:
+                self._checkpoint_tick()
         return bool(emitted) or harvested
 
     def _stream_new_locked(self, rid: int, meta: dict, toks) -> bool:
@@ -248,6 +317,154 @@ class _LlmServer:
             self._acc_ema = 0.7 * self._acc_ema + 0.3 * rate
             self._spec_k = min(8, max(2, 2 + int(round(self._acc_ema * 6))))
             self._spec_seen = (cols, acc)
+
+    # -- migration surface and span checkpoints ---------------------------------
+    def migration_probe(self, tokens) -> int:
+        """How many leading ``tokens`` this server's prefix index covers in
+        full blocks: a sender strips those blocks' payloads."""
+        from nnstreamer_tpu_torch.kv.migrate import SpanStateError
+
+        if self.draining or self.stopped:
+            raise SpanStateError(f"tensor_llm_server id={self.srv_id}: draining")
+        return int(self.cb.probe_prefix([int(t) for t in tokens]))
+
+    def migration_adopt(self, span_bytes: bytes) -> int:
+        """Decode and adopt an incoming KV span: the request continues here
+        under the returned rid (bitwise for a greedy one) and this server's
+        serversrc emits it with the span's meta."""
+        from nnstreamer_tpu_torch.kv import migrate
+
+        if self.draining or self.stopped:
+            raise migrate.SpanStateError(f"tensor_llm_server id={self.srv_id}: draining")
+        span = migrate.decode_span(span_bytes)
+        rid = self.cb.adopt_request(span)
+        with self._lock:
+            self._pending[rid] = dict(span.meta)
+        return rid
+
+    def migration_advert(self) -> Dict:
+        """What a migration probe's answer carries besides the coverage:
+        the server's role (disaggregated roles are not ported, so none)."""
+        return {"role": ""}
+
+    def drain(self, migrate_to: Optional[str] = None) -> Dict[str, int]:
+        """Stop admitting (a submit raises ``draining``), settle the paged
+        prefill queue, and keep the in-flight requests to finish in place →
+        ``{"migrated", "resumed", "completed", "kept"}``. Draining to a peer
+        (``migrate_to``, or the ``migrate-to`` prop) needs the edge layer
+        and raises ``NotImplementedError`` before anything changes."""
+        target = "" if migrate_to is None else str(migrate_to)
+        if target:
+            raise NotImplementedError(_not_ported_peer("drain(migrate_to=...)"))
+        self.draining = True
+        if self._paged:
+            # every queued prefill lands (its request decodes) before the
+            # drain returns; completed chunks are never run again
+            while (self.cb.stats().get("kv_prefill_queue") or 0) > 0 and not self.stopped:
+                if not self.pump():
+                    time.sleep(0.002)
+        with self._lock:
+            kept = len(self._pending)
+        return {"migrated": 0, "resumed": 0, "completed": 0, "kept": kept}
+
+    def _checkpoint_tick(self) -> None:
+        """Every checkpoint-every-tokens new tokens of a request, write its
+        span checkpoint."""
+        with self._lock:
+            rids = list(self._pending)
+        if not rids:
+            return
+        parts = self.cb.partials(rids)
+        for rid in rids:
+            n = len(parts.get(rid) or ())
+            if n - self._ckpt_seen.get(rid, 0) >= self._ckpt_every and self._write_checkpoint(rid):
+                self._ckpt_seen[rid] = n
+
+    def _ckpt_path(self, rid: int) -> str:
+        return os.path.join(self._ckpt_dir, f"req-{rid}.span")
+
+    def _write_checkpoint(self, rid: int) -> bool:
+        """One request's span (read without removing it) to its file,
+        through a temporary file and ``os.replace``: a reader, or the restore
+        scan after a crash, sees the old whole file or the new one."""
+        from nnstreamer_tpu_torch.kv import migrate
+
+        with self._lock:
+            meta = dict(self._pending.get(rid) or {})
+        try:
+            span = self.cb.extract_request(rid, remove=False)
+        except migrate.SpanError:
+            return False  # finished or still prefilling at this instant
+        span.meta.update(_span_meta(meta))
+        path = self._ckpt_path(rid)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        try:
+            os.makedirs(self._ckpt_dir, exist_ok=True)
+            with open(tmp, "wb") as f:
+                f.write(migrate.encode_span(span))
+            os.replace(tmp, path)
+        except OSError:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            return False
+        return True
+
+    def _ckpt_drop(self, rid: int) -> None:
+        self._ckpt_seen.pop(rid, None)
+        try:
+            os.remove(self._ckpt_path(rid))
+        except OSError:
+            pass
+
+    def _ckpt_rename(self, old: int, new: int) -> None:
+        """A request changed rid (its adoption at restart): its file follows,
+        or the next restart would adopt the old name as a duplicate."""
+        self._ckpt_seen[new] = self._ckpt_seen.pop(old, 0)
+        try:
+            os.replace(self._ckpt_path(old), self._ckpt_path(new))
+        except OSError:
+            pass
+
+    def _restore_checkpoints(self) -> None:
+        """Crash recovery: adopt every span a previous server left in
+        checkpoint-dir. The K/V lands in the arena as it is, so no prefill
+        runs again; a corrupt or unadoptable file is set aside as
+        ``.bad``."""
+        from nnstreamer_tpu_torch.kv import migrate
+
+        try:
+            names = sorted(os.listdir(self._ckpt_dir))
+        except OSError:
+            return  # a fresh directory: made at the first checkpoint
+        for name in names:
+            if not name.endswith(".span"):
+                continue
+            path = os.path.join(self._ckpt_dir, name)
+            try:
+                with open(path, "rb") as f:
+                    span = migrate.decode_span(f.read())
+                rid = self.cb.adopt_request(span)
+            except (OSError, migrate.SpanError):
+                try:
+                    os.replace(path, path + ".bad")
+                except OSError:
+                    pass
+                continue
+            with self._lock:
+                self._pending[rid] = dict(span.meta)
+            # the file stays, under the new rid, until the request finishes
+            # or checkpoints again: a crash right after this must not lose it
+            old = name[len("req-"):-len(".span")]
+            if old.isdigit():
+                self._ckpt_rename(int(old), rid)
+            else:
+                try:
+                    os.replace(path, self._ckpt_path(rid))
+                except OSError:
+                    pass
+            self._ckpt_seen[rid] = len(span.tokens)
 
     def stats(self) -> Dict:
         st = self.cb.stats()
@@ -283,7 +500,8 @@ class LlmServerSink(Sink):
     (slot | paged; default from ``[llm] kv_layout``) and, for paged,
     block-size, kv-blocks (0 = enough for every slot at max-len),
     prefill-chunks and kv-attn (auto | block | gather), each 0 or empty
-    deferring to ``[llm]``."""
+    deferring to ``[llm]``; checkpoint-every-tokens and checkpoint-dir
+    (paged: span checkpoints, see the module)."""
 
     FACTORY_NAME = "tensor_llm_serversink"
 
@@ -307,6 +525,9 @@ class LlmServerSink(Sink):
         "prefill-chunks": PropSpec("int", 0, desc="prefill buckets per pump (paged; 0 = [llm])"),
         "speculate": PropSpec("str", "0", desc="k, or 'auto'"),
         "speculate-model": PropSpec("str", "", desc="zoo:<draft model>"),
+        "checkpoint-every-tokens": PropSpec(
+            "int", 0, desc="span checkpoint every N new tokens of a request (paged)"),
+        "checkpoint-dir": PropSpec("str", "", desc="where span checkpoints live (paged)"),
         **{k: PropSpec(type(v[0]).__name__, v[0], desc=f"{v[1]}: not ported yet")
            for k, v in _NOT_PORTED.items()},
     }
@@ -359,6 +580,9 @@ class LlmServerSink(Sink):
             speculate=(-1 if str(self.get_property("speculate", "0")) == "auto"
                        else int(self.get_property("speculate", "0"))),
             speculate_model=str(self.get_property("speculate-model", "")),
+            srv_id=self.srv_id,
+            checkpoint_every_tokens=int(self.get_property("checkpoint-every-tokens", 0)),
+            checkpoint_dir=str(self.get_property("checkpoint-dir", "")),
         )
         self._server: Optional[_LlmServer] = None
 

@@ -13,9 +13,11 @@ The counterpart of ``nnstreamer_tpu/kv``, behind
   lands in place in its owning block;
 - :mod:`gather` — the arena, the admission-path block ops and the
   gather → contiguous view → scatter oracle behind ``kv_attn="gather"``;
-- :mod:`sched` — chunked-prefill jobs and the preemption victim rule.
+- :mod:`sched` — chunked-prefill jobs and the preemption victim rule;
+- :mod:`migrate` — the KV-span wire format of request migration and span
+  checkpoints.
 
-Not ported yet: ``migrate.py`` (KV-span migration) and the SLO ledger.
+Not ported yet: the SLO ledger.
 """
 
 from nnstreamer_tpu_torch.kv.blocks import BlockPool, NoBlocksError, PoolCapacityError

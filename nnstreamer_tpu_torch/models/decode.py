@@ -10,7 +10,8 @@ cache on the card, and are returned as well so the signatures match. The
 overflow checks that the reference makes only on concrete positions are
 made on every call: a write past max_len raises.
 
-Not ported yet: ``windowed_chunk`` (the sliding-window ring).
+:func:`windowed_chunk` advances a sliding-window ring ``[L, B, W, KV, Dh]``
+(the windowed serving cache) one chunk at a time.
 """
 
 from __future__ import annotations
@@ -91,6 +92,64 @@ def verify_chunk(model: tfm.TransformerLM, tokens: torch.Tensor, pos, cache: Cac
     x = tfm.rmsnorm(x, model.ln_f)
     logits = F.linear(x, tfm.wt(model.head.weight, x.dtype)).float()
     return logits, (cache_k, cache_v), pos + k_len
+
+
+def windowed_chunk(model: tfm.TransformerLM, tokens: torch.Tensor, pos, valid_n, cache: Cache,
+                   n_heads: int, compute_dtype: torch.dtype = torch.float32,
+                   return_logits: bool = True):
+    """Advance a ring cache by one chunk with exact sliding-window
+    attention (windowed chunked prefill).
+
+    ``cache`` k/v are rings [L, B, W, KV, Dh] over the last W tokens, the
+    layout ``batched_decode_step(windowed=True)`` reads. tokens [B, k]
+    start at absolute position ``pos``; only the first ``valid_n`` rows
+    are real: the pad rows' writes are suppressed, so live ring entries
+    survive them, and causal masking keeps them out of every real query.
+    → (logits [B, k, V] float32 or None, cache, pos + valid_n).
+
+    Query i (absolute p = pos + i) attends the previous W - 1 tokens and
+    itself, ring entries this chunk overwrites included: attention runs
+    against the pre-write ring beside the chunk's own K/V, and the ring is
+    written after. Ring row s last held absolute position pos - 1 - d with
+    d = (wp - 1 - s) mod W (wp = pos % W): attendable by query i iff
+    written (d ≤ pos - 1) and inside the window (d ≤ W - 2 - i).
+    A chunk that would wrap the ring mid-write (pos % W + k > W) raises:
+    callers align chunk starts to a bucket that divides W."""
+    cache_k, cache_v = cache
+    W = cache_k.shape[2]
+    b, k_len = tokens.shape
+    pos, valid_n = int(pos), int(valid_n)
+    if pos % W + k_len > W:
+        raise ValueError(
+            f"windowed_chunk: chunk [{pos}, {pos + k_len}) wraps the W={W} ring mid-chunk; "
+            "align chunk starts to a bucket size that divides the window"
+        )
+    wp = pos % W
+    dev = tokens.device
+    x = tfm.embed_lookup(model.embed, tokens, compute_dtype)
+    positions = pos + torch.arange(k_len, device=dev)
+    row = torch.arange(k_len, device=dev)
+    d = (wp - 1 - torch.arange(W, device=dev)) % W  # steps behind the chunk
+    ring_mask = d[None, :] <= torch.clamp(W - 2 - row, max=pos - 1)[:, None]
+    chunk_mask = row[None, :] <= row[:, None]  # causal: pad rows come after every real one
+    mask = torch.cat([ring_mask, chunk_mask], dim=1)[None]  # [1, k, W + k]
+    for layer, blk in enumerate(model.blocks):
+        q, k, v = tfm.block_qkv(x, blk, n_heads, positions)
+        ck, cv = cache_k[layer], cache_v[layer]
+        o = tfm.cache_attention(q, torch.cat([ck, k.to(ck.dtype)], dim=1),
+                                torch.cat([cv, v.to(cv.dtype)], dim=1), mask)
+        # the chunk into the ring (contiguous by the check above); the pad
+        # rows keep the entries they would have overwritten
+        ck[:, wp:wp + valid_n] = k[:, :valid_n].to(ck.dtype)
+        cv[:, wp:wp + valid_n] = v[:, :valid_n].to(cv.dtype)
+        o = o.to(x.dtype).reshape(b, k_len, -1)
+        x = x + F.linear(o, tfm.wt(blk.wo.weight, x.dtype))
+        x = tfm.block_ffn(x, blk)
+    if not return_logits:
+        return None, (cache_k, cache_v), pos + valid_n
+    x = tfm.rmsnorm(x, model.ln_f)
+    logits = F.linear(x, tfm.wt(model.head.weight, x.dtype)).float()
+    return logits, (cache_k, cache_v), pos + valid_n
 
 
 def decode_step(model: tfm.TransformerLM, token: torch.Tensor, pos, cache: Cache,

@@ -57,9 +57,23 @@ per-slot masks and write gating by ``active`` keep the slots apart.
   writes) or from a draft model (``draft_params``, slot layout) whose own
   cache every plain step advances too; ``register_prefix`` prefills a
   shared prefix once for ``submit(prefix=)`` on both layouts.
+- ``windowed=True`` (slot layout): max_len becomes a sliding attention
+  window over a ring cache. The decode step writes at ``pos % max_len``
+  and ``pos`` keeps counting absolute tokens, so RoPE stays exact and the
+  ``≤ pos`` liveness mask (K3's too) saturates to the whole ring: each
+  token attends the previous max_len. Prompts and generations of any
+  length run in the fixed cache; long prompts and prefixes prefill
+  through ``decode.windowed_chunk``, the token history is a ring, and
+  speculation verifies against the pre-write ring and commits only the
+  accepted columns.
+- ``snapshot`` / ``restore``: the whole serving state to host memory and
+  back into a batcher of the same configuration, written into its fixed
+  device buffers. On the paged layout ``extract_request`` /
+  ``adopt_request`` / ``resume_from_span`` move one live request as a
+  :class:`~nnstreamer_tpu_torch.kv.migrate.RequestSpan` (the reference's
+  wire format, ``kv/migrate.py``).
 
-Not ported yet (each raises ``NotImplementedError``): windowed (ring)
-caches, meshes, snapshot/restore and request migration.
+Not ported yet (raises ``NotImplementedError``): meshes.
 """
 
 from __future__ import annotations
@@ -80,6 +94,7 @@ from nnstreamer_tpu_torch.models import decode as dec
 from nnstreamer_tpu_torch.models import transformer as tfm
 from nnstreamer_tpu_torch.models.serving_paged import PagedAdmission
 from nnstreamer_tpu_torch.models.serving_spec import SpecDecoding, hist_write_row
+from nnstreamer_tpu_torch.models.serving_state import ServingState
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
@@ -118,7 +133,8 @@ def write_cols(c: torch.Tensor, new: torch.Tensor, start: torch.Tensor,
 
 
 def batched_decode_step(model: tfm.TransformerLM, tok, pos, active, cache, n_heads: int,
-                        compute_dtype: torch.dtype = torch.float32, attn_fn=None):
+                        compute_dtype: torch.dtype = torch.float32, attn_fn=None,
+                        windowed: bool = False):
     """One decode step for the whole slot batch.
 
     tok [B] int, pos [B] int32 (per-slot fill level), active [B] bool →
@@ -128,7 +144,14 @@ def batched_decode_step(model: tfm.TransformerLM, tok, pos, active, cache, n_hea
     kernel); with an int8 cache it receives the quantized entries
     ``(ck8, kscale)`` / ``(cv8, vscale)``. ``cache`` is ``(ck, cv)`` or
     ``((ck8, kscale), (cv8, vscale))``, each [L, B, max_len, KV, Dh]
-    (scales [L, B, max_len, KV]), updated in place."""
+    (scales [L, B, max_len, KV]), updated in place.
+
+    ``windowed=True``: the length axis is a ring over the last max_len
+    tokens. Writes land at ``pos % max_len``, and nothing else changes:
+    the ``≤ pos`` mask (and K3's) saturates to all-live once pos ≥
+    max_len, when every row holds one of the last max_len tokens. K rows
+    are stored rotated at their absolute positions, so the softmax needs
+    only the set of the window's keys, never their ring order."""
     quantized = isinstance(cache[0], tuple)
     if quantized:
         (ck8, ksc), (cv8, vsc) = cache
@@ -137,6 +160,7 @@ def batched_decode_step(model: tfm.TransformerLM, tok, pos, active, cache, n_hea
         ck_all, cv_all = cache
         max_len = ck_all.shape[2]
     x = tfm.embed_lookup(model.embed, tok, compute_dtype)[:, None, :]
+    wpos = pos % max_len if windowed else pos
     mask = None
     for layer, blk in enumerate(model.blocks):
         bsz, _, d = x.shape
@@ -144,14 +168,14 @@ def batched_decode_step(model: tfm.TransformerLM, tok, pos, active, cache, n_hea
         if quantized:
             k8, ks = quantize_kv(k)
             v8, vs = quantize_kv(v)
-            write_cols(ck8[layer], k8, pos, active)
-            write_cols(ksc[layer], ks, pos, active)
-            write_cols(cv8[layer], v8, pos, active)
-            write_cols(vsc[layer], vs, pos, active)
+            write_cols(ck8[layer], k8, wpos, active)
+            write_cols(ksc[layer], ks, wpos, active)
+            write_cols(cv8[layer], v8, wpos, active)
+            write_cols(vsc[layer], vs, wpos, active)
             lk, lv = (ck8[layer], ksc[layer]), (cv8[layer], vsc[layer])
         else:
-            write_cols(ck_all[layer], k, pos, active)
-            write_cols(cv_all[layer], v, pos, active)
+            write_cols(ck_all[layer], k, wpos, active)
+            write_cols(cv_all[layer], v, wpos, active)
             lk, lv = ck_all[layer], cv_all[layer]
         if attn_fn is not None:
             o = attn_fn(q, lk, lv, pos)
@@ -355,7 +379,7 @@ def _dtype(d: Union[str, torch.dtype]) -> torch.dtype:
         raise ValueError(f"compute dtype {d!r} not supported (float32 or bfloat16)") from None
 
 
-class ContinuousBatcher(PagedAdmission, SpecDecoding):
+class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
     """Continuous-batching server over a fixed slot batch (greedy by
     default; per-request temperature/top-k/top-p sampling via submit()).
 
@@ -378,6 +402,11 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
     ``draft_params`` (a :class:`TransformerLM` with the target's vocabulary
     and ``draft_n_heads`` heads, slot layout only) makes the speculative
     rounds propose with a draft model instead of n-gram lookup.
+
+    ``windowed=True`` (slot layout only) makes max_len a sliding attention
+    window over a ring cache (Mistral's sliding-window attention): prompts
+    and generations of any length, each token attending the previous
+    max_len.
 
     Failure: the steps update the cache in place, so a step that raises
     (a failed capture or replay included: nothing falls back to eager
@@ -444,12 +473,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
                 "kv_attn selects the paged decode formulation; the slot layout has no "
                 "block table to attend through"
             )
-        for flag, what in (
-            (windowed, "windowed=True (the sliding-window ring)"),
-            (mesh is not None, "mesh= (slot-sharded meshes)"),
-        ):
-            if flag:
-                raise _not_ported(what)
+        if mesh is not None:
+            raise _not_ported("mesh= (slot-sharded meshes)")
         if attn_impl == "pallas" and self._paged:
             from nnstreamer_tpu_torch.ops.kernels.paged_attention import make_paged_attention
 
@@ -474,6 +499,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
         self.n_slots = n_slots
         self.max_len = max_len
         self.prompt_len = prompt_len
+        self.windowed = bool(windowed)
         self.compute_dtype = _dtype(compute_dtype)
         self.cache_dtype = cache_dtype
         self.attn_impl = attn_impl
@@ -545,6 +571,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
         # plus one spare bucket
         self._stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
         self._stage_shape = (params.n_layers, 1, self._stage_len, kv, hd)
+        # a windowed request's prefill ring: one slot's cache
+        self._ring_shape = (params.n_layers, 1, max_len, kv, hd)
         self._n_steps = 0
         self._n_tokens = 0
         self._step_time_s = 0.0
@@ -585,6 +613,37 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
             cpos += n
         return logits, stage
 
+    def _stage_ring(self, tokens: np.ndarray, base: int = 0, ring=None,
+                    want_logits: bool = True):
+        """Windowed chunked prefill: advance a W-ring with ``tokens``
+        written at absolute positions base .. base + t - 1, one bucket a
+        :func:`decode.windowed_chunk` (exact sliding-window attention).
+        ``ring`` seeds the cache (a registered prefix's ring, copied, so
+        the stored one survives; zeros when None); ``base`` is a bucket
+        multiple (register_prefix enforces it), so no chunk wraps the ring
+        mid-write. → (the final chunk's logits or None, the ring (ks, vs),
+        the last real row's index in that chunk)."""
+        P = self.prompt_len
+        if ring is None:
+            ring = tuple(torch.zeros(self._ring_shape, dtype=self.compute_dtype,
+                                     device=self.device) for _ in range(2))
+        else:
+            ring = (ring[0].clone(), ring[1].clone())
+        t = int(tokens.shape[0])
+        cpos = 0
+        logits = None
+        while cpos < t:
+            n = min(P, t - cpos)
+            chunk = np.zeros((1, P), np.int64)
+            chunk[0, :n] = tokens[cpos:cpos + n]
+            logits, ring, _ = dec.windowed_chunk(
+                self.params, torch.as_tensor(chunk, device=self.device), base + cpos, n, ring,
+                self.n_heads, compute_dtype=self.compute_dtype,
+                return_logits=want_logits and cpos + n >= t,
+            )
+            cpos += n
+        return logits, ring, (t - 1) % P
+
     def _sample1(self, logits_row, req: _Request) -> torch.Tensor:
         """The first token, from the prefill's last logits row, sampled at
         fill ``fill0`` as the decode steps sample at theirs."""
@@ -622,7 +681,11 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
         ``seed`` (default: the request id) and the fill level. ``prefix``
         (a :meth:`register_prefix` id) puts the registered tokens before
         ``prompt``: the slot layout starts from their stored K/V, the
-        paged layout's prefix index finds their blocks."""
+        paged layout's prefix index finds their blocks. A windowed batcher
+        takes prompts and budgets of any length (its ring keeps the last
+        max_len tokens); a prompt longer than prompt_len, or one behind a
+        prefix, needs max_len to be a multiple of prompt_len, checked
+        before any slot is claimed."""
         self._check_failed()
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         t = prompt.shape[0]
@@ -639,11 +702,20 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
             pfx_tokens = pfx[0] if self._paged else pfx[2]
             plen = int(pfx_tokens.shape[0])
             context = np.concatenate([pfx_tokens.astype(np.int64), prompt])
-        if plen + t > self.max_len:
-            raise ValueError(f"prefix({plen}) + prompt({t}) > max_len {self.max_len}")
-        if plen + t + max_new_tokens > self.max_len:
+        if (self.windowed and (t > self.prompt_len or pfx is not None)
+                and self.max_len % self.prompt_len):
+            # ring chunked prefill needs bucket-aligned chunks: a chunk
+            # that wrapped mid-write would overwrite live entries
             raise ValueError(
-                f"{plen}+{t}+{max_new_tokens} tokens would overflow max_len={self.max_len}"
+                f"windowed long prompts need max_len({self.max_len}) to be a multiple of "
+                f"prompt_len({self.prompt_len}) so prefill chunks never wrap the ring mid-chunk"
+            )
+        if not self.windowed and plen + t > self.max_len:
+            raise ValueError(f"prefix({plen}) + prompt({t}) > max_len {self.max_len}")
+        if not self.windowed and plen + t + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"{plen}+{t}+{max_new_tokens} tokens would overflow max_len={self.max_len} "
+                "(windowed=True lifts this: the cache becomes a sliding ring)"
             )
         if self._paged:
             return self._submit_paged(context.astype(np.int32), max_new_tokens, temperature,
@@ -663,7 +735,13 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
         try:
             P = self.prompt_len
             with torch.no_grad():
-                if pfx is not None:
+                if self.windowed and (pfx is not None or t > P):
+                    # ring chunked prefill: a registered prefix's ring seeds
+                    # it, the prompt continuing at plen (a bucket multiple)
+                    logits, (ks, vs), last = self._stage_ring(
+                        prompt, plen, pfx[0] if pfx is not None else None)
+                    logits_row = logits[0, last]
+                elif pfx is not None:
                     # chunked from the prefix's stored K/V at position plen
                     logits, stage = self._stage_chunks(prompt, plen, self._load_prefix(pfx),
                                                        True)
@@ -708,9 +786,17 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
 
     def _hist_row(self, context: np.ndarray) -> np.ndarray:
         """A slot's token-history row: the context, -1 after it (the
-        first token joins at admission)."""
-        row = np.full((self.max_len,), -1, np.int32)
-        row[:context.shape[0]] = context[:self.max_len]
+        first token joins at admission). A windowed context longer than
+        the history keeps its last max_len tokens in ring layout (the
+        token at absolute position a at a % max_len, as the KV ring)."""
+        H = self.max_len
+        row = np.full((H,), -1, np.int32)
+        n = int(context.shape[0])
+        if n <= H or not self.windowed:
+            row[:min(n, H)] = context[:H]
+        else:
+            span = np.arange(n - H, n)
+            row[span % H] = context[span]
         return row
 
     def _apply_pending(self) -> None:
@@ -745,6 +831,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
                 if p.hist_row is not None:
                     if p.fill < self.max_len:
                         p.hist_row[p.fill] = first
+                    elif self.windowed:
+                        p.hist_row[p.fill % self.max_len] = first
                     self._hist[p.slot].copy_(torch.from_numpy(p.hist_row))
                 req = p.req
                 self._tok[p.slot] = int(first)
@@ -773,7 +861,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
         if not self._paged:
             logits, _, pos2 = batched_decode_step(
                 self.params, tok, pos, active, self._cache, self.n_heads,
-                self.compute_dtype, attn_fn=self._attn_fn,
+                self.compute_dtype, attn_fn=self._attn_fn, windowed=self.windowed,
             )
         elif self._kv_attn == "gather":
             from nnstreamer_tpu_torch.kv import gather as kvg
@@ -820,7 +908,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
                 new = torch.argmax(logits, dim=-1).to(torch.int32)
             new = torch.where(active, new, tok)
             emits.append(torch.where(active, new, torch.full_like(new, -1)))
-            hist_write_row(self._hist, new[:, None], pos2, active.to(torch.int32))
+            hist_write_row(self._hist, new[:, None], pos2, active.to(torch.int32),
+                           wrap=self.windowed)
             budget = budget - active.to(torch.int32)
             active = active & (budget > 0) & ~((new == stop) & (stop >= 0))
             tok, pos = new, pos2
@@ -1108,19 +1197,3 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding):
     def n_free(self) -> int:
         with self._lock:
             return sum(r is None for r in self._slots)
-
-    # -- not ported yet --------------------------------------------------------
-    def snapshot(self, *args, **kwargs):
-        raise _not_ported("snapshot (warm restart)")
-
-    def restore(self, *args, **kwargs):
-        raise _not_ported("restore (warm restart)")
-
-    def extract_request(self, *args, **kwargs):
-        raise _not_ported("extract_request (request migration)")
-
-    def adopt_request(self, *args, **kwargs):
-        raise _not_ported("adopt_request (request migration)")
-
-    def resume_from_span(self, *args, **kwargs):
-        raise _not_ported("resume_from_span (request migration)")

@@ -80,6 +80,9 @@ class PagedAdmission:
         self._n_prefill_chunk_programs = 0
         self._n_preemptions = 0
         self._n_gather_dispatch = 0
+        self._n_migrations_out = 0  # extract_request(remove=True)
+        self._n_migrations_in = 0   # adopt_request
+        self._n_resumes = 0         # resume_from_span
 
     def _paged_stats_locked(self) -> Dict[str, Any]:
         st: Dict[str, Any] = dict(self._pool.stats())
@@ -93,6 +96,9 @@ class PagedAdmission:
             kv_attn=self._kv_attn,
             kv_gather_dispatches=self._n_gather_dispatch,
             kv_prefill_chunks=self._n_prefill_chunk_programs,
+            kv_migrations_out=self._n_migrations_out,
+            kv_migrations_in=self._n_migrations_in,
+            request_resumes=self._n_resumes,
         )
         return st
 

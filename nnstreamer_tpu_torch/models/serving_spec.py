@@ -30,9 +30,13 @@ byte-identical to ``step()``'s, as in the reference.
 The verify attention is the reference's inline formulation (masked matmul
 and softmax over the cache), not a kernel.
 
-Not ported yet: the windowed ring's verify, draft and prefixes
-(``batched_windowed_verify``, ``commit_ring_chunk``,
-``draft_windowed_propose``).
+On a windowed ring (``windowed=True``) a write at ``(pos + j) % W`` would
+clobber a row still inside the window of the chunk's earlier queries, so
+the round verifies against the pre-write ring beside the chunk's own K/V
+(:func:`batched_windowed_verify`, the draft's :func:`draft_windowed_propose`)
+and writes only the certified columns after the acceptance
+(:func:`commit_ring_chunk`); the token history is a ring too
+(``hist_write_row(..., wrap=True)``).
 """
 
 from __future__ import annotations
@@ -186,29 +190,40 @@ def spec_accept(logits, toks, temp, topk, topp, keys, pos, sampling: bool):
 
 
 def hist_write_row(hist: torch.Tensor, row: torch.Tensor, start: torch.Tensor,
-                   count: torch.Tensor) -> None:
+                   count: torch.Tensor, wrap: bool = False) -> None:
     """In place: hist [B, H][b, start[b] + j] ← row[b, j] for the first
-    count[b] columns of ``row`` [B, K]; writes past H - 1 clamp onto the
-    last cell (unreachable: submit keeps fill + budget ≤ max_len)."""
+    count[b] columns of ``row`` [B, K]. ``wrap=True``: hist is a ring over
+    the last H stream positions (the token at absolute position a lives
+    at a % H), the windowed batcher's layout beside its KV ring; without
+    it writes past H - 1 clamp onto the last cell (unreachable: submit
+    keeps fill + budget ≤ max_len)."""
     b, h = hist.shape
     kk = row.shape[1]
     cols = torch.arange(kk, device=hist.device)
-    idx = torch.clamp(start.long()[:, None] + cols[None, :], 0, h - 1)
+    raw = start.long()[:, None] + cols[None, :]
+    idx = raw % h if wrap else torch.clamp(raw, 0, h - 1)
     keep = cols[None, :] < count[:, None]
     lanes = torch.arange(b, device=hist.device)[:, None]
     hist[lanes, idx] = torch.where(keep, row.to(hist.dtype), hist[lanes, idx])
 
 
-def device_ngram_propose(hist: torch.Tensor, pos: torch.Tensor, k: int, g: int) -> torch.Tensor:
+def device_ngram_propose(hist: torch.Tensor, pos: torch.Tensor, k: int, g: int,
+                         wrap: bool = False) -> torch.Tensor:
     """Prompt-lookup proposals on the device: hist [B, H] int32 the slots'
     token histories (-1 padded, hist[pos] the pending token), pos [B] →
     [B, k - 1] int32: the tokens that followed the most recent earlier
     occurrence of the suffix ``g``-gram ending at ``pos``, -1 where the
     lookup finds nothing or runs past ``pos``. A fixed-width scan of the
-    whole history: no data-dependent shape."""
+    whole history: no data-dependent shape. ``wrap=True``: hist is a ring
+    (:func:`hist_write_row`), unrolled into stream order first, so the
+    pending token is the last cell once the ring has wrapped."""
     b, h = hist.shape
     idx = torch.arange(h, device=hist.device)
     p = pos.long()[:, None]
+    if wrap:
+        start = torch.where(p >= h, (p + 1) % h, torch.zeros_like(p))
+        hist = torch.gather(hist, 1, (idx[None, :] + start) % h)
+        p = torch.clamp(p, max=h - 1)
     ok = idx[None, :] < p
     for i in range(g):
         shifted = hist[:, torch.clamp(idx - i, min=0)]
@@ -221,11 +236,11 @@ def device_ngram_propose(hist: torch.Tensor, pos: torch.Tensor, k: int, g: int) 
     return torch.where(valid, got, torch.full_like(got, -1))
 
 
-def spec_emit_hist(toks, m, final, active, hist, pos) -> torch.Tensor:
+def spec_emit_hist(toks, m, final, active, hist, pos, windowed: bool = False) -> torch.Tensor:
     """The emitted row [B, k] of one round (the m - 1 accepted proposals,
     then the correction or bonus token, -1 beyond and on idle slots),
-    recorded in ``hist`` at pos + 1 .. pos + m in place, so later rounds
-    mine the whole context."""
+    recorded in ``hist`` at pos + 1 .. pos + m in place (a ring when
+    ``windowed``), so later rounds mine the whole context."""
     b, kk = toks.shape
     j = torch.arange(kk, device=toks.device)[None, :]
     prop_part = torch.cat([toks[:, 1:], torch.full_like(toks[:, :1], -1)], dim=1)
@@ -233,8 +248,156 @@ def spec_emit_hist(toks, m, final, active, hist, pos) -> torch.Tensor:
     emit = torch.where(j < (m - 1)[:, None], prop_part,
                        torch.where(j == (m - 1)[:, None], final[:, None].expand_as(toks), neg))
     emit = torch.where(active[:, None], emit, neg)
-    hist_write_row(hist, emit, pos + 1, m)
+    hist_write_row(hist, emit, pos + 1, m, wrap=windowed)
     return emit
+
+
+# -- the windowed ring's verify-then-commit ------------------------------------------------
+
+
+def _ring_live_mask(pos: torch.Tensor, W: int, row: torch.Tensor) -> torch.Tensor:
+    """Ring-row liveness for chunk queries on a pre-write W-ring: pos [B]
+    absolute fill, row [R] chunk-column indices → [B, R, W] bool. Ring row
+    s last held absolute position pos - 1 - d with d = (wp - 1 - s) mod W
+    (wp = pos % W); the query of column r (absolute pos + r) attends it iff
+    written (d ≤ pos - 1) and inside the window (d ≤ W - 2 - r). One
+    definition for the target's verify and the draft's propose: masks
+    that drifted apart would only lower the acceptance, silently."""
+    p = pos.long()
+    d = (p[:, None] % W - 1 - torch.arange(W, device=pos.device)[None, :]) % W  # [B, W]
+    lim = torch.minimum(p[:, None] - 1, W - 2 - row.long()[None, :])             # [B, R]
+    return d[:, None, :] <= lim[:, :, None]
+
+
+def batched_windowed_verify(model: tfm.TransformerLM, toks, pos, active, cache, n_heads: int,
+                            compute_dtype: torch.dtype = torch.float32):
+    """Score per-slot k-token chunks against a ring cache without writing
+    it: the windowed form of :func:`batched_verify_step`. Column j's row
+    (pos + j) % W still holds position pos + j - W, inside the window of
+    every earlier query, so the forward attends the pre-write ring beside
+    the chunk's own K/V, and :func:`commit_ring_chunk` writes the accepted
+    columns after. toks [B, k], pos [B] absolute, ring [L, B, W, KV, Dh]
+    (float, or the int8 ``((ck8, ksc), (cv8, vsc))``) → (logits [B, k, V]
+    float32, chunk_ks, chunk_vs [L, B, k, KV, Dh] in the compute dtype).
+    With an int8 ring the chunk's columns are attended as their
+    quantize → dequantize round trip, what a plain int8 step attends after
+    its write, so greedy rounds stay the plain int8 steps' tokens.
+    Chunk columns are causal (k ≤ W keeps them in the window)."""
+    from nnstreamer_tpu_torch.models.serving import dequantize_kv, quantize_kv
+
+    quantized = isinstance(cache[0], tuple)
+    if quantized:
+        (ck8, ksc), (cv8, vsc) = cache
+        W = ck8.shape[2]
+    else:
+        ck_all, cv_all = cache
+        W = ck_all.shape[2]
+    b, k = toks.shape
+    dev = toks.device
+    x = tfm.embed_lookup(model.embed, toks, compute_dtype)
+    row = torch.arange(k, device=dev)
+    positions = pos[:, None] + row.to(pos.dtype)[None, :]
+    chunk_mask = (row[None, :] <= row[:, None])[None].expand(b, k, k)
+    mask = torch.cat([_ring_live_mask(pos, W, row), chunk_mask], dim=2)  # [B, k, W + k]
+    chunk_ks, chunk_vs = [], []
+    for layer, blk in enumerate(model.blocks):
+        q, kk, v = tfm.block_qkv(x, blk, n_heads, positions)
+        if quantized:
+            ck = dequantize_kv(ck8[layer], ksc[layer])
+            cv = dequantize_kv(cv8[layer], vsc[layer])
+            ka = dequantize_kv(*quantize_kv(kk)).to(kk.dtype)
+            va = dequantize_kv(*quantize_kv(v)).to(v.dtype)
+        else:
+            ck, cv = ck_all[layer], cv_all[layer]
+            ka, va = kk, v
+        o = tfm.cache_attention(q, torch.cat([ck.to(kk.dtype), ka], dim=1),
+                                torch.cat([cv.to(v.dtype), va], dim=1), mask)
+        o = o.to(x.dtype).reshape(b, k, -1)
+        x = x + F.linear(o, tfm.wt(blk.wo.weight, x.dtype))
+        x = tfm.block_ffn(x, blk)
+        chunk_ks.append(kk.to(compute_dtype))
+        chunk_vs.append(v.to(compute_dtype))
+    x = tfm.rmsnorm(x, model.ln_f)
+    logits = F.linear(x, tfm.wt(model.head.weight, x.dtype)).float()
+    return logits, torch.stack(chunk_ks), torch.stack(chunk_vs)
+
+
+def commit_ring_chunk(cache, chunk_ks, chunk_vs, pos, n_commit, active) -> None:
+    """In place: the first n_commit[b] chunk columns [L, B, k, KV, Dh] into
+    the ring at rows (pos_b + j) % W where active: the commit after the
+    acceptance (only certified columns overwrite window history). Each
+    column wraps on its own: a decode-time chunk may start anywhere in the
+    ring. Quantizes for an int8 ring."""
+    from nnstreamer_tpu_torch.models.serving import quantize_kv
+
+    quantized = isinstance(cache[0], tuple)
+    W = (cache[0][0] if quantized else cache[0]).shape[2]
+    b = pos.shape[0]
+    lanes = torch.arange(b, device=pos.device)
+
+    def write(c, col, rows, keep):
+        # c [L, B, W, ...] ← col [L, B, ...] at each lane's ring row
+        gate = keep.view(1, -1, *([1] * (col.dim() - 2)))
+        c[:, lanes, rows] = torch.where(gate, col.to(c.dtype), c[:, lanes, rows])
+
+    for j in range(chunk_ks.shape[2]):
+        rows = (pos.long() + j) % W
+        keep = active & (j < n_commit)
+        kj, vj = chunk_ks[:, :, j], chunk_vs[:, :, j]
+        if quantized:
+            (ck8, ksc), (cv8, vsc) = cache
+            k8, ks = quantize_kv(kj)
+            v8, vs = quantize_kv(vj)
+            write(ck8, k8, rows, keep)
+            write(ksc, ks, rows, keep)
+            write(cv8, v8, rows, keep)
+            write(vsc, vs, rows, keep)
+        else:
+            write(cache[0], kj, rows, keep)
+            write(cache[1], vj, rows, keep)
+
+
+def draft_windowed_propose(model: tfm.TransformerLM, tok, pos, cache, n_heads: int, k: int,
+                           compute_dtype: torch.dtype = torch.float32):
+    """k - 1 greedy draft proposals per slot against a ring cache without
+    writing it: the draft's side of the verify-then-commit discipline.
+    The k-step chain runs against the pre-write ring beside its own chunk
+    (column j attends the ring rows inside position pos + j's window and
+    the chunk columns ≤ j), kept in a fixed [L, B, k] buffer that
+    :func:`commit_ring_chunk` lands once the target has ruled. tok [B]
+    (the pending tokens, column 0), pos [B] absolute → (props [B, k - 1]
+    int32, chunk_ks, chunk_vs [L, B, k, KV, Dh]). Idle slots are not
+    gated here: the commit's ``active`` gate keeps their columns out."""
+    ck_all, cv_all = cache
+    L, b, W, kv, hd = ck_all.shape
+    dev = tok.device
+    cks = torch.zeros((L, b, k, kv, hd), dtype=compute_dtype, device=dev)
+    cvs = torch.zeros_like(cks)
+    cur = tok
+    props = []
+    for j in range(k):
+        x = tfm.embed_lookup(model.embed, cur, compute_dtype)[:, None, :]
+        positions = (pos + j)[:, None]
+        # the column index made on the device (a host copy would break a capture)
+        ring_mask = _ring_live_mask(pos, W, torch.full((1,), j, device=dev))  # [B, 1, W]
+        chunk_mask = (torch.arange(k, device=dev) <= j)[None, None, :].expand(b, 1, k)
+        mask = torch.cat([ring_mask, chunk_mask], dim=2)
+        for layer, blk in enumerate(model.blocks):
+            q, kk, v = tfm.block_qkv(x, blk, n_heads, positions)
+            cks[layer, :, j] = kk[:, 0].to(compute_dtype)
+            cvs[layer, :, j] = v[:, 0].to(compute_dtype)
+            o = tfm.cache_attention(q, torch.cat([ck_all[layer].to(compute_dtype), cks[layer]], 1),
+                                    torch.cat([cv_all[layer].to(compute_dtype), cvs[layer]], 1),
+                                    mask)
+            o = o.to(x.dtype).reshape(b, 1, -1)
+            x = x + F.linear(o, tfm.wt(blk.wo.weight, x.dtype))
+            x = tfm.block_ffn(x, blk)
+        x = tfm.rmsnorm(x, model.ln_f)
+        logits = F.linear(x, tfm.wt(model.head.weight, x.dtype)).float()
+        cur = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
+        if j + 1 < k:
+            props.append(cur)
+    return torch.stack(props, dim=1), cks, cvs
 
 
 # -- the batched draft model -------------------------------------------------------------
@@ -245,21 +408,27 @@ class _DraftEngine:
     ``serving.py _DraftEngine``): its own slot cache [L, B, max_len, KV,
     Dh] in the compute dtype (never quantized), filled at admission with
     the request's whole context and kept at the target's positions.
-    Proposing runs k greedy batched steps, writing as it goes: rejected
-    positions are overwritten before a mask reaches them, and the k-th
-    step's write covers the last proposal on full acceptance. Every plain
-    step of the target steps the draft too (:meth:`advance_one`), so the
-    draft never falls behind. Its steps take no attention kernel, as in
-    the reference."""
+    Proposing on a linear cache runs k greedy batched steps, writing as it
+    goes: rejected positions are overwritten before a mask reaches them,
+    and the k-th step's write covers the last proposal on full acceptance.
+    On a windowed ring (``windowed``) that write would clobber live window
+    rows, so the draft proposes against its pre-write ring
+    (:meth:`propose_windowed`) and the round commits only the accepted
+    columns (:meth:`commit`), as the target does. Every plain step of the
+    target steps the draft too (:meth:`advance_one`), so the draft never
+    falls behind. Its steps take no attention kernel, as in the
+    reference."""
 
     def __init__(self, params: tfm.TransformerLM, n_heads: int, n_slots: int, max_len: int,
-                 prompt_len: int, compute_dtype: torch.dtype, device: torch.device) -> None:
+                 prompt_len: int, compute_dtype: torch.dtype, device: torch.device,
+                 windowed: bool = False) -> None:
         self.params = params
         self.n_heads = n_heads
         self.max_len = max_len
         self.prompt_len = prompt_len
         self.compute_dtype = compute_dtype
         self.device = device
+        self.windowed = windowed
         d = params.d_model
         hd = d // n_heads
         kv = tfm.n_kv_heads_of(params.blocks[0].wqkv.weight, d, n_heads)
@@ -268,24 +437,34 @@ class _DraftEngine:
                             for _ in range(2))
         stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
         self._stage_shape = (params.n_layers, 1, stage_len, kv, hd)
+        self._ring_shape = (params.n_layers, 1, max_len, kv, hd)
 
     def prefill_tokens(self, tokens: np.ndarray):
         """The draft's K/V of a request's whole context (prefix + prompt),
-        in prompt_len buckets → (ks, vs) [L, 1, max_len, KV, Dh]. No
-        logits: the first pending token is the target's."""
+        in prompt_len buckets → (ks, vs) [L, 1, max_len, KV, Dh] (on a
+        windowed batcher the ring of the context's last max_len tokens).
+        No logits: the first pending token is the target's."""
         P = self.prompt_len
-        stage = tuple(torch.zeros(self._stage_shape, dtype=self.compute_dtype,
-                                  device=self.device) for _ in range(2))
         t = int(tokens.shape[0])
+        shape = self._ring_shape if self.windowed else self._stage_shape
+        stage = tuple(torch.zeros(shape, dtype=self.compute_dtype, device=self.device)
+                      for _ in range(2))
         cpos = 0
         while cpos < t:
             n = min(P, t - cpos)
             chunk = np.zeros((1, P), np.int64)
             chunk[0, :n] = tokens[cpos:cpos + n]
-            _, stage, _ = dec.verify_chunk(
-                self.params, torch.as_tensor(chunk, device=self.device), cpos, stage,
-                self.n_heads, compute_dtype=self.compute_dtype, return_logits=False,
-            )
+            chunk_t = torch.as_tensor(chunk, device=self.device)
+            if self.windowed:
+                _, stage, _ = dec.windowed_chunk(
+                    self.params, chunk_t, cpos, n, stage, self.n_heads,
+                    compute_dtype=self.compute_dtype, return_logits=False,
+                )
+            else:
+                _, stage, _ = dec.verify_chunk(
+                    self.params, chunk_t, cpos, stage, self.n_heads,
+                    compute_dtype=self.compute_dtype, return_logits=False,
+                )
             cpos += n
         return stage[0][:, :, :self.max_len], stage[1][:, :, :self.max_len]
 
@@ -298,18 +477,29 @@ class _DraftEngine:
         from nnstreamer_tpu_torch.models.serving import batched_decode_step
 
         logits, _, pos2 = batched_decode_step(self.params, tok, pos, active, self._cache,
-                                              self.n_heads, self.compute_dtype)
+                                              self.n_heads, self.compute_dtype,
+                                              windowed=self.windowed)
         return torch.argmax(logits, dim=-1).to(torch.int32), pos2
 
     def propose(self, tok, pos, active, k: int) -> torch.Tensor:
         """k greedy steps from the pending tokens → proposals [B, k - 1]
-        int32 (the k-th step exists for its write)."""
+        int32 (the k-th step exists for its write). Linear caches only."""
         cur, p = tok, pos
         props = []
         for _ in range(k):
             cur, p = self._step(cur, p, active)
             props.append(cur)
         return torch.stack(props[:k - 1], dim=1)
+
+    def propose_windowed(self, tok, pos, k: int):
+        """The ring's proposals: → (props [B, k - 1], the chunk's K/V for
+        :meth:`commit`), the ring untouched."""
+        return draft_windowed_propose(self.params, tok, pos, self._cache, self.n_heads, k,
+                                      self.compute_dtype)
+
+    def commit(self, chunk_ks, chunk_vs, pos, m, active) -> None:
+        """Land the accepted columns of a :meth:`propose_windowed` chunk."""
+        commit_ring_chunk(self._cache, chunk_ks, chunk_vs, pos, m, active)
 
     def advance_one(self, tok, pos, active) -> None:
         """Write the pending tokens' K/V without proposing: the draft's
@@ -335,7 +525,7 @@ class SpecDecoding:
                 )
             self._draft = _DraftEngine(draft_params, draft_n_heads or self.n_heads,
                                        self.n_slots, self.max_len, self.prompt_len,
-                                       self.compute_dtype, self.device)
+                                       self.compute_dtype, self.device, self.windowed)
         # slot layout: id → ((ks, vs) trimmed to the prefix, its length, its tokens);
         # paged: id → (tokens, pinned blocks)
         self._prefixes: Dict[int, Tuple] = {}
@@ -356,10 +546,36 @@ class SpecDecoding:
         and loads it into each request's stage; the paged layout prefills
         it into pool blocks, registers them in the prefix index and pins
         them until :meth:`unregister_prefix`, so later submits hit the
-        index whether or not they pass ``prefix=``."""
+        index whether or not they pass ``prefix=``.
+
+        A windowed batcher stores the prefix's ring: a prefix starts at
+        absolute position 0, so its ring placement is the same for every
+        request. Its length must be a multiple of prompt_len (and max_len
+        too), so each request's continuation chunks stay bucket-aligned and
+        never wrap the ring mid-write; it may exceed the window, whose ring
+        then holds its last max_len tokens."""
         self._check_failed()
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         plen = int(tokens.shape[0])
+        if self.windowed:
+            P = self.prompt_len
+            if plen <= 0 or plen % P:
+                raise ValueError(
+                    f"windowed prefix length {plen} must be a positive multiple of "
+                    f"prompt_len({P}) so per-request continuation chunks stay bucket-aligned"
+                )
+            if self.max_len % P:
+                raise ValueError(
+                    f"windowed prefix caching needs max_len({self.max_len}) to be a multiple "
+                    f"of prompt_len({P})"
+                )
+            with torch.no_grad():
+                _, ring, _ = self._stage_ring(tokens, 0, None, False)
+            with self._lock:
+                pid = self._next_prefix
+                self._next_prefix += 1
+                self._prefixes[pid] = (ring, plen, tokens)
+            return pid
         if not 0 < plen < self.max_len:
             raise ValueError(f"prefix length {plen} not in (0, max_len={self.max_len})")
         if self._paged:
@@ -461,24 +677,37 @@ class SpecDecoding:
         tok, pos = self._tok, self._pos
         active, budget, stop = self._active_dev, self._budget_dev, self._stop_dev
         hist = self._hist
+        ring = self.windowed
         zero = torch.zeros((), dtype=torch.int32, device=tok.device)
         acc, cols = zero, zero
         emits = []
         for _ in range(rounds):
-            if source == "draft":
+            if source == "draft" and ring:
+                props, dks, dvs = self._draft.propose_windowed(tok, pos, k)
+            elif source == "draft":
                 props = self._draft.propose(tok, pos, active, k)
             elif source == "ngram":
-                props = device_ngram_propose(hist, pos, k, g)
+                props = device_ngram_propose(hist, pos, k, g, wrap=ring)
             else:
                 props = torch.full((tok.shape[0], k - 1), -1, dtype=torch.int32,
                                    device=tok.device)
             props = torch.where(active[:, None], props, torch.full_like(props, -1))
             toks = torch.cat([tok[:, None], props], dim=1)
-            logits = self._verify(toks, pos, active)
+            if ring:
+                logits, cks, cvs = batched_windowed_verify(
+                    self.params, toks, pos, active, self._cache, self.n_heads,
+                    self.compute_dtype)
+            else:
+                logits = self._verify(toks, pos, active)
             m, final = spec_accept(logits, toks, self._temp, self._topk, self._topp,
                                    self._keys, pos, sampling)
             m = torch.where(active, m, torch.zeros_like(m))
-            emit = spec_emit_hist(toks, m, final, active, hist, pos)
+            if ring:
+                # the certified columns only, the target's and the draft's
+                commit_ring_chunk(self._cache, cks, cvs, pos, m, active)
+                if source == "draft":
+                    self._draft.commit(dks, dvs, pos, m, active)
+            emit = spec_emit_hist(toks, m, final, active, hist, pos, ring)
             acc = acc + torch.clamp(m - 1, min=0).sum().to(torch.int32)
             cols = cols + (props >= 0).sum().to(torch.int32)
             budget = budget - m
@@ -546,7 +775,9 @@ class SpecDecoding:
                     self._ensure_decode_room_locked(k)
                 live = [(s, r) for s, r in enumerate(self._slots)
                         if r is not None and self._active[s]]
-                room = min(self.max_len - (r.fill0 + len(r.tokens) - 1) for _, r in live)
+                # a ring has no end: its only bound is the window
+                room = (self.max_len - 1 if self.windowed else
+                        min(self.max_len - (r.fill0 + len(r.tokens) - 1) for _, r in live))
                 k_round = max(1, min(k, room))
                 source = "draft" if self._draft is not None else "ngram"
                 if k_round < 2:
@@ -581,7 +812,10 @@ class SpecDecoding:
         power of two, which bounds the number of programs; when not even
         one round fits, rounds of :meth:`spec_step` finish the tail.
         Slots that spend their budget or emit their stop token idle on the
-        device. Returns {rid: [tokens emitted]}."""
+        device. A windowed batcher needs no room clamp; a windowed batcher
+        with a draft runs its rounds as :meth:`spec_step` s, as the
+        reference does (its draft is stepped outside the pump).
+        Returns {rid: [tokens emitted]}."""
         return self._spec_pump(rounds, k, ngram, eager=False)
 
     def spec_pump_eager(self, rounds: int = 8, k: int = 4,
@@ -594,14 +828,19 @@ class SpecDecoding:
         self._check_failed()
         t0 = _time.perf_counter()
         k = max(2, int(k))
+        if self._draft is not None and self.windowed:
+            return self._spec_fallback_rounds(int(rounds), k, ngram, eager)
         with self._step_lock:
             self._admit()
             with self._lock:
                 if not self._active.any():
                     return {}
-                pos_max = max(r.fill0 + len(r.tokens) - 1 for s, r in enumerate(self._slots)
-                              if r is not None and self._active[s])
-                r = min(int(rounds), (self.max_len - pos_max) // k)
+                r = int(rounds)
+                if not self.windowed:
+                    pos_max = max(r_.fill0 + len(r_.tokens) - 1
+                                  for s, r_ in enumerate(self._slots)
+                                  if r_ is not None and self._active[s])
+                    r = min(r, (self.max_len - pos_max) // k)
                 if r >= 1:
                     # blocks for the clamped rounds, before the floor (the reference's order)
                     plan = self._prepare_locked(r * k)

@@ -391,11 +391,10 @@ def test_paged_kernel_with_gather_oracle_raises():
 
 @pytest.mark.parametrize(
     "call",
-    ["paged-snapshot", "paged-extract-request", "windowed", "mesh", "plane",
-     "kv-memory-bound"],
+    ["migrate-to", "drain-to-peer", "role", "mesh", "plane", "kv-memory-bound"],
 )
 def test_unported_options_raise(call):
-    from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink
+    from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink, _LlmServer
     from nnstreamer_tpu_torch.models.serving import ContinuousBatcher
     from nnstreamer_tpu_torch.models.transformer import TransformerLM
 
@@ -404,13 +403,20 @@ def test_unported_options_raise(call):
     def batcher(**kw):
         return ContinuousBatcher(lm, 2, max_len=8, prompt_len=4, device="cpu", **kw)
 
-    def paged():
-        return batcher(kv_layout="paged", block_size=4)
+    def drain_to_peer():
+        srv = _LlmServer(model="zoo:transformer_lm",
+                         options={"vocab": "16", "d_model": "16", "n_heads": "2",
+                                  "n_layers": "1"},
+                         n_slots=1, max_len=8, prompt_len=4, default_new=2,
+                         device=torch.device("cpu"),
+                         kv_kw=dict(kv_layout="paged", block_size=4))
+        srv.drain(migrate_to="127.0.0.1:1")
 
     calls = {
-        "paged-snapshot": lambda: paged().snapshot(),
-        "paged-extract-request": lambda: paged().extract_request(0),
-        "windowed": lambda: batcher(windowed=True),
+        "migrate-to": lambda: LlmServerSink(**{"kv-layout": "paged",
+                                               "migrate-to": "127.0.0.1:7000"}),
+        "drain-to-peer": drain_to_peer,
+        "role": lambda: LlmServerSink(**{"kv-layout": "paged", "role": "prefill"}),
         "mesh": lambda: batcher(mesh=object()),
         "plane": lambda: LlmServerSink(plane="p0"),
         "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",

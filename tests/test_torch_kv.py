@@ -595,8 +595,8 @@ def test_paged_xla_streams_equal_slot_streams_exactly(gqa_models, kw, sampling):
 
 
 def test_paged_batcher_validates_like_reference(models):
-    """The reference's constructor checks, and the paged options that stay
-    unported."""
+    """The reference's constructor checks, and the state and migration
+    calls' refusals on a batcher with nothing to move."""
     _, lm = models
 
     def paged(**kw):
@@ -615,10 +615,14 @@ def test_paged_batcher_validates_like_reference(models):
     cb = paged()
     with pytest.raises(ValueError, match="unknown prefix"):
         cb.submit(_prompt(4, 0), 2, prefix=0)
-    for method in ("snapshot", "restore", "extract_request", "adopt_request",
-                   "resume_from_span"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            getattr(cb, method)()
+    from nnstreamer_tpu_torch.kv.migrate import SpanStateError
+
+    with pytest.raises(SpanStateError, match="not extractable"):
+        cb.extract_request(0)
+    snap = cb.snapshot()
+    assert snap["layout"] == "paged" and snap["requests"] == []
+    with pytest.raises(ValueError, match="layout"):
+        tsv.ContinuousBatcher(lm, N_HEADS, device="cpu", **BATCHER).restore(snap)
 
 
 # -- the pipeline surface -------------------------------------------------------------------

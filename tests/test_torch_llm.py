@@ -418,9 +418,18 @@ def test_batcher_validates_and_refuses_unported(models):
         cb.submit(np.ones(3, np.int32), 2, prefix=0)
     rid = cb.submit(np.ones(3, np.int32), 1)  # budget one: done at submit
     assert cb.result(rid) is not None and cb.n_free == 1
-    for method in ("snapshot", "restore", "extract_request", "adopt_request"):
-        with pytest.raises(NotImplementedError):
-            getattr(cb, method)()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tsv.ContinuousBatcher(lm, N_HEADS, n_slots=1, max_len=16, prompt_len=8, device="cpu",
+                              mesh=object())
+    # request migration needs the paged layout, as in the reference
+    from nnstreamer_tpu_torch.kv.migrate import SpanFormatError, SpanStateError
+
+    with pytest.raises(SpanStateError, match="paged"):
+        cb.extract_request(rid)
+    span = type("Span", (), {"block_size": 16, "leaves": [], "fill0": 0, "budget": 1})()
+    with pytest.raises(SpanFormatError, match="paged"):
+        cb.adopt_request(span)
+    assert cb.snapshot()["done"] == {rid: cb.result(rid)}
 
 
 # -- the elements and the zoo ------------------------------------------------------------
