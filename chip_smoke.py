@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT   # K1 and K2: the checkout PARENT against this one
+    python3 chip_smoke.py --plane       # only the plane group (its kernels built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -182,8 +183,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  A.4, first half): every spec_step / spec_pump(rounds, k,
                  ngram) is one spec program of whole rounds (propose →
                  verify → accept → commit), on the card a CUDA graph.
-                 spec_ngram, slot and paged (block), Mistral-7B widths, 32
-                 layers, float32, 16 requests x 64 tokens, half of them
+                 spec_ngram, slot and paged (block), Mistral-7B widths,
+                 SPEC_LAYERS layers (8 since PR 16, from 32), float32,
+                 16 requests x 64 tokens, half of them
                  periodic prompts: the plain pump's streams (K3 / K4 =
                  layers x steps) as the oracle, then spec_pump(2, 4, 2)
                  eager and replayed on fresh batchers: replayed = eager
@@ -203,14 +205,15 @@ Phases, each printed as one JSON line; any failure exits nonzero:
                  forward has a near-tie), streams = plain. spec_sampling
                  (4 layers, both layouts, greedy / top-k / top-p mixed):
                  replayed = eager token for token.
-                 prefixes (both layouts, full width): a 256-token
+                 prefixes (both layouts, full width, SPEC_LAYERS): a 256-token
                  registered prefix and 8 prefix= requests against the same
                  requests concatenated on a fresh batcher: streams equal
                  (margin rule), admission ms with and without the prefix,
                  K3 / K4 = layers x steps on the decode that follows.
 18c. serving_state — the sliding-window ring, snapshot/restore and KV-span
                  migration (ROADMAP A.4b). windowed_ring: Mistral-7B widths
-                 (32 layers, float32) on its published window (max_len =
+                 (STATE_LAYERS layers: 8 since PR 16, from 32; float32) on
+                 its published window (max_len =
                  sliding_window = 4096, prompt_len 512, K3), 8 requests of
                  3584 prompt tokens (7 ring-prefill buckets; half periodic)
                  and 1024 new ones, so every slot wraps the ring at its
@@ -340,6 +343,38 @@ subplugins, fake backends, the flexible-input filter):
                  bad_mesh refused naming 999 devices without a traceback;
                  then the python3 filter script on 16 720p frames: 255 -
                  frame, copies a frame, fps.
+
+Last, the plane group (ROADMAP A.4c, the serving plane's core; alone with
+``--plane``):
+
+23. plane_pipelines — ONE description with two streams (720p gradient and
+                 counter, 256 frames each → resize 224 → tensor_filter
+                 zoo:mobilenet_v2 plane= → image_labeling): every plane
+                 program captured before the clock starts; K1 once a
+                 frame of both streams; frames a dispatch above 1 (the
+                 streams batched together); one plane graph replay a
+                 dispatch, and capture.replay's counter equal to the
+                 plane's replays plus the segments'; every batched row bit
+                 for bit against the plane's invoke_one of that frame;
+                 labels equal to the same description with two private
+                 filters, logits (16 frames a stream) within 1e-4 of max
+                 |logit|; fps a stream and both from three runs each
+                 through the plane at ring-depth 1 and 2 and through two
+                 private filters, interleaved (PLANE_RUNS), every run
+                 checked for K1 a frame and the private labels in order;
+                 the busy share of a 16-frame plane run.
+24. llm_plane   — two tensor_llm_serversink / serversrc pairs in one
+                 description on one plane= (zoo:transformer_lm at
+                 Mistral-7B's widths, LLM_PLANE_LAYERS layers, float32,
+                 kv-layout=paged, block 16, pump=8, greedy), 4 requests of
+                 64-512 prompt tokens and 192 new tokens a stream: each
+                 serversrc emits only its own requests, one cudaGraphLaunch
+                 a pump (capture.replay's counter around each pump), K4 =
+                 layers x steps, kv_gather_dispatches 0; after the plane is
+                 released, a private paged batcher on the same weights and
+                 prompts: every generation equal, or parting at a near-tie
+                 of the no-cache forward; TPOT p50 through the plane and
+                 private.
 
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
@@ -501,7 +536,14 @@ ROUTING_GOLDENS = {
 }
 
 
+_T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one result line; a phase's line carries ``t_s``, the seconds
+    since the script started, so each phase's share of the time limit shows."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -2493,6 +2535,10 @@ def serving_graphs_phases(torch, np, dev):
 # -- speculative decoding and registered prefixes (ROADMAP A.4, first half) ------------
 
 SPEC_ROUNDS, SPEC_K, SPEC_G = 2, 4, 2  # the spec pump of every speculative phase
+# the speculative group's depth (spec_ngram, prefixes): its checks (replayed
+# spec = eager, launches = layers x steps, one graph launch a spec pump) do
+# not depend on it; cut from 32 so that the whole script keeps its time limit
+SPEC_LAYERS = 8
 SPEC_PROFILE_PUMPS = 2
 SPEC_PROFILE_NEW = 200  # the profiled batch's budget: no slot finishes in the window
 DRAFT_REQUESTS, DRAFT_NEW = 8, 32
@@ -2810,7 +2856,8 @@ def prefix_cell(torch, np, sv, tfm, lm, dev, name, kw, counter, system, tails):
 
 def speculative_phases(torch, np, dev):
     """The speculative group (phase 18b): spec_ngram (slot K3 / paged K4
-    oracles), spec_draft_self and prefixes at Mistral-7B's full width;
+    oracles), spec_draft_self and prefixes at Mistral-7B's full width
+    (SPEC_LAYERS layers);
     spec_sampling at 4 layers. → the group's summary, with K3's and K4's
     counted launches on its plain pumps."""
     from nnstreamer_tpu_torch.models import serving as sv
@@ -2820,9 +2867,11 @@ def speculative_phases(torch, np, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_group = time.perf_counter()
-    out = {"phase": "speculative", **MISTRAL, **SERVE, "compute_dtype": "float32",
-           "rounds": SPEC_ROUNDS, "k": SPEC_K, "ngram": SPEC_G, "new_tokens": NEW_TOKENS}
-    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    out = {"phase": "speculative", **MISTRAL, "n_layers": SPEC_LAYERS, **SERVE,
+           "compute_dtype": "float32", "rounds": SPEC_ROUNDS, "k": SPEC_K, "ngram": SPEC_G,
+           "new_tokens": NEW_TOKENS}
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                         **dict(MISTRAL, n_layers=SPEC_LAYERS), device=dev)
     prompts = spec_traffic(np, np.random.default_rng(14))
     k3 = da.decode_attention_launches
     k4 = pa.paged_decode_attention_launches
@@ -2908,6 +2957,11 @@ def speculative_phases(torch, np, dev):
 
 # -- the serving engine's state: the sliding-window ring, snapshot/restore, spans ----------
 
+# the serving_state group's depth (windowed_ring, windowed_spec,
+# snapshot_restore_paged, migrate_spans): the ring, the snapshots and the
+# spans are checked bit for bit at any depth; cut from 32 so that the whole
+# script keeps its time limit
+STATE_LAYERS = 8
 RING_PROMPT, RING_NEW = 3584, 1024  # 7 prefill buckets; every slot wraps at its 512th token
 RING_SNAP_AT = 480  # new tokens a request has when the ring phase snapshots
 RING_PROFILE_AT = 576  # ... when the wrapped ring's profile runs (every slot past the wrap)
@@ -3052,8 +3106,8 @@ def drive_to(cb, rids, pump, until, pump_ms=None, before=None, after=None):
 
 def ring_phase(torch, np, sv, tfm, da, lm, dev):
     """windowed_ring and windowed_spec (phase 18c): Mistral-7B's full width
-    on its published window, 8 requests that wrap the ring; → (the phase
-    summary, K3's counted launches)."""
+    (STATE_LAYERS layers) on its published window, 8 requests that wrap the
+    ring; → (the phase summary, K3's counted launches)."""
     n_layers = lm.n_layers
     k3 = da.decode_attention_launches
     prompts = ring_traffic(np, np.random.default_rng(16))
@@ -3548,7 +3602,8 @@ def checkpoint_phase(torch, np, dev):
 
 def serving_state_phases(torch, np, dev):
     """The serving_state group (phase 18c): windowed_ring, windowed_spec,
-    snapshot_restore_paged, migrate_spans at Mistral-7B's full width; the
+    snapshot_restore_paged, migrate_spans at Mistral-7B's full width
+    (STATE_LAYERS layers); the
     ring self-draft, the int8 spans and checkpoints at 4 layers. → the
     group's summary with K3's and K4's counted launches."""
     from nnstreamer_tpu_torch.models import serving as sv
@@ -3558,8 +3613,10 @@ def serving_state_phases(torch, np, dev):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_group = time.perf_counter()
-    out = {"phase": "serving_state", **MISTRAL, **SERVE, "compute_dtype": "float32"}
-    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    out = {"phase": "serving_state", **MISTRAL, "n_layers": STATE_LAYERS, **SERVE,
+           "compute_dtype": "float32"}
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                         **dict(MISTRAL, n_layers=STATE_LAYERS), device=dev)
     t0 = time.perf_counter()
     with torch.no_grad():
         ring, k3_launches = ring_phase(torch, np, sv, tfm, da, lm, dev)
@@ -3598,7 +3655,7 @@ def serving_state_phases(torch, np, dev):
     emit({"phase": "checkpoints", **ck})
     out["checkpoints"] = ck
     out["k3_launches"] = k3_launches
-    out["k4_launches"] = (MISTRAL["n_layers"] * paged_steps
+    out["k4_launches"] = (STATE_LAYERS * paged_steps
                           + sum(spans[f]["k4_launches"] for f in ("cold", "warm", "resume")))
     out["seconds"] = time.perf_counter() - t_group
     return out
@@ -4649,11 +4706,12 @@ def batched_labeling(torch, np, dev, parse_pipeline, ik):
     # FPS_FRAMES a run, unbatched / batched / batched / unbatched in turn:
     # the two runs of a mode bracket the other's, so their spread is the
     # call's own noise
-    import nnstreamer_tpu_torch.pipeline.graph as graph_mod
+    import nnstreamer_tpu_torch.pipeline.programs as programs_mod
 
     replays, runs, labels0 = [], [], None
-    real = graph_mod.replay
-    graph_mod.replay = lambda graph, launches: (replays.append(graph), real(graph, launches))[1]
+    real = programs_mod.replay
+    programs_mod.replay = lambda graph, launches: (replays.append(graph),
+                                                   real(graph, launches))[1]
     try:
         for mode in ("unbatched", "batched", "batched", "unbatched"):
             replays.clear()
@@ -4682,7 +4740,7 @@ def batched_labeling(torch, np, dev, parse_pipeline, ik):
                            windows=stats.batches, rows_run=stats.bucket_rows)
             runs.append(row)
     finally:
-        graph_mod.replay = real
+        programs_mod.replay = real
     return {"frames_bit_equal": FRAMES, "logits_bit_equal": True, "labels_equal": True,
             "fps_frames": FPS_FRAMES, "replays_per_window": 1.0, "runs": runs}
 
@@ -5139,6 +5197,372 @@ def routing_xyxy(np):
     return np.concatenate([xywh[:, :2], xywh[:, :2] + xywh[:, 2:]], 1)
 
 
+
+# -- the serving plane's core (ROADMAP A.4c) ---------------------------------------------
+
+PLANE_FRAMES = 256  # a stream
+# the timed runs, in this order (a plane's ring-depth, or None for two
+# private filters): each kind three times, interleaved so that a drift of
+# the card's clock does not favour one; the first is the checked run
+PLANE_RUNS = (1, None, 2, 2, None, 1, 1, None, 2)
+PLANE_PATTERNS = ("gradient", "counter")  # the two streams: a row swap shows
+# two streams in ONE description, one plane; {plane}: " plane=..." or "" (private filters)
+PLANE_PIPELINE = " ".join(
+    f"videotestsrc pattern={pat} width=1280 height=720 num-frames={{n}} ! tensor_converter ! "
+    "tensor_transform mode=resize option=224:224 ! "
+    f"tensor_filter name=f{k} framework=torch model=zoo:mobilenet_v2{{plane}} ! "
+    f"{{decode}}tensor_sink name=out{k}" for k, pat in enumerate(PLANE_PATTERNS)
+)
+PLANE_LABELS = "tensor_decoder mode=image_labeling ! "
+PLANE_LOGITS_FRAMES = 16
+# the LLM plane's depth; its checks (generations against a private batcher,
+# one replay a pump, K4 = layers x steps, zero gathers) do not depend on it;
+# cut from 32 so that the whole script keeps its time limit
+LLM_PLANE_LAYERS = 8
+# a stream; 192 new tokens give some 20 pumps of 8 decode steps with no
+# prefill chunk in them, the samples of the plane's TPOT
+LLM_PLANE_REQUESTS, LLM_PLANE_NEW = 4, 192
+LLM_PLANE_PIPELINE = " ".join(
+    f"appsrc name=src{k} dimensions=512:1 types=int32 ! "
+    f'tensor_llm_serversink id=chipplane{k} custom="{{opts}}" attn-impl=pallas kv-layout=paged '
+    "block-size=16 kv-blocks=1024 n-slots=8 max-len=4096 prompt-len=512 "
+    f"max-new-tokens={LLM_PLANE_NEW} pump=8 plane=chip-llm "
+    f"tensor_llm_serversrc name=ssrc{k} id=chipplane{k} ! tensor_sink name=out{k}"
+    for k in range(2)
+)
+
+
+def plane_desc(n, plane, decode=True, depth=1):
+    props = (f" plane={plane}" + (f" ring-depth={depth}" if depth > 1 else "")) if plane else ""
+    return PLANE_PIPELINE.format(n=n, plane=props, decode=PLANE_LABELS if decode else "")
+
+
+def plane_program_warm(plane, sig):
+    """Fill the plane program's per-frame and bucket programs before the
+    timed run (on the card: each captured with its rows idle)."""
+    prog = plane._ensure_program()
+    prog.programs.program_for(sig)
+    for b in prog.buckets:
+        prog.programs.program_for(sig, b)
+    return prog
+
+
+def plane_run(torch, parse_pipeline, dev, ik, plane, n, record=False, depth=1):
+    """One run of the two-stream description (through ``plane`` at ticket
+    depth ``depth``, or two private filters when None): every program
+    filled before the clock starts, K1 and the graph-replay counter from
+    0. → a dict."""
+    from nnstreamer_tpu_torch import capture as cap_mod
+    from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
+
+    p = parse_pipeline(plane_desc(n, plane, depth=depth), device=dev)
+    p.negotiate()
+    out = {"pipeline": p}
+    sig = (((1, 224, 224, 3), torch.uint8),)
+    if plane:
+        pl = plane_mod.get(plane)
+        prog = plane_program_warm(pl, sig)
+        if record:
+            inner, rows = prog.invoke, []
+
+            def recording(windows):
+                outs = inner(windows)
+                rows.append((list(windows), outs))
+                return outs
+
+            prog.invoke = recording
+            out["rows"] = rows
+        out.update(plane=pl, program=prog, replays0=prog.programs.replays)
+    ik.crop_resize_launches.reset()
+    cap_mod.graph_replays.reset()  # builds capture, they do not replay
+    ex = p.start()  # builds every segment's programs before the first frame
+    t0 = time.perf_counter()
+    done = ex.wait(600)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out["graph_replays"] = cap_mod.graph_replays.count
+    out["segment_replays"] = sum(s.programs.replays for s in ex.plan.segments)
+    out["stats"] = ex.stats()
+    if plane:
+        prog = out["program"]
+        out["plane_stats"] = out["plane"].stats()
+        out["plane_replays"] = prog.programs.replays - out["replays0"]
+        out["captured"] = prog.programs.captured
+        if record:
+            # before the filters stop (the last one closes the plane): each
+            # recorded row against the plane's own per-frame program
+            out["rows_checked"] = 0
+            for windows, outs in out["rows"]:
+                for w, o in zip(windows, outs):
+                    if not torch.equal(o[0], prog.invoke_one(w)[0]):
+                        raise AssertionError("plane_pipelines: a batched row differs from "
+                                             "invoke_one of its frame")
+                    out["rows_checked"] += 1
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"plane_pipelines: {ex.errors or 'no EOS within 600 s'}")
+    out["k1_launches"] = ik.crop_resize_launches.count
+    out["wall_s"] = wall
+    out["fps_both"] = 2 * n / wall
+    out["fps"] = {}
+    for k, pat in enumerate(PLANE_PATTERNS):
+        frames = p[f"out{k}"].frames
+        if len(frames) != n:
+            raise AssertionError(f"plane_pipelines: stream {pat} gave {len(frames)} of {n} frames")
+        out["fps"][pat] = n / (frames[-1].meta["render_t"] - t0)
+    return out
+
+
+def plane_pipelines_phase(torch, np, dev, parse_pipeline, ik):
+    """Two streams of one description (720p gradient and counter → resize
+    224 → MobileNet-v2 → image_labeling) through one plane, against the
+    same description with two private filters."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
+
+    n = PLANE_FRAMES
+    assert PLANE_RUNS[:2] == (1, None)
+    run = plane_run(torch, parse_pipeline, dev, ik, "chip-plane", n, record=True)
+    st = run["plane_stats"]
+    if run["k1_launches"] != 2 * n:
+        raise AssertionError(f"plane_pipelines: K1 launched {run['k1_launches']} times for "
+                             f"2 x {n} frames")
+    if st["frames"] != 2 * n or st["split_dispatches"]:
+        raise AssertionError(f"plane_pipelines: plane stats {st}")
+    frames_per_dispatch = st["frames"] / st["dispatches"]
+    if not frames_per_dispatch > 1:
+        raise AssertionError(f"plane_pipelines: {frames_per_dispatch} frames a dispatch: no "
+                             "cross-stream batch formed")
+    if run["plane_replays"] != st["dispatches"]:
+        raise AssertionError(f"plane_pipelines: {run['plane_replays']} plane graph replays for "
+                             f"{st['dispatches']} dispatches")
+    if run["graph_replays"] != run["plane_replays"] + run["segment_replays"]:
+        raise AssertionError(f"plane_pipelines: capture.replay counted {run['graph_replays']}, "
+                             f"the plane {run['plane_replays']} + the segments "
+                             f"{run['segment_replays']}")
+    if not run["captured"]:
+        raise AssertionError("plane_pipelines: the plane's programs are not CUDA graphs")
+    rows_checked = run["rows_checked"]
+    if rows_checked != 2 * n:
+        raise AssertionError(f"plane_pipelines: {rows_checked} rows recorded for 2 x {n}")
+    if plane_mod.get("chip-plane") is not None:
+        raise AssertionError("plane_pipelines: the plane outlived its filters")
+    private = plane_run(torch, parse_pipeline, dev, ik, None, n)
+
+    def labels_of(r):
+        return [[int(f.tensors[0][0]) for f in r["pipeline"][f"out{k}"].frames]
+                for k in range(len(PLANE_PATTERNS))]
+
+    want_labels = labels_of(private)
+    labels = {pat: want_labels[k][:4] for k, pat in enumerate(PLANE_PATTERNS)}
+    # fps samples: every run of PLANE_RUNS, each checked for K1 a frame and
+    # for the private filters' labels in order (ring-depth 2 included)
+    samples = {"depth1": [run], "private": [private], "depth2": []}
+    for i, depth in enumerate(PLANE_RUNS):
+        if i >= 2:
+            r = plane_run(torch, parse_pipeline, dev, ik,
+                          f"chip-plane-{i}" if depth else None, n, depth=depth or 1)
+            samples[f"depth{depth}" if depth else "private"].append(r)
+        else:
+            r = (run, private)[i]
+        if r["k1_launches"] != 2 * n:
+            raise AssertionError(f"plane_pipelines: run {i} launched K1 {r['k1_launches']} "
+                                 f"times for 2 x {n} frames")
+        if depth and r["plane_stats"]["frames"] != 2 * n:
+            raise AssertionError(f"plane_pipelines: run {i} plane stats {r['plane_stats']}")
+        for k, pat in enumerate(PLANE_PATTERNS):
+            if labels_of(r)[k] != want_labels[k]:
+                raise AssertionError(f"plane_pipelines: run {i} (ring-depth {depth}) stream "
+                                     f"{pat} labels differ from the private filter's")
+        for key in ("pipeline", "plane", "program", "rows"):
+            r.pop(key, None)  # a run is checked: let its frames, plane and graphs go
+    fps = {kind: {"fps_both": [r["fps_both"] for r in rs],
+                  "fps_per_stream": {pat: [r["fps"][pat] for r in rs] for pat in PLANE_PATTERNS},
+                  "fps_both_median": float(np.median([r["fps_both"] for r in rs])),
+                  "runs": len(rs)}
+           for kind, rs in samples.items()}
+    for kind in ("depth1", "depth2"):
+        fps[kind]["frames_per_dispatch"] = [
+            r["plane_stats"]["frames"] / r["plane_stats"]["dispatches"] for r in samples[kind]]
+    # logits: the plane against private filters, PLANE_LOGITS_FRAMES a stream
+    logits = {}
+    for plane in ("chip-plane-logits", None):
+        p = parse_pipeline(plane_desc(PLANE_LOGITS_FRAMES, plane, decode=False), device=dev)
+        p.run(timeout=600)
+        logits[plane] = [np.stack([f.tensors[0] for f in p[f"out{k}"].frames])
+                         for k in range(2)]
+    logit_err, logit_tol = 0.0, 0.0
+    for got, want in zip(logits["chip-plane-logits"], logits[None]):
+        logit_err = max(logit_err, float(np.abs(got - want).max()))
+        logit_tol = max(logit_tol, 1e-4 * float(np.abs(want).max()))
+        if not np.array_equal(got.argmax(-1), want.argmax(-1)):
+            raise AssertionError("plane_pipelines: plane top-1 differs from a private filter's")
+    if not logit_err <= logit_tol:
+        raise AssertionError(f"plane_pipelines: logits {logit_err} from the private filter's "
+                             f"> {logit_tol}")
+    # the busy share of a 16-frame plane run
+    p = parse_pipeline(plane_desc(16, "chip-plane-prof"), device=dev)
+    p.negotiate()
+    plane_program_warm(plane_mod.get("chip-plane-prof"), (((1, 224, 224, 3), torch.uint8),))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        prof_wall = time.perf_counter() - t0
+    busy = profile_classes(torch, prof, prof_wall, [("crop_resize (K1)", "crop_resize")])
+    torch.cuda.empty_cache()
+    return {
+        "phase": "plane_pipelines", "frames_per_stream": n, "streams": list(PLANE_PATTERNS),
+        "k1_launches": run["k1_launches"], "dispatches": st["dispatches"],
+        "frames_per_dispatch": frames_per_dispatch, "n_traces": st["n_traces"],
+        "plane_graph_replays": run["plane_replays"], "graph_replays": run["graph_replays"],
+        "segment_replays": run["segment_replays"], "rows_bitwise_invoke_one": rows_checked,
+        "labels_first4": labels, "labels_equal_private": True,
+        "logits_max_abs_err": logit_err, "logits_tolerance": logit_tol,
+        "run_order": ["private" if d is None else f"depth{d}" for d in PLANE_RUNS],
+        "fps": fps, "wall_s": run["wall_s"], "private_k1_launches": private["k1_launches"],
+        "profile_16": {k: busy[k] for k in ("device_busy_share", "device_ms", "wall_ms",
+                                            "device_ms_by_class")},
+    }
+
+
+def llm_plane_phase(torch, np, dev, parse_pipeline):
+    """Two serversink/serversrc pairs on one LLM plane at Mistral-7B's
+    widths (LLM_PLANE_LAYERS layers), 4 requests a stream; then, after the
+    plane is released, a private paged batcher on the same weights and
+    prompts as the oracle."""
+    import gc
+
+    from nnstreamer_tpu_torch import capture as cap_mod
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+    from nnstreamer_tpu_torch.serving_plane import llm as llm_plane
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    layers = LLM_PLANE_LAYERS
+    opts = (f"vocab:{MISTRAL['vocab']},d_model:{MISTRAL['d_model']},n_heads:{MISTRAL['n_heads']},"
+            f"n_kv_heads:{MISTRAL['n_kv_heads']},d_ff:{MISTRAL['d_ff']},n_layers:{layers},seed:0")
+    rng = np.random.default_rng(16)
+    prompts = {f"s{k}r{i}": rng.integers(1, MISTRAL["vocab"], n).astype(np.int32)
+               for k in range(2) for i, n in enumerate(rng.integers(64, 513, LLM_PLANE_REQUESTS))}
+
+    def through_plane():
+        pl = parse_pipeline(LLM_PLANE_PIPELINE.format(opts=opts), device=dev)
+        ex = pl.start()
+        plane = llm_plane.get("chip-llm")
+        if plane is None or len(plane._sched) != 2:
+            raise AssertionError("llm_plane: the two serversinks do not share one plane")
+        cb = plane.cb
+        real, pumps = cb.step_pump, []
+
+        def timed_pump(n):
+            # a pump with prefill chunks queued runs one of them first
+            # (admission): TPOT reads the pumps without one
+            prefill = cb.stats()["kv_prefill_queue"]
+            r0 = cap_mod.graph_replays.count
+            t0 = time.perf_counter()
+            got = real(n)
+            pumps.append((time.perf_counter() - t0, cap_mod.graph_replays.count - r0, n, prefill))
+            return got
+
+        cb.step_pump = timed_pump
+        st0 = cb.stats()
+        pa.paged_decode_attention_launches.reset()
+        da.decode_attention_launches.reset()
+        t0 = time.perf_counter()
+        for k in range(2):
+            for name, p in prompts.items():
+                if name.startswith(f"s{k}"):
+                    pl[f"src{k}"].push(Frame((p,), meta={"req": name}))
+            pl[f"src{k}"].end_of_stream()
+        done = ex.wait(900)
+        wall = time.perf_counter() - t0
+        k4, k3 = pa.paged_decode_attention_launches.count, da.decode_attention_launches.count
+        ex.stop()
+        if ex.errors or not done:
+            raise AssertionError(f"llm_plane: {ex.errors or 'no EOS within 900 s'}")
+        stats = [pl[f"ssrc{k}"].serving_stats() for k in range(2)]
+        emitted = {k: [f.meta["req"] for f in pl[f"out{k}"].frames] for k in range(2)}
+        got = {f.meta["req"]: f.tensors[0][0].tolist()
+               for k in range(2) for f in pl[f"out{k}"].frames}
+        return dict(stats=stats, st0=st0, emitted=emitted, got=got, pumps=pumps, k4=k4, k3=k3,
+                    wall=wall)
+
+    r = through_plane()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if llm_plane.get("chip-llm") is not None:
+        raise AssertionError("llm_plane: the plane outlived its serversinks")
+    for k in range(2):
+        if sorted(r["emitted"][k]) != sorted(n for n in prompts if n.startswith(f"s{k}")):
+            raise AssertionError(f"llm_plane: serversrc {k} emitted {r['emitted'][k]}")
+    # each serversrc's stats were read when its own stream drained: the
+    # later one saw every pump
+    final = max(r["stats"], key=lambda s: s["steps"])
+    steps = final["steps"] - r["st0"]["steps"]
+    if r["k4"] != layers * steps or r["k3"]:
+        raise AssertionError(f"llm_plane: K4 launched {r['k4']} times for {layers} x {steps} "
+                             f"steps (K3 {r['k3']})")
+    for s in r["stats"]:
+        if s.get("kv_gather_dispatches", 0) != 0 or s["kv_attn"] != "block":
+            raise AssertionError(f"llm_plane: the decode gathered: {s}")
+        if (s["stream_submitted"], s["stream_served"], s["stream_errors"]) != (
+                LLM_PLANE_REQUESTS, LLM_PLANE_REQUESTS, 0):
+            raise AssertionError(f"llm_plane: stream counters {s}")
+    per_pump = [d for _, d, _, _ in r["pumps"]]
+    replayed = [t * 1e3 / n for t, d, n, prefill in r["pumps"] if d == 1 and not prefill]
+    if any(d > 1 for d in per_pump) or not replayed:
+        raise AssertionError(f"llm_plane: cudaGraphLaunch a pump {sorted(set(per_pump))}")
+    replays = sum(p["replays"] for p in final["programs"].values()) - sum(
+        p["replays"] for p in r["st0"]["programs"].values())
+    if replays != sum(per_pump):
+        raise AssertionError(f"llm_plane: {sum(per_pump)} replays counted, the programs "
+                             f"{replays}")
+    # the oracle: a private paged batcher on the same weights and prompts
+    m = zoo.get("transformer_lm", device=dev, **dict(kv.split(":") for kv in opts.split(",")))
+    cb = sv.ContinuousBatcher(m.params, MISTRAL["n_heads"], **SERVE, **PAGED,
+                              kv_blocks=KV_BLOCKS, attn_impl="pallas", device=dev)
+    names = list(prompts)
+    drive_paged(cb, [prompts[names[0]][:64]], 4)  # warm-up: the programs' fills
+    private = drive_paged(cb, [prompts[n] for n in names], LLM_PLANE_NEW)
+    parted = 0
+    with torch.no_grad():
+        for n, want in zip(names, private["tokens"]):
+            parted += stream_check(torch, np, tfm, m.params, prompts[n], r["got"][n], want,
+                                   MARGIN_REL, torch.float32)
+    del cb, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {
+        "phase": "llm_plane", **MISTRAL, "n_layers": layers, "streams": 2,
+        "requests_per_stream": LLM_PLANE_REQUESTS, "new_tokens": LLM_PLANE_NEW,
+        "prompt_lens": {n: len(p) for n, p in prompts.items()}, "pump": 8,
+        "k4_launches": r["k4"], "steps": steps, "layers_x_steps": layers * steps,
+        "pumps": len(per_pump), "pumps_replayed": sum(per_pump),
+        "decode_pumps_timed": len(replayed),
+        "private_pumps_timed": len(private["pump_ms_per_step"]),
+        "graph_launches_per_replayed_pump": 1, "program_replays": replays,
+        "kv_gather_dispatches": 0, "equal_to_private": len(names) - parted,
+        "parted_at_near_tie": parted, "wall_s": r["wall"],
+        "tpot_ms_p50_plane": pct(sorted(replayed), 0.5),
+        "tpot_ms_p50_private": pct(private["pump_ms_per_step"], 0.5),
+        "tokens_first_request": r["got"][names[0]][:8],
+    }
+
+
+def plane_phases(torch, np, dev, parse_pipeline, ik):
+    """The plane group: plane_pipelines, then llm_plane."""
+    t0 = time.perf_counter()
+    pipes = plane_pipelines_phase(torch, np, dev, parse_pipeline, ik)
+    emit(pipes)
+    llm = llm_plane_phase(torch, np, dev, parse_pipeline)
+    emit(llm)
+    return {"plane_pipelines": pipes, "llm_plane": llm, "seconds": time.perf_counter() - t0}
+
+
 def ab_turn(tree: str, npz: str) -> int:
     """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
     25200 candidates with the kernels of the checkout at ``tree`` (its own
@@ -5499,6 +5923,9 @@ def main() -> int:
     emit({"phase": "serving_state", "seconds": state["seconds"],
           "k3_launches": state["k3_launches"], "k4_launches": state["k4_launches"]})
     k5_main, k5_launches = flash_phases(torch, np, dev, parse_pipeline)
+    torch.cuda.empty_cache()
+    plane = plane_phases(torch, np, dev, parse_pipeline, ik)
+    emit({"phase": "plane", "seconds": plane["seconds"]})
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -5514,6 +5941,7 @@ def main() -> int:
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "launches_vision": vision["k1_launches"],
         "launches_codec_labeling": codecs_k1,
+        "launches_plane_pipelines": plane["plane_pipelines"]["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -5568,6 +5996,7 @@ def main() -> int:
         "launches": k4_launches,
         "launches_speculative": spec["k4_launches"],
         "launches_serving_state": state["k4_launches"],
+        "launches_llm_plane": plane["llm_plane"]["k4_launches"],
         "max_abs_err": k4_main["max_abs_err"],
         "ms": k4_main["kernel_ms"],
         "plain_ms": k4_main["plain_ms"],
@@ -5596,7 +6025,32 @@ def main() -> int:
     return 0
 
 
+def plane_main() -> int:
+    """``--plane``: only the plane group (the kernels it runs built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    _build.build(["image_kernels", "paged_attention"])
+    out = plane_phases(torch, np, torch.device("cuda"), parse_pipeline, ik)
+    emit({"phase": "plane", "seconds": out["seconds"]})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plane"] and len(sys.argv) == 2:
+        sys.exit(plane_main())
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:

@@ -15,6 +15,7 @@ stages into one segment.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from abc import ABC, abstractmethod
 from dataclasses import dataclass, field
@@ -101,6 +102,14 @@ class Backend(ABC):
     def close(self) -> None:
         """Release resources. Reference fw->close."""
 
+    def reload(self, model_paths: Sequence[str]) -> None:
+        """Model swap (reference RELOAD_MODEL): close, then open again on
+        ``model_paths`` with the same properties."""
+        if self.props is None:
+            raise BackendError(f"{self.name}: reload before open")
+        self.close()
+        self.open(dataclasses.replace(self.props, model=tuple(model_paths)))
+
     @abstractmethod
     def get_model_info(self) -> Tuple[TensorsSpec, TensorsSpec]:
         """(input_spec, output_spec) after open."""
@@ -146,11 +155,11 @@ class InvokeStats:
 
     def __init__(self) -> None:
         self.total_invoke_num = 0
-        self._recent: List[int] = []
+        self._recent: List[Tuple[int, int]] = []  # (host clock ns at record, latency ns)
 
     def record(self, latency_ns: int) -> None:
         self.total_invoke_num += 1
-        self._recent.append(latency_ns)
+        self._recent.append((time.monotonic_ns(), latency_ns))
         if len(self._recent) > self.WINDOW:
             self._recent.pop(0)
 
@@ -158,4 +167,13 @@ class InvokeStats:
     def latency_us(self) -> float:
         if not self._recent:
             return 0.0
-        return sum(self._recent) / len(self._recent) / 1000.0
+        return sum(l for _, l in self._recent) / len(self._recent) / 1000.0
+
+    @property
+    def throughput_fps(self) -> float:
+        """Invokes a second over the recent window (the reference's
+        'throughput' property, in plain fps)."""
+        if len(self._recent) < 2:
+            return 0.0
+        span = self._recent[-1][0] - self._recent[0][0]
+        return (len(self._recent) - 1) * 1e9 / span if span > 0 else 0.0

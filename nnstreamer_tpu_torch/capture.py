@@ -84,9 +84,14 @@ def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
     return Captured(graph, outputs, dict(tally), sum(warm.values()), time.perf_counter() - t0)
 
 
+#: CUDA-graph replays in the process (each one ``cudaGraphLaunch``), all owners
+graph_replays = LaunchCounter()
+
+
 def replay(graph: "torch.cuda.CUDAGraph", launches: Dict[LaunchCounter, int]) -> None:
     """Run a captured graph on the current stream and add the launches
-    its capture recorded to their counters."""
+    its capture recorded to their counters (and one to ``graph_replays``)."""
     graph.replay()
+    graph_replays.add()
     for counter, n in launches.items():
         counter.add(n)

@@ -5,8 +5,14 @@
         tensor_filter framework=torch model=zoo:mobilenet_v2 ! \\
         tensor_decoder mode=image_labeling ! tensor_sink"
 
+    python -m nnstreamer_tpu_torch.cli --inspect                # list elements
+    python -m nnstreamer_tpu_torch.cli --inspect tensor_filter  # element detail
+    python -m nnstreamer_tpu_torch.cli --dot "..." > graph.dot  # graph dump
+
 The pipeline runs on the GPU; ``--device cpu`` runs it on the host. Errors
 exit nonzero with one ``nns-launch:`` line on stderr and no traceback.
+``--timeout`` bounds a pipeline that does not end: at the bound it stops,
+prints "Timeout reached" with the sinks' counts, and exits 0.
 """
 
 from __future__ import annotations
@@ -16,16 +22,54 @@ import sys
 import time
 
 
+def _inspect(name) -> int:
+    from nnstreamer_tpu_torch import registry
+
+    if not name:
+        print("Available elements:")
+        for n in registry.available(registry.KIND_ELEMENT):
+            cls = registry.get(registry.KIND_ELEMENT, n)
+            doc = (cls.__doc__ or "").strip().splitlines()
+            print(f"  {n:24s} {doc[0] if doc else ''}")
+        for kind, label in (
+            (registry.KIND_FILTER, "filter backends"),
+            (registry.KIND_DECODER, "decoder subplugins"),
+            (registry.KIND_CONVERTER, "converter subplugins"),
+        ):
+            names = registry.available(kind)
+            if names:
+                print(f"\nAvailable {label}: {', '.join(names)}")
+        return 0
+    cls = registry.get(registry.KIND_ELEMENT, name)
+    print(f"Element: {name}\n")
+    print(cls.__doc__ or "(no documentation)")
+    return 0
+
+
 def main(argv=None) -> int:
+    from nnstreamer_tpu_torch import __version__
+
     ap = argparse.ArgumentParser(prog="nns-launch", description=__doc__)
-    ap.add_argument("description", help="pipeline description")
+    ap.add_argument("description", nargs="?", help="pipeline description")
+    ap.add_argument("--inspect", nargs="?", const="", default=None, metavar="ELEMENT")
+    ap.add_argument("--dot", action="store_true", help="print graphviz, don't run")
     ap.add_argument(
         "--device", default=None,
         help="torch device to run on (default cuda; 'cpu' runs on the host)",
     )
     ap.add_argument("--timeout", type=float, default=None, help="run timeout (s)")
     ap.add_argument("--quiet", "-q", action="store_true")
+    ap.add_argument("--version", action="version", version=f"nns-launch {__version__}")
     args = ap.parse_args(argv)
+
+    if args.inspect is not None:
+        try:
+            return _inspect(args.inspect or None)
+        except KeyError as exc:
+            print(f"nns-launch: {exc}", file=sys.stderr)
+            return 1
+    if not args.description:
+        ap.error("pipeline description required")
 
     from nnstreamer_tpu_torch.device import NoDeviceError
     from nnstreamer_tpu_torch.elements.base import ElementError, NegotiationError
@@ -40,6 +84,9 @@ def main(argv=None) -> int:
             KeyError, ValueError, NotImplementedError) as exc:
         print(f"nns-launch: {exc}", file=sys.stderr)
         return 1
+    if args.dot:
+        print(pipeline.dump_dot())
+        return 0
     if not args.quiet:
         print(
             f"Setting pipeline PLAYING ({len(pipeline.elements)} elements) "
@@ -47,16 +94,19 @@ def main(argv=None) -> int:
             file=sys.stderr,
         )
     t0 = time.perf_counter()
+    timed_out = False
     try:
         pipeline.run(timeout=args.timeout)
-    except TimeoutError as exc:
-        print(f"nns-launch: {exc}", file=sys.stderr)
-        return 1
+    except TimeoutError:
+        # an operator-requested bound on a pipeline that does not end: a
+        # stop, not an error (the run stopped every node before raising)
+        timed_out = True
     except Exception as exc:  # noqa: BLE001 — CLI boundary: report, exit 1
         print(f"nns-launch: pipeline error: {type(exc).__name__}: {exc}", file=sys.stderr)
         return 1
     if not args.quiet:
-        print(f"EOS after {time.perf_counter() - t0:.3f}s", file=sys.stderr)
+        msg = "Timeout reached" if timed_out else "EOS"
+        print(f"{msg} after {time.perf_counter() - t0:.3f}s", file=sys.stderr)
         for e in pipeline.elements:
             if hasattr(e, "rendered"):
                 print(f"  {e.name}: rendered {e.rendered} frames", file=sys.stderr)

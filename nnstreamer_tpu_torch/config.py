@@ -2,8 +2,8 @@
 
 The part of ``nnstreamer_tpu/config.py`` that the port reads: plugin
 search paths, the element restriction whitelist, the framework
-auto-detect priority, the ``[executor]`` micro-batching defaults and the
-``[llm]`` serving defaults. Env mapping:
+auto-detect priority, the ``[executor]`` micro-batching defaults, the
+``[plane]`` serving-plane defaults and the ``[llm]`` serving defaults. Env mapping:
 section ``filter`` key ``framework_priority_pt`` is overridden by
 ``NNS_TPU_FILTER_FRAMEWORK_PRIORITY_PT``. The ini file is read only from
 the path in ``NNS_TPU_CONF``.
@@ -42,6 +42,22 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "batch_buckets": "",
     },
     "converter": {"plugin_paths": ""},
+    "plane": {
+        # serving-plane defaults (serving_plane/plane.py); tensor_filter's
+        # plane-* properties override. Env: NNS_TPU_PLANE_MAX_BATCH etc.
+        "max_batch": "8",
+        "timeout_ms": "1.0",
+        # single | shard (one device in the port) | replicas (not ported)
+        "mode": "single",
+        # devices backing the plane: mesh size (shard) / replica count
+        "devices": "1",
+        # a submit with no service inside this window fails typed
+        # (service thread dead / program wedged), never hangs a node
+        "submit_timeout_s": "30",
+        # per-stream in-flight window tickets (1 = blocking submits);
+        # tensor_filter ring-depth= outranks it
+        "inflight": "1",
+    },
     "llm": {
         # continuous-batching LLM serving defaults (tensor_llm_serversink
         # props override). kv_layout: slot (one contiguous worst-case cache

@@ -1,14 +1,15 @@
 """tensor_filter: the inference element.
 
-The counterpart of ``nnstreamer_tpu/elements/filter.py``, plain invoke
-path only: one backend per filter, opened on the pipeline's device at
-negotiation. A backend that exposes a function over device tensors (the
-native ``torch`` backend) fuses into the surrounding segment, so
+The counterpart of ``nnstreamer_tpu/elements/filter.py``: one backend per
+filter, opened on the pipeline's device at negotiation, or one stream of a
+shared serving plane. A backend that exposes a function over device
+tensors (the native ``torch`` backend) fuses into the surrounding segment, so
 converter → transform → filter → decoder runs as one callable with the
 tensors on the card throughout.
 
 Properties: framework, model, input/inputtype/inputname (input spec
-override), custom (backend options ``k:v,k2:v2``), input-combination
+override), output/outputtype/outputname (output spec override, handed to
+the backend), custom (backend options ``k:v,k2:v2``), input-combination
 (which input tensors the model takes, ``i0,i2``) and output-combination
 (the frame out, from model outputs and input tensors: ``o0,i1,o2``),
 applied inside the fused callable, and invoke-dynamic (per-frame input
@@ -17,7 +18,23 @@ max-batch, batch-timeout-ms, batch-buckets; read-only avg-batch-size,
 pad-waste-pct, batch-wait-ms) is resolved at plan time
 (pipeline/batching.py): a fused filter batches through its segment, a host
 one through ``invoke_batched`` when its backend declares ``batchable``.
-``reload_model`` swaps the model under the same specs.
+``reload_model`` swaps the model under the same specs (``is-updatable`` is
+accepted as the reference accepts it).
+
+Serving plane (serving_plane/): ``plane=<name>`` attaches the filter as
+one stream of the process-wide plane of that name, which runs ONE opened
+backend for all its streams and batches their windows into one device
+program (on CUDA one graph replay a dispatch). ``plane-weight`` is the
+stream's weighted-fair share; ``plane-max-batch``, ``plane-timeout-ms``,
+``plane-mode`` and ``plane-devices`` override the ``[plane]`` defaults
+(the first attacher's config binds the plane; a sharer that sets none of
+them inherits it). A plane filter is a fusion barrier and a batch-capable
+host node: its local collector defaults on, window-matched to the plane,
+and each collected window is one plane round trip. ``ring-depth`` (1..32,
+default ``[plane] inflight``) is the stream's in-flight window tickets: at
+depth > 1 window N+1 submits while N computes. ``plane-mode=replicas``,
+``plane-mode=shard`` over more than one device, and ``ring-depth`` without
+a plane are not ported and raise at construction.
 
 A flexible input stream (a converter subplugin's, a host-mode
 ``tensor_crop``'s) negotiates against the model's own spec; each frame
@@ -28,7 +45,7 @@ never fused.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.backends.base import Backend, FilterProps
@@ -76,6 +93,10 @@ class TensorFilter(TensorOp):
         "input": PropSpec("str", None, desc="input spec override (dims)"),
         "inputtype": PropSpec("str", "float32"),
         "inputname": PropSpec("str", ""),
+        "output": PropSpec("str", None, desc="output spec override (dims)"),
+        "outputtype": PropSpec("str", "float32"),
+        "outputname": PropSpec("str", ""),
+        "is-updatable": PropSpec("bool", False, desc="allow reload_model()"),
         "custom": PropSpec("str", "", desc="backend options 'k:v,k2:v2'"),
         "invoke-dynamic": PropSpec("bool", False, desc="input shapes may vary per frame"),
         "input-combination": PropSpec("str", "", desc="model inputs: 'i0,i2'"),
@@ -94,6 +115,16 @@ class TensorFilter(TensorOp):
             "str", None,
             desc="comma list of padded batch sizes (default 1,2,4,...,max-batch)",
         ),
+        # serving plane (serving_plane/): one stream of a shared plane
+        "plane": PropSpec("str", "", desc="attach to the named process-wide serving plane"),
+        "plane-weight": PropSpec("float", None, desc="this stream's weighted-fair share"),
+        "plane-mode": PropSpec("str", None, desc="single | shard | replicas ([plane] mode)"),
+        "plane-devices": PropSpec("int", None, desc="devices backing the plane ([plane] devices)"),
+        "plane-max-batch": PropSpec("int", None, desc="cross-stream batch cap ([plane] max_batch)"),
+        "plane-timeout-ms": PropSpec(
+            "float", None, desc="plane straggler wait when trickle-fed ([plane] timeout_ms)"),
+        "ring-depth": PropSpec(
+            "int", None, desc="in-flight plane window tickets, 1..32 ([plane] inflight)"),
     }
 
     # read-only properties: the node's batching counters (pipeline/batching.py)
@@ -118,10 +149,18 @@ class TensorFilter(TensorOp):
                 str(self.get_property("inputtype", "float32")),
                 str(self.get_property("inputname", "")),
             )
+        out_override = None
+        if self.get_property("output"):
+            out_override = TensorsSpec.from_strings(
+                str(self.get_property("output")),
+                str(self.get_property("outputtype", "float32")),
+                str(self.get_property("outputname", "")),
+            )
         self.fprops = FilterProps(
             framework=framework,
             model=model_list,
             input_spec=in_override,
+            output_spec=out_override,
             custom=str(self.get_property("custom", "")),
             invoke_dynamic=parse_bool(self.get_property("invoke-dynamic", False)),
         )
@@ -130,17 +169,152 @@ class TensorFilter(TensorOp):
             str(self.get_property("output-combination", "")))
         self.backend: Optional[Backend] = None
         self._flexible_input = False
+        self._init_plane()
 
+    # -- serving plane (serving_plane/plane.py) ----------------------------
+    def _init_plane(self) -> None:
+        """Resolve the plane config and this stream's ticket depth, and
+        default the local collector on, window-matched to the plane
+        (explicit batching= / max-batch= props still win). What the port
+        cannot serve raises here, before any backend opens."""
+        self.plane = str(self.get_property("plane", "") or "")
+        raw_w = self.get_property("plane-weight")
+        self.plane_weight = float(raw_w) if raw_w is not None else 1.0
+        self._plane = None          # ModelPlane once acquired
+        self._plane_stream = None   # this filter's PlaneStream
+        self._plane_cfg = None      # resolved PlaneConfig
+        self._plane_last_stats: Dict[str, Any] = {}
+        self.plane_inflight = 1     # async ticket depth (1 = blocking)
+        raw_rd = self.get_property("ring-depth")
+        if not self.plane:
+            if raw_rd is not None:
+                raise NotImplementedError(
+                    f"{self.name}: ring-depth without plane= (the executor's in-flight "
+                    "frame ring, pipeline/transfer.py) is not ported yet (ROADMAP A.6b)"
+                )
+            return
+        from nnstreamer_tpu_torch.serving_plane.plane import resolve_plane_config
+        from nnstreamer_tpu_torch.serving_plane.sharding import refuse_unported
+
+        self._plane_cfg = resolve_plane_config([self])
+        refuse_unported(self._plane_cfg)
+        if raw_rd is not None:
+            try:
+                depth = int(raw_rd)
+            except (TypeError, ValueError) as exc:
+                raise ValueError(f"{self.name}: bad ring-depth={raw_rd!r}") from exc
+            self.plane_inflight = max(1, min(32, depth))
+        else:
+            self.plane_inflight = self._plane_cfg.inflight
+        if self.get_property("batching") is None:
+            self.set_property("batching", "true")
+        if self.get_property("max-batch") is None:
+            self.set_property("max-batch", str(self._plane_cfg.max_batch))
+        if self.get_property("batch-timeout-ms") is None:
+            self.set_property("batch-timeout-ms", str(self._plane_cfg.timeout_ms))
+
+    def _open_backend(self) -> Backend:
+        cls = registry.get(registry.KIND_FILTER, self.fprops.framework)
+        b: Backend = cls()
+        self.fprops.device = self.device
+        b.open(self.fprops)
+        return b
+
+    def _acquire_plane(self):
+        """Get-or-create the named plane and attach this filter as one
+        stream. Reached at negotiation (the plane's backend is the
+        model-info surface), so the plane's service thread predates every
+        executor start."""
+        if self._plane is None:
+            from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
+
+            # a sharer that set no plane-* knobs INHERITS the first
+            # attacher's bound config instead of colliding with it
+            explicit = any(
+                self.get_property(k) is not None
+                for k in ("plane-max-batch", "plane-timeout-ms", "plane-mode", "plane-devices")
+            )
+            sig = (self.fprops.framework, self.fprops.model, self.fprops.custom,
+                   self.fprops.invoke_dynamic, str(self.fprops.input_spec),
+                   str(self.fprops.output_spec), str(self.device))
+            self._plane = plane_mod.acquire(
+                self.plane, sig, self._plane_cfg, self._open_backend,
+                cfg_explicit=explicit,
+            )
+        if self._plane_stream is None:
+            try:
+                self._plane_stream = self._plane.attach(self.name, self.plane_weight)
+            except ValueError:
+                # the same element name in another pipeline of this process
+                self._plane_stream = self._plane.attach(
+                    f"{self.name}@{id(self) & 0xffff:04x}", self.plane_weight)
+        return self._plane
+
+    def plane_stats(self) -> Dict[str, Any]:
+        """Plane-wide counters plus THIS stream's admit/serve counters
+        (sharers do not report each other's); {} without a plane."""
+        if not self.plane:
+            return {}
+        if self._plane is None:
+            return self._plane_last_stats
+        d = self._plane.stats()
+        s = self._plane_stream
+        if s is not None:
+            d.update(stream=s.sid, stream_admitted=s.admitted, stream_served=s.served,
+                     stream_errors=s.errors)
+        return d
+
+    def _plane_window_inputs(self, frames: List[Frame]) -> List[tuple]:
+        in_comb = self.in_combination
+        return [f.tensors if in_comb is None else tuple(f.tensors[i] for _, i in in_comb)
+                for f in frames]
+
+    def _finish_plane_window(self, frames: List[Frame], model_outs, per: int) -> List[Frame]:
+        out_comb = self.out_combination
+        outs: List[Frame] = []
+        for f, model_out in zip(frames, model_outs):
+            self.backend.stats.record(per)
+            if out_comb is not None:
+                model_out = tuple(f.tensors[i] if kind == "i" else model_out[i]
+                                  for kind, i in out_comb)
+            outs.append(f.with_tensors(tuple(model_out)))
+        return outs
+
+    def host_submit_window_async(self, frames: List[Frame]):
+        """Submit one collected window to the plane without waiting → a
+        ticket for :meth:`host_collect_window`."""
+        plane = self._acquire_plane()
+        req = plane.submit_window_async(self._plane_stream, self._plane_window_inputs(frames))
+        return req, frames
+
+    def host_collect_window(self, ticket) -> List[Frame]:
+        """Redeem one ticket (in submission order): the window's frames,
+        or its invoke error raised whole."""
+        req, frames = ticket
+        t0 = time.perf_counter_ns()
+        model_outs = self._plane.wait_window(self._plane_stream, req)
+        per = (time.perf_counter_ns() - t0) // max(1, len(frames))
+        return self._finish_plane_window(frames, model_outs, per)
+
+    # -- lifecycle ---------------------------------------------------------
     def _ensure_open(self) -> Backend:
         if self.backend is None:
-            cls = registry.get(registry.KIND_FILTER, self.fprops.framework)
-            b: Backend = cls()
-            self.fprops.device = self.device
-            b.open(self.fprops)
-            self.backend = b
+            self.backend = self._acquire_plane().backend if self.plane else self._open_backend()
         return self.backend
 
     def stop(self) -> None:
+        if self._plane is not None:
+            # the plane owns the backend: this filter drops its stream and
+            # its registry ref (the last sharer out closes everything)
+            from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
+
+            self._plane_last_stats = self.plane_stats()
+            if self._plane_stream is not None:
+                self._plane.detach(self._plane_stream)
+                self._plane_stream = None
+            plane_mod.release(self.plane, self._plane)
+            self._plane = None
+            self.backend = None
         if self.backend is not None:
             self.backend.close()
             self.backend = None
@@ -166,7 +340,13 @@ class TensorFilter(TensorOp):
         paths) for the negotiated input, and tick ``fn_version`` so a
         fused segment builds its program anew (same shapes, so the
         signature alone would serve the old one). The output spec must
-        stay as negotiated."""
+        stay as negotiated. A plane's model is shared by every stream, so a
+        plane filter refuses."""
+        if self.plane:
+            raise ValueError(
+                f"{self.name}: plane={self.plane!r} shares one model among its streams; "
+                "a reload through one sharer is refused"
+            )
         old_out = list(self.out_specs)
         if self.backend is not None:
             self.backend.close()
@@ -208,11 +388,22 @@ class TensorFilter(TensorOp):
         one invoke."""
         if self._flexible_input:
             return False
+        if self.plane:
+            return True  # the local window is the plane's submission unit
         return bool(getattr(self._ensure_open(), "batchable", False))
 
     def host_process_batch(self, frames: List[Frame]) -> List[Frame]:
         """One invoke_batched() call for the window, the combinations
-        applied per frame. A window of mixed shapes runs per frame."""
+        applied per frame. A window of mixed shapes runs per frame. Under
+        a plane the window is one blocking plane round trip, which the
+        plane flattens with other streams' windows into one dispatch; a
+        window error raises whole."""
+        if self.plane:
+            plane = self._acquire_plane()
+            t0 = time.perf_counter_ns()
+            model_outs = plane.submit_window(self._plane_stream, self._plane_window_inputs(frames))
+            per = (time.perf_counter_ns() - t0) // max(1, len(frames))
+            return self._finish_plane_window(frames, model_outs, per)
         sig0 = tuple((tuple(t.shape), t.dtype) for t in frames[0].tensors)
         if any(tuple((tuple(t.shape), t.dtype) for t in f.tensors) != sig0 for f in frames[1:]):
             return [self.host_process(f) for f in frames]
@@ -318,7 +509,8 @@ class TensorFilter(TensorOp):
         return fn
 
     def is_traceable(self) -> bool:
-        if self._flexible_input:
+        if self._flexible_input or self.plane:
+            # a plane filter dispatches into the shared queue: a fusion barrier
             return False
         return self._ensure_open().traceable_fn() is not None
 
@@ -329,5 +521,7 @@ class TensorFilter(TensorOp):
         return self._apply_combinations(fn)
 
     def host_process(self, frame):
+        if self.plane:
+            return self.host_process_batch([frame])[0]
         invoke = self._apply_combinations(self._ensure_open().invoke_timed)
         return frame.with_tensors(tuple(invoke(frame.tensors)))

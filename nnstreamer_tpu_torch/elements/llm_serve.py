@@ -42,10 +42,19 @@ directory that holds spans adopts them at construction (their K/V lands
 in the arena, no prefill runs again) and finishes them, and a finished
 request's file is removed. ``drain()`` stops admitting (a submit then
 raises ``draining``), settles the prefill queue and lets the kept requests
-finish in place. Not ported yet, and raising when set: the shared serving
-plane (``plane``), migration to a peer (``migrate-to``,
-``drain(migrate_to=...)``: they need the edge layer), disaggregated
-serving (``role``, ``decode-peers``) and the lint's ``kv-memory-bound``.
+finish in place.
+
+``plane=<name>`` (``kv-layout=paged`` only) makes the server one client
+stream of a shared LLM plane (serving_plane/llm.py): every serversink
+naming the plane submits into ONE paged batcher, prompts admit by
+weighted-fair scheduling (``plane-weight``), the pumps of whichever
+serversrc gets there first advance every stream, and each serversrc emits
+only its own stream's generations. A plane-shared batcher refuses
+speculation, ``stream=true``, span checkpoints and the migration surface.
+Not ported yet, and raising when set: migration to a peer
+(``migrate-to``, ``drain(migrate_to=...)``: they need the edge layer),
+disaggregated serving (``role``, ``decode-peers``) and the lint's
+``kv-memory-bound``.
 """
 
 from __future__ import annotations
@@ -79,8 +88,6 @@ _table_lock = threading.Lock()
 #: props of the reference that name features not ported yet, with their
 #: defaults: setting one to anything else raises
 _NOT_PORTED = {
-    "plane": ("", "the shared LLM serving plane"),
-    "plane-weight": (1.0, "the shared LLM serving plane"),
     "migrate-to": ("", "live KV-span migration to a peer, which needs the edge layer "
                        "(ROADMAP A.7)"),
     "role": ("", "disaggregated prefill/decode serving"),
@@ -109,10 +116,13 @@ def _get_server(srv_id: str, create_kw: Optional[dict] = None) -> "_LlmServer":
 
 def _drop_server(srv_id: str, srv: Optional["_LlmServer"]) -> None:
     """Remove the table entry, but only if it is still ``srv`` (another
-    pipeline may have reused the id)."""
+    pipeline may have reused the id), and drop ``srv``'s plane ref
+    (idempotent: a drained-then-stopped src releases once)."""
     with _table_lock:
         if srv is not None and _table.get(srv_id) is srv:
             _table.pop(srv_id, None)
+    if srv is not None:
+        srv.release_plane()
 
 
 def _not_ported_peer(what: str) -> str:
@@ -187,7 +197,8 @@ class _LlmServer:
                  stream: bool = False, pump_tokens: int = 1, cache_dtype: str = "auto",
                  attn_impl: str = "xla", kv_kw: Optional[dict] = None, speculate: int = 0,
                  speculate_model: str = "", srv_id: str = "0", migrate_to: str = "",
-                 checkpoint_every_tokens: int = 0, checkpoint_dir: str = ""):
+                 checkpoint_every_tokens: int = 0, checkpoint_dir: str = "",
+                 plane: str = "", plane_weight: float = 1.0):
         self._paged = bool(kv_kw) and kv_kw.get("kv_layout") == "paged"
         if (migrate_to or checkpoint_dir or checkpoint_every_tokens) and not self._paged:
             # spans are block-table slices: the slot cache has none
@@ -197,8 +208,35 @@ class _LlmServer:
             )
         if migrate_to:
             raise NotImplementedError(_not_ported_peer("migrate-to"))
-        self.cb = _build_batcher(model, options, n_slots, max_len, prompt_len, cache_dtype,
-                                 attn_impl, device, kv_kw, speculate_model)
+        self.plane_name = plane
+        self._plane = None   # LlmPlane once acquired
+        self._stream = None  # this server's LlmStream
+        if plane:
+            self._check_plane(plane, speculate, speculate_model, stream,
+                              checkpoint_every_tokens or checkpoint_dir)
+            from nnstreamer_tpu_torch.serving_plane import llm as llm_plane
+
+            # every knob that shapes the batcher: a sharer that disagrees
+            # would serve with someone else's model
+            sig = (model, tuple(sorted(options.items())), n_slots, max_len, prompt_len,
+                   tuple(sorted((kv_kw or {}).items())), cache_dtype, attn_impl,
+                   max(1, int(pump_tokens)), str(device))
+            self._plane = llm_plane.acquire(
+                plane, sig,
+                opener=lambda: _build_batcher(model, options, n_slots, max_len, prompt_len,
+                                              cache_dtype, attn_impl, device, kv_kw),
+                pump_tokens=pump_tokens,
+            )
+            try:
+                self._stream = self._plane.attach(srv_id, plane_weight)
+            except ValueError:
+                # the same id attached elsewhere in this process
+                self._stream = self._plane.attach(f"{srv_id}@{id(self) & 0xffff:04x}",
+                                                  plane_weight)
+            self.cb = self._plane.cb
+        else:
+            self.cb = _build_batcher(model, options, n_slots, max_len, prompt_len, cache_dtype,
+                                     attn_impl, device, kv_kw, speculate_model)
         self.default_new = default_new
         self.stream = stream
         # pump=N: tokens per step_pump (one read of the host per pump);
@@ -227,6 +265,48 @@ class _LlmServer:
         if self._ckpt_dir:
             self._restore_checkpoints()
 
+    def _check_plane(self, plane: str, speculate: int, speculate_model: str, stream: bool,
+                     checkpoints) -> None:
+        """Refuse, before the plane is acquired, what a plane-shared batcher
+        cannot serve."""
+        from nnstreamer_tpu_torch.serving_plane.llm import LlmPlaneError
+
+        if not self._paged:
+            raise ElementError(
+                f"tensor_llm_serversink: plane={plane!r} needs kv-layout=paged (the shared "
+                "batcher is the paged arena; slot caches are per-server by construction)"
+            )
+        if speculate or speculate_model:
+            raise ElementError(
+                f"tensor_llm_serversink: plane={plane!r} cannot combine with "
+                "speculate/speculate-model (the speculation controller state is per-server)"
+            )
+        if stream:
+            raise ElementError(
+                f"tensor_llm_serversink: plane={plane!r} cannot combine with stream=true "
+                "(per-token routing through a shared plane is not wired)"
+            )
+        if checkpoints:
+            raise LlmPlaneError(
+                f"llm plane {plane!r}: checkpoint-every-tokens/checkpoint-dir refused — "
+                "plane-shared batchers cannot migrate or checkpoint requests; serve with a "
+                "private kv-layout=paged batcher instead"
+            )
+
+    def release_plane(self) -> None:
+        """Detach from (and drop one ref of) the shared LLM plane when this
+        server leaves the pairing table. Idempotent."""
+        with self._lock:
+            plane, self._plane = self._plane, None
+        if plane is None:
+            return
+        from nnstreamer_tpu_torch.serving_plane import llm as llm_plane
+
+        if self._stream is not None:
+            plane.detach(self._stream)
+        llm_plane.release(self.plane_name, plane)
+        self.cb = None
+
     def submit(self, frame: Frame) -> None:
         if self.draining:
             raise ElementError(
@@ -242,6 +322,13 @@ class _LlmServer:
         )
         if "seed" in frame.meta:
             kw["seed"] = int(frame.meta["seed"])
+        if self._plane is not None:
+            # weighted-fair admission into the SHARED batcher; backpressure
+            # past the fair backlog pumps inside the plane's submit
+            if self.stopped:
+                raise ElementError("tensor_llm_serversink: stopped")
+            self._plane.submit(self._stream, prompt, budget, kw, dict(frame.meta))
+            return
         while True:
             if self.stopped:
                 raise ElementError("tensor_llm_serversink: stopped")
@@ -258,7 +345,12 @@ class _LlmServer:
 
     def pump(self) -> bool:
         """One step (or pump); harvest finished requests and, when
-        streaming, every new token. True if anything advanced."""
+        streaming, every new token. True if anything advanced. Through a
+        plane the shared batcher advances every stream, and this server's
+        generations land on its plane stream (:meth:`pop` reads them)."""
+        plane = self._plane
+        if plane is not None:
+            return plane.pump()
         n = self.pump_tokens
         k = self._spec_k if self.speculate == -1 else self.speculate
         if k > 1:
@@ -324,6 +416,8 @@ class _LlmServer:
         full blocks: a sender strips those blocks' payloads."""
         from nnstreamer_tpu_torch.kv.migrate import SpanStateError
 
+        if self._plane is not None:
+            self._plane.refuse_migration("migrate_probe")
         if self.draining or self.stopped:
             raise SpanStateError(f"tensor_llm_server id={self.srv_id}: draining")
         return int(self.cb.probe_prefix([int(t) for t in tokens]))
@@ -334,6 +428,8 @@ class _LlmServer:
         serversrc emits it with the span's meta."""
         from nnstreamer_tpu_torch.kv import migrate
 
+        if self._plane is not None:
+            self._plane.refuse_migration("migrate_span")
         if self.draining or self.stopped:
             raise migrate.SpanStateError(f"tensor_llm_server id={self.srv_id}: draining")
         span = migrate.decode_span(span_bytes)
@@ -352,7 +448,10 @@ class _LlmServer:
         prefill queue, and keep the in-flight requests to finish in place →
         ``{"migrated", "resumed", "completed", "kept"}``. Draining to a peer
         (``migrate_to``, or the ``migrate-to`` prop) needs the edge layer
-        and raises ``NotImplementedError`` before anything changes."""
+        and raises ``NotImplementedError`` before anything changes. A
+        plane-shared batcher refuses (``LlmPlaneError``)."""
+        if self._plane is not None:
+            self._plane.refuse_migration("drain(migrate_to=...)")
         target = "" if migrate_to is None else str(migrate_to)
         if target:
             raise NotImplementedError(_not_ported_peer("drain(migrate_to=...)"))
@@ -467,6 +566,9 @@ class _LlmServer:
             self._ckpt_seen[rid] = len(span.tokens)
 
     def stats(self) -> Dict:
+        if self._plane is not None:
+            # the shared batcher's counters + this stream's only
+            return self._plane.stats_for(self._stream)
         st = self.cb.stats()
         if self.speculate == -1:
             st["spec_k"] = self._spec_k
@@ -476,11 +578,15 @@ class _LlmServer:
         return st
 
     def pop(self):
+        if self._plane is not None:
+            return self._plane.pop(self._stream)
         with self._lock:
             return self._out.popleft() if self._out else None
 
     @property
     def drained(self) -> bool:
+        if self._plane is not None:
+            return self.eos and self._plane.idle_for(self._stream)
         with self._lock:
             return self.eos and not self._pending and not self._out
 
@@ -501,7 +607,8 @@ class LlmServerSink(Sink):
     block-size, kv-blocks (0 = enough for every slot at max-len),
     prefill-chunks and kv-attn (auto | block | gather), each 0 or empty
     deferring to ``[llm]``; checkpoint-every-tokens and checkpoint-dir
-    (paged: span checkpoints, see the module)."""
+    (paged: span checkpoints, see the module); plane and plane-weight
+    (paged: one stream of a shared LLM plane, see the module)."""
 
     FACTORY_NAME = "tensor_llm_serversink"
 
@@ -528,6 +635,8 @@ class LlmServerSink(Sink):
         "checkpoint-every-tokens": PropSpec(
             "int", 0, desc="span checkpoint every N new tokens of a request (paged)"),
         "checkpoint-dir": PropSpec("str", "", desc="where span checkpoints live (paged)"),
+        "plane": PropSpec("str", "", desc="attach to the named LLM serving plane (paged)"),
+        "plane-weight": PropSpec("float", 1.0, desc="weighted-fair admission share on the plane"),
         **{k: PropSpec(type(v[0]).__name__, v[0], desc=f"{v[1]}: not ported yet")
            for k, v in _NOT_PORTED.items()},
     }
@@ -583,6 +692,8 @@ class LlmServerSink(Sink):
             srv_id=self.srv_id,
             checkpoint_every_tokens=int(self.get_property("checkpoint-every-tokens", 0)),
             checkpoint_dir=str(self.get_property("checkpoint-dir", "")),
+            plane=str(self.get_property("plane", "") or ""),
+            plane_weight=float(self.get_property("plane-weight", 1.0)),
         )
         self._server: Optional[_LlmServer] = None
 

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch import registry
-from nnstreamer_tpu_torch.elements.base import PropSpec, Sink
+from nnstreamer_tpu_torch.elements.base import PropSpec, Sink, parse_bool
 from nnstreamer_tpu_torch.tensors.frame import Frame
 
 
@@ -22,8 +22,11 @@ from nnstreamer_tpu_torch.tensors.frame import Frame
 class TensorSink(Sink):
     """Collects frames (as numpy) and fires callbacks.
 
-    Props: max-stored (ring of retained frames, default unlimited).
-    Callback registration: ``sink.connect("new-data", fn)`` / ``"eos"``.
+    Props: max-stored (ring of retained frames, default unlimited),
+    signal-rate (max new-data callbacks a second, 0 = every frame; a frame
+    inside the interval is stored without a callback), sync (accepted as
+    the reference accepts it: no clock sync). Callback registration:
+    ``sink.connect("new-data", fn)`` / ``"eos"``.
     Each stored frame's ``meta["render_t"]`` is the host clock
     (``time.perf_counter``) at which it reached the sink.
     """
@@ -32,11 +35,15 @@ class TensorSink(Sink):
 
     PROPERTIES = {
         "max-stored": PropSpec("int", 0, desc="retained frames; 0 = all"),
+        "signal-rate": PropSpec("float", 0, desc="max new-data callbacks/sec; 0 = every frame"),
+        "sync": PropSpec("bool", False, desc="accepted; no clock sync"),
     }
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self.max_stored = int(self.get_property("max-stored", 0))
+        self.signal_rate = float(self.get_property("signal-rate", 0))
+        self._last_signal_t = 0.0
         self.frames: List[Frame] = []
         self.eos_seen = False
         self._callbacks = {"new-data": [], "eos": []}
@@ -52,6 +59,10 @@ class TensorSink(Sink):
         self.frames.append(frame)
         if self.max_stored > 0 and len(self.frames) > self.max_stored:
             self.frames.pop(0)
+        now = time.monotonic()
+        if self.signal_rate > 0 and now - self._last_signal_t < 1.0 / self.signal_rate:
+            return  # rate-limited: stored, no callback
+        self._last_signal_t = now
         for fn in self._callbacks["new-data"]:
             fn(frame)
 
@@ -139,17 +150,24 @@ class FileSink(Sink):
 
 @registry.element("fakesink")
 class FakeSink(Sink):
-    """Discard frames (keeps a count). Waits for the device work behind
-    each frame, so backpressure reflects real compute."""
+    """Discard frames (keeps a count). With sync-device (the default) it
+    waits for the device work behind each frame, so backpressure reflects
+    real compute."""
 
     FACTORY_NAME = "fakesink"
+
+    PROPERTIES = {
+        "sync-device": PropSpec("bool", True, desc="wait for the device work behind each frame"),
+    }
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
         self.rendered = 0
+        self.sync_device = parse_bool(self.get_property("sync-device", True))
 
     def render(self, frame: Frame) -> None:
-        for t in frame.tensors:
-            if getattr(t, "is_cuda", False):
-                torch.cuda.current_stream(t.device).synchronize()
+        if self.sync_device:
+            for t in frame.tensors:
+                if getattr(t, "is_cuda", False):
+                    torch.cuda.current_stream(t.device).synchronize()
         self.rendered += 1

@@ -28,6 +28,13 @@ Image modes, through the K1 kernel (ops/image.py):
   pixels, [N,6] decoded detections or [N,7] OV rows (normalized coords,
   scaled by the image size). Emits ONE [N,H,W,C] crop batch in the image
   dtype.
+
+``impl=auto`` (the default) and ``impl=pallas`` run K1: the CUDA kernel
+for tensors on the card. ``impl=jnp`` is the plain oracle: it runs K1's
+plain PyTorch version on every device, the card included, so it bypasses
+the kernel. It exists to check K1 against its plain version inside a
+pipeline; a pipeline that is measured never sets it, and the element
+logs a warning when an image mode is built with it.
 """
 
 from __future__ import annotations
@@ -44,7 +51,10 @@ from nnstreamer_tpu_torch.elements.base import (
     Spec,
     TensorOp,
 )
+from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
+
+_log = get_logger("transform")
 
 _ARITH_OP = re.compile(
     r"^(typecast:(?P<cast>[a-z0-9]+)|per-channel:(?P<pc>true|false)(@(?P<pcdim>\d+))?|"
@@ -72,6 +82,11 @@ class TensorTransform(TensorOp):
              "stand", "resize", "crop-resize"),
         ),
         "option": PropSpec("str", "", desc="per-mode option string"),
+        # image modes (resize / crop-resize): auto and pallas run K1 (the
+        # CUDA kernel on the card), jnp the plain oracle on every device
+        "impl": PropSpec("enum", "auto", ("auto", "jnp", "pallas"),
+                         desc="image-mode implementation: auto | pallas (K1) | "
+                              "jnp (the plain oracle, no kernel)"),
     }
 
     def __init__(self, name=None, **props):
@@ -89,6 +104,14 @@ class TensorTransform(TensorOp):
             "crop-resize",
         ):
             raise ValueError(f"{self.name}: unknown mode {self.mode!r}")
+        from nnstreamer_tpu_torch.ops.image import IMPLS
+
+        self.impl = str(self.get_property("impl", "auto")).lower()
+        if self.impl not in IMPLS:
+            raise ValueError(f"{self.name}: impl={self.impl!r} not auto/jnp/pallas")
+        if self.impl == "jnp" and self.mode in ("resize", "crop-resize"):
+            _log.warning("%s: impl=jnp runs the plain oracle, not the K1 kernel, "
+                         "on every device", self.name)
 
     # -- negotiation -------------------------------------------------------
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:
@@ -320,8 +343,10 @@ class TensorTransform(TensorOp):
             out_h, out_w = self._parse_hw()
             from nnstreamer_tpu_torch.ops.image import resize_bilinear
 
+            impl = self.impl
+
             def fn(tensors):
-                return tuple(resize_bilinear(t, out_h, out_w) for t in tensors)
+                return tuple(resize_bilinear(t, out_h, out_w, impl=impl) for t in tensors)
 
         elif mode == "crop-resize":
             out_h, out_w = self._parse_hw()
@@ -334,6 +359,7 @@ class TensorTransform(TensorOp):
             bcols = box_spec.shape[-1]
             box_is_int = not box_spec.dtype.is_float
             out_dtype = img_spec.dtype.torch_dtype
+            impl = self.impl
             from nnstreamer_tpu_torch.ops.image import crop_regions
 
             def fn(tensors):
@@ -359,7 +385,7 @@ class TensorTransform(TensorOp):
                     valid = b[:, 2] > 0
                 return (crop_regions(
                     img, xyxy.contiguous(), out_h, out_w,
-                    valid=valid, out_dtype=out_dtype,
+                    valid=valid, out_dtype=out_dtype, impl=impl,
                 ),)
 
         elif mode == "stand":

@@ -30,7 +30,10 @@ bfloat16), and:
   alone, as in the reference, which overlays the detector only);
 - add: ``const``, ``dims``;
 - transformer_lm: ``seed``, ``vocab``, ``d_model``, ``n_heads``,
-  ``n_layers``, ``n_kv_heads``, ``batch``, ``seqlen``, ``params``,
+  ``n_layers``, ``n_kv_heads``, ``d_ff`` (the FFN width, default
+  4 × d_model; the reference's zoo has no such option, so a serving
+  pipeline can run a published config such as Mistral-7B's 14336),
+  ``batch``, ``seqlen``, ``params``,
   ``compute_dtype`` (float32 | bfloat16 | float16), ``attn=dense|flash``
   (flash: the flash-attention kernel K5 on the no-cache forward, in every
   compute dtype, where the reference degrades float16 to dense attention;
@@ -392,7 +395,7 @@ _LM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": t
 
 @model_factory(
     "transformer_lm",
-    ("seed", "vocab", "d_model", "n_heads", "n_layers", "n_kv_heads", "batch", "seqlen",
+    ("seed", "vocab", "d_model", "n_heads", "n_layers", "n_kv_heads", "d_ff", "batch", "seqlen",
      "params", "compute_dtype", "generate", "decode", "temperature", "gen_seed", "attn",
      "quantize", "beam_width", "spec_k", "spec_ngram"),
 )
@@ -419,7 +422,7 @@ def _transformer_lm(device: torch.device, **options) -> ZooModel:
     lm = tfm.init_params(
         gen, int(options.get("vocab", 1024)), int(options.get("d_model", 256)), n_heads,
         int(options.get("n_layers", 4)), n_kv_heads=int(options.get("n_kv_heads", n_heads)),
-        device=device,
+        d_ff=int(options["d_ff"]) if options.get("d_ff") else None, device=device,
     )
     if options.get("params"):
         load_transformer_npz(lm, options["params"])

@@ -21,6 +21,14 @@ a window of queued frames and runs it as one program. Every fused
 segment's negotiated program is built in :meth:`Executor.start`, before
 any node thread starts (on CUDA: captured as a CUDA graph).
 
+A ``tensor_filter plane=`` node collects windows the same way and sends
+each one to its serving plane (serving_plane/plane.py) on a ticket. With
+a ticket depth above 1 (``ring-depth``) window N+1 is submitted while the
+plane computes N; at depth 1 each window is redeemed as soon as it is
+submitted. Delivery is strictly FIFO at every depth, and a failed window
+raises its error whole, as a failed window of a fused segment does (the
+port has no per-frame fault gate yet).
+
 The first error in any node stops every node; :meth:`Executor.wait`
 returns and :attr:`Executor.errors` holds it.
 """
@@ -30,6 +38,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 from nnstreamer_tpu_torch.elements.base import Element, HostElement, Routing, Sink, Source
@@ -143,7 +152,10 @@ class _SegmentNode(_Node):
 
     def run(self) -> None:
         if self.batched():
-            self._run_batched(self.seg.batch_config)
+            if not self.seg.fused and getattr(self.seg.first, "plane", ""):
+                self._run_plane(self.seg.batch_config, self.seg.first.plane_inflight)
+            else:
+                self._run_batched(self.seg.batch_config)
             return
         while True:
             frame = self.get()
@@ -178,6 +190,49 @@ class _SegmentNode(_Node):
         if collector.stopped:
             return
         if self.push_all(seg.first.flush() if not seg.fused else None):
+            self.broadcast_eos()
+
+    def _run_plane(self, cfg, depth: int) -> None:
+        """Plane submits: each collected window is submitted as a ticket,
+        and the oldest ticket is redeemed (its frames delivered) once
+        ``depth`` tickets are in flight, the inbox idles, or EOS flushes
+        them; depth 1 redeems each window at once. Delivery is strictly
+        FIFO. A failed window raises its error whole: no frame of it is
+        delivered, and every earlier window was."""
+        seg = self.seg
+        elem = seg.first
+        collector = BatchCollector(self.inboxes[0], self.ex._stop, cfg,
+                                   drop=lambda f: _qos_skip(elem, f))
+        ring: deque = deque()  # (frames, ticket, collector wait)
+        inbox = self.inboxes[0]
+
+        def deliver_one() -> bool:
+            frames, ticket, wait_s = ring.popleft()
+            outs = elem.host_collect_window(ticket)
+            seg.batch_stats.record(len(frames), len(frames), wait_s)
+            return self.push_all(outs)
+
+        while True:
+            while ring and inbox.empty():
+                # idle input: deliver in order so latency stays bounded
+                if not deliver_one():
+                    return
+            frames, eos, wait_s = collector.collect()
+            if frames:
+                if not elem.DEVICE_PASSTHROUGH:
+                    frames = [f.to_device(seg.device) for f in frames]
+                ring.append((frames, elem.host_submit_window_async(frames), wait_s))
+                while len(ring) >= depth:
+                    if not deliver_one():
+                        return
+            if eos:
+                while ring:
+                    if not deliver_one():
+                        return
+                break
+        if collector.stopped:
+            return
+        if self.push_all(elem.flush()):
             self.broadcast_eos()
 
 
@@ -330,9 +385,10 @@ class Executor:
 
     def stats(self) -> Dict[str, dict]:
         """Per node: its programs (``n_traces``, whether they are CUDA
-        graphs, the ops that kept them eager) for a fused segment, and the
-        batch snapshot of a node that collects windows. Reads what the
-        fills recorded; opens no backend."""
+        graphs, the ops that kept them eager) for a fused segment, the
+        batch snapshot of a node that collects windows, and a plane
+        filter's ``plane_*`` rows (the plane's counters and this stream's).
+        Reads what the fills recorded; opens no backend."""
         out: Dict[str, dict] = {}
         for n in self.nodes:
             seg = getattr(n, "seg", None)
@@ -344,6 +400,9 @@ class Executor:
                            uncapturable=list(seg.uncapturable))
             if n.batched():
                 row.update(seg.batch_stats.snapshot())
+            plane_stats = getattr(seg.first, "plane_stats", None)
+            if callable(plane_stats):
+                row.update({f"plane_{k}": v for k, v in plane_stats().items()})
             out[n.name] = row
         return out
 

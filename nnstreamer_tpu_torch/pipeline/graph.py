@@ -26,7 +26,6 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from nnstreamer_tpu_torch.capture import capture, replay
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.elements.base import (
     Element,
@@ -37,6 +36,7 @@ from nnstreamer_tpu_torch.elements.base import (
     TensorOp,
 )
 from nnstreamer_tpu_torch.pipeline.batching import BatchStats, resolve_batch_config
+from nnstreamer_tpu_torch.pipeline.programs import Program, ProgramCache, sig_of
 from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
@@ -253,30 +253,25 @@ class Pipeline:
         if self._executor is not None:
             self._executor.stop()
 
+    def dump_dot(self) -> str:
+        """Graphviz dump of the elements (factory, name and first
+        negotiated src spec) and links (src pad → sink pad), as the
+        reference's ``Pipeline.dump_dot`` writes it."""
+        lines = [f'digraph "{self.name}" {{', "  rankdir=LR;"]
+        for e in self.elements:
+            spec = f"\\n{e.out_specs[0]}" if e.out_specs and e.out_specs[0] is not None else ""
+            lines.append(f'  "{e.name}" [label="{e.FACTORY_NAME}\\n{e.name}{spec}", shape=box];')
+        for l in self.links:
+            lines.append(f'  "{l.src.name}" -> "{l.dst.name}" [label="{l.src_pad}→{l.dst_pad}"];')
+        lines.append("}")
+        return "\n".join(lines)
+
 
 def _next_free(used) -> int:
     pad = 0
     while pad in used:
         pad += 1
     return pad
-
-
-class _Program:
-    """One entry of a segment's program cache: the composed fn (over one
-    frame's tensors, or with a bucket over stacked columns, one list entry
-    a row), and on CUDA the graph it was captured into, with its static
-    input buffers, its outputs in the graph's pool and the launch counts
-    (:class:`~nnstreamer_tpu_torch.ops.kernels.LaunchCounter`) one replay
-    stands for."""
-
-    __slots__ = ("fn", "graph", "inputs", "outputs", "launches")
-
-    def __init__(self, fn: Callable) -> None:
-        self.fn = fn
-        self.graph: Optional["torch.cuda.CUDAGraph"] = None
-        self.inputs: Tuple[torch.Tensor, ...] = ()
-        self.outputs = None
-        self.launches: Dict = {}
 
 
 class FusedSegment:
@@ -289,8 +284,9 @@ class FusedSegment:
     places its frames itself (``DEVICE_PASSTHROUGH``: queue, a converter
     subplugin) gets the frame where it is.
 
-    A fused segment's programs are cached by (signature, batch bucket, op
-    fn versions), the reference's ``jax.jit`` cache: a new shape or dtype
+    A fused segment's programs (pipeline/programs.py) are cached by
+    (signature, batch bucket, op fn versions), the reference's ``jax.jit``
+    cache: a new shape or dtype
     (renegotiation), a new bucket, or a same-shape model swap
     (``reload_model`` ticks the op's ``fn_version``) makes a new entry from
     the ops' current fns, so a stale program is never served;
@@ -309,21 +305,16 @@ class FusedSegment:
         self.ops = ops
         self.device = device
         self.fused = fused
-        # (sig, bucket, fn versions) -> program; bucket 0 = one frame
-        self._cache: Dict[tuple, _Program] = {}
-        self._last: Optional[Tuple[tuple, _Program]] = None
-        self.n_traces = 0
-        # build work, kept apart: the warm-ups' kernel launches (out of the
-        # launch counters, which count the launches that serve frames) and
-        # the host seconds of warm-up and capture
-        self.warmup_launches = 0
-        self.build_s = 0.0
+        # (sig, bucket, fn versions) -> program; bucket 0 = one frame. The
+        # ops that declared CAPTURABLE = False are read at each fill, with
+        # the ops' fns just made: on CUDA they keep the programs eager
+        self.programs = ProgramCache(
+            device, self._compose,
+            versions=lambda: tuple(op.fn_version for op in self.ops),
+            uncapturable=lambda: tuple(op.name for op in self.ops if not op.CAPTURABLE),
+        )
         self._eager: Optional[Tuple[tuple, Callable]] = None
         self._identity: Optional[bool] = None
-        # the ops that declared CAPTURABLE = False at the last fill (read
-        # then, with the ops' fns just made, never recomputed): on CUDA
-        # they keep the segment's programs eager
-        self.uncapturable: Tuple[str, ...] = ()
         # micro-batching (pipeline/batching.py), resolved at plan time;
         # the stats are shared with the ops so tensor_filter can show them
         self.batch_config = None
@@ -340,11 +331,23 @@ class FusedSegment:
     @property
     def captured(self) -> bool:
         """True when a program that was filled is a CUDA graph."""
-        return any(p.graph is not None for p in self._cache.values())
+        return self.programs.captured
 
-    @staticmethod
-    def _sig_of(tensors) -> tuple:
-        return tuple((tuple(t.shape), t.dtype) for t in tensors)
+    @property
+    def n_traces(self) -> int:
+        return self.programs.n_traces
+
+    @property
+    def warmup_launches(self) -> int:
+        return self.programs.warmup_launches
+
+    @property
+    def build_s(self) -> float:
+        return self.programs.build_s
+
+    @property
+    def uncapturable(self) -> Tuple[str, ...]:
+        return self.programs.uncapturable
 
     def _compose(self) -> Callable:
         """The ops' CURRENT fns chained (collected anew for each cache
@@ -365,48 +368,6 @@ class FusedSegment:
             self._identity = all(op.is_identity() for op in self.ops)
         return self._identity
 
-    def _program_for(self, sig: tuple, bucket: int = 0) -> _Program:
-        versions = tuple(op.fn_version for op in self.ops)
-        key = (sig, bucket, versions)
-        last = self._last
-        if last is not None and last[0] == key:
-            return last[1]
-        prog = self._cache.get(key)
-        if prog is None:
-            composed = self._compose()
-            if bucket:
-                # the per-frame fn over each row: every row runs the
-                # per-frame kernels at the per-frame shapes, so a window's
-                # outputs equal the frames' own bit for bit
-                def rows(cols: Tuple) -> List[Tuple]:
-                    return [composed(tuple(c[j] for c in cols)) for j in range(bucket)]
-
-                prog = _Program(rows)
-            else:
-                prog = _Program(composed)
-            self.uncapturable = tuple(op.name for op in self.ops if not op.CAPTURABLE)
-            if self.device.type == "cuda" and not self.uncapturable:
-                self._capture(prog, sig, bucket)
-            self._cache[key] = prog
-            self.n_traces += 1
-        self._last = (key, prog)
-        return prog
-
-    def _capture(self, prog: _Program, sig: tuple, bucket: int) -> None:
-        """Capture ``prog.fn`` over zeroed static input buffers
-        (:func:`~nnstreamer_tpu_torch.capture.capture`: an eager warm-up on
-        a side stream, then the capture). A failure raises: no segment
-        falls back to eager execution."""
-        inputs = tuple(
-            torch.zeros(((bucket,) + shape) if bucket else shape, dtype=dtype, device=self.device)
-            for shape, dtype in sig
-        )
-        cap = capture(lambda: prog.fn(inputs), self.device)
-        self.warmup_launches += cap.warmup_launches
-        self.build_s += cap.build_s
-        prog.graph, prog.inputs, prog.outputs = cap.graph, inputs, cap.outputs
-        prog.launches = cap.launches
-
     def _negotiated_sig(self) -> Optional[tuple]:
         """The signature the first frame will have, from the negotiated
         input spec: a static tensor spec, or a raw video frame [H, W, C]
@@ -423,7 +384,7 @@ class FusedSegment:
             return (((spec.height, spec.width, spec.channels_per_pixel), torch.uint8),)
         return None
 
-    def build(self) -> Optional[_Program]:
+    def build(self) -> Optional[Program]:
         """Fill the per-frame program of the negotiated signature before
         the first frame (the PAUSED state's negotiated program); with
         batching active also the max-batch bucket, the program of steady
@@ -434,10 +395,10 @@ class FusedSegment:
         sig = self._negotiated_sig()
         if sig is None:
             return None
-        prog = self._program_for(sig)
+        prog = self.programs.program_for(sig)
         cfg = self.batch_config
         if cfg is not None and cfg.active:
-            self._program_for(sig, cfg.buckets[-1])
+            self.programs.program_for(sig, cfg.buckets[-1])
         return prog
 
     def process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
@@ -450,13 +411,7 @@ class FusedSegment:
                 return self.first.host_process(frame)
             if self.is_identity():
                 return frame
-            prog = self._program_for(self._sig_of(frame.tensors))
-            if prog.graph is None:
-                return frame.with_tensors(prog.fn(frame.tensors))
-            for dst, src in zip(prog.inputs, frame.tensors):
-                dst.copy_(src)
-            replay(prog.graph, prog.launches)
-            return frame.with_tensors(tuple(o.clone() for o in prog.outputs))
+            return frame.with_tensors(self.programs.run_one(frame.tensors))
 
     def process_eager(self, frame: Frame) -> Frame:
         """The composed ops run eagerly, never captured: the oracle a
@@ -486,25 +441,12 @@ class FusedSegment:
         if self.is_identity():
             return [self.process(f) for f in frames], n
         frames = [f.to_device(self.device) for f in frames]
-        sig = self._sig_of(frames[0].tensors)
-        if any(self._sig_of(f.tensors) != sig for f in frames[1:]):
+        sig = sig_of(frames[0].tensors)
+        if any(sig_of(f.tensors) != sig for f in frames[1:]):
             return [self.process(f) for f in frames], n
         bucket = cfg.bucket_for(n)
         with torch.inference_mode():
-            prog = self._program_for(sig, bucket)
-            cols = []
-            for i in range(len(sig)):
-                rows = [f.tensors[i] for f in frames]
-                rows.extend([rows[-1]] * (bucket - n))
-                if prog.graph is None:
-                    cols.append(torch.stack(rows))
-                else:
-                    torch.stack(rows, out=prog.inputs[i])
-            if prog.graph is None:
-                outs = prog.fn(tuple(cols))[:n]
-            else:
-                replay(prog.graph, prog.launches)
-                outs = [tuple(o.clone() for o in row) for row in prog.outputs[:n]]
+            outs = self.programs.run_rows([f.tensors for f in frames], bucket)
         return [f.with_tensors(o) for f, o in zip(frames, outs)], bucket
 
 

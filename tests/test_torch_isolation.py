@@ -128,6 +128,26 @@ def test_vision_modules_import_alone(module):
     test_routing_modules_import_alone(module)
 
 
+@pytest.mark.parametrize("module", [
+    "nnstreamer_tpu_torch.serving_plane",
+    "nnstreamer_tpu_torch.serving_plane.scheduler",
+    "nnstreamer_tpu_torch.serving_plane.plane",
+    "nnstreamer_tpu_torch.serving_plane.sharding",
+    "nnstreamer_tpu_torch.serving_plane.llm",
+    "nnstreamer_tpu_torch.pipeline.programs",
+])
+def test_serving_plane_modules_import_alone(module):
+    """The serving plane (scheduler, plane, programs, LLM plane) loads
+    neither jax nor the reference package."""
+    test_routing_modules_import_alone(module)
+
+
+def test_source_walk_covers_the_serving_plane():
+    files = {os.path.relpath(p, PKG_DIR) for p in _py_files()}
+    assert {os.path.join("serving_plane", f) for f in (
+        "__init__.py", "scheduler.py", "plane.py", "sharding.py", "llm.py")} <= files
+
+
 def _py_files():
     for root, _, files in os.walk(PKG_DIR):
         for f in files:
@@ -394,6 +414,7 @@ def test_paged_kernel_with_gather_oracle_raises():
     ["migrate-to", "drain-to-peer", "role", "mesh", "plane", "kv-memory-bound"],
 )
 def test_unported_options_raise(call):
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
     from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink, _LlmServer
     from nnstreamer_tpu_torch.models.serving import ContinuousBatcher
     from nnstreamer_tpu_torch.models.transformer import TransformerLM
@@ -418,7 +439,9 @@ def test_unported_options_raise(call):
         "drain-to-peer": drain_to_peer,
         "role": lambda: LlmServerSink(**{"kv-layout": "paged", "role": "prefill"}),
         "mesh": lambda: batcher(mesh=object()),
-        "plane": lambda: LlmServerSink(plane="p0"),
+        # the serving plane is ported; its failover replicas are not
+        "plane": lambda: TensorFilter(framework="scaler", plane="p0",
+                                      **{"plane-mode": "replicas"}),
         "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                      "kv-memory-bound": "64M"}),
     }
