@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --ab PARENT   # K1 and K2: the checkout PARENT against this one
     python3 chip_smoke.py --plane       # only the plane group (its kernels built first)
+    python3 chip_smoke.py --sources     # only the model_sources group (K1 built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -375,6 +376,38 @@ Last, the plane group (ROADMAP A.4c, the serving plane's core; alone with
                  prompts: every generation equal, or parting at a near-tie
                  of the no-cache forward; TPOT p50 through the plane and
                  private.
+
+Last, the model_sources group (ROADMAP A.3 + A.5; alone with ``--sources``):
+
+25. vit_labeling — 720p gradient frames → resize 224 (K1) → zoo:vit
+                 (ViT-S/16 at the zoo's defaults, float32) → image_labeling,
+                 32 frames: one segment replay a frame, K1 once a frame,
+                 every replay bit for bit against process_eager; logits
+                 (2 frames) within 1e-4 of max |logit| of the same module
+                 on the CPU, top-1 equal; fps (512 frames); busy share and
+                 device ms by class over 16 profiled frames.
+26. kws_audio   — audiotestsrc one-second 16 kHz clips → zoo:kws
+                 samples:16000 → image_labeling, 32 frames: labels equal to
+                 the CPU run's, logits (4 frames) within 1e-4 of max
+                 |logit|, one replay a frame; fps (512 frames); device ms
+                 by class over 16 profiled frames.
+27. tflite_program — a MobileNet-v2 1.0/224/1001 .tflite written by this
+                 script (FlatWriter, seeded weights, batch norm folded,
+                 TFLite SAME padding): tools/tflite_parse gives back what
+                 was written; the labeling pipeline with a typecast and
+                 tensor_filter framework=torch model=<file>, 32 frames: one
+                 replay a frame, K1 once a frame, replays bit for bit, the
+                 program's constants on the card and no TFLite interpreter
+                 imported, logits within 1e-4 of max |logit| of the same
+                 program on the CPU; load_tflite_params of the file against
+                 the program; fps (512 frames); device ms by class over 16
+                 profiled frames.
+28. script_models — a TorchScript .pt (framework=auto) and a get_model .py
+                 (framework=torch, and framework=auto, which the priority
+                 table sends to the custom backend's CustomFilter of the
+                 same script) through SingleShot on the card: outputs on
+                 the card, equal to the module's eager output (the
+                 TorchScript within 1e-6 of max |y|).
 
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
@@ -4186,7 +4219,7 @@ def latencies(p):
     return [(f.meta["render_t"] - f.meta["wall_t0"]) * 1e3 for f in p["out"].frames]
 
 
-def profiled(torch, parse_pipeline, desc, dev, extra):
+def profiled(torch, parse_pipeline, desc, dev, extra, main=CONV_KEYS):
     """A 16-frame run under torch.profiler: (device time by class, D2H
     copies)."""
     from torch.autograd import DeviceType
@@ -4200,7 +4233,7 @@ def profiled(torch, parse_pipeline, desc, dev, extra):
         wall = time.perf_counter() - t0
     d2h = sum(ev.count for ev in prof.key_averages()
               if ev.device_type == DeviceType.CUDA and "dtoh" in ev.key.lower())
-    return profile_classes(torch, prof, wall, extra), d2h
+    return profile_classes(torch, prof, wall, extra, main), d2h
 
 
 def sorted_cols(np, a):
@@ -5563,6 +5596,578 @@ def plane_phases(torch, np, dev, parse_pipeline, ik):
     return {"plane_pipelines": pipes, "llm_plane": llm, "seconds": time.perf_counter() - t0}
 
 
+# -- the model_sources group (ROADMAP A.3 + A.5) ---------------------------------
+#
+# The card's machine has no tensorflow, and no .tflite binary is kept in the
+# repository: the tflite_program phase writes its own file with the flatbuffer
+# writer below, which lays out the schema fields tools/tflite_parse.py reads
+# (and the TFLite interpreter needs) front to back.
+
+MS_FRAMES = 32
+MS_FPS_FRAMES = 512  # frames of a cell's fps run: its start-up a small share
+VIT_LABELING = (
+    "videotestsrc pattern=gradient width=1280 height=720 num-frames={n} ! tensor_converter ! "
+    "tensor_transform mode=resize option=224:224 ! "
+    "tensor_filter name=f framework=torch model=zoo:vit ! "
+    "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+)
+# a one-second clip at 16 kHz (the Speech Commands clip) into the zoo's 12 classes
+KWS_AUDIO = (
+    "audiotestsrc samples-per-buffer=16000 channels=1 num-buffers={n} ! tensor_converter ! "
+    'tensor_filter name=f framework=torch model=zoo:kws custom="samples:16000" ! '
+    "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+)
+TFLITE_LABELING = (
+    "videotestsrc pattern=gradient width=1280 height=720 num-frames={n} ! tensor_converter ! "
+    "tensor_transform mode=resize option=224:224 ! "
+    "tensor_transform mode=typecast option=float32 ! "
+    "tensor_filter name=f framework=torch model={model} ! "
+    "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+)
+LABELS = "tensor_decoder mode=image_labeling ! "
+# float32 against the same module (program) on the CPU, TF32 off: another
+# summation order through the stack
+MS_LOGIT_REL_TOL = 1e-4
+
+# TFLite schema (schema.fbs) enums: TensorType, BuiltinOperator, the
+# BuiltinOptions union's member ids, Padding and ActivationFunctionType
+TFL_TYPES = {"float32": 0, "int32": 2, "uint8": 3, "int64": 4, "int8": 9}
+TFL_OPS = {"ADD": 0, "AVERAGE_POOL_2D": 1, "CONV_2D": 3, "DEPTHWISE_CONV_2D": 4,
+           "MAX_POOL_2D": 17, "MUL": 18, "RESHAPE": 22, "SOFTMAX": 25}
+TFL_PADDING = {"SAME": 0, "VALID": 1}
+TFL_ACT = {None: 0, "RELU": 1, "RELU_N1_TO_1": 2, "RELU6": 3, "TANH": 4}
+_POOL = (5, (("padding", "B"), ("stride_w", "i"), ("stride_h", "i"), ("filter_w", "i"),
+             ("filter_h", "i"), ("activation", "B")))
+# op → (BuiltinOptions member id, its table's fields in slot order)
+TFL_OPTIONS = {
+    "CONV_2D": (1, (("padding", "B"), ("stride_w", "i"), ("stride_h", "i"), ("activation", "B"),
+                    ("dilation_w", "i"), ("dilation_h", "i"))),
+    "DEPTHWISE_CONV_2D": (2, (("padding", "B"), ("stride_w", "i"), ("stride_h", "i"),
+                              ("depth_multiplier", "i"), ("activation", "B"),
+                              ("dilation_w", "i"), ("dilation_h", "i"))),
+    "AVERAGE_POOL_2D": _POOL,
+    "MAX_POOL_2D": _POOL,
+    "ADD": (11, (("activation", "B"),)),
+    "MUL": (21, (("activation", "B"),)),
+    "RESHAPE": (17, (("new_shape", "[i"),)),
+    "SOFTMAX": (9, (("beta", "f"),)),
+}
+
+
+class FlatWriter:
+    """A flatbuffer laid out front to back: each table's vtable just before
+    it (its soffset points back), a table's children written after it and
+    reached by forward offsets, every scalar at its size's alignment, the
+    data of a vector at ``align`` (16 for a tensor's bytes)."""
+
+    def __init__(self, ident: bytes) -> None:
+        self.buf = bytearray(4) + ident  # the root offset, then the file identifier
+
+    def _pad(self, align: int, extra: int = 0) -> None:
+        self.buf += bytes(-(len(self.buf) + extra) % align)
+
+    def vector(self, arr, align: int = 4) -> int:
+        self._pad(max(4, align), 4)
+        pos = len(self.buf)
+        self.buf += arr.size.to_bytes(4, "little") + arr.tobytes()
+        return pos
+
+    def string(self, s: str) -> int:
+        data = s.encode()
+        self._pad(4)
+        pos = len(self.buf)
+        self.buf += len(data).to_bytes(4, "little") + data + b"\0"
+        return pos
+
+    def table(self, fields) -> int:
+        """``fields``: (slot, fmt, value): a struct format for a scalar, or
+        "o" for an offset to what ``value()`` writes after this table."""
+        import struct
+
+        layout, off = [], 4
+        for slot, fmt, value in fields:
+            size = 4 if fmt == "o" else struct.calcsize(fmt)
+            off += -off % size
+            layout.append((slot, fmt, value, off))
+            off += size
+        size = off + (-off % 4)
+        n = max((s for s, _, _ in fields), default=-1) + 1
+        slots = [0] * n
+        for slot, _, _, o in layout:
+            slots[slot] = o
+        self._pad(4, 4 + 2 * n)
+        vpos = len(self.buf)
+        self.buf += struct.pack(f"<HH{n}H", 4 + 2 * n, size, *slots)
+        tpos = len(self.buf)
+        body = bytearray(size)
+        struct.pack_into("<i", body, 0, tpos - vpos)
+        for _, fmt, value, o in layout:
+            if fmt != "o":
+                struct.pack_into("<" + fmt, body, o, value)
+        self.buf += body
+        for _, fmt, value, o in layout:
+            if fmt == "o":
+                struct.pack_into("<I", self.buf, tpos + o, value() - (tpos + o))
+        return tpos
+
+    def tables(self, makers) -> int:
+        """A vector of tables, each written by one of ``makers``."""
+        self._pad(4)
+        pos = len(self.buf)
+        self.buf += len(makers).to_bytes(4, "little") + bytes(4 * len(makers))
+        for i, make in enumerate(makers):
+            slot = pos + 4 + 4 * i
+            self.buf[slot:slot + 4] = (make() - slot).to_bytes(4, "little")
+        return pos
+
+    def finish(self, root: int) -> bytes:
+        self.buf[0:4] = root.to_bytes(4, "little")
+        return bytes(self.buf)
+
+
+def tflite_bytes(np, graph) -> bytes:
+    """A .tflite flatbuffer (schema version 3) of ``graph``: ``tensors``
+    (name, shape, dtype, data or None), ``ops`` (op, inputs, outputs,
+    options as tools/tflite_parse.py reads them back), ``inputs``,
+    ``outputs``, ``description``. Buffer 0 is the empty one every
+    activation points at; each constant has a buffer of its own."""
+    w = FlatWriter(b"TFL3")
+    codes = sorted({op["op"] for op in graph["ops"]}, key=lambda name: TFL_OPS[name])
+    consts = [t for t in graph["tensors"] if t["data"] is not None]
+    buffer_of = {id(t): i + 1 for i, t in enumerate(consts)}
+
+    def i32(values):
+        return lambda: w.vector(np.asarray(values, "<i4"))
+
+    def tensor(t):
+        return lambda: w.table([
+            (0, "o", i32(t["shape"])), (1, "B", TFL_TYPES[t["dtype"]]),
+            (2, "I", buffer_of.get(id(t), 0)), (3, "o", lambda: w.string(t["name"]))])
+
+    def option_value(key, fmt, value):
+        if key == "padding":
+            return "B", TFL_PADDING[value]
+        if key == "activation":
+            return "B", TFL_ACT[value]
+        if fmt == "[i":
+            return "o", i32(value)
+        return fmt, value
+
+    def op_table(op):
+        union, keys = TFL_OPTIONS[op["op"]]
+        opts = [(slot, *option_value(key, fmt, op["options"][key]))
+                for slot, (key, fmt) in enumerate(keys)]
+        return lambda: w.table([
+            (0, "I", codes.index(op["op"])), (1, "o", i32(op["inputs"])),
+            (2, "o", i32(op["outputs"])), (3, "B", union), (4, "o", lambda: w.table(opts))])
+
+    def code(name):
+        c = TFL_OPS[name]
+        return lambda: w.table([(0, "b", min(c, 127)), (2, "i", 1), (3, "i", c)])
+
+    def buffer(t):
+        data = np.frombuffer(np.ascontiguousarray(t["data"]).tobytes(), np.uint8)
+        return lambda: w.table([(0, "o", lambda: w.vector(data, align=16))])
+
+    subgraph = lambda: w.table([  # noqa: E731
+        (0, "o", lambda: w.tables([tensor(t) for t in graph["tensors"]])),
+        (1, "o", i32(graph["inputs"])), (2, "o", i32(graph["outputs"])),
+        (3, "o", lambda: w.tables([op_table(op) for op in graph["ops"]])),
+        (4, "o", lambda: w.string("main"))])
+    root = w.table([
+        (0, "I", 3), (1, "o", lambda: w.tables([code(c) for c in codes])),
+        (2, "o", lambda: w.tables([subgraph])),
+        (3, "o", lambda: w.string(graph["description"])),
+        (4, "o", lambda: w.tables([lambda: w.table([])] + [buffer(t) for t in consts]))])
+    return w.finish(root)
+
+
+def mobilenet_v2_graph(np, seed: int = 0, size: int = 224, num_classes: int = 1001,
+                       width: float = 1.0):
+    """MobileNet-v2 as TF-slim's mobilenet_v2_<width>_<size> lays it out:
+    the input's own MUL / ADD normalization ((x/127.5) - 1 of a float
+    [0, 255] image), the stem, 17 inverted residuals (ADD where the shape
+    keeps), the 1280 head, a VALID average pool, the 1x1 logits conv and a
+    RESHAPE to [1, classes]. Every conv carries a batch norm of seeded
+    moments folded into its weights and bias (OHWI, depthwise [1, 3, 3,
+    C]), ReLU6 fused but on the projections; TFLite's SAME padding."""
+    rng = np.random.default_rng(seed)
+    tensors, ops = [], []
+
+    def tensor(name, shape, data=None, dtype="float32"):
+        tensors.append({"name": name, "shape": tuple(int(d) for d in shape), "dtype": dtype,
+                        "data": data})
+        return len(tensors) - 1
+
+    def op(kind, inputs, out, **options):
+        ops.append({"op": kind, "inputs": list(inputs), "outputs": [out], "options": options})
+        return out
+
+    def divisible(v, d=8):
+        new = max(d, int(v + d / 2) // d * d)
+        return new + d if new < 0.9 * v else new
+
+    def conv(x, hw, cin, cout, k, stride, act, name, dw=False):
+        fan_in = k * k * (1 if dw else cin)
+        shape = (1, k, k, cout) if dw else (cout, k, k, cin)
+        wt = rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+        gamma, beta = rng.uniform(0.5, 1.5, cout), rng.normal(0.0, 0.1, cout)
+        mean, var = rng.normal(0.0, 0.1, cout), rng.uniform(0.5, 1.5, cout)
+        inv = gamma / np.sqrt(var + 1e-3)
+        wt = wt * (inv if dw else inv[:, None, None, None])
+        out_hw = -(-hw // stride)
+        w_i = tensor(f"{name}/weights", shape, wt.astype(np.float32))
+        b_i = tensor(f"{name}/bias", (cout,), (beta - mean * inv).astype(np.float32))
+        y = tensor(name, (1, out_hw, out_hw, cout))
+        opts = dict(padding="SAME", stride_w=stride, stride_h=stride, activation=act,
+                    dilation_w=1, dilation_h=1)
+        if dw:
+            op("DEPTHWISE_CONV_2D", (x, w_i, b_i), y, depth_multiplier=1, **opts)
+        else:
+            op("CONV_2D", (x, w_i, b_i), y, **opts)
+        return y, out_hw
+
+    image = tensor("image", (1, size, size, 3))
+    scale = tensor("norm/scale", (1,), np.full((1,), 1.0 / 127.5, np.float32))
+    shift = tensor("norm/shift", (1,), np.full((1,), -1.0, np.float32))
+    x = op("MUL", (image, scale), tensor("norm/mul", (1, size, size, 3)), activation=None)
+    x = op("ADD", (x, shift), tensor("norm/add", (1, size, size, 3)), activation=None)
+    cin = divisible(32 * width)
+    x, hw = conv(x, size, 3, cin, 3, 2, "RELU6", "stem")
+    k = 0
+    for t, c, n, s in ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                       (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)):
+        cout = divisible(c * width)
+        for i in range(n):
+            stride = s if i == 0 else 1
+            y, y_hw = x, hw
+            if t != 1:
+                y, _ = conv(y, hw, cin, cin * t, 1, 1, "RELU6", f"block{k}/expand")
+            y, y_hw = conv(y, hw, cin * t, cin * t, 3, stride, "RELU6", f"block{k}/dw", dw=True)
+            y, _ = conv(y, y_hw, cin * t, cout, 1, 1, None, f"block{k}/project")
+            if stride == 1 and cin == cout:
+                y = op("ADD", (x, y), tensor(f"block{k}/add", (1, y_hw, y_hw, cout)),
+                       activation=None)
+            x, hw, cin, k = y, y_hw, cout, k + 1
+    c_head = divisible(1280 * width) if width > 1.0 else 1280
+    x, hw = conv(x, hw, cin, c_head, 1, 1, "RELU6", "head")
+    x = op("AVERAGE_POOL_2D", (x,), tensor("pool", (1, 1, 1, c_head)), padding="VALID",
+           stride_w=1, stride_h=1, filter_w=hw, filter_h=hw, activation=None)
+    x, _ = conv(x, 1, c_head, num_classes, 1, 1, None, "logits/conv")
+    shape = tensor("logits/shape", (2,), np.asarray([1, num_classes], np.int32), "int32")
+    logits = op("RESHAPE", (x, shape), tensor("logits", (1, num_classes)),
+                new_shape=[1, num_classes])
+    return {"tensors": tensors, "ops": ops, "inputs": [image], "outputs": [logits],
+            "description": f"mobilenet_v2 {width} {size} {num_classes} classes, seed {seed}"}
+
+
+def write_mobilenet_v2_tflite(np, path: str, **kw):
+    """Write :func:`mobilenet_v2_graph` (``kw``: seed, size, num_classes,
+    width) to ``path``; returns the graph written."""
+    graph = mobilenet_v2_graph(np, **kw)
+    with open(path, "wb") as f:
+        f.write(tflite_bytes(np, graph))
+    return graph
+
+
+def parse_matches_graph(np, parsed, graph) -> int:
+    """``tools/tflite_parse.parse`` of a written file against the graph
+    written: every tensor's name, shape, dtype and bytes, every op's name,
+    inputs, outputs and options, the graph's inputs, outputs and
+    description. Raises at the first difference; returns the constant
+    bytes compared."""
+    if len(parsed.tensors) != len(graph["tensors"]) or len(parsed.operators) != len(graph["ops"]):
+        raise AssertionError("tflite parse: tensor or op count differs from the file written")
+    compared = 0
+    for got, want in zip(parsed.tensors, graph["tensors"]):
+        if (got.name, got.shape, np.dtype(got.dtype).name) != (want["name"], want["shape"],
+                                                                want["dtype"]):
+            raise AssertionError(f"tflite parse: tensor {want['name']} differs")
+        if (got.data is None) != (want["data"] is None) or (
+                got.data is not None and not np.array_equal(got.data, want["data"])):
+            raise AssertionError(f"tflite parse: data of {want['name']} differs")
+        compared += 0 if got.data is None else got.data.nbytes
+    for got, want in zip(parsed.operators, graph["ops"]):
+        if (got.name, got.inputs, got.outputs, got.options) != (
+                want["op"], want["inputs"], want["outputs"], want["options"]):
+            raise AssertionError(f"tflite parse: op {want['op']} differs: {got}")
+    if (parsed.inputs, parsed.outputs, parsed.description) != (
+            graph["inputs"], graph["outputs"], graph["description"]):
+        raise AssertionError("tflite parse: graph inputs, outputs or description differ")
+    return compared
+
+
+class ReplayCount:
+    """Counts the CUDA-graph replays of every program (segment or plane)
+    while installed."""
+
+    def __enter__(self):
+        import nnstreamer_tpu_torch.pipeline.programs as programs_mod
+
+        self.mod, self.real, self.count = programs_mod, programs_mod.replay, 0
+
+        def replay(graph, launches):
+            self.count += 1
+            return self.real(graph, launches)
+
+        programs_mod.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.replay = self.real
+
+
+def labeled_cell(torch, np, dev, parse_pipeline, ik, name, desc, k1_expected):
+    """A labeling cell through its fused segment: a warm-up run, then
+    MS_FRAMES frames recorded (one replay a frame, K1 ``k1_expected`` times,
+    every replay bit for bit against process_eager), fps."""
+    from nnstreamer_tpu_torch.pipeline.graph import FusedSegment
+
+    run_desc(parse_pipeline, desc(4), dev)  # warm-up: cuDNN, allocator
+    with SegmentLog(FusedSegment) as log, ReplayCount() as replays:
+        p, wall = run_desc(parse_pipeline, desc(MS_FRAMES), dev,
+                           counters=(ik.crop_resize_launches,))
+    k1 = ik.crop_resize_launches.count
+    labels = [int(t[0]) for t in out_tensors(p)]
+    rows = segment_rows(p._executor.plan)
+    if len(labels) != MS_FRAMES:
+        raise AssertionError(f"{name}: {len(labels)} of {MS_FRAMES} frames at the sink")
+    if replays.count != MS_FRAMES or not any(r["captured"] for r in rows):
+        raise AssertionError(f"{name}: {replays.count} replays for {MS_FRAMES} frames: {rows}")
+    if k1 != k1_expected:
+        raise AssertionError(f"{name}: K1 launched {k1} times, want {k1_expected}")
+    n_frames, _ = replay_vs_eager(torch, log.pairs)
+    fps, fps_wall = fps_run(parse_pipeline, dev, name, desc)
+    return p, {"frames": MS_FRAMES, "replays": replays.count, "k1_launches": k1,
+               "segments": rows, "replays_vs_eager_bit_equal": n_frames,
+               "labels_first4": labels[:4], "fps_frames": MS_FPS_FRAMES, "fps": fps,
+               "fps_wall_s": fps_wall}
+
+
+def fps_run(parse_pipeline, dev, name, desc):
+    """Frames a second over MS_FPS_FRAMES free-running frames."""
+    p, wall = run_desc(parse_pipeline, desc(MS_FPS_FRAMES), dev)
+    if len(p["out"].frames) != MS_FPS_FRAMES:
+        raise AssertionError(f"{name}: {len(p['out'].frames)} of {MS_FPS_FRAMES} frames")
+    return MS_FPS_FRAMES / wall, wall
+
+
+def logits_vs_cpu(torch, np, dev, parse_pipeline, name, logits_desc, n=2):
+    """The cell's logits (its description without the decoder) on the card
+    against the same filter on the CPU, ``n`` frames: within
+    MS_LOGIT_REL_TOL of max |logit|, top-1 equal."""
+    got = out_tensors(run_desc(parse_pipeline, logits_desc(n), dev)[0])
+    want = out_tensors(run_desc(parse_pipeline, logits_desc(n), "cpu")[0])
+    err = max(max_err(np, a, b) for a, b in zip(got, want))
+    scale = max(float(np.abs(w).max()) for w in want)
+    tol = MS_LOGIT_REL_TOL * scale
+    if len(got) != n or not all(np.isfinite(g).all() for g in got):
+        raise AssertionError(f"{name}: {len(got)} logits frames, or not finite")
+    if not err <= tol or [int(g.argmax()) for g in got] != [int(w.argmax()) for w in want]:
+        raise AssertionError(f"{name}: logits err {err} > {tol} against the CPU, or top-1 differs")
+    return {"frames": n, "max_abs_err": err, "tolerance": tol, "max_abs_logit": scale,
+            "shape": list(got[0].shape)}
+
+
+def vit_labeling_phase(torch, np, dev, parse_pipeline, ik):
+    """ViT-S/16 (zoo:vit at its defaults, float32) behind K1's resize."""
+    desc = lambda n: VIT_LABELING.format(n=n)  # noqa: E731
+    _, out = labeled_cell(torch, np, dev, parse_pipeline, ik, "vit_labeling", desc, MS_FRAMES)
+    out["logits_vs_cpu"] = logits_vs_cpu(torch, np, dev, parse_pipeline, "vit_labeling",
+                                         lambda n: desc(n).replace(LABELS, ""))
+    classes, _ = profiled(torch, parse_pipeline, desc(16), dev,
+                          [("crop_resize (K1)", "crop_resize")], main=MATMUL_KEYS)
+    return {"phase": "vit_labeling", "model": "zoo:vit (ViT-S/16: d 384, 6 heads, 12 layers, "
+            "224, 1001 classes)", **out, "profile_frames": 16, **classes}
+
+
+def kws_audio_phase(torch, np, dev, parse_pipeline):
+    """zoo:kws on one-second 16 kHz clips from audiotestsrc: labels and
+    logits against the CPU module, one replay a frame, fps."""
+    from nnstreamer_tpu_torch.pipeline.graph import FusedSegment
+
+    desc = lambda n: KWS_AUDIO.format(n=n)  # noqa: E731
+    run_desc(parse_pipeline, desc(4), dev)
+    with SegmentLog(FusedSegment) as log, ReplayCount() as replays:
+        p, _ = run_desc(parse_pipeline, desc(MS_FRAMES), dev)
+    labels = [int(t[0]) for t in out_tensors(p)]
+    cpu = [int(t[0]) for t in out_tensors(run_desc(parse_pipeline, desc(MS_FRAMES), "cpu")[0])]
+    if len(labels) != MS_FRAMES or labels != cpu:
+        raise AssertionError(f"kws_audio: labels {labels[:4]} differ from the CPU run {cpu[:4]}")
+    if replays.count != MS_FRAMES:
+        raise AssertionError(f"kws_audio: {replays.count} replays for {MS_FRAMES} frames")
+    n_frames, _ = replay_vs_eager(torch, log.pairs)
+    logits = logits_vs_cpu(torch, np, dev, parse_pipeline, "kws_audio",
+                           lambda n: desc(n).replace(LABELS, ""), n=4)
+    fps, fps_wall = fps_run(parse_pipeline, dev, "kws_audio", desc)
+    classes, _ = profiled(torch, parse_pipeline, desc(16), dev, [])
+    return {"phase": "kws_audio", "model": "zoo:kws (samples 16000, 12 classes, width 32)",
+            "frames": MS_FRAMES, "replays": replays.count, "replays_vs_eager_bit_equal": n_frames,
+            "labels_equal_cpu": True, "labels_first4": labels[:4], "logits_vs_cpu": logits,
+            "fps_frames": MS_FPS_FRAMES, "fps": fps, "fps_wall_s": fps_wall,
+            "profile_frames": 16, **classes}
+
+
+def tflite_program_phase(torch, np, dev, parse_pipeline, ik):
+    """A MobileNet-v2 1.0/224/1001 .tflite written here (seeded weights, BN
+    folded) as the port's own program behind K1's resize: the parse gives
+    back what was written, one replay a frame, K1 a frame, the program's
+    constants on the card and no interpreter imported, logits against the
+    same program on the CPU; load_tflite_params of the same file."""
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import load_tflite_params
+    from nnstreamer_tpu_torch.tools.tflite_parse import parse
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mobilenet_v2_1.0_224.tflite")
+        t0 = time.perf_counter()
+        graph = write_mobilenet_v2_tflite(np, path, seed=0)
+        write_s = time.perf_counter() - t0
+        checked = parse_matches_graph(np, parse(path), graph)
+        desc = lambda n: TFLITE_LABELING.format(n=n, model=path)  # noqa: E731
+        # the filter's program, read while its backend is open: every
+        # constant on the card, no interpreter imported
+        probe = parse_pipeline(desc(1), device=dev)
+        probe.negotiate()
+        prog = probe["f"].backend.program
+        places = {str(c.device.type) for c in prog._consts.values()}
+        probe.run(timeout=600)
+        if places != {dev.type} or "tensorflow" in sys.modules:
+            raise AssertionError(f"tflite_program: constants on {places}, tensorflow imported "
+                                 f"{'tensorflow' in sys.modules}")
+        _, out = labeled_cell(torch, np, dev, parse_pipeline, ik, "tflite_program", desc,
+                              MS_FRAMES)
+        out["logits_vs_cpu"] = logits_vs_cpu(torch, np, dev, parse_pipeline, "tflite_program",
+                                             lambda n: desc(n).replace(LABELS, ""))
+        in_shape = graph["tensors"][graph["inputs"][0]]["shape"]
+        x = torch.from_numpy(np.random.default_rng(3).integers(0, 256, in_shape)
+                             .astype(np.uint8)).to(dev)
+        with torch.inference_mode():
+            # the module normalizes uint8 as (x - 127.5)/127.5, the graph as
+            # x·(1/127.5) - 1 on its float input
+            want = prog(x.float())[0]
+            got = load_tflite_params(path).to(dev)(x)
+        imported_err = max_err(np, got.cpu(), want.cpu())
+        imported_tol = MS_LOGIT_REL_TOL * float(want.abs().max())
+        if not imported_err <= imported_tol:
+            raise AssertionError(f"tflite_program: load_tflite_params logits err {imported_err}"
+                                 f" > {imported_tol} against the program")
+        ops = sorted({o["op"] for o in graph["ops"]})
+        size = os.path.getsize(path)
+        classes, _ = profiled(torch, parse_pipeline, desc(16), dev,
+                              [("crop_resize (K1)", "crop_resize")])
+    return {"phase": "tflite_program", "file_bytes": size, "write_s": write_s,
+            "ops": ops, "n_ops": len(graph["ops"]), "parse_equal_bytes": checked,
+            "constants_on": sorted(places), "interpreter_imported": False, **out,
+            "load_tflite_params": {"max_abs_err": imported_err, "tolerance": imported_tol},
+            "profile_frames": 16, **classes}
+
+
+SCRIPT_MODEL = '''
+import torch
+
+
+class Net(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        g = torch.Generator().manual_seed(0)
+        self.conv = torch.nn.Conv2d(3, 16, 3, padding=1)
+        self.fc = torch.nn.Linear(16, 10)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+
+    def forward(self, x):
+        y = torch.relu(self.conv(x.permute(0, 3, 1, 2)))
+        return self.fc(y.mean(dim=(2, 3)))
+
+
+def get_model(options):
+    from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
+
+    spec = TensorsSpec.of(TensorSpec((1, 64, 64, 3), DType.FLOAT32))
+    return Net(), spec
+
+
+class CustomFilter:
+    TRACEABLE = True
+
+    def __init__(self):
+        self.net = None
+
+    def getInputDim(self):
+        return get_model({})[1]
+
+    def getOutputDim(self):
+        from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
+
+        return TensorsSpec.of(TensorSpec((1, 10), DType.FLOAT32))
+
+    def invoke(self, tensors):
+        if self.net is None:
+            self.net = Net().to(tensors[0].device)
+        with torch.no_grad():
+            return (self.net(tensors[0]),)
+'''
+
+
+def script_models_phase(torch, np, dev):
+    """A TorchScript module saved to a .pt and a get_model .py script, each
+    through SingleShot on the card: the .pt by framework=auto, the script by
+    framework=torch (get_model) and by framework=auto (the custom backend's
+    CustomFilter, as the priority table sends a .py). Outputs on the card;
+    the script's equal to its module's eager output bit for bit, the
+    TorchScript's within 1e-6 of max |y| (its fuser may reorder)."""
+    import importlib.util
+
+    from nnstreamer_tpu_torch.single import SingleShot
+    from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
+
+    x = torch.from_numpy(np.random.default_rng(4).uniform(-1, 1, (1, 64, 64, 3))
+                         .astype(np.float32)).to(dev)
+    out = {"phase": "script_models"}
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "net.py")
+        with open(script, "w") as f:
+            f.write(SCRIPT_MODEL)
+        spec = importlib.util.spec_from_file_location("chip_script_net", script)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        net = mod.Net().eval().to(dev)
+        with torch.inference_mode():
+            want = net(x)
+        pt = os.path.join(tmp, "net.pt")
+        torch.jit.script(mod.Net().eval()).save(pt)
+        in_spec = TensorsSpec.of(TensorSpec((1, 64, 64, 3), DType.FLOAT32))
+        runs = (("torchscript_auto", dict(model=pt, input_spec=in_spec), 1e-6),
+                ("get_model_torch", dict(framework="torch", model=script), 0.0),
+                ("custom_auto", dict(model=script), 0.0))
+        for name, kw, rel in runs:
+            with SingleShot(device=dev, **kw) as s:
+                (got,) = s.invoke(x)
+                fw = s.props.framework
+            err = (got - want).abs().max().item()
+            if got.device.type != dev.type or not err <= rel * want.abs().max().item():
+                raise AssertionError(f"script_models {name}: on {got.device}, err {err}")
+            out[name] = {"framework": fw, "device": str(got.device), "max_abs_err": err,
+                         "tolerance_rel": rel}
+    return out
+
+
+def model_sources_phases(torch, np, dev, parse_pipeline, ik):
+    """The model_sources group: vit_labeling, kws_audio, tflite_program,
+    script_models."""
+    t0 = time.perf_counter()
+    vit = vit_labeling_phase(torch, np, dev, parse_pipeline, ik)
+    emit(vit)
+    emit(kws_audio_phase(torch, np, dev, parse_pipeline))
+    tfl = tflite_program_phase(torch, np, dev, parse_pipeline, ik)
+    emit(tfl)
+    emit(script_models_phase(torch, np, dev))
+    return {"k1_launches": {"vit_labeling": vit["k1_launches"],
+                            "tflite_program": tfl["k1_launches"]},
+            "seconds": time.perf_counter() - t0}
+
+
 def ab_turn(tree: str, npz: str) -> int:
     """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
     25200 candidates with the kernels of the checkout at ``tree`` (its own
@@ -5926,6 +6531,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     plane = plane_phases(torch, np, dev, parse_pipeline, ik)
     emit({"phase": "plane", "seconds": plane["seconds"]})
+    sources = model_sources_phases(torch, np, dev, parse_pipeline, ik)
+    emit({"phase": "model_sources", "seconds": sources["seconds"]})
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -5942,6 +6549,7 @@ def main() -> int:
         "launches_vision": vision["k1_launches"],
         "launches_codec_labeling": codecs_k1,
         "launches_plane_pipelines": plane["plane_pipelines"]["k1_launches"],
+        "launches_model_sources": sources["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -6025,6 +6633,29 @@ def main() -> int:
     return 0
 
 
+def sources_main() -> int:
+    """``--sources``: only the model_sources group (K1 built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    _build.build(["image_kernels"])
+    out = model_sources_phases(torch, np, torch.device("cuda"), parse_pipeline, ik)
+    emit({"phase": "model_sources", "seconds": out["seconds"]})
+    return 0
+
+
 def plane_main() -> int:
     """``--plane``: only the plane group (the kernels it runs built first)."""
     import torch
@@ -6051,6 +6682,8 @@ def plane_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--plane"] and len(sys.argv) == 2:
         sys.exit(plane_main())
+    if sys.argv[1:2] == ["--sources"] and len(sys.argv) == 2:
+        sys.exit(sources_main())
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:

@@ -25,7 +25,11 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
     "filter": {
         # search paths for out-of-tree backend plugins; colon separated
         "plugin_paths": "",
-        # model-extension → backend auto-detection priority
+        # model-extension → backend auto-detection priority: the first
+        # registered candidate wins (a .tflite goes to the host interpreter
+        # first, as in the reference, then to the port's own program)
+        "framework_priority_py": "custom",
+        "framework_priority_tflite": "tflite,torch",
         "framework_priority_pt": "torch",
         "framework_priority_pth": "torch",
     },

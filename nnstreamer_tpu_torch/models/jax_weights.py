@@ -15,7 +15,10 @@ maps each path to its state-dict key and its layout:
   unchanged.
 
 The transformer LM's stacked block leaves follow rules of their own
-(:func:`transformer_from_jax`).
+(:func:`transformer_from_jax`), and so do the ViT's, which are the same
+blocks with a patch conv, a position table and a head around them
+(:func:`load_vit_npz`). The keyword-spotting net is conv + batch norm
+leaves (:func:`conv_bn_paths`) and a dense head.
 """
 
 from __future__ import annotations
@@ -130,17 +133,17 @@ def transformer_from_jax(params) -> Dict[str, torch.Tensor]:
     return state
 
 
-def load_transformer_npz(model: nn.Module, path: str) -> None:
-    """Overlay an npz of reference transformer leaves ``p{i}`` (tree-flatten
-    order, :data:`TRANSFORMER_BLOCK_LEAVES` then
-    :data:`TRANSFORMER_TOP_LEAVES`) onto ``model``; leaves the file lacks
-    keep their values, a leaf of the wrong shape or depth raises."""
+def _overlay_npz(model: nn.Module, path: str, names, leaf_fn) -> None:
+    """Overlay leaves ``p{i}`` of an npz onto ``model``: leaf i is
+    ``names[i]``, and ``leaf_fn(name, value)`` gives its state-dict
+    entries; leaves the file lacks keep their values, an entry of the
+    wrong shape (or a key the model lacks) raises."""
     blob = np.load(path, allow_pickle=False)
     state = model.state_dict()
-    for i, name in enumerate(TRANSFORMER_BLOCK_LEAVES + TRANSFORMER_TOP_LEAVES):
+    for i, name in enumerate(names):
         if f"p{i}" not in blob:
             continue
-        for key, new in _transformer_leaf(name, blob[f"p{i}"]).items():
+        for key, new in leaf_fn(name, blob[f"p{i}"]).items():
             if key not in state or tuple(new.shape) != tuple(state[key].shape):
                 want = tuple(state[key].shape) if key in state else "no such weight"
                 raise ValueError(
@@ -149,6 +152,40 @@ def load_transformer_npz(model: nn.Module, path: str) -> None:
                 )
             state[key] = new
     model.load_state_dict(state)
+
+
+def load_transformer_npz(model: nn.Module, path: str) -> None:
+    """Overlay an npz of reference transformer leaves ``p{i}`` (tree-flatten
+    order, :data:`TRANSFORMER_BLOCK_LEAVES` then
+    :data:`TRANSFORMER_TOP_LEAVES`) onto ``model``; leaves the file lacks
+    keep their values, a leaf of the wrong shape or depth raises."""
+    _overlay_npz(model, path, TRANSFORMER_BLOCK_LEAVES + TRANSFORMER_TOP_LEAVES,
+                 _transformer_leaf)
+
+
+#: the reference ViT's leaves after its stacked blocks, in tree-flatten
+#: order (dict keys sorted: blocks, head {b, w}, ln_f, patch {b, w}, pos)
+VIT_TOP_LEAVES = ("head.b", "head.w", "ln_f", "patch.b", "patch.w", "pos")
+
+
+def _vit_leaf(name: str, value) -> Dict[str, torch.Tensor]:
+    """One reference ViT leaf → the port's :class:`~.vit.ViT` entries: the
+    blocks as the transformer's, the patch conv HWIO → OIHW, the head
+    [d, classes] → [classes, d], ``ln_f`` and the ``pos`` table as they
+    are."""
+    if name in TRANSFORMER_BLOCK_LEAVES:
+        return _transformer_leaf(name, value)
+    module, _, leaf = name.partition(".")
+    if not leaf:
+        return {name: torch.tensor(np.ascontiguousarray(value, dtype=np.float32))}
+    param = {"w": "weight", "b": "bias"}[leaf]
+    return {f"{module}.{param}": convert_leaf(value)}
+
+
+def load_vit_npz(model: nn.Module, path: str) -> None:
+    """Overlay an npz of reference ``vit.init_params`` leaves ``p{i}``
+    (tree-flatten order) onto a :class:`~.vit.ViT`."""
+    _overlay_npz(model, path, TRANSFORMER_BLOCK_LEAVES + VIT_TOP_LEAVES, _vit_leaf)
 
 
 def load_npz(model: nn.Module, path: str, paths: List[Tuple]) -> None:

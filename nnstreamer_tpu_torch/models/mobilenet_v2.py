@@ -167,3 +167,88 @@ def load_jax_npz(model: MobileNetV2, path: str) -> None:
     ``nnstreamer_tpu/models/zoo.py`` ``_load_params_overlay``) onto
     ``model``; leaves the file lacks keep their current values."""
     load_npz(model, path, jax_leaf_paths())
+
+
+# -- weights imported from a .tflite file --------------------------------------
+
+
+def load_tflite_params(path: str) -> MobileNetV2:
+    """A :class:`MobileNetV2` (float32, on the CPU) with the weights of a
+    mobilenet_v2 1.0 ``.tflite`` file: its conv ops walked in graph order
+    (the order the module builds its convs in), each weight and bias
+    dequantized exactly off its integer grid (tools/tflite_parse.py), and
+    the TFLite-fused biases folded in as identity batch norms (scale
+    ``sqrt(1 + eps)``, so that ``rsqrt(var + eps)·scale`` is one and the
+    output is ``conv + bias``). The last conv, the 1x1 logits conv, becomes
+    the dense classifier. A quantized input tensor's (scale, zero point)
+    replaces the generic ``(x - 127.5)/127.5`` (``input_quant``).
+
+    The counterpart of ``nnstreamer_tpu/models/mobilenet_v2.py
+    load_tflite_params``, which returns the same weights as a param tree.
+    A graph that is not the 1.0 topology raises ``ValueError``."""
+    import numpy as np
+
+    from nnstreamer_tpu_torch.tools.tflite_parse import parse
+
+    m = parse(path)
+    convs = iter(op for op in m.operators if op.name in ("CONV_2D", "DEPTHWISE_CONV_2D"))
+    model = MobileNetV2(num_classes=1, generator=torch.Generator())
+    state: Dict[str, torch.Tensor] = {}
+    eps = 1e-3  # ConvBN's default
+
+    def bias_of(op, cout: int) -> np.ndarray:
+        # -1 is tflite's missing-optional-input sentinel
+        if len(op.inputs) > 2 and op.inputs[2] >= 0:
+            return m.tensors[op.inputs[2]].dequantized()
+        return np.zeros((cout,), np.float32)
+
+    def conv_entry(prefix: str, cin: int, cout: int, dw: bool = False) -> None:
+        op = next(convs)
+        w = m.tensors[op.inputs[1]].dequantized()
+        # tflite conv weights are [O, KH, KW, I], depthwise [1, KH, KW, C]
+        w = np.transpose(w, (3, 0, 1, 2) if dw else (0, 3, 1, 2))
+        want = (cout, 1 if dw else cin)
+        if w.shape[:2] != want:
+            raise ValueError(f"{path}: conv channels {w.shape[:2]} != {want} — "
+                             "not the mobilenet_v2(1.0) topology")
+        c = w.shape[0]
+        state[f"{prefix}.weight"] = torch.tensor(np.ascontiguousarray(w, np.float32))
+        state[f"{prefix}.scale"] = torch.full((c,), float(np.sqrt(1.0 + eps)))
+        state[f"{prefix}.bias"] = torch.tensor(np.asarray(bias_of(op, c), np.float32))
+        state[f"{prefix}.mean"] = torch.zeros(c)
+        state[f"{prefix}.var"] = torch.ones(c)
+
+    try:
+        cin = _make_divisible(32)
+        conv_entry("stem", 3, cin)
+        k = 0
+        for t, c, n, _ in _INVERTED_RESIDUAL_CFG:
+            cout = _make_divisible(c)
+            for _ in range(n):
+                hidden = cin * t
+                if t != 1:
+                    conv_entry(f"blocks.{k}.expand", cin, hidden)
+                conv_entry(f"blocks.{k}.dw", hidden, hidden, dw=True)
+                conv_entry(f"blocks.{k}.project", hidden, cout)
+                cin = cout
+                k += 1
+        conv_entry("head", cin, 1280)
+        cls = next(convs)  # the 1x1 logits conv == the pooled dense
+    except StopIteration:
+        raise ValueError(f"{path}: conv walk ended early — not a mobilenet_v2(1.0) graph "
+                         "(wrong file or width multiplier)") from None
+    leftover = sum(1 for _ in convs)
+    if leftover:
+        raise ValueError(f"{path}: {leftover} conv ops beyond the mobilenet_v2(1.0) "
+                         "topology — refusing a partial import")
+    w = m.tensors[cls.inputs[1]].dequantized()  # [classes, 1, 1, 1280]
+    w = np.ascontiguousarray(w.reshape(w.shape[0], -1), np.float32)
+    model.classifier = nn.Linear(w.shape[1], w.shape[0]).requires_grad_(False)
+    state["classifier.weight"] = torch.tensor(w)
+    state["classifier.bias"] = torch.tensor(np.asarray(bias_of(cls, w.shape[0]), np.float32))
+    model.load_state_dict(state)
+    t_in = m.tensors[m.inputs[0]]
+    if t_in.quant is not None and t_in.quant.quantized:
+        zp = float(t_in.quant.zero_point[0]) if t_in.quant.zero_point.size else 0.0
+        model.input_quant = (float(t_in.quant.scale[0]), zp)
+    return model.eval()

@@ -4,7 +4,7 @@ backend (``model=zoo:<name>``).
 The counterpart of ``nnstreamer_tpu/models/zoo.py`` for ``mobilenet_v2``,
 ``ssd_mobilenet_v2``, ``ssd_mobilenet_v2_pp``, ``yolov5``, ``posenet``,
 ``deeplab_v3``, ``face_detect``, ``face_landmark``, ``face_composite``,
-``add`` and ``transformer_lm``. Options come from the filter's
+``vit``, ``kws``, ``add`` and ``transformer_lm``. Options come from the filter's
 ``custom=`` string. Every vision model takes ``seed`` (a
 ``torch.Generator`` seed — these random weights are NOT the JAX
 package's, whose generator differs), ``params:<path.npz>`` (leaves
@@ -28,6 +28,13 @@ bfloat16), and:
   its ``params`` npz is the whole ``{"detect", "landmark"}`` tree, the
   detector's leaves first (an npz of the detector alone overlays it
   alone, as in the reference, which overlays the detector only);
+- vit (ViT-S/16 at its defaults): ``num_classes`` (1001), ``d_model``
+  (384), ``n_heads`` (6), ``n_layers`` (12), ``patch`` (16), ``size``
+  (224; a multiple of ``patch``, else it raises), ``batch``;
+- kws (int16 PCM ``(samples, channels)`` at batch 1, else ``(batch,
+  samples, channels)``): ``samples`` (1024), ``channels`` (1),
+  ``num_classes`` (12), ``width`` (32), ``batch``; its ``input_dtype`` is
+  int16, so it takes no ``input_dtype`` option;
 - add: ``const``, ``dims``;
 - transformer_lm: ``seed``, ``vocab``, ``d_model``, ``n_heads``,
   ``n_layers``, ``n_kv_heads``, ``d_ff`` (the FFN width, default
@@ -59,11 +66,18 @@ from torch import nn
 
 from nnstreamer_tpu_torch.device import DeviceLike, resolve_device
 from nnstreamer_tpu_torch.models import decode as dec
-from nnstreamer_tpu_torch.models import deeplab_v3, posenet, ssd_mobilenet, yolo
+from nnstreamer_tpu_torch.models import audio, deeplab_v3, posenet, ssd_mobilenet, vit, yolo
 from nnstreamer_tpu_torch.models import face_pipeline as fp
 from nnstreamer_tpu_torch.models import quantize as qz
 from nnstreamer_tpu_torch.models import transformer as tfm
-from nnstreamer_tpu_torch.models.jax_weights import load_npz, load_transformer_npz
+from nnstreamer_tpu_torch.models.jax_weights import (
+    BIASED,
+    CONV_BN,
+    load_npz,
+    load_transformer_npz,
+    load_vit_npz,
+    tree_paths,
+)
 from nnstreamer_tpu_torch.models.nn import compute_dtype_of
 from nnstreamer_tpu_torch.models.mobilenet_v2 import (  # noqa: F401
     MobileNetV2,
@@ -315,6 +329,49 @@ def _face_composite(device: torch.device, **options) -> ZooModel:
     spec = _image_spec(1, int(options.get("size", fp.DETECT_SIZE)),
                        options.get("input_dtype", "uint8"))
     return ZooModel("face_composite", model, spec, device)
+
+
+@model_factory("vit", _VISION + ("num_classes", "d_model", "n_heads", "n_layers", "patch",
+                                  "batch", "size"))
+def _vit(device: torch.device, **options) -> ZooModel:
+    """Vision Transformer classifier (models/vit.py): patch embedding and a
+    non-causal encoder stack → image-labeling logits."""
+    patch = int(options.get("patch", vit.PATCH))
+    size = int(options.get("size", vit.INPUT_SIZE))
+    model = vit.ViT(
+        num_classes=int(options.get("num_classes", 1001)),
+        d_model=int(options.get("d_model", 384)), n_heads=int(options.get("n_heads", 6)),
+        n_layers=int(options.get("n_layers", 12)), patch=patch, size=size,
+        generator=_generator(options),
+    )
+    if options.get("params"):
+        load_vit_npz(model, options["params"])
+    model = _on(model, device, options)
+    spec = _image_spec(int(options.get("batch", 1)), size, options.get("input_dtype", "uint8"))
+    return ZooModel("vit", model, spec, device)
+
+
+def kws_leaf_paths():
+    """The reference keyword-spotting tree's leaf paths in flatten order."""
+    return tree_paths({"stem": CONV_BN, "c2": CONV_BN, "c3": CONV_BN, "c4": CONV_BN,
+                       "head": BIASED})
+
+
+@model_factory("kws", ("seed", "params", "compute_dtype", "batch", "samples", "channels",
+                       "num_classes", "width"))
+def _kws(device: torch.device, **options) -> ZooModel:
+    """Keyword-spotting raw-waveform classifier (models/audio.py, an M5-style
+    conv net): the converter's audio tensor [samples, channels] S16LE, or
+    batched [B, samples, C] → logits [B, num_classes]."""
+    batch = int(options.get("batch", 1))
+    samples = int(options.get("samples", 1024))
+    channels = int(options.get("channels", 1))
+    model = audio.KWS(num_classes=int(options.get("num_classes", 12)),
+                      width=int(options.get("width", 32)), generator=_generator(options))
+    model = _on(_load(model, options, kws_leaf_paths()), device, options)
+    shape = (samples, channels) if batch == 1 else (batch, samples, channels)
+    spec = TensorsSpec.of(TensorSpec(shape, DType.INT16, name="pcm"))
+    return ZooModel("kws", model, spec, device)
 
 
 class _LMApply(nn.Module):

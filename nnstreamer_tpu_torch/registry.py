@@ -58,6 +58,12 @@ def register(kind: str, name: str, impl: Any, *, replace: bool = False) -> Any:
     return impl
 
 
+def unregister(kind: str, name: str) -> bool:
+    """Drop ``name`` from ``kind``'s table; True if it was registered."""
+    with _lock:
+        return _registry[kind].pop(name.lower(), None) is not None
+
+
 def _load_builtins(kind: str) -> None:
     if _builtins_loaded[kind]:
         return

@@ -447,3 +447,103 @@ def test_unported_options_raise(call):
     }
     with pytest.raises(NotImplementedError, match="not ported"):
         calls[call]()
+
+
+@pytest.mark.parametrize("module", [
+    "nnstreamer_tpu_torch.tools",
+    "nnstreamer_tpu_torch.tools.tflite_parse",
+    "nnstreamer_tpu_torch.tools.tflite_exec",
+    "nnstreamer_tpu_torch.tools.pbtxt",
+    "nnstreamer_tpu_torch.tools.confchk",
+    "nnstreamer_tpu_torch.tools.gendoc",
+    "nnstreamer_tpu_torch.tools.codegen",
+    "nnstreamer_tpu_torch.backends.tflite_backend",
+    "nnstreamer_tpu_torch.models.vit",
+    "nnstreamer_tpu_torch.models.audio",
+])
+def test_model_source_modules_import_alone(module):
+    """The tools, the TFLite backend and the ViT / keyword-spotting
+    families load neither jax, the reference package nor tensorflow."""
+    code = (
+        "import sys\n"
+        f"import {module}\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'nnstreamer_tpu', 'tensorflow',\n"
+        "                                    'tflite_runtime', 'ai_edge_litert'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def test_source_walk_covers_the_tools():
+    files = {os.path.relpath(p, PKG_DIR) for p in _py_files()}
+    assert {os.path.join("tools", f) for f in (
+        "__init__.py", "tflite_parse.py", "tflite_exec.py", "pbtxt.py", "confchk.py",
+        "gendoc.py", "codegen.py")} <= files
+
+
+def test_tflite_under_torch_never_reaches_an_interpreter(tmp_path):
+    """A .tflite opened with framework=torch runs as the port's program on
+    the filter's device: no interpreter is imported, every constant is on
+    that device; framework=tflite with no interpreter importable raises a
+    BackendError that says so."""
+    path = tmp_path / "m.tflite"
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import chip_smoke\n"
+        f"chip_smoke.write_mobilenet_v2_tflite(np, {str(path)!r}, size=32, num_classes=4)\n"
+        "for name in ('tensorflow', 'tflite_runtime', 'ai_edge_litert'):\n"
+        "    sys.modules[name] = None  # an import of it raises ImportError\n"
+        "from nnstreamer_tpu_torch.single import SingleShot\n"
+        "from nnstreamer_tpu_torch.backends.base import BackendError\n"
+        f"with SingleShot(framework='torch', model={str(path)!r}, device='cpu') as s:\n"
+        "    (out,) = s.invoke(np.zeros((1, 32, 32, 3), np.float32))\n"
+        "    places = {c.device.type for c in s.backend.program._consts.values()}\n"
+        "try:\n"
+        f"    SingleShot(framework='tflite', model={str(path)!r}, device='cpu').open()\n"
+        "    refused = ''\n"
+        "except BackendError as exc:\n"
+        "    refused = str(exc)\n"
+        "print(tuple(out.shape), sorted(places), 'no TFLite interpreter' in refused)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO, env=env,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "(1, 4) ['cpu'] True"
+
+
+@pytest.mark.parametrize("entry", ["zoo-vit", "zoo-kws", "tflite-program", "single-tflite",
+                                   "single-script"])
+def test_model_source_entry_points_refuse_cpu_unless_asked(entry, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    import chip_smoke
+    from nnstreamer_tpu_torch.models import zoo
+    from nnstreamer_tpu_torch.single import SingleShot
+    from nnstreamer_tpu_torch.tools.tflite_exec import TFLiteProgram
+
+    path = str(tmp_path / "m.tflite")
+    chip_smoke.write_mobilenet_v2_tflite(np, path, size=32, num_classes=4)
+    script = tmp_path / "m.py"
+    script.write_text("def get_model(options):\n    return (lambda x: x), None\n")
+    calls = {
+        "zoo-vit": lambda: zoo.get("vit", size="32", n_layers="1"),
+        "zoo-kws": lambda: zoo.get("kws"),
+        "tflite-program": lambda: TFLiteProgram(path),
+        "single-tflite": lambda: SingleShot(framework="torch", model=path),
+        "single-script": lambda: SingleShot(framework="torch", model=str(script)),
+    }
+    with pytest.raises(NoDeviceError):
+        calls[entry]()
