@@ -5,6 +5,7 @@
     python3 chip_smoke.py --ab PARENT   # K1 and K2: the checkout PARENT against this one
     python3 chip_smoke.py --plane       # only the plane group (its kernels built first)
     python3 chip_smoke.py --sources     # only the model_sources group (K1 built first)
+    python3 chip_smoke.py --faults      # only the faults group (K1 built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -408,6 +409,46 @@ Last, the model_sources group (ROADMAP A.3 + A.5; alone with ``--sources``):
                  same script) through SingleShot on the card: outputs on
                  the card, equal to the module's eager output (the
                  TorchScript within 1e-6 of max |y|).
+
+Last, the faults group (ROADMAP A.6a; alone with ``--faults``), each phase
+on labeling-720p (1280x720 gradient → resize 224 (K1) → zoo:mobilenet_v2 at
+the zoo's defaults → image_labeling), 64 frames a run, after an unfaulted
+run's labels and logits, the oracle of every check:
+
+29. compile_fallback — a ``faulty traceable:true compile_fail:true
+                 compile_fail_first_n:2`` filter fused between the resize
+                 and the model, device_probe_every 16: the build at start
+                 fails, the circuit opens at the first frame; the 32 open
+                 frames run the segment eagerly (K1 once a frame, no graph
+                 replay), the probe at frame 17 fails to build, the one at
+                 frame 33 builds and closes it, and every later frame is
+                 one replay with K1 in it; the circuit's counters are the
+                 ones tests/test_torch_device_faults.py holds equal to the
+                 JAX package's; labels and logits bit for bit the unfaulted
+                 run's; fps while open and while closed.
+30. oom_ladder  — max-batch=8 over ``faulty oom_above_rows:2``: the
+                 governor's cap settles at 2, no bucket above 2 replays,
+                 every frame arrives with the unbatched labels;
+                 oom-policy=stop ends with DeviceOOMError; one allocation
+                 past mem_get_info's free bytes raises
+                 torch.OutOfMemoryError, classified oom, and the next
+                 labeling run completes with the same labels.
+31. filter_replicas — replicas=2 replica-devices=0,0: logits bit for bit
+                 one instance's, invokes 32 and 32; a ``faulty replicas=2
+                 device_lost_at:9 only_replica:0`` filter in the segment's
+                 place: every frame delivered, replica 0 benched, the
+                 replica counters equal the same run's on the CPU.
+32. plane_replicas — two labeling streams on plane-mode=replicas
+                 plane-devices=2 (both replicas on the one card): every
+                 batched row bit for bit the frame alone, one graph replay
+                 a dispatch, windows on both replicas; then replica 0 lost
+                 (a typed DeviceLostError from its second window on): every
+                 window fails over whole and each stream keeps its order.
+33. warm_restart — the oom_ladder run drained after 32 frames,
+                 save_snapshot, stop, a new executor restored from the file
+                 and resumed: the remembered cap keeps every replay at
+                 bucket 2 or below, no new OOM, the frames add up to 64;
+                 then an in-place drain / resume delivers every frame.
 
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
@@ -6168,6 +6209,435 @@ def model_sources_phases(torch, np, dev, parse_pipeline, ik):
             "seconds": time.perf_counter() - t0}
 
 
+# -- the faults group (ROADMAP A.6a) ---------------------------------------------
+#
+# labeling-720p at full width, 64 frames a run, under the fault machinery:
+# the device circuit around its CUDA graphs, the OOM ladder, replicas in the
+# filter and in the plane, and the warm restart. The fakes are deterministic,
+# so every counter has one right value; tests/test_torch_device_faults.py
+# holds the same descriptions' counters equal to the JAX package's on the CPU.
+FAULTS_FRAMES = 64
+FAULTS_PROBE_EVERY = 16
+FAULTS_FIRST_N = 2
+# every element named: a snapshot's nodes are keyed by name, so a restored
+# pipeline finds its segment under the name the saved one had
+FAULTS_PIPELINE = (
+    "videotestsrc name=src pattern=gradient width=1280 height=720 num-frames={n} ! "
+    "tensor_converter name=conv ! tensor_transform name=resize mode=resize option=224:224 ! "
+    "{faulty}tensor_filter name=f framework=torch model=zoo:mobilenet_v2 {props}! "
+    "{decode}tensor_sink name=out"
+)
+COMPILE_FAULTY = ("tensor_filter name=x framework=faulty custom=traceable:true,compile_fail:true,"
+                  f"compile_fail_first_n:{FAULTS_FIRST_N} ! ")
+OOM_FAULTY = "tensor_filter name=x framework=faulty custom=traceable:true,oom_above_rows:2 ! "
+OOM_PROPS = "batching=true max-batch=8 batch-timeout-ms=200 "
+LOST_FAULTY = ("tensor_filter name=x framework=faulty replicas=2 "
+               "custom=device_lost_at:9,only_replica:0 ! ")
+FAULTS_PLANE = " ".join(
+    f"videotestsrc pattern=gradient width=1280 height=720 num-frames={{n}} ! tensor_converter ! "
+    "tensor_transform mode=resize option=224:224 ! "
+    f"tensor_filter name=f{k} framework=torch model=zoo:mobilenet_v2 plane={{plane}} "
+    "plane-mode=replicas plane-devices=2 ! tensor_decoder mode=image_labeling ! "
+    f"tensor_sink name=out{k}" for k in range(2)
+)
+
+
+def faults_desc(n=FAULTS_FRAMES, faulty="", props="", decode=True):
+    return FAULTS_PIPELINE.format(
+        n=n, faulty=faulty, props=props,
+        decode="tensor_decoder name=dec mode=image_labeling ! " if decode else "")
+
+
+def faults_executor(parse_pipeline, dev, desc, env=None):
+    """The description's pipeline, plan and (not started) executor; ``env``
+    holds the ``[executor]`` knobs the plan resolves."""
+    from nnstreamer_tpu_torch.pipeline.executor import Executor
+
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    try:
+        p = parse_pipeline(desc, device=dev)
+        plan = p.compile_plan()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return p, plan, Executor(plan)
+
+
+def faults_finish(ex, what, timeout=600):
+    """Wait for EOS and stop; a node's error fails the phase."""
+    done = ex.wait(timeout)
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"faults: {what}: {ex.errors or 'no EOS'}")
+
+
+def faults_labels(p):
+    return [int(f.tensors[0][0]) for f in p["out"].frames]
+
+
+def steady_fps(p, sink="out", skip=16):
+    """Frames a second at the sink past the first ``skip`` (the build, the
+    captures and the OOM ladder's first windows stay out)."""
+    t = [f.meta["render_t"] for f in p[sink].frames]
+    return (len(t) - 1 - skip) / (t[-1] - t[skip])
+
+
+def faults_segment(plan, op):
+    return next(s for s in plan.segments if op in [o.name for o in s.ops])
+
+
+def faults_run(parse_pipeline, dev, desc, what, env=None):
+    """``desc`` to EOS on the card → (pipeline, executor, wall seconds)."""
+    p, _, ex = faults_executor(parse_pipeline, dev, desc, env)
+    t0 = time.perf_counter()
+    ex.start()
+    faults_finish(ex, what)
+    return p, ex, time.perf_counter() - t0
+
+
+def compile_fallback_phase(torch, np, dev, parse_pipeline, ik, plain_labels, plain_logits):
+    """A build that fails twice, then recovers: the circuit opens at the
+    first frame (where the JAX package compiles), every open frame runs the
+    segment eagerly on the card (K1 launched once a frame, no replay), the
+    probes every FAULTS_PROBE_EVERY frames rebuild, the second closes it."""
+    from nnstreamer_tpu_torch import capture as cap_mod
+
+    env = {"NNS_TPU_EXECUTOR_DEVICE_PROBE_EVERY": str(FAULTS_PROBE_EVERY)}
+    p, plan, ex = faults_executor(parse_pipeline, dev, faults_desc(faulty=COMPILE_FAULTY),
+                                  env)
+    seg = faults_segment(plan, "x")
+    fake = p["x"].backend  # its build count outlives the filter's stop
+    rec = []
+
+    def recorded(kind, fn):
+        def call(frame):
+            k0, r0 = ik.crop_resize_launches.count, cap_mod.graph_replays.count
+            ok = False
+            try:
+                out = fn(frame)
+                ok = True
+                return out
+            finally:
+                rec.append((kind, ok, ik.crop_resize_launches.count - k0,
+                            cap_mod.graph_replays.count - r0))
+        return call
+
+    seg.process = recorded("replay", seg.process)
+    seg.process_eager = recorded("eager", seg.process_eager)
+    ik.crop_resize_launches.reset()
+    cap_mod.graph_replays.reset()
+    t0 = time.perf_counter()
+    ex.start()
+    faults_finish(ex, "compile_fallback")
+    wall = time.perf_counter() - t0
+    k1 = ik.crop_resize_launches.count
+    replays = cap_mod.graph_replays.count
+    node = next(n for n in ex.nodes if n.name == seg.name)
+    circ = node.device_circuit.snapshot()
+    eager = [r for r in rec if r[0] == "eager"]
+    served = [r for r in rec if r[0] == "replay" and r[1]]
+    failed = [r for r in rec if r[0] == "replay" and not r[1]]
+    n_open = FAULTS_FIRST_N * FAULTS_PROBE_EVERY
+    want = {"open": False, "faults": FAULTS_FIRST_N, "kinds": {"compile": FAULTS_FIRST_N},
+            "opens": 1, "closes": 1, "eager_invokes": n_open}
+    if circ != want:
+        raise AssertionError(f"compile_fallback: circuit {circ}, want {want}")
+    if (len(eager), len(served), len(failed)) != (n_open, FAULTS_FRAMES - n_open,
+                                                  FAULTS_FIRST_N - 1):
+        raise AssertionError(f"compile_fallback: {len(eager)} eager, {len(served)} replayed, "
+                             f"{len(failed)} failed probes")
+    if any(r[2:] != (1, 0) for r in eager) or any(r[2:] != (1, 1) for r in served):
+        raise AssertionError("compile_fallback: an eager frame did not launch K1 once without "
+                             "a replay, or a replayed frame was not one replay with K1 in it")
+    if [r[0] for r in rec if r[1]] != ["eager"] * n_open + ["replay"] * (FAULTS_FRAMES - n_open):
+        raise AssertionError("compile_fallback: the circuit closed at the wrong frame")
+    if (k1, replays) != (FAULTS_FRAMES, FAULTS_FRAMES - n_open):
+        raise AssertionError(f"compile_fallback: K1 {k1}, replays {replays}")
+    if fake.traces != FAULTS_FIRST_N + 1:
+        raise AssertionError(f"compile_fallback: {fake.traces} builds")
+    labels = faults_labels(p)
+    if labels != plain_labels:
+        raise AssertionError("compile_fallback: labels differ from the unfaulted run's")
+    render = [f.meta["render_t"] for f in p["out"].frames]
+    fps_open = (n_open - 1) / (render[n_open - 1] - render[0])
+    fps_closed = (FAULTS_FRAMES - n_open - 2) / (render[-1] - render[n_open + 1])
+    lp, lex, _ = faults_run(parse_pipeline, dev, faults_desc(faulty=COMPILE_FAULTY, decode=False),
+                            "compile_fallback logits", env)
+    logits = np.stack([np.asarray(t) for t in out_tensors(lp)])
+    if not np.array_equal(logits, plain_logits):
+        raise AssertionError("compile_fallback: logits differ from the unfaulted run's")
+    return {"phase": "compile_fallback", "card": gpu_info(), "frames": FAULTS_FRAMES,
+            "probe_every": FAULTS_PROBE_EVERY, "compile_fail_first_n": FAULTS_FIRST_N,
+            "circuit": circ, "eager_frames": len(eager), "replayed_frames": len(served),
+            "failed_probes": len(failed), "k1_launches": k1, "graph_replays": replays,
+            "builds": fake.traces, "labels_equal": True, "logits_bit_equal": True,
+            "fps_open": fps_open, "fps_closed": fps_closed, "wall_s": wall}
+
+
+def bucket_replays(seg):
+    """Wrap the segment's graph replays to record each replayed program's
+    bucket (0 = the per-frame program)."""
+    buckets = []
+    inner = seg.programs._replay
+
+    def replay(prog):
+        buckets.append(next(k[1] for k, v in seg.programs._cache.items() if v is prog))
+        inner(prog)
+
+    seg.programs._replay = replay
+    return buckets
+
+
+def oom_ladder_phase(torch, np, dev, parse_pipeline, plain_labels):
+    """max-batch=8 over a device that fits 2 rows: the governor's cap
+    settles at 2 and every frame is delivered; oom-policy=stop stops with
+    DeviceOOMError; a real allocation past the free memory raises
+    torch.OutOfMemoryError, classified oom, and the next run completes."""
+    from nnstreamer_tpu_torch.pipeline.device_faults import DeviceOOMError, classify_device_fault
+
+    desc = faults_desc(faulty=OOM_FAULTY, props=OOM_PROPS)
+    p, plan, ex = faults_executor(parse_pipeline, dev, desc)
+    seg = faults_segment(plan, "x")
+    buckets = bucket_replays(seg)
+    t0 = time.perf_counter()
+    ex.start()
+    faults_finish(ex, "oom_ladder")
+    wall = time.perf_counter() - t0
+    row = ex.stats()[seg.name]
+    if row["batch_ceiling"] != 2 or row["frames"] != FAULTS_FRAMES or row["oom_events"] < 1:
+        raise AssertionError(f"oom_ladder: {row}")
+    # the same segment and windows with a device that fits every bucket
+    up, uex, _ = faults_run(parse_pipeline, dev, faults_desc(
+        faulty="tensor_filter name=x framework=faulty custom=traceable:true ! ", props=OOM_PROPS),
+        "oom_ladder uncapped")
+    if faults_labels(up) != plain_labels or "oom_events" in uex.stats()[seg.name]:
+        raise AssertionError("oom_ladder: the uncapped run differs")
+    if faults_labels(p) != plain_labels:
+        raise AssertionError("oom_ladder: labels differ from the unbatched run's")
+    if max(buckets, default=0) > 2:
+        raise AssertionError(f"oom_ladder: a bucket above the cap replayed: {sorted(set(buckets))}")
+    _, _, stop_ex = faults_executor(parse_pipeline, dev, faults_desc(
+        faulty=OOM_FAULTY, props=OOM_PROPS + "oom-policy=stop device-fallback=false "))
+    stop_ex.start()
+    stop_ex.wait(600)
+    stop_ex.stop()
+    if not (len(stop_ex.errors) == 1 and isinstance(stop_ex.errors[0], DeviceOOMError)):
+        raise AssertionError(f"oom_ladder: oom-policy=stop ended with {stop_ex.errors}")
+    # the allocator's cached blocks go back first, so the free bytes are all
+    # there is: one request past them cannot be met
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    try:
+        torch.empty(free + 2**30, dtype=torch.uint8, device=dev)
+    except torch.OutOfMemoryError as exc:
+        real_kind = classify_device_fault(exc)
+    else:
+        raise AssertionError("oom_ladder: an allocation past the free memory succeeded")
+    if real_kind != "oom":
+        raise AssertionError(f"oom_ladder: a real OOM classified {real_kind}")
+    after, _, _ = faults_run(parse_pipeline, dev, faults_desc(), "labeling after a real OOM")
+    if faults_labels(after) != plain_labels:
+        raise AssertionError("oom_ladder: the run after a real OOM gave other labels")
+    return {"phase": "oom_ladder", "card": gpu_info(), "frames": FAULTS_FRAMES,
+            "batch_ceiling": row["batch_ceiling"], "oom_events": row["oom_events"],
+            "avg_batch_size": row["avg_batch_size"], "buckets_replayed": sorted(set(buckets)),
+            "replays": len(buckets), "oom_policy_stop": "DeviceOOMError",
+            "real_oom_requested_bytes": free + 2**30, "real_oom_kind": real_kind,
+            "total_bytes": total, "capped_fps": FAULTS_FRAMES / wall,
+            "capped_steady_fps": steady_fps(p), "uncapped_steady_fps": steady_fps(up),
+            "uncapped_avg_batch_size": uex.stats()[seg.name]["avg_batch_size"], "wall_s": wall}
+
+
+def filter_replicas_phase(torch, np, dev, parse_pipeline, plain_labels, plain_logits):
+    """replicas=2 replica-devices=0,0: logits bit for bit the one instance's,
+    the invokes split; a replica that loses its device (typed, on replica
+    0 from its 9th invoke) is benched with the accounting the same run has
+    on the CPU, and every frame is delivered."""
+    rp, rex, wall = faults_run(parse_pipeline, dev,
+                               faults_desc(props="replicas=2 replica-devices=0,0 ", decode=False),
+                               "filter_replicas")
+    logits = np.stack([np.asarray(t) for t in out_tensors(rp)])
+    if not np.array_equal(logits, plain_logits):
+        raise AssertionError("filter_replicas: logits differ from one instance's")
+    served = rex.stats()["f"]["rep_served"]
+    if served != [FAULTS_FRAMES // 2] * 2:
+        raise AssertionError(f"filter_replicas: invokes {served}")
+    if [int(np.argmax(v)) for v in logits] != plain_labels:
+        raise AssertionError("filter_replicas: labels differ")
+    lp, lex, lwall = faults_run(parse_pipeline, dev, faults_desc(faulty=LOST_FAULTY),
+                                "filter_replicas failover")
+    row = {k: v for k, v in lex.stats()["x"].items() if k.startswith("rep_")}
+    cpu = parse_pipeline(f"tensorsrc dimensions=4 num-frames={FAULTS_FRAMES} ! "
+                         f"{LOST_FAULTY}tensor_sink", device="cpu")
+    want = {k: v for k, v in cpu.run(timeout=60).stats()["x"].items() if k.startswith("rep_")}
+    if row != want or row["rep_healthy"] != 1 or faults_labels(lp) != plain_labels:
+        raise AssertionError(f"filter_replicas: failover {row}, on the CPU {want}")
+    return {"phase": "filter_replicas", "card": gpu_info(), "frames": FAULTS_FRAMES,
+            "replica_served": served, "logits_bit_equal": True, "fps": FAULTS_FRAMES / wall,
+            "steady_fps": steady_fps(rp),
+            "failover": row, "failover_fps": FAULTS_FRAMES / lwall}
+
+
+def plane_replicas_run(torch, dev, parse_pipeline, plane, lose=None):
+    """Two streams on one replicated plane: each replica's windows recorded,
+    replica ``lose`` raising a typed DeviceLostError from its second
+    dispatch on."""
+    from nnstreamer_tpu_torch.pipeline.device_faults import DeviceLostError
+    from nnstreamer_tpu_torch.pipeline.executor import Executor
+    from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
+
+    p = parse_pipeline(FAULTS_PLANE.format(n=FAULTS_FRAMES, plane=plane), device=dev)
+    p.negotiate()
+    pl = plane_mod.get(plane)
+    prog = pl._ensure_program()
+    rows = [[] for _ in prog.programs]
+    for i, rp in enumerate(prog.programs):
+        inner = rp.invoke
+
+        def invoke(windows, i=i, inner=inner):
+            if i == lose and len(rows[i]) >= 1:
+                raise DeviceLostError(f"replica {i} lost")
+            outs = inner(windows)
+            rows[i].append((list(windows), outs))
+            return outs
+
+        rp.invoke = invoke
+    replays0 = [rp.programs.replays for rp in prog.programs]
+    ex = Executor(p.compile_plan())
+    t0 = time.perf_counter()
+    ex.start()
+    done = ex.wait(600)
+    wall = time.perf_counter() - t0
+    stats = pl.stats()
+    replays = [rp.programs.replays - r0 for rp, r0 in zip(prog.programs, replays0)]
+    checked = 0
+    for windows, outs in (r for rep in rows for r in rep):
+        for w, o in zip(windows, outs):
+            if not torch.equal(o[0], prog.programs[0].invoke_one(w)[0]):
+                raise AssertionError("plane_replicas: a batched row differs from the frame alone")
+            checked += 1
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"plane_replicas: {ex.errors or 'no EOS'}")
+    return p, stats, replays, [len(r) for r in rows], checked, wall
+
+
+def plane_replicas_phase(torch, np, dev, parse_pipeline, plain_labels):
+    """plane-mode=replicas plane-devices=2 on the one card: rows bit for bit
+    the frame alone, one replay a dispatch, windows on both replicas; with
+    replica 0 lost, every window fails over whole and each stream keeps
+    its order."""
+    p, stats, replays, windows, checked, wall = plane_replicas_run(
+        torch, dev, parse_pipeline, "faults-rep")
+    for k in range(2):
+        if [int(f.tensors[0][0]) for f in p[f"out{k}"].frames] != plain_labels:
+            raise AssertionError(f"plane_replicas: stream {k} labels differ")
+    if sum(replays) != stats["dispatches"] or min(windows) < 1:
+        raise AssertionError(f"plane_replicas: replays {replays}, windows {windows}, "
+                             f"dispatches {stats['dispatches']}")
+    fp, fstats, freplays, fwindows, _, fwall = plane_replicas_run(
+        torch, dev, parse_pipeline, "faults-rep-lost", lose=0)
+    for k in range(2):
+        if [int(f.tensors[0][0]) for f in fp[f"out{k}"].frames] != plain_labels:
+            raise AssertionError(f"plane_replicas failover: stream {k} out of order or lost")
+    reps = fstats["replicas"]
+    if reps["healthy"] != 1 or reps["failovers"] < 1 or fwindows[0] != 1:
+        raise AssertionError(f"plane_replicas failover: {reps}, windows {fwindows}")
+    return {"phase": "plane_replicas", "card": gpu_info(), "frames_a_stream": FAULTS_FRAMES,
+            "dispatches": stats["dispatches"], "replica_replays": replays,
+            "replica_windows": windows, "rows_checked": checked,
+            "avg_batch": stats["avg_batch"], "fps_both": 2 * FAULTS_FRAMES / wall,
+            "steady_fps": [steady_fps(p, f"out{k}") for k in range(2)],
+            "failover": reps, "failover_windows": fwindows,
+            "failover_fps_both": 2 * FAULTS_FRAMES / fwall}
+
+
+def warm_restart_phase(torch, np, dev, parse_pipeline, plain_labels):
+    """The OOM-ladder run drained after 32 frames, its snapshot saved, a new
+    executor restored from the file: the remembered cap of 2 keeps every
+    replay at bucket 2 or below, and the frames add up to 64; then an
+    in-place drain / resume delivers every frame."""
+    from nnstreamer_tpu_torch.pipeline.executor import Executor
+
+    def desc(n):
+        # a shallow inbox holds the source back, so most frames are still to
+        # come when the drain parks it
+        return faults_desc(n=n, faulty=OOM_FAULTY, props=OOM_PROPS).replace(
+            "name=conv", "name=conv queue-size=8")
+
+    p, plan, ex = faults_executor(parse_pipeline, dev, desc(FAULTS_FRAMES))
+    name = faults_segment(plan, "x").name
+    ex.start()
+    deadline = time.monotonic() + 120
+    while len(p["out"].frames) < FAULTS_FRAMES // 2 and time.monotonic() < deadline:
+        time.sleep(0.002)
+    if not ex.drain(timeout=60):
+        raise AssertionError(f"warm_restart: drain did not settle ({ex.errors})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "faults.json")
+        snap = ex.save_snapshot(path)
+        first = len(p["out"].frames)
+        ex.stop()
+        gov = snap["nodes"][name]["governor"]
+        if gov["ceiling"] != 2:
+            raise AssertionError(f"warm_restart: snapshot governor {gov}")
+        p2, plan2, ex2 = faults_executor(parse_pipeline, dev, desc(FAULTS_FRAMES - first))
+        buckets = bucket_replays(faults_segment(plan2, "x"))
+        ex2.resume(Executor.read_snapshot(path))
+    ex2.start()
+    faults_finish(ex2, "warm_restart")
+    row = ex2.stats()[name]
+    second = len(p2["out"].frames)
+    if (first + second != FAULTS_FRAMES or not second or max(buckets, default=0) > 2
+            or row["oom_events"] != gov["ooms"] or ex2.totals()["balance"] != 0):
+        raise AssertionError(f"warm_restart: {first} + {second} frames, buckets "
+                             f"{sorted(set(buckets))}, {row}, {ex2.totals()}")
+    if faults_labels(p)[:first] != plain_labels[:first] or \
+            faults_labels(p2) != plain_labels[:second]:
+        raise AssertionError("warm_restart: labels differ")
+    p3, _, ex3 = faults_executor(parse_pipeline, dev,
+                                 faults_desc().replace("name=conv", "name=conv queue-size=8"))
+    ex3.start()
+    deadline = time.monotonic() + 120
+    while len(p3["out"].frames) < FAULTS_FRAMES // 4 and time.monotonic() < deadline:
+        time.sleep(0.002)
+    drained = ex3.drain(timeout=60)
+    mid = len(p3["out"].frames)
+    ex3.resume()
+    faults_finish(ex3, "in-place drain")
+    if not drained or faults_labels(p3) != plain_labels:
+        raise AssertionError("warm_restart: the in-place drain / resume lost frames")
+    return {"phase": "warm_restart", "card": gpu_info(), "frames_before": first,
+            "frames_after": second, "restored_governor": gov,
+            "buckets_replayed_after": sorted(set(buckets)), "oom_events_after": row["oom_events"],
+            "in_place_drained_at": mid, "totals": ex2.totals()}
+
+
+def faults_phases(torch, np, dev, parse_pipeline, ik):
+    """The faults group: compile_fallback, oom_ladder, filter_replicas,
+    plane_replicas, warm_restart, after an unfaulted labeling run (labels)
+    and logits run, the oracle of every check."""
+    t0 = time.perf_counter()
+    plain, _, plain_wall = faults_run(parse_pipeline, dev, faults_desc(), "unfaulted labels")
+    plain_labels = faults_labels(plain)
+    lp, _, _ = faults_run(parse_pipeline, dev, faults_desc(decode=False), "unfaulted logits")
+    plain_logits = np.stack([np.asarray(t) for t in out_tensors(lp)])
+    comp = compile_fallback_phase(torch, np, dev, parse_pipeline, ik, plain_labels, plain_logits)
+    comp["unfaulted_fps"] = FAULTS_FRAMES / plain_wall
+    comp["unfaulted_steady_fps"] = steady_fps(plain)
+    emit(comp)
+    emit(oom_ladder_phase(torch, np, dev, parse_pipeline, plain_labels))
+    emit(filter_replicas_phase(torch, np, dev, parse_pipeline, plain_labels, plain_logits))
+    emit(plane_replicas_phase(torch, np, dev, parse_pipeline, plain_labels))
+    emit(warm_restart_phase(torch, np, dev, parse_pipeline, plain_labels))
+    return {"k1_launches": comp["k1_launches"], "seconds": time.perf_counter() - t0}
+
+
+
 def ab_turn(tree: str, npz: str) -> int:
     """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
     25200 candidates with the kernels of the checkout at ``tree`` (its own
@@ -6533,6 +7003,8 @@ def main() -> int:
     emit({"phase": "plane", "seconds": plane["seconds"]})
     sources = model_sources_phases(torch, np, dev, parse_pipeline, ik)
     emit({"phase": "model_sources", "seconds": sources["seconds"]})
+    faults = faults_phases(torch, np, dev, parse_pipeline, ik)
+    emit({"phase": "faults", "seconds": faults["seconds"]})
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -6550,6 +7022,7 @@ def main() -> int:
         "launches_codec_labeling": codecs_k1,
         "launches_plane_pipelines": plane["plane_pipelines"]["k1_launches"],
         "launches_model_sources": sources["k1_launches"],
+        "launches_faults": faults["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -6656,6 +7129,29 @@ def sources_main() -> int:
     return 0
 
 
+def faults_main() -> int:
+    """``--faults``: only the faults group (K1 built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    _build.build(["image_kernels"])
+    out = faults_phases(torch, np, torch.device("cuda"), parse_pipeline, ik)
+    emit({"phase": "faults", "seconds": out["seconds"]})
+    return 0
+
+
 def plane_main() -> int:
     """``--plane``: only the plane group (the kernels it runs built first)."""
     import torch
@@ -6684,6 +7180,8 @@ if __name__ == "__main__":
         sys.exit(plane_main())
     if sys.argv[1:2] == ["--sources"] and len(sys.argv) == 2:
         sys.exit(sources_main())
+    if sys.argv[1:2] == ["--faults"] and len(sys.argv) == 2:
+        sys.exit(faults_main())
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:

@@ -5,12 +5,13 @@ custom_example_{passthrough,scaler,average,framecounter} stand-ins, used
 where a real model is not the point). ``passthrough``, ``scaler`` and
 ``average`` are torch functions over device tensors, so they fuse into a
 segment; ``hostscaler`` and ``framecounter`` run on the host, a fusion
-barrier each. The reference's ``faulty`` fake belongs with the fault
-machinery and is not ported yet.
+barrier each. ``faulty`` is the chaos injector that drives the fault
+machinery (pipeline/faults.py, pipeline/device_faults.py) end to end.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, List, Sequence, Tuple
 
 import numpy as np
@@ -178,3 +179,144 @@ class FrameCounterBackend(Backend):
 
     def state_restore(self, snap: dict) -> None:
         self._count = int(snap.get("count", 0))
+
+
+@registry.filter_backend("faulty")
+class FaultyBackend(_SameSpec):
+    """A deterministic flaky engine: a passthrough that fails on cue, to
+    drive the executor's error policies and device resilience. Options
+    (``custom=``):
+
+    - ``fail_rate:0.2`` (seeded), ``fail_every_n:5``, ``fail_first_n:3``:
+      an invoke raises ``raise_type`` (``backend`` | ``value`` | ``runtime``);
+    - ``latency_spike_ms:50`` with ``spike_every_n:10``: periodic stalls;
+    - ``strict_shapes:true``: an invoke checks its tensors against the
+      opened spec (so ``tensor_chaos``-corrupted frames raise here);
+    - ``batchable:true``: declares micro-batching; ``invoke_batched`` chains
+      ``invoke``, so one poisoned frame fails its whole window;
+    - ``seed:7``: the RNG seed (default 0);
+    - ``oom_every_n:5``: every Nth invoke raises DeviceOOMError;
+    - ``oom_above_rows:2``: a dispatch wider than N rows raises
+      DeviceOOMError, in ``invoke_batched`` by window length and through
+      :meth:`device_probe`, which ``FusedSegment.process_batch`` calls with
+      the padded bucket before its program runs;
+    - ``compile_fail:true`` (with ``traceable:true``): the fn raises
+      DeviceCompileError inside a program build (pipeline/programs.py
+      ``current_build``: a CUDA graph's warm-up and capture on the card, a
+      program call where programs are the fn itself, on the CPU) and passes
+      tensors through on the eager path. ``compile_fail_first_n:K`` bounds
+      the outage to the first K builds, counted one a build (the reference
+      counts jax traces);
+    - ``device_lost_at:7``: invoke N and every later one raise
+      DeviceLostError; ``device_lost_for:M`` bounds the outage to M invokes;
+      ``only_replica:<i>`` keeps the device modes to the replica opened with
+      ``_replica:<i>`` (the filter's and the plane's replicas append it);
+    - ``traceable:true``: expose the fn over device tensors, so the filter
+      fuses.
+    """
+
+    name = "faulty"
+
+    _RAISES = {"backend": BackendError, "value": ValueError, "runtime": RuntimeError}
+
+    def open(self, props: FilterProps) -> None:
+        import random
+
+        from nnstreamer_tpu_torch.elements.base import parse_bool
+
+        super().open(props)
+        opts = props.custom_dict()
+        self._fail_rate = float(opts.get("fail_rate", "0"))
+        self._fail_every_n = int(opts.get("fail_every_n", "0"))
+        self._fail_first_n = int(opts.get("fail_first_n", "0"))
+        self._spike_ms = float(opts.get("latency_spike_ms", "0"))
+        self._spike_every_n = int(opts.get("spike_every_n", "0"))
+        self._strict = parse_bool(opts.get("strict_shapes", "false"))
+        self.batchable = parse_bool(opts.get("batchable", "false"))
+        self._exc = self._RAISES.get(opts.get("raise_type", "backend").lower(), BackendError)
+        self._rng = random.Random(int(opts.get("seed", "0")))
+        self._oom_every_n = int(opts.get("oom_every_n", "0"))
+        self._oom_above_rows = int(opts.get("oom_above_rows", "0"))
+        self._compile_fail = parse_bool(opts.get("compile_fail", "false"))
+        self._compile_fail_first_n = int(opts.get("compile_fail_first_n", "0"))
+        self._device_lost_at = int(opts.get("device_lost_at", "0"))
+        self._device_lost_for = int(opts.get("device_lost_for", "0"))
+        self._traceable = parse_bool(opts.get("traceable", "false"))
+        self._replica_idx = opts.get("_replica")
+        only = opts.get("only_replica")
+        self._inject = only is None or (
+            self._replica_idx is not None and int(only) == int(self._replica_idx))
+        self.invokes = 0
+        self.traces = 0  # program builds the fn was part of
+        self._build_seen = None
+
+    def _maybe_fail(self) -> None:
+        n = self.invokes
+        if ((self._fail_first_n and n <= self._fail_first_n)
+                or (self._fail_every_n and n % self._fail_every_n == 0)
+                or (self._fail_rate and self._rng.random() < self._fail_rate)):
+            raise self._exc(f"faulty: injected failure on invoke {n}")
+
+    def _maybe_device_fail(self) -> None:
+        if not self._inject:
+            return
+        from nnstreamer_tpu_torch.pipeline.device_faults import DeviceLostError, DeviceOOMError
+
+        n = self.invokes
+        if self._device_lost_at and n >= self._device_lost_at and (
+                not self._device_lost_for or n < self._device_lost_at + self._device_lost_for):
+            raise DeviceLostError(f"faulty: device lost at invoke {n}")
+        if self._oom_every_n and n % self._oom_every_n == 0:
+            raise DeviceOOMError(f"faulty: out of memory on invoke {n}")
+
+    def device_probe(self, rows: int) -> None:
+        """The device's capacity boundary for a batched dispatch: a bucket
+        wider than ``oom_above_rows`` OOMs before its program runs, as a real
+        allocation of the stacked window would."""
+        from nnstreamer_tpu_torch.pipeline.device_faults import DeviceOOMError
+
+        if self._inject and self._oom_above_rows and rows > self._oom_above_rows:
+            raise DeviceOOMError(f"faulty: out of memory allocating {rows} rows "
+                                 f"(fits {self._oom_above_rows})")
+
+    def invoke(self, tensors):
+        self.invokes += 1
+        if self._spike_every_n and self.invokes % self._spike_every_n == 0:
+            time.sleep(self._spike_ms / 1000.0)
+        if self._strict and self._spec is not None:
+            for t, ts in zip(tensors, self._spec):
+                if tuple(t.shape) != tuple(ts.shape):
+                    raise self._exc(f"faulty: corrupted frame — tensor shape "
+                                    f"{tuple(t.shape)} != spec {ts.shape}")
+        self._maybe_device_fail()
+        self._maybe_fail()
+        return tuple(tensors)
+
+    def invoke_batched(self, batch):
+        self.device_probe(len(batch))
+        return super().invoke_batched(batch)
+
+    def traceable_fn(self):
+        """The identity over device tensors when ``traceable:true``; with
+        ``compile_fail`` it raises DeviceCompileError inside a program build
+        and passes tensors through on the eager path, the device circuit's
+        scenario."""
+        if not self._traceable:
+            return None
+        from nnstreamer_tpu_torch.pipeline.programs import current_build
+
+        def fn(tensors):
+            build = current_build()
+            if build is not None and build != self._build_seen:
+                self._build_seen = build
+                self.traces += 1
+                if self._inject and self._compile_fail and (
+                        not self._compile_fail_first_n
+                        or self.traces <= self._compile_fail_first_n):
+                    from nnstreamer_tpu_torch.pipeline.device_faults import DeviceCompileError
+
+                    raise DeviceCompileError(
+                        f"faulty: injected build failure (build {self.traces})")
+            return tuple(tensors)
+
+        return fn

@@ -95,7 +95,9 @@ class TorchBackend(Backend):
         self._device = self._pinned if self._pinned is not None else props.device
         self._out_spec = None
         self._traceable = True
-        opts = {k: v for k, v in options.items() if k not in ("device", "mesh")}
+        # _replica:<i> tags a filter's or a plane's replica (the chaos
+        # injectors read it); it is no model option
+        opts = {k: v for k, v in options.items() if k not in ("device", "mesh", "_replica")}
         if path.startswith("zoo:"):
             self._open_zoo(path[len("zoo:"):], opts)
         elif path.endswith(".py"):

@@ -14,6 +14,21 @@ Kernel launch counters (:class:`~nnstreamer_tpu_torch.ops.kernels.LaunchCounter`
 count what runs on the device: the warm-up's launches are kept apart, the
 capture's are recorded as the tally that :func:`replay` adds back each
 time the graph runs.
+
+A capture that fails raises the fn's own exception (never a secondary
+error of ``capture_end``), with the capture lock released, the partial
+graph and its pool allocations dropped and the caller's stream ordered
+after the side stream, so the next eager call runs as before. What a
+failed build means for a stream is the executor's decision, not this
+module's: with ``device-fallback`` on (the default, as in the reference),
+the device circuit (pipeline/device_faults.py) runs the segment's ops
+eagerly **on the same device** while the graph cannot be built, each such
+frame counted (``eager_invokes``), and probes the build again. The eager
+path launches the same hand-written kernels one by one; it is a counted,
+user-set recovery policy of the executor, not a kernel fallback: kernel
+wrappers still dispatch by device alone and raise on failure, and nothing
+ever runs a kernel's plain version or moves a frame to the CPU in its
+place.
 """
 
 from __future__ import annotations
@@ -47,8 +62,8 @@ class Captured(NamedTuple):
 def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
     """Warm ``fn`` up once on a side stream, then capture it into a CUDA
     graph. ``fn`` takes no arguments: it reads and writes tensors whose
-    addresses stay fixed for the graph's life. A failure raises; no caller
-    falls back to eager execution. The capture is thread-local, so other
+    addresses stay fixed for the graph's life. A failure raises the fn's
+    own exception (module docstring). The capture is thread-local, so other
     threads may go on launching on the card meanwhile; Python's garbage
     collector is off while capturing, since a collection could free
     another graph on this thread, a call that invalidates the capture.
@@ -65,23 +80,45 @@ def capture(fn: Callable[[], Any], device: torch.device, pool=None) -> Captured:
     side = torch.cuda.Stream(device)
     side.wait_stream(cur)
     graph = torch.cuda.CUDAGraph()
-    with CAPTURE_LOCK, torch.cuda.stream(side), torch.inference_mode():
-        with launch_tally() as warm:
-            fn()
-        with launch_tally() as tally:
-            gc_on = gc.isenabled()
-            gc.disable()
-            try:
-                graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+    try:
+        with CAPTURE_LOCK, torch.cuda.stream(side), torch.inference_mode():
+            with launch_tally() as warm:
+                fn()
+            with launch_tally() as tally:
+                gc_on = gc.isenabled()
+                gc.disable()
                 try:
-                    outputs = fn()
-                finally:
+                    graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+                    try:
+                        outputs = fn()
+                    except BaseException:
+                        _end_failed_capture(graph)
+                        raise
                     graph.capture_end()
-            finally:
-                if gc_on:
-                    gc.enable()
-    cur.wait_stream(side)
+                finally:
+                    if gc_on:
+                        gc.enable()
+    except BaseException:
+        # the partial graph's pool goes with it: a probe that builds again
+        # starts from a clean pool
+        try:
+            graph.reset()
+        except Exception:  # noqa: BLE001 — the build's own error is the verdict
+            pass
+        raise
+    finally:
+        cur.wait_stream(side)
     return Captured(graph, outputs, dict(tally), sum(warm.values()), time.perf_counter() - t0)
+
+
+def _end_failed_capture(graph: "torch.cuda.CUDAGraph") -> None:
+    """End a capture whose fn raised. ``capture_end`` then reports the
+    invalidated capture with an error of its own, which would mask the
+    fn's: it is dropped here, and the caller re-raises the fn's."""
+    try:
+        graph.capture_end()
+    except Exception:  # noqa: BLE001 — secondary to the fn's exception
+        pass
 
 
 #: CUDA-graph replays in the process (each one ``cudaGraphLaunch``), all owners

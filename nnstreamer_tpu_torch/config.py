@@ -2,7 +2,8 @@
 
 The part of ``nnstreamer_tpu/config.py`` that the port reads: plugin
 search paths, the element restriction whitelist, the framework
-auto-detect priority, the ``[executor]`` micro-batching defaults, the
+auto-detect priority, the ``[executor]`` micro-batching, fault-policy and
+device-resilience defaults, the
 ``[plane]`` serving-plane defaults and the ``[llm]`` serving defaults. Env mapping:
 section ``filter`` key ``framework_priority_pt`` is overridden by
 ``NNS_TPU_FILTER_FRAMEWORK_PRIORITY_PT``. The ini file is read only from
@@ -44,6 +45,25 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "batch_timeout_ms": "1.0",
         # comma list of padded batch sizes; empty = 1,2,4,...,max_batch
         "batch_buckets": "",
+        # per-frame error policy (pipeline/faults.py): stop | drop | retry
+        # | route; an element's on-error=, retry-max= and
+        # retry-backoff-ms= override. Env: NNS_TPU_EXECUTOR_ON_ERROR etc.
+        "on_error": "stop",
+        "retry_max": "3",
+        "retry_backoff_ms": "10.0",
+        "retry_backoff_cap_ms": "1000.0",
+        # stall watchdog: >0 arms the executor's monitor thread, which
+        # turns a hang into a typed PipelineStallError (0 = off)
+        "watchdog_timeout_ms": "0",
+        # device resilience (pipeline/device_faults.py): the OOM ladder
+        # (degrade | stop), the device circuit around a segment's CUDA
+        # graphs and its cadence; the filter's oom-policy= and
+        # device-fallback= override the first two
+        "oom_policy": "degrade",
+        "device_fallback": "true",
+        "device_fallback_after": "3",
+        "device_probe_every": "64",
+        "oom_reprobe_ms": "30000.0",
     },
     "converter": {"plugin_paths": ""},
     "plane": {
@@ -51,10 +71,15 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # plane-* properties override. Env: NNS_TPU_PLANE_MAX_BATCH etc.
         "max_batch": "8",
         "timeout_ms": "1.0",
-        # single | shard (one device in the port) | replicas (not ported)
+        # single | shard (one device in the port) | replicas
         "mode": "single",
         # devices backing the plane: mesh size (shard) / replica count
         "devices": "1",
+        # replica health under mode=replicas (parallel/replicas.py):
+        # consecutive device faults that bench a replica, and dispatches
+        # between recovery probes of a benched one
+        "unhealthy_after": "3",
+        "probe_every": "64",
         # a submit with no service inside this window fails typed
         # (service thread dead / program wedged), never hangs a node
         "submit_timeout_s": "30",

@@ -22,3 +22,4 @@ from nnstreamer_tpu_torch.elements import routing  # noqa: F401
 from nnstreamer_tpu_torch.elements import control  # noqa: F401
 from nnstreamer_tpu_torch.elements import windowing  # noqa: F401
 from nnstreamer_tpu_torch.elements import sparse_elems  # noqa: F401
+from nnstreamer_tpu_torch.elements import chaos  # noqa: F401

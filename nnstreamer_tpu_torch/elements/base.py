@@ -29,7 +29,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 
 from nnstreamer_tpu_torch.tensors.frame import Frame
-from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
+from nnstreamer_tpu_torch.tensors.spec import TensorFormat, TensorsSpec
 
 
 @dataclass(frozen=True)
@@ -84,6 +84,67 @@ def parse_bool(v) -> bool:
     return bool(v)
 
 
+# -- the fault property surface (pipeline/faults.py, device_faults.py) -----
+# Declared here so element modules can spread the schema without importing
+# the pipeline package.
+
+ON_ERROR_CHOICES = ("stop", "drop", "retry", "route")
+
+#: spread into the PROPERTIES of every element with per-frame error
+#: policies; pipeline/faults.py resolves them over the [executor] defaults
+FAULT_PROPS: Dict[str, PropSpec] = {
+    "on-error": PropSpec(
+        "enum", None, ON_ERROR_CHOICES,
+        desc="per-frame error policy: stop (default) | drop | retry | route",
+    ),
+    "retry-max": PropSpec("int", None, desc="retry attempts before degrading (default 3)"),
+    "retry-backoff-ms": PropSpec(
+        "float", None, desc="base retry backoff, doubled per attempt, jittered (default 10.0)"),
+}
+
+#: spread into tensor_filter's PROPERTIES; pipeline/device_faults.py
+#: resolves them over the [executor] defaults
+DEVICE_PROPS: Dict[str, PropSpec] = {
+    "oom-policy": PropSpec(
+        "enum", None, ("degrade", "stop"),
+        desc="on device OOM: degrade (shrink the batch bucket, remember the safe "
+        "ceiling, re-probe after a cooldown) or stop (default degrade)",
+    ),
+    "device-fallback": PropSpec(
+        "bool", None,
+        desc="while the segment's CUDA graphs fail (a failed capture, repeated "
+        "device faults), run its ops eagerly on the same device, counted, and "
+        "probe the graphs for recovery (default true)",
+    ),
+}
+
+
+def install_error_pad(elem: "Element") -> None:
+    """Expose the dead-letter error pad on ``elem`` when its ``on-error``
+    says ``route``, or ``retry`` (whose exhausted frames go to the pad when
+    it is linked, else drop). Called from the ``__init__`` of every element
+    class that declares :data:`FAULT_PROPS`. The pad is src pad
+    ``N_SRCS`` (``src_1``); negotiation gives it a flexible spec, and a
+    LINKED error pad keeps the element out of fused segments, since routing
+    needs a per-frame invoke."""
+    raw = elem.get_property("on-error")
+    if raw is None:
+        return
+    mode = str(raw).strip().lower()
+    if mode not in ON_ERROR_CHOICES:
+        raise ValueError(
+            f"{elem.name}: on-error={raw!r} not one of {'/'.join(ON_ERROR_CHOICES)}")
+    if mode not in ("route", "retry"):
+        return
+    if type(elem).N_SRCS != 1:
+        raise ValueError(
+            f"{elem.name}: on-error={mode} needs exactly one src pad "
+            f"(got N_SRCS={type(elem).N_SRCS})")
+    # an instance attribute: only THIS element grows the extra pad
+    elem.N_SRCS = 2
+    elem.error_pad = 1
+
+
 class Element:
     """Base element. Subclasses set N_SINKS/N_SRCS (None = request pads,
     decided at link time) and implement negotiate(). ``device`` is the
@@ -99,6 +160,9 @@ class Element:
     # never reads tensor bytes; a converter subplugin parses them on the
     # host and moves its output tensors up.
     DEVICE_PASSTHROUGH: bool = False
+
+    # the dead-letter error pad (install_error_pad): its src pad index, or None
+    error_pad: Optional[int] = None
 
     PROPERTIES: Dict[str, PropSpec] = {
         "name": PropSpec("str", None, desc="element instance name"),
@@ -154,7 +218,12 @@ class Element:
 
     def fix_negotiation(self, in_specs: List[Spec]) -> List[Spec]:
         self.in_specs = list(in_specs)
-        self.out_specs = list(self.negotiate(list(in_specs)))
+        outs = list(self.negotiate(list(in_specs)))
+        if self.error_pad is not None and len(outs) == self.error_pad:
+            # error frames carry the element's input tensors and error meta:
+            # a flexible spec, which any sink accepts
+            outs.append(TensorsSpec(format=TensorFormat.FLEXIBLE))
+        self.out_specs = outs
         return self.out_specs
 
     def add_qos_source(self, qos: Any) -> None:

@@ -35,11 +35,13 @@ import torch
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.elements.base import (
+    FAULT_PROPS,
     MediaSpec,
     NegotiationError,
     PropSpec,
     Spec,
     TensorOp,
+    install_error_pad,
 )
 from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import DType, TensorFormat, TensorSpec, TensorsSpec
@@ -82,6 +84,8 @@ class TensorConverter(TensorOp):
             desc="MEAN:STD — fuse (x - MEAN)/STD uint8→float32 "
             "normalization into the ingress (video input)",
         ),
+        # per-frame error policy (pipeline/faults.py)
+        **FAULT_PROPS,
     }
 
     def __init__(self, name=None, **props):
@@ -113,6 +117,7 @@ class TensorConverter(TensorOp):
         self._custom_fn = None
         self._batch: List[torch.Tensor] = []
         self._batch_pts = None
+        install_error_pad(self)
 
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:
         (spec,) = in_specs

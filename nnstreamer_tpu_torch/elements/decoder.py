@@ -17,23 +17,45 @@ Subplugins are objects with ``negotiate(in_spec, options) -> Spec`` and
   an RGBA overlay); a mode without one fails negotiation;
 - ``host``: never fuses.
 
-The reference's ``custom-code`` decoders (in-process callbacks) are not
-ported yet.
+``mode=custom-code option1=<name>`` calls an in-process callback
+registered with :func:`register_custom_decoder` (the reference's
+tensor_decoder_custom.h): a host callback, given the frame with numpy
+tensors and returning the output frame; it declares no static output spec,
+and ``postproc=device`` is refused at negotiation. The decoder takes the
+per-frame error policy (``on-error``, pipeline/faults.py).
 """
 
 from __future__ import annotations
 
-from typing import List
+import threading
+from typing import Callable, Dict, List
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.elements.base import (
+    FAULT_PROPS,
     NegotiationError,
     PropSpec,
     Spec,
     TensorOp,
+    install_error_pad,
 )
 from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
+
+_custom_lock = threading.Lock()
+_custom_decoders: Dict[str, Callable] = {}
+
+
+def register_custom_decoder(name: str, fn: Callable[[Frame, dict], Frame]) -> None:
+    """Register ``fn(frame, options) -> frame`` under ``name`` for
+    ``mode=custom-code option1=<name>``."""
+    with _custom_lock:
+        _custom_decoders[name] = fn
+
+
+def unregister_custom_decoder(name: str) -> bool:
+    with _custom_lock:
+        return _custom_decoders.pop(name, None) is not None
 
 
 @registry.element("tensor_decoder")
@@ -49,7 +71,8 @@ class TensorDecoder(TensorOp):
              "the structured result tensor (no host rasterization); host = "
              "force the host node; auto = fuse only decodes whose "
              "negotiated output is already a tensor (e.g. image_labeling)",
-         )},
+         ),
+         **FAULT_PROPS},
         **{
             f"option{i}": PropSpec("str", "", desc="mode-specific option")
             for i in range(1, 10)
@@ -71,12 +94,26 @@ class TensorDecoder(TensorOp):
         }
         self._sub = None
         self._fn = None
+        self._custom_fn = None
+        install_error_pad(self)
 
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:
         (spec,) = in_specs
         if not isinstance(spec, TensorsSpec):
             raise NegotiationError(f"{self.name}: needs tensor input, got {spec}")
         self._fn = None
+        if self.mode == "custom-code":
+            if self.postproc == "device":
+                raise NegotiationError(
+                    f"{self.name}: custom-code decoders are host callbacks; "
+                    "postproc=device cannot run them on the device")
+            name = self.options["option1"]
+            with _custom_lock:
+                fn = _custom_decoders.get(name)
+            if fn is None:
+                raise NegotiationError(f"{self.name}: custom decoder {name!r} not registered")
+            self._custom_fn = fn
+            return [spec]  # a custom decoder declares no static output spec
         sub = registry.get(registry.KIND_DECODER, self.mode)
         self._sub = sub() if isinstance(sub, type) else sub
         if self.postproc == "device":
@@ -102,6 +139,8 @@ class TensorDecoder(TensorOp):
         return self._fn
 
     def host_process(self, frame: Frame) -> Frame:
+        if self._custom_fn is not None:
+            return self._custom_fn(frame.to_host(), self.options)
         if self.postproc == "device":
             # a device decode that lands on the host loop serves the same
             # math per frame, so the negotiated result spec holds

@@ -32,9 +32,26 @@ them inherits it). A plane filter is a fusion barrier and a batch-capable
 host node: its local collector defaults on, window-matched to the plane,
 and each collected window is one plane round trip. ``ring-depth`` (1..32,
 default ``[plane] inflight``) is the stream's in-flight window tickets: at
-depth > 1 window N+1 submits while N computes. ``plane-mode=replicas``,
-``plane-mode=shard`` over more than one device, and ``ring-depth`` without
-a plane are not ported and raise at construction.
+depth > 1 window N+1 submits while N computes. ``plane-mode=replicas``
+opens one backend a replica behind the plane's failover
+(serving_plane/sharding.py ``ReplicatedProgram``). ``plane-mode=shard``
+over more than one device, and ``ring-depth`` without a plane, are not
+ported and raise at construction.
+
+Faults (pipeline/faults.py, pipeline/device_faults.py): ``on-error``,
+``retry-max`` and ``retry-backoff-ms`` (the per-frame error policy, with
+the ``src_1`` error pad under route/retry), ``oom-policy`` and
+``device-fallback`` (the OOM ladder and the device circuit of the filter's
+segment). ``fallback-framework`` / ``fallback-model`` / ``fallback-after``
+/ ``fallback-probe-every`` swap to a fallback backend after consecutive
+failures and probe the primary for recovery. ``replicas=N`` opens N
+backends (``replica-devices`` pins them to ``cuda:<i>``, range-checked
+before any load; on the CPU every index is the one CPU device) behind a
+``ReplicaSet`` (parallel/replicas.py) with ``replica-unhealthy-after`` and
+``replica-probe-every``. ``shared-tensor-filter-key`` shares one opened
+backend among every filter with the key (one weight copy, a reload swaps
+it for all). A configured fallback or replicas make the filter a host
+node. The conflicting combinations raise at construction.
 
 A flexible input stream (a converter subplugin's, a host-mode
 ``tensor_crop``'s) negotiates against the model's own spec; each frame
@@ -44,22 +61,87 @@ never fused.
 
 from __future__ import annotations
 
+import dataclasses
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
 from nnstreamer_tpu_torch import registry
-from nnstreamer_tpu_torch.backends.base import Backend, FilterProps
+from nnstreamer_tpu_torch.backends.base import Backend, BackendError, FilterProps, InvokeStats
 from nnstreamer_tpu_torch.elements.base import (
+    DEVICE_PROPS,
+    FAULT_PROPS,
     NegotiationError,
     PropSpec,
     parse_bool,
     Spec,
     TensorOp,
+    install_error_pad,
 )
+from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
+_log = get_logger("filter")
+
 Combination = Optional[List[Tuple[str, int]]]
+
+# the shared-model table: filters with one shared-tensor-filter-key share
+# ONE opened backend (one copy of the weights; a reload through any sharer
+# swaps the model for all). key -> {"backend", "refs", "sig", "open_lock"}
+_shared_lock = threading.Lock()
+_shared_backends: Dict[str, Dict] = {}
+
+
+def _props_signature(p: FilterProps) -> tuple:
+    """Everything that shapes an opened backend: sharers must agree on all
+    of it, not only the model path."""
+    return (p.framework, p.model, p.custom, p.invoke_dynamic, str(p.input_spec),
+            str(p.output_spec), str(p.device))
+
+
+def _shared_acquire(key: str, props: FilterProps, opener: Callable[[], Backend]) -> Backend:
+    sig = _props_signature(props)
+    with _shared_lock:
+        entry = _shared_backends.get(key)
+        if entry is None:
+            entry = {"backend": None, "refs": 0, "sig": sig, "open_lock": threading.Lock()}
+            _shared_backends[key] = entry
+        elif entry["sig"] != sig:
+            raise NegotiationError(f"shared-tensor-filter-key={key!r} already bound to "
+                                   f"{entry['sig']}, cannot rebind to {sig}")
+        entry["refs"] += 1
+    try:
+        # a lock per key: opens for different keys do not serialize
+        with entry["open_lock"]:
+            if entry["backend"] is None:
+                backend = opener()
+                # sharers invoke from their own executor threads, and a
+                # stateful host backend is not reentrant
+                backend.shared_invoke_lock = threading.Lock()
+                entry["backend"] = backend
+        return entry["backend"]
+    except Exception:
+        with _shared_lock:
+            entry["refs"] -= 1
+            if entry["refs"] <= 0 and entry["backend"] is None:
+                _shared_backends.pop(key, None)
+        raise
+
+
+def _shared_release(key: str, backend: Backend) -> bool:
+    """Drop one ref; True when the caller should close the backend."""
+    with _shared_lock:
+        entry = _shared_backends.get(key)
+        if entry is None or entry["backend"] is not backend:
+            return True  # not (or no longer) shared: the caller owns it
+        entry["refs"] -= 1
+        if entry["refs"] <= 0:
+            del _shared_backends[key]
+            return True
+        return False
 
 
 def _parse_combination(s: str) -> Combination:
@@ -125,6 +207,27 @@ class TensorFilter(TensorOp):
             "float", None, desc="plane straggler wait when trickle-fed ([plane] timeout_ms)"),
         "ring-depth": PropSpec(
             "int", None, desc="in-flight plane window tickets, 1..32 ([plane] inflight)"),
+        "shared-tensor-filter-key": PropSpec(
+            "str", "", desc="filters with one key share one opened backend"),
+        # per-frame error policy (pipeline/faults.py) and device resilience
+        # (pipeline/device_faults.py)
+        **FAULT_PROPS,
+        **DEVICE_PROPS,
+        # the backend-swap breaker: after fallback-after consecutive
+        # failures the fallback backend serves, the primary probed every
+        # fallback-probe-every frames
+        "fallback-framework": PropSpec("str", "", desc="degraded-mode backend"),
+        "fallback-model": PropSpec("str", "", desc="degraded-mode model path(s)"),
+        "fallback-after": PropSpec("int", 3, desc="consecutive failures that open the circuit"),
+        "fallback-probe-every": PropSpec("int", 64, desc="frames between primary probes"),
+        # replica failover (parallel/replicas.py)
+        "replicas": PropSpec("int", None, desc="open N backend replicas with failover"),
+        "replica-devices": PropSpec(
+            "str", "", desc="device indices to pin replicas to (round-robin)"),
+        "replica-unhealthy-after": PropSpec(
+            "int", 3, desc="consecutive device faults that bench a replica"),
+        "replica-probe-every": PropSpec(
+            "int", 64, desc="frames between benched-replica recovery probes"),
     }
 
     # read-only properties: the node's batching counters (pipeline/batching.py)
@@ -169,7 +272,71 @@ class TensorFilter(TensorOp):
             str(self.get_property("output-combination", "")))
         self.backend: Optional[Backend] = None
         self._flexible_input = False
+        self.shared_key = str(self.get_property("shared-tensor-filter-key", "") or "")
+        install_error_pad(self)
+        self._init_fallback()
+        self._init_replicas()
         self._init_plane()
+        self._refuse_conflicts()
+        # warm-restart state that arrives before the backend or the replica
+        # set exists (both open lazily): applied as each comes up
+        self._pending_state: Optional[Dict[str, Any]] = None
+        # this element's own invokes (sharers of one backend do not report
+        # each other's); the backend keeps the per-framework view
+        self._elem_stats = InvokeStats()
+
+    def _init_fallback(self) -> None:
+        self.fallback_framework = str(self.get_property("fallback-framework", "") or "")
+        self.fallback_model = str(self.get_property("fallback-model", "") or "")
+        self._fallback_conf = bool(self.fallback_framework or self.fallback_model)
+        self.fallback_after = max(1, int(self.get_property("fallback-after", 3)))
+        self.fallback_probe_every = max(1, int(self.get_property("fallback-probe-every", 64)))
+        self._fb_backend: Optional[Backend] = None
+        self._fb_open_error: Optional[Exception] = None
+        self._consec_failures = 0
+        self._circuit_open = False
+        self._since_probe = 0
+        self._cb = {"primary_failures": 0, "circuit_opens": 0, "circuit_closes": 0,
+                    "fallback_invokes": 0}
+
+    def _init_replicas(self) -> None:
+        self.replicas = int(self.get_property("replicas", 0) or 0)
+        self.replica_devices = [
+            int(d) for d in str(self.get_property("replica-devices", "") or "").split(",")
+            if str(d).strip()
+        ]
+        self.replica_unhealthy_after = max(
+            1, int(self.get_property("replica-unhealthy-after", 3)))
+        self.replica_probe_every = max(1, int(self.get_property("replica-probe-every", 64)))
+        self._replica_set = None  # ReplicaSet, built on the first frame
+        self._replica_backends: List[Backend] = []
+        self._replica_last_stats: Dict[str, Any] = {}
+
+    def _refuse_conflicts(self) -> None:
+        """The combinations the reference refuses, with the same messages."""
+        if self.replicas > 1 and self.shared_key:
+            raise ValueError(
+                f"{self.name}: replicas={self.replicas} cannot combine with "
+                "shared-tensor-filter-key (one shared instance vs N independent copies)")
+        if self.plane:
+            if self.shared_key:
+                raise ValueError(
+                    f"{self.name}: plane={self.plane!r} cannot combine with "
+                    "shared-tensor-filter-key (the plane IS the shared instance)")
+            if self.replicas > 1:
+                raise ValueError(
+                    f"{self.name}: plane={self.plane!r} cannot combine with replicas=N "
+                    "(use plane-mode=replicas — the plane replicates its own program)")
+            if self._fallback_conf:
+                raise ValueError(
+                    f"{self.name}: plane={self.plane!r} cannot combine with "
+                    "fallback-framework/fallback-model (plane faults dispose per "
+                    "stream via on-error)")
+        if self.replicas > 1 and self._fallback_conf:
+            raise ValueError(
+                f"{self.name}: replicas={self.replicas} cannot combine with "
+                "fallback-framework/fallback-model (failover replaces the fallback "
+                "circuit; use on-error for post-exhaustion disposal)")
 
     # -- serving plane (serving_plane/plane.py) ----------------------------
     def _init_plane(self) -> None:
@@ -213,12 +380,36 @@ class TensorFilter(TensorOp):
         if self.get_property("batch-timeout-ms") is None:
             self.set_property("batch-timeout-ms", str(self._plane_cfg.timeout_ms))
 
-    def _open_backend(self) -> Backend:
+    def _open_backend(self, custom_extra: str = "", device: Optional[torch.device] = None
+                      ) -> Backend:
         cls = registry.get(registry.KIND_FILTER, self.fprops.framework)
         b: Backend = cls()
         self.fprops.device = self.device
-        b.open(self.fprops)
+        props = self.fprops
+        if custom_extra or device is not None:
+            props = dataclasses.replace(
+                props, custom=",".join(x for x in (props.custom, custom_extra) if x),
+                device=device if device is not None else props.device)
+        b.open(props)
         return b
+
+    def _replica_device(self, i: int) -> torch.device:
+        """Replica ``i``'s device: ``cuda:<replica-devices[i % n]>`` on
+        CUDA, range-checked before any load; on the CPU (or without
+        replica-devices) the filter's device."""
+        if not self.replica_devices or self.device.type != "cuda":
+            return self.device
+        idx = self.replica_devices[i % len(self.replica_devices)]
+        n = torch.cuda.device_count()
+        if not 0 <= idx < n:
+            raise ValueError(f"{self.name}: replica-devices index {idx} out of range "
+                             f"({n} CUDA device(s))")
+        return torch.device("cuda", idx)
+
+    def _open_replica(self, i: int) -> Backend:
+        """Replica ``i``: ``_replica:<i>`` appended to custom (the chaos
+        injectors scope device faults to one replica by it) on its device."""
+        return self._open_backend(f"_replica:{i}", self._replica_device(i))
 
     def _acquire_plane(self):
         """Get-or-create the named plane and attach this filter as one
@@ -237,9 +428,19 @@ class TensorFilter(TensorOp):
             sig = (self.fprops.framework, self.fprops.model, self.fprops.custom,
                    self.fprops.invoke_dynamic, str(self.fprops.input_spec),
                    str(self.fprops.output_spec), str(self.device))
+            def opener(i: int, replicated: bool) -> Backend:
+                # a replica carries _replica:<i>, so the chaos injectors'
+                # only_replica scopes to one replica of the plane too; the
+                # replicas go round-robin over the visible cards
+                if not replicated:
+                    return self._open_backend()
+                dev = self.device
+                if dev.type == "cuda":
+                    dev = torch.device("cuda", i % torch.cuda.device_count())
+                return self._open_backend(f"_replica:{i}", dev)
+
             self._plane = plane_mod.acquire(
-                self.plane, sig, self._plane_cfg, self._open_backend,
-                cfg_explicit=explicit,
+                self.plane, sig, self._plane_cfg, opener, cfg_explicit=explicit,
             )
         if self._plane_stream is None:
             try:
@@ -299,7 +500,19 @@ class TensorFilter(TensorOp):
     # -- lifecycle ---------------------------------------------------------
     def _ensure_open(self) -> Backend:
         if self.backend is None:
-            self.backend = self._acquire_plane().backend if self.plane else self._open_backend()
+            if self.plane:
+                self.backend = self._acquire_plane().backend
+            elif self.shared_key:
+                self.fprops.device = self.device
+                self.backend = _shared_acquire(self.shared_key, self.fprops, self._open_backend)
+            elif self.replicas > 1:
+                for i in range(self.replicas):  # every pin checked before any load
+                    self._replica_device(i)
+                # replica 0 doubles as the negotiation backend
+                self.backend = self._open_replica(0)
+            else:
+                self.backend = self._open_backend()
+            self._apply_pending_state()
         return self.backend
 
     def stop(self) -> None:
@@ -316,8 +529,22 @@ class TensorFilter(TensorOp):
             self._plane = None
             self.backend = None
         if self.backend is not None:
-            self.backend.close()
+            if not self.shared_key or _shared_release(self.shared_key, self.backend):
+                self.backend.close()
             self.backend = None
+        for b in self._replica_backends[1:]:  # replica 0 IS self.backend
+            try:
+                b.close()
+            except Exception as exc:  # noqa: BLE001 — teardown goes on
+                _log.warning("%s: replica close failed: %s", self.name, exc)
+        self._replica_backends = []
+        if self._replica_set is not None:
+            # the counters outlive teardown, for reads after stop
+            self._replica_last_stats = self._replica_set.stats()
+            self._replica_set = None
+        if self._fb_backend is not None:
+            self._fb_backend.close()
+            self._fb_backend = None
 
     @property
     def CAPTURABLE(self) -> bool:  # noqa: N802 — TensorOp's attribute, per backend
@@ -347,6 +574,11 @@ class TensorFilter(TensorOp):
                 f"{self.name}: plane={self.plane!r} shares one model among its streams; "
                 "a reload through one sharer is refused"
             )
+        if self.shared_key:
+            # the shared instance swaps in place: every sharer sees it
+            self._ensure_open().reload(tuple(m for m in model.split(",") if m))
+            self.fn_version += 1
+            return
         old_out = list(self.out_specs)
         if self.backend is not None:
             self.backend.close()
@@ -386,7 +618,8 @@ class TensorFilter(TensorOp):
         """The host path may batch only when the backend declared
         ``batchable``; a flexible stream's per-frame shapes cannot share
         one invoke."""
-        if self._flexible_input:
+        if self._flexible_input or self._fallback_conf or self.replicas > 1:
+            # the breaker and failover work at frame granularity
             return False
         if self.plane:
             return True  # the local window is the plane's submission unit
@@ -413,12 +646,18 @@ class TensorFilter(TensorOp):
             f.tensors if in_comb is None else tuple(f.tensors[i] for _, i in in_comb)
             for f in frames
         ]
+        lock = getattr(b, "shared_invoke_lock", None)
         t0 = time.perf_counter_ns()
-        model_outs = b.invoke_batched(model_ins)
+        if lock is not None:
+            with lock:
+                model_outs = b.invoke_batched(model_ins)
+        else:
+            model_outs = b.invoke_batched(model_ins)
         per = (time.perf_counter_ns() - t0) // max(1, len(frames))
         outs: List[Frame] = []
         for f, model_out in zip(frames, model_outs):
             b.stats.record(per)
+            self._elem_stats.record(per)
             model_out = tuple(model_out)
             if out_comb is not None:
                 model_out = tuple(
@@ -435,6 +674,7 @@ class TensorFilter(TensorOp):
             )
         b = self._ensure_open()
         model_in = self._select_model_inputs_spec(spec)
+        self._negotiated_model_in = model_in  # a fallback opens to this spec
         self._flexible_input = not model_in.is_static
         if self._flexible_input:
             # per-frame shapes: the model's own spec governs, and each
@@ -455,6 +695,7 @@ class TensorFilter(TensorOp):
                 _, out = b.get_model_info()
             else:
                 out = b.set_input_info(model_in)
+        self._model_out_spec = out
         return [self._compose_output_spec(spec, out).with_rate(spec.rate)]
 
     def _select_model_inputs_spec(self, spec: TensorsSpec) -> TensorsSpec:
@@ -509,8 +750,9 @@ class TensorFilter(TensorOp):
         return fn
 
     def is_traceable(self) -> bool:
-        if self._flexible_input or self.plane:
-            # a plane filter dispatches into the shared queue: a fusion barrier
+        if self._flexible_input or self.plane or self._fallback_conf or self.replicas > 1:
+            # a plane filter dispatches into the shared queue; the breaker
+            # and failover swap backends per frame: each a fusion barrier
             return False
         return self._ensure_open().traceable_fn() is not None
 
@@ -523,5 +765,218 @@ class TensorFilter(TensorOp):
     def host_process(self, frame):
         if self.plane:
             return self.host_process_batch([frame])[0]
-        invoke = self._apply_combinations(self._ensure_open().invoke_timed)
-        return frame.with_tensors(tuple(invoke(frame.tensors)))
+        if self.replicas > 1:
+            # a device fault fails the frame over to the next healthy
+            # replica; ReplicaExhaustedError goes to the node's on-error
+            return self._ensure_replicas().dispatch(frame)
+        if not self._fallback_conf:
+            return self._invoke(self._ensure_open(), frame)
+        # the breaker: consecutive primary failures open it and the
+        # fallback serves; a probe every fallback-probe-every frames
+        # closes it once the primary recovers
+        if self._circuit_open:
+            self._since_probe += 1
+            if self._since_probe >= self.fallback_probe_every:
+                self._since_probe = 0
+                try:
+                    out = self._invoke(self._ensure_open(), frame)
+                except Exception as exc:  # noqa: BLE001 — the probe failed
+                    self._cb["primary_failures"] += 1
+                    _log.debug("%s: recovery probe failed: %s", self.name, exc)
+                else:
+                    self._circuit_open = False
+                    self._consec_failures = 0
+                    self._cb["circuit_closes"] += 1
+                    _log.warning("%s: primary backend recovered; circuit closed", self.name)
+                    return out
+            return self._invoke_fallback(frame)
+        try:
+            out = self._invoke(self._ensure_open(), frame)
+        except Exception:
+            self._consec_failures += 1
+            self._cb["primary_failures"] += 1
+            if self._consec_failures >= self.fallback_after:
+                self._circuit_open = True
+                self._since_probe = 0
+                self._cb["circuit_opens"] += 1
+                _log.warning("%s: %d consecutive backend failures; circuit OPEN, serving "
+                             "from fallback %s", self.name, self._consec_failures,
+                             self.fallback_framework or self.fprops.framework)
+                return self._invoke_fallback(frame)
+            raise  # below the threshold: the node's on-error decides
+        self._consec_failures = 0
+        return out
+
+    def _invoke(self, b: Backend, frame: Frame) -> Frame:
+        """One frame through backend ``b`` (under a shared backend's lock),
+        timed into this element's stats."""
+        fn = self._apply_combinations(b.invoke_timed)
+        lock = getattr(b, "shared_invoke_lock", None)
+        if lock is not None:
+            with lock:
+                t0 = time.perf_counter_ns()
+                out = fn(frame.tensors)
+                dt = time.perf_counter_ns() - t0
+        else:
+            t0 = time.perf_counter_ns()
+            out = fn(frame.tensors)
+            dt = time.perf_counter_ns() - t0
+        self._elem_stats.record(dt)
+        return frame.with_tensors(tuple(out))
+
+    @property
+    def invoke_stats(self) -> InvokeStats:
+        """This element's own invokes (they survive teardown)."""
+        return self._elem_stats
+
+    # -- the backend-swap breaker ------------------------------------------
+    def _ensure_fallback(self) -> Backend:
+        if self._fb_open_error is not None:
+            # latched: a misconfigured fallback must not become a model
+            # load per frame while the circuit is open
+            raise BackendError(f"{self.name}: fallback backend failed to open: "
+                               f"{self._fb_open_error}") from self._fb_open_error
+        if self._fb_backend is None:
+            try:
+                self._fb_backend = self._open_fallback()
+            except Exception as exc:
+                self._fb_open_error = exc
+                raise
+        return self._fb_backend
+
+    def _open_fallback(self) -> Backend:
+        fw = self.fallback_framework or self.fprops.framework
+        models = tuple(m for m in self.fallback_model.split(",") if m) or self.fprops.model
+        props = dataclasses.replace(self.fprops, framework=fw, model=models, device=self.device)
+        b: Backend = registry.get(registry.KIND_FILTER, fw)()
+        b.open(props)
+        # the swap is invisible downstream only if the fallback keeps the
+        # negotiated output spec: checked once, at open
+        model_in = getattr(self, "_negotiated_model_in", None)
+        if model_in is not None and model_in.is_static:
+            try:
+                cur_in, fb_out = b.get_model_info()
+            except Exception:
+                fb_out = b.set_input_info(model_in)
+            else:
+                if not cur_in.is_compatible(model_in):
+                    fb_out = b.set_input_info(model_in)
+            want = getattr(self, "_model_out_spec", None)
+            if want is not None and not fb_out.is_compatible(want):
+                b.close()
+                raise BackendError(f"{self.name}: fallback output spec {fb_out} is not "
+                                   f"compatible with the negotiated {want}")
+        return b
+
+    def _invoke_fallback(self, frame: Frame) -> Frame:
+        out = self._invoke(self._ensure_fallback(), frame)
+        self._cb["fallback_invokes"] += 1
+        return out
+
+    def circuit_stats(self) -> Dict[str, Any]:
+        """The breaker's counters (``cb_*`` in Executor.stats); {} without
+        a fallback."""
+        if not self._fallback_conf:
+            return {}
+        return {**self._cb, "fallback_active": 1 if self._circuit_open else 0}
+
+    # -- replica failover (parallel/replicas.py) ---------------------------
+    def _ensure_replicas(self):
+        """Open replicas 1..N-1 beside replica 0 and build the ReplicaSet,
+        on the first frame (after negotiation settled the specs). A replica
+        that fails to open closes the ones opened before it."""
+        if self._replica_set is None:
+            from nnstreamer_tpu_torch.parallel.replicas import ReplicaSet
+
+            backends = [self._ensure_open()]
+            try:
+                for i in range(1, self.replicas):
+                    b = self._open_replica(i)
+                    backends.append(b)
+                    model_in = getattr(self, "_negotiated_model_in", None)
+                    if model_in is not None and model_in.is_static:
+                        try:
+                            cur_in, _ = b.get_model_info()
+                        except Exception:
+                            cur_in = None
+                        if cur_in is None or not cur_in.is_compatible(model_in):
+                            b.set_input_info(model_in)
+            except Exception:
+                for b in backends[1:]:
+                    try:
+                        b.close()
+                    except Exception as exc:  # noqa: BLE001
+                        _log.warning("%s: replica close failed: %s", self.name, exc)
+                raise
+            self._replica_backends = backends
+            self._replica_set = ReplicaSet(
+                [self._make_replica_invoke(b) for b in backends],
+                unhealthy_after=self.replica_unhealthy_after,
+                probe_every=self.replica_probe_every,
+            )
+            self._apply_pending_state()
+        return self._replica_set
+
+    def _make_replica_invoke(self, b: Backend):
+        dev = b.props.device if b.props is not None else self.device
+
+        def invoke(frame: Frame) -> Frame:
+            # the replica's device, and the frame back on the filter's
+            out = self._invoke(b, frame.to_device(dev))
+            return out if dev == self.device else out.to_device(self.device)
+
+        return invoke
+
+    def replica_stats(self) -> Dict[str, Any]:
+        """Failover counters (``rep_*`` in Executor.stats); {} without
+        replicas."""
+        if self._replica_set is None:
+            return self._replica_last_stats
+        return self._replica_set.stats()
+
+    # -- warm restart --------------------------------------------------------
+    def state_snapshot(self) -> Dict[str, Any]:
+        """Executor.snapshot's hook: the backend's own state (a stateful
+        backend's), the replica set's health and each other replica's
+        state."""
+        d: Dict[str, Any] = {}
+        hook = getattr(self.backend, "state_snapshot", None)
+        if callable(hook):
+            d["backend"] = hook()
+        if self._replica_set is not None:
+            d["replica_set"] = self._replica_set.snapshot()
+            reps = []
+            for b in self._replica_backends[1:]:
+                h = getattr(b, "state_snapshot", None)
+                reps.append(h() if callable(h) else None)
+            if any(r is not None for r in reps):
+                d["replica_backends"] = reps
+        return d
+
+    def state_restore(self, snap: Dict[str, Any]) -> None:
+        """Restoring into a fresh executor comes before the first frame,
+        when the backend or the replica set may not exist yet: what cannot
+        apply now is stashed and applied as each comes up."""
+        self._pending_state = dict(snap)
+        self._apply_pending_state()
+
+    def _apply_pending_state(self) -> None:
+        snap = getattr(self, "_pending_state", None)
+        if not snap:
+            return
+        if "backend" in snap and self.backend is not None:
+            hook = getattr(self.backend, "state_restore", None)
+            if callable(hook):
+                hook(snap["backend"])
+            del snap["backend"]
+        if "replica_set" in snap and self._replica_set is not None:
+            self._replica_set.restore(snap["replica_set"])
+            del snap["replica_set"]
+        if "replica_backends" in snap and self._replica_backends:
+            for b, st in zip(self._replica_backends[1:], snap["replica_backends"]):
+                h = getattr(b, "state_restore", None)
+                if st is not None and callable(h):
+                    h(st)
+            del snap["replica_backends"]
+        if not snap:
+            self._pending_state = None

@@ -46,10 +46,12 @@ import torch
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.elements.base import (
+    FAULT_PROPS,
     NegotiationError,
     PropSpec,
     Spec,
     TensorOp,
+    install_error_pad,
 )
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
@@ -87,6 +89,8 @@ class TensorTransform(TensorOp):
         "impl": PropSpec("enum", "auto", ("auto", "jnp", "pallas"),
                          desc="image-mode implementation: auto | pallas (K1) | "
                               "jnp (the plain oracle, no kernel)"),
+        # per-frame error policy (pipeline/faults.py)
+        **FAULT_PROPS,
     }
 
     def __init__(self, name=None, **props):
@@ -112,6 +116,7 @@ class TensorTransform(TensorOp):
         if self.impl == "jnp" and self.mode in ("resize", "crop-resize"):
             _log.warning("%s: impl=jnp runs the plain oracle, not the K1 kernel, "
                          "on every device", self.name)
+        install_error_pad(self)
 
     # -- negotiation -------------------------------------------------------
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:

@@ -246,8 +246,13 @@ class BatchCollector:
       before EOS does.
 
     ``drop`` is the upstream-QoS predicate: frames a downstream rate
-    limiter will drop never take a window slot. After the stop event is
-    set, ``collect`` returns ``([], True, 0.0)`` with :attr:`stopped` set.
+    limiter will drop never take a window slot. ``cap`` is the OOM
+    governor's live ceiling (pipeline/device_faults.py ``BucketGovernor.cap``):
+    a window holds at most ``min(max_batch, cap())`` frames, re-read per
+    window. After the stop event is set, ``collect`` returns
+    ``([], True, 0.0)`` with :attr:`stopped` set. :attr:`held` is the
+    frame a straggler wait holds (taken from the inbox, not yet in a
+    window): the executor's drain counts it as in flight.
     """
 
     def __init__(
@@ -256,11 +261,14 @@ class BatchCollector:
         stop_event: threading.Event,
         config: BatchConfig,
         drop: Optional[Callable[[Any], bool]] = None,
+        cap: Optional[Callable[[], int]] = None,
     ) -> None:
         self.inbox = inbox
         self.stop_event = stop_event
         self.config = config
         self.drop = drop
+        self.cap = cap
+        self.held = 0
         self.stopped = False
         self._pending_eos = False
 
@@ -285,6 +293,8 @@ class BatchCollector:
             return [], True, 0.0
         cfg = self.config
         limit = cfg.max_batch
+        if self.cap is not None:
+            limit = max(1, min(limit, self.cap()))
         batch: List[Any] = []
         while True:  # the first frame: a plain blocking pop
             item = self._get()
@@ -300,7 +310,11 @@ class BatchCollector:
             # trickle-fed: one bounded wait for stragglers (waiting again
             # after each arrival would make the bound a rolling window)
             t0 = time.perf_counter()
-            item = self._get(time.monotonic() + cfg.timeout_ms / 1000.0)
+            self.held = 1
+            try:
+                item = self._get(time.monotonic() + cfg.timeout_ms / 1000.0)
+            finally:
+                self.held = 0
             if item is not None:
                 if item is EOS_FRAME:
                     eos = True

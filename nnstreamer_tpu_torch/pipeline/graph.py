@@ -36,6 +36,8 @@ from nnstreamer_tpu_torch.elements.base import (
     TensorOp,
 )
 from nnstreamer_tpu_torch.pipeline.batching import BatchStats, resolve_batch_config
+from nnstreamer_tpu_torch.pipeline.device_faults import resolve_device_policy
+from nnstreamer_tpu_torch.pipeline.faults import resolve_fault_policy
 from nnstreamer_tpu_torch.pipeline.programs import Program, ProgramCache, sig_of
 from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
@@ -137,9 +139,13 @@ class Pipeline:
         """One topological pass: propagate specs, validate links (the
         reference's PAUSED-state caps negotiation)."""
         for e in self.elements:
+            src_pads = [l.src_pad for l in self.out_links(e)]
+            n_srcs = self.n_srcs(e)
+            if e.error_pad is not None and e.error_pad not in src_pads:
+                n_srcs = e.error_pad  # an unlinked error pad drops its frames
             for n_pads, pads, what in (
                 (self.n_sinks(e), [l.dst_pad for l in self.in_links(e)], "sink"),
-                (self.n_srcs(e), [l.src_pad for l in self.out_links(e)], "src"),
+                (n_srcs, src_pads, "src"),
             ):
                 # every pad linked once; request pads numbered 0..n-1
                 if pads != list(range(n_pads)):
@@ -200,7 +206,11 @@ class Pipeline:
         for e in self._toposort():
             if not isinstance(e, TensorOp):
                 continue
-            fusable = e.is_traceable()
+            # a LINKED error pad is a fusion barrier: routing a failed frame
+            # needs a per-frame invoke (an unlinked one costs nothing)
+            err_routed = e.error_pad is not None and any(
+                l.src_pad == e.error_pad for l in self.out_links(e))
+            fusable = not err_routed and e.is_traceable()
             ups = self.in_links(e)
             up = ups[0].src if len(ups) == 1 else None
             prev = seg_of.get(up)
@@ -215,8 +225,10 @@ class Pipeline:
                 segments.append(seg)
                 seg_of[e] = seg
         for seg in segments:
-            # a bad batching property fails here, naming the element
+            # a bad batching or fault property fails here, naming the element
             seg.batch_config = resolve_batch_config(seg.ops)
+            seg.fault_policy = resolve_fault_policy(seg.ops)
+            seg.device_policy = resolve_device_policy(seg.ops)
             for op in seg.ops:
                 op.batch_stats = seg.batch_stats
         return ExecPlan(self, segments, seg_of)
@@ -315,10 +327,17 @@ class FusedSegment:
         )
         self._eager: Optional[Tuple[tuple, Callable]] = None
         self._identity: Optional[bool] = None
+        self._probes: Optional[list] = None
         # micro-batching (pipeline/batching.py), resolved at plan time;
         # the stats are shared with the ops so tensor_filter can show them
         self.batch_config = None
         self.batch_stats = BatchStats()
+        # the error policy (pipeline/faults.py) and the device-resilience
+        # policy (pipeline/device_faults.py), resolved at plan time from
+        # the ops' properties; the executor builds the node's fault gate,
+        # device circuit and OOM governor from them
+        self.fault_policy = None
+        self.device_policy = None
 
     @property
     def first(self) -> TensorOp:
@@ -387,19 +406,44 @@ class FusedSegment:
     def build(self) -> Optional[Program]:
         """Fill the per-frame program of the negotiated signature before
         the first frame (the PAUSED state's negotiated program); with
-        batching active also the max-batch bucket, the program of steady
-        state under load. Other keys (a small bucket at EOS, a
-        renegotiation) fill on the node's thread when they first come."""
+        batching active also the max-batch bucket. Other keys (a small
+        bucket at EOS, a renegotiation) fill on the node's thread when they
+        first come."""
+        prog = self.build_frame()
+        self.build_batched()
+        return prog
+
+    def build_frame(self) -> Optional[Program]:
+        """The per-frame program of the negotiated signature (on CUDA its
+        graph is captured here)."""
+        sig = self._build_sig()
+        return None if sig is None else self.programs.program_for(sig)
+
+    def build_batched(self) -> Optional[Program]:
+        """With batching active, build and warm the max-batch bucket, the
+        program of steady state under load (the reference warms it on
+        zeros at build)."""
+        cfg = self.batch_config
+        sig = self._build_sig()
+        if sig is None or cfg is None or not cfg.active:
+            return None
+        return self.programs.warm(sig, cfg.buckets[-1])
+
+    def _build_sig(self) -> Optional[tuple]:
         if not self.fused or self.is_identity():
             return None
-        sig = self._negotiated_sig()
-        if sig is None:
-            return None
-        prog = self.programs.program_for(sig)
-        cfg = self.batch_config
-        if cfg is not None and cfg.active:
-            self.programs.program_for(sig, cfg.buckets[-1])
-        return prog
+        return self._negotiated_sig()
+
+    def device_probes(self) -> list:
+        """The ops' backends' ``device_probe(rows)`` hooks (the ``faulty``
+        fake declares one; real backends do not, so this is [])."""
+        if self._probes is None:
+            self._probes = [
+                hook for op in self.ops
+                for hook in (getattr(getattr(op, "backend", None), "device_probe", None),)
+                if hook is not None
+            ]
+        return self._probes
 
     def process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
         """The segment's output for one frame: a frame, or for an unfused
@@ -414,8 +458,12 @@ class FusedSegment:
             return frame.with_tensors(self.programs.run_one(frame.tensors))
 
     def process_eager(self, frame: Frame) -> Frame:
-        """The composed ops run eagerly, never captured: the oracle a
-        replay is held against. Semantics identical to :meth:`process`."""
+        """The composed ops run eagerly on the segment's device, never
+        captured: the oracle a replay is held against, and the path the
+        device circuit (pipeline/device_faults.py) serves while the
+        segment's graphs cannot be built. The ops' hand-written kernels
+        launch here one by one, as in the warm-up; semantics identical to
+        :meth:`process`."""
         versions = tuple(op.fn_version for op in self.ops)
         if self._eager is None or self._eager[0] != versions:
             self._eager = (versions, self._compose())
@@ -445,6 +493,10 @@ class FusedSegment:
         if any(sig_of(f.tensors) != sig for f in frames[1:]):
             return [self.process(f) for f in frames], n
         bucket = cfg.bucket_for(n)
+        # the device's capacity boundary (the chaos injectors): probed with
+        # the PADDED bucket, the width the program allocates
+        for probe in self.device_probes():
+            probe(bucket)
         with torch.inference_mode():
             outs = self.programs.run_rows([f.tensors for f in frames], bucket)
         return [f.with_tensors(o) for f, o in zip(frames, outs)], bucket

@@ -19,16 +19,49 @@ so both build, capture and run their programs the same way:
   graph's input buffers, replays it and clones the outputs out of the
   graph's pool, so a result still in use is never overwritten by the next
   replay. A fn that declared itself uncapturable runs eagerly on CUDA; on
-  the CPU every program is the fn itself.
+  the CPU every program is the fn itself;
+- a program whose build raises (its warm-up or its capture) leaves no
+  entry, so the next call builds it again, and the build's own exception
+  reaches the caller. The executor's device circuit
+  (pipeline/device_faults.py) decides what a failed build means for the
+  stream; the cache itself never runs anything in a program's place.
+
+:func:`current_build` tells a fn whether it runs inside a program build,
+and which one: on CUDA a graph's warm-up and capture, where the program is
+the fn itself (the CPU, an uncapturable fn) each program call. The
+``faulty`` fake's ``compile_fail`` reads it, so a broken build is
+injectable on both devices with the same circuit transitions.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+import itertools
+import threading
+from contextlib import contextmanager
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
 from nnstreamer_tpu_torch.capture import capture, replay
+
+_build_state = threading.local()
+_build_ids = itertools.count(1)
+
+
+def current_build() -> Optional[int]:
+    """The id of the program build this thread is inside, or None (an
+    eager call, a graph replay)."""
+    return getattr(_build_state, "build", None)
+
+
+@contextmanager
+def _building() -> Iterator[None]:
+    prev = getattr(_build_state, "build", None)
+    _build_state.build = next(_build_ids)
+    try:
+        yield
+    finally:
+        _build_state.build = prev
 
 
 def sig_of(tensors: Sequence[Any]) -> tuple:
@@ -61,8 +94,7 @@ class ProgramCache:
     fill), ``versions()`` the fn versions that key the cache, and
     ``uncapturable()`` the names of the parts that declared
     ``CAPTURABLE = False``, recorded at each fill: on CUDA they keep the
-    fill's program eager. A failed capture raises; nothing falls back to
-    eager execution."""
+    fill's program eager. A failed build raises and leaves no entry."""
 
     def __init__(
         self,
@@ -120,7 +152,8 @@ class ProgramCache:
             torch.zeros(((bucket,) + shape) if bucket else shape, dtype=dtype, device=self.device)
             for shape, dtype in sig
         )
-        cap = capture(lambda: prog.fn(inputs), self.device)
+        with _building():
+            cap = capture(lambda: prog.fn(inputs), self.device)
         self.warmup_launches += cap.warmup_launches
         self.build_s += cap.build_s
         prog.graph, prog.inputs, prog.outputs = cap.graph, inputs, cap.outputs
@@ -134,7 +167,8 @@ class ProgramCache:
         """One frame's outputs through its signature's per-frame program."""
         prog = self.program_for(sig_of(tensors))
         if prog.graph is None:
-            return prog.fn(tuple(tensors))
+            with _building():
+                return prog.fn(tuple(tensors))
         for dst, src in zip(prog.inputs, tensors):
             dst.copy_(src)
         self._replay(prog)
@@ -156,9 +190,24 @@ class ProgramCache:
             else:
                 torch.stack(rows, out=prog.inputs[i])
         if prog.graph is None:
-            return prog.fn(tuple(cols))[:n]
+            with _building():
+                return prog.fn(tuple(cols))[:n]
         self._replay(prog)
         return [tuple(o.clone() for o in row) for row in prog.outputs[:n]]
+
+    def warm(self, sig: tuple, bucket: int = 0) -> Program:
+        """Build the program of ``(sig, bucket)`` and, where a program is the
+        fn itself, run it once on zeros: the counterpart of the reference's
+        warm-up call, so a build that fails fails here on both devices."""
+        prog = self.program_for(sig, bucket)
+        if prog.graph is None:
+            zeros = tuple(
+                torch.zeros(((bucket,) + shape) if bucket else shape, dtype=dtype,
+                            device=self.device)
+                for shape, dtype in sig)
+            with _building():
+                prog.fn(zeros)
+        return prog
 
     def clear(self) -> None:
         """Drop every program (and the graphs' pools with them)."""

@@ -14,9 +14,10 @@ keeps:
   executor thread submits, and under async tickets collects, in order).
 - **Fault accounting**: a failed batch splits per window, so only the
   failing window's stream sees the error; it surfaces in THAT stream's
-  executor as an ordinary invoke error.
+  executor, where the stream's own ``on-error`` disposes of it per frame.
 
-Memory: all sharers ride ONE opened backend.
+Memory: all sharers ride ONE opened backend (``plane-mode=replicas``: one
+a replica, ``plane-devices`` of them, behind failover).
 
 Lifecycle: the registry refcounts by attached filter; the first
 :func:`acquire` opens the backend and starts the service thread, the last
@@ -61,6 +62,8 @@ class PlaneConfig:
     timeout_ms: float = 1.0
     mode: str = "single"
     devices: int = 1
+    unhealthy_after: int = 3
+    probe_every: int = 64
     submit_timeout_s: float = 30.0
     # default per-stream in-flight ring depth for ASYNC submits
     # (the executor's plane window ring): 1 keeps blocking submits;
@@ -69,7 +72,8 @@ class PlaneConfig:
     inflight: int = 1
 
     def signature(self) -> tuple:
-        return (self.max_batch, self.timeout_ms, self.mode, self.devices)
+        return (self.max_batch, self.timeout_ms, self.mode, self.devices,
+                self.unhealthy_after, self.probe_every)
 
 
 def _plane_defaults() -> Dict[str, Any]:
@@ -98,6 +102,8 @@ def _plane_defaults() -> Dict[str, Any]:
         "timeout_ms": _num("timeout_ms", float, 1.0),
         "mode": mode,
         "devices": _num("devices", int, 1),
+        "unhealthy_after": _num("unhealthy_after", int, 3),
+        "probe_every": _num("probe_every", int, 64),
         "submit_timeout_s": _num("submit_timeout_s", float, 30.0),
         "inflight": _num("inflight", int, 1),
     }
@@ -145,6 +151,8 @@ def resolve_plane_config(elements) -> PlaneConfig:
         timeout_ms=max(0.0, float(d["timeout_ms"])),
         mode=d["mode"],
         devices=max(1, int(d["devices"])),
+        unhealthy_after=max(1, int(d["unhealthy_after"])),
+        probe_every=max(1, int(d["probe_every"])),
         submit_timeout_s=max(0.1, float(d["submit_timeout_s"])),
         inflight=max(1, min(32, int(d["inflight"]))),
     )
@@ -443,8 +451,8 @@ class ModelPlane:
         """A failed batch re-runs per request (window) so only the
         failing window's stream sees an error — one bad frame must not
         discard (or fail) batchmates from other streams. The failing
-        window's error reaches its stream whole (the port's executor has
-        no per-frame fault gate yet)."""
+        window's error reaches its stream, whose executor node disposes
+        of it per frame through the stream's own ``on-error``."""
         _log.warning(
             "plane %s: batched dispatch of %d window(s) failed (%s); "
             "splitting per window", self.name, len(batch), batch_exc,
@@ -509,6 +517,9 @@ class ModelPlane:
         if prog is not None:
             d["n_traces"] = getattr(prog, "n_traces", 0)
             d["program"] = getattr(prog, "mode", "")
+            rstats = getattr(prog, "replica_stats", None)
+            if callable(rstats):
+                d["replicas"] = rstats()
         return d
 
     # -- lifecycle ---------------------------------------------------------
@@ -557,7 +568,7 @@ def acquire(
     name: str,
     sig: tuple,
     cfg: PlaneConfig,
-    opener: Callable[[], Any],
+    opener: Callable[[int, bool], Any],
     cfg_explicit: bool = True,
 ) -> ModelPlane:
     """Get-or-create the named plane; refcounted like the shared-key
@@ -565,9 +576,10 @@ def acquire(
     sharers always; the plane config binds with the first attacher —
     a later attacher that set no ``plane-*`` properties
     (``cfg_explicit=False``) INHERITS the bound config, while
-    explicitly conflicting knobs fail. ``opener()`` opens the plane's
-    one backend. A mode the port has no program for raises before any
-    backend opens."""
+    explicitly conflicting knobs fail. ``opener(i, replicated)`` opens
+    backend ``i`` (one for single/shard, ``cfg.devices`` for replicas;
+    ``replicated`` follows the BINDING config's mode). A mode the port has
+    no program for raises before any backend opens."""
     from nnstreamer_tpu_torch.serving_plane.sharding import refuse_unported
 
     refuse_unported(cfg)
@@ -598,7 +610,20 @@ def acquire(
         # serialize behind one global lock (the shared-key discipline)
         with entry["open_lock"]:
             if entry["plane"] is None:
-                entry["plane"] = ModelPlane(name, cfg, [opener()])
+                replicated = cfg.mode == "replicas"
+                backends: List[Any] = []
+                try:
+                    for i in range(cfg.devices if replicated else 1):
+                        backends.append(opener(i, replicated))
+                except Exception:
+                    for b in backends:
+                        try:
+                            b.close()
+                        except Exception as exc:  # noqa: BLE001
+                            _log.warning("plane %s: backend close failed during an "
+                                         "aborted open: %s", name, exc)
+                    raise
+                entry["plane"] = ModelPlane(name, cfg, backends)
         return entry["plane"]
     except Exception:
         with _registry_lock:

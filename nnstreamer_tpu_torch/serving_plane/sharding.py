@@ -16,9 +16,15 @@ plus ``invoke_one`` for the heterogeneous/per-frame route.
   script). The plane still shares ONE opened backend across all streams;
   batching goes through the backend's own ``invoke_batched`` when it
   declared ``batchable``, else per frame.
+- :class:`ReplicatedProgram` (``mode=replicas``): one program per opened
+  backend, round-robin over the visible cards (on one card every replica
+  is on ``cuda:0``, each with its own captured programs), behind a
+  ``ReplicaSet`` (parallel/replicas.py): a window on a replica that faults
+  re-dispatches whole onto the next healthy one, so per-stream FIFO
+  survives a replica loss.
 
-``mode=shard`` over more than one device and ``mode=replicas`` are not
-ported: :func:`refuse_unported` raises before any backend opens.
+``mode=shard`` over more than one device is not ported:
+:func:`refuse_unported` raises before any backend opens.
 
 Thread safety: a plane's service thread is the only invoker; the
 programs keep no locks of their own (the capture lock orders captures).
@@ -26,7 +32,7 @@ programs keep no locks of their own (the capture lock orders captures).
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
@@ -39,12 +45,7 @@ Window = Tuple[Any, ...]
 def refuse_unported(cfg) -> None:
     """Raise for a plane config the port has no program for, before any
     backend opens: a data-sharded mesh (``shard`` over more than one
-    device) and failover replicas."""
-    if cfg.mode == "replicas":
-        raise NotImplementedError(
-            "plane-mode=replicas (failover replicas behind one plane) is not "
-            "ported yet (ROADMAP A.6a)"
-        )
+    device)."""
     if cfg.mode == "shard" and cfg.devices > 1:
         raise NotImplementedError(
             f"plane-mode=shard over plane-devices={cfg.devices} (a data-sharded "
@@ -143,19 +144,76 @@ class HostProgram:
         pass
 
 
+class ReplicatedProgram:
+    """K per-replica programs behind a ReplicaSet: load-balanced window
+    dispatch with device-fault failover. Failover granularity is one
+    collected batch: a batch on a dying replica re-dispatches WHOLE onto
+    the next healthy one, frames in order."""
+
+    mode = "replicas"
+
+    def __init__(self, programs: Sequence[Any], unhealthy_after: int = 3,
+                 probe_every: int = 64) -> None:
+        from nnstreamer_tpu_torch.parallel.replicas import ReplicaSet
+
+        self.programs = list(programs)
+        self._rs = ReplicaSet([self._on_device(p) for p in self.programs],
+                              unhealthy_after=unhealthy_after, probe_every=probe_every)
+
+    @staticmethod
+    def _on_device(prog) -> Callable[[List[Window]], List[Window]]:
+        """``prog.invoke`` with the windows moved to its replica's device
+        first (a no-op where every replica shares the frames' card)."""
+        dev = getattr(prog, "device", None)
+        if dev is None:
+            return prog.invoke
+
+        def invoke(windows: List[Window]) -> List[Window]:
+            return prog.invoke([tuple(t.to(dev) for t in w) for w in windows])
+
+        return invoke
+
+    def invoke(self, windows: List[Window]) -> List[Window]:
+        return self._rs.dispatch(windows)
+
+    def invoke_one(self, window: Window) -> Window:
+        return self._rs.dispatch([window])[0]
+
+    @property
+    def n_traces(self) -> int:
+        return sum(getattr(p, "n_traces", 0) for p in self.programs)
+
+    def replica_stats(self) -> Dict[str, Any]:
+        return self._rs.stats()
+
+    def close(self) -> None:
+        for p in self.programs:
+            p.close()
+
+
+def _program_of(backend, buckets) -> Any:
+    """The program of one opened backend, on the backend's device."""
+    fn = backend.traceable_fn()
+    if fn is None:
+        return HostProgram(backend)
+    return VmapProgram(fn, buckets, backend.props.device,
+                       capturable=bool(getattr(backend, "CAPTURABLE", True)))
+
+
 def build_plane_program(backends: Sequence[Any], cfg) -> Any:
     """Back a plane with the program its config asks for.
 
     ``mode=single``, and ``mode=shard`` over one device (the reference's
     own single-device program for a mesh of one): one backend on its
     device, batched when it has a traceable fn, else a
-    :class:`HostProgram`. Other modes raise (:func:`refuse_unported`)."""
+    :class:`HostProgram`. ``mode=replicas``: one program per opened backend
+    (``cfg.devices`` of them) on the cards round-robin, behind
+    :class:`ReplicatedProgram`. A sharded mesh raises
+    (:func:`refuse_unported`)."""
     refuse_unported(cfg)
-    primary = backends[0]
-    fn = primary.traceable_fn()
-    if fn is None:
-        return HostProgram(primary)
-    return VmapProgram(
-        fn, default_buckets(cfg.max_batch), primary.props.device,
-        capturable=bool(getattr(primary, "CAPTURABLE", True)),
-    )
+    buckets = default_buckets(cfg.max_batch)
+    if cfg.mode == "replicas":
+        return ReplicatedProgram([_program_of(b, buckets) for b in backends],
+                                 unhealthy_after=cfg.unhealthy_after,
+                                 probe_every=cfg.probe_every)
+    return _program_of(backends[0], buckets)

@@ -142,6 +142,25 @@ def test_serving_plane_modules_import_alone(module):
     test_routing_modules_import_alone(module)
 
 
+@pytest.mark.parametrize("module", [
+    "nnstreamer_tpu_torch.pipeline.faults",
+    "nnstreamer_tpu_torch.pipeline.device_faults",
+    "nnstreamer_tpu_torch.parallel.replicas",
+    "nnstreamer_tpu_torch.elements.chaos",
+])
+def test_fault_modules_import_alone(module):
+    """The fault layer (error policies, device resilience, replica
+    failover, tensor_chaos) loads neither jax nor the reference package."""
+    test_routing_modules_import_alone(module)
+
+
+def test_source_walk_covers_the_fault_layer():
+    files = {os.path.relpath(p, PKG_DIR) for p in _py_files()}
+    assert {os.path.join("pipeline", "faults.py"), os.path.join("pipeline", "device_faults.py"),
+            os.path.join("parallel", "__init__.py"), os.path.join("parallel", "replicas.py"),
+            os.path.join("elements", "chaos.py")} <= files
+
+
 def test_source_walk_covers_the_serving_plane():
     files = {os.path.relpath(p, PKG_DIR) for p in _py_files()}
     assert {os.path.join("serving_plane", f) for f in (
@@ -439,9 +458,10 @@ def test_unported_options_raise(call):
         "drain-to-peer": drain_to_peer,
         "role": lambda: LlmServerSink(**{"kv-layout": "paged", "role": "prefill"}),
         "mesh": lambda: batcher(mesh=object()),
-        # the serving plane is ported; its failover replicas are not
+        # the serving plane and its failover replicas are ported; a
+        # data-sharded mesh behind it is not
         "plane": lambda: TensorFilter(framework="scaler", plane="p0",
-                                      **{"plane-mode": "replicas"}),
+                                      **{"plane-mode": "shard", "plane-devices": "2"}),
         "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                      "kv-memory-bound": "64M"}),
     }

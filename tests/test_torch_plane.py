@@ -433,16 +433,20 @@ def test_signature_conflict_rejected():
 
 @pytest.mark.parametrize("prop", ["shared-tensor-filter-key", "replicas", "fallback-framework"])
 def test_conflicting_modes_rejected(prop):
-    """The reference refuses plane= with these props; the port has none of
-    them yet, so both refuse the string, naming the prop."""
+    """Both packages refuse plane= with these props for the same conflict,
+    with the same message, which names it."""
+    msgs = []
     for cls in (TensorFilter, JFilter):
-        with pytest.raises(ValueError, match=prop):
-            cls(framework="scaler", plane="x", **{prop: "2" if prop == "replicas" else "k"})
+        with pytest.raises(ValueError, match=f"plane='x' cannot combine with {prop.split('-')[0]}"
+                           ) as ei:
+            cls(name="f", framework="scaler", plane="x",
+                **{prop: "2" if prop == "replicas" else "k"})
+        msgs.append(str(ei.value))
+    assert msgs[0] == msgs[1]
 
 
 def _same_fields(port_cfg, ref_cfg) -> bool:
-    """The port's PlaneConfig fields agree with the reference's (which
-    also has the replica-health knobs, A.6a)."""
+    """The port's PlaneConfig fields agree with the reference's."""
     return all(getattr(port_cfg, f.name) == getattr(ref_cfg, f.name)
                for f in dataclasses.fields(port_cfg))
 
@@ -506,7 +510,7 @@ def test_plane_filter_refuses_a_reload():
 
 
 @pytest.mark.parametrize("props,queue", [
-    ({"plane": "r1", "plane-mode": "replicas", "plane-devices": "2"}, "A.6a"),
+    ({"plane": "r1", "plane-mode": "shard", "plane-devices": "8"}, "A.8"),
     ({"plane": "r2", "plane-mode": "shard", "plane-devices": "2"}, "A.8"),
     ({"ring-depth": "3"}, "A.6b"),
 ])
@@ -519,14 +523,64 @@ def test_unported_plane_modes_raise_before_any_backend_opens(props, queue, monke
 
 
 def test_registry_acquire_refuses_before_the_opener(monkeypatch):
+    """A sharded mesh is refused before any backend opens (A.8); replicas
+    open ``devices`` backends through ``opener(i, replicated)``, as the
+    reference's registry does, and a failed open closes the ones before."""
     calls = []
-    with pytest.raises(NotImplementedError, match="A.6a"):
-        plane_mod.acquire("r3", ("sig",), PlaneConfig(mode="replicas", devices=2),
-                          lambda: calls.append(1))
     with pytest.raises(NotImplementedError, match="A.8"):
         plane_mod.acquire("r4", ("sig",), PlaneConfig(mode="shard", devices=4),
-                          lambda: calls.append(1))
-    assert calls == [] and plane_mod.get("r3") is None and plane_mod.get("r4") is None
+                          lambda i, rep: calls.append((i, rep)))
+    assert calls == [] and plane_mod.get("r4") is None
+    for pkg, cfg in ((plane_mod, PlaneConfig(mode="replicas", devices=2)),
+                     (jplane_mod, jplane_mod.PlaneConfig(mode="replicas", devices=2))):
+        opened = []
+
+        def opener(i, rep, opened=opened):
+            opened.append((i, rep))
+            return _scaler(2.0)
+
+        pl = pkg.acquire("r3", ("sig",), cfg, opener)
+        try:
+            assert opened == [(0, True), (1, True)] and len(pl.backends) == 2
+        finally:
+            pkg.release("r3", pl)
+    closed = []
+
+    def failing(i, rep):
+        if i == 1:
+            raise RuntimeError("replica 1 open failed")
+        b = _scaler(2.0)
+        b.close = lambda: closed.append(i)
+        return b
+
+    with pytest.raises(RuntimeError, match="replica 1"):
+        plane_mod.acquire("r5", ("sig",), PlaneConfig(mode="replicas", devices=2), failing)
+    assert closed == [0] and plane_mod.get("r5") is None
+
+
+def test_replicas_mode_opens_a_backend_a_replica_and_serves(monkeypatch):
+    """plane-mode=replicas plane-devices=2 (refused before this slice):
+    two backends tagged _replica:<i>, one program each behind the replica
+    set, the config signature carrying the health knobs."""
+    monkeypatch.setenv("NNS_TPU_PLANE_PROBE_EVERY", "16")
+    props = {"plane-mode": "replicas", "plane-devices": "2"}
+    f = TensorFilter(framework="scaler", custom="factor:2", plane="rp1", **props)
+    jf = JFilter(framework="scaler", plane="jrp1", **props)
+    try:
+        f.device = torch.device("cpu")
+        f.negotiate([_spec()])
+        assert f._plane_cfg.signature() == jf._plane_cfg.signature()
+        assert f._plane_cfg.probe_every == 16 and f._plane_cfg.unhealthy_after == 3
+        pl = f._plane
+        assert [b.props.custom.split(",")[-1] for b in pl.backends] == ["_replica:0", "_replica:1"]
+        for j in range(4):
+            outs = pl.submit_window(f._plane_stream, [(_vec(np.full(4, j)),)])
+            assert torch.equal(outs[0][0], _vec(np.full(4, 2.0 * j)))
+        reps = pl.stats()["replicas"]
+        assert reps["served"] == [2, 2] and reps["healthy"] == 2
+        assert pl.stats()["program"] == "replicas"
+    finally:
+        f.stop()
 
 
 def test_shard_over_one_device_is_the_single_program():
@@ -880,6 +934,120 @@ def test_window_failing_at_a_middle_frame_delivers_no_frame_of_it(depth, monkeyp
         plane.close()
 
 
+@pytest.mark.parametrize("depth", [1, 2])
+def test_window_failing_at_a_middle_frame_drops_only_that_frame(depth, monkeypatch):
+    """With on-error=drop the failed window splits per frame through the
+    stream's policy (each frame its own plane round trip): only frame 10
+    is dropped, counted, and every other frame arrives in order."""
+    cfg = PlaneConfig(max_batch=4, timeout_ms=1.0)
+    plane = ModelPlane("midd", cfg, backends=[_scaler(1.0)], program=_OneBadFrame(10.0))
+    monkeypatch.setattr(plane_mod, "acquire", lambda name, *a, **k: plane)
+    monkeypatch.setattr(plane_mod, "release", lambda name, p: False)
+    try:
+        pipe = parse_pipeline(
+            "tensorsrc dimensions=4 pattern=counter num-frames=20 ! tensor_filter name=f "
+            f"framework=scaler plane=midd plane-max-batch=4 ring-depth={depth} on-error=drop ! "
+            "tensor_sink", device="cpu")
+        ex = pipe.run(timeout=60)
+        got = [float(v[0]) for v in _sink_values(pipe, TensorSink)]
+        assert got == [2.0 * j for j in range(20) if j != 10]
+        assert ex.stats()["f"]["error_dropped"] == 1
+        assert ex.totals()["dropped"] == {"on-error-drop": 1} and ex.totals()["balance"] == 0
+    finally:
+        plane.close()
+
+
+def _injected_plane(monkeypatch, name, program, cfg=None):
+    """A plane with a marker program, registered under ``name`` for the
+    filters of both packages' pipelines that attach to it."""
+    cfg = cfg or PlaneConfig(max_batch=8, timeout_ms=1.0)
+    plane = ModelPlane(name, cfg, backends=[_scaler(1.0)], program=program)
+    orig = plane_mod.acquire
+
+    def acquire_patch(n, sig, cfg2, opener, cfg_explicit=True):
+        if n == name:
+            return plane
+        return orig(n, sig, cfg2, opener, cfg_explicit=cfg_explicit)
+
+    monkeypatch.setattr(plane_mod, "acquire", acquire_patch)
+    monkeypatch.setattr(plane_mod, "release",
+                        lambda n, p, _orig=plane_mod.release: False if n == name else _orig(n, p))
+    return plane
+
+
+class _Identity(_MarkerProgram):
+    def invoke(self, windows):
+        outs = []
+        for (x,) in windows:
+            if float(x[0]) >= 90.0:
+                raise RuntimeError("poisoned window")
+            outs.append((x,))
+        return outs
+
+
+def test_fault_policy_disposes_per_stream(monkeypatch):
+    """A poisoned stream shares the plane with a healthy one: its own
+    on-error=drop disposes of ITS frames with accounting, the healthy
+    stream delivers everything (the reference's test_plane.py case)."""
+    plane = _injected_plane(monkeypatch, "fp1", _Identity())
+    try:
+        descs = [
+            "tensorsrc dimensions=4 pattern=counter num-frames=20 ! "
+            "tensor_filter framework=scaler plane=fp1 plane-max-batch=8 ! tensor_sink",
+            "tensorsrc dimensions=4 pattern=counter num-frames=20 ! "
+            "tensor_transform mode=arithmetic option=add:90.0 ! tensor_filter framework=scaler "
+            "plane=fp1 plane-max-batch=8 on-error=drop name=poisoned ! tensor_sink",
+        ]
+        pipes, execs = _run_streams(parse_pipeline, descs, device="cpu")
+        assert [float(v[0]) for v in _sink_values(pipes[0], TensorSink)] == list(range(20))
+        assert _sink_values(pipes[1], TensorSink) == []
+        tot = execs[1].totals()
+        assert tot["dropped"] == {"on-error-drop": 20} and tot["balance"] == 0
+        assert execs[1].stats()["poisoned"]["error_dropped"] == 20
+    finally:
+        plane.close()
+
+
+class TestReplicas:
+    """mode=replicas through both packages' pipelines."""
+
+    def test_failover_through_plane(self):
+        """Two chaos backends, one of which loses its device mid-run: every
+        frame still serves (windows fail over whole, in order), and the
+        replica set records the failovers."""
+        def desc(plane):
+            return ("tensorsrc dimensions=4 pattern=counter num-frames=30 ! "
+                    'tensor_filter framework=faulty custom="device_lost_at:3,only_replica:1" '
+                    f"plane={plane} plane-mode=replicas plane-devices=2 plane-max-batch=4 ! "
+                    "tensor_sink")
+
+        pipes, execs = _run_streams(parse_pipeline, [desc("rep1")], device="cpu")
+        jpipes, jexecs = _run_streams(jparse, [desc("jrep1")])
+        got = [float(v[0]) for v in _sink_values(pipes[0], TensorSink)]
+        assert got == [float(v[0]) for v in _sink_values(jpipes[0], JSink)] == list(range(30))
+        (row,) = [r for r in execs[0].stats().values() if "plane_name" in r]
+        (jrow,) = [r for r in jexecs[0].stats().values() if "plane_name" in r]
+        reps, jreps = row["plane_replicas"], jrow["plane_replicas"]
+        assert reps["replicas"] == jreps["replicas"] == 2
+        assert reps["failovers"] >= 1 and jreps["failovers"] >= 1
+        assert reps["healthy"] == jreps["healthy"] == 1
+
+    def test_exhaustion_raises_per_stream(self):
+        """Both replicas dead: the stream's own policy (drop) disposes of
+        every frame, the pipeline reaches EOS, in both packages."""
+        def desc(plane):
+            return ("tensorsrc dimensions=4 pattern=counter num-frames=10 ! "
+                    'tensor_filter name=f framework=faulty custom="device_lost_at:1" '
+                    f"plane={plane} plane-mode=replicas plane-devices=2 plane-max-batch=2 "
+                    "on-error=drop retry-backoff-ms=1 ! tensor_sink")
+
+        pipes, execs = _run_streams(parse_pipeline, [desc("rep2")], device="cpu")
+        jpipes, jexecs = _run_streams(jparse, [desc("jrep2")])
+        assert _sink_values(pipes[0], TensorSink) == []
+        assert execs[0].totals()["dropped"] == jexecs[0].totals()["dropped"] == {
+            "on-error-drop": 10}
+
+
 def test_ring_depth_resolves_from_plane_inflight_config(monkeypatch):
     monkeypatch.setenv("NNS_TPU_PLANE_INFLIGHT", "2")
     for cls in (TensorFilter, JFilter):
@@ -888,3 +1056,30 @@ def test_ring_depth_resolves_from_plane_inflight_config(monkeypatch):
         assert cls(framework="scaler", plane="cfg1", **{"ring-depth": "99"}).plane_inflight == 32
     monkeypatch.delenv("NNS_TPU_PLANE_INFLIGHT")
     assert TensorFilter(framework="scaler", plane="cfg1").plane_inflight == 1  # blocking default
+
+
+@pytest.mark.parametrize("policy", ["drop", "stop"])
+def test_a_frame_that_fails_to_stage_is_disposed_by_the_policy(policy, monkeypatch):
+    """The plane node moves a window's frames to the device before the
+    submit, outside any invoke: a frame that fails there goes to the
+    stream's policy (dropped and counted), or stops the run."""
+    real = Frame.to_device
+
+    def flaky(self, device):
+        if float(self.tensors[0][0]) == 5.0:
+            raise RuntimeError("staging failed")
+        return real(self, device)
+
+    monkeypatch.setattr(Frame, "to_device", flaky)
+    pipe = parse_pipeline(
+        "tensorsrc dimensions=4 pattern=counter num-frames=12 ! tensor_filter name=f "
+        f"framework=scaler plane=stg plane-max-batch=4 on-error={policy} ! tensor_sink",
+        device="cpu")
+    if policy == "stop":
+        with pytest.raises(RuntimeError, match="staging failed"):
+            pipe.run(timeout=60)
+        return
+    ex = pipe.run(timeout=60)
+    got = [float(v[0]) for v in _sink_values(pipe, TensorSink)]
+    assert got == [2.0 * j for j in range(12) if j != 5]
+    assert ex.stats()["f"]["error_dropped"] == 1 and ex.totals()["balance"] == 0
