@@ -6,6 +6,7 @@
     python3 chip_smoke.py --plane       # only the plane group (its kernels built first)
     python3 chip_smoke.py --sources     # only the model_sources group (K1 built first)
     python3 chip_smoke.py --faults      # only the faults group (K1 built first)
+    python3 chip_smoke.py --observe     # only the observe group (K1 built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -450,6 +451,33 @@ run's labels and logits, the oracle of every check:
                  bucket 2 or below, no new OOM, the frames add up to 64;
                  then an in-place drain / resume delivers every frame.
 
+Last, the observe group (ROADMAP A.6b; alone with ``--observe``), the
+labeling pipeline at full width with ``! queue !`` before the filter
+(1280x720 gradient → resize 224 (K1) → queue → MobileNet-v2 1.0/224/1001
+→ image_labeling), 64 frames a run. The chain's head node starts once the
+source has queued all 64 frames, so every window is full (a saturated
+stream; a trickle runs smaller buckets):
+
+34. chain_program — chain-mode auto against off: labels and logits bit
+                 for bit, 16 replays of the chain's graph (64 / unroll 4)
+                 against 128 segment replays, K1 64 in both, chain_fallback
+                 0, the member segments' graphs never built in the chain
+                 run; then a device fault injected at the third window
+                 latches the per-node path (the members' own graphs on the
+                 card): labels still equal, K1 still 64, chain_fallback 56;
+                 fps and per-node p50 host time (metrics on) for chain on
+                 and off and for routing-crop-720p.
+35. frame_ring  — ring-depth 1 against 2 (chain off): frames in order and
+                 bit for bit, D2H bytes in the transfer tally equal to
+                 frames × the decoder's device output bytes (no interior
+                 bytes), H2D the source frames' bytes.
+36. observe_cli — nns-launch in a subprocess on cuda with --stats --metrics
+                 --trace --profile over 32 frames: a latency row and an
+                 nns_element_latency_us series for every node, a span for
+                 every frame at every per-frame node (the chain node's
+                 batch spans add up to the frames), K1's kernel name in the
+                 torch.profiler trace.
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -824,6 +852,32 @@ def routing_regions(np, n_frames):
     return frames
 
 
+class SinkDevices:
+    """Records the device of every tensor a sink node's coalesced fetch
+    takes (pipeline/transfer.py ``fetch_frame``): where a frame's tensors
+    are when they reach the sink, before render gets their host copy."""
+
+    def __init__(self):
+        self.seen = set()
+        self.fetches = 0
+
+    def __enter__(self):
+        from nnstreamer_tpu_torch.pipeline import transfer
+
+        self._mod, self._real = transfer, transfer.fetch_frame
+
+        def fetch(frame):
+            self.fetches += 1
+            self.seen.update(t.device.type for t in frame.tensors if hasattr(t, "is_cuda"))
+            return self._real(frame)
+
+        transfer.fetch_frame = fetch
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.fetch_frame = self._real
+
+
 def run_routing(parse_pipeline, device, regions, live=False, on_render=None):
     """The routing description for len(regions) frames, the regions pushed
     into its appsrc with the video's timestamps; returns (pipeline, wall s)."""
@@ -866,13 +920,17 @@ def routing_phase(torch, np, dev, parse_pipeline, ik):
     seen = set()
 
     def on_render(frame):
-        seen.update(t.device.type for t in frame.tensors)
         if "crop_regions" in frame.meta:
             seen.add("regions:" + frame.meta["crop_regions"].device.type)
 
     for c in (ik.crop_resize_launches, ik.crop_entry_launches, ik.resize_entry_launches):
         c.reset()
-    p, wall = run_routing(parse_pipeline, dev, regions, on_render=on_render)
+    # the sinks' tensors are read where each sink node's fetch takes them
+    with SinkDevices() as sinks:
+        p, wall = run_routing(parse_pipeline, dev, regions, on_render=on_render)
+    seen |= sinks.seen
+    if sinks.fetches != len(ROUTING_SINKS) * FRAMES:
+        raise AssertionError(f"routing: {sinks.fetches} sink fetches for {FRAMES} frames")
     crop_k1, resize_k1 = ik.crop_entry_launches.count, ik.resize_entry_launches.count
     if (crop_k1, resize_k1) != (FRAMES, FRAMES):
         raise AssertionError(
@@ -5034,12 +5092,11 @@ def codec_roundtrip_phase(torch, np, dev, parse_pipeline, source):
             p["dec"]._subplugin.convert = lambda f, props, r=real: (
                 wire.append(bytes(f.tensors[0])) if not wire else None, r(f, props))[1]
             timed_calls(p["dec"]._subplugin, "convert", dec_ms)
-            render = p["out"].render
-            p["out"].render = lambda f, r=render: (
-                seen.update(t.device.type for t in f.tensors), r(f))
             t0 = time.perf_counter()
-            p.run(timeout=600)
+            with SinkDevices() as sinks:  # the tensors as they reach the sink
+                p.run(timeout=600)
             wall = time.perf_counter() - t0
+            seen |= sinks.seen
             wires[str(device)] = wire[0]
         got = [f.tensors[0] for f in p["out"].frames]
         if len(got) != FRAMES or seen != {dev.type}:
@@ -6564,10 +6621,11 @@ def warm_restart_phase(torch, np, dev, parse_pipeline, plain_labels):
     from nnstreamer_tpu_torch.pipeline.executor import Executor
 
     def desc(n):
-        # a shallow inbox holds the source back, so most frames are still to
-        # come when the drain parks it
+        # shallow inboxes (the segment's and the sink's) hold the source back,
+        # so most frames are still to come when the drain parks it: the sink
+        # waits on the card, and its inbox passes that wait back upstream
         return faults_desc(n=n, faulty=OOM_FAULTY, props=OOM_PROPS).replace(
-            "name=conv", "name=conv queue-size=8")
+            "name=conv", "name=conv queue-size=8").replace("name=out", "name=out queue-size=8")
 
     p, plan, ex = faults_executor(parse_pipeline, dev, desc(FAULTS_FRAMES))
     name = faults_segment(plan, "x").name
@@ -6636,6 +6694,275 @@ def faults_phases(torch, np, dev, parse_pipeline, ik):
     emit(warm_restart_phase(torch, np, dev, parse_pipeline, plain_labels))
     return {"k1_launches": comp["k1_launches"], "seconds": time.perf_counter() - t0}
 
+
+
+# -- the observe group (ROADMAP A.6b): chains, the frame ring, observability --
+
+OBS_FRAMES = 64
+OBS_UNROLL = 4
+OBS_W, OBS_H = 1280, 720
+OBS_PIPELINE = (
+    "videotestsrc name=src pattern=gradient width={w} height={h} num-frames={n} ! "
+    "tensor_converter name=conv queue-size=128 ! "
+    "tensor_transform name=resize mode=resize option=224:224 ! queue name=q ! "
+    "tensor_filter name=f framework=torch model=zoo:mobilenet_v2 ! "
+    "{decode}tensor_sink name=out"
+)
+
+
+def observe_desc(n=OBS_FRAMES, decode=True):
+    return OBS_PIPELINE.format(
+        n=n, w=OBS_W, h=OBS_H,
+        decode="tensor_decoder name=dec mode=image_labeling ! " if decode else "")
+
+
+def observe_run(parse_pipeline, dev, env, n=OBS_FRAMES, decode=True, saturate=True):
+    """The observe pipeline to EOS on the card with ``env``'s
+    ``[executor]`` knobs set while it is planned, built and run →
+    (pipeline, executor, wall s). ``saturate``: the node after the source
+    starts once the source has queued all ``n`` frames (and its EOS) in
+    its inbox, so a chain's windows are all full."""
+    from nnstreamer_tpu_torch.pipeline.executor import Executor
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        p = parse_pipeline(observe_desc(n, decode), device=dev)
+        ex = Executor(p.compile_plan())
+        head = ex._node_of[p["conv"]]
+        src = ex._node_of[p["src"]]
+        start_head = head.thread.start
+        if saturate:
+            head.thread.start = lambda: None
+        t0 = time.perf_counter()
+        ex.start()
+        if saturate:
+            deadline = time.monotonic() + 600
+            while src.thread.is_alive() and time.monotonic() < deadline:
+                time.sleep(0.002)
+            if head.inboxes[0].qsize() != n + 1:
+                raise AssertionError(f"observe: {head.inboxes[0].qsize()} queued, want {n + 1}")
+            start_head()
+        faults_finish(ex, "observe run")
+        wall = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return p, ex, wall
+
+
+def node_p50s(ex):
+    """Per node: the p50 of its invokes' host time (ms; a window's for a
+    batched or chain node), from the latency histograms."""
+    return {k: v.get("latency_p50_ms") for k, v in ex.stats().items()}
+
+
+def chain_program_phase(torch, np, dev, parse_pipeline, ik):
+    """34: chain-mode auto against off, then a fault that latches the
+    per-node path (module docstring)."""
+    from nnstreamer_tpu_torch import capture as cap_mod
+    from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+    from nnstreamer_tpu_torch.pipeline.chain_program import ChainProgram
+    from nnstreamer_tpu_torch.pipeline.device_faults import DeviceFaultError
+    from nnstreamer_tpu_torch.pipeline.executor import _ChainNode
+
+    n = OBS_FRAMES
+    runs = {}
+    obs_metrics.enable()
+    try:
+        for mode in ("off", "auto"):
+            env = {"NNS_TPU_EXECUTOR_CHAIN_MODE": mode,
+                   "NNS_TPU_EXECUTOR_CHAIN_UNROLL": str(OBS_UNROLL)}
+            observe_run(parse_pipeline, dev, env, n=8)  # warm: cuDNN, allocator
+            ik.crop_resize_launches.reset()
+            cap_mod.graph_replays.reset()
+            p, ex, wall = observe_run(parse_pipeline, dev, env)
+            replays, k1 = cap_mod.graph_replays.count, ik.crop_resize_launches.count
+            transfer = ex.totals()["transfer"]  # the tally is process-wide: read it now
+            lp, _, _ = observe_run(parse_pipeline, dev, env, decode=False)
+            chains = [x for x in ex.nodes if isinstance(x, _ChainNode)]
+            runs[mode] = {
+                "labels": faults_labels(p), "replays": replays, "k1": k1, "wall": wall,
+                "logits": np.stack([np.asarray(t) for t in out_tensors(lp)]),
+                "chain": chains[0] if chains else None, "ex": ex,
+                "p50": node_p50s(ex), "steady_fps": steady_fps(p), "transfer": transfer}
+    finally:
+        obs_metrics.disable()
+    on, off = runs["auto"], runs["off"]
+    if off["chain"] is not None or on["chain"] is None:
+        raise AssertionError("chain_program: chain-mode=off grew a chain node or auto did not")
+    ch = on["chain"]
+    if len(ch.chain.segments) != 2 or ch.program.unroll != OBS_UNROLL:
+        raise AssertionError(f"chain_program: chain {ch.name} unroll {ch.program.unroll}")
+    if on["labels"] != off["labels"] or len(on["labels"]) != n:
+        raise AssertionError("chain_program: labels differ between chain-mode auto and off")
+    if not np.array_equal(on["logits"], off["logits"]):
+        raise AssertionError("chain_program: logits not bit-equal between auto and off")
+    want_chain, want_off = n // OBS_UNROLL, 2 * n
+    if on["replays"] != want_chain or off["replays"] != want_off:
+        raise AssertionError(f"chain_program: replays {on['replays']} (chain) / {off['replays']} "
+                             f"(off), want {want_chain} / {want_off}")
+    if on["k1"] != n or off["k1"] != n:
+        raise AssertionError(f"chain_program: K1 {on['k1']} / {off['k1']} for {n} frames")
+    row = on["ex"].stats()[ch.name]
+    if row["chain_fallback"] != 0 or row["chain_launches"] != want_chain or not row["captured"]:
+        raise AssertionError(f"chain_program: chain row {row}")
+    if any(seg.n_traces for seg in ch.chain.segments):
+        raise AssertionError("chain_program: a member segment's graph was built in the chain run")
+    # no interior bytes: the chain moves what the per-node path moves at its ends
+    if on["transfer"] != off["transfer"] or on["transfer"]["d2h"] != 8 * n:
+        raise AssertionError(f"chain_program: transfer {on['transfer']} (chain) against "
+                             f"{off['transfer']} (off)")
+
+    # a device fault at the third window latches the per-node path
+    real = ChainProgram.process_window
+    state = {"calls": 0}
+
+    def faulty(self, frames):
+        state["calls"] += 1
+        if state["calls"] == 3:
+            raise DeviceFaultError("injected chain fault")
+        return real(self, frames)
+
+    ChainProgram.process_window = faulty
+    try:
+        env = {"NNS_TPU_EXECUTOR_CHAIN_MODE": "auto",
+               "NNS_TPU_EXECUTOR_CHAIN_UNROLL": str(OBS_UNROLL)}
+        ik.crop_resize_launches.reset()
+        fp, fex, _ = observe_run(parse_pipeline, dev, env)
+        fk1 = ik.crop_resize_launches.count
+    finally:
+        ChainProgram.process_window = real
+    fnode = next(x for x in fex.nodes if isinstance(x, _ChainNode))
+    frow = fex.stats()[fnode.name]
+    served = n - 2 * OBS_UNROLL
+    if not fnode.fallback_latched or frow["chain_fallback"] != served:
+        raise AssertionError(f"chain_program: fault did not latch: {frow}")
+    if faults_labels(fp) != off["labels"] or fk1 != n:
+        raise AssertionError(f"chain_program: after the latch labels differ or K1 {fk1} != {n}")
+    if not all(seg.captured for seg in fnode.chain.segments):
+        raise AssertionError("chain_program: the per-node path did not replay the members' graphs")
+
+    # per-node host time of routing-crop-720p, metrics on
+    obs_metrics.enable()
+    try:
+        rp, rwall = run_routing(parse_pipeline, dev, routing_regions(np, OBS_FRAMES))
+        routing_p50 = node_p50s(rp._executor)
+    finally:
+        obs_metrics.disable()
+    return {
+        "phase": "chain_program", "frames": n, "unroll": OBS_UNROLL, "chain": ch.name,
+        "chain_replays": on["replays"], "segment_replays": off["replays"],
+        "replays_per_frame": {"chain": on["replays"] / n, "off": off["replays"] / n},
+        "k1_launches": {"chain": on["k1"], "off": off["k1"], "fault": fk1},
+        "chain_fallback": row["chain_fallback"], "fault_chain_fallback": frow["chain_fallback"],
+        "fault_fallback_windows": frow.get("chain_fallback_windows"),
+        "labels_first4": on["labels"][:4],
+        "fps": {"chain": n / on["wall"], "off": n / off["wall"]},
+        "steady_fps": {"chain": on["steady_fps"], "off": off["steady_fps"]},
+        "node_p50_ms": {"chain": on["p50"], "off": off["p50"], "routing": routing_p50},
+        "routing_fps": OBS_FRAMES / rwall,
+        "transfer": {"chain": on["transfer"], "off": off["transfer"]},
+        "k1_total": on["k1"] + off["k1"] + fk1,
+    }
+
+
+def frame_ring_phase(torch, np, dev, parse_pipeline):
+    """35: ring-depth 1 against 2 (module docstring)."""
+    n = OBS_FRAMES
+    out = {}
+    for depth in (1, 2):
+        env = {"NNS_TPU_EXECUTOR_CHAIN_MODE": "off", "NNS_TPU_EXECUTOR_RING_DEPTH": str(depth)}
+        p, ex, wall = observe_run(parse_pipeline, dev, env, saturate=False)
+        rings = {x.name: x._ring.depth for x in ex.nodes if x._ring is not None}
+        out[depth] = {"labels": faults_labels(p), "rings": rings,
+                      "transfer": ex.totals()["transfer"],
+                      "pts": [f.pts for f in p["out"].frames], "fps": n / wall}
+    a, b = out[1], out[2]
+    if a["labels"] != b["labels"] or len(a["labels"]) != n:
+        raise AssertionError("frame_ring: labels differ between ring-depth 1 and 2")
+    for d in (1, 2):
+        pts = out[d]["pts"]
+        if pts != sorted(pts) or len(set(pts)) != n:
+            raise AssertionError(f"frame_ring: depth {d} delivered out of order")
+    if set(b["rings"].values()) - {1, 2} or 2 not in b["rings"].values() or set(
+            a["rings"].values()) != {1}:
+        raise AssertionError(f"frame_ring: rings {a['rings']} / {b['rings']}")
+    dec_bytes = torch.empty((), dtype=torch.int64).element_size()  # the argmax, int64 on the card
+    # the source's host frames are staged up on the card (on the CPU the
+    # staging is a pass-through, so H2D is 0 there)
+    frame_bytes = OBS_W * OBS_H * 3 if dev.type == "cuda" else 0
+    for d in (1, 2):
+        t = out[d]["transfer"]
+        if t["d2h"] != n * dec_bytes or t["h2d"] != n * frame_bytes:
+            raise AssertionError(f"frame_ring: depth {d} transfer {t}, want d2h {n * dec_bytes} "
+                                 f"h2d {n * frame_bytes}")
+    return {"phase": "frame_ring", "frames": n, "rings": {1: a["rings"], 2: b["rings"]},
+            "transfer": {1: a["transfer"], 2: b["transfer"]},
+            "d2h_per_frame": dec_bytes, "h2d_per_frame": frame_bytes,
+            "fps": {1: a["fps"], 2: b["fps"]}}
+
+
+def observe_cli_phase(np, dev, parse_pipeline):
+    """36: the CLI's observability flags on the card (module docstring)."""
+    n = 32
+    with tempfile.TemporaryDirectory() as tmp:
+        m, t, prof = (os.path.join(tmp, x) for x in ("m.json", "t.json", "prof"))
+        cmd = [sys.executable, "-m", "nnstreamer_tpu_torch.cli", "-q", "--stats", "--metrics", m,
+               "--trace", t, "--profile", prof, observe_desc(n)]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        if res.returncode != 0:
+            raise AssertionError(f"observe_cli: rc {res.returncode}: {res.stderr[-2000:]}")
+        stats = json.loads(res.stdout)
+        with open(m) as f:
+            doc = json.load(f)
+        with open(t) as f:
+            events = json.load(f)["traceEvents"]
+        with open(os.path.join(prof, "device_profile.json")) as f:
+            ptrace = f.read()
+    nodes = [k for k in stats if k != "__pipeline__"]
+    missing = [k for k in nodes if "latency_p50_ms" not in stats[k]]
+    series = {x["labels"].get("element") for x in doc["metrics"]
+              if x["name"] == "nns_element_latency_us"}
+    if missing or set(nodes) - series:
+        raise AssertionError(f"observe_cli: no latency row for {missing}, no series for "
+                             f"{set(nodes) - series}")
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e)
+    for k in nodes:
+        got = spans.get(k, [])
+        batched = [e for e in got if e.get("cat") == "batch"]
+        count = sum(e["args"]["batch"] for e in batched) if batched else len(got)
+        if count != n:
+            raise AssertionError(f"observe_cli: node {k} spans cover {count} frames, want {n}")
+    if "crop_resize" not in ptrace:
+        raise AssertionError("observe_cli: K1's kernel is not in the torch.profiler trace")
+    chain = [k for k in nodes if " => " in k]
+    return {"phase": "observe_cli", "frames": n, "nodes": nodes, "chain_nodes": chain,
+            "node_p50_ms": {k: stats[k].get("latency_p50_ms") for k in nodes},
+            "node_fps": {k: stats[k].get("fps") for k in nodes},
+            "transfer": stats["__pipeline__"]["transfer"]}
+
+
+def observe_phases(torch, np, dev, parse_pipeline, ik):
+    """The observe group: chain_program, frame_ring, observe_cli."""
+    t0 = time.perf_counter()
+    chain = chain_program_phase(torch, np, dev, parse_pipeline, ik)
+    emit(chain)
+    print(f"observe: fps chain {chain['fps']['chain']:.1f} off {chain['fps']['off']:.1f}; "
+          f"per-node p50 ms chain {chain['node_p50_ms']['chain']} "
+          f"off {chain['node_p50_ms']['off']}", flush=True)
+    emit(frame_ring_phase(torch, np, dev, parse_pipeline))
+    cli = observe_cli_phase(np, dev, parse_pipeline)
+    emit(cli)
+    print(f"observe_cli: per-node p50 ms {cli['node_p50_ms']}", flush=True)
+    return {"k1_launches": chain["k1_total"], "seconds": time.perf_counter() - t0}
 
 
 def ab_turn(tree: str, npz: str) -> int:
@@ -7005,6 +7332,8 @@ def main() -> int:
     emit({"phase": "model_sources", "seconds": sources["seconds"]})
     faults = faults_phases(torch, np, dev, parse_pipeline, ik)
     emit({"phase": "faults", "seconds": faults["seconds"]})
+    observe = observe_phases(torch, np, dev, parse_pipeline, ik)
+    emit({"phase": "observe", "seconds": observe["seconds"]})
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -7023,6 +7352,7 @@ def main() -> int:
         "launches_plane_pipelines": plane["plane_pipelines"]["k1_launches"],
         "launches_model_sources": sources["k1_launches"],
         "launches_faults": faults["k1_launches"],
+        "launches_observe": observe["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -7152,6 +7482,29 @@ def faults_main() -> int:
     return 0
 
 
+def observe_main() -> int:
+    """``--observe``: only the observe group (K1 built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    _build.build(["image_kernels"])
+    out = observe_phases(torch, np, torch.device("cuda"), parse_pipeline, ik)
+    emit({"phase": "observe", "seconds": out["seconds"]})
+    return 0
+
+
 def plane_main() -> int:
     """``--plane``: only the plane group (the kernels it runs built first)."""
     import torch
@@ -7182,6 +7535,8 @@ if __name__ == "__main__":
         sys.exit(sources_main())
     if sys.argv[1:2] == ["--faults"] and len(sys.argv) == 2:
         sys.exit(faults_main())
+    if sys.argv[1:2] == ["--observe"] and len(sys.argv) == 2:
+        sys.exit(observe_main())
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:

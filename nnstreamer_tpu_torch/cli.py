@@ -13,11 +13,21 @@ The pipeline runs on the GPU; ``--device cpu`` runs it on the host. Errors
 exit nonzero with one ``nns-launch:`` line on stderr and no traceback.
 ``--timeout`` bounds a pipeline that does not end: at the bound it stops,
 prints "Timeout reached" with the sinks' counts, and exits 0.
+
+Observability: ``--stats`` prints the per-node stats as JSON (metrics on,
+so the rows carry latency_p50/p95/p99_ms and queue-wait percentiles, and
+``__pipeline__`` the frame accounting and transfer bytes); ``--metrics
+FILE`` writes the metrics snapshot at EOS (``nns-top`` renders it);
+``--trace FILE`` writes a chrome://tracing JSON of the nodes' frame spans;
+``--profile DIR`` runs the pipeline under ``torch.profiler`` (CPU and CUDA
+activities) and writes its Chrome trace into DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import sys
 import time
 
@@ -58,6 +68,18 @@ def main(argv=None) -> int:
         help="torch device to run on (default cuda; 'cpu' runs on the host)",
     )
     ap.add_argument("--timeout", type=float, default=None, help="run timeout (s)")
+    ap.add_argument(
+        "--stats", action="store_true",
+        help="print per-node stats JSON (metrics on: the rows carry latency_p50/p95/p99_ms "
+        "and queue-wait percentiles)",
+    )
+    ap.add_argument("--metrics", metavar="FILE", default=None,
+                    help="write the metrics JSON snapshot at EOS (nns-top renders it)")
+    ap.add_argument("--trace", metavar="FILE", default=None,
+                    help="write chrome://tracing JSON of per-node frame spans")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="run under torch.profiler (CPU and CUDA) and write its Chrome trace "
+                    "into DIR")
     ap.add_argument("--quiet", "-q", action="store_true")
     ap.add_argument("--version", action="version", version=f"nns-launch {__version__}")
     args = ap.parse_args(argv)
@@ -93,23 +115,57 @@ def main(argv=None) -> int:
             f"on {pipeline.device}",
             file=sys.stderr,
         )
+    from nnstreamer_tpu_torch import trace as trace_mod
+    from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+
+    if args.stats or args.metrics:
+        # the percentile columns need the histograms recording; the
+        # executor resolves the registry when run() builds it
+        obs_metrics.enable()
+    tracer = trace_mod.enable() if args.trace else None
+    profile_cm = (trace_mod.device_profile(args.profile) if args.profile
+                  else contextlib.nullcontext())
     t0 = time.perf_counter()
     timed_out = False
-    try:
-        pipeline.run(timeout=args.timeout)
-    except TimeoutError:
-        # an operator-requested bound on a pipeline that does not end: a
-        # stop, not an error (the run stopped every node before raising)
-        timed_out = True
-    except Exception as exc:  # noqa: BLE001 — CLI boundary: report, exit 1
-        print(f"nns-launch: pipeline error: {type(exc).__name__}: {exc}", file=sys.stderr)
-        return 1
+    with profile_cm:
+        try:
+            ex = pipeline.run(timeout=args.timeout)
+        except TimeoutError:
+            # an operator-requested bound on a pipeline that does not end: a
+            # stop, not an error (the run stopped every node before raising)
+            ex = pipeline._executor
+            timed_out = True
+        except Exception as exc:  # noqa: BLE001 — CLI boundary: report, exit 1
+            print(f"nns-launch: pipeline error: {type(exc).__name__}: {exc}", file=sys.stderr)
+            return 1
+    dt = time.perf_counter() - t0
+    if tracer is not None:
+        tracer.save(args.trace)
+        if not args.quiet:
+            print(f"Trace written to {args.trace}", file=sys.stderr)
+    if args.profile and not args.quiet:
+        print(f"Profile written to {args.profile}", file=sys.stderr)
     if not args.quiet:
         msg = "Timeout reached" if timed_out else "EOS"
-        print(f"{msg} after {time.perf_counter() - t0:.3f}s", file=sys.stderr)
+        print(f"{msg} after {dt:.3f}s", file=sys.stderr)
         for e in pipeline.elements:
             if hasattr(e, "rendered"):
                 print(f"  {e.name}: rendered {e.rendered} frames", file=sys.stderr)
+    if args.metrics:
+        from nnstreamer_tpu_torch.obs import expo
+
+        expo.dump_json(args.metrics, expo.snapshot(obs_metrics.get(), ex.stats(), ex.totals()))
+        if not args.quiet:
+            print(f"Metrics snapshot written to {args.metrics}", file=sys.stderr)
+    if args.stats:
+        stats = ex.stats()
+        # the pipeline's frame accounting beside the node rows; element
+        # names are the user's, so never clobber one
+        totals_key = "__pipeline__"
+        while totals_key in stats:
+            totals_key = "_" + totals_key
+        stats[totals_key] = ex.totals()
+        print(json.dumps(stats, indent=2))
     return 0
 
 

@@ -2,8 +2,8 @@
 
 The part of ``nnstreamer_tpu/config.py`` that the port reads: plugin
 search paths, the element restriction whitelist, the framework
-auto-detect priority, the ``[executor]`` micro-batching, fault-policy and
-device-resilience defaults, the
+auto-detect priority, the ``[executor]`` micro-batching, fault-policy,
+device-resilience, frame-ring, chain, sanitizer and metrics defaults, the
 ``[plane]`` serving-plane defaults and the ``[llm]`` serving defaults. Env mapping:
 section ``filter`` key ``framework_priority_pt`` is overridden by
 ``NNS_TPU_FILTER_FRAMEWORK_PRIORITY_PT``. The ini file is read only from
@@ -64,6 +64,32 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         "device_fallback_after": "3",
         "device_probe_every": "64",
         "oom_reprobe_ms": "30000.0",
+        # the in-flight frame ring (pipeline/transfer.py): frames each
+        # device node keeps submitted before it delivers the oldest (H2D
+        # of N+1, compute of N and the D2H of N-1 overlap; 1 = deliver
+        # each frame as it is made). A filter's ring-depth= overrides.
+        # donate is read and has no effect: a CUDA graph copies its
+        # inputs into its own static buffers, so there is nothing to
+        # donate. Env: NNS_TPU_EXECUTOR_RING_DEPTH etc.
+        "ring_depth": "2",
+        "donate": "true",
+        # whole-chain programs (pipeline/chain_program.py): auto runs every
+        # eligible chain of fused segments as ONE CUDA graph a window of
+        # chain_unroll frames; off keeps each segment's own program. A
+        # member's chain-mode=off overrides.
+        "chain_mode": "auto",
+        "chain_unroll": "4",
+        # the runtime sanitizer (pipeline/sanitize.py); NNS_TPU_SANITIZE
+        # is the one-knob env opt-in, read before this key
+        "sanitize": "false",
+        # live metrics (obs/): metrics turns the per-element histograms
+        # on (p50/p95/p99 in Executor.stats and --stats); metrics_port > 0
+        # also serves /metrics and /metrics.json from a background thread.
+        # NNS_TPU_METRICS / NNS_TPU_METRICS_PORT are read first.
+        "metrics": "false",
+        "metrics_port": "0",
+        # the endpoint's bind address: loopback unless widened on purpose
+        "metrics_host": "127.0.0.1",
     },
     "converter": {"plugin_paths": ""},
     "plane": {
@@ -86,6 +112,10 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # per-stream in-flight window tickets (1 = blocking submits);
         # tensor_filter ring-depth= outranks it
         "inflight": "1",
+        # the device memory a deployment may use, bytes (K/M/G suffixes);
+        # empty = no bound. A compiled chain's window is clamped to it
+        # (pipeline/chain_program.py)
+        "memory_per_device": "",
     },
     "llm": {
         # continuous-batching LLM serving defaults (tensor_llm_serversink
@@ -155,6 +185,13 @@ class Config:
         if raw == "":
             return default
         return raw.strip().lower() in ("1", "true", "yes", "on")
+
+    def get_int(self, section: str, key: str, default: int = 0) -> int:
+        raw = self.get(section, key, "")
+        try:
+            return int(raw) if raw != "" else default
+        except ValueError:
+            return default
 
     def get_list(self, section: str, key: str, sep: str = ",") -> List[str]:
         raw = self.get(section, key, "")

@@ -23,3 +23,6 @@ from nnstreamer_tpu_torch.elements import control  # noqa: F401
 from nnstreamer_tpu_torch.elements import windowing  # noqa: F401
 from nnstreamer_tpu_torch.elements import sparse_elems  # noqa: F401
 from nnstreamer_tpu_torch.elements import chaos  # noqa: F401
+from nnstreamer_tpu_torch.elements import stage  # noqa: F401
+from nnstreamer_tpu_torch.elements import media  # noqa: F401
+from nnstreamer_tpu_torch.elements import iio  # noqa: F401

@@ -161,6 +161,12 @@ class Element:
     # host and moves its output tensors up.
     DEVICE_PASSTHROUGH: bool = False
 
+    # An element that reads its frames' bytes on the host declares this:
+    # the node before it then starts ONE coalesced asynchronous D2H a frame
+    # at submit and hands it the host copy (pipeline/transfer.py). Any other
+    # consumer gets device tensors untouched.
+    WANTS_HOST: bool = False
+
     # the dead-letter error pad (install_error_pad): its src pad index, or None
     error_pad: Optional[int] = None
 
@@ -338,10 +344,27 @@ class Source(Element):
 
 
 class Sink(Element):
-    """Stream sink: receives frames on its own thread."""
+    """Stream sink: receives frames on its own thread.
+
+    ``sync-window`` (default 1): how many frames the sink may trail the
+    device stream. 1 renders each frame as it comes, through one coalesced
+    D2H of its tensors; N > 1 collects N frames and fetches the whole
+    window's tensors in ONE copy (pipeline/transfer.py ``fetch_window``).
+    Order and EOS are unchanged. A sink that never reads tensor bytes
+    (``READS_HOST = False``: fakesink) gets its frames untouched."""
 
     N_SINKS = 1
     N_SRCS = 0
+
+    READS_HOST: bool = True
+
+    PROPERTIES = {
+        "sync-window": PropSpec("int", 1, desc="frames the sink may trail the device stream"),
+    }
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self.sync_window = max(1, int(self.get_property("sync-window", 1)))
 
     def negotiate(self, in_specs: List[Spec]) -> List[Spec]:
         return []

@@ -458,6 +458,8 @@ class TensorRepoSink(Sink):
     """Write frames into a repo slot (slot-index=N)."""
 
     FACTORY_NAME = "tensor_reposink"
+    # the repo keeps frames where they are: a reposrc loop stays on the device
+    READS_HOST = False
 
     PROPERTIES = {
         "slot-index": PropSpec("int", 0),

@@ -30,13 +30,19 @@ stream's weighted-fair share; ``plane-max-batch``, ``plane-timeout-ms``,
 (the first attacher's config binds the plane; a sharer that sets none of
 them inherits it). A plane filter is a fusion barrier and a batch-capable
 host node: its local collector defaults on, window-matched to the plane,
-and each collected window is one plane round trip. ``ring-depth`` (1..32,
-default ``[plane] inflight``) is the stream's in-flight window tickets: at
-depth > 1 window N+1 submits while N computes. ``plane-mode=replicas``
-opens one backend a replica behind the plane's failover
-(serving_plane/sharding.py ``ReplicatedProgram``). ``plane-mode=shard``
-over more than one device, and ``ring-depth`` without a plane, are not
-ported and raise at construction.
+and each collected window is one plane round trip. Under ``plane=``,
+``ring-depth`` (1..32, default ``[plane] inflight``) is the stream's
+in-flight window tickets: at depth > 1 window N+1 submits while N
+computes. ``plane-mode=replicas`` opens one backend a replica behind the
+plane's failover (serving_plane/sharding.py ``ReplicatedProgram``).
+``plane-mode=shard`` over more than one device is not ported and raises at
+construction.
+
+Streaming (pipeline/transfer.py, pipeline/chain_program.py): without a
+plane, ``ring-depth`` is the in-flight frame ring of the filter's node
+(default ``[executor] ring_depth`` = 2 on a fused segment; 1 delivers each
+frame as it is made), and ``chain-mode=off`` keeps the filter's chain on
+the per-node path (default ``[executor] chain_mode`` = auto).
 
 Faults (pipeline/faults.py, pipeline/device_faults.py): ``on-error``,
 ``retry-max`` and ``retry-backoff-ms`` (the per-frame error policy, with
@@ -206,7 +212,15 @@ class TensorFilter(TensorOp):
         "plane-timeout-ms": PropSpec(
             "float", None, desc="plane straggler wait when trickle-fed ([plane] timeout_ms)"),
         "ring-depth": PropSpec(
-            "int", None, desc="in-flight plane window tickets, 1..32 ([plane] inflight)"),
+            "int", None,
+            desc="in-flight frames of the filter's node, 1..32 ([executor] ring_depth = 2; "
+            "1 delivers each frame as it is made); under plane= the stream's in-flight "
+            "window tickets ([plane] inflight)"),
+        "chain-mode": PropSpec(
+            "enum", None, ("auto", "off"),
+            desc="whole-chain program for the chain this filter belongs to: auto runs an "
+            "eligible chain as one CUDA graph a window, off keeps the per-node path "
+            "([executor] chain_mode = auto)"),
         "shared-tensor-filter-key": PropSpec(
             "str", "", desc="filters with one key share one opened backend"),
         # per-frame error policy (pipeline/faults.py) and device resilience
@@ -354,11 +368,7 @@ class TensorFilter(TensorOp):
         self.plane_inflight = 1     # async ticket depth (1 = blocking)
         raw_rd = self.get_property("ring-depth")
         if not self.plane:
-            if raw_rd is not None:
-                raise NotImplementedError(
-                    f"{self.name}: ring-depth without plane= (the executor's in-flight "
-                    "frame ring, pipeline/transfer.py) is not ported yet (ROADMAP A.6b)"
-                )
+            # the executor's in-flight frame ring takes it (pipeline/transfer.py)
             return
         from nnstreamer_tpu_torch.serving_plane.plane import resolve_plane_config
         from nnstreamer_tpu_torch.serving_plane.sharding import refuse_unported

@@ -322,6 +322,10 @@ class _LlmServer:
         )
         if "seed" in frame.meta:
             kw["seed"] = int(frame.meta["seed"])
+        if "deadline_ms" in frame.meta:
+            # SLO accounting (requests(), nns-top --requests); shedding an
+            # expired frame is the executor's, upstream of this element
+            kw["deadline_s"] = float(frame.meta["deadline_ms"]) / 1000.0
         if self._plane is not None:
             # weighted-fair admission into the SHARED batcher; backpressure
             # past the fair backlog pumps inside the plane's submit
@@ -570,6 +574,9 @@ class _LlmServer:
             # the shared batcher's counters + this stream's only
             return self._plane.stats_for(self._stream)
         st = self.cb.stats()
+        # the SLO rows of nns-top --requests (serving_requests once the
+        # executor prefixes the row)
+        st["requests"] = {str(rid): row for rid, row in self.cb.requests().items()}
         if self.speculate == -1:
             st["spec_k"] = self._spec_k
             st["spec_acceptance_ema"] = self._acc_ema

@@ -155,6 +155,8 @@ class FakeSink(Sink):
     real compute."""
 
     FACTORY_NAME = "fakesink"
+    # never reads tensor bytes: no host copy is fetched on its behalf
+    READS_HOST = False
 
     PROPERTIES = {
         "sync-device": PropSpec("bool", True, desc="wait for the device work behind each frame"),

@@ -514,6 +514,12 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         # collects cannot grow the host heap without limit
         self._done_pool: "OrderedDict[int, _Request]" = OrderedDict()
         self._keep_results = keep_results
+        # per-request SLO accounting (kv/sched.py), its histograms on the
+        # metrics registry when one is on
+        from nnstreamer_tpu_torch.kv.sched import SLOLedger
+        from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+
+        self._slo = SLOLedger(keep=keep_results, obs_registry=obs_metrics.get())
 
         d = params.d_model
         hd = d // n_heads
@@ -671,7 +677,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
     # -- client API ----------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, seed: Optional[int] = None,
-               stop_token: Optional[int] = None, prefix: Optional[int] = None) -> Optional[int]:
+               stop_token: Optional[int] = None, prefix: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> Optional[int]:
         """Claim a free slot for ``prompt`` [T] and prefill it; returns a
         request id, or None when every slot is taken (the caller retries).
         Prompts longer than ``prompt_len`` prefill in bucket-sized chunks;
@@ -685,7 +692,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         takes prompts and budgets of any length (its ring keeps the last
         max_len tokens); a prompt longer than prompt_len, or one behind a
         prefix, needs max_len to be a multiple of prompt_len, checked
-        before any slot is claimed."""
+        before any slot is claimed. ``deadline_s`` is SLO accounting only
+        (:meth:`requests`), never an eviction trigger."""
         self._check_failed()
         prompt = np.asarray(prompt, np.int64).reshape(-1)
         t = prompt.shape[0]
@@ -719,7 +727,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
             )
         if self._paged:
             return self._submit_paged(context.astype(np.int32), max_new_tokens, temperature,
-                                      top_k, top_p, seed, stop_token)
+                                      top_k, top_p, seed, stop_token, deadline_s)
         fill = plen + t
         with self._lock:
             # claim only: the slot is owned but inactive while the prefill
@@ -732,6 +740,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
             req.prompt = context.astype(np.int32)
             rid = req.rid
             self._slots[slot] = req
+            self._slo.submit(rid, deadline_s)
         try:
             P = self.prompt_len
             with torch.no_grad():
@@ -819,8 +828,10 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 if p.blocks is not None:
                     # the table row first, so a finish below frees the blocks
                     self._set_table_locked(p.slot, p.blocks)
+                self._slo.admitted(p.req.rid)
                 if not p.resumed:
                     p.req.tokens.append(int(first))
+                    self._slo.first_token(p.req.rid)
                     if p.req.finished():  # budget one, or a stop token on it
                         self._finish(p.slot)
                         continue
@@ -1111,6 +1122,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         self._pump_state_dirty = True  # the slot leaves the batch
         if self._paged:
             self._release_blocks_locked(slot)
+        self._slo.finished(req.rid, len(req.tokens))
         self._done_pool[req.rid] = req
         while len(self._done_pool) > self._keep_results:
             self._done_pool.popitem(last=False)  # evict the oldest uncollected
@@ -1139,6 +1151,23 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 if rid in self._done_pool:
                     out[rid] = list(self._done_pool[rid].tokens)
         return out
+
+    def requests(self) -> Dict[int, Dict[str, Any]]:
+        """The per-request view behind ``nns-top --requests``: from the SLO
+        ledger, each request's state (queued / prefilling / decoding / done
+        / migrated), queue / TTFT / TPOT milliseconds, tokens, preemptions
+        and deadline headroom; a live one adds its slot and token count,
+        and on the paged layout the KV blocks it holds."""
+        with self._lock:
+            extra: Dict[int, Dict[str, Any]] = {}
+            for s, req in enumerate(self._slots):
+                if req is None:
+                    continue
+                row: Dict[str, Any] = {"slot": s, "tokens": len(req.tokens)}
+                if self._paged:
+                    row["blocks"] = int(self._n_alloc[s])
+                extra[req.rid] = row
+            return self._slo.view(extra)
 
     def _program_name(self, key: tuple) -> str:
         """The name of a program: layout, n (a pump) or spec-r<rounds>-

@@ -104,7 +104,8 @@ class PagedAdmission:
 
     def _submit_paged(self, prompt: np.ndarray, max_new_tokens: int, temperature: float,
                       top_k: int, top_p: float, seed: Optional[int],
-                      stop_token: Optional[int]) -> Optional[int]:
+                      stop_token: Optional[int],
+                      deadline_s: Optional[float] = None) -> Optional[int]:
         """Claim a slot and queue a chunked-prefill job; no device work.
         The prefix match happens when the job starts staging, so queued
         work pins no blocks."""
@@ -116,6 +117,7 @@ class PagedAdmission:
                                     stop_token, fill0=0)
             req.prompt = prompt
             self._slots[slot] = req
+            self._slo.submit(req.rid, deadline_s)
             self._prefill_q.append(PrefillJob(slot, req, prompt))
         return req.rid
 
@@ -156,6 +158,8 @@ class PagedAdmission:
                 idle = not self._active.any() and not self._pending
             if job is None or (budget <= 0 and not idle):
                 return
+            with self._lock:
+                self._slo.prefilling(job.req.rid)
             if not job.done_staging():
                 self._prefill_chunk_one(job)
                 budget -= 1
@@ -332,6 +336,7 @@ class PagedAdmission:
         self._active[slot] = False
         self._pump_state_dirty = True
         self._n_preemptions += 1
+        self._slo.preempted(req.rid)
         context = req.prompt
         if len(req.tokens) > 1:
             context = np.concatenate([req.prompt, np.asarray(req.tokens[:-1], np.int32)])

@@ -22,13 +22,15 @@ the draft's cache) and mark the host-built pump state and the tables
 stale, which the next pump ships. A restore or adoption that is refused
 raises its typed error before anything moves.
 
-Not ported yet: the reference's SLO ledger (it comes with the
-observability slice), so a snapshot carries no ledger and a span no
-deadline (None) and no preemption count (0).
+The SLO ledger (kv/sched.py) rides along: a snapshot carries it whole and
+a restore loads it; an extracted span carries its request's remaining
+deadline and preemption count, the source's record turns ``migrated``, and
+an adopting or resuming batcher opens a record of its own with both.
 """
 
 from __future__ import annotations
 
+import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Tuple
 
@@ -121,8 +123,8 @@ class ServingState:
         accounting. Pending admissions are applied first; a paged batcher
         must have drained its prefill queue (pump until
         ``kv_prefill_queue`` is 0), so that no half-staged prompt is lost.
-        The reference's SLO ledger is not ported, so it is not in it. The
-        snapshot is this package's own dict: it does not load into the JAX
+        The SLO ledger is in it (``slo``). The snapshot is this package's
+        own dict: it does not load into the JAX
         package's batcher."""
         self._check_failed()
         with self._step_lock:
@@ -159,6 +161,7 @@ class ServingState:
                         "n_spec_columns": self._n_spec_columns,
                     },
                     "done": {rid: list(r.tokens) for rid, r in self._done_pool.items()},
+                    "slo": self._slo.snapshot(),
                     "next_prefix": self._next_prefix,
                 }
                 if self._paged:
@@ -260,6 +263,7 @@ class ServingState:
             self._done_pool = OrderedDict()
             for rid, toks in snap.get("done", {}).items():
                 self._done_pool[int(rid)] = _Request(int(rid), 0, tokens=list(toks))
+            self._slo.restore(snap.get("slo", {}))
             if self._paged:
                 self._prefill_q.clear()
                 self._tables = np.asarray(snap["tables"], np.int32).copy()
@@ -336,6 +340,11 @@ class ServingState:
                     if n_tok == bs:
                         h = roll_hash(h, stream[i * bs:(i + 1) * bs])
                         hashes.append(h)
+                # the deadline travels as what is left of it
+                rec = self._slo.record(rid)
+                deadline = None
+                if rec is not None and rec.deadline_s is not None:
+                    deadline = rec.deadline_s - (time.perf_counter() - rec.t_submit)
                 span = RequestSpan(
                     block_size=bs, leaves=self._span_leaf_template(),
                     cache_dtype=("int8" if self.cache_dtype == "int8"
@@ -344,7 +353,8 @@ class ServingState:
                     tokens=list(req.tokens), fill0=int(req.fill0), budget=int(req.budget),
                     temperature=float(req.temperature), top_k=int(req.top_k),
                     top_p=float(req.top_p), stop_token=req.stop_token,
-                    key=seed_words(req.seed), deadline_s=None, preemptions=0,
+                    key=seed_words(req.seed), deadline_s=deadline,
+                    preemptions=rec.preemptions if rec is not None else 0,
                     prefix_hashes=hashes, blocks=records,
                 )
                 if remove:
@@ -354,16 +364,20 @@ class ServingState:
                     self._active[slot] = False
                     self._pump_state_dirty = True
                     self._slots[slot] = None
+                    self._slo.migrated(rid)
                     self._n_migrations_out += 1
         return span
 
     def _span_request(self, span):
-        """A new request (the next rid) carrying a span's row (caller holds
+        """A new request (the next rid) carrying a span's row, and its SLO
+        record with the span's deadline and preemptions (caller holds
         _lock)."""
         from nnstreamer_tpu_torch.models.serving import _Request
 
         rid = self._next_rid
         self._next_rid += 1
+        rec = self._slo.submit(rid, span.deadline_s)
+        rec.preemptions = int(span.preemptions)
         return _Request(rid, int(span.budget), temperature=float(span.temperature),
                         top_k=int(span.top_k), top_p=float(span.top_p),
                         stop_token=span.stop_token, seed=seed_of_words(span.key),

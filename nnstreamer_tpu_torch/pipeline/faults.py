@@ -23,10 +23,11 @@ window through it per frame, so one bad frame never discards its
 batchmates. :class:`PipelineStallError` is the stall watchdog's typed
 report of a hang.
 
-The reference also NACKs an admitted edge request (``_nns_srv`` meta) that
-a policy disposes of, and records trace events and ``nns_fault_events``;
-the port's edge layer (ROADMAP A.7) and observability layer (A.6b) come
-later, so here the disposal is counted in :class:`FaultStats` only.
+Each retry, drop and route is a trace event (trace.py) and a count in
+``nns_fault_events_total`` by action when metrics are on, besides
+:class:`FaultStats`. The reference also NACKs an admitted edge request
+(``_nns_srv`` meta) that a policy disposes of; the port's edge layer
+(ROADMAP A.7) comes later.
 """
 
 from __future__ import annotations
@@ -255,6 +256,10 @@ class FaultGate:
         # a per-node jitter stream with a content-stable seed, so retry
         # timing does not change with PYTHONHASHSEED
         self._rng = random.Random(zlib.crc32(name.encode()))
+        # the metrics registry, resolved once (None when metrics are off)
+        from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+
+        self._obs_reg = obs_metrics.get()
 
     def process(self, frame, fn: Callable[[Any], Any]) -> Tuple[bool, Any]:
         policy = self.policy
@@ -271,6 +276,8 @@ class FaultGate:
                     attempt += 1
                     self.stats.retries += 1
                     self.stats.backoff_total_s += delay
+                    self._trace("retry", exc, attempt=attempt,
+                                backoff_ms=round(delay * 1000.0, 3))
                     self._sleep(delay)
                     continue
                 return False, self.dispose(frame, exc, attempt)
@@ -288,20 +295,36 @@ class FaultGate:
         if mode == "route":
             if self.route is not None:
                 self.stats.routed += 1
+                self._trace("route", exc)
                 self.route(make_error_frame(frame, exc, self.name))
                 notify_discard(frame, self.name, "route")
                 return None
             self.stats.routed_unlinked += 1
             self.stats.dropped += 1
+            self._trace("route-unlinked", exc)
             _log.warning("%s: on-error=route but the error pad is unlinked; dropping "
                          "frame (%s: %s)", self.name, type(exc).__name__, exc)
             notify_discard(frame, self.name, "drop")
             return None
         self.stats.dropped += 1
+        self._trace("drop", exc, attempts=attempts)
         _log.debug("%s: dropped frame after %d attempt(s), %s: %s",
                    self.name, attempts, type(exc).__name__, exc)
         notify_discard(frame, self.name, "drop")
         return None
+
+    def _trace(self, action: str, exc: Exception, **extra) -> None:
+        """One fault event: a trace event when tracing is on, and
+        ``nns_fault_events_total`` by action when metrics are (cold path:
+        one event a retry, drop or route, never a frame)."""
+        from nnstreamer_tpu_torch import trace
+
+        tracer = trace.get()
+        if tracer is not None:
+            tracer.fault(self.name, action, exc, **extra)
+        reg = self._obs_reg
+        if reg is not None:
+            reg.counter("nns_fault_events_total", element=self.name, action=action).inc()
 
     def _sleep(self, delay: float) -> None:
         """A backoff sleep in short slices that honours the executor's stop

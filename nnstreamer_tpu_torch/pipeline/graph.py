@@ -8,6 +8,10 @@ The counterpart of ``nnstreamer_tpu/pipeline/graph.py``:
       torch callable per segment (:class:`FusedSegment`); routing and
       host elements, and ``queue`` (a thread boundary, as in GStreamer),
       get nodes of their own
+    → chains (:meth:`ExecPlan.chains`): maximal runs of fused segments
+      joined by device handoffs across queue / capsfilter plumbing; an
+      eligible one runs as ONE program a window of frames
+      (pipeline/chain_program.py)
     → Executor (pipeline/executor.py): one thread per node, bounded
       per-pad queues, fan-out to every link of a src pad.
 
@@ -39,6 +43,7 @@ from nnstreamer_tpu_torch.pipeline.batching import BatchStats, resolve_batch_con
 from nnstreamer_tpu_torch.pipeline.device_faults import resolve_device_policy
 from nnstreamer_tpu_torch.pipeline.faults import resolve_fault_policy
 from nnstreamer_tpu_torch.pipeline.programs import Program, ProgramCache, sig_of
+from nnstreamer_tpu_torch.pipeline.transfer import resolve_ring_depth
 from nnstreamer_tpu_torch.tensors.frame import Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
 
@@ -229,6 +234,11 @@ class Pipeline:
             seg.batch_config = resolve_batch_config(seg.ops)
             seg.fault_policy = resolve_fault_policy(seg.ops)
             seg.device_policy = resolve_device_policy(seg.ops)
+            # a fused segment's frame ring takes [executor] ring_depth; a
+            # host-path op keeps delivering each frame at once unless it
+            # sets ring-depth itself (its invoke cannot overlap itself)
+            if seg.fused or seg.first.get_property("ring-depth") is not None:
+                seg.ring_depth = resolve_ring_depth(seg.ops)
             for op in seg.ops:
                 op.batch_stats = seg.batch_stats
         return ExecPlan(self, segments, seg_of)
@@ -338,10 +348,19 @@ class FusedSegment:
         # device circuit and OOM governor from them
         self.fault_policy = None
         self.device_policy = None
+        # the in-flight frame ring's depth (pipeline/transfer.py), resolved
+        # at plan time; pad rows as poison under the sanitizer
+        # (pipeline/sanitize.py)
+        self.ring_depth = 1
+        self.sanitize_poison = False
 
     @property
     def first(self) -> TensorOp:
         return self.ops[0]
+
+    @property
+    def last(self) -> TensorOp:
+        return self.ops[-1]
 
     @property
     def name(self) -> str:
@@ -497,9 +516,52 @@ class FusedSegment:
         # the PADDED bucket, the width the program allocates
         for probe in self.device_probes():
             probe(bucket)
+        rows = [f.tensors for f in frames]
+        if self.sanitize_poison and bucket > n:
+            # the sanitizer's pad rows are poison, so a split off by one
+            # shows as garbage, never as a plausible replica
+            from nnstreamer_tpu_torch.pipeline.sanitize import poison_like
+
+            rows = rows + [tuple(poison_like(t) for t in rows[-1])] * (bucket - n)
         with torch.inference_mode():
-            outs = self.programs.run_rows([f.tensors for f in frames], bucket)
+            outs = self.programs.run_rows(rows, bucket)[:n]
         return [f.with_tensors(o) for f, o in zip(frames, outs)], bucket
+
+
+def is_plumbing(e: Element) -> bool:
+    """queue and capsfilter: elements that never read tensor bytes, so a
+    device handoff rides through them untouched (the class declares
+    ``DEVICE_PASSTHROUGH``; a converter subplugin sets it on its instance
+    and parses bytes, so it is no plumbing)."""
+    return bool(getattr(type(e), "DEVICE_PASSTHROUGH", False))
+
+
+@dataclass
+class Chain:
+    """One compile unit: a maximal run of fused segments joined by device
+    handoffs. An eligible chain of two or more under ``[executor]
+    chain_mode=auto`` runs as ONE program a window of frames
+    (pipeline/chain_program.py ``decide_chain`` / ``ChainProgram``);
+    anything else runs each segment as its own program, the per-node
+    path that the chain is held against."""
+
+    segments: List[FusedSegment]
+
+    @property
+    def first(self) -> TensorOp:
+        return self.segments[0].first
+
+    @property
+    def last(self) -> TensorOp:
+        return self.segments[-1].last
+
+    @property
+    def name(self) -> str:
+        return " => ".join(s.name for s in self.segments)
+
+    @property
+    def ops(self) -> List[TensorOp]:
+        return [op for s in self.segments for op in s.ops]
 
 
 @dataclass
@@ -507,3 +569,55 @@ class ExecPlan:
     pipeline: Pipeline
     segments: List[FusedSegment]
     seg_of: Dict[Element, FusedSegment]
+
+    def fused_seg(self, e: Element) -> Optional[FusedSegment]:
+        seg = self.seg_of.get(e)
+        return seg if seg is not None and seg.fused else None
+
+    def _device_successor(self, seg: FusedSegment) -> Optional[FusedSegment]:
+        """The one fused segment ``seg`` hands its frames to on the
+        device: reachable from ``seg.last`` across only plumbing (queue,
+        capsfilter). Anything else on the way (a host-path op, routing, a
+        tee's fan-out, a sink) ends the chain, as does reaching two
+        different segments."""
+        frontier = [l.dst for l in self.pipeline.out_links(seg.last)]
+        seen: set = set()
+        hit: Optional[FusedSegment] = None
+        while frontier:
+            e = frontier.pop()
+            if id(e) in seen:
+                continue
+            seen.add(id(e))
+            s2 = self.fused_seg(e)
+            if s2 is not None and s2 is not seg:
+                if hit is not None and hit is not s2:
+                    return None
+                hit = s2
+            elif s2 is None and is_plumbing(e):
+                frontier.extend(l.dst for l in self.pipeline.out_links(e))
+        return hit
+
+    def chains(self) -> List[Chain]:
+        """The compile units (:class:`Chain`) in plan order: every fused
+        segment lands in exactly one; a pipeline with no host hop between
+        its segments is one chain end to end."""
+        fused = [s for s in self.segments if s.fused]
+        next_of: Dict[int, FusedSegment] = {}
+        has_prev: set = set()
+        for seg in fused:
+            succ = self._device_successor(seg)
+            if succ is not None:
+                next_of[id(seg)] = succ
+                has_prev.add(id(succ))
+        out: List[Chain] = []
+        for seg in fused:
+            if id(seg) in has_prev:
+                continue
+            run = [seg]
+            while id(run[-1]) in next_of:
+                nxt = next_of[id(run[-1])]
+                if any(s is nxt for s in run):  # a cycle guard
+                    break
+                run.append(nxt)
+            out.append(Chain(segments=run))
+        return out

@@ -238,13 +238,17 @@ class LlmPlane:
 
     # -- observability -----------------------------------------------------
     def stats_for(self, stream: LlmStream) -> Dict[str, Any]:
-        """Batcher counters + the plane-wide sharing surface + THIS
-        stream's counters. The reference also carries this stream's SLO
-        request rows (``requests``, from the batcher's ledger); the
-        port's batcher has no ledger yet (ROADMAP A.6b), so the rows are
-        not here."""
+        """Batcher counters + THIS stream's SLO request rows only
+        (``requests``, from the batcher's ledger: sharers never report
+        each other's) + the plane-wide sharing surface + this stream's
+        counters."""
         cb = self.cb
-        st: Dict[str, Any] = {} if cb is None else cb.stats()
+        if cb is None:  # closed: only the stream-side counters remain
+            st: Dict[str, Any] = {"requests": {}}
+        else:
+            st = cb.stats()
+            st["requests"] = {str(rid): row for rid, row in cb.requests().items()
+                              if rid in stream.rids}
         with self._lock:
             st["plane"] = self.name
             st["plane_streams"] = len(self._sched)

@@ -219,6 +219,19 @@ class ModelPlane:
         # (inc under the plane lock at submit, dec at wait-side
         # resolution — the async ring's live depth)
         self._inflight_total = 0
+        # the plane's metrics (obs/metrics.py), made once when a registry
+        # is on: batch occupancy and backlog a dispatch, the in-flight
+        # windows, a ticket's redeem wait
+        from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+
+        reg = obs_metrics.get()
+        self._occ_hist = self._depth_gauge = self._inflight_gauge = self._wait_hist = None
+        if reg is not None:
+            self._occ_hist = reg.histogram("nns_plane_batch_occupancy", lo=1.0,
+                                           growth=2.0 ** 0.5, nbuckets=16, plane=name)
+            self._depth_gauge = reg.gauge("nns_plane_queue_depth", plane=name)
+            self._inflight_gauge = reg.gauge("nns_plane_inflight_windows", plane=name)
+            self._wait_hist = reg.histogram("nns_plane_submit_wait_ms", plane=name)
         self._thread = threading.Thread(
             target=self._serve, name=f"nns-plane-{name}", daemon=True
         )
@@ -251,6 +264,8 @@ class ModelPlane:
                     0, self._inflight_total - stream.inflight
                 )
                 stream.inflight = 0
+                if self._inflight_gauge is not None:
+                    self._inflight_gauge.set(self._inflight_total)
         for req in pending:
             # a detaching stream's queued frames get a terminal outcome,
             # never a silent hang
@@ -282,6 +297,8 @@ class ModelPlane:
             stream.admitted += len(windows)
             stream.inflight += 1
             self._inflight_total += 1
+            if self._inflight_gauge is not None:
+                self._inflight_gauge.set(self._inflight_total)
             self._cond.notify_all()
         return req
 
@@ -303,6 +320,7 @@ class ModelPlane:
         last check: a wedged service thread surfaces after at most
         2×``submit_timeout_s`` regardless of ring depth, instead of the
         depth masking it."""
+        t_wait0 = time.perf_counter()
         try:
             deadline = time.monotonic() + self.cfg.submit_timeout_s
             max_ext = 1 + max(0, req.ahead)
@@ -351,6 +369,10 @@ class ModelPlane:
                     self._inflight_total = max(
                         0, self._inflight_total - 1
                     )
+                    if self._inflight_gauge is not None:
+                        self._inflight_gauge.set(self._inflight_total)
+            if self._wait_hist is not None:
+                self._wait_hist.observe((time.perf_counter() - t_wait0) * 1000.0)
         if req.exc is not None:
             raise req.exc
         return req.out
@@ -439,6 +461,10 @@ class ModelPlane:
         n = len(flat)
         self._account_dispatch(n)
         self.batch_stats.record(n, n, wait_s)
+        if self._occ_hist is not None:
+            self._occ_hist.observe(n)
+        if self._depth_gauge is not None:
+            self._depth_gauge.set(depth)
 
     def _account_dispatch(self, n: int) -> None:
         """The ONE place the dispatch counters mutate — the service

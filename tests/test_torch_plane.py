@@ -517,6 +517,14 @@ def test_plane_filter_refuses_a_reload():
 def test_unported_plane_modes_raise_before_any_backend_opens(props, queue, monkeypatch):
     opened = []
     monkeypatch.setattr(TensorFilter, "_open_backend", lambda self: opened.append(self))
+    if queue == "A.6b":
+        # ported since: ring-depth without plane= is the executor's frame
+        # ring (pipeline/transfer.py), so the filter constructs, opens no
+        # plane, and keeps its ticket depth at 1
+        f = TensorFilter(framework="torch", model="zoo:mobilenet_v2", **props)
+        assert f.plane == "" and f.plane_inflight == 1 and f.get_property("ring-depth") == "3"
+        assert opened == [] and plane_mod.get("") is None
+        return
     with pytest.raises(NotImplementedError, match=f"not ported yet \\(ROADMAP {queue}\\)"):
         TensorFilter(framework="torch", model="zoo:mobilenet_v2", **props)
     assert opened == [] and plane_mod.get(props.get("plane", "")) is None
