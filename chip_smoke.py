@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sources     # only the model_sources group (K1 built first)
     python3 chip_smoke.py --faults      # only the faults group (K1 built first)
     python3 chip_smoke.py --observe     # only the observe group (K1 built first)
+    python3 chip_smoke.py --edge        # only the edge group (K1, K4 built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -478,6 +479,41 @@ stream; a trickle runs smaller buckets):
                  batch spans add up to the frames), K1's kernel name in the
                  torch.profiler trace.
 
+Last, the edge group (ROADMAP A.7; alone with ``--edge``), with metrics on:
+
+37. query_labeling — the labeling pipeline split across the wire, 64
+                 1280x720 gradient frames: a query server pipeline
+                 (tensor_query_serversrc → resize 224 (K1) → MobileNet-v2
+                 1.0/224/1001 → image_labeling → tensor_query_serversink)
+                 and a client pipeline (videotestsrc → tensor_converter →
+                 tensor_query_client → tensor_sink), both on cuda, over
+                 TCP, SHM and HYBRID (discovery through the port's own
+                 MqttBroker): labels equal to the local pipeline frame by
+                 frame, K1 64 a run, H2D exactly 64 frames' bytes (the
+                 client moves none through the card), D2H under 64 B a
+                 frame, nns_edge_requests_total 64, no NACK, the native
+                 transports; fps and RTT p50/p99 from nns_edge_rtt_us.
+38. query_fleet — two such servers behind one tensor_query_client hosts=,
+                 the first drained over the wire (request_drain) once 16
+                 frames came back: every frame answered once (unique
+                 frame_ids, no duplicate reply), labels equal, the drained
+                 server draining with its NACKs ``draining``, K1 64.
+39. disagg      — tensor_llm_serversink role=prefill decode-peers= against
+                 a role=decode peer behind a tensor_query_serversrc, on one
+                 card over TCP loopback, at Mistral-7B's widths (vocab
+                 32000, d_model 4096, 32 heads, 8 KV heads, d_ff 14336) and
+                 4 of its 32 layers, float32, paged: 4 greedy prompts of
+                 128-512 tokens, 32 new tokens each, equal to a private
+                 paged batcher's solo runs; outcome handoff x 4, the decode
+                 peer's kv_prefill_chunks 0, K4 = 4 layers x the steps of
+                 both servers; span bytes and GB/s of the extract, the wire
+                 and the adopt, the decode peer's TPOT p50. Then a decode
+                 peer too small for one span: outcome local, tokens equal.
+40. migrate     — drain(migrate_to=peer) on a paged server after 8
+                 generated tokens: the 4 requests continue on a peer
+                 pipeline, equal to the uninterrupted run, with no prefill
+                 on the peer and K4 = 4 x the peer's steps.
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -670,7 +706,6 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
     profiles keep no device record at all (seen late in a long run, for
     5 ms kernels), the time is the CUDA-event stream time per call of
     ``reps`` back-to-back calls (:func:`time_ms`) and the records are 0."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for args in pool[:3]:
@@ -681,17 +716,31 @@ def device_ms(torch, fn, pool, reps: int, per_launch=False):
             for i in range(reps):
                 fn(*pool[i % len(pool)])
             torch.cuda.synchronize()
-        events = [
-            ev for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
-        ]
-        total_us = sum(ev.self_device_time_total for ev in events)
-        records = sum(ev.count for ev in events)
+        by_name = device_records(prof)
+        total_us = sum(us for us, _ in by_name.values())
+        records = sum(n for _, n in by_name.values())
         if total_us > 0 and per_launch:
-            return sum(ev.self_device_time_total / ev.count for ev in events) / 1e3, records
+            return sum(us / n for us, n in by_name.values()) / 1e3, records
         if total_us > 0:
             return total_us / 1e3 / reps, records
     return time_ms(torch, fn, pool, reps), 0
+
+
+def device_records(prof):
+    """Kernel name → (summed µs, records) of every device record a profile
+    kept, read from its kineto results: the same records as
+    ``key_averages()``'s device rows, without building the profiler's Python
+    events, which costs about 0.2 ms a record (minutes for a plain
+    version's loop of 10⁵ launches)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_async() or ev.duration_ns() <= 0:
+            continue
+        us, n = out.get(ev.name(), (0.0, 0))
+        out[ev.name()] = (us + ev.duration_ns() / 1e3, n + 1)
+    return out
 
 
 def alone_ms(torch, fn, args, reps: int = 5) -> float:
@@ -6965,6 +7014,432 @@ def observe_phases(torch, np, dev, parse_pipeline, ik):
     return {"k1_launches": chain["k1_total"], "seconds": time.perf_counter() - t0}
 
 
+# -- the edge group (ROADMAP A.7): query offload, a fleet, disagg, migration --
+
+EDGE_FRAMES = 64
+EDGE_W, EDGE_H = 1280, 720
+EDGE_SERVER = (
+    "tensor_query_serversrc name=qs {conn} id={sid} max-inflight=8 ! "
+    "tensor_transform mode=resize option=224:224 ! "
+    "tensor_filter framework=torch model=zoo:mobilenet_v2 ! "
+    "tensor_decoder mode=image_labeling ! tensor_query_serversink id={sid}"
+)
+EDGE_CLIENT = (
+    "videotestsrc pattern=gradient width={w} height={h} num-frames={n} ! tensor_converter ! "
+    "tensor_query_client name={qc} {conn} timeout=120 ! tensor_sink name=out"
+)
+EDGE_LOCAL = (
+    "videotestsrc pattern=gradient width={w} height={h} num-frames={n} ! tensor_converter ! "
+    "tensor_transform mode=resize option=224:224 ! "
+    "tensor_filter framework=torch model=zoo:mobilenet_v2 ! "
+    "tensor_decoder mode=image_labeling ! tensor_sink name=out"
+)
+# Mistral-7B's published widths at 4 of its 32 layers: the handoff and the
+# migration move one request's span whatever the depth
+EDGE_LAYERS = 4
+EDGE_LLM = dict(MISTRAL, n_layers=EDGE_LAYERS, seed=0)
+EDGE_PROMPTS = (128, 256, 384, 512)  # tokens
+EDGE_NEW = 32
+EDGE_SERVE = dict(n_slots=4, max_len=1024, prompt_len=512)
+# a decode peer too small for one span: a max-len below the longest prompt
+EDGE_SMALL_PEER = dict(n_slots=1, max_len=128, prompt_len=64)
+EDGE_PREFILL = (
+    "appsrc name=src dimensions=512:1 types=int32 ! "
+    'tensor_llm_serversink id={sid} custom="{opts}" attn-impl=pallas kv-layout=paged '
+    "block-size=16 {serve} max-new-tokens={new} role=prefill decode-peers=127.0.0.1:{peer}/{pid} "
+    "tensor_llm_serversrc name=ssrc id={sid} ! tensor_sink name=out"
+)
+EDGE_LLM_PEER = (
+    "tensor_query_serversrc name=qs port=0 id=q{sid} ! "
+    'tensor_llm_serversink id={sid} custom="{opts}" attn-impl=pallas kv-layout=paged '
+    "block-size=16 {serve} max-new-tokens={new}{role} "
+    "tensor_llm_serversrc name=ssrc id={sid} ! {tail}"
+)
+EDGE_MIGRATE_AT = 8  # generated tokens a request has when its server drains
+
+
+def edge_server(parse_pipeline, dev, conn, sid):
+    """A query server pipeline of the labeling slice, started: (pipeline,
+    executor, its serversrc) once the serversrc listens."""
+    p = parse_pipeline(EDGE_SERVER.format(conn=conn, sid=sid), device=dev)
+    ex = p.start()
+    deadline = time.monotonic() + 60
+    while p["qs"].bound_port is None:
+        if ex.errors or time.monotonic() > deadline:
+            raise AssertionError(f"edge server {sid}: {ex.errors or 'never listened'}")
+        time.sleep(0.01)
+    return p, ex, p["qs"]
+
+
+def edge_labels(p, sink="out"):
+    return [int(f.tensors[0][0]) for f in p[sink].frames]
+
+
+def query_labeling_phase(torch, np, dev, parse_pipeline, ik, local_labels):
+    """The labeling slice split across the wire over TCP, SHM and HYBRID."""
+    from nnstreamer_tpu_torch.edge.mqtt import MqttBroker
+    from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+    from nnstreamer_tpu_torch.pipeline import transfer
+
+    reg = obs_metrics.get()
+    broker = MqttBroker()
+    shm_port = 20000 + os.getpid() % 20000
+    out = {"phase": "query_labeling", "frames": EDGE_FRAMES, "frame_bytes": EDGE_W * EDGE_H * 3}
+    try:
+        for ct, srv_conn, cli_conn, want_kind in (
+            ("TCP", "port=0", "dest-port={port}", "native"),
+            ("SHM", f"connect-type=SHM port={shm_port}",
+             f"connect-type=SHM dest-port={shm_port}", "shm"),
+            ("HYBRID", f"connect-type=HYBRID host=127.0.0.1 port={broker.port} topic=edge/hy",
+             f"connect-type=HYBRID dest-host=127.0.0.1 dest-port={broker.port} topic=edge/hy",
+             "native"),
+        ):
+            sid = f"edge{ct.lower()}"
+            srv, sex, qs = edge_server(parse_pipeline, dev, srv_conn, sid)
+            qc = f"qc_{ct.lower()}"
+            try:
+                ik.crop_resize_launches.reset()
+                tally0 = transfer.tally.snapshot()
+                cli = parse_pipeline(EDGE_CLIENT.format(
+                    w=EDGE_W, h=EDGE_H, n=EDGE_FRAMES, qc=qc,
+                    conn=cli_conn.format(port=qs.bound_port)), device=dev)
+                t0 = time.perf_counter()
+                cex = cli.run(timeout=600)
+                wall = time.perf_counter() - t0
+                k1 = ik.crop_resize_launches.count
+                tally = transfer.tally.snapshot()
+                sstats = sex.stats()["qs"]
+            finally:
+                srv.stop()
+            if cex.errors or sex.errors:
+                raise AssertionError(f"query_labeling {ct}: {cex.errors or sex.errors}")
+            labels = edge_labels(cli)
+            h2d = tally["h2d_bytes"] - tally0["h2d_bytes"]
+            d2h = tally["d2h_bytes"] - tally0["d2h_bytes"]
+            rtt = reg.find("nns_edge_rtt_us", element=qc)
+            reqs = reg.find("nns_edge_requests_total", element=qc)
+            nacks = sum(c.value for c in cli[qc]._nack_ctrs.values())
+            row = {
+                "labels_equal_local": labels == local_labels, "k1_launches": k1,
+                "h2d_bytes": h2d, "d2h_bytes": d2h,
+                "requests_total": reqs.value if reqs else None, "nacks": nacks,
+                "client_transport": cli[qc].transport, "server_transport": qs.transport,
+                "server_admitted": sstats.get("adm_admitted"),
+                "fps": EDGE_FRAMES / wall, "wall_s": wall,
+                # past the first reply: the server's graph is captured at its
+                # first frame (a serversrc's stream is flexible until then)
+                "steady_fps": steady_fps(cli, skip=1),
+                # the histogram's count, min, mean and max are exact; its
+                # quantiles are log-bucket estimates (64 samples)
+                "rtt_samples": rtt.count, "rtt_us_min": rtt.min, "rtt_us_mean": rtt.mean,
+                "rtt_us_max": rtt.max, "rtt_us_p50_est": rtt.quantile(0.5),
+                "rtt_us_p99_est": rtt.quantile(0.99),
+            }
+            out[ct] = row
+            bad = []
+            if not row["labels_equal_local"]:
+                bad.append(f"labels {labels[:4]} != local {local_labels[:4]}")
+            if k1 != EDGE_FRAMES:
+                bad.append(f"K1 launched {k1} times")
+            if h2d != EDGE_FRAMES * EDGE_W * EDGE_H * 3:
+                bad.append(f"H2D {h2d} B, want {EDGE_FRAMES} x {EDGE_W * EDGE_H * 3}")
+            if d2h > EDGE_FRAMES * 64:
+                bad.append(f"D2H {d2h} B: frame bytes came back through the card")
+            if row["requests_total"] != EDGE_FRAMES or row["rtt_samples"] != EDGE_FRAMES or nacks:
+                bad.append(f"requests {row['requests_total']}, RTT samples "
+                           f"{row['rtt_samples']}, NACKs {nacks}")
+            if row["client_transport"] != want_kind or (
+                    ct != "SHM" and row["server_transport"] != "native"):
+                bad.append(f"transports {row['client_transport']} / {row['server_transport']}")
+            if bad:
+                raise AssertionError(f"query_labeling {ct}: " + "; ".join(bad))
+    finally:
+        broker.close()
+    return out
+
+
+def query_fleet_phase(np, dev, parse_pipeline, ik, local_labels):
+    """Two labeling servers behind one fleet client; the first drained over
+    the wire (request_drain) once a quarter of the frames came back."""
+    import threading
+
+    from nnstreamer_tpu_torch.edge import query as equery
+
+    a, aex, aqs = edge_server(parse_pipeline, dev, "port=0", "fleeta")
+    b, bex, bqs = edge_server(parse_pipeline, dev, "port=0", "fleetb")
+    try:
+        ik.crop_resize_launches.reset()
+        hosts = f"127.0.0.1:{aqs.bound_port},127.0.0.1:{bqs.bound_port}"
+        cli = parse_pipeline(EDGE_CLIENT.format(
+            w=EDGE_W, h=EDGE_H, n=EDGE_FRAMES, qc="qc_fleet",
+            conn=f"hosts={hosts} retry-max=8 retry-backoff-ms=5"), device=dev)
+        drained = threading.Event()
+
+        def drain_at_quarter(frame):
+            if len(cli["out"].frames) >= EDGE_FRAMES // 4 and not drained.is_set():
+                drained.set()
+                equery.request_drain("127.0.0.1", aqs.bound_port)
+
+        cli["out"].connect("new-data", drain_at_quarter)
+        t0 = time.perf_counter()
+        cex = cli.run(timeout=600)
+        wall = time.perf_counter() - t0
+        k1 = ik.crop_resize_launches.count
+        fleet = cli["qc_fleet"].fleet_stats()
+        nacks = {r: c.value for r, c in cli["qc_fleet"]._nack_ctrs.items()}
+        a_state, a_nacked = aqs.state, aqs.drain_nacked
+        served = {k: v["served"] for k, v in fleet["endpoints"].items()}
+    finally:
+        a.stop()
+        b.stop()
+    if cex.errors or aex.errors or bex.errors:
+        raise AssertionError(f"query_fleet: {cex.errors or aex.errors or bex.errors}")
+    labels = edge_labels(cli)
+    ids = [f.meta["frame_id"] for f in cli["out"].frames]
+    row = {"phase": "query_fleet", "frames": len(labels), "labels_equal_local":
+           labels == local_labels, "unique_frame_ids": len(set(ids)),
+           "duplicate_replies": fleet["duplicate_replies"], "failovers": fleet["failovers"],
+           "nacks": nacks, "drained_state": a_state, "drained_nacked": a_nacked,
+           "served": served, "k1_launches": k1, "fps": EDGE_FRAMES / wall}
+    if not (drained.is_set() and labels == local_labels and len(set(ids)) == EDGE_FRAMES
+            and fleet["duplicate_replies"] == 0 and k1 == EDGE_FRAMES
+            and a_state == "draining" and a_nacked >= 1 and nacks.get("draining", 0) >= 1
+            and fleet["failovers"] >= 1):
+        raise AssertionError(f"query_fleet: {row}")
+    return row
+
+
+def edge_opts():
+    return ",".join(f"{k}:{v}" for k, v in EDGE_LLM.items())
+
+
+def edge_serve(serve):
+    return " ".join(f"{k.replace('_', '-')}={v}" for k, v in serve.items())
+
+
+def edge_prompts(np):
+    rng = np.random.default_rng(20)
+    return [rng.integers(1, EDGE_LLM["vocab"], n).astype(np.int32) for n in EDGE_PROMPTS]
+
+
+def solo_tokens(dev, prompts):
+    """Each prompt alone through a private paged batcher on the same weights:
+    the oracle of the handoff and of the migration."""
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import zoo
+
+    m = zoo.get("transformer_lm", device=dev, **{k: str(v) for k, v in EDGE_LLM.items()})
+    cb = sv.ContinuousBatcher(m.params, EDGE_LLM["n_heads"], **EDGE_SERVE, attn_impl="pallas",
+                              device=dev, **PAGED)
+    out = []
+    for p in prompts:
+        rid = cb.submit(p, EDGE_NEW)
+        while cb.result(rid) is None:
+            cb.step()
+        out.append([int(t) for t in cb.result(rid)])
+    return out
+
+
+def llm_peer(parse_pipeline, dev, sid, role="", serve=None):
+    """An LLM server pipeline that takes spans over its query serversrc's
+    CTRL channel: a decode role parks its generations for the prefill peer
+    (the serversink never sees one); a migration target emits them at a
+    tensor_sink, their meta kept."""
+    tail = f"tensor_query_serversink id=q{sid}" if role else "tensor_sink name=out"
+    p = parse_pipeline(EDGE_LLM_PEER.format(
+        sid=sid, opts=edge_opts(), serve=edge_serve(serve or EDGE_SERVE), new=EDGE_NEW,
+        role=f" role={role}" if role else "", tail=tail), device=dev)
+    ex = p.start()
+    deadline = time.monotonic() + 120
+    while p["qs"].bound_port is None:
+        if ex.errors or time.monotonic() > deadline:
+            raise AssertionError(f"llm peer {sid}: {ex.errors or 'never listened'}")
+        time.sleep(0.01)
+    return p, ex
+
+
+def run_prefill(parse_pipeline, dev, sid, peer_port, peer_id, prompts):
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    pl = parse_pipeline(EDGE_PREFILL.format(
+        sid=sid, opts=edge_opts(), serve=edge_serve(EDGE_SERVE), new=EDGE_NEW, peer=peer_port,
+        pid=peer_id), device=dev)
+    ex = pl.start()
+    t0 = time.perf_counter()
+    for i, p in enumerate(prompts):
+        pl["src"].push(Frame((p,), meta={"req": i, "frame_id": f"edge-{sid}-{i}"}))
+    pl["src"].end_of_stream()
+    done = ex.wait(600)
+    wall = time.perf_counter() - t0
+    stats = pl["ssrc"].serving_stats()
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"prefill {sid}: {ex.errors or 'no EOS within 600 s'}")
+    got = {f.meta["req"]: [int(t) for t in f.tensors[0][0]] for f in pl["out"].frames}
+    ids = {f.meta["req"]: f.meta["frame_id"] for f in pl["out"].frames}
+    return got, ids, stats, wall, [n.thread for n in ex.nodes]
+
+
+def disagg_phase(torch, np, dev, parse_pipeline, pa, prompts, solo):
+    """Prefill and decode roles on one card over TCP loopback at Mistral-7B
+    widths (4 layers, float32, paged): the handoff, then a too-small peer."""
+    dp, dex = llm_peer(parse_pipeline, dev, "2", role="decode")
+    try:
+        pa.paged_decode_attention_launches.reset()
+        got, ids, pstats, wall, pthreads = run_prefill(parse_pipeline, dev, "1",
+                                                       dp["qs"].bound_port, 2, prompts)
+        k4 = pa.paged_decode_attention_launches.count
+        # the two servers share the process: each one's launches are those
+        # its pipeline's threads added
+        k4_peer = pa.paged_decode_attention_launches.count_on(n.thread for n in dex.nodes)
+        k4_prefill = pa.paged_decode_attention_launches.count_on(pthreads)
+        dstats = dp["ssrc"].serving_stats()
+    finally:
+        dp.stop()
+    if dex.errors:
+        raise AssertionError(f"disagg: decode peer {dex.errors}")
+    spans = pstats["disagg"]["spans"]
+    adopted = dstats.get("adopted", {"spans": 0, "bytes": 0, "seconds": 0.0})
+    row = {
+        "phase": "disagg", "model": EDGE_LLM, "prompts": list(EDGE_PROMPTS),
+        "new_tokens": EDGE_NEW, "tokens_equal_solo": [got.get(i) == solo[i] for i in range(4)],
+        "frame_ids_kept": all(ids[i] == f"edge-1-{i}" for i in ids),
+        "outcomes": pstats["disagg"]["counts"],
+        "decode_kv_prefill_chunks": dstats["kv_prefill_chunks"],
+        "decode_kv_migrations_in": dstats["kv_migrations_in"],
+        "k4_launches": k4, "prefill_steps": pstats["steps"], "decode_steps": dstats["steps"],
+        "k4_launches_decode_peer": k4_peer, "k4_launches_prefill": k4_prefill,
+        "decode_program_replays": replayed_programs(dstats, "disagg decode peer"),
+        "span_bytes": spans["bytes"], "spans": spans["spans"],
+        "extract_s": spans["extract_s"], "adopt_s": adopted["seconds"],
+        "wire_s": spans["wire_s"] - adopted["seconds"],
+        "extract_gb_s": spans["bytes"] / spans["extract_s"] / 1e9 if spans["extract_s"] else None,
+        "adopt_gb_s": adopted["bytes"] / adopted["seconds"] / 1e9 if adopted["seconds"] else None,
+        # an adopted request has no first token on the peer, so the SLO
+        # ledger keeps no TPOT for it: a decode step's mean time instead (a
+        # step emits one token for every request decoding on the peer)
+        "decode_ms_per_step": (1e3 * dstats["tokens_per_step"] / dstats["decode_tok_s"]
+                               if dstats["decode_tok_s"] else None),
+        "wall_s": wall,
+    }
+    row["wire_gb_s"] = spans["bytes"] / row["wire_s"] / 1e9 if row["wire_s"] > 0 else None
+    if not (all(row["tokens_equal_solo"]) and row["frame_ids_kept"]
+            and row["outcomes"].get("handoff") == 4 and row["outcomes"].get("relayed") == 4
+            and row["decode_kv_prefill_chunks"] == 0 and row["decode_kv_migrations_in"] == 4
+            and k4_peer == EDGE_LAYERS * dstats["steps"]
+            and k4_prefill == EDGE_LAYERS * pstats["steps"] and k4 == k4_peer + k4_prefill
+            and dstats["steps"] > 0):
+        raise AssertionError(f"disagg: {row}")
+    torch.cuda.empty_cache()
+    # a decode peer too small for one span: it refuses, the prefill server
+    # adopts the span back and decodes it
+    sp, sex = llm_peer(parse_pipeline, dev, "4", role="decode", serve=EDGE_SMALL_PEER)
+    try:
+        got_s, _, pstats_s, _, _ = run_prefill(parse_pipeline, dev, "3", sp["qs"].bound_port, 4,
+                                            prompts[3:])
+    finally:
+        sp.stop()
+    row["small_peer"] = {"outcomes": pstats_s["disagg"]["counts"],
+                         "tokens_equal_solo": got_s.get(0) == solo[3]}
+    # each refusal benches the peer briefly; a retry after it is refused again
+    small = row["small_peer"]["outcomes"]
+    if sex.errors or set(small) != {"local"} or not row["small_peer"]["tokens_equal_solo"]:
+        raise AssertionError(f"disagg small peer: {sex.errors or row['small_peer']}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def migrate_phase(torch, np, dev, parse_pipeline, pa, prompts, solo):
+    """drain(migrate_to=peer) on a paged server after 8 generated tokens: the
+    requests continue on a peer pipeline and end as the uninterrupted run."""
+    from nnstreamer_tpu_torch.elements.llm_serve import _LlmServer
+    from nnstreamer_tpu_torch.tensors.frame import Frame
+
+    pp, pex = llm_peer(parse_pipeline, dev, "6")
+    src = _LlmServer(model="zoo:transformer_lm", options={k: str(v) for k, v in EDGE_LLM.items()},
+                     **EDGE_SERVE, default_new=EDGE_NEW, device=dev, attn_impl="pallas",
+                     kv_kw=dict(PAGED), srv_id="5")
+    try:
+        for i, p in enumerate(prompts):
+            src.submit(Frame((p,), meta={"req": i, "frame_id": f"mig-{i}"}))
+        rids = list(src._pending)
+        while any(len(src.cb.partials(rids).get(r) or ()) < EDGE_MIGRATE_AT for r in rids):
+            src.pump()
+        at = {r: len(src.cb.partials(rids)[r]) for r in rids}
+        pa.paged_decode_attention_launches.reset()
+        t0 = time.perf_counter()
+        summary = src.drain(migrate_to=f"127.0.0.1:{pp['qs'].bound_port}/6")
+        drain_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        while len(pp["out"].frames) < len(prompts):
+            if pex.errors or time.monotonic() > deadline:
+                raise AssertionError(f"migrate: {pex.errors or 'peer never finished'}")
+            time.sleep(0.01)
+        k4 = pa.paged_decode_attention_launches.count
+        stats = pp["ssrc"].serving_stats()
+    finally:
+        src.release_plane()
+        pp.stop()
+    got = {f.meta["req"]: [int(t) for t in f.tensors[0][0]] for f in pp["out"].frames}
+    row = {"phase": "migrate", "layers": EDGE_LAYERS, "tokens_at_drain": sorted(at.values()),
+           "summary": summary, "tokens_equal_uninterrupted": [got.get(i) == solo[i]
+                                                              for i in range(len(prompts))],
+           "peer_kv_prefill_chunks": stats["kv_prefill_chunks"],
+           "peer_kv_migrations_in": stats["kv_migrations_in"], "k4_launches": k4,
+           "peer_steps": stats["steps"], "drain_s": drain_s,
+           "adopted": stats.get("adopted")}
+    if not (summary["migrated"] == len(prompts) and all(row["tokens_equal_uninterrupted"])
+            and stats["kv_prefill_chunks"] == 0 and stats["kv_migrations_in"] == len(prompts)
+            and k4 == EDGE_LAYERS * stats["steps"]):
+        raise AssertionError(f"migrate: {row}")
+    del src
+    torch.cuda.empty_cache()
+    return row
+
+
+def edge_phases(torch, np, dev, parse_pipeline, ik):
+    """The edge group: query_labeling, query_fleet, disagg, migrate."""
+    from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+    from nnstreamer_tpu_torch.ops.kernels import paged_attention as pa
+
+    t0 = time.perf_counter()
+    was_on = obs_metrics.get() is not None
+    obs_metrics.enable()
+    try:
+        local = parse_pipeline(EDGE_LOCAL.format(w=EDGE_W, h=EDGE_H, n=EDGE_FRAMES), device=dev)
+        lex = local.run(timeout=600)
+        if lex.errors:
+            raise AssertionError(f"edge local labels: {lex.errors}")
+        local_labels = edge_labels(local)
+        ql = query_labeling_phase(torch, np, dev, parse_pipeline, ik, local_labels)
+        emit(ql)
+        print("query_labeling: " + "; ".join(
+            f"{ct} fps {ql[ct]['fps']:.1f} (steady {ql[ct]['steady_fps']:.1f}) "
+            f"rtt mean {ql[ct]['rtt_us_mean']:.0f} us, max {ql[ct]['rtt_us_max']:.0f} us "
+            f"(p50 ~{ql[ct]['rtt_us_p50_est']:.0f}, p99 ~{ql[ct]['rtt_us_p99_est']:.0f})"
+            for ct in ("TCP", "SHM", "HYBRID")), flush=True)
+        fl = query_fleet_phase(np, dev, parse_pipeline, ik, local_labels)
+        emit(fl)
+    finally:
+        if not was_on:
+            obs_metrics.disable()
+    t1 = time.perf_counter()
+    prompts = edge_prompts(np)
+    solo = solo_tokens(dev, prompts)
+    torch.cuda.empty_cache()
+    dg = disagg_phase(torch, np, dev, parse_pipeline, pa, prompts, solo)
+    emit(dg)
+    print(f"disagg: span {dg['span_bytes']} B, extract {dg['extract_gb_s']:.2f} GB/s, "
+          f"wire {dg['wire_gb_s']:.2f} GB/s, adopt {dg['adopt_gb_s']:.2f} GB/s, "
+          f"decode peer {dg['decode_ms_per_step']:.3f} ms a step", flush=True)
+    mg = migrate_phase(torch, np, dev, parse_pipeline, pa, prompts, solo)
+    emit(mg)
+    return {"k1_launches": sum(ql[ct]["k1_launches"] for ct in ("TCP", "SHM", "HYBRID"))
+            + fl["k1_launches"], "k4_launches": dg["k4_launches"] + mg["k4_launches"],
+            "k4_launches_decode_peer": dg["k4_launches_decode_peer"],
+            "labeling_s": t1 - t0, "seconds": time.perf_counter() - t0}
+
+
 def ab_turn(tree: str, npz: str) -> int:
     """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
     25200 candidates with the kernels of the checkout at ``tree`` (its own
@@ -7334,6 +7809,8 @@ def main() -> int:
     emit({"phase": "faults", "seconds": faults["seconds"]})
     observe = observe_phases(torch, np, dev, parse_pipeline, ik)
     emit({"phase": "observe", "seconds": observe["seconds"]})
+    edge = edge_phases(torch, np, dev, parse_pipeline, ik)
+    emit({"phase": "edge", "seconds": edge["seconds"]})
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -7353,6 +7830,7 @@ def main() -> int:
         "launches_model_sources": sources["k1_launches"],
         "launches_faults": faults["k1_launches"],
         "launches_observe": observe["k1_launches"],
+        "launches_edge": edge["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -7408,6 +7886,8 @@ def main() -> int:
         "launches_speculative": spec["k4_launches"],
         "launches_serving_state": state["k4_launches"],
         "launches_llm_plane": plane["llm_plane"]["k4_launches"],
+        "launches_edge": edge["k4_launches"],
+        "launches_edge_decode_peer": edge["k4_launches_decode_peer"],
         "max_abs_err": k4_main["max_abs_err"],
         "ms": k4_main["kernel_ms"],
         "plain_ms": k4_main["plain_ms"],
@@ -7505,6 +7985,30 @@ def observe_main() -> int:
     return 0
 
 
+def edge_main() -> int:
+    """``--edge``: only the edge group (K1 and K4 built first)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    _build.build(["image_kernels", "paged_attention"])
+    out = edge_phases(torch, np, torch.device("cuda"), parse_pipeline, ik)
+    emit({"phase": "edge", "seconds": out["seconds"], "k1_launches": out["k1_launches"],
+          "k4_launches": out["k4_launches"]})
+    return 0
+
+
 def plane_main() -> int:
     """``--plane``: only the plane group (the kernels it runs built first)."""
     import torch
@@ -7537,6 +8041,8 @@ if __name__ == "__main__":
         sys.exit(faults_main())
     if sys.argv[1:2] == ["--observe"] and len(sys.argv) == 2:
         sys.exit(observe_main())
+    if sys.argv[1:2] == ["--edge"] and len(sys.argv) == 2:
+        sys.exit(edge_main())
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-turn"] and len(sys.argv) == 4:

@@ -26,3 +26,9 @@ from nnstreamer_tpu_torch.elements import chaos  # noqa: F401
 from nnstreamer_tpu_torch.elements import stage  # noqa: F401
 from nnstreamer_tpu_torch.elements import media  # noqa: F401
 from nnstreamer_tpu_torch.elements import iio  # noqa: F401
+# distributed elements (the reference registers them conditionally,
+# nnstreamer.c:113-119; here always, on the in-tree transports)
+from nnstreamer_tpu_torch.edge import pubsub  # noqa: F401,E402
+from nnstreamer_tpu_torch.edge import mqtt_elems  # noqa: F401,E402
+from nnstreamer_tpu_torch.edge import query  # noqa: F401,E402
+from nnstreamer_tpu_torch.edge import grpc_bridge  # noqa: F401,E402

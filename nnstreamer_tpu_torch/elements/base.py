@@ -291,6 +291,13 @@ class TensorOp(Element):
         frames on without running any program."""
         return False
 
+    def is_layout_only(self) -> bool:
+        """True → the op's fn only re-views its tensors (a new axis, a
+        reshape; no arithmetic, and numpy arrays take it as torch tensors
+        do): a segment of only such ops whose consumers all read host bytes
+        runs on the host frame, so its frames never cross the card."""
+        return self.is_identity()
+
     def is_batch_capable(self) -> bool:
         """True → the host path may collect a micro-batch and call the
         op's ``host_process_batch`` (a filter with a ``batchable``

@@ -201,6 +201,11 @@ class TensorConverter(TensorOp):
     def is_traceable(self) -> bool:
         return self._fn is not None
 
+    def is_layout_only(self) -> bool:
+        # one video frame as NHWC without normalization, or a static stream
+        # passed on: a view of the input
+        return self._fn is not None and self.input_norm is None
+
     def make_fn(self):
         return self._fn
 

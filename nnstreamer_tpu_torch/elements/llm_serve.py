@@ -51,10 +51,19 @@ weighted-fair scheduling (``plane-weight``), the pumps of whichever
 serversrc gets there first advance every stream, and each serversrc emits
 only its own stream's generations. A plane-shared batcher refuses
 speculation, ``stream=true``, span checkpoints and the migration surface.
-Not ported yet, and raising when set: migration to a peer
-(``migrate-to``, ``drain(migrate_to=...)``: they need the edge layer),
-disaggregated serving (``role``, ``decode-peers``) and the lint's
-``kv-memory-bound``.
+
+Migration and disaggregated serving ride the edge layer's CTRL channel
+(edge/query.py). Every private paged server is a migration target of the
+serversrcs in its process. ``drain(migrate_to="host:port[/llm-id]")`` (or
+the ``migrate-to`` prop) settles the prefill queue, then ships each
+in-flight request's KV span to that peer: probe the peer's prefix
+coverage, strip the shared blocks, send; a refusing or unreachable peer
+leaves the request to resume here by re-prefill. ``role=prefill
+decode-peers=h:p,...`` hands every request off to a ``role=decode`` peer
+the moment its first token exists (serving_plane/disagg.py): the decode
+peer adopts the span with no prefill run again, parks the finished tokens,
+and the prefill server fetches and emits them under the request's meta.
+The lint's ``kv-memory-bound`` is not ported yet and raises when set.
 """
 
 from __future__ import annotations
@@ -88,10 +97,6 @@ _table_lock = threading.Lock()
 #: props of the reference that name features not ported yet, with their
 #: defaults: setting one to anything else raises
 _NOT_PORTED = {
-    "migrate-to": ("", "live KV-span migration to a peer, which needs the edge layer "
-                       "(ROADMAP A.7)"),
-    "role": ("", "disaggregated prefill/decode serving"),
-    "decode-peers": ("", "disaggregated prefill/decode serving"),
     "kv-memory-bound": ("", "the lint's declared KV memory bound"),
 }
 
@@ -123,11 +128,6 @@ def _drop_server(srv_id: str, srv: Optional["_LlmServer"]) -> None:
             _table.pop(srv_id, None)
     if srv is not None:
         srv.release_plane()
-
-
-def _not_ported_peer(what: str) -> str:
-    return (f"tensor_llm_serversink: {what} (live KV-span migration to a peer) is not "
-            "ported yet: it needs the edge layer (ROADMAP A.7)")
 
 
 def drain_server(srv_id: str, migrate_to: Optional[str] = None) -> Dict:
@@ -198,16 +198,46 @@ class _LlmServer:
                  attn_impl: str = "xla", kv_kw: Optional[dict] = None, speculate: int = 0,
                  speculate_model: str = "", srv_id: str = "0", migrate_to: str = "",
                  checkpoint_every_tokens: int = 0, checkpoint_dir: str = "",
-                 plane: str = "", plane_weight: float = 1.0):
+                 plane: str = "", plane_weight: float = 1.0, role: str = "",
+                 decode_peers: str = ""):
         self._paged = bool(kv_kw) and kv_kw.get("kv_layout") == "paged"
+        role, decode_peers = str(role or ""), str(decode_peers or "")
+        if role not in ("", "prefill", "decode"):
+            raise ElementError(f"tensor_llm_serversink: role={role!r} must be prefill or decode")
+        if decode_peers and role != "prefill":
+            raise ElementError(
+                "tensor_llm_serversink: decode-peers needs role=prefill (only the prefill "
+                "role ships spans to decode peers)")
+        if role:
+            if not self._paged:
+                raise ElementError(
+                    "tensor_llm_serversink: role=prefill/decode needs kv-layout=paged "
+                    "(handoffs are block-table spans)")
+            if plane:
+                from nnstreamer_tpu_torch.serving_plane.llm import LlmPlaneError
+
+                raise LlmPlaneError(
+                    f"llm plane {plane!r}: role= refused — plane-shared batchers cannot "
+                    "extract or adopt request spans; serve the role with a private "
+                    "kv-layout=paged batcher instead")
         if (migrate_to or checkpoint_dir or checkpoint_every_tokens) and not self._paged:
             # spans are block-table slices: the slot cache has none
             raise ElementError(
                 "tensor_llm_serversink: migrate-to / checkpoint-every-tokens / checkpoint-dir "
                 "need kv-layout=paged (spans are block-table slices)"
             )
-        if migrate_to:
-            raise NotImplementedError(_not_ported_peer("migrate-to"))
+        self.role = role
+        self._disagg = None  # DisaggController (prefill role with peers)
+        self._disagg_done: Dict[int, list] = {}  # decode role: rid -> parked tokens
+        if role == "prefill" and decode_peers:
+            # before the batcher: a malformed decode-peers fails without a model load
+            from nnstreamer_tpu_torch.serving_plane.disagg import DisaggController
+
+            try:
+                self._disagg = DisaggController(
+                    decode_peers, llm_id=int(srv_id) if str(srv_id).isdigit() else 0)
+            except ValueError as exc:
+                raise ElementError(f"tensor_llm_serversink: {exc}") from exc
         self.plane_name = plane
         self._plane = None   # LlmPlane once acquired
         self._stream = None  # this server's LlmStream
@@ -258,10 +288,25 @@ class _LlmServer:
         self.eos = False
         self.stopped = False
         self.srv_id = str(srv_id)
+        self.migrate_to = str(migrate_to or "")
         self.draining = False
+        self._edge_srv = None  # the feeding query serversrc's id, learned at submit
         self._ckpt_every = max(0, int(checkpoint_every_tokens))
         self._ckpt_dir = str(checkpoint_dir or "")
         self._ckpt_seen: Dict[int, int] = {}  # rid -> tokens at its last checkpoint
+        # adopted spans: their count, bytes and the seconds adopt_request took
+        self.adopted = {"spans": 0, "bytes": 0, "seconds": 0.0}
+        # the llm_id the migration handshake routes by: a numeric id, else 0
+        # (a process with one LLM server answers for any id)
+        self._mig_id = int(self.srv_id) if self.srv_id.isdigit() else 0
+        self._mig_registered = False
+        if self._plane is None and self._paged:
+            # every private paged server is a migration target; migrate-to
+            # only says where THIS server ships its spans at drain
+            from nnstreamer_tpu_torch.edge import query as equery
+
+            equery.register_migration_handler(self._mig_id, self)
+            self._mig_registered = True
         if self._ckpt_dir:
             self._restore_checkpoints()
 
@@ -296,6 +341,11 @@ class _LlmServer:
     def release_plane(self) -> None:
         """Detach from (and drop one ref of) the shared LLM plane when this
         server leaves the pairing table. Idempotent."""
+        if self._mig_registered:
+            self._mig_registered = False
+            from nnstreamer_tpu_torch.edge import query as equery
+
+            equery.unregister_migration_handler(self._mig_id, self)
         with self._lock:
             plane, self._plane = self._plane, None
         if plane is None:
@@ -308,11 +358,13 @@ class _LlmServer:
         self.cb = None
 
     def submit(self, frame: Frame) -> None:
+        if frame.meta.get("_nns_srv") is not None:
+            # the query serversrc feeding this server: drain() flips its
+            # readiness, and a refused submit is NACKed through it
+            self._edge_srv = frame.meta.get("_nns_srv")
         if self.draining:
-            raise ElementError(
-                "tensor_llm_serversink: draining — not accepting new requests "
-                "(resubmit to another endpoint)"
-            )
+            self._nack_draining(frame)
+            return
         prompt = np.asarray(frame.to_host().tensors[0]).reshape(-1).astype(np.int32)
         budget = int(frame.meta.get("max_new_tokens", self.default_new))
         kw = dict(
@@ -370,18 +422,24 @@ class _LlmServer:
             if self.stream:
                 parts = self.cb.partials(list(self._pending))
                 for rid, meta in self._pending.items():
-                    if rid in parts:
+                    if rid in parts and not self._parks(meta):
                         harvested |= self._stream_new_locked(rid, meta, parts[rid])
             for rid in list(self._pending):
                 toks = self.cb.result(rid)
                 if toks is None:
                     continue
                 meta = self._pending.pop(rid)
-                if self.stream:
+                park = self._parks(meta)
+                if self.stream and not park:
                     self._stream_new_locked(rid, meta, toks)
                     meta = {**meta, "stream": True, "done": True}
                 self._sent.pop(rid, None)
-                self._out.append((toks, meta))
+                if park:
+                    # a handed-off generation finished here, but the prefill
+                    # peer delivers it: park the tokens for its disagg_fetch
+                    self._disagg_done[rid] = list(toks)
+                else:
+                    self._out.append((toks, meta))
                 finished.append(rid)
                 harvested = True
         if self._ckpt_dir:
@@ -389,7 +447,16 @@ class _LlmServer:
                 self._ckpt_drop(rid)
             if self._ckpt_every:
                 self._checkpoint_tick()
+        if self._disagg is not None and not self.stopped:
+            # prefill role: hand freshly extractable requests to the decode
+            # peers, and queue the finished handoffs fetched back
+            harvested |= self._disagg.tick(self)
         return bool(emitted) or harvested
+
+    def _parks(self, meta: dict) -> bool:
+        """A decode-role server keeps a handed-off generation for its
+        prefill peer instead of emitting it."""
+        return self.role == "decode" and bool(meta.get("_nns_disagg"))
 
     def _stream_new_locked(self, rid: int, meta: dict, toks) -> bool:
         """Queue one frame per token not yet streamed (_lock held)."""
@@ -415,6 +482,23 @@ class _LlmServer:
             self._spec_seen = (cols, acc)
 
     # -- migration surface and span checkpoints ---------------------------------
+    def _nack_draining(self, frame: Frame) -> None:
+        """A submit reaching a draining server: NACK it ``draining`` through
+        the query serversrc it came from, so a fleet client re-routes it;
+        without an edge hop the typed refusal is the only answer."""
+        srv = frame.meta.get("_nns_srv")
+        cid = frame.meta.get("client_id")
+        if srv is not None and cid is not None:
+            from nnstreamer_tpu_torch.edge.query import discard_admitted
+
+            discard_admitted(srv, cid, "nack", frame_id=frame.meta.get("frame_id"),
+                             draining=True)
+            return
+        raise ElementError(
+            "tensor_llm_serversink: draining — not accepting new requests "
+            "(resubmit to another endpoint)"
+        )
+
     def migration_probe(self, tokens) -> int:
         """How many leading ``tokens`` this server's prefix index covers in
         full blocks: a sender strips those blocks' payloads."""
@@ -437,38 +521,131 @@ class _LlmServer:
         if self.draining or self.stopped:
             raise migrate.SpanStateError(f"tensor_llm_server id={self.srv_id}: draining")
         span = migrate.decode_span(span_bytes)
-        rid = self.cb.adopt_request(span)
+        t0 = time.perf_counter()
+        rid = self.cb.adopt_request(span)  # the span's one host-to-device copy
+        dt = time.perf_counter() - t0
         with self._lock:
             self._pending[rid] = dict(span.meta)
+            self.adopted["spans"] += 1
+            self.adopted["bytes"] += len(span_bytes)
+            self.adopted["seconds"] += dt
         return rid
+
+    # the disagg controller stamps a request's meta onto the span it
+    # extracts through the filter that drain and checkpoints use
+    span_meta = staticmethod(_span_meta)
 
     def migration_advert(self) -> Dict:
         """What a migration probe's answer carries besides the coverage:
-        the server's role (disaggregated roles are not ported, so none)."""
-        return {"role": ""}
+        the role, and for a decode server its pool headroom (free slots,
+        and free plus cached blocks, since cached ones are evictable), so
+        the prefill side picks a peer in one roundtrip."""
+        out: Dict = {"role": self.role}
+        if self.role != "decode":
+            return out
+        st = self.cb.stats()
+        out["free_slots"] = int(st.get("slots_free", 0) or 0)
+        out["free_blocks"] = (int(st.get("kv_blocks_free", 0) or 0)
+                              + int(st.get("kv_blocks_cached", 0) or 0))
+        return out
+
+    def disagg_fetch(self, rid: int):
+        """The prefill peer's poll for a handed-off generation: its tokens
+        (once: the prefill side delivers), None while it decodes, or
+        SpanStateError for an rid never seen here (the peer then
+        resubmits the prompt)."""
+        from nnstreamer_tpu_torch.kv.migrate import SpanStateError
+
+        rid = int(rid)
+        with self._lock:
+            toks = self._disagg_done.pop(rid, None)
+            if toks is not None:
+                return toks
+            if rid in self._pending:
+                return None
+        raise SpanStateError(f"tensor_llm_server id={self.srv_id}: rid {rid} unknown")
 
     def drain(self, migrate_to: Optional[str] = None) -> Dict[str, int]:
-        """Stop admitting (a submit raises ``draining``), settle the paged
-        prefill queue, and keep the in-flight requests to finish in place →
-        ``{"migrated", "resumed", "completed", "kept"}``. Draining to a peer
-        (``migrate_to``, or the ``migrate-to`` prop) needs the edge layer
-        and raises ``NotImplementedError`` before anything changes. A
-        plane-shared batcher refuses (``LlmPlaneError``)."""
+        """Stop admitting (a submit is NACKed ``draining``, and the feeding
+        query serversrc turns ``draining``), settle the paged prefill queue
+        (a span is extractable only once its request decodes), then, with a
+        peer (``migrate_to`` "host:port[/llm-id]", else the ``migrate-to``
+        prop), ship each in-flight request: extract its span, probe the
+        peer's prefix coverage, strip the shared blocks, send. A refusing
+        or unreachable peer leaves the request to resume here by
+        re-prefill; with no peer the requests finish in place →
+        ``{"migrated", "resumed", "completed", "kept"}``. A plane-shared
+        batcher refuses (``LlmPlaneError``)."""
         if self._plane is not None:
             self._plane.refuse_migration("drain(migrate_to=...)")
-        target = "" if migrate_to is None else str(migrate_to)
-        if target:
-            raise NotImplementedError(_not_ported_peer("drain(migrate_to=...)"))
         self.draining = True
+        if self._edge_srv is not None:
+            from nnstreamer_tpu_torch.edge import query as equery
+
+            equery._set_server_state(self._edge_srv, equery.SRV_DRAINING)
+        summary = {"migrated": 0, "resumed": 0, "completed": 0, "kept": 0}
         if self._paged:
-            # every queued prefill lands (its request decodes) before the
-            # drain returns; completed chunks are never run again
+            # every queued prefill lands (its request decodes) before any
+            # span leaves; completed chunks are never run again
             while (self.cb.stats().get("kv_prefill_queue") or 0) > 0 and not self.stopped:
                 if not self.pump():
                     time.sleep(0.002)
+        target = self.migrate_to if migrate_to is None else str(migrate_to)
         with self._lock:
-            kept = len(self._pending)
-        return {"migrated": 0, "resumed": 0, "completed": 0, "kept": kept}
+            rids = list(self._pending)
+        if not target or not rids:
+            summary["kept"] = len(rids)
+            return summary
+        # host:port[/llm-id]: the peer's id defaults to this server's own
+        peer_id = self._mig_id
+        base, sep, suffix = target.partition("/")
+        if sep:
+            target = base
+            peer_id = int(suffix) if suffix.isdigit() else 0
+        host, _, port_s = target.rpartition(":")
+        if not host or not port_s.isdigit():
+            raise ElementError(
+                f"tensor_llm_serversink: migrate-to={target!r} must be host:port[/llm-id]")
+        port = int(port_s)
+        from nnstreamer_tpu_torch.edge import query as equery
+        from nnstreamer_tpu_torch.edge.transport import TransportError
+        from nnstreamer_tpu_torch.kv import migrate
+
+        for rid in rids:
+            try:
+                span = self.cb.extract_request(rid)
+            except migrate.SpanError:
+                # finished since the settle loop: the pump's harvest owns it
+                summary["completed"] += 1
+                continue
+            with self._lock:
+                meta = dict(self._pending.get(rid) or {})
+            span.meta.update(_span_meta(meta))
+            try:
+                shared = equery.probe_migration(host, port, span.kv_tokens, llm_id=peer_id)
+                wire = migrate.encode_span(span.strip_shared(shared))
+                equery.send_migration(host, port, wire, llm_id=peer_id)
+            except (equery.MigrationRefused, TransportError, OSError, ValueError,
+                    migrate.SpanError):
+                # still whole here: resume by re-prefill of the surviving
+                # context (the generated tokens are kept)
+                new_rid = self.cb.resume_from_span(span)
+                with self._lock:
+                    self._pending[new_rid] = self._pending.pop(rid, meta)
+                    n_sent = self._sent.pop(rid, None)
+                    if n_sent is not None:
+                        self._sent[new_rid] = n_sent
+                if self._ckpt_dir:
+                    self._ckpt_rename(rid, new_rid)
+                summary["resumed"] += 1
+            else:
+                with self._lock:
+                    self._pending.pop(rid, None)
+                    self._sent.pop(rid, None)
+                if self._ckpt_dir:
+                    self._ckpt_drop(rid)
+                summary["migrated"] += 1
+        return summary
 
     def _checkpoint_tick(self) -> None:
         """Every checkpoint-every-tokens new tokens of a request, write its
@@ -577,6 +754,15 @@ class _LlmServer:
         # the SLO rows of nns-top --requests (serving_requests once the
         # executor prefixes the row)
         st["requests"] = {str(rid): row for rid, row in self.cb.requests().items()}
+        if self.role:
+            st["disagg_role"] = self.role
+        if self._disagg is not None:
+            st["disagg"] = self._disagg.stats()
+        if self.role == "decode":
+            with self._lock:
+                st["disagg_done_waiting"] = len(self._disagg_done)
+        if self.adopted["spans"]:
+            st["adopted"] = dict(self.adopted)
         if self.speculate == -1:
             st["spec_k"] = self._spec_k
             st["spec_acceptance_ema"] = self._acc_ema
@@ -594,8 +780,10 @@ class _LlmServer:
     def drained(self) -> bool:
         if self._plane is not None:
             return self.eos and self._plane.idle_for(self._stream)
+        if self._disagg is not None and not self._disagg.idle():
+            return False  # handed-off generations still decoding on a peer
         with self._lock:
-            return self.eos and not self._pending and not self._out
+            return self.eos and not self._pending and not self._out and not self._disagg_done
 
 
 @registry.element("tensor_llm_serversink")
@@ -615,7 +803,9 @@ class LlmServerSink(Sink):
     prefill-chunks and kv-attn (auto | block | gather), each 0 or empty
     deferring to ``[llm]``; checkpoint-every-tokens and checkpoint-dir
     (paged: span checkpoints, see the module); plane and plane-weight
-    (paged: one stream of a shared LLM plane, see the module)."""
+    (paged: one stream of a shared LLM plane, see the module); migrate-to,
+    role and decode-peers (paged: migration and disaggregated serving, see
+    the module)."""
 
     FACTORY_NAME = "tensor_llm_serversink"
 
@@ -644,6 +834,11 @@ class LlmServerSink(Sink):
         "checkpoint-dir": PropSpec("str", "", desc="where span checkpoints live (paged)"),
         "plane": PropSpec("str", "", desc="attach to the named LLM serving plane (paged)"),
         "plane-weight": PropSpec("float", 1.0, desc="weighted-fair admission share on the plane"),
+        "migrate-to": PropSpec(
+            "str", "", desc="host:port[/llm-id] a drain ships in-flight KV spans to (paged)"),
+        "role": PropSpec("str", "", desc="disaggregated serving: prefill | decode (paged)"),
+        "decode-peers": PropSpec(
+            "str", "", desc="role=prefill: decode peers h1:p1[/llm-id],h2:p2 to hand off to"),
         **{k: PropSpec(type(v[0]).__name__, v[0], desc=f"{v[1]}: not ported yet")
            for k, v in _NOT_PORTED.items()},
     }
@@ -701,6 +896,9 @@ class LlmServerSink(Sink):
             checkpoint_dir=str(self.get_property("checkpoint-dir", "")),
             plane=str(self.get_property("plane", "") or ""),
             plane_weight=float(self.get_property("plane-weight", 1.0)),
+            migrate_to=str(self.get_property("migrate-to", "") or ""),
+            role=str(self.get_property("role", "") or ""),
+            decode_peers=str(self.get_property("decode-peers", "") or ""),
         )
         self._server: Optional[_LlmServer] = None
 

@@ -596,6 +596,8 @@ class _SegmentNode(_Node):
             if self.batched() and pol["oom-policy"] == "degrade":
                 self.bucket_governor = BucketGovernor(
                     cfg.buckets, cooldown_s=pol["oom-reprobe-ms"] / 1000.0)
+        if self._runs_on_host():
+            return  # no program: run() applies the ops to the host frame
         try:
             seg.build_frame()
         except Exception as exc:
@@ -616,6 +618,13 @@ class _SegmentNode(_Node):
                 raise
             else:
                 _log.warning("%s: building the max-batch program failed: %s", self.name, exc)
+
+    def _runs_on_host(self) -> bool:
+        """A segment that only re-views its tensors (an identity one too),
+        feeding consumers that read host bytes (a query client after a
+        converter), runs on the host frame: staging it up to fetch it back
+        would move it twice. Every other fused segment is staged."""
+        return not self.batched() and self.seg.is_layout_only() and self._out_wants_host()
 
     # -- loops ---------------------------------------------------------------
     def _make_ring(self) -> _FrameRing:
@@ -647,9 +656,11 @@ class _SegmentNode(_Node):
             return
         ring = self._make_ring()
         inbox = self.inboxes[0]
+        on_host = self._runs_on_host()
+        process = seg.process_host if on_host else self._process_frame
         # H2D staging (pipeline/transfer.py): a fused segment on a GPU moves
         # each host frame up through pinned memory before its program runs
-        stage_to = seg.device if (seg.fused and not seg.is_identity()
+        stage_to = seg.device if (seg.fused and not on_host
                                   and seg.device.type == "cuda") else None
         while True:
             try:
@@ -680,9 +691,9 @@ class _SegmentNode(_Node):
                         continue
                     raise
             if gate is None:
-                out = self._process_frame(frame)
+                out = process(frame)
             else:
-                delivered, out = gate.process(frame, self._process_frame)
+                delivered, out = gate.process(frame, process)
                 if not delivered:
                     continue
             if seg.fused:
@@ -1706,7 +1717,8 @@ class Executor:
                     row["device_degraded"] = 1
                 else:
                     row.setdefault("device_degraded", 0)
-            for hook, prefix in (("circuit_stats", "cb_"), ("replica_stats", "rep_"),
+            for hook, prefix in (("admission_stats", "adm_"), ("fleet_stats", "fleet_"),
+                                 ("circuit_stats", "cb_"), ("replica_stats", "rep_"),
                                  ("plane_stats", "plane_"), ("serving_stats", "serving_")):
                 fn = getattr(elem, hook, None)
                 got = fn() if callable(fn) else None

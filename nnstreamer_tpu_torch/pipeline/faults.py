@@ -25,9 +25,9 @@ report of a hang.
 
 Each retry, drop and route is a trace event (trace.py) and a count in
 ``nns_fault_events_total`` by action when metrics are on, besides
-:class:`FaultStats`. The reference also NACKs an admitted edge request
-(``_nns_srv`` meta) that a policy disposes of; the port's edge layer
-(ROADMAP A.7) comes later.
+:class:`FaultStats`. An admitted edge request
+(``_nns_srv`` meta) that a policy disposes of or that a deadline sheds is
+NACKed to its client and its admission budget released (edge/query.py).
 """
 
 from __future__ import annotations
@@ -174,15 +174,58 @@ def frame_deadline_expired(meta: Dict[str, Any], now: Optional[float] = None) ->
 
 def notify_shed(frame, node_name: str) -> None:
     """A node shed ``frame`` at dequeue (its deadline passed before any
-    device time was spent). The reference NACKs an admitted edge request
-    here; the port has no edge layer yet (ROADMAP A.7)."""
-    _log.debug("%s: shed frame %s past its deadline", node_name, frame.meta.get("frame_id"))
+    device time was spent). Record the trace event, and when the frame is
+    an admitted edge request (``_nns_srv`` meta) NACK the client and
+    release its admission budget, so the request still reaches an end.
+    The edge import is lazy: a pipeline that never sheds edge frames never
+    loads the query layer."""
+    from nnstreamer_tpu_torch import trace
+
+    meta = frame.meta
+    tracer = trace.get()
+    if tracer is not None:
+        tracer.fault(node_name, "deadline-shed", None,
+                     frame_id=meta.get("frame_id"), deadline_ms=meta.get("deadline_ms"))
+    srv = meta.get("_nns_srv")
+    if srv is not None:
+        from nnstreamer_tpu_torch.edge.query import nack_for_shed
+
+        nack_for_shed(srv, meta.get("client_id"), frame_id=meta.get("frame_id"))
+
+
+def notify_drain_flush(frame, node_name: str) -> None:
+    """A draining query server flushed ``frame`` from its admitted queue
+    before it spent device time (``drain(flush_queued=True)``): record the
+    trace event and NACK the client ``draining``, so a fleet client sends
+    the request elsewhere; the admission budget is released."""
+    from nnstreamer_tpu_torch import trace
+
+    meta = getattr(frame, "meta", None) or {}
+    tracer = trace.get()
+    if tracer is not None:
+        tracer.fault(node_name, "drain-flush", None, frame_id=meta.get("frame_id"))
+    srv = meta.get("_nns_srv")
+    if srv is not None:
+        from nnstreamer_tpu_torch.edge.query import drain_flushed
+
+        drain_flushed(srv, meta.get("client_id"), frame_id=meta.get("frame_id"))
 
 
 def notify_discard(frame, node_name: str, action: str) -> None:
-    """A fault policy disposed of ``frame`` (``drop`` or ``route``). The
-    reference returns an admitted edge request's budget here (ROADMAP A.7)."""
-    _log.debug("%s: %s frame %s", node_name, action, frame.meta.get("frame_id"))
+    """A fault policy disposed of ``frame`` (``drop`` or ``route``). When
+    it is an admitted edge request (``_nns_srv`` meta), return its
+    admission budget, and for a drop NACK the client (``failed``, or
+    ``draining`` while its server drains, which a fleet client re-routes).
+    A routed frame gets no NACK: its dead-letter consumer owns it now."""
+    meta = getattr(frame, "meta", None)
+    if not meta:
+        return
+    srv = meta.get("_nns_srv")
+    if srv is None:
+        return
+    from nnstreamer_tpu_torch.edge.query import discard_admitted
+
+    discard_admitted(srv, meta.get("client_id"), action, frame_id=meta.get("frame_id"))
 
 
 def make_error_frame(frame, exc: Exception, element: str):
@@ -296,7 +339,13 @@ class FaultGate:
             if self.route is not None:
                 self.stats.routed += 1
                 self._trace("route", exc)
-                self.route(make_error_frame(frame, exc, self.name))
+                err = make_error_frame(frame, exc, self.name)
+                if frame.meta.get("_nns_srv") is not None:
+                    # the admission budget is released here (notify_discard);
+                    # a dead-letter consumer replying through the serversink
+                    # must not release it a second time
+                    err = err.with_meta(_nns_budget_released=True)
+                self.route(err)
                 notify_discard(frame, self.name, "route")
                 return None
             self.stats.routed_unlinked += 1

@@ -337,6 +337,7 @@ class FusedSegment:
         )
         self._eager: Optional[Tuple[tuple, Callable]] = None
         self._identity: Optional[bool] = None
+        self._host_fn: Optional[Callable] = None  # process_host's composed ops
         self._probes: Optional[list] = None
         # micro-batching (pipeline/batching.py), resolved at plan time;
         # the stats are shared with the ops so tensor_filter can show them
@@ -463,6 +464,20 @@ class FusedSegment:
                 if hook is not None
             ]
         return self._probes
+
+    def is_layout_only(self) -> bool:
+        """True when every op only re-views its tensors (``is_layout_only``,
+        which an identity op is): :meth:`process_host` can then run the
+        segment on a host frame."""
+        return self.fused and all(op.is_layout_only() for op in self.ops)
+
+    def process_host(self, frame: Frame) -> Frame:
+        """A layout-only segment's output computed on the frame where it is
+        (host arrays stay host arrays, as views): for a segment whose
+        consumers read host bytes, nothing crosses the card."""
+        if self._host_fn is None:
+            self._host_fn = self._compose()
+        return frame.with_tensors(self._host_fn(frame.tensors))
 
     def process(self, frame: Frame) -> Union[Frame, List[Frame], None]:
         """The segment's output for one frame: a frame, or for an unfused

@@ -12,9 +12,12 @@ The counterpart of ``nnstreamer_tpu/serving_plane``:
 - :mod:`llm`: :class:`~nnstreamer_tpu_torch.serving_plane.llm.LlmPlane`,
   one shared paged LLM batcher behind N ``tensor_llm_serversink
   plane=<name>`` streams.
+- :mod:`disagg`: :class:`~nnstreamer_tpu_torch.serving_plane.disagg.DisaggController`,
+  disaggregated prefill/decode: a prefill server hands each request's KV
+  span to a decode peer over the edge layer's CTRL channel.
 
 Not ported yet: the placement planner and data-sharded meshes (ROADMAP
-A.8), failover replicas (A.6a), disaggregated prefill/decode (A.7).
+A.8).
 """
 
 from nnstreamer_tpu_torch.serving_plane.plane import (

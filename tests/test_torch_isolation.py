@@ -450,13 +450,27 @@ def test_unported_options_raise(call):
                          n_slots=1, max_len=8, prompt_len=4, default_new=2,
                          device=torch.device("cpu"),
                          kv_kw=dict(kv_layout="paged", block_size=4))
-        srv.drain(migrate_to="127.0.0.1:1")
+        try:
+            return srv.drain(migrate_to="127.0.0.1:1")
+        finally:
+            srv.release_plane()  # as the element's stop: no longer a migration target
 
-    calls = {
+    # ported since (the edge layer): a migrate-to or role prop constructs,
+    # and a drain to a peer with nothing in flight keeps nothing
+    ported = {
         "migrate-to": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                "migrate-to": "127.0.0.1:7000"}),
         "drain-to-peer": drain_to_peer,
         "role": lambda: LlmServerSink(**{"kv-layout": "paged", "role": "prefill"}),
+    }
+    if call in ported:
+        got = ported[call]()
+        if call == "drain-to-peer":
+            assert got == {"migrated": 0, "resumed": 0, "completed": 0, "kept": 0}
+        else:
+            assert got._create_kw[call.replace("-", "_")] == got.get_property(call)
+        return
+    calls = {
         "mesh": lambda: batcher(mesh=object()),
         # the serving plane and its failover replicas are ported; a
         # data-sharded mesh behind it is not

@@ -258,6 +258,31 @@ def test_launch_tally_keeps_capture_counts_apart():
     assert c.count == 0
 
 
+def test_launch_counter_keeps_each_threads_adds():
+    """Two servers in one process read their own launches: count_on sums
+    the adds their threads made, a tally's replay included."""
+    import threading
+
+    c = LaunchCounter()
+
+    def work(n, replayed):
+        for _ in range(n):
+            c.add()
+        c.add(replayed)
+
+    a = threading.Thread(target=work, args=(3, 8))
+    b = threading.Thread(target=work, args=(2, 4))
+    for t in (a, b):
+        t.start()
+        t.join()
+    c.add()
+    assert c.count == 18
+    assert c.count_on([a]) == 11 and c.count_on([b]) == 6 and c.count_on([a, b]) == 17
+    assert c.count_on([threading.current_thread()]) == 1
+    c.reset()
+    assert c.count == 0 and c.count_on([a, b]) == 0
+
+
 def test_transform_constants_made_once():
     a = ttransform._const(1.5, torch.float32, torch.device("cpu"))
     assert ttransform._const(1.5, torch.float32, torch.device("cpu")) is a

@@ -581,15 +581,31 @@ def npz(models, tmp_path_factory):
     return str(path)
 
 
+_made_servers = []
+
+
+@pytest.fixture(autouse=True)
+def _release_servers():
+    """A private paged server stays registered as this process's migration
+    target until it is released, as the element's stop releases it: every
+    server a test made is released after it, so none answers for a later
+    test's peer."""
+    yield
+    while _made_servers:
+        _made_servers.pop().release_plane()
+
+
 def _server(npz, paged=True, **kw):
     from nnstreamer_tpu_torch.elements.llm_serve import _LlmServer
 
-    return _LlmServer(
+    srv = _LlmServer(
         model="zoo:transformer_lm",
         options={"vocab": str(VOCAB), "d_model": str(D_MODEL), "n_heads": str(N_HEADS),
                  "n_layers": str(N_LAYERS), "params": npz},
         n_slots=2, max_len=64, prompt_len=16, default_new=10, device=torch.device("cpu"),
         kv_kw=dict(kv_layout="paged", block_size=16) if paged else None, **kw)
+    _made_servers.append(srv)
+    return srv
 
 
 def _pump_until(srv, cond, limit=500):
@@ -610,18 +626,25 @@ def test_migration_props_need_paged_layout(npz):
 
 
 def test_peer_migration_names_the_edge_layer(npz):
-    """migrate-to and drain(migrate_to=...) need the edge layer: they raise,
-    naming it, before anything changes."""
+    """migrate-to and drain(migrate_to=...) run on the edge layer: the prop
+    constructs, and a drain to a peer that does not answer resumes the
+    in-flight request here by re-prefill (nothing is lost)."""
+    from nnstreamer_tpu_torch.edge.transport import PyTransport
     from nnstreamer_tpu_torch.elements.llm_serve import LlmServerSink
 
-    with pytest.raises(NotImplementedError, match="A.7"):
-        LlmServerSink(**{"kv-layout": "paged", "migrate-to": "127.0.0.1:7000"})
-    with pytest.raises(NotImplementedError, match="A.7"):
-        _server(npz, migrate_to="127.0.0.1:7000")
+    sink = LlmServerSink(**{"kv-layout": "paged", "migrate-to": "127.0.0.1:7000"})
+    assert sink._create_kw["migrate_to"] == "127.0.0.1:7000"
+    assert _server(npz, migrate_to="127.0.0.1:7000").migrate_to == "127.0.0.1:7000"
+    closed = PyTransport()  # a port that is bound, then released: refuses
+    port = closed.listen("127.0.0.1", 0)
+    closed.close()
     srv = _server(npz)
-    with pytest.raises(NotImplementedError, match="A.7"):
-        srv.drain(migrate_to="127.0.0.1:1")
-    assert not srv.draining
+    srv.submit(Frame((STREAMS["elem"][0],), meta={"req": "m0"}))
+    rid = next(iter(srv._pending))
+    _pump_until(srv, lambda: len(srv.cb.partials([rid]).get(rid) or ()) >= 2)
+    summary = srv.drain(migrate_to=f"127.0.0.1:{port}")
+    assert summary == {"migrated": 0, "resumed": 1, "completed": 0, "kept": 0}
+    assert srv.draining and list(srv._pending.values()) == [{"req": "m0"}]
 
 
 def test_checkpoint_crash_restart_resumes_bitwise(npz, reference, tmp_path):
