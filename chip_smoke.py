@@ -8,6 +8,7 @@
     python3 chip_smoke.py --faults      # only the faults group (K1 built first)
     python3 chip_smoke.py --observe     # only the observe group (K1 built first)
     python3 chip_smoke.py --edge        # only the edge group (K1, K4 built first)
+    python3 chip_smoke.py --mesh        # only the mesh group (K1, K3 built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -514,6 +515,35 @@ Last, the edge group (ROADMAP A.7; alone with ``--edge``), with metrics on:
                  pipeline, equal to the uninterrupted run, with no prefill
                  on the peer and K4 = 4 x the peer's steps.
 
+Last, the mesh group (ROADMAP A.8a; alone with ``--mesh``, where its
+serving check builds weights of its own and an unsharded batcher's tokens
+on the same prompts first). The card's machine has one H100, so every mesh
+has one position; each check runs the mesh path itself:
+
+41. mesh_serving — run inside the serving phase on its Mistral-7B-width
+                 weights (32 layers, float32), once that phase freed its
+                 caches: ContinuousBatcher(mesh=make_mesh(1, axes=("dp",)))
+                 on the serving traffic's first 8 prompts, 64 new tokens
+                 each: tokens equal to the unsharded batcher's, K3 = 32 x
+                 steps read from the shard's own counter (and equal to all
+                 K3 launches), every pump program the shard's captured
+                 graph; the mesh step's ms beside the unsharded step's.
+42. mesh_filter — the labeling pipeline (32 frames) with
+                 ``custom="mesh:dp1"`` and with
+                 ``accelerator=true:gpu:mesh=dp1``: labels equal to the
+                 unsharded filter's, K1 32 a run, the model called once a
+                 frame by the filter's mesh program on cuda:0.
+43. mesh_plane  — two 720p labeling streams (48 frames each) through
+                 ``plane-mode=shard plane-devices=1``: labels equal to the
+                 single-device plane's, the plane's program ``shard`` over
+                 ``mesh_devices`` 1, K1 96.
+44. mesh_refusals — ``mesh:dp2``, ``make_mesh(2)`` and ``plane-mode=shard
+                 plane-devices=2`` raise, naming "2 devices, have 1".
+45. mesh_placement — place_pipeline over the two streams under ``[plane]
+                 memory_per_device=64G``: both stages on device 0, left
+                 unpinned (fused), labels equal to the plane's; a bound one
+                 byte below a stage's estimate raises PlacementError.
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -525,7 +555,9 @@ TF32 is off throughout (cuDNN would otherwise run float32 convolutions,
 and the LLM phases' float32 matmuls could run, in TF32), so GPU and CPU
 runs and the references compare at float32 precision. The last lines
 are the card's name and power limit (nvidia-smi), the kernel summary
-``{"kernels": [...]}`` (K1-K5) and ``{"ok": true, "device": {...}}``.
+``{"kernels": [...]}`` (K1-K5; K1's ``launches_mesh`` and K3's
+``launches_mesh_serving`` are the mesh group's) and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1657,6 +1689,10 @@ def llm_phases(torch, np, dev, parse_pipeline):
     yard["xla"] = drive_requests(cbx, prompts[:8], NEW_TOKENS)
     yard_prof["xla"] = decode_profile(torch, cbx, prompts, 8)
     del cbx
+    torch.cuda.empty_cache()
+    # the mesh group's serving check (ROADMAP A.8a) on these weights, its
+    # slot cache the only one on the card
+    mesh_serving = mesh_serving_phase(torch, np, dev, lm, prompts, run, yard_prof["pallas"])
     gen_tokens = sum(len(t) for t in run["tokens"])
     emit({
         "phase": "serving", "config": "llm-serving-mistral7b", **MISTRAL, **SERVE,
@@ -1801,7 +1837,7 @@ def llm_phases(torch, np, dev, parse_pipeline):
           "program_replays": pipe_programs, "equal_to_direct_batcher": True, "meta_returned": True,
           "tokens_first_request": got[0][:8]})
     slot_ttft = {"ttft_ms_p50": pct(run["ttft_ms"], 0.5), "ttft_ms_p99": pct(run["ttft_ms"], 0.99)}
-    return {c["case"]: c for c in k3_cases}, k3_launches, slot_ttft
+    return {c["case"]: c for c in k3_cases}, k3_launches, slot_ttft, mesh_serving
 
 
 # -- the paged KV slice (block arena, prefix sharing, K4) --------------------------
@@ -7440,6 +7476,251 @@ def edge_phases(torch, np, dev, parse_pipeline, ik):
             "labeling_s": t1 - t0, "seconds": time.perf_counter() - t0}
 
 
+# -- the mesh group (ROADMAP A.8a) ------------------------------------------------
+#
+# The card's machine has one H100, so every mesh here has one position. Each
+# check runs the mesh path itself (its own program, its own counters) and
+# holds it against the unsharded path on the same inputs; a mesh of two
+# raises, naming both counts.
+
+MESH_FRAMES = 32  # the labeling runs
+MESH_PIPELINE = PIPELINE.replace("model=zoo:mobilenet_v2 ", "model=zoo:mobilenet_v2 {props}")
+MESH_PLANE_FRAMES = 48  # a stream, in the plane and placement runs
+MESH_SERVE_REQUESTS = 8  # one full slot batch of the serving traffic
+MESH_BOUND = "64G"  # [plane] memory_per_device of the placement check
+MESH_TOO_FEW = r"needs? 2 devices, have 1"
+
+
+def mesh_labels(parse_pipeline, dev, ik, props):
+    """The labeling pipeline with ``props`` on its filter → (labels, K1
+    launches, the filter's mesh program (None: unsharded; read before the
+    run, whose end closes the backend), the model's forward calls)."""
+    p = parse_pipeline(MESH_PIPELINE.format(n=MESH_FRAMES, live="", props=props), device=dev)
+    p.negotiate()
+    be = p["f"].backend
+    mm = be.mesh_model
+    if mm is not None and (be._fn is not mm or be.traceable_fn() is not None):
+        raise AssertionError("mesh_filter: the filter does not run its mesh program")
+    calls = []
+    be.module.register_forward_pre_hook(lambda m, a: calls.append(1))
+    ik.crop_resize_launches.reset()
+    ex = p.run(timeout=600)
+    if ex.errors:
+        raise AssertionError(f"mesh_filter: {ex.errors}")
+    labels = [int(f.tensors[0][0]) for f in p["out"].frames]
+    return labels, ik.crop_resize_launches.count, mm, len(calls)
+
+
+def mesh_filter_phase(torch, np, dev, parse_pipeline, ik):
+    """(a) labeling with ``custom=mesh:dp1`` and with the accelerator's
+    mesh clause against the unsharded filter: labels equal, K1 once a
+    frame, the model run by the mesh program on the card every frame."""
+    base, k1_base, _, _ = mesh_labels(parse_pipeline, dev, ik, "")
+    out = {"phase": "mesh_filter", "frames": MESH_FRAMES, "labels_first4": base[:4],
+           "k1_launches_unsharded": k1_base}
+    for name, props in (("custom", 'custom="mesh:dp1" '),
+                        ("accelerator", "accelerator=true:gpu:mesh=dp1 ")):
+        labels, k1, mm, calls = mesh_labels(parse_pipeline, dev, ik, props)
+        if mm is None:
+            raise AssertionError(f"mesh_filter {name}: the filter has no mesh program")
+        if mm.n_rows != 1 or mm.row_devices[0].type != torch.device(dev).type:
+            raise AssertionError(f"mesh_filter {name}: rows {mm.row_devices}")
+        if labels != base:
+            raise AssertionError(f"mesh_filter {name}: labels differ from the unsharded filter's")
+        if k1 != MESH_FRAMES or calls < MESH_FRAMES:
+            raise AssertionError(f"mesh_filter {name}: K1 {k1}, model calls {calls} for "
+                                 f"{MESH_FRAMES} frames")
+        out[name] = {"k1_launches": k1, "model_calls": calls, "labels_equal": True,
+                     "mesh": mm.mesh.shape, "row_device": str(mm.row_devices[0])}
+    out["k1_launches"] = out["custom"]["k1_launches"] + out["accelerator"]["k1_launches"]
+    return out
+
+
+def mesh_plane_run(parse_pipeline, dev, ik, name, props):
+    """Two 720p labeling streams through plane ``name`` with ``props`` →
+    (labels by stream, the plane's stats, K1 launches)."""
+    from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
+
+    p = parse_pipeline(PLANE_PIPELINE.format(n=MESH_PLANE_FRAMES, plane=f" plane={name}{props}",
+                                             decode=PLANE_LABELS), device=dev)
+    p.negotiate()
+    ik.crop_resize_launches.reset()
+    ex = p.start()
+    done = ex.wait(600)
+    stats = plane_mod.get(name).stats()
+    ex.stop()
+    if ex.errors or not done:
+        raise AssertionError(f"mesh_plane {name}: {ex.errors or 'no EOS within 600 s'}")
+    labels = [[int(f.tensors[0][0]) for f in p[f"out{k}"].frames] for k in range(2)]
+    return labels, stats, ik.crop_resize_launches.count
+
+
+def mesh_plane_phase(torch, np, dev, parse_pipeline, ik):
+    """(b) two streams through plane-mode=shard plane-devices=1 against the
+    single-device plane: labels equal, the shard program's stats."""
+    single, s_stats, _ = mesh_plane_run(parse_pipeline, dev, ik, "chip-mesh-single", "")
+    shard, stats, k1 = mesh_plane_run(parse_pipeline, dev, ik, "chip-mesh-shard",
+                                      " plane-mode=shard plane-devices=1")
+    if stats.get("program") != "shard" or stats.get("mesh_devices") != 1:
+        raise AssertionError(f"mesh_plane: the plane's program {stats.get('program')}, "
+                             f"mesh_devices {stats.get('mesh_devices')}")
+    if shard != single or any(len(x) != MESH_PLANE_FRAMES for x in shard):
+        raise AssertionError("mesh_plane: labels differ from the single-device plane's")
+    if k1 != 2 * MESH_PLANE_FRAMES:
+        raise AssertionError(f"mesh_plane: K1 launched {k1} times for 2 x {MESH_PLANE_FRAMES}")
+    return {"phase": "mesh_plane", "frames_a_stream": MESH_PLANE_FRAMES, "k1_launches": k1,
+            "labels_equal": True, "program": stats["program"],
+            "mesh_devices": stats["mesh_devices"], "dispatches": stats["dispatches"],
+            "avg_batch": stats["avg_batch"], "single_avg_batch": s_stats["avg_batch"],
+            "labels": single}
+
+
+def mesh_serving_phase(torch, np, dev, lm, prompts, plain, plain_profile):
+    """(c) the slot-sharded batcher over a one-position mesh at the
+    widths of ``lm``, on the serving traffic's first 8 prompts, against
+    the unsharded batcher's tokens (``plain``, a drive_requests result on
+    the same prompts): greedy tokens equal, K3 = layers x steps from the
+    shard's own counter, every program the shard's CUDA graph; device time
+    a step by class (K3's among them) over 8 profiled steps beside the
+    unsharded batcher's (``plain_profile``, a decode_profile of 8 steps)."""
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.ops.kernels import decode_attention as da
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    n_layers = len(lm.blocks)
+    cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, attn_impl="pallas",
+                              mesh=make_mesh(1, axes=("dp",)), device=dev)
+    (shard,) = cb.shards
+    if shard.n != SERVE["n_slots"] or shard.device.type != torch.device(dev).type:
+        raise AssertionError(f"mesh_serving: shard of {shard.n} slots on {shard.device}")
+    drive_requests(cb, [prompts[0][:64]], 4)  # warm-up: the shard's programs captured
+    steps0 = cb.stats()["steps"]
+    shard.k3_launches.reset()
+    da.decode_attention_launches.reset()
+    run = drive_requests(cb, prompts[:MESH_SERVE_REQUESTS], NEW_TOKENS)
+    k3 = shard.k3_launches.count
+    steps = cb.stats()["steps"] - steps0
+    st = cb.stats()
+    programs = replayed_programs(st, "mesh_serving")
+    if not all(name.startswith("shard0/") for name in programs):
+        raise AssertionError(f"mesh_serving: programs {list(programs)} are not the shard's")
+    if k3 != n_layers * steps or da.decode_attention_launches.count != k3:
+        raise AssertionError(f"mesh_serving: the shard's K3 counter {k3} (all launches "
+                             f"{da.decode_attention_launches.count}) for {n_layers} layers x "
+                             f"{steps} steps")
+    want = plain["tokens"][:MESH_SERVE_REQUESTS]
+    diff = [i for i, (a, b) in enumerate(zip(run["tokens"], want)) if a != b]
+    if diff or any(t is None or len(t) != NEW_TOKENS for t in run["tokens"]):
+        raise AssertionError(f"mesh_serving: requests {diff} differ from the unsharded batcher")
+    prof = decode_profile(torch, cb, prompts, 8)
+    del cb, shard
+    torch.cuda.empty_cache()
+    return {
+        "phase": "mesh_serving", "config": "llm-serving-mistral7b", "layers": n_layers,
+        **{k: MISTRAL[k] for k in ("d_model", "n_heads", "n_kv_heads", "d_ff", "vocab")},
+        **SERVE, "mesh": {"dp": 1}, "requests": MESH_SERVE_REQUESTS, "new_tokens": NEW_TOKENS,
+        "tokens_equal_unsharded": True, "k3_launches": k3, "steps": steps,
+        "layers_x_steps": n_layers * steps, "program_replays": programs,
+        "ms_per_step_p50": pct(run["pump_ms_per_step"], 0.5),
+        "unsharded_ms_per_step_p50": pct(plain["pump_ms_per_step"], 0.5),
+        "admit_step_ms_p50": pct(run["admit_step_ms"], 0.5),
+        "profile_steps": 8, "per_step": per_step(prof, 8),
+        "unsharded_per_step": per_step(plain_profile, 8),
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def mesh_refusal_phase(torch, dev, parse_pipeline):
+    """(d) a mesh of two on one card raises, naming both counts: the
+    filter's mesh:dp2, make_mesh(2), and plane-mode=shard plane-devices=2."""
+    import re
+
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    calls = {
+        "custom_mesh_dp2": lambda: SingleShot(framework="torch", model="zoo:mobilenet_v2",
+                                              custom="mesh:dp2", device=dev).open(),
+        "make_mesh_2": lambda: make_mesh(2, axes=("dp",)),
+        "plane_shard_2": lambda: parse_pipeline(PLANE_PIPELINE.format(
+            n=1, plane=" plane=chip-mesh-two plane-mode=shard plane-devices=2",
+            decode=""), device=dev).negotiate(),
+    }
+    out = {"phase": "mesh_refusals"}
+    for name, call in calls.items():
+        try:
+            call()
+        except Exception as exc:  # noqa: BLE001 — the message is the check
+            if not re.search(MESH_TOO_FEW, str(exc)):
+                raise AssertionError(f"mesh_refusals {name}: {exc!r}") from exc
+            out[name] = str(exc)
+        else:
+            raise AssertionError(f"mesh_refusals {name}: a mesh of 2 did not raise")
+    return out
+
+
+def mesh_placement_phase(torch, dev, parse_pipeline, ik, want_labels):
+    """(e) place_pipeline over the two labeling streams on one card under
+    the configured bound: every stage on cuda:0 and left unpinned (fused),
+    labels equal to the plane's; a bound below a stage raises."""
+    from nnstreamer_tpu_torch.serving_plane import PlacementError, place_pipeline
+
+    desc = PLANE_PIPELINE.format(n=MESH_PLANE_FRAMES, plane="", decode=PLANE_LABELS)
+    old = os.environ.get("NNS_TPU_PLANE_MEMORY_PER_DEVICE")
+    os.environ["NNS_TPU_PLANE_MEMORY_PER_DEVICE"] = MESH_BOUND
+    try:
+        p = parse_pipeline(desc, device=dev)
+        plan = place_pipeline(p)
+    finally:
+        if old is None:
+            os.environ.pop("NNS_TPU_PLANE_MEMORY_PER_DEVICE")
+        else:
+            os.environ["NNS_TPU_PLANE_MEMORY_PER_DEVICE"] = old
+    from nnstreamer_tpu_torch.analysis.costmodel import estimate_stage_bytes
+
+    costs = {name: estimate_stage_bytes(p[name]) for name in plan}
+    if plan != {"f0": 0, "f1": 0}:
+        raise AssertionError(f"mesh_placement: plan {plan}")
+    if any(p[name].backend._pinned is not None for name in plan):
+        raise AssertionError("mesh_placement: a stage on device 0 was pinned")
+    ik.crop_resize_launches.reset()
+    ex = p.run(timeout=600)
+    if ex.errors:
+        raise AssertionError(f"mesh_placement: {ex.errors}")
+    labels = [[int(f.tensors[0][0]) for f in p[f"out{k}"].frames] for k in range(2)]
+    if labels != want_labels:
+        raise AssertionError("mesh_placement: labels differ from the plane's")
+    small = min(costs.values()) - 1
+    try:
+        place_pipeline(parse_pipeline(desc, device=dev), per_device_bytes=small)
+    except PlacementError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError(f"mesh_placement: a {small}-byte bound did not raise")
+    return {"phase": "mesh_placement", "bound": MESH_BOUND, "plan": plan,
+            "stage_bytes": costs, "k1_launches": ik.crop_resize_launches.count,
+            "labels_equal": True, "small_bound_refused": refused}
+
+
+def mesh_phases(torch, np, dev, parse_pipeline, ik, serving):
+    """The mesh group: mesh_filter, mesh_plane, mesh_refusals,
+    mesh_placement; ``serving`` is the mesh_serving result the slot serving
+    phase made on its own weights (reported here with the group)."""
+    t0 = time.perf_counter()
+    filt = mesh_filter_phase(torch, np, dev, parse_pipeline, ik)
+    emit(filt)
+    plane = mesh_plane_phase(torch, np, dev, parse_pipeline, ik)
+    emit({k: v for k, v in plane.items() if k != "labels"})
+    emit(mesh_refusal_phase(torch, dev, parse_pipeline))
+    place = mesh_placement_phase(torch, dev, parse_pipeline, ik, plane["labels"])
+    emit(place)
+    seconds = time.perf_counter() - t0
+    return {"k1_launches": filt["k1_launches"] + plane["k1_launches"] + place["k1_launches"],
+            "k3_launches": serving["k3_launches"], "serving": serving,
+            "seconds": seconds + serving["seconds"], "pipelines_seconds": seconds}
+
+
 def ab_turn(tree: str, npz: str) -> int:
     """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
     25200 candidates with the kernels of the checkout at ``tree`` (its own
@@ -7787,7 +8068,8 @@ def main() -> int:
         "paced30_latency_ms_p50": pct(lat_live, 0.5),
         "paced30_latency_ms_p99": pct(lat_live, 0.99)})
 
-    k3_by_name, k3_launches, slot_ttft = llm_phases(torch, np, dev, parse_pipeline)
+    k3_by_name, k3_launches, slot_ttft, mesh_serving = llm_phases(torch, np, dev,
+                                                                   parse_pipeline)
     k3_main = k3_by_name["serve-f32-pos600"]
     k4_main, k4_launches = paged_phases(torch, np, dev, parse_pipeline, k3_by_name, slot_ttft)
     torch.cuda.empty_cache()
@@ -7811,6 +8093,11 @@ def main() -> int:
     emit({"phase": "observe", "seconds": observe["seconds"]})
     edge = edge_phases(torch, np, dev, parse_pipeline, ik)
     emit({"phase": "edge", "seconds": edge["seconds"]})
+    emit(mesh_serving)
+    mesh = mesh_phases(torch, np, dev, parse_pipeline, ik, mesh_serving)
+    emit({"phase": "mesh", "seconds": mesh["seconds"],
+          "pipelines_seconds": mesh["pipelines_seconds"],
+          "serving_seconds": mesh_serving["seconds"]})
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -7831,6 +8118,7 @@ def main() -> int:
         "launches_faults": faults["k1_launches"],
         "launches_observe": observe["k1_launches"],
         "launches_edge": edge["k1_launches"],
+        "launches_mesh": mesh["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -7866,6 +8154,7 @@ def main() -> int:
         "launches": k3_launches,
         "launches_speculative": spec["k3_launches"],
         "launches_windowed_ring": state["k3_launches"],
+        "launches_mesh_serving": mesh["k3_launches"],
         "ring_cases": [{k: c[k] for k in (
             "case", "pos_min", "pos_max", "live_rows", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")} for c in state["windowed_ring"]["k3_cases"]],
@@ -8032,7 +8321,50 @@ def plane_main() -> int:
     return 0
 
 
+def mesh_main() -> int:
+    """``--mesh``: only the mesh group (K1 and K3 built first), with its
+    serving check on Mistral-7B-width weights of its own, against an
+    unsharded batcher on the same prompts first."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.models import serving as sv
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    _build.build(["image_kernels", "decode_attention"])
+    dev = torch.device("cuda")
+    lm = tfm.init_params(torch.Generator(device=dev).manual_seed(0), **MISTRAL, device=dev)
+    prompts = slot_traffic(np, np.random.default_rng(0))[:MESH_SERVE_REQUESTS]
+    cb = sv.ContinuousBatcher(lm, MISTRAL["n_heads"], **SERVE, attn_impl="pallas", device=dev)
+    drive_requests(cb, [prompts[0][:64]], 4)
+    plain = drive_requests(cb, prompts, NEW_TOKENS)
+    plain_profile = decode_profile(torch, cb, prompts, 8)
+    del cb
+    torch.cuda.empty_cache()
+    serving = mesh_serving_phase(torch, np, dev, lm, prompts, plain, plain_profile)
+    emit(serving)
+    del lm
+    torch.cuda.empty_cache()
+    out = mesh_phases(torch, np, dev, parse_pipeline, ik, serving)
+    emit({"phase": "mesh", "seconds": out["seconds"], "k1_launches": out["k1_launches"],
+          "k3_launches": out["k3_launches"]})
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh"] and len(sys.argv) == 2:
+        sys.exit(mesh_main())
     if sys.argv[1:2] == ["--plane"] and len(sys.argv) == 2:
         sys.exit(plane_main())
     if sys.argv[1:2] == ["--sources"] and len(sys.argv) == 2:

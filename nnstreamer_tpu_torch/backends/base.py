@@ -36,6 +36,7 @@ class FilterProps:
     input_spec: Optional[TensorsSpec] = None  # user override
     output_spec: Optional[TensorsSpec] = None
     custom: str = ""  # backend-specific option string (custom= prop)
+    accelerator: str = ""  # the reference's accelerator string; its mesh= clause shards
     invoke_dynamic: bool = False  # input and output shapes may vary per frame
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     options: Dict[str, str] = field(default_factory=dict)

@@ -31,30 +31,41 @@ Placement options, taken out of ``custom=`` before the model sees them
 (as the reference's ``jax_backend.py`` does):
 
 - ``device:N`` pins the filter to ``cuda:N`` (out of range raises before
-  any load). The pinned filter is a fusion barrier whose inputs move to
-  its card. On the CPU every ``device:N`` is the one CPU device (the
-  reference's CPU run has 8 virtual devices).
-- ``mesh:<axes>`` (``dp2tp4``): a mesh larger than the devices at hand
-  raises "needs N devices"; one that fits raises too, since mesh sharding
-  is not ported yet. Neither loads a model; ``device:`` with ``mesh:``
-  raises.
+  any load; the filter's ``device=`` prop rides this option). The pinned
+  filter is a fusion barrier whose inputs move to its card. On the CPU
+  every ``device:N`` is the one CPU device (the reference's CPU run has 8
+  virtual devices). :meth:`TorchBackend.pin_device` pins an opened
+  backend (the placement planner's entry).
+- ``mesh:<axes>`` (``dp2tp4``), or the ``mesh=`` clause of
+  ``accelerator=`` (``true:gpu:mesh=dp2``): the model runs over a device
+  mesh (parallel/mesh.py) as a :class:`~nnstreamer_tpu_torch.parallel.sharded_model.MeshModel`.
+  Each input whose dim 0 divides by ``dp`` is split over ``dp`` (any other
+  is replicated), and every layer whose output channels divide by ``tp``
+  is column-parallel; a model with no such layer shards its inputs only,
+  with the reference's warning. A mesh larger than the devices at hand
+  raises "needs N devices, have M" before any load (on the CPU the
+  positions are ``[mesh] cpu_devices``); ``device:`` with ``mesh:``
+  raises. :meth:`TorchBackend.set_shardings` installs input shardings
+  programmatically. A mesh-sharded filter is a fusion barrier.
 """
 
 from __future__ import annotations
 
 import math
 import os
-import re
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from nnstreamer_tpu_torch import registry
 from nnstreamer_tpu_torch.backends.base import Backend, BackendError, FilterProps
+from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.script import load_script_module
 from nnstreamer_tpu_torch.tensors.spec import DType, TensorSpec, TensorsSpec
 
 _JAX_PROGRAMS = (".jaxexport", ".stablehlo", ".hlo")
+
+_log = get_logger("torch_backend")
 
 
 def _as_tuple(x) -> Tuple[Any, ...]:
@@ -86,12 +97,21 @@ class TorchBackend(Backend):
         self._in_spec: Optional[TensorsSpec] = None
         self._out_spec: Optional[TensorsSpec] = None
         self._pinned: Optional[torch.device] = None
+        self._mesh_spec: Optional[str] = None  # e.g. "dp2tp4" (mesh: option or clause)
+        self._in_shardings = None  # set_shardings' input descriptors
+        self._base_fn: Optional[Callable] = None  # the model's own fn under a mesh
+        self.mesh_model = None  # the MeshModel the mesh runs
 
     def open(self, props: FilterProps) -> None:
         self.props = props
         path = props.model_path
         options = props.custom_dict()
+        mesh_spec = options.get("mesh") or self._parse_accel_mesh(props.accelerator)
+        if mesh_spec:
+            options["mesh"] = mesh_spec
         self._pinned = self._placement(options, props.device)
+        self._mesh_spec = mesh_spec or None
+        self._in_shardings = self.mesh_model = self._base_fn = None
         self._device = self._pinned if self._pinned is not None else props.device
         self._out_spec = None
         self._traceable = True
@@ -115,6 +135,7 @@ class TorchBackend(Backend):
             raise BackendError(f"torch: unsupported model source {path!r}")
         if props.input_spec is not None and props.input_spec != self._in_spec:
             self._in_spec, self._out_spec = props.input_spec, None
+        self._build_mesh()
 
     def _open_zoo(self, name: str, opts: Dict[str, str]) -> None:
         from nnstreamer_tpu_torch.models import zoo
@@ -177,9 +198,23 @@ class TorchBackend(Backend):
         self._in_spec = None  # from the caller: TorchScript carries no static shapes
 
     @staticmethod
+    def _parse_accel_mesh(accelerator: str) -> Optional[str]:
+        """``accelerator=true:gpu:mesh=dp2tp4`` → ``dp2tp4`` (the
+        reference's accelerator grammar with its mesh clause)."""
+        for part in (accelerator or "").split(":"):
+            part = part.strip()
+            if part.startswith("mesh="):
+                return part[len("mesh="):]
+        return None
+
+    @staticmethod
     def _placement(options: Dict[str, str], device: torch.device) -> Optional[torch.device]:
         """The device ``device:N`` pins the filter to (None when unpinned);
-        refuses ``mesh:`` before anything is loaded."""
+        checks ``mesh:`` (its spec, its device count, its exclusion with
+        ``device:``) before anything is loaded."""
+        from nnstreamer_tpu_torch.parallel.mesh import available_devices
+        from nnstreamer_tpu_torch.parallel.sharded_model import parse_mesh_spec
+
         pinned = None
         if "device" in options:
             idx = int(options["device"])
@@ -191,20 +226,88 @@ class TorchBackend(Backend):
         if mesh:
             if pinned is not None:
                 raise BackendError("torch: device: and mesh: are exclusive")
-            pairs = re.findall(r"([a-z]+)(\d+)", mesh)
-            if not pairs or "".join(a + n for a, n in pairs) != mesh:
-                raise BackendError(f"torch: bad mesh spec {mesh!r} (want e.g. dp2tp4)")
-            n = math.prod(int(k) for _, k in pairs)
-            have = torch.cuda.device_count() if device.type == "cuda" else 1
+            try:
+                _, sizes = parse_mesh_spec(mesh)
+            except ValueError as exc:
+                raise BackendError(f"torch: {exc}") from None
+            n = math.prod(sizes)
+            have = len(available_devices(device.type))
             if n > have:
                 raise BackendError(f"torch: mesh {mesh} needs {n} devices, have {have}")
-            raise BackendError(
-                f"torch: mesh {mesh}: mesh sharding is not ported yet (ROADMAP A.8)"
-            )
         return pinned
 
+    def _build_mesh(self) -> None:
+        """Run the model over its mesh (see the module docstring): the
+        :class:`MeshModel` for the negotiated input spec replaces the
+        model's fn. Rebuilt when the input spec changes."""
+        if self._mesh_spec is None and self._in_shardings is None:
+            return
+        if self._in_spec is None or not self._in_spec.is_static:
+            return  # built once the input spec is known (set_input_info)
+        from nnstreamer_tpu_torch.parallel import mesh as pm
+        from nnstreamer_tpu_torch.parallel.sharded_model import MeshModel, parse_mesh_spec
+
+        if self._base_fn is None:
+            self._base_fn = self._fn
+        if self._in_shardings is not None:
+            mesh = self._in_shardings[0].mesh
+            in_sh, tp_axis = self._in_shardings, None
+        else:
+            axes, sizes = parse_mesh_spec(self._mesh_spec)
+            try:
+                mesh = pm.make_mesh(math.prod(sizes), axes=axes, shape=sizes,
+                                    devices=self._device.type)
+            except ValueError as exc:
+                raise BackendError(f"torch: mesh {self._mesh_spec}: {exc}") from None
+            dp = mesh.axis_size("dp")
+            in_sh = tuple(
+                pm.batch_sharding(mesh, "dp")
+                if dp > 1 and len(t.shape) >= 1 and t.shape[0] % dp == 0
+                else pm.replicated(mesh)
+                for t in self._in_spec)
+            tp_axis = "tp" if mesh.axis_size("tp") > 1 else None
+            if tp_axis is not None and not isinstance(self.module, torch.nn.Module):
+                _log.warning("torch: mesh %s has tp>1 but the model has no nn.Module to "
+                             "split; sharding its inputs only", self._mesh_spec)
+                tp_axis = None
+        zeros = tuple(torch.zeros(t.shape, dtype=t.dtype.torch_dtype, device=self._device)
+                      for t in self._in_spec)
+        try:
+            mm = MeshModel(self._base_fn, self.module, mesh, in_sh, tp_axis, self._device,
+                           zeros)
+        except ValueError as exc:
+            raise BackendError(f"torch: mesh {self._mesh_spec or mesh.shape}: {exc}") from None
+        if tp_axis is not None and not mm.split_layers.get(0):
+            _log.warning("torch: mesh %s has tp>1 but the model has no column-parallel "
+                         "layer; sharding its inputs only", self._mesh_spec)
+        self.mesh_model = mm
+        self._fn = mm
+        self._out_spec = None
+
+    def set_shardings(self, in_shardings) -> None:
+        """Install input shardings programmatically (parallel/mesh.py
+        descriptors, one an input; the ``mesh:`` option builds the same
+        state from a spec string, which these replace): an input whose dim
+        0 is split over ``dp`` runs data-parallel over that axis."""
+        self._in_shardings = tuple(in_shardings)
+        self._mesh_spec = None
+        self._build_mesh()
+
+    def pin_device(self, idx: int) -> None:
+        """Pin the opened backend to device ``idx`` (the placement
+        planner's entry, serving_plane/placement.py), as ``device:N`` does
+        at open: ``cuda:idx``, range-checked, or the one CPU device; its
+        module moves there. A mesh-sharded backend refuses."""
+        if self._mesh_spec or self.mesh_model is not None:
+            raise BackendError("torch: device pin and mesh are exclusive")
+        dev = self.props.device if self.props is not None else self._device
+        pinned = self._placement({"device": str(idx)}, dev)
+        if isinstance(self.module, torch.nn.Module) and pinned != self._device:
+            self.module.to(pinned)
+        self._pinned = self._device = pinned
+
     def close(self) -> None:
-        self.module = self._fn = self.program = None
+        self.module = self._fn = self.program = self._base_fn = self.mesh_model = None
 
     def _infer_out_spec(self) -> TensorsSpec:
         """Output spec by running the module once on zeros of the input
@@ -238,6 +341,7 @@ class TorchBackend(Backend):
         ):
             raise BackendError(f"torch: cannot renegotiate input {cur_in} -> {in_spec}")
         self._in_spec = in_spec
+        self._build_mesh()
         self._out_spec = self._infer_out_spec()
         return self._out_spec
 
@@ -257,7 +361,8 @@ class TorchBackend(Backend):
                     )
         if self._pinned is not None or not self._traceable:
             # a pinned filter's inputs move to its card; a host node (a
-            # TorchScript model) gets its frame on the filter's device
+            # TorchScript model) gets its frame on the filter's device (a
+            # mesh-sharded one moves its inputs to the mesh itself)
             tensors = tuple(t.to(self._device) for t in tensors)
         with torch.inference_mode():
             return _as_tuple(self._fn(*tensors))
@@ -270,8 +375,37 @@ class TorchBackend(Backend):
 
     def traceable_fn(self) -> Optional[Callable]:
         fn = self._fn
-        if fn is None or self._pinned is not None or not self._traceable:
-            # a pinned filter is a fusion barrier: fused into a neighbour's
-            # segment, its placement would be lost; a host node is one too
+        if (fn is None or self._pinned is not None or self.mesh_model is not None
+                or not self._traceable):
+            # a pinned or mesh-sharded filter is a fusion barrier: fused into
+            # a neighbour's segment, its placement would be lost; a host node
+            # is one too
             return None
         return lambda tensors: _as_tuple(fn(*tensors))
+
+    def plane_fn(self) -> Tuple[Optional[Callable], Optional[torch.device]]:
+        """``(fn, device)`` for the serving plane (serving_plane/sharding.py).
+        Where a device pin makes :meth:`traceable_fn` refuse (a pin is a
+        fusion barrier, not a batching barrier), the plane builds its own
+        program on the pinned device, so ``plane= device=N`` batches there
+        and does not degrade to a per-frame host loop. A mesh-sharded
+        backend gives (None, None): the plane's ``plane-mode=shard`` is the
+        sharded path."""
+        fn = self._fn
+        if fn is None or self.mesh_model is not None or not self._traceable:
+            return None, None
+        return (lambda tensors: _as_tuple(fn(*tensors))), self._device
+
+    def fn_on(self, device: torch.device) -> Callable:
+        """The model's traceable fn with its weights on ``device`` (a copy of
+        the module there; the plane's mesh positions): the fn itself on the
+        backend's own device."""
+        device = torch.device(device)
+        if device == self._device:
+            return self.plane_fn()[0]
+        if not isinstance(self.module, torch.nn.Module):
+            raise BackendError(f"torch: a model with no nn.Module cannot be placed on {device}")
+        import copy
+
+        replica = copy.deepcopy(self.module).to(device)
+        return lambda tensors: _as_tuple(replica(*tensors))

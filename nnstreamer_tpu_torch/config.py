@@ -4,7 +4,8 @@ The part of ``nnstreamer_tpu/config.py`` that the port reads: plugin
 search paths, the element restriction whitelist, the framework
 auto-detect priority, the ``[executor]`` micro-batching, fault-policy,
 device-resilience, frame-ring, chain, sanitizer and metrics defaults, the
-``[plane]`` serving-plane defaults and the ``[llm]`` serving defaults. Env mapping:
+``[plane]`` serving-plane defaults, the ``[mesh]`` CPU mesh size and the
+``[llm]`` serving defaults. Env mapping:
 section ``filter`` key ``framework_priority_pt`` is overridden by
 ``NNS_TPU_FILTER_FRAMEWORK_PRIORITY_PT``. The ini file is read only from
 the path in ``NNS_TPU_CONF``.
@@ -97,7 +98,7 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # plane-* properties override. Env: NNS_TPU_PLANE_MAX_BATCH etc.
         "max_batch": "8",
         "timeout_ms": "1.0",
-        # single | shard (one device in the port) | replicas
+        # single | shard (a dp mesh of plane-devices positions) | replicas
         "mode": "single",
         # devices backing the plane: mesh size (shard) / replica count
         "devices": "1",
@@ -116,6 +117,13 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # empty = no bound. A compiled chain's window is clamped to it
         # (pipeline/chain_program.py)
         "memory_per_device": "",
+    },
+    "mesh": {
+        # the mesh positions the CPU offers when a caller asks for a CPU
+        # mesh (parallel/mesh.py): every position is the CPU device, the
+        # analogue of the reference's virtual CPU devices. Env:
+        # NNS_TPU_MESH_CPU_DEVICES
+        "cpu_devices": "1",
     },
     "llm": {
         # continuous-batching LLM serving defaults (tensor_llm_serversink

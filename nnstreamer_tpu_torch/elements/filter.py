@@ -34,9 +34,17 @@ and each collected window is one plane round trip. Under ``plane=``,
 ``ring-depth`` (1..32, default ``[plane] inflight``) is the stream's
 in-flight window tickets: at depth > 1 window N+1 submits while N
 computes. ``plane-mode=replicas`` opens one backend a replica behind the
-plane's failover (serving_plane/sharding.py ``ReplicatedProgram``).
-``plane-mode=shard`` over more than one device is not ported and raises at
-construction.
+plane's failover (serving_plane/sharding.py ``ReplicatedProgram``);
+``plane-mode=shard`` splits each window over a ``dp`` mesh of
+``plane-devices`` positions (``MeshShardedProgram``).
+
+Placement: ``device=N`` pins the filter to ``cuda:N`` (the one CPU
+device on the CPU), range-checked before any load; it rides ``custom=``
+as ``device:N``, which the placement planner (serving_plane/placement.py)
+sets too. A pinned plane filter still batches through the plane's own
+program on its device. ``accelerator=`` is the reference's string: its
+``mesh=`` clause (``true:gpu:mesh=dp2tp4``) shards the model over a mesh
+as ``custom="mesh:..."`` does (backends/torch_backend.py).
 
 Streaming (pipeline/transfer.py, pipeline/chain_program.py): without a
 plane, ``ring-depth`` is the in-flight frame ring of the filter's node
@@ -104,8 +112,8 @@ _shared_backends: Dict[str, Dict] = {}
 def _props_signature(p: FilterProps) -> tuple:
     """Everything that shapes an opened backend: sharers must agree on all
     of it, not only the model path."""
-    return (p.framework, p.model, p.custom, p.invoke_dynamic, str(p.input_spec),
-            str(p.output_spec), str(p.device))
+    return (p.framework, p.model, p.custom, p.accelerator, p.invoke_dynamic,
+            str(p.input_spec), str(p.output_spec), str(p.device))
 
 
 def _shared_acquire(key: str, props: FilterProps, opener: Callable[[], Backend]) -> Backend:
@@ -186,6 +194,13 @@ class TensorFilter(TensorOp):
         "outputname": PropSpec("str", ""),
         "is-updatable": PropSpec("bool", False, desc="allow reload_model()"),
         "custom": PropSpec("str", "", desc="backend options 'k:v,k2:v2'"),
+        "accelerator": PropSpec(
+            "str", "", desc="the reference's accelerator string; mesh=dp2tp4 shards the model"),
+        # per-stage placement (serving_plane/placement.py): rides the custom
+        # string as device:N, so the explicit prop and the planner share the
+        # backend's placement path
+        "device": PropSpec(
+            "int", None, desc="pin this stage to cuda:N (the one CPU device on the CPU)"),
         "invoke-dynamic": PropSpec("bool", False, desc="input shapes may vary per frame"),
         "input-combination": PropSpec("str", "", desc="model inputs: 'i0,i2'"),
         "output-combination": PropSpec("str", "", desc="frame out: 'o0,i1'"),
@@ -273,12 +288,21 @@ class TensorFilter(TensorOp):
                 str(self.get_property("outputtype", "float32")),
                 str(self.get_property("outputname", "")),
             )
+        custom = str(self.get_property("custom", ""))
+        dev_raw = self.get_property("device")
+        if dev_raw is not None and str(dev_raw).strip() != "":
+            try:
+                dev_idx = int(dev_raw)
+            except (TypeError, ValueError) as exc:
+                raise ValueError(f"{self.name}: bad device={dev_raw!r}: {exc}") from exc
+            custom = ",".join(x for x in (custom, f"device:{dev_idx}") if x)
         self.fprops = FilterProps(
             framework=framework,
             model=model_list,
             input_spec=in_override,
             output_spec=out_override,
-            custom=str(self.get_property("custom", "")),
+            custom=custom,
+            accelerator=str(self.get_property("accelerator", "") or ""),
             invoke_dynamic=parse_bool(self.get_property("invoke-dynamic", False)),
         )
         self.in_combination = _parse_combination(str(self.get_property("input-combination", "")))
@@ -356,8 +380,7 @@ class TensorFilter(TensorOp):
     def _init_plane(self) -> None:
         """Resolve the plane config and this stream's ticket depth, and
         default the local collector on, window-matched to the plane
-        (explicit batching= / max-batch= props still win). What the port
-        cannot serve raises here, before any backend opens."""
+        (explicit batching= / max-batch= props still win)."""
         self.plane = str(self.get_property("plane", "") or "")
         raw_w = self.get_property("plane-weight")
         self.plane_weight = float(raw_w) if raw_w is not None else 1.0
@@ -371,10 +394,8 @@ class TensorFilter(TensorOp):
             # the executor's in-flight frame ring takes it (pipeline/transfer.py)
             return
         from nnstreamer_tpu_torch.serving_plane.plane import resolve_plane_config
-        from nnstreamer_tpu_torch.serving_plane.sharding import refuse_unported
 
         self._plane_cfg = resolve_plane_config([self])
-        refuse_unported(self._plane_cfg)
         if raw_rd is not None:
             try:
                 depth = int(raw_rd)
@@ -429,6 +450,16 @@ class TensorFilter(TensorOp):
         if self._plane is None:
             from nnstreamer_tpu_torch.serving_plane import plane as plane_mod
 
+            if self._plane_cfg.mode == "shard":
+                # a mesh past the positions of this device's kind raises
+                # naming both counts, before any backend opens
+                from nnstreamer_tpu_torch.parallel.mesh import available_devices
+
+                have = len(available_devices(self.device.type))
+                if self._plane_cfg.devices > have:
+                    raise ValueError(f"plane-mode=shard needs {self._plane_cfg.devices} "
+                                     f"devices, have {have}")
+
             # a sharer that set no plane-* knobs INHERITS the first
             # attacher's bound config instead of colliding with it
             explicit = any(
@@ -436,7 +467,8 @@ class TensorFilter(TensorOp):
                 for k in ("plane-max-batch", "plane-timeout-ms", "plane-mode", "plane-devices")
             )
             sig = (self.fprops.framework, self.fprops.model, self.fprops.custom,
-                   self.fprops.invoke_dynamic, str(self.fprops.input_spec),
+                   self.fprops.accelerator, self.fprops.invoke_dynamic,
+                   str(self.fprops.input_spec),
                    str(self.fprops.output_spec), str(self.device))
             def opener(i: int, replicated: bool) -> Backend:
                 # a replica carries _replica:<i>, so the chaos injectors'

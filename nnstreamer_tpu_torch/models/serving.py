@@ -72,12 +72,23 @@ per-slot masks and write gating by ``active`` keep the slots apart.
   ``adopt_request`` / ``resume_from_span`` move one live request as a
   :class:`~nnstreamer_tpu_torch.kv.migrate.RequestSpan` (the reference's
   wire format, ``kv/migrate.py``).
-
-Not ported yet (raises ``NotImplementedError``): meshes.
+- ``mesh=`` (slot layout): the slot axis is sharded over the mesh's
+  ``slots_axis`` (parallel/mesh.py). Each position holds a
+  :class:`SlotShard`: its contiguous run of slots' cache (the int8 scales
+  with it), per-slot state, token history and draft cache, with the
+  weights on its device, its own programs (on CUDA its own CUDA graphs)
+  and its own K3 launch counter. Every step, pump and spec pump runs each
+  shard's program on its device over its local slots (K3 launched over
+  them), and the host gathers the emitted tokens in slot order. Prefill
+  runs on the batcher's ``device`` and admission copies each request's
+  K/V into its shard. The reference shards the same way (GSPMD over the
+  slot axis, its kernel under ``shard_map``), and refuses the paged layout
+  with a mesh, as this batcher does.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time as _time
 from collections import OrderedDict
@@ -95,13 +106,10 @@ from nnstreamer_tpu_torch.models import transformer as tfm
 from nnstreamer_tpu_torch.models.serving_paged import PagedAdmission
 from nnstreamer_tpu_torch.models.serving_spec import SpecDecoding, hist_write_row
 from nnstreamer_tpu_torch.models.serving_state import ServingState
+from nnstreamer_tpu_torch.ops.kernels import LaunchCounter
 
 _M32 = 0xFFFFFFFF
 _M64 = (1 << 64) - 1
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"ContinuousBatcher: {what} is not ported yet")
 
 
 def quantize_kv(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -365,6 +373,27 @@ class _PumpProgram:
         return self.cap.outputs
 
 
+class SlotShard:
+    """One mesh position's run of slots ``[lo, lo + n)``: its device, the
+    weights there, the attention fn that counts its own K3 launches
+    (``k3_launches``), and (filled by the batcher) its slice of every
+    slot-axis buffer, its draft engine and its programs. The pump and spec
+    bodies read their state from the holder they are given: the batcher
+    itself when unsharded, a shard under a mesh."""
+
+    def __init__(self, index: int, lo: int, n: int, device: torch.device, params,
+                 attn_impl: str) -> None:
+        self.index, self.lo, self.n = index, lo, n
+        self.device = device
+        self.params = params
+        self.k3_launches = LaunchCounter()
+        self._attn_fn = None
+        if attn_impl == "pallas":
+            from nnstreamer_tpu_torch.ops.kernels.decode_attention import make_decode_attention
+
+            self._attn_fn = make_decode_attention(self.k3_launches)
+
+
 class BatcherFailedError(RuntimeError):
     """A step raised after it began updating the cache in place: the
     device state is invalid. Build a new batcher."""
@@ -408,6 +437,12 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
     and generations of any length, each token attending the previous
     max_len.
 
+    ``mesh`` (a :class:`~nnstreamer_tpu_torch.parallel.mesh.Mesh`, slot
+    layout only) shards the slots over its ``slots_axis``: ``n_slots`` must
+    divide over it, and each position runs its :class:`SlotShard` (see the
+    module docstring). ``device`` is where prefill runs and ``params``
+    live; a position on another device gets its own copy of the weights.
+
     Failure: the steps update the cache in place, so a step that raises
     (a failed capture or replay included: nothing falls back to eager
     steps) leaves the device state invalid; the batcher latches the error
@@ -425,6 +460,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         keep_results: int = 1024,
         cache_dtype: str = "auto",
         mesh=None,
+        slots_axis: str = "dp",
         windowed: bool = False,
         draft_params=None,
         draft_n_heads: Optional[int] = None,
@@ -474,7 +510,14 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 "block table to attend through"
             )
         if mesh is not None:
-            raise _not_ported("mesh= (slot-sharded meshes)")
+            from nnstreamer_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh= takes a parallel.mesh.Mesh, got {type(mesh).__name__}")
+            n_mesh = mesh.axis_size(slots_axis)
+            if n_slots % n_mesh:
+                raise ValueError(f"n_slots={n_slots} must divide over mesh axis "
+                                 f"{slots_axis!r} (size {n_mesh})")
         if attn_impl == "pallas" and self._paged:
             from nnstreamer_tpu_torch.ops.kernels.paged_attention import make_paged_attention
 
@@ -526,53 +569,27 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         kv = tfm.n_kv_heads_of(params.blocks[0].wqkv.weight, d, n_heads)
         shape = (params.n_layers, n_slots, max_len, kv, hd)
         dev = self.device
+        self._shards: Optional[List[SlotShard]] = None
         if self._paged:
             self._init_paged(params.n_layers, kv, hd, block_size, kv_blocks, prefill_chunks,
                              cache_dtype == "int8")
-        elif cache_dtype == "int8":
-            self._cache = tuple(
-                (torch.zeros(shape, dtype=torch.int8, device=dev),
-                 torch.ones(shape[:-1], dtype=torch.float32, device=dev))
-                for _ in range(2)
-            )
+            self._alloc_slot_state(self, None, n_slots, max_len)
+        elif mesh is None:
+            self._alloc_slot_state(self, shape, n_slots, max_len)
         else:
-            self._cache = tuple(
-                torch.zeros(shape, dtype=self.compute_dtype, device=dev) for _ in range(2)
-            )
-        # per-slot state on the device, the pump programs' operands: fixed
-        # addresses for the batcher's life, only ever written in place
-        # (admission sets a slot's entries; the programs write the carried
-        # state back), so a captured program never reads a stale buffer
-        i32 = dict(dtype=torch.int32, device=dev)
-        self._tok = torch.zeros((n_slots,), **i32)
-        self._pos = torch.zeros((n_slots,), **i32)
-        self._temp = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
-        self._topk = torch.zeros((n_slots,), **i32)
-        self._topp = torch.ones((n_slots,), dtype=torch.float32, device=dev)
-        self._keys = torch.zeros((n_slots,), dtype=torch.int64, device=dev)  # seed_key per slot
+            import copy
+
+            per = n_slots // mesh.axis_size(slots_axis)
+            self._shards = []
+            for i, sdev in enumerate(mesh.along(slots_axis)):
+                sparams = params if sdev == dev else copy.deepcopy(params).to(sdev)
+                sh = SlotShard(i, i * per, per, sdev, sparams, attn_impl)
+                self._alloc_slot_state(sh, (shape[0], per) + shape[2:], per, max_len)
+                self._shards.append(sh)
+        self.mesh = mesh
         self._active = np.zeros((n_slots,), bool)
-        # device-carried pump state: budgets left, stop ids and the active
-        # mask. The programs compute their next values, so the host rebuilds
-        # and ships them only when the dirty flag says a slot changed outside
-        # a pump (admission, finish, preemption, a per-token step); a steady
-        # pump-only drain ships none (_host_state_builds counts the builds)
-        self._active_dev = torch.zeros((n_slots,), dtype=torch.bool, device=dev)
-        self._budget_dev = torch.zeros((n_slots,), **i32)
-        self._stop_dev = torch.full((n_slots,), -1, **i32)
-        # the per-slot token history (-1 padded; hist[pos] the pending
-        # token): what the n-gram miner scans. Admission writes a slot's
-        # context, every plain and spec program the tokens it emits, so a
-        # spec round after plain steps mines the whole context
-        self._hist = torch.full((n_slots, max_len), -1, **i32)
         self._pump_state_dirty = True
         self._host_state_builds = 0
-        # (n, sampling) or ("spec", rounds, k, g, sampling, source) -> the
-        # program (the reference's jit cache); on CUDA every program's graph
-        # draws on one memory pool (replays are serialized by _step_lock and
-        # each output is read before the next run), so the pool holds the
-        # largest program's intermediates, not their sum over the keys
-        self._programs: Dict[tuple, _PumpProgram] = {}
-        self._graph_pool = None
         # chunked prefill stages into a cache padded to a bucket multiple,
         # plus one spare bucket
         self._stage_len = (-(-max_len // prompt_len) + 1) * prompt_len
@@ -583,6 +600,67 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         self._n_tokens = 0
         self._step_time_s = 0.0
         self._init_spec(draft_params, draft_n_heads)
+
+    def _alloc_slot_state(self, st, cache_shape: Optional[Tuple[int, ...]], n: int,
+                          max_len: int) -> None:
+        """Give ``st`` (the batcher, or a shard) the device state of ``n``
+        slots on ``st.device``: the cache (``cache_shape``; None: the paged
+        arena is the batcher's own) and the per-slot buffers, the pump
+        programs' operands. Their addresses are fixed for the batcher's
+        life: admission sets a slot's entries and the programs write the
+        carried state back in place, so a captured program never reads a
+        stale buffer."""
+        dev = st.device
+        if cache_shape is not None and self.cache_dtype == "int8":
+            st._cache = tuple(
+                (torch.zeros(cache_shape, dtype=torch.int8, device=dev),
+                 torch.ones(cache_shape[:-1], dtype=torch.float32, device=dev))
+                for _ in range(2)
+            )
+        elif cache_shape is not None:
+            st._cache = tuple(torch.zeros(cache_shape, dtype=self.compute_dtype, device=dev)
+                              for _ in range(2))
+        i32 = dict(dtype=torch.int32, device=dev)
+        st._tok = torch.zeros((n,), **i32)
+        st._pos = torch.zeros((n,), **i32)
+        st._temp = torch.zeros((n,), dtype=torch.float32, device=dev)
+        st._topk = torch.zeros((n,), **i32)
+        st._topp = torch.ones((n,), dtype=torch.float32, device=dev)
+        st._keys = torch.zeros((n,), dtype=torch.int64, device=dev)  # seed_key per slot
+        # device-carried pump state: budgets left, stop ids and the active
+        # mask. The programs compute their next values, so the host rebuilds
+        # and ships them only when the dirty flag says a slot changed outside
+        # a pump (admission, finish, preemption, a per-token step); a steady
+        # pump-only drain ships none (_host_state_builds counts the builds)
+        st._active_dev = torch.zeros((n,), dtype=torch.bool, device=dev)
+        st._budget_dev = torch.zeros((n,), **i32)
+        st._stop_dev = torch.full((n,), -1, **i32)
+        # the per-slot token history (-1 padded; hist[pos] the pending
+        # token): what the n-gram miner scans. Admission writes a slot's
+        # context, every plain and spec program the tokens it emits, so a
+        # spec round after plain steps mines the whole context
+        st._hist = torch.full((n, max_len), -1, **i32)
+        # (n, sampling) or ("spec", rounds, k, g, sampling, source) -> the
+        # program (the reference's jit cache); on CUDA every program's graph
+        # draws on one memory pool of its holder (replays are serialized by
+        # _step_lock and each output is read before the next run), so the
+        # pool holds the largest program's intermediates, not their sum
+        st._programs = {}
+        st._graph_pool = None
+
+    def _slot_states(self) -> List[Tuple[Any, int]]:
+        """(state holder, its first slot) of each run of slots: the batcher
+        itself unsharded, each shard under a mesh."""
+        if self._shards is None:
+            return [(self, 0)]
+        return [(sh, sh.lo) for sh in self._shards]
+
+    def _slot_state(self, slot: int) -> Tuple[Any, int]:
+        """(the holder of ``slot``, its index there)."""
+        if self._shards is None:
+            return self, slot
+        sh = self._shards[slot // self._shards[0].n]
+        return sh, slot - sh.lo
 
     # -- prefill -------------------------------------------------------------
     def _empty_stage(self):
@@ -835,23 +913,24 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                     if p.req.finished():  # budget one, or a stop token on it
                         self._finish(p.slot)
                         continue
+                st, ls = self._slot_state(p.slot)
                 if p.blocks is None:
-                    insert_slot(self._cache, p.ks, p.vs, p.slot)
+                    insert_slot(st._cache, p.ks, p.vs, ls)
                 if p.draft_kv is not None:
-                    self._draft.admit(p.slot, p.draft_kv)
+                    st._draft.admit(ls, p.draft_kv)
                 if p.hist_row is not None:
                     if p.fill < self.max_len:
                         p.hist_row[p.fill] = first
                     elif self.windowed:
                         p.hist_row[p.fill % self.max_len] = first
-                    self._hist[p.slot].copy_(torch.from_numpy(p.hist_row))
+                    st._hist[ls].copy_(torch.from_numpy(p.hist_row))
                 req = p.req
-                self._tok[p.slot] = int(first)
-                self._pos[p.slot] = p.fill
-                self._temp[p.slot] = req.temperature
-                self._topk[p.slot] = req.top_k
-                self._topp[p.slot] = req.top_p
-                self._keys[p.slot] = seed_key(req.seed)
+                st._tok[ls] = int(first)
+                st._pos[ls] = p.fill
+                st._temp[ls] = req.temperature
+                st._topk[ls] = req.top_k
+                st._topp[ls] = req.top_p
+                st._keys[ls] = seed_key(req.seed)
                 self._active[p.slot] = True
 
     def _mark_failed(self, exc: BaseException) -> None:
@@ -866,13 +945,14 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 "build a new batcher"
             ) from self._failed
 
-    def _decode_logits(self, tok, pos, active, tables):
-        """One batched decode step on the device → (logits [B, V], pos').
-        The paged layout attends through its device block tables."""
+    def _decode_logits(self, st, tok, pos, active, tables):
+        """One batched decode step of holder ``st``'s slots on its device →
+        (logits [B, V], pos'). The paged layout attends through its device
+        block tables."""
         if not self._paged:
             logits, _, pos2 = batched_decode_step(
-                self.params, tok, pos, active, self._cache, self.n_heads,
-                self.compute_dtype, attn_fn=self._attn_fn, windowed=self.windowed,
+                st.params, tok, pos, active, st._cache, self.n_heads,
+                self.compute_dtype, attn_fn=st._attn_fn, windowed=self.windowed,
             )
         elif self._kv_attn == "gather":
             from nnstreamer_tpu_torch.kv import gather as kvg
@@ -893,66 +973,68 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
             )
         return logits, pos2
 
-    def _pump_body(self, n: int, sampling: bool) -> torch.Tensor:
+    def _pump_body(self, st, n: int, sampling: bool) -> torch.Tensor:
         """The pump program's body (the reference's ``pump_impl`` /
         ``paged_pump_impl`` scan, unrolled ``n`` times): each step the
         draft's step (with a draft model), the batched decode, the token
         choice, its entry in the token history, then the budget / stop /
         active update, over the device-carried state; the carried state is
         written back into its buffers → the emitted tokens [B, n] int32, -1
-        on a lane that was idle. Only device work and no host read: on CUDA
-        it is captured, elsewhere (and as the oracle) it runs as it is."""
-        tok, pos = self._tok, self._pos
-        active, budget, stop = self._active_dev, self._budget_dev, self._stop_dev
+        on a lane that was idle. The state is holder ``st``'s (the batcher,
+        or one mesh shard's slots). Only device work and no host read: on
+        CUDA it is captured, elsewhere (and as the oracle) it runs as it
+        is."""
+        tok, pos = st._tok, st._pos
+        active, budget, stop = st._active_dev, st._budget_dev, st._stop_dev
         tables = self._tables_dev if self._paged else None
         emits = []
         for _ in range(n):
-            if self._draft is not None:
+            if st._draft is not None:
                 # the draft takes the pending token's K/V in lockstep, so a
                 # later spec round proposes from a whole cache
-                self._draft.advance_one(tok, pos, active)
-            logits, pos2 = self._decode_logits(tok, pos, active, tables)
+                st._draft.advance_one(tok, pos, active)
+            logits, pos2 = self._decode_logits(st, tok, pos, active, tables)
             if sampling:
                 # keyed by the fill the token is sampled at, as fold_in(key, pos2)
-                new = sample_tokens(logits, self._temp, self._topk, self._topp, self._keys, pos2)
+                new = sample_tokens(logits, st._temp, st._topk, st._topp, st._keys, pos2)
             else:
                 new = torch.argmax(logits, dim=-1).to(torch.int32)
             new = torch.where(active, new, tok)
             emits.append(torch.where(active, new, torch.full_like(new, -1)))
-            hist_write_row(self._hist, new[:, None], pos2, active.to(torch.int32),
+            hist_write_row(st._hist, new[:, None], pos2, active.to(torch.int32),
                            wrap=self.windowed)
             budget = budget - active.to(torch.int32)
             active = active & (budget > 0) & ~((new == stop) & (stop >= 0))
             tok, pos = new, pos2
-        self._tok.copy_(tok)
-        self._pos.copy_(pos)
-        self._active_dev.copy_(active)
-        self._budget_dev.copy_(budget)
+        st._tok.copy_(tok)
+        st._pos.copy_(pos)
+        st._active_dev.copy_(active)
+        st._budget_dev.copy_(budget)
         return torch.stack(emits, dim=1)
 
-    def _program(self, key: tuple, body) -> "_PumpProgram":
-        """The program of ``key``, filled at its first use: on CUDA a CUDA
-        graph of ``body``. The warm-up and the capture run with every lane
-        idle, so they leave the live state as it was: idle slots write
-        back their own cache, history and draft rows, idle paged lanes
-        scratch block 0's init values, and tok, pos and budget stay.
-        Caller holds _step_lock."""
-        prog = self._programs.get(key)
+    def _program(self, st, key: tuple, body) -> "_PumpProgram":
+        """Holder ``st``'s program of ``key``, filled at its first use: on
+        CUDA a CUDA graph of ``body`` on ``st``'s device. The warm-up and the
+        capture run with every lane idle, so they leave the live state as it
+        was: idle slots write back their own cache, history and draft rows,
+        idle paged lanes scratch block 0's init values, and tok, pos and
+        budget stay. Caller holds _step_lock."""
+        prog = st._programs.get(key)
         if prog is None:
             prog = _PumpProgram(key)
-            dev = self.device
+            dev = st.device
             if dev.type == "cuda":
                 allocated = torch.cuda.memory_allocated(dev)
                 reserved = torch.cuda.memory_reserved(dev)
-                live = self._active_dev.clone()
-                self._active_dev.zero_()
-                if self._graph_pool is None:
-                    self._graph_pool = torch.cuda.graph_pool_handle()
-                prog.cap = capture(body, dev, pool=self._graph_pool)
-                self._active_dev.copy_(live)
+                live = st._active_dev.clone()
+                st._active_dev.zero_()
+                if st._graph_pool is None:
+                    st._graph_pool = torch.cuda.graph_pool_handle()
+                prog.cap = capture(body, dev, pool=st._graph_pool)
+                st._active_dev.copy_(live)
                 prog.allocated_bytes = torch.cuda.memory_allocated(dev) - allocated
                 prog.reserved_bytes = torch.cuda.memory_reserved(dev) - reserved
-            self._programs[key] = prog
+            st._programs[key] = prog
         return prog
 
     def _admit(self) -> None:
@@ -983,9 +1065,11 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 budget[s] = req.budget - len(req.tokens)
                 if req.stop_token is not None:
                     stop[s] = req.stop_token
-        self._budget_dev.copy_(torch.from_numpy(budget))
-        self._stop_dev.copy_(torch.from_numpy(stop))
-        self._active_dev.copy_(torch.from_numpy(self._active))
+        for st, lo in self._slot_states():
+            hi = lo + st._tok.shape[0]
+            st._budget_dev.copy_(torch.from_numpy(budget[lo:hi]))
+            st._stop_dev.copy_(torch.from_numpy(stop[lo:hi]))
+            st._active_dev.copy_(torch.from_numpy(self._active[lo:hi]))
         self._pump_state_dirty = False
         self._host_state_builds += 1
 
@@ -1008,14 +1092,19 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         self._pump_state_locked()
         return active_np, sampling
 
-    def _launch(self, key: tuple, body, eager: bool) -> np.ndarray:
-        """One run of the program of ``key`` (a replay on CUDA; ``eager``
-        runs ``body`` instead, the oracle) and its one read of the host.
-        A raise latches the failure: the cache was written in place."""
+    def _launch(self, key: tuple, body, eager: bool) -> List[np.ndarray]:
+        """One run of the program of ``key`` on every holder of slots (a
+        replay on CUDA; ``eager`` runs ``body(st)`` instead, the oracle),
+        all launched before the first read of the host → each holder's
+        output, in slot order. A raise latches the failure: the cache was
+        written in place."""
         try:
             with torch.no_grad():
-                out = body() if eager else self._program(key, body).run(body)
-                return out.cpu().numpy()
+                outs = []
+                for st, _ in self._slot_states():
+                    run = functools.partial(body, st)
+                    outs.append(run() if eager else self._program(st, key, run).run(run))
+                return [o.cpu().numpy() for o in outs]
         except Exception as exc:
             self._mark_failed(exc)
             raise
@@ -1032,8 +1121,9 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
             if not self._active.any():
                 return None
             active_np, sampling = self._prepare_locked(n)
-        emits_np = self._launch((n, sampling), lambda: self._pump_body(n, sampling), eager)
-        return active_np, emits_np
+        outs = self._launch((n, sampling),
+                            lambda st: self._pump_body(st, n, sampling), eager)
+        return active_np, np.concatenate(outs, axis=0)
 
     def _harvest_locked(self, active_np, emits_np, steps: int,
                         t0: float) -> Dict[int, List[int]]:
@@ -1194,14 +1284,19 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         prefixes; a paged batcher adds the pool's ``kv_*`` counters."""
         with self._lock:
             occupied = sum(r is not None for r in self._slots)
-            programs = {
-                self._program_name(p.key): {
-                    "captured": p.cap is not None, "replays": p.replays,
-                    "build_s": p.cap.build_s if p.cap else 0.0,
-                    "warmup_launches": p.cap.warmup_launches if p.cap else 0,
-                    "allocated_bytes": p.allocated_bytes, "reserved_bytes": p.reserved_bytes,
-                } for p in list(self._programs.values())
-            }
+            programs = {}
+            for holder, _ in self._slot_states():
+                for p in list(holder._programs.values()):
+                    name = self._program_name(p.key)
+                    if self._shards is not None:
+                        name = f"shard{holder.index}/{name}"
+                    programs[name] = {
+                        "captured": p.cap is not None, "replays": p.replays,
+                        "build_s": p.cap.build_s if p.cap else 0.0,
+                        "warmup_launches": p.cap.warmup_launches if p.cap else 0,
+                        "allocated_bytes": p.allocated_bytes,
+                        "reserved_bytes": p.reserved_bytes,
+                    }
             st = {
                 "steps": self._n_steps,
                 "tokens_emitted": self._n_tokens,
@@ -1215,12 +1310,24 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 "programs_filled": len(programs),
                 "build_s": sum(p["build_s"] for p in programs.values()),
                 "host_state_builds": self._host_state_builds,
-                "spec_programs_filled": sum(k[0] == "spec" for k in self._programs),
+                "spec_programs_filled": sum(k[0] == "spec" for h, _ in self._slot_states()
+                                            for k in h._programs),
                 **self._spec_stats_locked(),
             }
             if self._paged:
                 st.update(self._paged_stats_locked())
+            if self._shards is not None:
+                st["mesh"] = {
+                    "devices": len(self._shards),
+                    "slots_per_device": self._shards[0].n,
+                    "k3_launches": [sh.k3_launches.count for sh in self._shards],
+                }
             return st
+
+    @property
+    def shards(self) -> Tuple[SlotShard, ...]:
+        """The mesh positions' slot shards, in slot order (none unsharded)."""
+        return tuple(self._shards or ())
 
     @property
     def n_free(self) -> int:

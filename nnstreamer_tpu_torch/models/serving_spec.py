@@ -523,9 +523,28 @@ class SpecDecoding:
                     f"draft params live on {draft_params.embed.device}, the batcher runs on "
                     f"{self.device}"
                 )
-            self._draft = _DraftEngine(draft_params, draft_n_heads or self.n_heads,
-                                       self.n_slots, self.max_len, self.prompt_len,
-                                       self.compute_dtype, self.device, self.windowed)
+            heads = draft_n_heads or self.n_heads
+            if self._shards is None:
+                self._draft = _DraftEngine(draft_params, heads, self.n_slots, self.max_len,
+                                           self.prompt_len, self.compute_dtype, self.device,
+                                           self.windowed)
+            else:
+                import copy
+
+                # the batcher's own engine only prefills (no slots); each
+                # shard's steps and proposes over its slots on its device
+                self._draft = _DraftEngine(draft_params, heads, 0, self.max_len,
+                                           self.prompt_len, self.compute_dtype, self.device,
+                                           self.windowed)
+                for sh in self._shards:
+                    sparams = (draft_params if sh.device == self.device
+                               else copy.deepcopy(draft_params).to(sh.device))
+                    sh._draft = _DraftEngine(sparams, heads, sh.n, self.max_len,
+                                             self.prompt_len, self.compute_dtype, sh.device,
+                                             self.windowed)
+        elif self._shards is not None:
+            for sh in self._shards:
+                sh._draft = None
         # slot layout: id → ((ks, vs) trimmed to the prefix, its length, its tokens);
         # paged: id → (tokens, pinned blocks)
         self._prefixes: Dict[int, Tuple] = {}
@@ -646,11 +665,11 @@ class SpecDecoding:
         return stage
 
     # -- the spec programs -----------------------------------------------------------------
-    def _verify(self, toks, pos, active):
-        """The k-column verify forward over this layout's cache → logits
-        [B, k, V] (the cache written in place)."""
+    def _verify(self, st, toks, pos, active):
+        """The k-column verify forward over holder ``st``'s cache (this
+        layout's) → logits [B, k, V] (the cache written in place)."""
         if not self._paged:
-            return batched_verify_step(self.params, toks, pos, active, self._cache,
+            return batched_verify_step(st.params, toks, pos, active, st._cache,
                                        self.n_heads, self.compute_dtype)[0]
         tables = self._tables_dev
         if self._kv_attn == "gather":
@@ -666,26 +685,27 @@ class SpecDecoding:
         return batched_verify_step_block(self.params, toks, pos, active, self._cache, tables,
                                          self.n_heads, self.compute_dtype)[0]
 
-    def _spec_body(self, rounds: int, k: int, g: int, sampling: bool, source: str):
+    def _spec_body(self, st, rounds: int, k: int, g: int, sampling: bool, source: str):
         """The spec program's body (the reference's ``spec_pump_impl`` /
         ``paged_spec_pump_impl`` scan, unrolled ``rounds`` times): each
         round propose → verify → accept → emit into the history → budget
         / stop / active update, over the device-carried state, written
         back into its buffers → one packed int32 vector: the emitted
         tokens [B, rounds, k] flattened ‖ accepted proposals ‖ proposal
-        columns. Device work only: on CUDA it is captured."""
-        tok, pos = self._tok, self._pos
-        active, budget, stop = self._active_dev, self._budget_dev, self._stop_dev
-        hist = self._hist
+        columns. The state is holder ``st``'s (the batcher, or one mesh
+        shard's slots). Device work only: on CUDA it is captured."""
+        tok, pos = st._tok, st._pos
+        active, budget, stop = st._active_dev, st._budget_dev, st._stop_dev
+        hist = st._hist
         ring = self.windowed
         zero = torch.zeros((), dtype=torch.int32, device=tok.device)
         acc, cols = zero, zero
         emits = []
         for _ in range(rounds):
             if source == "draft" and ring:
-                props, dks, dvs = self._draft.propose_windowed(tok, pos, k)
+                props, dks, dvs = st._draft.propose_windowed(tok, pos, k)
             elif source == "draft":
-                props = self._draft.propose(tok, pos, active, k)
+                props = st._draft.propose(tok, pos, active, k)
             elif source == "ngram":
                 props = device_ngram_propose(hist, pos, k, g, wrap=ring)
             else:
@@ -695,18 +715,18 @@ class SpecDecoding:
             toks = torch.cat([tok[:, None], props], dim=1)
             if ring:
                 logits, cks, cvs = batched_windowed_verify(
-                    self.params, toks, pos, active, self._cache, self.n_heads,
+                    st.params, toks, pos, active, st._cache, self.n_heads,
                     self.compute_dtype)
             else:
-                logits = self._verify(toks, pos, active)
-            m, final = spec_accept(logits, toks, self._temp, self._topk, self._topp,
-                                   self._keys, pos, sampling)
+                logits = self._verify(st, toks, pos, active)
+            m, final = spec_accept(logits, toks, st._temp, st._topk, st._topp,
+                                   st._keys, pos, sampling)
             m = torch.where(active, m, torch.zeros_like(m))
             if ring:
                 # the certified columns only, the target's and the draft's
-                commit_ring_chunk(self._cache, cks, cvs, pos, m, active)
+                commit_ring_chunk(st._cache, cks, cvs, pos, m, active)
                 if source == "draft":
-                    self._draft.commit(dks, dvs, pos, m, active)
+                    st._draft.commit(dks, dvs, pos, m, active)
             emit = spec_emit_hist(toks, m, final, active, hist, pos, ring)
             acc = acc + torch.clamp(m - 1, min=0).sum().to(torch.int32)
             cols = cols + (props >= 0).sum().to(torch.int32)
@@ -716,10 +736,10 @@ class SpecDecoding:
             tok = torch.where(m > 0, final, tok)
             pos = pos + m
             emits.append(emit)
-        self._tok.copy_(tok)
-        self._pos.copy_(pos)
-        self._active_dev.copy_(active)
-        self._budget_dev.copy_(budget)
+        st._tok.copy_(tok)
+        st._pos.copy_(pos)
+        st._active_dev.copy_(active)
+        st._budget_dev.copy_(budget)
         return torch.cat([torch.stack(emits, dim=1).reshape(-1), torch.stack([acc, cols])])
 
     def _spec_launch_locked(self, plan, rounds: int, k: int, g: int, source: str,
@@ -731,10 +751,12 @@ class SpecDecoding:
         if source != "ngram":
             g = 0  # the miner's width keys only the n-gram programs
         key = ("spec", rounds, k, g, sampling, source)
-        packed = self._launch(key, lambda: self._spec_body(rounds, k, g, sampling, source),
-                              eager)
-        acc, cols = int(packed[-2]), int(packed[-1])
-        emits = packed[:-2].reshape(self.n_slots, rounds, k)
+        outs = self._launch(key, lambda st: self._spec_body(st, rounds, k, g, sampling, source),
+                            eager)
+        # each holder's packed vector: its slots' emits, then its counts
+        acc = sum(int(p[-2]) for p in outs)
+        cols = sum(int(p[-1]) for p in outs)
+        emits = np.concatenate([p[:-2].reshape(-1, rounds, k) for p in outs], axis=0)
         with self._lock:
             out = self._harvest_locked(active_np, emits, rounds, t0)
             self._n_spec_rounds += rounds

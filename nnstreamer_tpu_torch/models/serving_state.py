@@ -84,6 +84,17 @@ def _tree_host(tree):
     return to_host(tree)
 
 
+def _tree_cat(trees: List[Any], axis: int):
+    """The host trees of a mesh's shards joined along their slot axis."""
+    if isinstance(trees[0], tuple):
+        return tuple(_tree_cat([t[i] for t in trees], axis) for i in range(len(trees[0])))
+    return np.concatenate(trees, axis=axis)
+
+
+#: the per-slot buffers a snapshot carries, beside the cache (slot axis 0)
+_SLOT_VECTORS = ("tok", "pos", "temp", "topk", "topp", "keys", "hist")
+
+
 def seed_words(seed: int) -> np.ndarray:
     """A request's seed as a span's ``key``: uint32 [2] in
     ``jax.random.PRNGKey``'s layout (high word, low word)."""
@@ -142,13 +153,7 @@ class ServingState:
                     "tokens": list(req.tokens), "fill0": req.fill0,
                     "active": bool(self._active[s]),
                 } for s, req in enumerate(self._slots) if req is not None]
-                device = {
-                    "cache": _tree_host(self._cache),
-                    **{name: to_host(getattr(self, "_" + name))
-                       for name in ("tok", "pos", "temp", "topk", "topp", "keys", "hist")},
-                }
-                if self._draft is not None:
-                    device["draft_cache"] = _tree_host(self._draft._cache)
+                device = self._device_host_locked()
                 snap = {
                     "layout": "paged" if self._paged else "slot",
                     "n_slots": self.n_slots, "max_len": self.max_len,
@@ -178,20 +183,43 @@ class ServingState:
                                         for pid, (kv, plen, tok) in self._prefixes.items()}
                 return snap
 
+    def _device_host_locked(self) -> Dict[str, Any]:
+        """The device state as numpy: the cache (or arena), the per-slot
+        buffers and a draft's cache; a mesh's shards joined in slot order."""
+        parts = []
+        for st, _ in self._slot_states():
+            part = {"cache": _tree_host(st._cache),
+                    **{name: to_host(getattr(st, "_" + name)) for name in _SLOT_VECTORS}}
+            if st._draft is not None:
+                part["draft_cache"] = _tree_host(st._draft._cache)
+            parts.append(part)
+        if len(parts) == 1:
+            return parts[0]
+        return {k: _tree_cat([p[k] for p in parts], 1 if k.endswith("cache") else 0)
+                for k in parts[0]}
+
     def _restore_pairs(self, dev: Dict[str, Any]) -> List[Tuple[torch.Tensor, np.ndarray]]:
-        """(device buffer, host copy) for every device leaf of a snapshot,
+        """(device buffer, host copy) for every device leaf of a snapshot
+        (under a mesh, each shard's buffers against their slots' slice),
         each checked for shape and dtype: a mismatch raises before any
         state moves."""
-        pairs = list(zip(leaves(self._cache), leaves(dev["cache"])))
-        if len(pairs) != len(leaves(self._cache)) or len(pairs) != len(leaves(dev["cache"])):
+        if len(leaves(self._slot_states()[0][0]._cache)) != len(leaves(dev["cache"])):
             raise ValueError("snapshot geometry mismatch: the cache trees differ "
                              "(int8 against float)")
-        pairs += [(getattr(self, "_" + name), dev[name])
-                  for name in ("tok", "pos", "temp", "topk", "topp", "keys", "hist")]
         if ("draft_cache" in dev) != (self._draft is not None):
             raise ValueError("snapshot geometry mismatch: a draft model on one side only")
-        if self._draft is not None:
-            pairs += list(zip(leaves(self._draft._cache), leaves(dev["draft_cache"])))
+        pairs = []
+        for st, lo in self._slot_states():
+            if self._shards is None:
+                rows, cols = slice(None), (slice(None),)
+            else:
+                rows = slice(lo, lo + st.n)
+                cols = (slice(None), rows)
+            pairs += [(d, a[cols]) for d, a in zip(leaves(st._cache), leaves(dev["cache"]))]
+            pairs += [(getattr(st, "_" + name), dev[name][rows]) for name in _SLOT_VECTORS]
+            if st._draft is not None:
+                pairs += [(d, a[cols]) for d, a in zip(leaves(st._draft._cache),
+                                                       leaves(dev["draft_cache"]))]
         for dst, arr in pairs:
             if tuple(arr.shape) != tuple(dst.shape) or arr.dtype != _host_dtype(dst):
                 raise ValueError(

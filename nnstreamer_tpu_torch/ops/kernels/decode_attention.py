@@ -171,9 +171,12 @@ def _kernel_fn():
     return fn
 
 
-def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale) -> torch.Tensor:
+def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale,
+                           counter: Optional[LaunchCounter] = None) -> torch.Tensor:
     """Launch the kernel on checked CUDA tensors → o [B, 1, H, D] float32,
-    still being computed on the current stream."""
+    still being computed on the current stream. The launch adds one to
+    :data:`decode_attention_launches` and to ``counter`` (a caller's own,
+    such as a mesh shard's)."""
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v),
                     ("k_scale", k_scale), ("v_scale", v_scale)):
         if t is not None and not t.is_contiguous():
@@ -202,19 +205,23 @@ def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale) ->
     if err != 0:
         raise RuntimeError(f"nns_decode_attention launch failed: cudaError_t {err}")
     decode_attention_launches.add()
+    if counter is not None:
+        counter.add()
     return out
 
 
 def decode_attention(
-    q, cache_k, cache_v, pos, k_scale=None, v_scale=None, scale: Optional[float] = None
+    q, cache_k, cache_v, pos, k_scale=None, v_scale=None, scale: Optional[float] = None,
+    counter: Optional[LaunchCounter] = None,
 ) -> torch.Tensor:
     """q [B,1,H,D], cache_k/v [B,S,KV,D] (int8 with ``k_scale``/``v_scale``
-    [B,S,KV]), pos [B] → o [B,1,H,D] float32: the kernel on CUDA tensors,
-    the plain version on CPU tensors."""
+    [B,S,KV]), pos [B] → o [B,1,H,D] float32: the kernel on CUDA tensors
+    (each launch counted in ``counter`` too, where given), the plain
+    version on CPU tensors."""
     _check(q, cache_k, cache_v, pos, k_scale, v_scale)
     sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     if q.is_cuda:
-        return _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, sc)
+        return _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, sc, counter)
     if q.device.type == "cpu":
         return plain_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, sc)
     raise RuntimeError(
@@ -223,15 +230,16 @@ def decode_attention(
     )
 
 
-def make_decode_attention():
+def make_decode_attention(counter: Optional[LaunchCounter] = None):
     """The ``attn(q, ck, cv, pos)`` the serving step calls: float caches,
     or the int8 cache entries ``(ck8, k_scale)`` / ``(cv8, v_scale)``
-    (``models/serving.py quantize_kv`` layout), dequantized in the kernel."""
+    (``models/serving.py quantize_kv`` layout), dequantized in the kernel.
+    ``counter`` counts this caller's own launches (a mesh shard's)."""
 
     def attn(q, cache_k, cache_v, pos):
         if isinstance(cache_k, tuple):
             (k8, ks), (v8, vs) = cache_k, cache_v
-            return decode_attention(q, k8, v8, pos, k_scale=ks, v_scale=vs)
-        return decode_attention(q, cache_k, cache_v, pos)
+            return decode_attention(q, k8, v8, pos, k_scale=ks, v_scale=vs, counter=counter)
+        return decode_attention(q, cache_k, cache_v, pos, counter=counter)
 
     return attn

@@ -1,2 +1,4 @@
-"""The parallel layer. Only replica failover (:mod:`.replicas`) is ported;
-meshes, sharding and placement come with ROADMAP A.8."""
+"""The parallel layer: device meshes and their shardings (:mod:`.mesh`), a
+filter's model over a mesh (:mod:`.sharded_model`) and replica failover
+(:mod:`.replicas`). Training and sequence parallelism (ring attention,
+Ulysses, MoE, pipeline parallelism, multihost) come with ROADMAP A.8b."""

@@ -55,13 +55,11 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from nnstreamer_tpu_torch.log import get_logger
+from nnstreamer_tpu_torch.analysis.costmodel import configured_device_bound
 from nnstreamer_tpu_torch.pipeline.batching import default_buckets
 from nnstreamer_tpu_torch.pipeline.graph import is_plumbing
 from nnstreamer_tpu_torch.pipeline.programs import ProgramCache, sig_of
 from nnstreamer_tpu_torch.pipeline.transfer import resolve_chain_mode, resolve_chain_unroll
-
-_log = get_logger("chain_program")
 
 
 class ChainHazardError(RuntimeError):
@@ -138,31 +136,6 @@ def _interior_external_producer(plan, chain):
                 continue
             return e
     return None
-
-
-def parse_bytes(raw: str) -> int:
-    """A byte size with an optional K/M/G suffix (powers of 1024)."""
-    s = str(raw).strip().upper().rstrip("B")
-    mult = 1
-    for suffix, m in (("K", 1 << 10), ("M", 1 << 20), ("G", 1 << 30), ("T", 1 << 40)):
-        if s.endswith(suffix):
-            s, mult = s[:-1], m
-            break
-    return int(float(s) * mult)
-
-
-def configured_device_bound() -> Optional[int]:
-    """``[plane] memory_per_device`` in bytes, or None when unset."""
-    from nnstreamer_tpu_torch.config import conf
-
-    raw = conf().get("plane", "memory_per_device", "")
-    if not raw:
-        return None
-    try:
-        return parse_bytes(raw)
-    except ValueError:
-        _log.warning("[plane] memory_per_device=%r is not a byte size; no bound", raw)
-        return None
 
 
 def chain_bytes(chain) -> Tuple[int, int]:

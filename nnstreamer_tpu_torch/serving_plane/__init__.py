@@ -7,19 +7,25 @@ The counterpart of ``nnstreamer_tpu/serving_plane``:
   plane=<name>``, across executors) feed ONE batched device program, with
   per-stream FIFO reassembly and weighted-fair scheduling
   (:mod:`scheduler`), so one hot stream cannot starve the rest.
-- :mod:`sharding`: the programs a plane dispatches to (one device, or a
-  host backend's own batching).
+- :mod:`sharding`: the programs a plane dispatches to: one device, a
+  data-sharded ``dp`` mesh (parallel/mesh.py), failover replicas, or a
+  host backend's own batching.
+- :mod:`placement`: the Hermes-style planner: a pipeline's stages on
+  devices under a per-device memory bound, adjacent stages co-resident
+  while they fit.
 - :mod:`llm`: :class:`~nnstreamer_tpu_torch.serving_plane.llm.LlmPlane`,
   one shared paged LLM batcher behind N ``tensor_llm_serversink
   plane=<name>`` streams.
 - :mod:`disagg`: :class:`~nnstreamer_tpu_torch.serving_plane.disagg.DisaggController`,
   disaggregated prefill/decode: a prefill server hands each request's KV
   span to a decode peer over the edge layer's CTRL channel.
-
-Not ported yet: the placement planner and data-sharded meshes (ROADMAP
-A.8).
 """
 
+from nnstreamer_tpu_torch.serving_plane.placement import (
+    PlacementError,
+    place_pipeline,
+    plan_placement,
+)
 from nnstreamer_tpu_torch.serving_plane.plane import (
     ModelPlane,
     PlaneClosedError,
@@ -35,8 +41,11 @@ __all__ = [
     "PlaneClosedError",
     "PlaneConfig",
     "PlaneStream",
+    "PlacementError",
     "StreamScheduler",
     "acquire",
+    "place_pipeline",
+    "plan_placement",
     "release",
     "resolve_plane_config",
 ]

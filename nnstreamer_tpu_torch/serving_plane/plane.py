@@ -543,6 +543,9 @@ class ModelPlane:
         if prog is not None:
             d["n_traces"] = getattr(prog, "n_traces", 0)
             d["program"] = getattr(prog, "mode", "")
+            mesh = getattr(prog, "mesh", None)
+            if mesh is not None:
+                d["mesh_devices"] = mesh.size
             rstats = getattr(prog, "replica_stats", None)
             if callable(rstats):
                 d["replicas"] = rstats()
@@ -604,11 +607,8 @@ def acquire(
     (``cfg_explicit=False``) INHERITS the bound config, while
     explicitly conflicting knobs fail. ``opener(i, replicated)`` opens
     backend ``i`` (one for single/shard, ``cfg.devices`` for replicas;
-    ``replicated`` follows the BINDING config's mode). A mode the port has
-    no program for raises before any backend opens."""
-    from nnstreamer_tpu_torch.serving_plane.sharding import refuse_unported
-
-    refuse_unported(cfg)
+    ``replicated`` follows the BINDING config's mode; a ``shard`` plane
+    opens one backend, which its mesh program spreads)."""
     with _registry_lock:
         entry = _planes.get(name)
         if entry is None:

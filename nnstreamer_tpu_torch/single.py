@@ -13,9 +13,9 @@ The model runs on ``device`` (default ``cuda``; without a GPU it raises
 unless ``device="cpu"``). Inputs may be numpy arrays or tensors anywhere:
 they are moved to the device (pinned, ``non_blocking``) before the invoke.
 ``accelerator`` is accepted as the reference accepts it (the device is
-``device``), except its ``mesh=`` clause, which needs mesh sharding and
-raises (ROADMAP A.8); ``**options`` ride in the backend's
-``FilterProps.options``.
+``device``); its ``mesh=`` clause (``true:gpu:mesh=dp2``) runs the model
+over a device mesh in the torch backend, as the filter's does;
+``**options`` ride in the backend's ``FilterProps.options``.
 """
 
 from __future__ import annotations
@@ -50,11 +50,6 @@ class SingleShot:
         device: DeviceLike = None,
         **options: str,
     ) -> None:
-        if any(p.strip().startswith("mesh=") for p in (accelerator or "").split(":")):
-            raise NotImplementedError(
-                f"SingleShot: accelerator={accelerator!r}: mesh sharding is not ported yet "
-                "(ROADMAP A.8)"
-            )
         self.device = resolve_device(device)
         models = (model,) if isinstance(model, str) else tuple(model)
         models = tuple(m for m in models if m)
@@ -71,6 +66,7 @@ class SingleShot:
             input_spec=input_spec,
             output_spec=output_spec,
             custom=custom,
+            accelerator=accelerator,
             device=self.device,
             options=dict(options),
         )

@@ -32,15 +32,28 @@ def _free_port() -> int:
     return port
 
 
+def _listening(port: int) -> bool:
+    """Whether a TCP socket listens on ``port`` (read from the kernel's
+    socket table, /proc/net/tcp: state 0A is LISTEN)."""
+    with open("/proc/net/tcp") as f:
+        next(f)
+        for line in f:
+            local, state = line.split()[1], line.split()[3]
+            if state == "0A" and int(local.split(":")[1], 16) == port:
+                return True
+    return False
+
+
 def _wait_port(port: int, proc, timeout: float = 30.0) -> None:
+    """Wait until ``proc`` listens on ``port``, without connecting: a probe
+    connection would be accepted as a peer (an edgesink's wait-connection
+    would publish its first frame to it)."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         assert proc.poll() is None, proc.communicate()[1][-600:]
-        try:
-            socket.create_connection(("127.0.0.1", port), timeout=0.2).close()
+        if _listening(port):
             return
-        except OSError:
-            time.sleep(0.1)
+        time.sleep(0.05)
     raise TimeoutError(f"server port {port} never opened")
 
 

@@ -15,8 +15,9 @@ placement options against the JAX package's.
   that golden by 1.8e-7 on this host (ROADMAP C), so it is held to the
   tolerance ``composite_fused`` uses.
 - ``device:``/``mesh:`` are taken out of the zoo options: a mesh larger
-  than the devices raises "needs N devices" before any model load, one
-  that fits raises "not ported yet"; with ``device:`` it raises.
+  than the devices raises "needs N devices" before any model load (one
+  CPU position unless ``[mesh] cpu_devices`` says more), one that fits
+  loads and runs sharded; with ``device:`` it raises.
 - Two departures, pinned (ROADMAP C): on the CPU every ``device:N`` is
   the one CPU device; a traceable script or callable gets torch tensors
   on the device and fuses, where the reference's are ``jnp`` functions.
@@ -412,8 +413,8 @@ MOBILENET = ("videotestsrc num-frames=1 width=32 height=32 ! tensor_converter ! 
 
 @pytest.mark.parametrize("extra,msg", [
     ("mesh:dp999", "mesh dp999 needs 999 devices, have 1"),
-    ("mesh:dp1", "mesh sharding is not ported yet"),
-    ("mesh:dp1tp1", "mesh sharding is not ported yet"),
+    ("mesh:dp2", "mesh dp2 needs 2 devices, have 1"),
+    ("mesh:dp1tp2", "mesh dp1tp2 needs 2 devices, have 1"),
     ("mesh:2x2", "bad mesh spec"),
     ("device:0,mesh:dp1", "device: and mesh: are exclusive"),
     ("device:-1", "out of range"),
@@ -425,6 +426,21 @@ def test_placement_options_raise_before_any_model_load(extra, msg, monkeypatch):
     with pytest.raises(Exception, match=msg):
         parse_pipeline(MOBILENET.format(extra=extra), device="cpu").negotiate()
     assert loads == []
+
+
+@pytest.mark.parametrize("extra", ["mesh:dp1", "mesh:dp1tp1"])
+def test_mesh_that_fits_loads_and_runs_sharded(extra):
+    """A one-position CPU mesh loads the model and runs it through its mesh
+    program, a fusion barrier, with the unsharded filter's logits."""
+    got = {}
+    for tag, ex in (("plain", ""), ("mesh", extra)):
+        p = parse_pipeline(MOBILENET.format(extra=ex), device="cpu")
+        plan = p.compile_plan()
+        assert (p["f"].backend.mesh_model is not None) == (tag == "mesh")
+        assert plan.seg_of[p["f"]].fused == (tag == "plain")
+        p.run(timeout=60)
+        got[tag] = p["out"].frames[0].tensors[0]
+    assert np.array_equal(got["mesh"], got["plain"])
 
 
 @pytest.mark.parametrize("index", ["0", "1", "7"])

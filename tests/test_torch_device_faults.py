@@ -752,6 +752,22 @@ SLICE = ("videotestsrc pattern=gradient width=80 height=48 num-frames=24 ! tenso
          "tensor_decoder mode=image_labeling ! tensor_sink name=out")
 
 
+def _first_collect_after(collect, depth, n, timeout_s=60.0):
+    """``collect`` whose first call on each collector waits until
+    ``depth(collector)`` items are queued (or the node stops)."""
+
+    def gated(self):
+        if not getattr(self, "_gate_passed", False):
+            self._gate_passed = True
+            end = time.monotonic() + timeout_s
+            while (depth(self) < n and time.monotonic() < end
+                   and not self.stop_event.is_set()):
+                time.sleep(0.002)
+        return collect(self)
+
+    return gated
+
+
 class TestLabelingSlice:
     """The card path of the fault group at a small size, through both
     packages: labels equal to the unfaulted run's, counters equal."""
@@ -790,7 +806,19 @@ class TestLabelingSlice:
         assert s["device_eager_invokes"] == 4 and s["device_degraded"] == 0
         assert s["device_circuit_closes"] == 1
 
-    def test_oom_ladder(self, mobilenet_npz, plain):
+    def test_oom_ladder(self, mobilenet_npz, plain, monkeypatch):
+        """Both packages see the same windows: the batched segment's first
+        collect waits until its inbox holds all 24 frames, so the first
+        window is 8 rows (OOM at 8, then at 4: ceiling 2) and every later
+        window is capped at the ceiling. Otherwise what each collector
+        finds queued when it wakes, and so the number of OOMs before the
+        ceiling reaches 2, depends on thread timing."""
+        from nnstreamer_tpu.pipeline.batching import BatchCollector as JCollector
+        from nnstreamer_tpu_torch.pipeline.batching import BatchCollector
+
+        for cls, depth in ((BatchCollector, lambda c: c.inbox.qsize()),
+                           (JCollector, lambda c: len(c.chan))):
+            monkeypatch.setattr(cls, "collect", _first_collect_after(cls.collect, depth, 24))
         faulty = "tensor_filter name=x framework=faulty custom=traceable:true,oom_above_rows:2 ! "
         props = "batching=true max-batch=8 batch-timeout-ms=200 "
         labels, ex = self.run(mobilenet_npz, faulty, props)
@@ -799,7 +827,7 @@ class TestLabelingSlice:
         s, js = self.node(ex, "x"), self.node(jex, "x")
         for k in OOM_KEYS:
             assert s.get(k) == js.get(k), (k, s, js)
-        assert s["batch_ceiling"] == 2 and s["frames"] == 24
+        assert s["batch_ceiling"] == 2 and s["frames"] == 24 and s["oom_events"] == 2
 
     def test_replicas(self, mobilenet_npz, plain):
         labels, ex = self.run(mobilenet_npz, props="replicas=2 ")

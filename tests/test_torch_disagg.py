@@ -361,12 +361,12 @@ def test_disagg_too_small_peer_decodes_locally(npz, alone):
     """A decode peer whose arena cannot hold the span refuses it: the
     span re-enters the prefill server's own arena (outcome ``local``) and
     the tokens still equal the solo run."""
-    # 4 blocks of 16 hold one max_len request; a 40-token prompt plus its
-    # budget needs 4, which the 4-block peer's pool cannot free twice
-    host = _DecodeHost(npz, "dg-small", "82", kv_blocks=4, n_slots=1)
+    # the peer's whole arena is 3 blocks of 16 (max_len 48): a 40-token
+    # prompt with its 10-token budget needs 4, so every offer is refused,
+    # whatever the timing (a peer merely kept full by another request
+    # takes a retry once that request finished)
+    host = _DecodeHost(npz, "dg-small", "82", kv_blocks=3, n_slots=1, max_len=48)
     a = _mk(npz, srv_id="81", role="prefill", decode_peers=f"127.0.0.1:{host.port}/82")
-    filler = _prompt(90, n=40)
-    host.srv.submit(Frame((filler,), meta={"req": "filler"}))
     try:
         prompt = _prompt(91, n=40)
         a.submit(Frame((prompt,), meta={"req": "s1", "frame_id": "f-s1"}))
@@ -375,8 +375,10 @@ def test_disagg_too_small_peer_decodes_locally(npz, alone):
         assert [int(t) for t in toks] == alone(prompt, 10) and meta["frame_id"] == "f-s1"
         # each refusal benches the peer briefly; a retry after it is refused
         # again, so the count of local outcomes depends on the timing
-        counts = a.stats()["disagg"]["counts"]
-        assert counts.get("local", 0) >= 1 and set(counts) == {"local"}
+        st = a.stats()["disagg"]
+        assert st["counts"].get("local", 0) >= 1 and set(st["counts"]) == {"local"}
+        (peer,) = st["peers"].values()
+        assert peer["refusals"] >= 1 and peer["handoffs"] == 0
     finally:
         a.release_plane()
         host.stop()

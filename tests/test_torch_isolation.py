@@ -457,25 +457,32 @@ def test_unported_options_raise(call):
 
     # ported since (the edge layer): a migrate-to or role prop constructs,
     # and a drain to a peer with nothing in flight keeps nothing
+    # ported since (meshes for serving): a slot-sharded batcher over a
+    # one-position CPU mesh, and a plane data-sharded over a mesh
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
     ported = {
         "migrate-to": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                "migrate-to": "127.0.0.1:7000"}),
         "drain-to-peer": drain_to_peer,
         "role": lambda: LlmServerSink(**{"kv-layout": "paged", "role": "prefill"}),
+        "mesh": lambda: batcher(mesh=make_mesh(1, axes=("dp",), devices="cpu")),
+        "plane": lambda: TensorFilter(framework="scaler", plane="p0",
+                                      **{"plane-mode": "shard", "plane-devices": "2"}),
     }
     if call in ported:
         got = ported[call]()
         if call == "drain-to-peer":
             assert got == {"migrated": 0, "resumed": 0, "completed": 0, "kept": 0}
+        elif call == "mesh":
+            assert got.stats()["mesh"] == {"devices": 1, "slots_per_device": 4,
+                                           "k3_launches": [0]}
+        elif call == "plane":
+            assert got._plane_cfg.mode == "shard" and got._plane_cfg.devices == 2
         else:
             assert got._create_kw[call.replace("-", "_")] == got.get_property(call)
         return
     calls = {
-        "mesh": lambda: batcher(mesh=object()),
-        # the serving plane and its failover replicas are ported; a
-        # data-sharded mesh behind it is not
-        "plane": lambda: TensorFilter(framework="scaler", plane="p0",
-                                      **{"plane-mode": "shard", "plane-devices": "2"}),
         "kv-memory-bound": lambda: LlmServerSink(**{"kv-layout": "paged",
                                                      "kv-memory-bound": "64M"}),
     }

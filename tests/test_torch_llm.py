@@ -418,7 +418,7 @@ def test_batcher_validates_and_refuses_unported(models):
         cb.submit(np.ones(3, np.int32), 2, prefix=0)
     rid = cb.submit(np.ones(3, np.int32), 1)  # budget one: done at submit
     assert cb.result(rid) is not None and cb.n_free == 1
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh= takes a parallel.mesh.Mesh"):
         tsv.ContinuousBatcher(lm, N_HEADS, n_slots=1, max_len=16, prompt_len=8, device="cpu",
                               mesh=object())
     # request migration needs the paged layout, as in the reference

@@ -517,6 +517,17 @@ def test_plane_filter_refuses_a_reload():
 def test_unported_plane_modes_raise_before_any_backend_opens(props, queue, monkeypatch):
     opened = []
     monkeypatch.setattr(TensorFilter, "_open_backend", lambda self: opened.append(self))
+    if queue == "A.8":
+        # ported since: a shard plane constructs; at negotiation a mesh past
+        # the CPU's positions (one by default) raises naming both counts,
+        # before any backend opens
+        f = TensorFilter(framework="torch", model="zoo:mobilenet_v2", **props)
+        assert f.plane == props["plane"] and f._plane_cfg.mode == "shard"
+        f.device = torch.device("cpu")
+        with pytest.raises(ValueError, match=f"needs {props['plane-devices']} devices, have 1"):
+            f._acquire_plane()
+        assert opened == [] and plane_mod.get(props["plane"]) is None
+        return
     if queue == "A.6b":
         # ported since: ring-depth without plane= is the executor's frame
         # ring (pipeline/transfer.py), so the filter constructs, opens no
@@ -531,16 +542,16 @@ def test_unported_plane_modes_raise_before_any_backend_opens(props, queue, monke
 
 
 def test_registry_acquire_refuses_before_the_opener(monkeypatch):
-    """A sharded mesh is refused before any backend opens (A.8); replicas
-    open ``devices`` backends through ``opener(i, replicated)``, as the
-    reference's registry does, and a failed open closes the ones before."""
-    calls = []
-    with pytest.raises(NotImplementedError, match="A.8"):
-        plane_mod.acquire("r4", ("sig",), PlaneConfig(mode="shard", devices=4),
-                          lambda i, rep: calls.append((i, rep)))
-    assert calls == [] and plane_mod.get("r4") is None
-    for pkg, cfg in ((plane_mod, PlaneConfig(mode="replicas", devices=2)),
-                     (jplane_mod, jplane_mod.PlaneConfig(mode="replicas", devices=2))):
+    """A shard plane opens ONE backend, which its mesh program spreads, and
+    replicas open ``devices`` backends through ``opener(i, replicated)``,
+    as the reference's registry does; a failed open closes the ones
+    before."""
+    for pkg, cfg, want in (
+            (plane_mod, PlaneConfig(mode="shard", devices=4), [(0, False)]),
+            (jplane_mod, jplane_mod.PlaneConfig(mode="shard", devices=4), [(0, False)]),
+            (plane_mod, PlaneConfig(mode="replicas", devices=2), [(0, True), (1, True)]),
+            (jplane_mod, jplane_mod.PlaneConfig(mode="replicas", devices=2),
+             [(0, True), (1, True)])):
         opened = []
 
         def opener(i, rep, opened=opened):
@@ -549,7 +560,7 @@ def test_registry_acquire_refuses_before_the_opener(monkeypatch):
 
         pl = pkg.acquire("r3", ("sig",), cfg, opener)
         try:
-            assert opened == [(0, True), (1, True)] and len(pl.backends) == 2
+            assert opened == want and len(pl.backends) == len(want)
         finally:
             pkg.release("r3", pl)
     closed = []

@@ -66,12 +66,27 @@ def test_constructor_arguments_like_the_reference():
 
 
 def test_accelerator_mesh_clause_raises_before_any_load(monkeypatch):
-    from nnstreamer_tpu_torch import registry
+    """The mesh clause reaches the backend, which raises for a mesh past the
+    devices before the model loads (one CPU position by default); one that
+    fits shards the model."""
+    from nnstreamer_tpu_torch.backends.base import BackendError
+    from nnstreamer_tpu_torch.models import zoo as tzoo
 
-    monkeypatch.setattr(registry, "get", lambda *a: pytest.fail("a backend was looked up"))
-    with pytest.raises(NotImplementedError, match=r"not ported yet \(ROADMAP A.8\)"):
-        SingleShot(framework="torch", model="zoo:mobilenet_v2", accelerator="true:gpu:mesh=dp2",
-                   device="cpu")
+    real_get = tzoo.get
+    loads = []
+    monkeypatch.setattr(tzoo, "get", lambda *a, **k: (loads.append(a), real_get(*a, **k))[1])
+    s = SingleShot(framework="torch", model="zoo:mobilenet_v2", accelerator="true:gpu:mesh=dp2",
+                   custom="size:32,num_classes:4", device="cpu")
+    assert s.props.accelerator == "true:gpu:mesh=dp2"
+    with pytest.raises(BackendError, match="mesh dp2 needs 2 devices, have 1"):
+        s.open()
+    assert loads == []
+    monkeypatch.setenv("NNS_TPU_MESH_CPU_DEVICES", "2")
+    with SingleShot(framework="torch", model="zoo:mobilenet_v2",
+                    custom="size:32,num_classes:4,batch:2", accelerator="true:gpu:mesh=dp2",
+                    device="cpu") as s:
+        assert s.backend.mesh_model.n_rows == 2 and s.backend.mesh_model.splits_inputs
+        assert loads
 
 
 def test_set_input_info_and_reload_like_the_reference():
