@@ -9,6 +9,7 @@
     python3 chip_smoke.py --observe     # only the observe group (K1 built first)
     python3 chip_smoke.py --edge        # only the edge group (K1, K4 built first)
     python3 chip_smoke.py --mesh        # only the mesh group (K1, K3 built first)
+    python3 chip_smoke.py --train       # only the train group (no kernel on its path)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -544,6 +545,47 @@ has one position; each check runs the mesh path itself:
                  unpinned (fused), labels equal to the plane's; a bound one
                  byte below a stage's estimate raises PlacementError.
 
+Last, the train group (training and sequence parallelism; alone with
+``--train``). No hand-written kernel runs on its path: the reference's
+training reaches no ``pl.pallas_call`` (K5 has no backward; ring attention
+and Ulysses attend in jnp), so the steps run torch ops, their convs and
+matmuls cuDNN's and cuBLAS's. Every mesh has one position on the card;
+each step's ms (CUDA events) and peak GB are on its phase's line:
+
+46. train_lm    — the dp×sp×ep LM step at Mistral-7B's widths (vocab 32000,
+                 d 4096, 32 / 8 heads of 128, FFN 14336), 4 layers, float32,
+                 ring attention with kv_chunk 512 on tokens [1, 2049]:
+                 three steps on the same tokens, finite and falling, the
+                 first loss within 1e-4 relative of dense attention's on the
+                 same weights, and its gradient leaf by leaf within 5e-5
+                 (reading 8.2e-6); the ring's and dense attention's forward +
+                 backward timed alike.
+47. train_pipeline — the GPipe forward, pp = 1 over that 4-layer stack, 4
+                 microbatches of 256 tokens, within 2e-4 of the sequential
+                 forward.
+48. train_moe   — Mixtral-8x7B's expert widths (8 experts of 14336, top 2,
+                 d 4096) in the reference's two-matrix form, 2 layers,
+                 tokens [1, 1025]: the ep path within 1e-5 relative of
+                 moe_ffn_dense on layer 0's FFN input; two steps, finite and
+                 falling.
+49. train_ulysses — the Ulysses step at Mistral-7B's widths, 2 layers,
+                 tokens [1, 1025]: finite.
+50. train_mobilenet — MobileNet-v2's dp×tp step at 224², 1001 classes,
+                 batch 32, three steps on one batch, each loss below the
+                 last; batch 4 on the same weights within 1e-4 relative of
+                 the port's CPU step, and one float64 step of it against
+                 the CPU's, every leaf of the parameters and the momentum
+                 within 1e-5 of its largest magnitude (readings 6.1e-8 and
+                 1.2e-6; cuDNN's deterministic algorithms).
+51. train_checkpoint — its train state (parameters and momentum) saved and
+                 restored onto the mesh: eval loss bit-equal, and the next
+                 step equal to the uninterrupted one bit for bit (cuDNN's
+                 deterministic algorithms for this check).
+52. train_multihost — multihost.initialize on nccl at world size 1,
+                 barrier, is_primary, process_info, one MobileNet step over
+                 the global mesh; a mesh of 2 raises, naming "need 2
+                 devices, have 1".
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -562,6 +604,7 @@ are the card's name and power limit (nvidia-smi), the kernel summary
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -7721,6 +7764,398 @@ def mesh_phases(torch, np, dev, parse_pipeline, ik, serving):
             "seconds": seconds + serving["seconds"], "pipelines_seconds": seconds}
 
 
+# -- the train group: training and sequence parallelism ----------------------------
+
+TRAIN_LM = dict(MISTRAL, n_layers=4)  # Mistral-7B's widths, 4 of its 32 layers
+TRAIN_LM_TOKENS = 2049  # [1, 2049]: 2048 inputs and their next tokens
+TRAIN_KV_CHUNK = 512
+TRAIN_LR = 0.1  # the reference's make_lm_train_step default
+# the ring's gradient against dense attention's, each leaf relative to its
+# largest magnitude (float32, TF32 off; reading 8.2e-6 on an H100)
+TRAIN_LM_GRAD_RTOL = 5e-5
+# Mixtral-8x7B's expert widths in the reference's two-matrix expert form
+TRAIN_MOE = dict(vocab=32000, d_model=4096, n_heads=32, n_kv_heads=8, n_layers=2, d_ff=14336,
+                 n_experts=8, moe_d_ff=14336)
+TRAIN_MOE_TOKENS = 1025
+TRAIN_TOP_K = 2
+TRAIN_ULYSSES = dict(MISTRAL, n_layers=2)
+TRAIN_ULYSSES_TOKENS = 1025
+TRAIN_PIPE = (4, 256)  # microbatches, tokens: x [4, 256, d_model] through the 4-layer stack
+TRAIN_MBV2 = dict(size=224, num_classes=1001, batch=32, check_batch=4)
+# the card's float64 batch-4 step against the CPU's: every leaf of the
+# parameters and the momentum within this of its largest magnitude, plus
+# 1e-14 of the tree's largest (both cast the logits to float32, whose ulp
+# the gradient amplifies; in float32 the gradient itself is ill-conditioned).
+# Readings on an H100: parameters 6.1e-8, momentum 1.2e-6
+TRAIN_MBV2_F64_RTOL = 1e-5
+TRAIN_NO_KERNEL = ("no hand-written kernel runs on the training path: the reference's "
+                   "training reaches no pl.pallas_call (K5 has no backward; ring attention "
+                   "and Ulysses attend in jnp), so the port's train steps run torch ops, "
+                   "their convs and matmuls cuDNN's and cuBLAS's")
+
+
+def cuda_ms(torch, fn):
+    """(fn's result, its ms on the card's stream between two CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def timed_steps(torch, step, state, args, n):
+    """``n`` steps on the same batch → (state, losses, ms a step, peak GB
+    a step)."""
+    losses, ms, peaks = [], [], []
+    for _ in range(n):
+        torch.cuda.reset_peak_memory_stats()
+        out, t = cuda_ms(torch, lambda: step(*state, *args))
+        state, loss = out[:-1], out[-1]
+        losses.append(float(loss))
+        ms.append(t)
+        peaks.append(peak_gb(torch))
+    return state, losses, ms, peaks
+
+
+def falling(losses) -> bool:
+    return all(math.isfinite(x) for x in losses) and all(
+        b < a for a, b in zip(losses, losses[1:]))
+
+
+def lm_tokens(torch, dev, vocab, n, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (1, n), generator=g, device=dev, dtype=torch.int32)
+
+
+def train_lm_phase(torch, np, dev):
+    """(a) the dp×sp×ep LM step at Mistral-7B's widths (4 layers, float32),
+    ring attention with kv_chunk 512 over tokens [1, 2049]: three steps,
+    finite and falling; the first loss within 1e-4 relative of dense
+    attention's on the same weights, and the gradient too (every leaf
+    within TRAIN_LM_GRAD_RTOL of its largest magnitude); the ring and the
+    dense forward + backward timed alike. (d) the pipeline, pp = 1 over the same stack, 4
+    microbatches, against the sequential forward within 2e-4."""
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.parallel import lm as plm
+    from nnstreamer_tpu_torch.parallel import pipeline_parallel as ppl
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+    model = plm.init_lm_params(torch.Generator(device=dev).manual_seed(0), device=dev,
+                               **TRAIN_LM)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = lm_tokens(torch, dev, TRAIN_LM["vocab"], TRAIN_LM_TOKENS)
+    with torch.no_grad():
+        dense_loss = float(plm.loss_fn(model, tokens, TRAIN_LM["n_heads"]))
+        # (d) the pipeline over the same 4-layer stack
+        m, t = TRAIN_PIPE
+        x = torch.randn((m, t, TRAIN_LM["d_model"]), generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        pos = torch.arange(t, device=dev)
+        seq = tfm.apply_layers(model, x, TRAIN_LM["n_heads"], pos)
+        fwd = ppl.make_pipeline_forward(
+            make_mesh(1, axes=("pp",), devices=dev.type),
+            lambda xb, blocks: tfm.apply_layers(blocks, xb, TRAIN_LM["n_heads"], pos), m)
+        piped, pipe_ms = cuda_ms(torch, lambda: fwd(model.blocks, x))
+        pipe_err = float((piped - seq).abs().max())
+    del seq, piped, x
+    if not pipe_err <= 2e-4:
+        raise AssertionError(f"train_pipeline: {pipe_err} from the sequential forward")
+    pipe = {"phase": "train_pipeline", "pp": 1, "microbatches": m, "x": [m, t, TRAIN_LM["d_model"]],
+            "layers": TRAIN_LM["n_layers"], "max_abs_err": pipe_err, "ms": pipe_ms}
+
+    mesh = make_mesh(1, axes=("dp", "sp", "ep"), devices=dev.type)
+    step, params = plm.make_lm_train_step(mesh, model, TRAIN_LM["n_heads"], attn="ring",
+                                          learning_rate=TRAIN_LR, kv_chunk=TRAIN_KV_CHUNK)
+    del model
+    torch.cuda.empty_cache()
+    # the ring and the dense forward + backward, timed alike on the step's own
+    # weights, each after a warm-up call of both
+    _, row_model, ring_attn, _ = step.rows[0]
+    fb = {}
+    pieces = [p for st in params.values() for _, p in st.local()]
+    for name, attn in (("warm", ring_attn), ("warm", None), ("ring", ring_attn),
+                       ("dense", None)):
+        torch.cuda.reset_peak_memory_stats()
+        _, fb[name] = cuda_ms(torch, lambda: plm.loss_fn(row_model, tokens, TRAIN_LM["n_heads"],
+                                                          attn_fn=attn).backward())
+        fb[name + "_peak_gb"] = peak_gb(torch)
+        if name == "ring":
+            ring_grads = [p.grad for p in pieces]
+        elif name == "dense":
+            # the backward on the card: the ring's gradient against dense
+            # attention's, leaf by leaf
+            grad_rel = max(float((g - p.grad).abs().max() / p.grad.abs().max())
+                           for g, p in zip(ring_grads, pieces))
+            del ring_grads
+        for p in pieces:
+            p.grad = None
+    (_,), losses, ms, peaks = timed_steps(torch, step, (params,), (tokens,), 3)
+    rel = abs(losses[0] - dense_loss) / abs(dense_loss)
+    if not falling(losses) or not rel <= 1e-4 or not grad_rel <= TRAIN_LM_GRAD_RTOL:
+        raise AssertionError(f"train_lm: losses {losses}, dense {dense_loss} (rel {rel}), "
+                             f"gradient {grad_rel} from dense attention's")
+    del step, params, row_model
+    torch.cuda.empty_cache()
+    return {"phase": "train_lm", "widths": TRAIN_LM, "params": n_params,
+            "tokens": [1, TRAIN_LM_TOKENS], "attn": "ring", "kv_chunk": TRAIN_KV_CHUNK,
+            "lr": TRAIN_LR, "losses": losses, "dense_loss": dense_loss,
+            "first_loss_rel_to_dense": rel, "grad_rel_to_dense": grad_rel,
+            "grad_rtol": TRAIN_LM_GRAD_RTOL, "step_ms": ms, "step_peak_gb": peaks,
+            "fwd_bwd_ms_ring": fb["ring"], "fwd_bwd_ms_dense": fb["dense"],
+            "fwd_bwd_peak_gb_ring": fb["ring_peak_gb"],
+            "fwd_bwd_peak_gb_dense": fb["dense_peak_gb"]}, pipe
+
+
+def train_moe_phase(torch, np, dev):
+    """(b) MoE at Mixtral-8x7B's expert widths (8 experts of 14336, top 2,
+    d 4096), 2 layers, tokens [1, 1025]: the ep path against moe_ffn_dense
+    on the first layer's FFN input within 1e-5 relative, and two steps,
+    finite and falling."""
+    from nnstreamer_tpu_torch.models import transformer as tfm
+    from nnstreamer_tpu_torch.parallel import lm as plm
+    from nnstreamer_tpu_torch.parallel import moe as pmoe
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+    model = plm.init_lm_params(torch.Generator(device=dev).manual_seed(2), device=dev,
+                               **TRAIN_MOE)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = lm_tokens(torch, dev, TRAIN_MOE["vocab"], TRAIN_MOE_TOKENS, seed=3)
+    mesh = make_mesh(1, axes=("dp", "sp", "ep"), devices=dev.type)
+    blk = model.blocks[0]
+    with torch.no_grad():
+        x = tfm.embed_lookup(model.embed, tokens[:, :-1], torch.float32)
+        y = tfm.rmsnorm(x, blk.ln2)  # layer 0's FFN input, as block_ffn gives it
+        p = {"gate": blk.moe_gate, "w_in": blk.moe_w_in, "w_out": blk.moe_w_out}
+        ep, ep_ms = cuda_ms(torch, lambda: pmoe.make_moe_ffn(mesh, "ep", TRAIN_TOP_K)(y, p))
+        dense = pmoe.moe_ffn_dense(y, p, TRAIN_TOP_K)
+        rel = float((ep - dense).abs().max() / dense.abs().max())
+    del x, y, ep, dense
+    if not rel <= 1e-5:
+        raise AssertionError(f"train_moe: the ep path is {rel} from moe_ffn_dense")
+    step, params = plm.make_lm_train_step(mesh, model, TRAIN_MOE["n_heads"], attn="ring",
+                                          ep_axis="ep", top_k=TRAIN_TOP_K,
+                                          learning_rate=TRAIN_LR)
+    del model, blk, p
+    torch.cuda.empty_cache()
+    (_,), losses, ms, peaks = timed_steps(torch, step, (params,), (tokens,), 2)
+    if not falling(losses):
+        raise AssertionError(f"train_moe: losses {losses}")
+    del step, params
+    torch.cuda.empty_cache()
+    return {"phase": "train_moe", "widths": TRAIN_MOE, "top_k": TRAIN_TOP_K, "params": n_params,
+            "tokens": [1, TRAIN_MOE_TOKENS], "ep_vs_dense_rel": rel, "ep_ffn_ms": ep_ms,
+            "losses": losses, "step_ms": ms, "step_peak_gb": peaks}
+
+
+def train_ulysses_phase(torch, np, dev):
+    """(c) the Ulysses step at Mistral-7B's widths, 2 layers: finite."""
+    from nnstreamer_tpu_torch.parallel import lm as plm
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+    model = plm.init_lm_params(torch.Generator(device=dev).manual_seed(4), device=dev,
+                               **TRAIN_ULYSSES)
+    tokens = lm_tokens(torch, dev, TRAIN_ULYSSES["vocab"], TRAIN_ULYSSES_TOKENS, seed=5)
+    step, params = plm.make_lm_train_step(make_mesh(1, axes=("dp", "sp"), devices=dev.type),
+                                          model, TRAIN_ULYSSES["n_heads"], attn="ulysses",
+                                          learning_rate=TRAIN_LR)
+    del model
+    torch.cuda.empty_cache()
+    (_,), losses, ms, peaks = timed_steps(torch, step, (params,), (tokens,), 1)
+    if not math.isfinite(losses[0]):
+        raise AssertionError(f"train_ulysses: loss {losses}")
+    del step, params
+    torch.cuda.empty_cache()
+    return {"phase": "train_ulysses", "widths": TRAIN_ULYSSES,
+            "tokens": [1, TRAIN_ULYSSES_TOKENS], "loss": losses[0], "step_ms": ms[0],
+            "step_peak_gb": peaks[0]}
+
+
+def mbv2_batch(torch, n, size, classes, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randint(0, 256, (n, size, size, 3), generator=g, dtype=torch.uint8),
+            torch.randint(0, classes, (n,), generator=g, dtype=torch.int64))
+
+
+def train_mobilenet_phase(torch, np, dev):
+    """(e) MobileNet-v2's dp×tp step at full width (224², 1001 classes),
+    batch 32, three steps on the same batch, each loss lower than the last;
+    batch 4 on the same weights against the port's CPU step: the float32
+    loss within 1e-4 relative, and one float64 step's parameters and
+    momentum leaf by leaf within TRAIN_MBV2_F64_RTOL (cuDNN's deterministic
+    algorithms). (f) its train state (parameters and momentum) saved and
+    restored onto the mesh: the eval loss bit-equal, and the next step
+    equal to the uninterrupted step bit for bit."""
+    from nnstreamer_tpu_torch.models import mobilenet_v2 as mb
+    from nnstreamer_tpu_torch.parallel import checkpoint as ckpt
+    from nnstreamer_tpu_torch.parallel import train as ptrain
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = TRAIN_MBV2
+    model = mb.MobileNetV2(num_classes=cfg["num_classes"],
+                           generator=torch.Generator().manual_seed(0))
+    images, labels = mbv2_batch(torch, cfg["batch"], cfg["size"], cfg["num_classes"], 0)
+    small = tuple(t[:cfg["check_batch"]] for t in (images, labels))
+    cpu_mesh = make_mesh(1, axes=("dp", "tp"), devices="cpu")
+    mesh = make_mesh(1, axes=("dp", "tp"), devices=dev.type)
+    cpu_step, cpu_p, _ = ptrain.make_train_step(cpu_mesh, model)
+    cpu_loss = cpu_step.loss(cpu_p, *small)  # the step's loss: its forward, before the update
+    # one float64 step of batch 4 on the CPU and on the card: the backward and
+    # the update, every leaf of the parameters and the momentum
+    model64 = copy.deepcopy(model).double()
+    after = {}
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        for where, on, d in (("cpu", cpu_mesh, "cpu"), ("card", mesh, dev)):
+            st, sp, so = ptrain.make_train_step(on, model64.to(d), compute_dtype=torch.float64)
+            sp, so, _ = st(sp, so, *(t.to(d) for t in small))
+            after[where] = [{k: v.pieces[0, 0].detach().cpu() for k, v in tree.items()}
+                            for tree in (sp, so)]
+            del st, sp, so
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+    del model64
+    f64_rel = {}
+    for i, what in enumerate(("params", "momentum")):
+        ref, got = after["cpu"][i], after["card"][i]
+        scale = max(float(v.abs().max()) for v in ref.values())
+        f64_rel[what] = max(float((got[k] - ref[k]).abs().max())
+                            / (float(ref[k].abs().max()) + 1e-9 * scale) for k in ref)
+        bad = [k for k in ref if float((got[k] - ref[k]).abs().max())
+               > TRAIN_MBV2_F64_RTOL * float(ref[k].abs().max()) + 1e-14 * scale]
+        if bad:
+            raise AssertionError(f"train_mobilenet: the float64 step's {what} on the card "
+                                 f"differ from the CPU's at {bad[:4]}")
+    gpu = model.to(dev)
+    check_step, cp, co = ptrain.make_train_step(mesh, gpu)
+    _, _, gpu_small = check_step(cp, co, *(t.to(dev) for t in small))
+    rel = abs(float(gpu_small) - float(cpu_loss)) / abs(float(cpu_loss))
+    if not rel <= 1e-4:
+        raise AssertionError(f"train_mobilenet: batch 4 loss {float(gpu_small)} on the card, "
+                             f"{float(cpu_loss)} on the CPU")
+    del check_step, cp, co
+    step, params, opt = ptrain.make_train_step(mesh, gpu)
+    args = (images.to(dev), labels.to(dev))
+    (params, opt), losses, ms, peaks = timed_steps(torch, step, (params, opt), args, 3)
+    if not falling(losses):
+        raise AssertionError(f"train_mobilenet: losses {losses}")
+    out = {"phase": "train_mobilenet", "size": cfg["size"], "num_classes": cfg["num_classes"],
+           "batch": cfg["batch"], "mesh": mesh.shape, "lr": 0.05, "momentum": 0.9,
+           "losses": losses, "step_ms": ms, "step_peak_gb": peaks,
+           "check_batch": cfg["check_batch"], "check_loss_card": float(gpu_small),
+           "check_loss_cpu": float(cpu_loss), "check_rel": rel,
+           "check_f64_rel_params": f64_rel["params"], "check_f64_rel_momentum": f64_rel["momentum"],
+           "check_f64_rtol": TRAIN_MBV2_F64_RTOL}
+
+    # (f) checkpoints: deterministic convolutions, so a step can repeat bit for bit
+    was = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "mbv2")
+            eval_args = mbv2_batch(torch, cfg["batch"], cfg["size"], cfg["num_classes"], 1)
+            eval_args = tuple(t.to(dev) for t in eval_args)
+            want_eval = step.loss(params, *eval_args)
+            ckpt.save(path, {"params": params, "opt": opt})
+            size_mb = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+            _, _, want_loss = step(params, opt, *args)  # the uninterrupted step
+            want = {k: v.pieces[0, 0].detach().clone() for k, v in params.items()}
+            fresh, fp, fo = ptrain.make_train_step(mesh, gpu)
+            restored = ckpt.restore(path, like={"params": fp, "opt": fo},
+                                    shardings={"params": fresh.shardings, "opt": fresh.shardings})
+            on_mesh = all(p.device == mesh.devices[idx] for st in restored["params"].values()
+                          for idx, p in st.local())
+            got_eval = fresh.loss(restored["params"], *eval_args)
+            _, _, got_loss = fresh(restored["params"], restored["opt"], *args)
+            same_params = all(torch.equal(fp[k].pieces[0, 0], v) for k, v in want.items())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was
+    if not (on_mesh and torch.equal(got_eval, want_eval) and torch.equal(got_loss, want_loss)
+            and same_params):
+        raise AssertionError(f"train_checkpoint: on_mesh {on_mesh}, eval {float(got_eval)} vs "
+                             f"{float(want_eval)}, next {float(got_loss)} vs {float(want_loss)}, "
+                             f"params equal {same_params}")
+    ck = {"phase": "train_checkpoint", "leaves": 2 * len(params), "megabytes": size_mb,
+          "pieces_on_mesh": on_mesh, "eval_loss": float(got_eval), "eval_bit_equal": True,
+          "next_step_loss": float(got_loss), "next_step_bit_equal": True}
+    return out, ck, gpu
+
+
+def train_multihost_phase(torch, np, dev, model):
+    """(g) multihost at world size 1 on nccl: initialize, barrier,
+    is_primary, process_info, one MobileNet step over the global mesh; a
+    mesh of 2 raises naming both counts."""
+    import re
+    import socket
+
+    from nnstreamer_tpu_torch.parallel import multihost
+    from nnstreamer_tpu_torch.parallel import train as ptrain
+    from nnstreamer_tpu_torch.parallel.mesh import make_mesh
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    t0 = time.perf_counter()
+    multihost.initialize(coord, num_processes=1, process_id=0, device="cuda")
+    try:
+        init_s = time.perf_counter() - t0
+        multihost.barrier("train-group")
+        info = multihost.process_info()
+        mesh = make_mesh(axes=("dp", "tp"))
+        if mesh.ranks is None or mesh.ranks.tolist() != [[0]] or not multihost.is_primary():
+            raise AssertionError(f"train_multihost: mesh {mesh} ranks {mesh.ranks}")
+        step, params, opt = ptrain.make_train_step(mesh, model)
+        images, labels = mbv2_batch(torch, TRAIN_MBV2["check_batch"], TRAIN_MBV2["size"],
+                                    TRAIN_MBV2["num_classes"], 2)
+        (_, _, loss), ms = cuda_ms(torch, lambda: step(params, opt, images.to(dev),
+                                                       labels.to(dev)))
+        try:
+            make_mesh(2, axes=("dp",))
+        except ValueError as exc:
+            if not re.search(MESH_TOO_FEW, str(exc)):
+                raise AssertionError(f"train_multihost: {exc!r}") from exc
+            refused = str(exc)
+        else:
+            raise AssertionError("train_multihost: a mesh of 2 did not raise")
+        import torch.distributed as dist
+
+        backend = dist.get_backend()
+    finally:
+        multihost.shutdown()
+    if not math.isfinite(float(loss)) or info["process_count"] != 1:
+        raise AssertionError(f"train_multihost: loss {float(loss)}, {info}")
+    return {"phase": "train_multihost", "backend": backend, "init_s": init_s,
+            "process_info": info, "mesh": mesh.shape, "loss": float(loss), "step_ms": ms,
+            "mesh_of_2": refused}
+
+
+def train_phases(torch, np, dev):
+    """The train group: train_lm (+ train_pipeline), train_moe,
+    train_ulysses, train_mobilenet (+ train_checkpoint), train_multihost;
+    each phase frees its weights before the next."""
+    t0 = time.perf_counter()
+    lm_out, pipe = train_lm_phase(torch, np, dev)
+    emit(lm_out)
+    emit(pipe)
+    emit(train_moe_phase(torch, np, dev))
+    emit(train_ulysses_phase(torch, np, dev))
+    mb_out, ck, model = train_mobilenet_phase(torch, np, dev)
+    emit(mb_out)
+    emit(ck)
+    emit(train_multihost_phase(torch, np, dev, model))
+    torch.cuda.empty_cache()
+    return {"phase": "train", "seconds": time.perf_counter() - t0,
+            "kernels_launched": 0, "why_no_kernel": TRAIN_NO_KERNEL}
+
+
 def ab_turn(tree: str, npz: str) -> int:
     """One turn of ``--ab``: K1's cases and K2 at the SSD frame, 6300 and
     25200 candidates with the kernels of the checkout at ``tree`` (its own
@@ -8098,6 +8533,8 @@ def main() -> int:
     emit({"phase": "mesh", "seconds": mesh["seconds"],
           "pipelines_seconds": mesh["pipelines_seconds"],
           "serving_seconds": mesh_serving["seconds"]})
+    torch.cuda.empty_cache()
+    emit(train_phases(torch, np, dev))
 
     main_case = cases[0]
     print(smi, flush=True)
@@ -8362,7 +8799,28 @@ def mesh_main() -> int:
     return 0
 
 
+def train_main() -> int:
+    """``--train``: only the train group (it builds no kernel: none runs
+    on the training path)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    emit(train_phases(torch, np, torch.device("cuda")))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train"] and len(sys.argv) == 2:
+        sys.exit(train_main())
     if sys.argv[1:2] == ["--mesh"] and len(sys.argv) == 2:
         sys.exit(mesh_main())
     if sys.argv[1:2] == ["--plane"] and len(sys.argv) == 2:

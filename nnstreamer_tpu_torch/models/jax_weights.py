@@ -88,6 +88,9 @@ def state_dict_from_tree(params, paths: List[Tuple]) -> Dict[str, torch.Tensor]:
 #: sorted): the stacked block leaves [L, ...], then the top-level ones
 TRANSFORMER_BLOCK_LEAVES = ("ln1", "ln2", "w_down", "w_gate", "w_up", "wo", "wqkv")
 TRANSFORMER_TOP_LEAVES = ("embed", "head", "ln_f")
+#: the expert leaves ``parallel/lm.py init_lm_params`` puts in place of the
+#: SwiGLU ones; einsum operands, so their layouts carry over unchanged
+TRANSFORMER_MOE_LEAVES = ("moe_gate", "moe_w_in", "moe_w_out")
 
 
 def _transformer_leaf(name: str, value) -> Dict[str, torch.Tensor]:
@@ -109,6 +112,8 @@ def _transformer_leaf(name: str, value) -> Dict[str, torch.Tensor]:
     def t(x: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.ascontiguousarray(x))
 
+    if name in TRANSFORMER_MOE_LEAVES:
+        return {f"blocks.{i}.{name}": t(layer) for i, layer in enumerate(a)}
     if name in TRANSFORMER_BLOCK_LEAVES:
         out = {}
         for i, layer in enumerate(a):
@@ -124,10 +129,13 @@ def _transformer_leaf(name: str, value) -> Dict[str, torch.Tensor]:
 
 def transformer_from_jax(params) -> Dict[str, torch.Tensor]:
     """A reference ``transformer.init_params`` tree (arrays or numpy) → the
-    state dict of the port's :class:`~.transformer.TransformerLM`."""
+    state dict of the port's :class:`~.transformer.TransformerLM`; an
+    ``lm.init_lm_params`` tree with experts carries its
+    :data:`TRANSFORMER_MOE_LEAVES` over too."""
     state: Dict[str, torch.Tensor] = {}
-    for name in TRANSFORMER_BLOCK_LEAVES:
-        state.update(_transformer_leaf(name, params["blocks"][name]))
+    for name in TRANSFORMER_BLOCK_LEAVES + TRANSFORMER_MOE_LEAVES:
+        if name in params["blocks"]:
+            state.update(_transformer_leaf(name, params["blocks"][name]))
     for name in TRANSFORMER_TOP_LEAVES:
         state.update(_transformer_leaf(name, params[name]))
     return state

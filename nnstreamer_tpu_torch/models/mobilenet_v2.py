@@ -7,6 +7,11 @@ The input is a uint8 (or float) NHWC batch, normalized inside the model
 as ``(x − 127.5)/127.5`` (or on the ``input_quant`` grid of imported tflite
 weights), and the output is float32 logits [N, num_classes].
 
+:func:`train_forward` (one device) and :func:`train_trunk` (rows on
+several) run the reference's ``apply(train=True)``: batch-norm moments of
+the batch (``models/nn.py conv_bn_train``); ``parallel/train.py`` trains
+with them.
+
 Weights: random from a ``torch.Generator`` seed (not the JAX package's
 weights — the two generators differ), or carried over from the reference's
 param tree with :func:`mobilenet_v2_from_jax` / :func:`load_jax_npz`.
@@ -14,9 +19,10 @@ param tree with :func:`mobilenet_v2_from_jax` / :func:`load_jax_npz`.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from nnstreamer_tpu_torch.models.jax_weights import (
@@ -26,7 +32,13 @@ from nnstreamer_tpu_torch.models.jax_weights import (
     state_dict_from_tree,
     tree_paths,
 )
-from nnstreamer_tpu_torch.models.nn import ConvBN, init_dense, normalize_uint8
+from nnstreamer_tpu_torch.models.nn import (
+    ConvBN,
+    batch_moments,
+    conv_bn_train,
+    init_dense,
+    normalize_uint8,
+)
 
 # (expansion t, out channels c, repeats n, first stride s) — table 2 of the
 # paper (Sandler et al. 2018, arXiv:1801.04381)
@@ -92,10 +104,10 @@ class MobileNetV2(nn.Module):
         # ((q - zp)·scale); None = the generic (x - 127.5)/127.5
         self.input_quant: Optional[Tuple[float, float]] = None
 
-    def _input(self, x: torch.Tensor) -> torch.Tensor:
+    def _input(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         """uint8/float NHWC batch → normalized NCHW view in the compute
-        dtype (the weights' dtype) whose memory stays channels-last."""
-        dtype = self.stem.weight.dtype
+        dtype (default: the weights' dtype) whose memory stays channels-last."""
+        dtype = dtype or self.stem.weight.dtype
         if x.dtype == torch.uint8:
             if self.input_quant is not None:
                 scale, zp = self.input_quant
@@ -130,6 +142,42 @@ class MobileNetV2(nn.Module):
             if i == 12:
                 tap = y
         return tap, self.head(y)
+
+
+# -- train mode (batch-norm moments of the batch) ------------------------------
+
+
+def train_trunk(rows: Sequence[MobileNetV2], xs: Sequence[torch.Tensor],
+                compute_dtype: torch.dtype = torch.float32,
+                moments: Callable = batch_moments) -> List[torch.Tensor]:
+    """Stem and blocks in train mode over the rows ``xs`` (uint8/float
+    NHWC, one a data-parallel position; ``rows[i]`` is row i's copy of the
+    model on its device): every batch norm takes the moments of all rows
+    together → each row's 320-channel map (NCHW)."""
+    ys = conv_bn_train([r.stem for r in rows],
+                       [r._input(x, compute_dtype) for r, x in zip(rows, xs)], moments)
+    for k in range(len(rows[0].blocks)):
+        blks = [r.blocks[k] for r in rows]
+        inp = ys
+        if blks[0].expand is not None:
+            ys = conv_bn_train([b.expand for b in blks], ys, moments)
+        ys = conv_bn_train([b.dw for b in blks], ys, moments)
+        ys = conv_bn_train([b.project for b in blks], ys, moments)
+        if blks[0].residual:
+            ys = [y + x for y, x in zip(ys, inp)]
+    return ys
+
+
+def train_forward(model: MobileNetV2, x: torch.Tensor,
+                  compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The reference's ``apply(params, x, train=True)`` on one device:
+    float32 logits [N, num_classes] with the batch's moments in every
+    batch norm."""
+    (y,) = train_trunk([model], [x], compute_dtype)
+    (h,) = conv_bn_train([model.head], [y])
+    pooled = h.mean(dim=(2, 3))
+    cls = model.classifier
+    return F.linear(pooled, cls.weight.to(pooled.dtype), cls.bias.to(pooled.dtype)).float()
 
 
 # -- weights carried over from the JAX package --------------------------------

@@ -20,12 +20,20 @@ Two numerics of the reference are kept on purpose:
   ``inv = rsqrt(var + eps)·scale`` and ``eps = 1e-3``. ``inv`` and the
   shift are computed once (:meth:`ConvBN.fold_bn`), not at every call;
   they are not folded into the conv weights, which would round otherwise.
+
+Training (``parallel/train.py``) runs the reference's train-mode batch
+norm instead (:func:`conv_bn_train`): the moments of the batch, mean and
+biased variance over N, H and W, in the same formula; ``scale`` and
+``bias`` train, ``mean`` and ``var`` are read by nothing and get no
+gradient. It takes the batch as *rows*, one a data-parallel position,
+whose moments are taken together, so a batch split over positions
+normalizes as the whole batch would (:func:`batch_moments`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -137,6 +145,62 @@ class ConvBN(nn.Module):
         y = conv2d_same(x, self.weight, self.stride, self.groups, self.dilation)
         y = y * self.inv[:, None, None] + self.shift[:, None, None]
         return relu6(y) if self.act else y
+
+
+def batch_moments(ys: Sequence[torch.Tensor],
+                  reduce: Optional[Callable] = None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per-channel mean and biased variance over N, H and W of the rows
+    ``ys`` (NCHW, each on its device) taken together: the reference's
+    ``jnp.mean`` / ``jnp.var`` over the whole batch. The rows' sums meet
+    on the first row's device; ``reduce`` adds them up across processes
+    (the count as well). → (mean, var) for each row, on its device."""
+    home = ys[0].device
+
+    def total(parts):
+        out = parts[0].to(home)
+        for t in parts[1:]:
+            out = out + t.to(home)
+        return out
+
+    s = total([y.sum(dim=(0, 2, 3)) for y in ys])
+    n = float(sum(y.numel() // y.shape[1] for y in ys))
+    if reduce is not None:
+        sn = reduce(torch.cat([s, s.new_tensor([n])]))
+        s, n = sn[:-1], sn[-1]
+    mean = s / n
+    ss = total([((y - mean.to(y.device)[:, None, None]) ** 2).sum(dim=(0, 2, 3)) for y in ys])
+    if reduce is not None:
+        ss = reduce(ss)
+    var = ss / n
+    return [(mean.to(y.device), var.to(y.device)) for y in ys]
+
+
+def relu6_train(x: torch.Tensor) -> torch.Tensor:
+    """ReLU6 as the reference writes it, ``min(max(x, 0), 6)``: the same
+    values as :func:`relu6`, and the same gradient at a tie (x exactly 0
+    or 6, as a dead channel's batch norm gives), which ``maximum`` and
+    ``minimum`` split evenly where ``clamp`` passes it whole."""
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
+
+
+def batch_norm_train(y: torch.Tensor, layer: "ConvBN", mean: torch.Tensor,
+                     var: torch.Tensor) -> torch.Tensor:
+    """The reference's batch norm with the batch's moments:
+    ``y·inv + (bias − mean·inv)``, ``inv = rsqrt(var + eps)·scale``."""
+    inv = torch.rsqrt(var + layer.eps) * layer.scale.to(y.dtype)
+    return y * inv[:, None, None] + (layer.bias.to(y.dtype) - mean * inv)[:, None, None]
+
+
+def conv_bn_train(layers: Sequence["ConvBN"], xs: Sequence[torch.Tensor],
+                  moments: Callable = batch_moments) -> List[torch.Tensor]:
+    """One :class:`ConvBN` in train mode over the rows ``xs``: ``layers[i]``
+    is row i's copy of it (on the row's device), the weights cast to the
+    rows' dtype, the batch norm on ``moments`` of all rows together."""
+    ys = [conv2d_same(x, layer.weight.to(x.dtype), layer.stride, layer.groups, layer.dilation)
+          for layer, x in zip(layers, xs)]
+    out = [batch_norm_train(y, layer, m, v)
+           for y, layer, (m, v) in zip(ys, layers, moments(ys))]
+    return [relu6_train(o) for o in out] if layers[0].act else out
 
 
 def init_conv(cin: int, cout: int, k: int, groups: int = 1,

@@ -10,10 +10,14 @@ The reference keeps the weights as a stacked pytree consumed by
 ``lax.scan``; here they are a :class:`TransformerLM` module whose blocks
 are an ``nn.ModuleList`` (one :class:`Block` a layer). The functions keep
 the reference's names and argument order, with the module in place of
-``params`` and without the hooks no ported caller uses (``ffn_fn`` and
-``apply``'s ``positions``); ``attn_fn`` and ``causal`` are kept
+``params``, and the same hooks: ``attn_fn`` and ``causal``
 (``attn_fn=None`` is :func:`dense_attention`; ``ops/kernels/flash_attention.py
-make_flash_attention`` plugs in the flash kernel). The cast points are
+make_flash_attention`` plugs in the flash kernel, ``parallel/lm.py`` ring
+attention or Ulysses), ``ffn_fn`` (the MoE hook, which a :class:`Block`
+holding expert weights needs) and ``apply``'s ``positions`` (a sequence
+shard's global positions). A :class:`TransformerLM` is an inference model
+(no parameter asks for gradients); a training entry point
+(``parallel/lm.py``) trains copies of its own. The cast points are
 the reference's: RMSNorm in float32, then back to the compute dtype;
 attention outputs float32, then cast to the compute dtype. Linear weights
 are ``[cout, cin]`` (``nn.Linear``); ``models/jax_weights.py`` carries
@@ -103,10 +107,14 @@ def rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0) -> tor
 class Block(nn.Module):
     """One pre-norm block: ``ln1``, the fused ``wqkv`` projection (d_model
     query columns then 2·KV·Dh key/value columns), ``wo``, ``ln2`` and the
-    SwiGLU ``w_gate``/``w_up``/``w_down``."""
+    SwiGLU ``w_gate``/``w_up``/``w_down``. With ``n_experts`` > 0 the
+    SwiGLU is replaced by mixture-of-experts weights in the reference's
+    layouts (``parallel/lm.py init_lm_params``): the router ``moe_gate``
+    [D, E], ``moe_w_in`` [E, D, F] and ``moe_w_out`` [E, F, D]; such a
+    block runs its FFN through an ``ffn_fn`` (``parallel/moe.py``)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv_heads: int, d_ff: int,
-                 device=None) -> None:
+                 device=None, n_experts: int = 0, moe_d_ff: Optional[int] = None) -> None:
         super().__init__()
         hd = d_model // n_heads
         kw = dict(bias=False, device=device)
@@ -114,9 +122,20 @@ class Block(nn.Module):
         self.ln2 = nn.Parameter(torch.ones(d_model, device=device))
         self.wqkv = nn.Linear(d_model, d_model + 2 * n_kv_heads * hd, **kw)
         self.wo = nn.Linear(d_model, d_model, **kw)
+        if n_experts > 0:
+            f = moe_d_ff or d_ff // 2
+            self.moe_gate = nn.Parameter(torch.zeros(d_model, n_experts, device=device))
+            self.moe_w_in = nn.Parameter(torch.zeros(n_experts, d_model, f, device=device))
+            self.moe_w_out = nn.Parameter(torch.zeros(n_experts, f, d_model, device=device))
+            self.w_gate = self.w_up = self.w_down = None
+            return
         self.w_gate = nn.Linear(d_model, d_ff, **kw)
         self.w_up = nn.Linear(d_model, d_ff, **kw)
         self.w_down = nn.Linear(d_ff, d_model, **kw)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.w_gate is None
 
 
 class TransformerLM(nn.Module):
@@ -126,7 +145,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, vocab: int, d_model: int, n_heads: int, n_layers: int,
                  d_ff: Optional[int] = None, n_kv_heads: Optional[int] = None,
-                 device=None) -> None:
+                 device=None, n_experts: int = 0, moe_d_ff: Optional[int] = None) -> None:
         super().__init__()
         kv = n_kv_heads or n_heads
         if n_heads % kv:
@@ -134,7 +153,8 @@ class TransformerLM(nn.Module):
         self.n_heads = n_heads
         self.embed = nn.Parameter(torch.zeros(vocab, d_model, device=device))
         self.blocks = nn.ModuleList(
-            Block(d_model, n_heads, kv, d_ff or 4 * d_model, device=device)
+            Block(d_model, n_heads, kv, d_ff or 4 * d_model, device=device,
+                  n_experts=n_experts, moe_d_ff=moe_d_ff)
             for _ in range(n_layers)
         )
         self.ln_f = nn.Parameter(torch.ones(d_model, device=device))
@@ -167,14 +187,20 @@ def init_params(
     d_ff: Optional[int] = None,
     n_kv_heads: Optional[int] = None,
     device: DeviceLike = None,
+    n_experts: int = 0,
+    moe_d_ff: Optional[int] = None,
 ) -> TransformerLM:
     """Random weights from ``generator``, made on the generator's device
     (a CUDA generator builds a full-width model on the card directly):
     dense weights N(0, 1/cin), the embedding N(0, 0.02²), norms at one —
     the reference's distributions, not its numbers (``jax.random`` bits
-    differ; carry the reference's own weights with ``jax_weights``)."""
+    differ; carry the reference's own weights with ``jax_weights``). With
+    ``n_experts`` the blocks hold expert weights (:class:`Block`) drawn as
+    ``parallel/moe.py init_moe_params`` draws them: router and ``w_in``
+    N(0, 1/D), ``w_out`` N(0, 1/F)."""
     dev = torch.device(device) if device is not None else generator.device
-    model = TransformerLM(vocab, d_model, n_heads, n_layers, d_ff, n_kv_heads, device=dev)
+    model = TransformerLM(vocab, d_model, n_heads, n_layers, d_ff, n_kv_heads, device=dev,
+                          n_experts=n_experts, moe_d_ff=moe_d_ff)
 
     def normal_(t: torch.Tensor, std: float) -> None:
         t.normal_(0.0, std, generator=generator)
@@ -182,7 +208,12 @@ def init_params(
     normal_(model.embed, 0.02)
     for blk in model.blocks:
         for lin in (blk.wqkv, blk.wo, blk.w_gate, blk.w_up, blk.w_down):
-            normal_(lin.weight, math.sqrt(1.0 / lin.in_features))
+            if lin is not None:
+                normal_(lin.weight, math.sqrt(1.0 / lin.in_features))
+        if blk.is_moe:
+            normal_(blk.moe_gate, math.sqrt(1.0 / d_model))
+            normal_(blk.moe_w_in, math.sqrt(1.0 / d_model))
+            normal_(blk.moe_w_out, math.sqrt(1.0 / blk.moe_w_out.shape[1]))
     normal_(model.head.weight, math.sqrt(1.0 / d_model))
     return model
 
@@ -246,39 +277,47 @@ def block_qkv(x: torch.Tensor, blk: Block, n_heads: int, positions):
     return q, k, v.reshape(b, t, kv, hd)
 
 
-def block_ffn(x: torch.Tensor, blk: Block) -> torch.Tensor:
-    """Post-attention half of a block: pre-norm + SwiGLU MLP."""
+def block_ffn(x: torch.Tensor, blk: Block, ffn_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Post-attention half of a block: pre-norm + SwiGLU MLP, or
+    ``ffn_fn(x_normed, blk)`` → [B,T,D] in its place (the MoE hook)."""
     y = rmsnorm(x, blk.ln2)
+    if ffn_fn is not None:
+        return x + ffn_fn(y, blk).to(x.dtype)
+    if blk.is_moe:
+        raise ValueError("a block with expert weights needs an ffn_fn (parallel/moe.py)")
     gate = F.silu(F.linear(y, wt(blk.w_gate.weight, y.dtype)))
     up = F.linear(y, wt(blk.w_up.weight, y.dtype))
     return x + F.linear(gate * up, wt(blk.w_down.weight, y.dtype))
 
 
 def block_apply(x, blk: Block, n_heads: int, positions, attn_fn: Optional[Callable] = None,
-                return_kv: bool = False, causal: bool = True):
+                ffn_fn: Optional[Callable] = None, return_kv: bool = False,
+                causal: bool = True):
     """One block. ``attn_fn(q, k, v, causal)`` → [B,T,H,Dh] float32
     (default :func:`dense_attention`) gets K/V repeated to H heads;
-    return_kv=True also returns this layer's (k, v), the prefill path of
-    the KV-cache decoder; causal=False makes it an encoder block."""
+    ``ffn_fn`` replaces the SwiGLU MLP (:func:`block_ffn`); return_kv=True
+    also returns this layer's (k, v), the prefill path of the KV-cache
+    decoder; causal=False makes it an encoder block."""
     attn = attn_fn or dense_attention
     b, t, d = x.shape
     q, k, v = block_qkv(x, blk, n_heads, positions)
     o = attn(q, repeat_kv(k, n_heads), repeat_kv(v, n_heads), causal=causal).to(x.dtype)
     x = x + F.linear(o.reshape(b, t, d), wt(blk.wo.weight, x.dtype))
-    x = block_ffn(x, blk)
+    x = block_ffn(x, blk, ffn_fn)
     if return_kv:
         return x, (k, v)
     return x
 
 
-def apply_layers(model: TransformerLM, x, n_heads: int, positions,
-                 attn_fn: Optional[Callable] = None, return_kv: bool = False,
+def apply_layers(model, x, n_heads: int, positions, attn_fn: Optional[Callable] = None,
+                 ffn_fn: Optional[Callable] = None, return_kv: bool = False,
                  causal: bool = True):
-    """Run every block in order; return_kv=True also returns the stacked
-    per-layer (k, v) [L,B,T,KV,Dh]."""
+    """Run every block of ``model`` (a module with ``blocks``, or a
+    sequence of :class:`Block` such as a pipeline stage's slice) in order;
+    return_kv=True also returns the stacked per-layer (k, v) [L,B,T,KV,Dh]."""
     ks, vs = [], []
-    for blk in model.blocks:
-        out = block_apply(x, blk, n_heads, positions, attn_fn, return_kv, causal)
+    for blk in getattr(model, "blocks", model):
+        out = block_apply(x, blk, n_heads, positions, attn_fn, ffn_fn, return_kv, causal)
         if return_kv:
             x, (k, v) = out
             ks.append(k)
@@ -291,11 +330,14 @@ def apply_layers(model: TransformerLM, x, n_heads: int, positions,
 
 
 def apply(model: TransformerLM, tokens: torch.Tensor, n_heads: int,
-          attn_fn: Optional[Callable] = None,
-          compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """tokens [B, T] int → logits [B, T, vocab] float32 (causal, no cache)."""
+          attn_fn: Optional[Callable] = None, ffn_fn: Optional[Callable] = None,
+          compute_dtype: torch.dtype = torch.float32, positions=None) -> torch.Tensor:
+    """tokens [B, T] int → logits [B, T, vocab] float32 (causal, no cache).
+    ``positions`` [T] replaces the default arange: a sequence shard passes
+    its tokens' global positions, which RoPE needs."""
     x = embed_lookup(model.embed, tokens, compute_dtype)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = apply_layers(model, x, n_heads, positions, attn_fn)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = apply_layers(model, x, n_heads, positions, attn_fn, ffn_fn)
     x = rmsnorm(x, model.ln_f)
     return F.linear(x, wt(model.head.weight, x.dtype)).float()

@@ -19,6 +19,13 @@ per-position pieces on their devices and puts them back together.
 Nothing gives way to fewer devices: a mesh larger than what is there
 raises and names both counts.
 
+Once :func:`.multihost.initialize` has joined a process group, a mesh over
+the default devices is *global*, as the reference's ``jax.devices()``
+becomes: it lists every process's positions in rank order, and
+``Mesh.ranks`` tags each with the rank that holds it. A :class:`Sharding`
+then materializes only this process's pieces (None at the others); what
+crosses processes goes through ``torch.distributed`` (``parallel/spmd.py``).
+
 The reference's ``shard_map`` has no counterpart: each user of a mesh here
 (the torch backend's ``mesh:``, the slot-sharded ``ContinuousBatcher``,
 the plane's ``MeshShardedProgram``) runs its per-position work itself.
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from nnstreamer_tpu_torch.config import conf
+from nnstreamer_tpu_torch.parallel import multihost
 
 DevicesLike = Optional[Union[str, torch.device, Sequence[torch.device]]]
 
@@ -56,13 +64,32 @@ def available_devices(kind: Union[str, torch.device, None] = None) -> list:
 
 class Mesh:
     """Named axes over an ndarray of ``torch.device`` (one per position).
-    ``shape`` maps each axis name to its size, as ``jax.sharding.Mesh``'s."""
+    ``shape`` maps each axis name to its size, as ``jax.sharding.Mesh``'s.
+    ``ranks`` (same shape, or None: every position is this process's)
+    names the process that holds each position, and ``rank`` is this
+    process's."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]) -> None:
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 ranks: Optional[np.ndarray] = None, rank: int = 0) -> None:
         if devices.ndim != len(axis_names):
             raise ValueError(f"mesh of {devices.ndim} dims with axes {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.ranks = ranks
+        self.rank = rank
+
+    @property
+    def n_processes(self) -> int:
+        return 1 if self.ranks is None else len(set(self.ranks.flat))
+
+    def is_local(self, idx: Tuple[int, ...]) -> bool:
+        """Whether this process holds position ``idx``."""
+        return self.ranks is None or int(self.ranks[idx]) == self.rank
+
+    def position(self, **coords: int) -> Tuple[int, ...]:
+        """The index of the position at ``coords`` (0 on every axis not
+        given; axes the mesh lacks are ignored)."""
+        return tuple(coords.get(a, 0) for a in self.axis_names)
 
     @property
     def shape(self) -> dict:
@@ -101,9 +128,16 @@ def make_mesh(
     or ``"cpu"``) whose :func:`available_devices` are taken. The default
     factoring is the reference's: as much as possible (a power of two, at
     most 4) on the *last* axis, the rest on the first; ``("dp", "tp")`` over
-    8 devices is (2, 4)."""
+    8 devices is (2, 4). Under :func:`.multihost.initialize` the default
+    devices (or the group's kind) are every process's, in rank order."""
+    ranks = None
     if devices is None or isinstance(devices, (str, torch.device)):
-        devs = available_devices(devices)
+        tagged = multihost.global_positions(devices)
+        if tagged is None:
+            devs = available_devices(devices)
+        else:
+            ranks = [r for r, _ in tagged]
+            devs = [d for _, d in tagged]
     else:
         devs = [torch.device(d) for d in devices]
     if n_devices is not None:
@@ -128,7 +162,10 @@ def make_mesh(
         raise ValueError(f"mesh shape {shape} != {n} devices")
     arr = np.empty(n, dtype=object)
     arr[:] = devs
-    return Mesh(arr.reshape(shape), axes)
+    if ranks is None:
+        return Mesh(arr.reshape(shape), axes)
+    return Mesh(arr.reshape(shape), axes, np.array(ranks[:n]).reshape(shape),
+                multihost.process_info()["process_index"])
 
 
 class Sharding:
@@ -153,15 +190,40 @@ class Sharding:
             a is None or shape[d] % self.mesh.axis_size(a) == 0
             for d, a in enumerate(self.spec))
 
+    def piece_key(self, idx: Tuple[int, ...]) -> Tuple[int, ...]:
+        """Which piece position ``idx`` holds: its index on each split dim's
+        axis (positions with equal keys hold copies of one piece)."""
+        names = self.mesh.axis_names
+        return tuple(idx[names.index(a)] for a in self.spec if a is not None)
+
+    def piece_range(self, idx: Tuple[int, ...],
+                    shape: Sequence[int]) -> Tuple[Tuple[int, int], ...]:
+        """The [start, stop) of every dim of ``shape`` that position
+        ``idx``'s piece covers."""
+        names = self.mesh.axis_names
+        out = []
+        for d, n in enumerate(shape):
+            a = self.spec[d] if d < len(self.spec) else None
+            if a is None:
+                out.append((0, int(n)))
+            else:
+                k = self.mesh.axis_size(a)
+                i = idx[names.index(a)]
+                out.append((i * n // k, (i + 1) * n // k))
+        return tuple(out)
+
     def split(self, t: torch.Tensor) -> np.ndarray:
         """The pieces of ``t`` [object ndarray of the mesh's shape]: each
-        position's contiguous block of every split dim, on its device."""
+        position's contiguous block of every split dim, on its device
+        (None at a position another process holds)."""
         if not self.divides(tuple(t.shape)):
             raise ValueError(f"shape {tuple(t.shape)} does not divide over {self.spec} "
                              f"on mesh {self.mesh.shape}")
         names = self.mesh.axis_names
         out = np.empty(self.mesh.devices.shape, dtype=object)
         for idx in np.ndindex(*self.mesh.devices.shape):
+            if not self.mesh.is_local(idx):
+                continue
             piece = t
             for d, a in enumerate(self.spec):
                 if a is not None:
@@ -173,7 +235,10 @@ class Sharding:
     def gather(self, pieces: np.ndarray,
                device: Union[str, torch.device, None] = None) -> torch.Tensor:
         """The whole tensor back from :meth:`split`'s pieces, on ``device``
-        (default: the first position's)."""
+        (default: the first position's). Every piece must be this
+        process's."""
+        if any(p is None for p in pieces.flat):
+            raise ValueError("gather: pieces held by other processes (a multi-process mesh)")
         dev = torch.device(device) if device is not None else self.mesh.devices.flat[0]
         names = self.mesh.axis_names
         blocks = np.empty(pieces.shape, dtype=object)
