@@ -10,6 +10,7 @@
     python3 chip_smoke.py --edge        # only the edge group (K1, K4 built first)
     python3 chip_smoke.py --mesh        # only the mesh group (K1, K3 built first)
     python3 chip_smoke.py --train       # only the train group (no kernel on its path)
+    python3 chip_smoke.py --analysis    # only the analysis group (every kernel built first)
 
 Phases, each printed as one JSON line; any failure exits nonzero:
 
@@ -586,6 +587,33 @@ each step's ms (CUDA events) and peak GB are on its phase's line:
                  the global mesh; a mesh of 2 raises, naming "need 2
                  devices, have 1".
 
+Last, the analysis group (the analysis tooling; alone with ``--analysis``),
+on the default device, ``cuda``:
+
+53. analysis_kernels — nns-kscope-torch --json (its default device,
+                 cuda) over K1-K5 at the main shapes, exit 0: each
+                 Python launch plan (grid, threads, dynamic shared memory)
+                 equal to the launch the .cu's host code makes (its
+                 ``nns_*_launch_info`` query), every row with its
+                 registers, static shared memory, local bytes, blocks an
+                 SM and bound; no NNS-W127 or NNS-W128.
+54. analysis_dispatch — nns-xray's dispatch table on cuda: every entry
+                 point of K1-K5 engaged its kernel, its launch counter moved.
+55. analysis_check — ``nns-launch --check`` over the 720p labeling
+                 pipeline (exit 0), and over a serving pipeline at
+                 Mistral-7B's widths (d_ff 14336, 32 layers, 8 slots x
+                 4096) with ``kv-memory-bound=4G``, below its 8 GiB slot
+                 cache (exit 1, NNS-W115).
+56. analysis_crosscheck — nns-xray over the labeling pipeline with its
+                 backends open (one compile unit, the predicted bytes a
+                 frame), then 32 frames with ``NNS_XRAY_CROSSCHECK=1``:
+                 ``transfer_crosscheck()`` delta 0 for h2d and d2h, K1 once
+                 a frame.
+
+After the groups, ``segment_traces``: how many fake-tensor segment traces
+(analysis/costmodel.py ``trace_program``, run by every chain verdict and
+analyzer) the whole script made, their host seconds and the first one's.
+
 ``--ab PARENT`` runs K1's cases and K2 at the SSD frame, 6300 and 25200
 candidates with the kernels of the checkout at PARENT (an unpacked `git
 archive` of another commit) and with this one's, in four processes of one
@@ -598,7 +626,8 @@ and the LLM phases' float32 matmuls could run, in TF32), so GPU and CPU
 runs and the references compare at float32 precision. The last lines
 are the card's name and power limit (nvidia-smi), the kernel summary
 ``{"kernels": [...]}`` (K1-K5; K1's ``launches_mesh`` and K3's
-``launches_mesh_serving`` are the mesh group's) and ``{"ok": true,
+``launches_mesh_serving`` are the mesh group's, ``launch_analysis`` the
+analysis group's row of each kernel) and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -8244,6 +8273,119 @@ def ab_main(parent: str) -> int:
     return 0
 
 
+ANALYSIS_KV = (
+    "tensorsrc dimensions=64 types=int32 num-frames=1 ! tensor_llm_serversink id=analysis "
+    'custom="vocab:32000,d_model:4096,n_heads:32,n_kv_heads:8,n_layers:32,d_ff:14336" '
+    "n-slots=8 max-len=4096 prompt-len=512 kv-memory-bound=4G"
+)
+
+
+def analysis_phases(torch, np, dev, parse_pipeline, ik):
+    """The analysis group (docstring 53-56) on ``dev``, every kernel's
+    library built. Returns its summary: the seconds, K1's launches in the
+    cross-checked run, and the analyzer's row a kernel (its first case)."""
+    import contextlib
+    import io
+
+    from nnstreamer_tpu_torch.analysis.kscope_cli import main as kscope
+    from nnstreamer_tpu_torch.analysis.xray import dispatch_table, xray
+    from nnstreamer_tpu_torch.cli import main as launch
+
+    t_group = time.perf_counter()
+    # 53. the launch analyzer against each .cu's own launch: nns-kscope-torch
+    # as a user runs it (its default device, cuda, reads every launch)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = kscope(["--json"])
+    doc = json.loads(out.getvalue())
+    rows = doc["cases"]
+    bad = [r for r in rows if r["plan_matches"] is not True
+           or any("regs" not in ln for ln in r["launches"])]
+    if rc != 0 or bad or doc["diagnostics"]:
+        raise AssertionError(f"analysis_kernels: rc {rc}, plans differ or unread {bad} "
+                             f"or findings {doc['diagnostics']}")
+    emit({"phase": "analysis_kernels", "cases": rows, "seconds": time.perf_counter() - t0})
+
+    # 54. the dispatch table on the card
+    table = dispatch_table(dev)
+    if any(r["error"] or r["engaged"] != "kernel" or r["launches"] < 1 for r in table):
+        raise AssertionError(f"analysis_dispatch: {table}")
+    emit({"phase": "analysis_dispatch", "rows": table})
+
+    # 55. nns-launch --check: the flagship pipeline clean, the KV bound caught
+    checks = {}
+    for name, desc, want in (("labeling_720p", PIPELINE.format(n=FRAMES, live=""), 0),
+                             ("kv_bound_mistral7b", ANALYSIS_KV, 1)):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = launch(["--check", desc])
+        checks[name] = {"rc": rc, "output": out.getvalue().strip().splitlines(),
+                        "seconds": time.perf_counter() - t0}
+        if rc != want:
+            raise AssertionError(f"analysis_check {name}: rc {rc}, want {want}: {out.getvalue()}")
+    if not any(line.startswith("NNS-W115") for line in checks["kv_bound_mistral7b"]["output"]):
+        raise AssertionError(f"analysis_check: no NNS-W115 in {checks['kv_bound_mistral7b']}")
+    emit({"phase": "analysis_check", **checks})
+
+    # 56. nns-xray with backends open, then a cross-checked run
+    t0 = time.perf_counter()
+    desc = PIPELINE.format(n=FRAMES, live="")
+    xr = xray(desc, device=dev)
+    xray_s = time.perf_counter() - t0
+    if xr.degraded or xr.codes or len(xr.chains) != 1:
+        raise AssertionError(f"analysis_crosscheck: xray {xr.render()}")
+    os.environ["NNS_XRAY_CROSSCHECK"] = "1"
+    try:
+        ik.crop_resize_launches.reset()
+        p = parse_pipeline(desc, device=dev)
+        ex = p.run(timeout=600)
+        k1 = ik.crop_resize_launches.count
+    finally:
+        del os.environ["NNS_XRAY_CROSSCHECK"]
+    cc = ex.last_crosscheck
+    if cc is None or cc["delta"] != {"h2d": 0, "d2h": 0} or k1 != FRAMES:
+        raise AssertionError(f"analysis_crosscheck: {cc}, K1 {k1} for {FRAMES} frames")
+    ch = xr.chains[0]
+    emit({"phase": "analysis_crosscheck", "frames": FRAMES, "k1_launches": k1,
+          "chain": ch.name, "compiled": ch.compiled,
+          "params_bytes": ch.cost.params_bytes, "transient_bytes": ch.cost.transient_bytes,
+          "predicted_per_frame": xr.predicted,
+          "boundaries": [(b.direction, b.producer, b.consumer, b.reason, b.bytes_per_frame)
+                         for b in xr.boundaries],
+          "crosscheck": cc, "xray_seconds": xray_s})
+    first = {}
+    for r in rows:
+        first.setdefault(r["tpu_kernel"], r)
+    return {"seconds": time.perf_counter() - t_group, "k1_launches": k1, "rows": first}
+
+
+def count_traces():
+    """Wrap the analyzers' segment trace (analysis/costmodel.py
+    ``trace_program``, which every chain verdict runs) to tally its calls
+    and host seconds over the whole script: the set-up cost the chain
+    verdicts add. Returns the tally, filled as the script runs."""
+    from nnstreamer_tpu_torch.analysis import costmodel
+
+    tally = {"traces": 0, "seconds": 0.0, "first_s": None}
+    real = costmodel.trace_program
+
+    def timed(fn, sig):
+        t0 = time.perf_counter()
+        try:
+            return real(fn, sig)
+        finally:
+            dt = time.perf_counter() - t0
+            tally["traces"] += 1
+            tally["seconds"] += dt
+            if tally["first_s"] is None:
+                tally["first_s"] = dt
+
+    costmodel.trace_program = timed
+    return tally
+
+
 def main() -> int:
     import torch
 
@@ -8252,6 +8394,7 @@ def main() -> int:
         return 2
     import numpy as np
 
+    traces = count_traces()
     from nnstreamer_tpu_torch.ops.kernels import _build
     from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
     from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
@@ -8535,11 +8678,24 @@ def main() -> int:
           "serving_seconds": mesh_serving["seconds"]})
     torch.cuda.empty_cache()
     emit(train_phases(torch, np, dev))
+    torch.cuda.empty_cache()
+    analysis = analysis_phases(torch, np, dev, parse_pipeline, ik)
+    emit({"phase": "analysis", "seconds": analysis["seconds"]})
+    # the segment traces of every chain verdict and analyzer in the script
+    emit({"phase": "segment_traces", **traces})
+
+    def launch_analysis(tk):
+        """The analyzer's row of the kernel's first main-path case."""
+        row = analysis["rows"][tk]
+        return {"case": row["case"], "bound_ms": row["bound_ms"], "launches": [
+            {k: ln[k] for k in ("kernel", "grid", "block", "dyn_smem", "regs", "static_smem",
+                                "local_bytes", "blocks_per_sm")} for ln in row["launches"]]}
 
     main_case = cases[0]
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "crop_resize",
+        "launch_analysis": launch_analysis("K1"),
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/csrc/image_kernels.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/image_kernels.py:165",
@@ -8556,6 +8712,7 @@ def main() -> int:
         "launches_observe": observe["k1_launches"],
         "launches_edge": edge["k1_launches"],
         "launches_mesh": mesh["k1_launches"],
+        "launches_analysis": analysis["k1_launches"],
         "vision_cases": [{k: c[k] for k in (
             "case", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
             for c in vision["k1_cases"]],
@@ -8567,6 +8724,7 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
     }, {
         "name": "nms",
+        "launch_analysis": launch_analysis("K2"),
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/csrc/nms.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/nms.py:119",
@@ -8585,6 +8743,7 @@ def main() -> int:
                       "of 64-bit words (one barrier a word block)",
     }, {
         "name": "decode_attention",
+        "launch_analysis": launch_analysis("K3"),
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/csrc/decode_attention.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/decode_attention.py:178",
@@ -8605,6 +8764,7 @@ def main() -> int:
                       "every warp busy",
     }, {
         "name": "paged_decode_attention",
+        "launch_analysis": launch_analysis("K4"),
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/csrc/paged_attention.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/paged_attention.py:202",
@@ -8624,6 +8784,7 @@ def main() -> int:
                       "every warp busy",
     }, {
         "name": "flash_attention",
+        "launch_analysis": launch_analysis("K5"),
         "route": "cuda",
         "source": "nnstreamer_tpu_torch/csrc/flash_attention.cu",
         "replaces": "nnstreamer_tpu/ops/pallas/flash_attention.py:158",
@@ -8799,6 +8960,34 @@ def mesh_main() -> int:
     return 0
 
 
+def analysis_main() -> int:
+    """``--analysis``: only the analysis group (every kernel built first:
+    the analyzer reads each library's launch query)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from nnstreamer_tpu_torch.ops.kernels import _build
+    from nnstreamer_tpu_torch.ops.kernels import image_kernels as ik
+    from nnstreamer_tpu_torch.pipeline.parse import parse_pipeline
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit({"phase": "device", "nvidia_smi": gpu_info(), "kind": torch.cuda.get_device_name(0),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "host_cpus": os.cpu_count(), "host_loadavg_1_5_15": os.getloadavg()})
+    t0 = time.perf_counter()
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    _build.build(sources)
+    emit({"phase": "build", "sources": sources, "seconds": time.perf_counter() - t0})
+    out = analysis_phases(torch, np, torch.device("cuda"), parse_pipeline, ik)
+    emit({"phase": "analysis", "seconds": out["seconds"], "k1_launches": out["k1_launches"]})
+    return 0
+
+
 def train_main() -> int:
     """``--train``: only the train group (it builds no kernel: none runs
     on the training path)."""
@@ -8819,6 +9008,8 @@ def train_main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--analysis"] and len(sys.argv) == 2:
+        sys.exit(analysis_main())
     if sys.argv[1:2] == ["--train"] and len(sys.argv) == 2:
         sys.exit(train_main())
     if sys.argv[1:2] == ["--mesh"] and len(sys.argv) == 2:

@@ -145,9 +145,6 @@ class HostScalerBackend(_SameSpec):
         cols = host_invoke(lambda cs: [_scale_host(c, f) for c in cs], stacked, self.props.device)
         return [tuple(col[j] for col in cols) for j in range(len(batch))]
 
-    def traceable_fn(self):
-        return None
-
 
 @registry.filter_backend("framecounter")
 class FrameCounterBackend(Backend):

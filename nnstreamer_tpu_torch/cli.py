@@ -11,6 +11,9 @@
 
 The pipeline runs on the GPU; ``--device cpu`` runs it on the host. Errors
 exit nonzero with one ``nns-launch:`` line on stderr and no traceback.
+``--check`` lints the description instead of running it (nns-lint-torch:
+exit 0 clean, 1 warnings, 2 errors or no GPU without ``--device cpu``;
+``--dot`` then paints the findings on the graph).
 ``--timeout`` bounds a pipeline that does not end: at the bound it stops,
 prints "Timeout reached" with the sinks' counts, and exits 0.
 
@@ -64,6 +67,11 @@ def main(argv=None) -> int:
     ap.add_argument("--inspect", nargs="?", const="", default=None, metavar="ELEMENT")
     ap.add_argument("--dot", action="store_true", help="print graphviz, don't run")
     ap.add_argument(
+        "--check", action="store_true",
+        help="statically lint the pipeline without starting it (nns-lint-torch); exit 0 "
+        "clean / 1 warnings / 2 errors; with --dot the graph carries the findings",
+    )
+    ap.add_argument(
         "--device", default=None,
         help="torch device to run on (default cuda; 'cpu' runs on the host)",
     )
@@ -94,6 +102,21 @@ def main(argv=None) -> int:
         ap.error("pipeline description required")
 
     from nnstreamer_tpu_torch.device import NoDeviceError
+
+    if args.check:
+        from nnstreamer_tpu_torch.analysis import annotated_dot, lint
+
+        try:
+            result = lint(args.description, device=args.device)
+        except NoDeviceError as exc:
+            print(f"nns-launch: {exc}", file=sys.stderr)
+            return 2
+        if args.dot:
+            print(annotated_dot(result))
+        elif not args.quiet or result.diagnostics:
+            print(result.render())
+        return result.exit_code
+
     from nnstreamer_tpu_torch.elements.base import ElementError, NegotiationError
     from nnstreamer_tpu_torch.pipeline.parse import ParseError, parse_pipeline
 

@@ -80,6 +80,10 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # member's chain-mode=off overrides.
         "chain_mode": "auto",
         "chain_unroll": "4",
+        # the transfer cross-check (analysis/costmodel.py): stop() holds
+        # the static transfer prediction to the run's tally and logs the
+        # delta; NNS_XRAY_CROSSCHECK is read first
+        "xray_crosscheck": "false",
         # the runtime sanitizer (pipeline/sanitize.py); NNS_TPU_SANITIZE
         # is the one-knob env opt-in, read before this key
         "sanitize": "false",
@@ -147,7 +151,9 @@ _DEFAULTS: Dict[str, Dict[str, str]] = {
         # prefill buckets advanced per step or pump (paged chunked
         # prefill): bounds how long one prompt can stall decoding slots
         "prefill_chunks": "1",
-        # the declared KV memory bound of the reference's lint (not ported)
+        # the declared KV memory bound (K/M/G suffixes) nns-lint holds an
+        # LLM serversink's KV cache to (NNS-W115 / W117); the element's
+        # kv-memory-bound outranks it
         "memory_bound": "",
     },
 }

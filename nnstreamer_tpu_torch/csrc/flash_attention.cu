@@ -95,6 +95,7 @@
 #include <stdint.h>
 
 #include "attn_primitives.cuh"
+#include "launch_info.cuh"
 
 using namespace nns_attn;
 
@@ -647,6 +648,9 @@ Instance instance_dp(int dtype) {
   }
 }
 
+// A block a (64 query rows, head, batch row).
+dim3 flash_grid(int B, int T, int H) { return dim3((T + kBQ - 1) / kBQ, H, B); }
+
 // The kernel for (dtype, D): D % 8 == 0 and 8 <= D <= 256, on the padded
 // width 64, 128 or 256; {nullptr, 0} otherwise.
 Instance instance(int dtype, int D) {
@@ -679,10 +683,19 @@ extern "C" int nns_flash_attention(const void* q, const void* k, const void* v, 
   Strides vs{strides[6], strides[7], strides[8]};
   int causal_i = causal;
   void* args[] = {&q, &k, &v, &out, &T, &H, &D, &qs, &ks, &vs, &scale, &causal_i};
-  const dim3 grid((T + kBQ - 1) / kBQ, H, B);
-  err = cudaLaunchKernel(in.fn, grid, dim3(kThreads), args, in.smem,
+  err = cudaLaunchKernel(in.fn, flash_grid(B, T, H), dim3(kThreads), args, in.smem,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// The launch nns_flash_attention makes for (dtype, B, T, H, D), described
+// into info[0 .. nns_launch::kFields) (launch_info.cuh); nothing launches.
+extern "C" int nns_flash_attention_launch_info(int dtype, int B, int T, int H, int D,
+                                               long long* info) {
+  if (B <= 0 || B > 65535 || T <= 0 || H <= 0 || H > 65535) return cudaErrorInvalidValue;
+  const Instance in = instance(dtype, D);
+  if (in.fn == nullptr) return cudaErrorInvalidValue;
+  return nns_launch::describe(in.fn, flash_grid(B, T, H), dim3(kThreads), in.smem, in.smem,
+                              info);
+}

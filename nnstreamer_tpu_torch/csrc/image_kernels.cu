@@ -46,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "launch_info.cuh"
+
 namespace {
 
 enum DTypeCode { kU8 = 0, kF32 = 1, kBF16 = 2 };
@@ -130,15 +132,19 @@ __global__ void crop_resize_kernel(const Tin* __restrict__ img, const float* __r
   }
 }
 
+// With a non-null `info`: describe the launch (launch_info.cuh), launch nothing.
 template <typename Tin, typename Tout>
 cudaError_t launch(const void* img, const float* boxes, void* out, int n, int h, int w, int c,
                    int out_h, int out_w, long long batch_stride, int has_scale, float scale,
-                   int has_offset, float offset, cudaStream_t stream) {
+                   int has_offset, float offset, cudaStream_t stream, long long* info) {
   long long total = static_cast<long long>(n) * out_h * out_w;
   if (total == 0) return cudaSuccess;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (info != nullptr)
+    return nns_launch::describe(reinterpret_cast<const void*>(crop_resize_kernel<Tin, Tout>),
+                                dim3(static_cast<unsigned>(blocks)), dim3(threads), 0, 0, info);
   crop_resize_kernel<Tin, Tout><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const Tin*>(img), boxes, static_cast<Tout*>(out), n, h, w, c, out_h, out_w,
       batch_stride, has_scale, scale, has_offset, offset);
@@ -149,23 +155,46 @@ template <typename Tin>
 cudaError_t dispatch_out(int out_dtype, const void* img, const float* boxes, void* out, int n,
                          int h, int w, int c, int out_h, int out_w, long long batch_stride,
                          int has_scale, float scale, int has_offset, float offset,
-                         cudaStream_t stream) {
+                         cudaStream_t stream, long long* info) {
   switch (out_dtype) {
     case kU8:
       return launch<Tin, uint8_t>(img, boxes, out, n, h, w, c, out_h, out_w, batch_stride,
-                                  has_scale, scale, has_offset, offset, stream);
+                                  has_scale, scale, has_offset, offset, stream, info);
     case kF32:
       return launch<Tin, float>(img, boxes, out, n, h, w, c, out_h, out_w, batch_stride,
-                                has_scale, scale, has_offset, offset, stream);
+                                has_scale, scale, has_offset, offset, stream, info);
     case kBF16:
       return launch<Tin, __nv_bfloat16>(img, boxes, out, n, h, w, c, out_h, out_w, batch_stride,
-                                        has_scale, scale, has_offset, offset, stream);
+                                        has_scale, scale, has_offset, offset, stream, info);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// The instantiation for (in_dtype, out_dtype), launched, or with `info`
+// described.
+static int crop_resize_dispatch(const void* img, int in_dtype, const float* boxes, void* out,
+                                int out_dtype, int n, int h, int w, int c, int out_h, int out_w,
+                                long long batch_stride, int has_scale, float scale,
+                                int has_offset, float offset, void* stream, long long* info) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_dtype) {
+    case kU8:
+      return dispatch_out<uint8_t>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
+                                   batch_stride, has_scale, scale, has_offset, offset, s, info);
+    case kF32:
+      return dispatch_out<float>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
+                                 batch_stride, has_scale, scale, has_offset, offset, s, info);
+    case kBF16:
+      return dispatch_out<__nv_bfloat16>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
+                                         batch_stride, has_scale, scale, has_offset, offset, s,
+                                         info);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 // Plain C entry point (bound with ctypes). Returns the cudaError_t of the
 // launch; 0 means it was queued on `stream`. Inputs are contiguous NHWC /
@@ -175,18 +204,15 @@ extern "C" int nns_crop_resize(const void* img, int in_dtype, const float* boxes
                                int out_dtype, int n, int h, int w, int c, int out_h, int out_w,
                                long long batch_stride, int has_scale, float scale,
                                int has_offset, float offset, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (in_dtype) {
-    case kU8:
-      return dispatch_out<uint8_t>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
-                                   batch_stride, has_scale, scale, has_offset, offset, s);
-    case kF32:
-      return dispatch_out<float>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
-                                 batch_stride, has_scale, scale, has_offset, offset, s);
-    case kBF16:
-      return dispatch_out<__nv_bfloat16>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
-                                         batch_stride, has_scale, scale, has_offset, offset, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return crop_resize_dispatch(img, in_dtype, boxes, out, out_dtype, n, h, w, c, out_h, out_w,
+                              batch_stride, has_scale, scale, has_offset, offset, stream,
+                              nullptr);
+}
+
+// The launch nns_crop_resize would make for these dtypes and sizes, described
+// into info[0 .. nns_launch::kFields) (launch_info.cuh); nothing launches.
+extern "C" int nns_crop_resize_launch_info(int in_dtype, int out_dtype, int n, int h, int w,
+                                           int c, int out_h, int out_w, long long* info) {
+  return crop_resize_dispatch(nullptr, in_dtype, nullptr, nullptr, out_dtype, n, h, w, c, out_h,
+                              out_w, 0, 0, 0.0f, 0, 0.0f, nullptr, info);
 }

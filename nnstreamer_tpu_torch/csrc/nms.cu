@@ -81,6 +81,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_info.cuh"
+
 namespace {
 
 typedef unsigned long long u64;
@@ -333,20 +335,27 @@ __global__ void __launch_bounds__(kScanThreads, 1)
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). boxes: [n, 4] float32, ranked by
-// score, 16-byte aligned; scores: [n] float32 in the same order; words: the
-// [n, ceil(n/64)] 64-bit workspace; alive: [n] float32 out (1 = kept); live:
-// [1] int32 out (m). Launches the mask kernel, then the scan, on `stream`.
-// Returns the first cudaError_t; 0 means both were queued.
-extern "C" int nns_nms_mask(const void* boxes, const float* scores, void* words, float* alive,
-                            int* live, int n, float thr, void* stream) {
+// The mask kernel's instantiation and block for n candidates (the tiles of
+// the upper triangle are its blocks), then the one-block scan; launched, or
+// with `info` described (launch_info.cuh) and nothing launched.
+static int nms_launch(const void* boxes, const float* scores, void* words, float* alive,
+                      int* live, int n, float thr, cudaStream_t s, long long* info) {
   if (n <= 0 || n > kMaxN) return cudaErrorInvalidValue;
   const int nw = (n + kTile - 1) / kTile;
   const int tiles = nw * (nw + 1) / 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   // few tiles: four threads a row shorten each thread's chain of IoUs; many:
   // one thread a row does the least work
-  if (tiles <= kMaskWave)
+  const bool four = tiles <= kMaskWave;
+  if (info != nullptr) {
+    const void* mask = four ? reinterpret_cast<const void*>(nms_kernel_mask<4>)
+                            : reinterpret_cast<const void*>(nms_kernel_mask<1>);
+    cudaError_t err =
+        nns_launch::describe(mask, dim3(tiles), dim3(four ? 4 * kTile : kTile), 0, 0, info);
+    if (err != cudaSuccess) return err;
+    return nns_launch::describe(reinterpret_cast<const void*>(nms_kernel_scan), dim3(1),
+                                dim3(kScanThreads), 0, 0, info + nns_launch::kFields);
+  }
+  if (four)
     nms_kernel_mask<4><<<tiles, 4 * kTile, 0, s>>>(static_cast<const float4*>(boxes), scores,
                                                     static_cast<u64*>(words), n, nw, thr);
   else
@@ -357,4 +366,21 @@ extern "C" int nns_nms_mask(const void* boxes, const float* scores, void* words,
   nms_kernel_scan<<<1, kScanThreads, 0, s>>>(static_cast<const u64*>(words), scores, alive, live,
                                              n, nw);
   return cudaGetLastError();
+}
+
+// Plain C entry point (bound with ctypes). boxes: [n, 4] float32, ranked by
+// score, 16-byte aligned; scores: [n] float32 in the same order; words: the
+// [n, ceil(n/64)] 64-bit workspace; alive: [n] float32 out (1 = kept); live:
+// [1] int32 out (m). Launches the mask kernel, then the scan, on `stream`.
+// Returns the first cudaError_t; 0 means both were queued.
+extern "C" int nns_nms_mask(const void* boxes, const float* scores, void* words, float* alive,
+                            int* live, int n, float thr, void* stream) {
+  return nms_launch(boxes, scores, words, alive, live, n, thr,
+                    static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The two launches nns_nms_mask makes for n candidates, described into
+// info[0 .. 2 * nns_launch::kFields): the mask kernel, then the scan.
+extern "C" int nns_nms_launch_info(int n, long long* info) {
+  return nms_launch(nullptr, nullptr, nullptr, nullptr, nullptr, n, 0.0f, nullptr, info);
 }

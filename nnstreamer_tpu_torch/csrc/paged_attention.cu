@@ -60,6 +60,7 @@
 #include <atomic>
 
 #include "attn_tile.cuh"
+#include "launch_info.cuh"
 
 using namespace nns_attn;
 
@@ -171,8 +172,10 @@ __global__ void __launch_bounds__(kCombineThreads) paged_attention_combine_kerne
   }
 }
 
+// With a non-null `info`: describe the split kernel's and the combine's
+// launches (launch_info.cuh) and launch nothing.
 template <typename CT, bool kQuant, int DP, int GH>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream, long long* info) {
   auto kernel = paged_attention_split_kernel<CT, kQuant, DP, GH>;
   constexpr size_t smem_max = chunk_smem_bytes<CT, kQuant, DP, GH>() + table_bytes(kMaxChunk);
   // the attribute is per device: set once for each
@@ -189,7 +192,16 @@ int launch(const Args& a, cudaStream_t stream) {
   }
   const size_t smem = chunk_smem_bytes<CT, kQuant, DP, GH>() + table_bytes(a.chunk);
   const int g = a.H / a.KV;
-  kernel<<<dim3(a.KV * ((g + GH - 1) / GH), a.B, a.splits), kThreads, smem, stream>>>(a);
+  const dim3 grid(a.KV * ((g + GH - 1) / GH), a.B, a.splits);
+  if (info != nullptr) {
+    err = nns_launch::describe(reinterpret_cast<const void*>(kernel), grid, dim3(kThreads), smem,
+                               smem_max, info);
+    if (err != cudaSuccess) return err;
+    return nns_launch::describe(reinterpret_cast<const void*>(paged_attention_combine_kernel),
+                                dim3(a.H, a.B), dim3(kCombineThreads), 0, 0,
+                                info + nns_launch::kFields);
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   paged_attention_combine_kernel<<<dim3(a.H, a.B), kCombineThreads, 0, stream>>>(a);
@@ -197,27 +209,52 @@ int launch(const Args& a, cudaStream_t stream) {
 }
 
 template <typename CT, bool kQuant, int DP>
-int launch_group(const Args& a, cudaStream_t stream) {
+int launch_group(const Args& a, cudaStream_t stream, long long* info) {
   switch (heads_per_block(a.H / a.KV)) {
     case 1:
-      return launch<CT, kQuant, DP, 1>(a, stream);
+      return launch<CT, kQuant, DP, 1>(a, stream, info);
     case 2:
-      return launch<CT, kQuant, DP, 2>(a, stream);
+      return launch<CT, kQuant, DP, 2>(a, stream, info);
     case 4:
-      return launch<CT, kQuant, DP, 4>(a, stream);
+      return launch<CT, kQuant, DP, 4>(a, stream, info);
     default:
-      return launch<CT, kQuant, DP, 8>(a, stream);
+      return launch<CT, kQuant, DP, 8>(a, stream, info);
   }
 }
 
 template <typename CT, bool kQuant>
-int launch_dim(const Args& a, cudaStream_t stream) {
-  if (a.D <= 64) return launch_group<CT, kQuant, 64>(a, stream);
-  if (a.D <= 128) return launch_group<CT, kQuant, 128>(a, stream);
-  return launch_group<CT, kQuant, 256>(a, stream);
+int launch_dim(const Args& a, cudaStream_t stream, long long* info) {
+  if (a.D <= 64) return launch_group<CT, kQuant, 64>(a, stream, info);
+  if (a.D <= 128) return launch_group<CT, kQuant, 128>(a, stream, info);
+  return launch_group<CT, kQuant, 256>(a, stream, info);
 }
 
 }  // namespace
+
+// The instantiation for the arena dtype, padded D and heads a block,
+// launched, or with `info` described (launch_info.cuh).
+static int paged_dispatch(const Args& a, int arena_dtype, cudaStream_t s, long long* info) {
+  switch (arena_dtype) {
+    case kF32:
+      return launch_dim<float, false>(a, s, info);
+    case kBF16:
+      return launch_dim<__nv_bfloat16, false>(a, s, info);
+    case kI8:
+      return launch_dim<int8_t, true>(a, s, info);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+static bool shape_ok(int B, int nb, int bs, int H, int KV, int D, int chunk, int splits) {
+  if (B <= 0 || B > 65535 || nb <= 0 || bs <= 0 || KV <= 0 || H % KV != 0 ||
+      H / KV > kMaxGroup || H > 65535 || D <= 0 || D > kMaxD || D % 4 != 0)
+    return false;
+  if (nb > (1 << 30) / bs) return false;  // nb * bs must fit an int
+  return !(chunk <= 0 || chunk > kMaxChunk || chunk % kChunkAlign != 0 || splits <= 0 ||
+           splits > 65535 ||
+           static_cast<long long>(splits) * chunk < static_cast<long long>(nb) * bs);
+}
 
 // Plain C entry point (bound with ctypes). q: [B, 1, H, D] (q_dtype 0 = f32,
 // 1 = bf16); ak, av: one layer's arena [N, bs, KV, D] contiguous
@@ -238,28 +275,25 @@ extern "C" int nns_paged_attention(const void* q, int q_dtype, const void* ak, c
                                    const void* fv, int fresh_dtype, float* out, float* ws, int B,
                                    int nb, int bs, int H, int KV, int D, int chunk, int splits,
                                    float scale, void* stream) {
-  if (B <= 0 || B > 65535 || nb <= 0 || bs <= 0 || KV <= 0 || H % KV != 0 ||
-      H / KV > kMaxGroup || H > 65535 || D <= 0 || D > kMaxD || D % 4 != 0)
-    return cudaErrorInvalidValue;
-  if (nb > (1 << 30) / bs) return cudaErrorInvalidValue;  // nb * bs must fit an int
-  if (chunk <= 0 || chunk > kMaxChunk || chunk % kChunkAlign != 0 || splits <= 0 ||
-      splits > 65535 || static_cast<long long>(splits) * chunk < static_cast<long long>(nb) * bs ||
-      ws == nullptr)
+  if (!shape_ok(B, nb, bs, H, KV, D, chunk, splits) || ws == nullptr)
     return cudaErrorInvalidValue;
   if ((arena_dtype == kI8) != (ks != nullptr && vs != nullptr)) return cudaErrorInvalidValue;
   if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
   if (fresh_dtype != kF32 && fresh_dtype != kBF16) return cudaErrorInvalidValue;
   const Args a{q, q_dtype == kBF16, ak, av, ks, vs, tables, pos, fk, fv, fresh_dtype == kBF16,
                ws, out, B, nb, bs, H, KV, D, chunk, splits, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (arena_dtype) {
-    case kF32:
-      return launch_dim<float, false>(a, s);
-    case kBF16:
-      return launch_dim<__nv_bfloat16, false>(a, s);
-    case kI8:
-      return launch_dim<int8_t, true>(a, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return paged_dispatch(a, arena_dtype, static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// The two launches nns_paged_attention makes for these dtypes and shapes,
+// described into info[0 .. 2 * nns_launch::kFields): the split kernel, then
+// the combine. Nothing launches.
+extern "C" int nns_paged_attention_launch_info(int q_dtype, int arena_dtype, int B, int nb, int bs,
+                                               int H, int KV, int D, int chunk, int splits,
+                                               long long* info) {
+  if (!shape_ok(B, nb, bs, H, KV, D, chunk, splits)) return cudaErrorInvalidValue;
+  if (q_dtype != kF32 && q_dtype != kBF16) return cudaErrorInvalidValue;
+  const Args a{nullptr, q_dtype == kBF16, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               nullptr, nullptr, 0, nullptr, nullptr, B, nb, bs, H, KV, D, chunk, splits, 1.0f};
+  return paged_dispatch(a, arena_dtype, nullptr, info);
 }

@@ -88,6 +88,12 @@ class _OnDevice:
 
 @registry.decoder_plugin("bounding_boxes")
 class BoundingBoxDecoder:
+    @classmethod
+    def device_capable(cls, options: dict) -> bool:
+        """Static capability read for nns-lint NNS-W116 (no negotiation,
+        no priors load): every bounding-box mode has a device decode."""
+        return True
+
     def __init__(self) -> None:
         self._mode = "mobilenet-ssd"
         self._labels: Optional[List[str]] = None

@@ -30,6 +30,13 @@ def _argmax(scores: torch.Tensor) -> torch.Tensor:
 
 @registry.decoder_plugin("image_labeling")
 class ImageLabelingDecoder:
+    @classmethod
+    def device_capable(cls, options: dict) -> bool:
+        """Static capability read for nns-lint NNS-W116: the argmax
+        decodes on the device unless a labels file (option1) pins the
+        label-string lookup, a host tail by nature."""
+        return not options.get("option1")
+
     def __init__(self) -> None:
         self._labels: Optional[List[str]] = None
 

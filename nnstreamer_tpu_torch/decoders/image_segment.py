@@ -28,6 +28,12 @@ _DEFAULT_LABELS = 21  # Pascal-VOC classes of deeplab-v3 (reference :95)
 
 @registry.decoder_plugin("image_segment")
 class ImageSegmentDecoder:
+    @classmethod
+    def device_capable(cls, options: dict) -> bool:
+        """Static capability read for nns-lint NNS-W116: every segment
+        mode decodes on the device."""
+        return True
+
     def __init__(self) -> None:
         self._mode = "tflite-deeplab"
         self._num_labels = _DEFAULT_LABELS

@@ -46,6 +46,12 @@ def load_pose_labels(path: str) -> Tuple[List[str], List[List[int]]]:
 
 @registry.decoder_plugin("pose_estimation")
 class PoseDecoder:
+    @classmethod
+    def device_capable(cls, options: dict) -> bool:
+        """Static capability read for nns-lint NNS-W116: both heatmap
+        modes decode on the device."""
+        return True
+
     def __init__(self) -> None:
         self._out_wh = (640, 480)
         self._in_wh = (257, 257)

@@ -33,3 +33,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev} (want cuda or cpu)")
     return dev
+
+
+def is_fake(t) -> bool:
+    """True for a tensor of a fake-tensor trace (the analyzers' program
+    traces, analysis/costmodel.py ``trace_program``): a cache of constants
+    keeps no such tensor, or a later real run would compute with it."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)

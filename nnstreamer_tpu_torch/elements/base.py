@@ -143,6 +143,7 @@ def install_error_pad(elem: "Element") -> None:
     # an instance attribute: only THIS element grows the extra pad
     elem.N_SRCS = 2
     elem.error_pad = 1
+    elem.error_pad_required = mode == "route"
 
 
 class Element:
@@ -167,8 +168,15 @@ class Element:
     # consumer gets device tensors untouched.
     WANTS_HOST: bool = False
 
-    # the dead-letter error pad (install_error_pad): its src pad index, or None
+    # the dead-letter error pad (install_error_pad): its src pad index, or
+    # None; required (on-error=route) or optional (retry's overflow)
     error_pad: Optional[int] = None
+    error_pad_required: bool = False
+
+    # negotiate() has side effects the static analyzer must not trigger (a
+    # model load, a server registered in a process table): nns-lint's
+    # dry-run negotiation and nns-xray skip the element
+    LINT_SKIP_NEGOTIATE: bool = False
 
     PROPERTIES: Dict[str, PropSpec] = {
         "name": PropSpec("str", None, desc="element instance name"),

@@ -94,13 +94,6 @@ from nnstreamer_tpu_torch.tensors.spec import TensorFormat, TensorsSpec
 _table: Dict[str, "_LlmServer"] = {}
 _table_lock = threading.Lock()
 
-#: props of the reference that name features not ported yet, with their
-#: defaults: setting one to anything else raises
-_NOT_PORTED = {
-    "kv-memory-bound": ("", "the lint's declared KV memory bound"),
-}
-
-
 def _get_server(srv_id: str, create_kw: Optional[dict] = None) -> "_LlmServer":
     with _table_lock:
         srv = _table.get(srv_id)
@@ -745,6 +738,7 @@ class _LlmServer:
                 except OSError:
                     pass
             self._ckpt_seen[rid] = len(span.tokens)
+            self.cb._obs_counter("nns_request_resumes_total", kind="checkpoint")
 
     def stats(self) -> Dict:
         if self._plane is not None:
@@ -809,6 +803,10 @@ class LlmServerSink(Sink):
 
     FACTORY_NAME = "tensor_llm_serversink"
 
+    # negotiate() builds the shared _LlmServer (a model load) and registers
+    # it in the process table: nns-lint's dry run must not
+    LINT_SKIP_NEGOTIATE = True
+
     PROPERTIES = {
         "id": PropSpec("str", "0", desc="pairing key with the serversrc"),
         "model": PropSpec("str", "zoo:transformer_lm"),
@@ -839,18 +837,12 @@ class LlmServerSink(Sink):
         "role": PropSpec("str", "", desc="disaggregated serving: prefill | decode (paged)"),
         "decode-peers": PropSpec(
             "str", "", desc="role=prefill: decode peers h1:p1[/llm-id],h2:p2 to hand off to"),
-        **{k: PropSpec(type(v[0]).__name__, v[0], desc=f"{v[1]}: not ported yet")
-           for k, v in _NOT_PORTED.items()},
+        "kv-memory-bound": PropSpec(
+            "str", "", desc="declared KV memory bound, K/M/G suffixes (nns-lint NNS-W115/W117)"),
     }
 
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
-        for key, (default, what) in _NOT_PORTED.items():
-            value = self.get_property(key)
-            if value is not None and str(value) != str(default):
-                raise NotImplementedError(
-                    f"{self.name}: {key}={value} ({what}) is not ported yet"
-                )
         self.srv_id = str(self.get_property("id", "0"))
         from nnstreamer_tpu_torch.backends.base import FilterProps
 

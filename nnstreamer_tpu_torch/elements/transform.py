@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from nnstreamer_tpu_torch import registry
+from nnstreamer_tpu_torch.device import is_fake
 from nnstreamer_tpu_torch.elements.base import (
     FAULT_PROPS,
     NegotiationError,
@@ -431,7 +432,9 @@ def _const(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     key = (repr(value), dtype, device)  # repr: -0.0 and nan are keys of their own
     t = _CONSTS.get(key)
     if t is None:
-        t = _CONSTS[key] = torch.tensor(value, dtype=torch.float64).to(dtype).to(device)
+        t = torch.tensor(value, dtype=torch.float64).to(dtype).to(device)
+        if not is_fake(t):  # an analyzer's trace keeps nothing
+            _CONSTS[key] = t
     return t
 
 

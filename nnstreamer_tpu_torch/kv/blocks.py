@@ -27,9 +27,10 @@ full blocks by refcount (read-only share), a final partial block by
 **copy-on-write** (:meth:`BlockPool.cow`): the adopter gets a fresh
 private copy it may extend, the registered original stays as it was.
 
-Not ported yet: the reference's ``obs_registry`` metrics emission (it
-comes with the observability slice). Callers (the batcher) serialize
-access under their own state lock.
+With an ``obs_registry`` (obs/metrics.py) the pool sets the
+``nns_kv_blocks_in_use`` gauge on every claim and release and counts
+``nns_kv_prefix_hits_total``, as the reference's does. Callers (the
+batcher) serialize access under their own state lock.
 """
 
 from __future__ import annotations
@@ -93,7 +94,7 @@ class _Match:
 class BlockPool:
     """Host accounting for ``n_blocks`` usable blocks (+ scratch 0)."""
 
-    def __init__(self, n_blocks: int, block_size: int):
+    def __init__(self, n_blocks: int, block_size: int, obs_registry=None):
         if n_blocks < 1:
             raise ValueError("BlockPool needs at least one usable block")
         self.n_blocks = int(n_blocks)
@@ -109,6 +110,7 @@ class BlockPool:
         self.prefix_hits = 0  # blocks adopted instead of re-prefilled
         self.prefix_hit_tokens = 0
         self.cow_copies = 0
+        self._obs = obs_registry
 
     # -- capacity ----------------------------------------------------------
     def available(self) -> int:
@@ -117,6 +119,10 @@ class BlockPool:
 
     def in_use(self) -> int:
         return self.n_blocks - self.available()
+
+    def _emit_in_use(self) -> None:
+        if self._obs is not None:
+            self._obs.gauge("nns_kv_blocks_in_use").set(float(self.in_use()))
 
     # -- alloc / free ------------------------------------------------------
     def alloc(self, n: int = 1) -> List[int]:
@@ -143,6 +149,7 @@ class BlockPool:
                 self._refcount[b] = 0
                 self._free.appendleft(b)
             raise
+        self._emit_in_use()
         return got
 
     def adopt(self, block: int) -> None:
@@ -152,6 +159,9 @@ class BlockPool:
             self._cached.pop(block, None)
         self._refcount[block] += 1
         self.prefix_hits += 1
+        if self._obs is not None:
+            self._obs.counter("nns_kv_prefix_hits_total").inc()
+        self._emit_in_use()
 
     def free(self, blocks) -> None:
         """Drop one reference per block; refcount-0 blocks return to the
@@ -169,6 +179,7 @@ class BlockPool:
                     self._cached.move_to_end(b)
                 else:
                     self._free.append(b)
+        self._emit_in_use()
 
     def cow(self) -> int:
         """Claim a fresh block for a copy-on-write of a shared partial
@@ -302,6 +313,7 @@ class BlockPool:
         self.prefix_hits = int(snap.get("prefix_hits", 0))
         self.prefix_hit_tokens = int(snap.get("prefix_hit_tokens", 0))
         self.cow_copies = int(snap.get("cow_copies", 0))
+        self._emit_in_use()
 
     def stats(self) -> Dict[str, int]:
         return {

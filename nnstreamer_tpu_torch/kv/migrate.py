@@ -110,6 +110,16 @@ class SpanTally:
 tally = SpanTally()
 
 
+def _emit_span_bytes(direction: str, nbytes: int) -> None:
+    """Mirror a span encode / decode into the metrics registry (resolved
+    an event: migrations are rare control-plane work, not a hot path)."""
+    from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+
+    reg = obs_metrics.get()
+    if reg is not None:
+        reg.counter("nns_kv_span_bytes_total", direction=direction).inc(int(nbytes))
+
+
 @dataclass
 class BlockRecord:
     """One KV block of a span: ``n_tokens`` valid positions, the CRC32
@@ -243,6 +253,7 @@ def encode_span(span: RequestSpan) -> bytes:
             parts.extend(rec.payload)
     out = b"".join(parts)
     tally.count("out", len(out))
+    _emit_span_bytes("out", len(out))
     return out
 
 
@@ -322,4 +333,5 @@ def decode_span(data: bytes) -> RequestSpan:
             f"{span.n_kv} positions at block_size {span.block_size}"
         )
     tally.count("in", len(data))
+    _emit_span_bytes("in", len(data))
     return span

@@ -562,7 +562,8 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
         from nnstreamer_tpu_torch.kv.sched import SLOLedger
         from nnstreamer_tpu_torch.obs import metrics as obs_metrics
 
-        self._slo = SLOLedger(keep=keep_results, obs_registry=obs_metrics.get())
+        self._obs_reg = obs_metrics.get()
+        self._slo = SLOLedger(keep=keep_results, obs_registry=self._obs_reg)
 
         d = params.d_model
         hd = d // n_heads
@@ -753,6 +754,13 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                         fill0=fill0)
 
     # -- client API ----------------------------------------------------------
+    def _obs_counter(self, name: str, **labels) -> None:
+        """One count on the metrics registry's counter ``name`` (nothing
+        when no registry is on)."""
+        reg = getattr(self, "_obs_reg", None)
+        if reg is not None:
+            reg.counter(name, **labels).inc()
+
     def submit(self, prompt, max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
                top_p: float = 1.0, seed: Optional[int] = None,
                stop_token: Optional[int] = None, prefix: Optional[int] = None,
@@ -1085,6 +1093,7 @@ class ContinuousBatcher(PagedAdmission, SpecDecoding, ServingState):
                 self._ensure_decode_room_locked(room)
             if self._kv_attn == "gather":
                 self._n_gather_dispatch += 1
+                self._obs_counter("nns_kv_gather_dispatch_total")
             self._tables_device_locked()
         active_np = self._active.copy()
         sampling = any(r is not None and active_np[s] and r.temperature > 0

@@ -66,7 +66,9 @@ class PagedAdmission:
                 f"kv_blocks({kv_blocks}) cannot hold even one max_len request "
                 f"({self._blocks_per_slot} blocks)"
             )
-        self._pool = BlockPool(int(kv_blocks), block_size)
+        from nnstreamer_tpu_torch.obs import metrics as obs_metrics
+
+        self._pool = BlockPool(int(kv_blocks), block_size, obs_registry=obs_metrics.get())
         self._cache = kvg.init_arena(n_layers, int(kv_blocks), block_size, kv, hd, quantized,
                                      self.compute_dtype, self.device)
         self._tables = np.zeros((self.n_slots, self._blocks_per_slot), np.int32)

@@ -394,6 +394,7 @@ class ServingState:
                     self._slots[slot] = None
                     self._slo.migrated(rid)
                     self._n_migrations_out += 1
+                    self._obs_counter("nns_kv_migrations_total", direction="out")
         return span
 
     def _span_request(self, span):
@@ -514,6 +515,7 @@ class ServingState:
                 ))
                 self._n_migrations_in += 1
             self._settle_pending()
+        self._obs_counter("nns_kv_migrations_total", direction="in")
         return req.rid
 
     def resume_from_span(self, span) -> int:
@@ -539,4 +541,5 @@ class ServingState:
             self._prefill_q.append(PrefillJob(slot, req, context,
                                               known_first=int(span.tokens[-1]), resumed=True))
             self._n_resumes += 1
+        self._obs_counter("nns_request_resumes_total", kind="reprefill")
         return req.rid

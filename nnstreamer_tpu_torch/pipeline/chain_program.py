@@ -9,26 +9,30 @@ compile unit:
 
 - :func:`decide_chain` — the eligibility verdict. Its structural checks
   are the reference's, in the same order and with the same reason
-  strings. The reference's hazard pass walks jaxprs; the port checks
-  instead:
+  strings. Its hazard pass runs the SAME walkers as nns-xray
+  (analysis/xray.py ``segment_hazard``, analysis/costmodel.py
+  ``chain_cost``), so the report and the executor never disagree:
 
   * NNS-W120: a member op that declared itself uncapturable
-    (``CAPTURABLE = False``, the same predicate the segment's program
-    cache records at each fill) — its segment's program stays eager;
-  * NNS-W121 needs no check: :class:`ChainProgram` keys its programs on
-    every member's ``fn_version``, so a same-shape model swap builds a new
-    graph (a test pins it);
-  * NNS-W122: the composed program's output dtypes against the last
-    segment's declared static out spec, checked at the first window a
-    program serves (:class:`ChainHazardError` latches the per-node path);
+    (``CAPTURABLE = False``, the predicate the segment's program cache
+    records at each fill), or a segment whose fake-tensor trace reads a
+    value on the host — its program could not be one CUDA graph; a
+    segment that cannot be traced gets no chain program either, as in
+    the reference;
+  * NNS-W121: :class:`ChainProgram` keys its programs on every member's
+    ``fn_version``, so a same-shape model swap builds a new graph (a test
+    pins it); the cache-key walker fires only under micro-batching, which
+    the structural checks refuse first, so the hazard pass skips it;
+  * NNS-W122: a traced output dtype against the last segment's declared
+    static out spec, or float64 appearing with no 64-bit input; checked
+    again at the first window a program serves (:class:`ChainHazardError`
+    latches the per-node path) where the trace could not see it;
   * NNS-W123 is void: nothing is donated (pipeline/transfer.py);
-  * NNS-W124: where ``[plane] memory_per_device`` is set, the members'
-    parameter bytes plus each frame's interior and output tensor bytes
-    must fit it, and the window K is halved until ``params + per_frame ×
-    K`` does. This byte count departs from the reference's
-    ``analysis/costmodel.chain_cost`` (not ported): it counts the
-    negotiated tensors each op emits, not a jaxpr's transient peak.
-    Unset (the default), the width stands.
+  * NNS-W124: where ``[plane] memory_per_device`` is set, the chain's
+    resident bytes (``chain_cost``: parameters + the peak segment's
+    in + out + traced op bytes) must fit it, and the window K is halved
+    until ``params + transient × K`` does. Unset (the default), the width
+    stands.
 
 - :class:`ChainProgram` — ONE program for the whole chain, on the port's
   program cache (pipeline/programs.py): keyed by (frame signature, window
@@ -55,7 +59,7 @@ from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-from nnstreamer_tpu_torch.analysis.costmodel import configured_device_bound
+from nnstreamer_tpu_torch.analysis.costmodel import chain_cost, configured_device_bound
 from nnstreamer_tpu_torch.pipeline.batching import default_buckets
 from nnstreamer_tpu_torch.pipeline.graph import is_plumbing
 from nnstreamer_tpu_torch.pipeline.programs import ProgramCache, sig_of
@@ -138,53 +142,36 @@ def _interior_external_producer(plan, chain):
     return None
 
 
-def chain_bytes(chain) -> Tuple[int, int]:
-    """(parameter bytes of the members' models, bytes a frame holds on
-    the device: every member op's negotiated static output tensors, the
-    interior handoffs and the chain's output)."""
-    params = 0
-    seen: set = set()
-    for op in chain.ops:
-        model = getattr(getattr(op, "backend", None), "model", None)
-        if isinstance(model, torch.nn.Module):
-            for t in list(model.parameters()) + list(model.buffers()):
-                if id(t) not in seen:
-                    seen.add(id(t))
-                    params += t.numel() * t.element_size()
-    per_frame = 0
-    for op in chain.ops:
-        for spec in op.out_specs:
-            if getattr(spec, "is_static", False):
-                per_frame += int(spec.byte_size)
-    return params, per_frame
+def _hazard(chain, cost, bound) -> Optional[str]:
+    """The first W120, W122 or W124 finding that blocks the chain program:
+    the nns-xray walkers (module docstring). Identity segments run
+    nothing. ``cost`` is the chain's :func:`chain_cost` where a device
+    ``bound`` is declared, else None. W121 needs micro-batching, which
+    :func:`decide_chain` has refused before this pass."""
+    import importlib
 
-
-def _hazard(chain) -> Optional[str]:
-    """The first hazard that blocks the chain program (module docstring)."""
+    # the analysis package re-exports the xray() FUNCTION under its
+    # module's name: resolve the module explicitly
+    _x = importlib.import_module("nnstreamer_tpu_torch.analysis.xray")
     for seg in chain.segments:
-        if seg.is_identity():
-            continue
-        bad = tuple(seg.programs._uncapturable())
-        if bad:
-            return f"NNS-W120 uncapturable op `{bad[0]}` in segment {seg.name}"
-    bound = configured_device_bound()
-    if bound is not None:
-        params, per_frame = chain_bytes(chain)
-        if params + per_frame > bound:
-            return (f"NNS-W124 resident {params + per_frame} B over the "
-                    f"[plane] memory_per_device bound ({bound} B)")
+        hazard = _x.segment_hazard(seg)
+        if hazard is not None:
+            return hazard
+    if cost is not None and cost.resident_bytes > bound:
+        return (f"NNS-W124 resident {cost.resident_bytes} B over the "
+                f"[plane] memory_per_device bound ({bound} B)")
     return None
 
 
-def _clamp_unroll(chain, unroll: int) -> int:
-    """Halve the window until ``params + per_frame × K`` fits the declared
-    device bound; no bound declared = the configured width stands."""
-    bound = configured_device_bound()
-    if bound is None or unroll <= 1:
+def _clamp_unroll(cost, bound, unroll: int) -> int:
+    """Halve the window until the chain's whole-window working set
+    (``params + transient × K``, analysis/costmodel.py ``chain_cost``)
+    fits the declared device bound; no bound declared (``cost`` None) =
+    the configured width stands."""
+    if cost is None:
         return unroll
-    params, per_frame = chain_bytes(chain)
-    per_frame = max(1, per_frame)
-    while unroll > 1 and params + per_frame * unroll > bound:
+    per = max(1, cost.transient_bytes)
+    while unroll > 1 and cost.params_bytes + per * unroll > bound:
         unroll //= 2
     return unroll
 
@@ -224,12 +211,14 @@ def decide_chain(plan, chain) -> ChainDecision:
             False, f"interior segment also fed by {getattr(ext, 'name', ext)} outside the chain",
             mode, unroll)
     try:
-        hazard = _hazard(chain)
+        bound = configured_device_bound()
+        cost = chain_cost(chain, open_backends=True) if bound is not None else None
+        hazard = _hazard(chain, cost, bound)
     except Exception as exc:  # noqa: BLE001 — an analysis failure stays safe
-        hazard = f"hazard analysis failed ({exc})"
+        return ChainDecision(False, f"hazard analysis failed ({exc})", mode, unroll)
     if hazard is not None:
         return ChainDecision(False, hazard, mode, unroll)
-    return ChainDecision(True, None, mode, _clamp_unroll(chain, unroll))
+    return ChainDecision(True, None, mode, _clamp_unroll(cost, bound, unroll))
 
 
 def _dtype_ok(got: torch.dtype, want) -> bool:

@@ -254,6 +254,7 @@ class _Node:
         self._shed_ctr = None
         self._device_ctrs: Dict[str, Any] = {}
         self._deg_gauge = None
+        self._postproc_ctr = None  # a segment with fused pre/post-processing
 
     @property
     def fault_stats(self):
@@ -344,11 +345,18 @@ class _Node:
         raise NotImplementedError
 
     # -- accounting --------------------------------------------------------
+    def _advance(self, n: int) -> None:
+        """The ONE place ``frames_processed`` changes: the node's own thread
+        is its only writer (observers read it whole under the GIL), and one
+        method for the read-modify-write makes that structural for the
+        nns-san race lint."""
+        self.frames_processed += n
+
     def stat(self, t0: float) -> None:
         """A frame left this node; ``t0`` is when its work began. With a
         tracer or a registry on, every frame records (a span, a latency
         observation); without, one EMA update in 8."""
-        self.frames_processed += 1
+        self._advance(1)
         tracer = trace.get()
         lat = self._lat_hist
         if tracer is None and lat is None and (self.frames_processed & 7):
@@ -361,6 +369,8 @@ class _Node:
         if lat is not None:
             lat.observe(dt * 1000.0)
             self._frames_ctr.inc()
+            if self._postproc_ctr is not None:
+                self._postproc_ctr.inc()
             if not (self.frames_processed & 15):
                 # queue depth every 16th frame: one qsize() a pad
                 for h, q in zip(self._depth_hists, self.inboxes):
@@ -373,7 +383,7 @@ class _Node:
         """One window of ``n`` frames left this node (``bucket`` rows run):
         one latency observation a window, ``n`` frames counted, and with a
         tracer on one batch span (size, bucket, straggler wait)."""
-        self.frames_processed += n
+        self._advance(n)
         now = time.perf_counter()
         dt = (now - t0) * 1000.0
         self.proc_time_ema_ms = 0.8 * self.proc_time_ema_ms + 0.2 * dt
@@ -383,6 +393,8 @@ class _Node:
         if lat is not None:
             lat.observe(dt * 1000.0)
             self._frames_ctr.inc(n)
+            if self._postproc_ctr is not None:
+                self._postproc_ctr.inc(n)
             if self._batch_hist is None:
                 self._batch_hist = self.ex.metrics.histogram(
                     "nns_batch_size", lo=1.0, growth=2.0 ** 0.5, nbuckets=16, element=self.name)
@@ -1303,6 +1315,10 @@ class Executor:
         self._t_run0: Optional[float] = None
         self._t_run_end: Optional[float] = None
         self._transfer_t0: Dict[str, int] = transfer.tally.snapshot()
+        # the transfer cross-check at stop() (NNS_XRAY_CROSSCHECK /
+        # [executor] xray_crosscheck), read here like the watchdog's bound
+        self.xray_crosscheck = transfer.xray_crosscheck_enabled()
+        self.last_crosscheck: Optional[Dict[str, Any]] = None
         # whole-chain programs: one verdict a chain (pipeline/chain_program.py);
         # a compiled chain's ops and the plumbing between its segments map
         # to ONE node
@@ -1384,6 +1400,9 @@ class Executor:
                     self.metrics.histogram("nns_queue_depth", lo=1.0, growth=2.0, nbuckets=16,
                                            element=n.name, pad=str(i))
                     for i in range(len(n.inboxes))]
+                if getattr(getattr(n, "seg", None), "postproc_ops", 0):
+                    n._postproc_ctr = self.metrics.counter(
+                        "nns_fused_postproc_total", element=n.name)
                 if isinstance(n, _ChainNode):
                     n._chain_launch_ctr = self.metrics.counter(
                         "nns_chain_launches_total", element=n.name)
@@ -1777,6 +1796,46 @@ class Executor:
         return {"h2d": now["h2d_bytes"] - base["h2d_bytes"],
                 "d2h": now["d2h_bytes"] - base["d2h_bytes"]}
 
+    def transfer_crosscheck(self) -> Dict[str, Any]:
+        """The static transfer model (analysis/costmodel.py
+        ``plan_transfer_boundaries``, over the plan this executor runs)
+        against this run's tally: each boundary's bytes a frame times the
+        frames of the node that moves them (rate limiters and windows
+        change cardinality), against :meth:`transfer_totals`. Returns
+        ``{"predicted", "measured", "delta", "chains"}``; a zero delta on a
+        run alone in its process is the model's proof. ``chains``: for
+        each compiled chain, the interior bytes predicted (0: its members
+        are one node, so no interior link exists to cross)."""
+        from nnstreamer_tpu_torch.analysis.costmodel import plan_transfer_boundaries
+
+        elems = {e.name: e for e in self.pipeline.elements}
+        boundaries = plan_transfer_boundaries(self.plan)
+
+        def frames(name: str) -> int:
+            node = self._node_of.get(elems.get(name))
+            return node.frames_processed if node is not None else 0
+
+        predicted = {"h2d": 0, "d2h": 0}
+        for b in boundaries:
+            predicted[b.direction] += b.bytes_per_frame * frames(b.node)
+        measured = self.transfer_totals()
+        chains = []
+        for n in self.nodes:
+            if not isinstance(n, _ChainNode):
+                continue
+            member = {op.name for op in n.chain.ops}
+            interior = sum(b.bytes_per_frame * frames(b.node) for b in boundaries
+                           if b.producer in member and b.consumer in member)
+            chains.append({"chain": n.name, "unroll": n.program.unroll,
+                           "launches": n.program.launches,
+                           "predicted_interior": interior, "measured_interior": 0})
+        return {
+            "predicted": predicted,
+            "measured": measured,
+            "delta": {k: measured[k] - predicted[k] for k in ("h2d", "d2h")},
+            "chains": chains,
+        }
+
     # -- lifecycle -----------------------------------------------------------
     def _fail(self, where: str, exc: BaseException) -> None:
         _log.error("%s: %s", where, exc)
@@ -1816,6 +1875,15 @@ class Executor:
                 t.join(max(0.0, deadline - time.monotonic()))
         if self.metrics is not None:
             transfer.mirror_into(self.metrics)
+        if self.xray_crosscheck and first:
+            # after the join: the tally holds every fetch of the run
+            try:
+                cc = self.last_crosscheck = self.transfer_crosscheck()
+                level = _log.warning if any(cc["delta"].values()) else _log.info
+                level("xray cross-check: predicted=%s measured=%s delta=%s",
+                      cc["predicted"], cc["measured"], cc["delta"])
+            except Exception as exc:  # noqa: BLE001 — advisory, never fatal
+                _log.warning("xray cross-check failed: %s", exc)
         for e in self.pipeline.elements:
             e.stop()
         if not first:

@@ -124,7 +124,10 @@ class Pipeline:
         return e.N_SINKS if e.N_SINKS is not None else len(self.in_links(e))
 
     # -- negotiation -------------------------------------------------------
-    def _toposort(self) -> List[Element]:
+    def toposort_partial(self) -> Tuple[List[Element], List[Element]]:
+        """Kahn's algorithm: (topological order, leftover). A leftover
+        element sits in (or behind) a cycle; the static analyzer reads the
+        partial form, negotiate() treats a leftover as fatal."""
         indeg = {e: len(self.in_links(e)) for e in self.elements}
         ready = [e for e in self.elements if indeg[e] == 0]
         order: List[Element] = []
@@ -135,9 +138,13 @@ class Pipeline:
                 indeg[l.dst] -= 1
                 if indeg[l.dst] == 0:
                     ready.append(l.dst)
-        if len(order) != len(self.elements):
-            cyclic = [e.name for e in self.elements if e not in order]
-            raise NegotiationError(f"pipeline has a cycle through {cyclic}")
+        ordered = set(order)
+        return order, [e for e in self.elements if e not in ordered]
+
+    def _toposort(self) -> List[Element]:
+        order, leftover = self.toposort_partial()
+        if leftover:
+            raise NegotiationError(f"pipeline has a cycle through {[e.name for e in leftover]}")
         return order
 
     def negotiate(self) -> "Pipeline":
@@ -231,6 +238,7 @@ class Pipeline:
                 seg_of[e] = seg
         for seg in segments:
             # a bad batching or fault property fails here, naming the element
+            seg.postproc_ops = sum(1 for op in seg.ops if _postproc_op(op))
             seg.batch_config = resolve_batch_config(seg.ops)
             seg.fault_policy = resolve_fault_policy(seg.ops)
             seg.device_policy = resolve_device_policy(seg.ops)
@@ -275,18 +283,57 @@ class Pipeline:
         if self._executor is not None:
             self._executor.stop()
 
-    def dump_dot(self) -> str:
+    def dump_dot(self, diagnostics=None, specs=None) -> str:
         """Graphviz dump of the elements (factory, name and first
         negotiated src spec) and links (src pad → sink pad), as the
-        reference's ``Pipeline.dump_dot`` writes it."""
+        reference's ``Pipeline.dump_dot`` writes it. ``diagnostics``:
+        nns-lint findings painted on their nodes (red = error, orange =
+        warning, codes added to the label; pipeline-level codes become the
+        graph label). ``specs``: {element name: out specs} shown instead of
+        the element's own (nns-lint's dry-run negotiation)."""
+        by_elem: Dict[str, list] = {}
+        graph_level: List[str] = []
+        for d in diagnostics or ():
+            if d.element is None:
+                graph_level.append(d.code)
+            else:
+                by_elem.setdefault(d.element, []).append(d)
         lines = [f'digraph "{self.name}" {{', "  rankdir=LR;"]
+        if graph_level:
+            lines.append(f'  label="{" ".join(sorted(set(graph_level)))}";')
         for e in self.elements:
-            spec = f"\\n{e.out_specs[0]}" if e.out_specs and e.out_specs[0] is not None else ""
-            lines.append(f'  "{e.name}" [label="{e.FACTORY_NAME}\\n{e.name}{spec}", shape=box];')
+            out = (specs or {}).get(e.name) or e.out_specs
+            spec = f"\\n{out[0]}" if out and out[0] is not None else ""
+            style = ""
+            diags = by_elem.get(e.name)
+            if diags:
+                spec += "\\n" + " ".join(sorted({d.code for d in diags}))
+                worst = "red" if any(d.severity.value == "error" for d in diags) else "orange"
+                style = f', style=filled, fillcolor="{worst}"'
+            lines.append(
+                f'  "{e.name}" [label="{e.FACTORY_NAME}\\n{e.name}{spec}", shape=box{style}];')
         for l in self.links:
             lines.append(f'  "{l.src.name}" -> "{l.dst.name}" [label="{l.src_pad}→{l.dst_pad}"];')
         lines.append("}")
         return "\n".join(lines)
+
+
+def _postproc_op(op: TensorOp) -> bool:
+    """A member op that is fused pre- or post-processing rather than a
+    model invoke: a decoder in a segment (only traceable ones get there),
+    an image-mode transform, a normalizing converter. The executor counts
+    a segment's frames in ``nns_fused_postproc_total`` when it has one."""
+    from nnstreamer_tpu_torch.elements.converter import TensorConverter
+    from nnstreamer_tpu_torch.elements.decoder import TensorDecoder
+    from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+    if isinstance(op, TensorDecoder):
+        return True
+    if isinstance(op, TensorTransform):
+        return op.mode in ("resize", "crop-resize")
+    if isinstance(op, TensorConverter):
+        return getattr(op, "input_norm", None) is not None
+    return False
 
 
 def _next_free(used) -> int:
@@ -354,6 +401,9 @@ class FusedSegment:
         # (pipeline/sanitize.py)
         self.ring_depth = 1
         self.sanitize_poison = False
+        # fused pre/post-processing ops (decode, image ops, normalize),
+        # counted at plan time for nns_fused_postproc_total
+        self.postproc_ops = 0
 
     @property
     def first(self) -> TensorOp:

@@ -32,9 +32,10 @@ verified until now:
   instead of a plausibly-stale one (``graph.py process_batch`` and the
   chain program's trailing window).
 
-Findings are :class:`Diagnostic` records with the reference's codes
-(``NNS-S0xx``), surfaced through ``Executor.sanitizer.report``,
-``Executor.stats()`` per-node counters, and ``trace.py`` instant events.
+Findings are the analyzers' ``Diagnostic`` records (analysis/diagnostics.py:
+codes ``NNS-S0xx`` of the shared catalog, in one ``LintReport``), surfaced
+through ``Executor.sanitizer.report``, ``Executor.stats()`` per-node
+counters, and ``trace.py`` instant events.
 """
 
 from __future__ import annotations
@@ -44,11 +45,11 @@ import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import queue
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from nnstreamer_tpu_torch.analysis.diagnostics import LintReport
 from nnstreamer_tpu_torch.log import get_logger
 from nnstreamer_tpu_torch.tensors.frame import EOS_FRAME, Frame
 from nnstreamer_tpu_torch.tensors.spec import TensorsSpec
@@ -67,32 +68,6 @@ def sanitize_enabled() -> bool:
     from nnstreamer_tpu_torch.config import conf
 
     return conf().get_bool("executor", "sanitize", False)
-
-
-@dataclass(frozen=True)
-class Diagnostic:
-    """One finding: its code, where (a node, or None for the pipeline),
-    what, and a hint."""
-
-    code: str
-    where: Optional[str]
-    message: str
-    hint: str = ""
-
-
-class LintReport:
-    """The findings of one run, in order (the reference shares nns-lint's
-    report type; the port keeps this much of it)."""
-
-    def __init__(self) -> None:
-        self.diagnostics: List[Diagnostic] = []
-
-    def add(self, code: str, where: Optional[str], message: str, hint: str = "") -> None:
-        self.diagnostics.append(Diagnostic(code, where, message, hint))
-
-    @property
-    def codes(self) -> List[str]:
-        return [d.code for d in self.diagnostics]
 
 
 class SpecViolationError(TypeError):

@@ -33,6 +33,7 @@ has nothing to donate; ``[executor] donate`` is read
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, Dict, Iterable, Iterator, List, Optional
 
@@ -415,6 +416,19 @@ def resolve_chain_unroll(elems) -> int:
         _log.warning("[executor] chain_unroll=%r is not an int; using 4", raw)
         unroll = 4
     return max(1, min(32, unroll))
+
+
+def xray_crosscheck_enabled() -> bool:
+    """``NNS_XRAY_CROSSCHECK`` env first, then ``[executor]
+    xray_crosscheck`` (default off): the executor then holds the static
+    transfer prediction (analysis/costmodel.py) to this tally at stop()
+    and logs the verdict."""
+    raw = os.environ.get("NNS_XRAY_CROSSCHECK")
+    if raw is not None:
+        return raw.strip().lower() in ("1", "true", "yes", "on")
+    from nnstreamer_tpu_torch.config import conf
+
+    return conf().get_bool("executor", "xray_crosscheck", False)
 
 
 def donation_enabled() -> bool:

@@ -107,6 +107,11 @@ def get(kind: str, name: str) -> Any:
                 f"element {name!r} is not allowed by [common] "
                 f"restricted_elements ({sorted(allowed)})"
             )
+    return _resolve(kind, name)
+
+
+def _resolve(kind: str, name: str) -> Any:
+    """The lookup of :func:`get` without the restriction whitelist."""
     with _lock:
         if name not in _registry[kind]:
             _load_builtins(kind)
@@ -118,6 +123,33 @@ def get(kind: str, name: str) -> Any:
                 f"no {kind} subplugin named {name!r}; known: {sorted(_registry[kind])}"
             )
         return _registry[kind][name]
+
+
+def exists(kind: str, name: str, *, builtin_only: bool = False) -> bool:
+    """True if the subplugin resolves (the restriction whitelist is NOT
+    applied): the static analyzer's resource checks use this.
+    ``builtin_only`` probes the builtins and names already registered,
+    without entry-point or search-path loading: the only safe probe for a
+    name the whitelist blocks (loading would run code it keeps out)."""
+    name = name.lower()
+    if builtin_only:
+        with _lock:
+            _load_builtins(kind)
+            return name in _registry[kind]
+    try:
+        _resolve(kind, name)
+        return True
+    except KeyError:
+        return False
+
+
+def is_restricted(kind: str, name: str) -> bool:
+    """True if ``[common] restricted_elements`` is set and blocks ``name``
+    (whether or not the element exists)."""
+    if kind != KIND_ELEMENT:
+        return False
+    allowed = conf().get_list("common", "restricted_elements")
+    return bool(allowed) and name.lower() not in [a.lower() for a in allowed]
 
 
 def available(kind: str) -> List[str]:

@@ -224,7 +224,7 @@ class ModelPlane:
         # windows, a ticket's redeem wait
         from nnstreamer_tpu_torch.obs import metrics as obs_metrics
 
-        reg = obs_metrics.get()
+        reg = self._metrics = obs_metrics.get()
         self._occ_hist = self._depth_gauge = self._inflight_gauge = self._wait_hist = None
         if reg is not None:
             self._occ_hist = reg.histogram("nns_plane_batch_occupancy", lo=1.0,
@@ -249,6 +249,11 @@ class ModelPlane:
             if self._closed:
                 raise PlaneClosedError(f"plane {self.name!r} is closed")
             s = PlaneStream(sid, weight)
+            if self._metrics is not None:
+                s._admit_ctr = self._metrics.counter(
+                    "nns_plane_stream_admitted_total", plane=self.name, stream=sid)
+                s._serve_ctr = self._metrics.counter(
+                    "nns_plane_stream_served_total", plane=self.name, stream=sid)
             self._sched.add(s)
             return s
 
@@ -295,6 +300,8 @@ class ModelPlane:
             req.ahead = stream.inflight
             stream.q.append(req)
             stream.admitted += len(windows)
+            if stream._admit_ctr is not None:
+                stream._admit_ctr.inc(len(windows))
             stream.inflight += 1
             self._inflight_total += 1
             if self._inflight_gauge is not None:
@@ -506,6 +513,8 @@ class ModelPlane:
             return
         req.out = [tuple(o) for o in outs]
         s.served += len(req.frames)
+        if s._serve_ctr is not None:
+            s._serve_ctr.inc(len(req.frames))
         req.done.set()
 
     # -- observability -----------------------------------------------------

@@ -43,7 +43,7 @@ class PlaneStream:
     """
 
     __slots__ = ("sid", "weight", "deficit", "q", "admitted", "served",
-                 "errors", "inflight")
+                 "errors", "inflight", "_admit_ctr", "_serve_ctr")
 
     def __init__(self, sid: str, weight: float = 1.0) -> None:
         self.sid = sid
@@ -58,6 +58,10 @@ class PlaneStream:
         # dec at wait-side resolution; 0 under blocking submits between
         # round trips
         self.inflight = 0
+        # the plane's per-stream counters on the metrics registry (set at
+        # attach when one is on)
+        self._admit_ctr = None
+        self._serve_ctr = None
 
     @property
     def backlog(self) -> int:

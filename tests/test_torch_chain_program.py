@@ -395,7 +395,15 @@ def test_w121_same_shape_model_swap_builds_a_new_graph(monkeypatch):
 
 
 def test_w122_output_dtype_hazard_latches_the_per_node_path(monkeypatch):
+    """The trace of the widened segment shows the float64 output against
+    the declared float32 (nns-xray's walker): the chain is refused before
+    it runs. Where the trace cannot see the drift, the first window's check
+    latches the per-node path mid-run."""
+    import importlib
+
     from nnstreamer_tpu_torch.elements.transform import TensorTransform
+
+    xr = importlib.import_module("nnstreamer_tpu_torch.analysis.xray")
 
     real = TensorTransform.make_fn
 
@@ -406,6 +414,14 @@ def test_w122_output_dtype_hazard_latches_the_per_node_path(monkeypatch):
         return fn
 
     monkeypatch.setattr(TensorTransform, "make_fn", widened)
+    plan, chain = _plan_and_chain(DESC)
+    d = decide_chain(plan, chain)
+    assert not d.eligible and d.reason == (
+        f"NNS-W122 in segment {chain.segments[-1].name}: `aten._to_copy.default` produces "
+        "float64 with no 64-bit input")
+    frames, ex = _run(monkeypatch, DESC, "auto")
+    assert not _chain_nodes(ex) and len(frames) == 11
+    monkeypatch.setattr(xr, "segment_trace", lambda seg: None)  # a drift no trace shows
     frames, ex = _run(monkeypatch, DESC, "auto")
     n = _chain_nodes(ex)[0]
     assert n.fallback_latched and n.hazard.startswith("NNS-W122 in chain")
@@ -414,23 +430,54 @@ def test_w122_output_dtype_hazard_latches_the_per_node_path(monkeypatch):
 
 
 def test_w124_bound_clamps_the_window_and_blocks_when_over(monkeypatch):
-    """The port's byte count: parameters + every member op's static
-    output bytes a frame; K halves until params + per_frame x K fits."""
+    """W124 reads analysis/costmodel.chain_cost, as the reference's does:
+    params + the peak segment's in + out + traced op bytes, times K. On
+    this pipeline the fake-tensor trace counts the reference's jaxpr bytes
+    exactly (tolerance 0: each segment's one float32 [8, 8] op; the
+    constant built from host numbers is kept, not a working set), so the
+    two packages clamp and block at the same bounds."""
+    from nnstreamer_tpu.analysis.costmodel import chain_cost as jchain_cost
+
     plan, chain = _plan_and_chain(DESC)
-    params, per_frame = cp.chain_bytes(chain)
-    assert params == 0 and per_frame == 3 * 256
-    monkeypatch.setenv("NNS_TPU_PLANE_MEMORY_PER_DEVICE", str(2 * per_frame))
-    d = decide_chain(plan, chain)
-    assert d.eligible and d.unroll == 2
-    monkeypatch.setenv("NNS_TPU_PLANE_MEMORY_PER_DEVICE", str(per_frame - 1))
-    d = decide_chain(plan, chain)
-    assert not d.eligible and d.reason == (
-        f"NNS-W124 resident {per_frame} B over the [plane] memory_per_device bound "
-        f"({per_frame - 1} B)")
+    jplan, jchain = _ref_plan_and_chain(DESC)
+    cost, jcost = cp.chain_cost(chain), jchain_cost(jchain)
+    assert cost.params_bytes == jcost.params_bytes == 0
+    assert cost.transient_bytes == jcost.transient_bytes == 3 * 256
+    per = cost.transient_bytes
+    for bound, unroll in ((2 * per, 2), (4 * per, 4), (3 * per, 2), (per, 1)):
+        monkeypatch.setenv("NNS_TPU_PLANE_MEMORY_PER_DEVICE", str(bound))
+        d, jd = decide_chain(plan, chain), jdecide(jplan, jchain)
+        assert d.unroll == unroll and d.eligible
+        # the reference reports the flexible head first; its clamp is the same
+        assert jd.unroll == unroll
+    monkeypatch.setenv("NNS_TPU_PLANE_MEMORY_PER_DEVICE", str(per - 1))
+    d, jd = decide_chain(plan, chain), jdecide(jplan, jchain)
+    reason = (f"NNS-W124 resident {per} B over the [plane] memory_per_device bound "
+              f"({per - 1} B)")
+    assert not d.eligible and d.reason == reason
     monkeypatch.setenv("NNS_TPU_PLANE_MEMORY_PER_DEVICE", "1K")
     assert cp.configured_device_bound() == 1024
     monkeypatch.delenv("NNS_TPU_PLANE_MEMORY_PER_DEVICE")
     assert decide_chain(plan, chain).unroll == 4
+
+
+def test_an_untraceable_segment_blocks_the_chain(monkeypatch):
+    """As in the reference: a segment the analyzer cannot trace gets no
+    chain program (the per-node path runs), and the reason names it."""
+    import importlib
+
+    xr = importlib.import_module("nnstreamer_tpu_torch.analysis.xray")
+
+    def fails(seg):
+        raise RuntimeError("no fake kernel")
+
+    monkeypatch.setattr(xr, "segment_trace", fails)
+    plan, chain = _plan_and_chain(DESC)
+    d = decide_chain(plan, chain)
+    assert not d.eligible and d.reason == (
+        f"segment {chain.segments[0].name} untraceable (no fake kernel)")
+    frames, ex = _run(monkeypatch, DESC, "auto")
+    assert not _chain_nodes(ex) and len(frames) == 11
 
 
 # ---------------------------------------------------- the labeling chain
