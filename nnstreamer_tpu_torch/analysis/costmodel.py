@@ -14,10 +14,13 @@ kernel analyzer (analysis/kernels.py) cannot drift apart:
   ``torch._subclasses.FakeTensorMode``: each aten op's output dtype and
   bytes, nothing allocated and no kernel launched. Every real tensor the
   program closes over (a model's weights on the card) and every device
-  argument is taken to the CPU first, so the kernels' wrappers, which
-  dispatch by device, take their plain versions and a fake tensor never
-  reaches a launch. An op that reads values (``.item()``, numpy) raises
-  under fake mode: the trace records it as a host read.
+  argument is taken to the CPU first, and each kernel's op
+  (``nns::*``, ops/kernels/) answers with its registered fake: shapes
+  and dtypes, no launch and no plain version run. An op that reads values
+  (``.item()``, numpy) raises under fake mode: the trace records it as a
+  host read. With a bucket the trace is of the batched program
+  (``torch.func.vmap`` of the fn at that bucket, pipeline/programs.py),
+  the program a micro-batched window runs.
 - :func:`plan_transfer_boundaries` / :func:`predict_frame_transfers` —
   the static mirror of the port's executor: which links move frame bytes
   across the host boundary and how many a frame, so the transfer tally
@@ -152,10 +155,6 @@ class ProgramTrace:
     out_dtypes: Tuple[torch.dtype, ...] = ()
     out_bytes: int = 0
     host_read: Optional[str] = None
-    #: why the trace stopped short with no hazard: a kernel's plain
-    #: version (ops/kernels/) read values, which its kernel never does on
-    #: the card (K2's greedy loop); the ops before it are recorded
-    partial: str = ""
 
     @property
     def intermediate_bytes(self) -> int:
@@ -178,12 +177,19 @@ def _fake_classes():
             (DataDependentOutputException, DynamicOutputShapeException))
 
 
-def trace_program(fn: Callable, sig) -> ProgramTrace:
+def trace_program(fn: Callable, sig, bucket: int = 0) -> ProgramTrace:
     """Trace ``fn(tensors)`` (a fused segment's composed program: a tuple
     of tensors in, a tuple out) at the signature ``sig`` (``((shape,
-    dtype), ...)``) on fake CPU tensors (module docstring). Raises what
-    the trace raises, except an op that reads values, which ends the trace
+    dtype), ...)``) on fake CPU tensors (module docstring); with a
+    ``bucket``, the batched program over ``bucket`` stacked frames. Raises
+    what the trace raises (a batched program vmap cannot batch raises its
+    build's error), except an op that reads values, which ends the trace
     as :attr:`ProgramTrace.host_read`."""
+    if bucket:
+        from nnstreamer_tpu_torch.pipeline.programs import batched
+
+        fn = batched(fn)
+        sig = tuple(((bucket,) + tuple(shape), dtype) for shape, dtype in sig)
     from torch.utils._pytree import tree_flatten, tree_map
 
     FakeTensor, FakeTensorMode, TorchDispatchMode, data_dependent = _fake_classes()
@@ -234,12 +240,7 @@ def trace_program(fn: Callable, sig) -> ProgramTrace:
         try:
             with _ToCpu():
                 outs = tuple(fn(ins))
-        except data_dependent as exc:
-            where = _kernel_plain_frame(exc)
-            if where is not None:
-                trace.partial = (f"trace stopped in {where} (a kernel's plain version "
-                                 "reads values; the kernel on the card does not)")
-                trace.host_read = None
+        except data_dependent:
             return trace
         except (RuntimeError, TypeError) as exc:
             # numpy on a fake tensor: a read of values outside aten
@@ -252,36 +253,33 @@ def trace_program(fn: Callable, sig) -> ProgramTrace:
     return trace
 
 
-def _kernel_plain_frame(exc: BaseException) -> Optional[str]:
-    """``module.function`` of the innermost frame of ``exc``'s traceback
-    that lies in the kernels' package (ops/kernels/), or None."""
-    import os
-    import traceback
-
-    kdir = os.path.join("nnstreamer_tpu_torch", "ops", "kernels") + os.sep
-    hit = None
-    for fr in traceback.extract_tb(exc.__traceback__):
-        if kdir in fr.filename:
-            hit = f"{os.path.basename(fr.filename)[:-3]}.{fr.name}"
-    return hit
-
-
-def segment_trace(seg) -> Optional[ProgramTrace]:
+def segment_trace(seg, bucket: int = 0) -> Optional[ProgramTrace]:
     """:func:`trace_program` of a fused segment's composed program at its
-    negotiated per-frame signature; None when the signature is flexible or
-    the segment is not fused. Cached on the segment per op fn versions."""
+    negotiated per-frame signature (with a ``bucket``, its batched program
+    at that bucket); None when the signature is flexible or the segment is
+    not fused. Cached on the segment per (bucket, op fn versions)."""
     if not getattr(seg, "fused", False):
         return None
     sig = seg._negotiated_sig()
     if sig is None:
         return None
     key = (sig, tuple(op.fn_version for op in seg.ops))
-    cached = getattr(seg, "_xray_trace", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
-    tr = trace_program(seg._compose(), sig)
-    seg._xray_trace = (key, tr)
+    cached = getattr(seg, "_xray_traces", None)
+    if cached is None or cached[0] != key:
+        cached = seg._xray_traces = (key, {})
+    tr = cached[1].get(bucket)
+    if tr is None:
+        tr = cached[1][bucket] = trace_program(seg._compose(), sig, bucket)
     return tr
+
+
+def max_bucket(seg) -> int:
+    """The largest micro-batch bucket of a segment whose batching is
+    active, else 0 (it runs per frame)."""
+    cfg = getattr(seg, "batch_config", None)
+    if cfg is not None and getattr(cfg, "active", False) and cfg.buckets:
+        return int(cfg.buckets[-1])
+    return 0
 
 
 # -- static transfer prediction ---------------------------------------------
@@ -314,9 +312,9 @@ class TransferBoundary:
         return self.producer if self.reason == "producer-fetch" else self.consumer
 
 
-def _trace_or_none(seg) -> Optional[ProgramTrace]:
+def _trace_or_none(seg, bucket: int = 0) -> Optional[ProgramTrace]:
     try:
-        return segment_trace(seg)
+        return segment_trace(seg, bucket)
     except Exception:  # noqa: BLE001 — no trace: the spec's bytes stand
         return None
 
@@ -557,7 +555,8 @@ class ChainCost:
       outputs summed over the chain's segments.
     - ``transient_bytes``: the peak per-segment working set: the widest
       segment's input + output + every traced op's output bytes
-      (:func:`trace_program`), times the max micro-batch bucket (an upper
+      (:func:`trace_program`), at the max micro-batch bucket: its batched
+      program's own trace, with the window's inputs and outputs (an upper
       bound: no buffer reuse modelled).
     - ``boundary_in_bytes`` / ``boundary_out_bytes``: bytes a frame
       entering / leaving the chain at its edges.
@@ -575,11 +574,11 @@ class ChainCost:
         return self.params_bytes + self.transient_bytes
 
 
-def _segment_intermediate_bytes(seg) -> int:
-    """Bytes of every op output of one segment's traced program; 0 when
-    the segment cannot be traced here (its in + out activations count
-    all the same)."""
-    tr = _trace_or_none(seg)
+def _segment_intermediate_bytes(seg, bucket: int = 0) -> int:
+    """Bytes of every op output of one segment's traced program (its
+    batched program at ``bucket``); 0 when the segment cannot be traced
+    here (its in + out activations count all the same)."""
+    tr = _trace_or_none(seg, bucket)
     return tr.intermediate_bytes if tr is not None else 0
 
 
@@ -603,11 +602,8 @@ def chain_cost(chain, open_backends: bool = True) -> ChainCost:
         in_b = spec_bytes(seg.first.in_specs[0] if seg.first.in_specs else None)
         out_b = spec_bytes(seg.last.out_specs[0] if seg.last.out_specs else None)
         cost.activation_bytes += in_b + out_b
-        bucket = 1
-        cfg = seg.batch_config
-        if cfg is not None and getattr(cfg, "active", False) and cfg.buckets:
-            bucket = int(cfg.buckets[-1])
-        transient = (in_b + out_b + _segment_intermediate_bytes(seg)) * bucket
+        bucket = max_bucket(seg)
+        transient = (in_b + out_b) * max(1, bucket) + _segment_intermediate_bytes(seg, bucket)
         cost.transient_bytes = max(cost.transient_bytes, transient)
         for op in seg.ops:
             if open_backends:

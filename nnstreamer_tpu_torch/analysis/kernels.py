@@ -111,7 +111,9 @@ class KernelSpec:
 
 def _k1_rows(p: Dict[str, Any]) -> int:
     """Distinct source rows the samples touch (counted a box for a resize,
-    once over all boxes of a crop): the ``_axis_taps`` of the kernel."""
+    once over all boxes of an image for a crop): the ``_axis_taps`` of the
+    kernel. A batched crop (``per_image`` boxes each of ``n / per_image``
+    images, the vmapped window's one launch) counts each image's own."""
     import torch
 
     from nnstreamer_tpu_torch.ops.kernels.image_kernels import _axis_taps
@@ -124,7 +126,8 @@ def _k1_rows(p: Dict[str, Any]) -> int:
     y0, y1, _ = _axis_taps(boxes[:, 1], boxes[:, 3], p["out_h"], h)
     rows = torch.cat([y0, y1], dim=1)
     if p.get("boxes") is not None:
-        return len(torch.unique(rows))
+        per = p.get("per_image", p["n"])
+        return sum(len(torch.unique(rows[i:i + per])) for i in range(0, p["n"], per))
     return sum(len(torch.unique(r)) for r in rows)
 
 
@@ -169,25 +172,34 @@ NMS_OPS_PER_COLUMN = 12          # one masked IoU column (chip_smoke.py)
 
 
 def k2_plan(p: Dict[str, Any]) -> List[Launch]:
+    """The mask kernel over (tiles, rows), then the scan, a block a row:
+    ``rows`` is the window of a vmapped launch (1 for one frame)."""
     from nnstreamer_tpu_torch.ops.kernels.nms import nms_plan
 
     tiles = nms_plan(p["n"]).tiles
+    rows = p.get("rows", 1)
     four = tiles <= NMS_MASK_WAVE
-    return [Launch(f"nms_kernel_mask<{4 if four else 1}>", (tiles, 1, 1),
+    return [Launch(f"nms_kernel_mask<{4 if four else 1}>", (tiles, rows, 1),
                    ((4 if four else 1) * NMS_TILE, 1, 1), 0),
-            Launch("nms_kernel_scan", (1, 1, 1), (NMS_SCAN_THREADS, 1, 1), 0)]
+            Launch("nms_kernel_scan", (rows, 1, 1), (NMS_SCAN_THREADS, 1, 1), 0)]
 
 
 def k2_cost(p: Dict[str, Any]) -> KernelCost:
     """Boxes and scores in, the alive mask out; the IoU columns the greedy
-    steps visit: sum over kept i of (m - 1 - i). The data decides which
-    are kept: ``kept`` (their indices) where the case gives it, else every
-    one of the ``m`` live candidates (the most the data could need)."""
+    steps visit: sum over kept i of (m - 1 - i), for each of the ``rows``.
+    The data decides which are kept: ``kept`` (their indices, or a list a
+    row) where the case gives it, else every one of the ``m`` live
+    candidates (the most the data could need)."""
     n = p["n"]
+    rows = p.get("rows", 1)
     m = p.get("m", n)
     kept = p.get("kept")
-    columns = (sum(m - 1 - i for i in kept) if kept is not None else m * (m - 1) // 2)
-    return KernelCost(hbm_read_bytes=n * 20, hbm_write_bytes=n * 4,
+    if kept is None:
+        columns = rows * (m * (m - 1) // 2)
+    else:
+        per_row = kept if kept and isinstance(kept[0], (list, tuple)) else [kept] * rows
+        columns = sum(m - 1 - i for row in per_row for i in row)
+    return KernelCost(hbm_read_bytes=rows * n * 20, hbm_write_bytes=rows * n * 4,
                       flops=NMS_OPS_PER_COLUMN * columns, unit="fp32")
 
 
@@ -204,7 +216,8 @@ def k2_hazards(p: Dict[str, Any]) -> List[str]:
 
 
 def k2_query(p: Dict[str, Any]) -> List[Dict[str, int]]:
-    return _call(_lib("nms").nns_nms_launch_info, (p["n"],), 2, "nns_nms_launch_info")
+    return _call(_lib("nms").nns_nms_launch_info, (p.get("rows", 1), p["n"]), 2,
+                 "nns_nms_launch_info")
 
 
 # -- K3 / K4: split decode attention --------------------------------------------
@@ -421,12 +434,22 @@ SPECS: List[KernelSpec] = [
          Case("crop-f32-128-16box-112", dict(
              n=16, h=128, w=128, c=3, out_h=112, out_w=112, dtype="float32",
              boxes=[[8.0 * (i % 4), 8.0 * (i // 4), 8.0 * (i % 4) + 96, 8.0 * (i // 4) + 96]
-                    for i in range(16)]))],
+                    for i in range(16)])),
+         # the batched window (a vmapped program, one launch a window of 8)
+         Case("resize-u8-720p-224-b8", dict(n=8, h=720, w=1280, c=3, out_h=224, out_w=224,
+                                            dtype="uint8")),
+         Case("crop-u8-720p-8x16box-112-batched", dict(
+             n=128, per_image=16, h=720, w=1280, c=3, out_h=112, out_w=112, dtype="uint8",
+             boxes=[[64.0 * (i % 16), 30.0 * (i % 16), 64.0 * (i % 16) + 240,
+                     30.0 * (i % 16) + 160] for i in range(128)]))],
         k1_plan, k1_cost, k1_hazards, k1_query),
     KernelSpec(
         "nms_mask", "K2", "nnstreamer_tpu/ops/pallas/nms.py:119",
         "nnstreamer_tpu_torch/csrc/nms.cu",
-        [Case("nms-ssd-1917", dict(n=1917)), Case("nms-yolo-6300", dict(n=6300))],
+        [Case("nms-ssd-1917", dict(n=1917)), Case("nms-yolo-6300", dict(n=6300)),
+         # the batched windows: 8 SSD frames, 4 YOLO frames, one launch pair
+         Case("nms-ssd-8x1917", dict(n=1917, rows=8)),
+         Case("nms-yolo-4x6300", dict(n=6300, rows=4))],
         k2_plan, k2_cost, k2_hazards, k2_query),
     KernelSpec(
         "decode_attention", "K3", "nnstreamer_tpu/ops/pallas/decode_attention.py:178",

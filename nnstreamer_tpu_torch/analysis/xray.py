@@ -51,6 +51,7 @@ from nnstreamer_tpu_torch.analysis.costmodel import (
     TransferBoundary,
     chain_cost,
     configured_device_bound,
+    max_bucket,
     plan_transfer_boundaries,
     predict_frame_transfers,
     segment_trace,
@@ -462,6 +463,15 @@ def _segment_pass(seg: Any, report: LintReport, notes: List[str]) -> None:
                 "compute in-graph, or split the read into an explicit host element",
             )
         elif tr is not None:
+            bucket = max_bucket(seg)
+            if bucket:
+                # the program a micro-batched window runs: vmap of the same
+                # ops (the reference traces jax.vmap(composed) here)
+                try:
+                    segment_trace(seg, bucket)
+                except Exception as exc:  # noqa: BLE001 — a build the card would refuse
+                    notes.append(f"{seg.name}: batched program at bucket {bucket} cannot be "
+                                 f"built ({type(exc).__name__}: {exc})")
             sig = seg._negotiated_sig() or ()
             for msg in dtype_findings(tr, tuple(d for _, d in sig), _declared_out(seg)):
                 report.add(
@@ -471,8 +481,6 @@ def _segment_pass(seg: Any, report: LintReport, notes: List[str]) -> None:
                     "runs far below the float32 rate on the card and doubles "
                     "activation bytes",
                 )
-            if tr.partial:
-                notes.append(f"{seg.name}: {tr.partial}")
     msg = cache_key_finding(seg)
     if msg is not None:
         report.add(

@@ -4,8 +4,11 @@
 // (_launch_crop, body _crop_kernel), which serves both resize_bilinear and
 // crop_and_resize. One kernel body serves both entry points here too: the
 // boxes pointer (nullptr = the full image) and the image batch stride (0 =
-// every box samples the same image, H*W*C = one image per box) are the only
-// difference.
+// every box samples the same image, H*W*C = a batch of images) are the only
+// difference. Box b samples image b / boxes_per_image: 1 for a resize (one
+// image a box), N for a window of B images with N boxes each, so that the
+// vmapped crop entry (the reference's jax.vmap of its pallas_call; the op's
+// vmap rule in ops/kernels/image_kernels.py) is one launch over B*N boxes.
 //
 // Design. The TPU kernel builds dense interpolation matrices Wy [out_h, H]
 // and Wx [out_w, W] and runs two MXU contractions. On the H100 those
@@ -92,7 +95,8 @@ template <typename Tin, typename Tout>
 __global__ void crop_resize_kernel(const Tin* __restrict__ img, const float* __restrict__ boxes,
                                    Tout* __restrict__ out, int n, int h, int w, int c,
                                    int out_h, int out_w, long long batch_stride,
-                                   int has_scale, float scale, int has_offset, float offset) {
+                                   int boxes_per_image, int has_scale, float scale,
+                                   int has_offset, float offset) {
   long long pix = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   long long total = static_cast<long long>(n) * out_h * out_w;
   if (pix >= total) return;
@@ -114,7 +118,7 @@ __global__ void crop_resize_kernel(const Tin* __restrict__ img, const float* __r
   float omwy = __fsub_rn(1.0f, wy);
   float omwx = __fsub_rn(1.0f, wx);
 
-  const Tin* base = img + batch_stride * b;
+  const Tin* base = img + batch_stride * (b / boxes_per_image);
   const Tin* r0 = base + static_cast<long long>(y0i) * w * c;
   const Tin* r1 = base + static_cast<long long>(y1i) * w * c;
   Tout* o = out + pix * c;
@@ -135,10 +139,12 @@ __global__ void crop_resize_kernel(const Tin* __restrict__ img, const float* __r
 // With a non-null `info`: describe the launch (launch_info.cuh), launch nothing.
 template <typename Tin, typename Tout>
 cudaError_t launch(const void* img, const float* boxes, void* out, int n, int h, int w, int c,
-                   int out_h, int out_w, long long batch_stride, int has_scale, float scale,
-                   int has_offset, float offset, cudaStream_t stream, long long* info) {
+                   int out_h, int out_w, long long batch_stride, int boxes_per_image,
+                   int has_scale, float scale, int has_offset, float offset, cudaStream_t stream,
+                   long long* info) {
   long long total = static_cast<long long>(n) * out_h * out_w;
   if (total == 0) return cudaSuccess;
+  if (boxes_per_image < 1) return cudaErrorInvalidValue;
   const int threads = 256;
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -147,25 +153,28 @@ cudaError_t launch(const void* img, const float* boxes, void* out, int n, int h,
                                 dim3(static_cast<unsigned>(blocks)), dim3(threads), 0, 0, info);
   crop_resize_kernel<Tin, Tout><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const Tin*>(img), boxes, static_cast<Tout*>(out), n, h, w, c, out_h, out_w,
-      batch_stride, has_scale, scale, has_offset, offset);
+      batch_stride, boxes_per_image, has_scale, scale, has_offset, offset);
   return cudaGetLastError();
 }
 
 template <typename Tin>
 cudaError_t dispatch_out(int out_dtype, const void* img, const float* boxes, void* out, int n,
                          int h, int w, int c, int out_h, int out_w, long long batch_stride,
-                         int has_scale, float scale, int has_offset, float offset,
-                         cudaStream_t stream, long long* info) {
+                         int boxes_per_image, int has_scale, float scale, int has_offset,
+                         float offset, cudaStream_t stream, long long* info) {
   switch (out_dtype) {
     case kU8:
       return launch<Tin, uint8_t>(img, boxes, out, n, h, w, c, out_h, out_w, batch_stride,
-                                  has_scale, scale, has_offset, offset, stream, info);
+                                  boxes_per_image, has_scale, scale, has_offset, offset, stream,
+                                  info);
     case kF32:
       return launch<Tin, float>(img, boxes, out, n, h, w, c, out_h, out_w, batch_stride,
-                                has_scale, scale, has_offset, offset, stream, info);
+                                boxes_per_image, has_scale, scale, has_offset, offset, stream,
+                                info);
     case kBF16:
       return launch<Tin, __nv_bfloat16>(img, boxes, out, n, h, w, c, out_h, out_w, batch_stride,
-                                        has_scale, scale, has_offset, offset, stream, info);
+                                        boxes_per_image, has_scale, scale, has_offset, offset,
+                                        stream, info);
     default:
       return cudaErrorInvalidValue;
   }
@@ -177,20 +186,23 @@ cudaError_t dispatch_out(int out_dtype, const void* img, const float* boxes, voi
 // described.
 static int crop_resize_dispatch(const void* img, int in_dtype, const float* boxes, void* out,
                                 int out_dtype, int n, int h, int w, int c, int out_h, int out_w,
-                                long long batch_stride, int has_scale, float scale,
-                                int has_offset, float offset, void* stream, long long* info) {
+                                long long batch_stride, int boxes_per_image, int has_scale,
+                                float scale, int has_offset, float offset, void* stream,
+                                long long* info) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (in_dtype) {
     case kU8:
       return dispatch_out<uint8_t>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
-                                   batch_stride, has_scale, scale, has_offset, offset, s, info);
+                                   batch_stride, boxes_per_image, has_scale, scale, has_offset,
+                                   offset, s, info);
     case kF32:
       return dispatch_out<float>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
-                                 batch_stride, has_scale, scale, has_offset, offset, s, info);
+                                 batch_stride, boxes_per_image, has_scale, scale, has_offset,
+                                 offset, s, info);
     case kBF16:
       return dispatch_out<__nv_bfloat16>(out_dtype, img, boxes, out, n, h, w, c, out_h, out_w,
-                                         batch_stride, has_scale, scale, has_offset, offset, s,
-                                         info);
+                                         batch_stride, boxes_per_image, has_scale, scale,
+                                         has_offset, offset, s, info);
     default:
       return cudaErrorInvalidValue;
   }
@@ -199,20 +211,23 @@ static int crop_resize_dispatch(const void* img, int in_dtype, const float* boxe
 // Plain C entry point (bound with ctypes). Returns the cudaError_t of the
 // launch; 0 means it was queued on `stream`. Inputs are contiguous NHWC /
 // HWC tensors on the device; boxes is [n, 4] float32 (x1, y1, x2, y2) in
-// pixels, or nullptr for the full image.
+// pixels, or nullptr for the full image. Box b samples the image at
+// img + batch_stride * (b / boxes_per_image).
 extern "C" int nns_crop_resize(const void* img, int in_dtype, const float* boxes, void* out,
                                int out_dtype, int n, int h, int w, int c, int out_h, int out_w,
-                               long long batch_stride, int has_scale, float scale,
-                               int has_offset, float offset, void* stream) {
+                               long long batch_stride, int boxes_per_image, int has_scale,
+                               float scale, int has_offset, float offset, void* stream) {
   return crop_resize_dispatch(img, in_dtype, boxes, out, out_dtype, n, h, w, c, out_h, out_w,
-                              batch_stride, has_scale, scale, has_offset, offset, stream,
-                              nullptr);
+                              batch_stride, boxes_per_image, has_scale, scale, has_offset,
+                              offset, stream, nullptr);
 }
 
 // The launch nns_crop_resize would make for these dtypes and sizes, described
-// into info[0 .. nns_launch::kFields) (launch_info.cuh); nothing launches.
+// into info[0 .. nns_launch::kFields) (launch_info.cuh); nothing launches. A
+// window's batched launch is described by its n, every box of the window
+// (B*N): the grid does not depend on which image a box samples.
 extern "C" int nns_crop_resize_launch_info(int in_dtype, int out_dtype, int n, int h, int w,
                                            int c, int out_h, int out_w, long long* info) {
   return crop_resize_dispatch(nullptr, in_dtype, nullptr, nullptr, out_dtype, n, h, w, c, out_h,
-                              out_w, 0, 0, 0.0f, 0, 0.0f, nullptr, info);
+                              out_w, 0, 1, 0, 0.0f, 0, 0.0f, nullptr, info);
 }

@@ -8,6 +8,11 @@
 // (float 0/1) that _nms_kernel writes comes out, with m, the live prefix.
 //
 // Design: two kernels, a parallel IoU bitmask and a one-block scan over it.
+// Both take a batch of R independent rows of n candidates (R = 1 for one
+// frame; a window of B frames under torch.func.vmap is R = B, the op's vmap
+// rule in ops/kernels/nms.py, as the reference vmaps its pallas_call): the
+// mask kernel's grid is (tiles, R), the scan's (R), one block a row, and a
+// row's arithmetic is the single-row launch's, so its alive mask is too.
 //
 // 1. nms_kernel_mask. The grid is the upper triangle of 64 x 64 tiles (row
 //    block r, column block c >= r), ceil(n/64) * (ceil(n/64) + 1) / 2 blocks,
@@ -42,7 +47,7 @@
 //    dependent steps become ceil(m/64) rounds: 30 at n = 1917, 354 at
 //    25 200 (m = 22 617 there).
 //
-// Workspace: words [n, ceil(n/64)] of 64-bit words, allocated by the wrapper
+// Workspace: words [R, n, ceil(n/64)] of 64-bit words, allocated by the wrapper
 // (torch.empty, never cleared): 0.46 MB at n = 1917, 79.4 MB at 25 200, 134
 // MB at kMaxN = 32768. The scan reads only words that the mask kernel wrote
 // in the same call: the diagonal words of live rows and the words right of
@@ -117,6 +122,10 @@ template <int kParts>
 __global__ void __launch_bounds__(kParts* kTile)
     nms_kernel_mask(const float4* __restrict__ boxes, const float* __restrict__ scores,
                     u64* __restrict__ words, int n, int nw, float thr) {
+  // blockIdx.y -> the row of the batch: its boxes, scores and words
+  boxes += static_cast<size_t>(blockIdx.y) * n;
+  scores += static_cast<size_t>(blockIdx.y) * n;
+  words += static_cast<size_t>(blockIdx.y) * n * nw;
   // blockIdx.x -> tile (r, c), c >= r, row by row: counted from the end, the
   // rows hold 1, 2, ..., nw tiles, so row u from the bottom starts at u(u+1)/2
   const int k = nw * (nw + 1) / 2 - 1 - static_cast<int>(blockIdx.x);
@@ -236,6 +245,11 @@ __device__ __forceinline__ u64 resolve(u64 removed, const ScanStage& st) {
 __global__ void __launch_bounds__(kScanThreads, 1)
     nms_kernel_scan(const u64* __restrict__ words, const float* __restrict__ scores,
                     float* __restrict__ alive_out, int* __restrict__ live_out, int n, int nw) {
+  // blockIdx.x -> the row of the batch
+  words += static_cast<size_t>(blockIdx.x) * n * nw;
+  scores += static_cast<size_t>(blockIdx.x) * n;
+  alive_out += static_cast<size_t>(blockIdx.x) * n;
+  live_out += blockIdx.x;
   __shared__ u64 live_w[kMaxWords];
   __shared__ u64 removed[kMaxWords];
   __shared__ u64 kept_w[kMaxWords];
@@ -336,11 +350,13 @@ __global__ void __launch_bounds__(kScanThreads, 1)
 }  // namespace
 
 // The mask kernel's instantiation and block for n candidates (the tiles of
-// the upper triangle are its blocks), then the one-block scan; launched, or
-// with `info` described (launch_info.cuh) and nothing launched.
+// the upper triangle are its blocks, a grid row for each of the R rows),
+// then the scan, one block a row; launched, or with `info` described
+// (launch_info.cuh) and nothing launched. R is the grid's y extent, so it
+// stays within 65 535.
 static int nms_launch(const void* boxes, const float* scores, void* words, float* alive,
-                      int* live, int n, float thr, cudaStream_t s, long long* info) {
-  if (n <= 0 || n > kMaxN) return cudaErrorInvalidValue;
+                      int* live, int rows, int n, float thr, cudaStream_t s, long long* info) {
+  if (n <= 0 || n > kMaxN || rows <= 0 || rows > 65535) return cudaErrorInvalidValue;
   const int nw = (n + kTile - 1) / kTile;
   const int tiles = nw * (nw + 1) / 2;
   // few tiles: four threads a row shorten each thread's chain of IoUs; many:
@@ -350,37 +366,39 @@ static int nms_launch(const void* boxes, const float* scores, void* words, float
     const void* mask = four ? reinterpret_cast<const void*>(nms_kernel_mask<4>)
                             : reinterpret_cast<const void*>(nms_kernel_mask<1>);
     cudaError_t err =
-        nns_launch::describe(mask, dim3(tiles), dim3(four ? 4 * kTile : kTile), 0, 0, info);
+        nns_launch::describe(mask, dim3(tiles, rows), dim3(four ? 4 * kTile : kTile), 0, 0, info);
     if (err != cudaSuccess) return err;
-    return nns_launch::describe(reinterpret_cast<const void*>(nms_kernel_scan), dim3(1),
+    return nns_launch::describe(reinterpret_cast<const void*>(nms_kernel_scan), dim3(rows),
                                 dim3(kScanThreads), 0, 0, info + nns_launch::kFields);
   }
+  const dim3 grid(tiles, rows);
   if (four)
-    nms_kernel_mask<4><<<tiles, 4 * kTile, 0, s>>>(static_cast<const float4*>(boxes), scores,
-                                                    static_cast<u64*>(words), n, nw, thr);
+    nms_kernel_mask<4><<<grid, 4 * kTile, 0, s>>>(static_cast<const float4*>(boxes), scores,
+                                                   static_cast<u64*>(words), n, nw, thr);
   else
-    nms_kernel_mask<1><<<tiles, kTile, 0, s>>>(static_cast<const float4*>(boxes), scores,
-                                                static_cast<u64*>(words), n, nw, thr);
+    nms_kernel_mask<1><<<grid, kTile, 0, s>>>(static_cast<const float4*>(boxes), scores,
+                                               static_cast<u64*>(words), n, nw, thr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nms_kernel_scan<<<1, kScanThreads, 0, s>>>(static_cast<const u64*>(words), scores, alive, live,
-                                             n, nw);
+  nms_kernel_scan<<<rows, kScanThreads, 0, s>>>(static_cast<const u64*>(words), scores, alive,
+                                                live, n, nw);
   return cudaGetLastError();
 }
 
-// Plain C entry point (bound with ctypes). boxes: [n, 4] float32, ranked by
-// score, 16-byte aligned; scores: [n] float32 in the same order; words: the
-// [n, ceil(n/64)] 64-bit workspace; alive: [n] float32 out (1 = kept); live:
-// [1] int32 out (m). Launches the mask kernel, then the scan, on `stream`.
-// Returns the first cudaError_t; 0 means both were queued.
+// Plain C entry point (bound with ctypes). boxes: [rows, n, 4] float32, each
+// row ranked by score, 16-byte aligned; scores: [rows, n] float32 in the same
+// order; words: the [rows, n, ceil(n/64)] 64-bit workspace; alive: [rows, n]
+// float32 out (1 = kept); live: [rows] int32 out (each row's m). Launches the
+// mask kernel, then the scan, on `stream`. Returns the first cudaError_t; 0
+// means both were queued.
 extern "C" int nns_nms_mask(const void* boxes, const float* scores, void* words, float* alive,
-                            int* live, int n, float thr, void* stream) {
-  return nms_launch(boxes, scores, words, alive, live, n, thr,
+                            int* live, int rows, int n, float thr, void* stream) {
+  return nms_launch(boxes, scores, words, alive, live, rows, n, thr,
                     static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The two launches nns_nms_mask makes for n candidates, described into
+// The two launches nns_nms_mask makes for rows x n candidates, described into
 // info[0 .. 2 * nns_launch::kFields): the mask kernel, then the scan.
-extern "C" int nns_nms_launch_info(int n, long long* info) {
-  return nms_launch(nullptr, nullptr, nullptr, nullptr, nullptr, n, 0.0f, nullptr, info);
+extern "C" int nns_nms_launch_info(int rows, int n, long long* info) {
+  return nms_launch(nullptr, nullptr, nullptr, nullptr, nullptr, rows, n, 0.0f, nullptr, info);
 }

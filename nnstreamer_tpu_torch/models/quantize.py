@@ -170,13 +170,16 @@ def _quantize_w(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q[:, :, 0, 0].contiguous().t(), scale
 
 
+@torch.library.custom_op("nns::int8_matmul", mutates_args=())
 def int8_matmul(q: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """Exact s8 [M, K] × s8 [K, N] → s32 [M, N]. On the card
     ``torch._int_mm`` (cuBLASLt), which takes K and N multiples of 8
     (anything else raises here, before a launch), a column-major second
     operand (another layout raises here too) and more than 16 rows (fewer
     are padded with zero rows, and the padding cut off); on the CPU an
-    int32 matmul."""
+    int32 matmul. ``torch._int_mm`` has no batching rule, so the op writes
+    its batch out: under ``torch.func.vmap`` the window's rows fold into M
+    (one GEMM of B·M rows, no padding past 16)."""
     m, k = q.shape
     n = w8.shape[1]
     if q.is_cuda:
@@ -190,6 +193,22 @@ def int8_matmul(q: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return q.to(torch.int32) @ w8.to(torch.int32)
     raise RuntimeError(f"int8 GEMM has no implementation on {q.device}")
+
+
+@int8_matmul.register_fake
+def _(q, w8):
+    return q.new_empty((q.shape[0], w8.shape[1]), dtype=torch.int32)
+
+
+@int8_matmul.register_vmap
+def _(info, in_dims, q, w8):
+    """The vmapped axis folds into M: [B, M, K] × [K, N] → one GEMM of B·M
+    rows → [B, M, N]. The weights are the model's, shared by every row."""
+    if in_dims[1] is not None:
+        raise NotImplementedError("nns::int8_matmul under vmap takes weights shared by the rows")
+    q = q.movedim(in_dims[0], 0)
+    out = int8_matmul(q.reshape(-1, q.shape[-1]), w8)
+    return out.reshape(q.shape[:-1] + out.shape[-1:]), 0
 
 
 class _Conv1x1Q(nn.Module):

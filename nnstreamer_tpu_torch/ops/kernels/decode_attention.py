@@ -171,12 +171,10 @@ def _kernel_fn():
     return fn
 
 
-def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale,
-                           counter: Optional[LaunchCounter] = None) -> torch.Tensor:
+def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale) -> torch.Tensor:
     """Launch the kernel on checked CUDA tensors → o [B, 1, H, D] float32,
     still being computed on the current stream. The launch adds one to
-    :data:`decode_attention_launches` and to ``counter`` (a caller's own,
-    such as a mesh shard's)."""
+    :data:`decode_attention_launches`."""
     for name, t in (("cache_k", cache_k), ("cache_v", cache_v),
                     ("k_scale", k_scale), ("v_scale", v_scale)):
         if t is not None and not t.is_contiguous():
@@ -205,9 +203,38 @@ def _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale,
     if err != 0:
         raise RuntimeError(f"nns_decode_attention launch failed: cudaError_t {err}")
     decode_attention_launches.add()
-    if counter is not None:
-        counter.add()
     return out
+
+
+@torch.library.custom_op("nns::decode_attention", mutates_args=())
+def _decode_attention_op(q: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+                         pos: torch.Tensor, k_scale: Optional[torch.Tensor],
+                         v_scale: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """K3 on checked operands: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if q.is_cuda:
+        return _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale)
+    if q.device.type == "cpu":
+        return plain_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, scale)
+    raise RuntimeError(
+        f"decode attention kernel has no implementation on {q.device} "
+        "(CUDA launches the kernel, CPU takes the plain version)"
+    )
+
+
+@_decode_attention_op.register_fake
+def _(q, cache_k, cache_v, pos, k_scale, v_scale, scale):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@_decode_attention_op.register_vmap
+def _(info, in_dims, *args):
+    """Refused: K3's batch is the slots of a serving step, written out in
+    its operands; it has no batching rule, so a vmap that reaches it
+    raises (never the dispatcher's per-row loop)."""
+    raise NotImplementedError(
+        "nns::decode_attention (K3) has no vmap rule: its batch is the slot axis of its "
+        "operands; call it on the batched tensors")
 
 
 def decode_attention(
@@ -217,17 +244,18 @@ def decode_attention(
     """q [B,1,H,D], cache_k/v [B,S,KV,D] (int8 with ``k_scale``/``v_scale``
     [B,S,KV]), pos [B] → o [B,1,H,D] float32: the kernel on CUDA tensors
     (each launch counted in ``counter`` too, where given), the plain
-    version on CPU tensors."""
+    version on CPU tensors (the op ``nns::decode_attention``)."""
     _check(q, cache_k, cache_v, pos, k_scale, v_scale)
     sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    if q.is_cuda:
-        return _cuda_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, sc, counter)
-    if q.device.type == "cpu":
-        return plain_decode_attention(q, cache_k, cache_v, pos, k_scale, v_scale, sc)
-    raise RuntimeError(
-        f"decode attention kernel has no implementation on {q.device} "
-        "(CUDA launches the kernel, CPU takes the plain version)"
-    )
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(
+            f"decode attention kernel has no implementation on {q.device} "
+            "(CUDA launches the kernel, CPU takes the plain version)"
+        )
+    out = _decode_attention_op(q, cache_k, cache_v, pos, k_scale, v_scale, float(sc))
+    if counter is not None and q.is_cuda:
+        counter.add()  # the op launched the kernel once (or raised)
+    return out
 
 
 def make_decode_attention(counter: Optional[LaunchCounter] = None):

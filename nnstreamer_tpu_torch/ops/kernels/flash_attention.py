@@ -179,20 +179,52 @@ def _cuda_flash_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     return out
 
 
-def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
-    """q, k, v [B, T, H, D] → o [B, T, H, D] float32: the kernel on CUDA
-    tensors, the plain version on CPU tensors."""
-    _check(q, k, v)
-    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+@torch.library.custom_op("nns::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        scale: float, block_q: int, block_k: int) -> torch.Tensor:
+    """K5 on checked operands: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
     if q.is_cuda:
-        return _cuda_flash_attention(q, k, v, causal, sc)
+        return _cuda_flash_attention(q, k, v, causal, scale)
     if q.device.type == "cpu":
-        return plain_flash_attention(q, k, v, causal, sc, block_q, block_k)
+        return plain_flash_attention(q, k, v, causal, scale, block_q, block_k)
     raise RuntimeError(
         f"flash attention kernel has no implementation on {q.device} "
         "(CUDA launches the kernel, CPU takes the plain version)"
     )
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, scale, block_q, block_k):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@_flash_attention_op.register_vmap
+def _(info, in_dims, q, k, v, causal, scale, block_q, block_k):
+    """The vmapped axis folds into B: [V, B, T, H, D] → one launch over
+    V·B sequences (an operand the rows share is expanded to them)."""
+    ops = []
+    for x, d in zip((q, k, v), in_dims[:3]):
+        ops.append(x.movedim(d, 0) if d is not None else x.expand((info.batch_size,) + x.shape))
+    lead = ops[0].shape[:-3]
+    flat = [x.reshape((-1,) + x.shape[-3:]) for x in ops]
+    out = _flash_attention_op(*flat, causal, scale, block_q, block_k)
+    return out.reshape(lead + out.shape[1:]), 0
+
+
+def flash_attention(q, k, v, causal: bool = True, scale: Optional[float] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """q, k, v [B, T, H, D] → o [B, T, H, D] float32: the kernel on CUDA
+    tensors, the plain version on CPU tensors (the op ``nns::flash_attention``,
+    whose vmap rule folds a vmapped axis into B)."""
+    _check(q, k, v)
+    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(
+            f"flash attention kernel has no implementation on {q.device} "
+            "(CUDA launches the kernel, CPU takes the plain version)"
+        )
+    return _flash_attention_op(q, k, v, bool(causal), float(sc), int(block_q), int(block_k))
 
 
 def make_flash_attention(**kwargs):

@@ -11,6 +11,14 @@ launches the kernel (and raises if the launch fails), a CPU tensor takes
 :func:`plain_crop_resize`, anything else raises. There is no fallback from
 the kernel to the plain version.
 
+The kernel is the custom op ``nns::crop_resize``: a fake (shapes alone,
+for fake-tensor traces) and a vmap rule are registered beside it. Under
+``torch.func.vmap`` the rule folds the vmapped axis into the op's boxes,
+so a window of B frames is ONE launch: B images with their boxes
+(``boxes_per_image`` boxes each), one image shared by B·N boxes, or B·N
+full-image resizes. The reference's counterpart is ``jax.vmap`` of its
+``pallas_call``.
+
 Numerics: sample centres ``lo + (hi - lo)·(i + 0.5)/out - 0.5``, the
 floor-and-clip formulation of ``nnstreamer_tpu/ops/image.py`` (two taps per
 axis, indices clipped to the image), interpolation in float32, then the
@@ -80,10 +88,12 @@ def plain_crop_resize(
     scale: Optional[float],
     offset: Optional[float],
     out_dtype: torch.dtype,
+    per_image: int = 1,
 ) -> torch.Tensor:
     """The plain PyTorch version of the kernel, same arguments: ``img`` is
-    [H, W, C] shared by all ``n`` boxes, or [n, H, W, C] one image per box;
-    ``boxes`` [n, 4] float32 pixel (x1, y1, x2, y2), None = full image."""
+    [H, W, C] shared by all ``n`` boxes, or [n / per_image, H, W, C], box
+    b sampling image b // per_image; ``boxes`` [n, 4] float32 pixel (x1,
+    y1, x2, y2), None = full image."""
     shared = img.dim() == 3
     h, w, c = img.shape[-3:]
     dev = img.device
@@ -96,7 +106,7 @@ def plain_crop_resize(
     src = img[None] if shared else img
     bidx = (
         torch.zeros(n, dtype=torch.long, device=dev) if shared
-        else torch.arange(n, device=dev)
+        else torch.div(torch.arange(n, device=dev), per_image, rounding_mode="floor")
     )[:, None, None]
 
     def tap(yi, xi):
@@ -123,13 +133,13 @@ def _kernel_fn():
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
 
 
-def _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype):
+def _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype, per_image=1):
     fn = _kernel_fn()
     h, w, c = img.shape[-3:]
     out = torch.empty((n, out_h, out_w, c), dtype=out_dtype, device=img.device)
@@ -140,7 +150,7 @@ def _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype):
             img.data_ptr(), _IN_DTYPES[img.dtype],
             None if boxes is None else boxes.data_ptr(),
             out.data_ptr(), _IN_DTYPES[out_dtype],
-            n, h, w, c, out_h, out_w, batch_stride,
+            n, h, w, c, out_h, out_w, batch_stride, per_image,
             int(scale is not None), float(scale or 0.0),
             int(offset is not None), float(offset or 0.0),
             stream,
@@ -152,9 +162,75 @@ def _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype):
     return out
 
 
+@torch.library.custom_op("nns::crop_resize", mutates_args=())
+def _crop_resize_op(
+    img: torch.Tensor,
+    boxes: Optional[torch.Tensor],
+    out_h: int,
+    out_w: int,
+    scale: Optional[float],
+    offset: Optional[float],
+    out_dtype: torch.dtype,
+    per_image: int,
+) -> torch.Tensor:
+    """K1 on checked operands: ``img`` [H, W, C] shared by every box or
+    [I, H, W, C] with ``per_image`` boxes an image; ``boxes`` [n, 4] (n =
+    I·per_image for a batch of images), or None for a full-image resize
+    of each of the I images → [n, out_h, out_w, C]. The kernel on a CUDA
+    image, the plain version on a CPU one."""
+    n = img.shape[0] if boxes is None else boxes.shape[0]
+    if img.is_cuda:
+        img = img.contiguous()
+        boxes = None if boxes is None else boxes.contiguous()
+        return _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype,
+                                 per_image)
+    if img.device.type == "cpu":
+        return plain_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype,
+                                 per_image)
+    raise RuntimeError(
+        f"crop/resize kernel has no implementation on {img.device} "
+        "(CUDA launches the kernel, CPU takes the plain version)"
+    )
+
+
+@_crop_resize_op.register_fake
+def _(img, boxes, out_h, out_w, scale, offset, out_dtype, per_image):
+    n = img.shape[0] if boxes is None else boxes.shape[0]
+    return img.new_empty((n, out_h, out_w, img.shape[-1]), dtype=out_dtype)
+
+
+@_crop_resize_op.register_vmap
+def _(info, in_dims, img, boxes, out_h, out_w, scale, offset, out_dtype, per_image):
+    """The vmapped axis (size B) folded into ONE launch: full-image resizes
+    of B·I images; B·N boxes over one shared image (batch stride 0); or B
+    images (of I each) with their boxes, box b sampling image b //
+    per_image (N boxes an image where the unbatched image was shared)."""
+    bsz = info.batch_size
+    img_dim, boxes_dim = in_dims[0], in_dims[1]
+    if img_dim is not None:
+        img = img.movedim(img_dim, 0)
+    if boxes is None:
+        out = _crop_resize_op(img.reshape((-1,) + img.shape[-3:]), None, out_h, out_w,
+                              scale, offset, out_dtype, 1)
+        return out.reshape(img.shape[:-3] + out.shape[1:]), 0
+    boxes = boxes.movedim(boxes_dim, 0) if boxes_dim is not None else boxes.expand(
+        (bsz,) + boxes.shape)
+    n = boxes.shape[1]
+    flat = boxes.reshape(bsz * n, 4)
+    if img_dim is None and img.dim() == 3:
+        out = _crop_resize_op(img, flat, out_h, out_w, scale, offset, out_dtype, per_image)
+    else:
+        if img_dim is None:  # a batch of images each row shares: one copy a row
+            img = img.expand((bsz,) + img.shape)
+        per = n if img.dim() == 4 else per_image  # a row's one image, or its own batch
+        out = _crop_resize_op(img.reshape((-1,) + img.shape[-3:]), flat, out_h, out_w,
+                              scale, offset, out_dtype, per)
+    return out.reshape((bsz, n) + out.shape[1:]), 0
+
+
 def _launch_crop(img, boxes, n, out_h, out_w, scale, offset, out_dtype):
-    """One home for both entry points: checks, then the kernel (CUDA) or
-    the plain version (CPU)."""
+    """One home for both entry points: checks, then the op (the kernel on
+    CUDA, the plain version on the CPU)."""
     if img.dtype not in _IN_DTYPES or out_dtype not in _IN_DTYPES:
         raise TypeError(
             f"crop/resize takes uint8/float32/bfloat16, got {img.dtype} → {out_dtype}"
@@ -168,16 +244,12 @@ def _launch_crop(img, boxes, n, out_h, out_w, scale, offset, out_dtype):
             )
         if boxes.device != img.device:
             raise ValueError(f"boxes on {boxes.device}, image on {img.device}")
-    if img.is_cuda:
-        img = img.contiguous()
-        boxes = None if boxes is None else boxes.contiguous()
-        return _cuda_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype)
-    if img.device.type == "cpu":
-        return plain_crop_resize(img, boxes, n, out_h, out_w, scale, offset, out_dtype)
-    raise RuntimeError(
-        f"crop/resize kernel has no implementation on {img.device} "
-        "(CUDA launches the kernel, CPU takes the plain version)"
-    )
+    if img.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(
+            f"crop/resize kernel has no implementation on {img.device} "
+            "(CUDA launches the kernel, CPU takes the plain version)"
+        )
+    return _crop_resize_op(img, boxes, out_h, out_w, scale, offset, out_dtype, 1)
 
 
 def crop_and_resize(

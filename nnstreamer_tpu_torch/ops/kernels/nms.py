@@ -16,6 +16,14 @@ Dispatch is by the device of the boxes, nothing else: a CUDA tensor
 launches the kernel (and raises if the launch fails or ``n`` exceeds
 :data:`MAX_N`), a CPU tensor takes :func:`plain_nms_mask`, anything else
 raises. There is no fallback from the kernel to the plain version.
+
+The kernel pair is the custom op ``nns::nms_mask`` over rows of
+candidates (boxes [..., n, 4], scores [..., n]), with a fake (shapes
+alone, for fake-tensor traces) and a vmap rule: under
+``torch.func.vmap`` a window of B frames is ONE mask launch of grid
+(tiles, B) and one scan of B blocks, each row's words in its own slice of
+the workspace (the reference vmaps its ``pallas_call``). On the CPU the
+rule runs the plain version row by row.
 """
 
 from __future__ import annotations
@@ -72,18 +80,23 @@ def plain_nms_mask(
     return alive
 
 
+#: the most rows one launch takes (the mask kernel's grid y extent)
+MAX_ROWS = 65535
+
+
 class NmsPlan(NamedTuple):
-    """The kernel's launch for ``n`` candidates."""
+    """The kernel's launch for ``rows`` rows of ``n`` candidates."""
 
-    words: int  #: 64-bit mask words a row (``ceil(n / 64)``)
-    tiles: int  #: 64 x 64 tiles of the upper triangle: the mask kernel's blocks
-    workspace_bytes: int  #: the words, [n, words] of 8 bytes
+    words: int  #: 64-bit mask words a candidate (``ceil(n / 64)``)
+    tiles: int  #: 64 x 64 tiles of a row's upper triangle: the mask grid's x extent
+    workspace_bytes: int  #: the words, [rows, n, words] of 8 bytes
 
 
-def nms_plan(n: int) -> NmsPlan:
-    """Words, mask tiles and workspace bytes for ``n`` candidates."""
+def nms_plan(n: int, rows: int = 1) -> NmsPlan:
+    """Words, mask tiles and workspace bytes for ``rows`` rows of ``n``
+    candidates."""
     words = -(-n // WORD_BITS)
-    return NmsPlan(words, words * (words + 1) // 2, 8 * n * words)
+    return NmsPlan(words, words * (words + 1) // 2, 8 * rows * n * words)
 
 
 _M64 = (1 << 64) - 1
@@ -170,7 +183,7 @@ def _kernel_fn():
     fn.restype = ctypes.c_int
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]
     return fn
 
@@ -181,38 +194,89 @@ def _cuda_nms(
     iou_threshold: float,
     words: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel pair on contiguous float32 CUDA tensors → (alive
-    [n] float32 0/1, live [1] int32: m, the live prefix the scan walked in
-    ceil(m/64) word blocks), both still being computed. Reading ``live``
-    waits for the kernels. ``words`` is the int64 [n, ceil(n/64)]
-    workspace, allocated here when not given (a caller that passes one can
-    read the words the mask kernel wrote)."""
-    n = boxes.shape[0]
+    """Launch the kernel pair on contiguous float32 CUDA tensors, boxes
+    [n, 4] and scores [n], or R rows of them ([R, n, 4], [R, n]) → (alive
+    [n] or [R, n] float32 0/1, live [1] or [R] int32: each row's m, the
+    live prefix the scan walked in ceil(m/64) word blocks), both still
+    being computed. Reading ``live`` waits for the kernels. ``words`` is
+    the int64 [n, ceil(n/64)] (or [R, n, ceil(n/64)]) workspace, allocated
+    here when not given (a caller that passes one can read the words the
+    mask kernel wrote)."""
+    batched = boxes.dim() == 3
+    rows = boxes.shape[0] if batched else 1
+    n = boxes.shape[-2]
     if n > MAX_N:
         raise ValueError(f"nms kernel takes at most {MAX_N} candidates, got {n}")
+    if rows > MAX_ROWS:
+        raise ValueError(f"nms kernel takes at most {MAX_ROWS} rows a launch, got {rows}")
     if boxes.data_ptr() % 16:
         raise ValueError("nms kernel needs 16-byte aligned boxes")
     nw = nms_plan(n).words
+    lead = boxes.shape[:-2]
     if words is not None and (
-        words.shape != (n, nw) or words.dtype != torch.int64
+        words.shape != lead + (n, nw) or words.dtype != torch.int64
         or words.device != boxes.device or not words.is_contiguous()
     ):
-        raise ValueError(f"nms workspace must be contiguous int64 [{n}, {nw}] on {boxes.device}")
+        raise ValueError(f"nms workspace must be contiguous int64 {list(lead) + [n, nw]} "
+                         f"on {boxes.device}")
     fn = _kernel_fn()
     if words is None:
-        words = torch.empty((n, nw), dtype=torch.int64, device=boxes.device)
-    alive = torch.empty((n,), dtype=torch.float32, device=boxes.device)
-    live = torch.empty((1,), dtype=torch.int32, device=boxes.device)
+        words = torch.empty(lead + (n, nw), dtype=torch.int64, device=boxes.device)
+    alive = torch.empty(lead + (n,), dtype=torch.float32, device=boxes.device)
+    live = torch.empty((rows,), dtype=torch.int32, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = fn(
             boxes.data_ptr(), scores.data_ptr(), words.data_ptr(), alive.data_ptr(),
-            live.data_ptr(), n, float(iou_threshold), stream,
+            live.data_ptr(), rows, n, float(iou_threshold), stream,
         )
     if err != 0:
         raise RuntimeError(f"nns_nms_mask launch failed: cudaError_t {err}")
     nms_launches.add()
     return alive, live
+
+
+@torch.library.custom_op("nns::nms_mask", mutates_args=())
+def _nms_mask_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """K2 on checked float32 operands: score-ranked boxes [..., n, 4] and
+    scores [..., n], each leading index an independent row → alive [..., n]
+    bool. On CUDA one launch of the pair for every row; on the CPU the
+    plain version, row by row."""
+    if scores.numel() == 0:
+        return torch.zeros(scores.shape, dtype=torch.bool, device=boxes.device)
+    n = scores.shape[-1]
+    b3 = boxes.reshape(-1, n, 4).contiguous()
+    s2 = scores.reshape(-1, n).contiguous()
+    if boxes.is_cuda:
+        one = scores.dim() == 1  # a frame: the single-row launch
+        alive, _ = _cuda_nms(b3[0] if one else b3, s2[0] if one else s2, iou_threshold)
+        return (alive > 0.0).reshape(scores.shape)
+    if boxes.device.type == "cpu":
+        return torch.stack([plain_nms_mask(b, s, iou_threshold)
+                            for b, s in zip(b3, s2)]).reshape(scores.shape)
+    raise RuntimeError(
+        f"nms kernel has no implementation on {boxes.device} "
+        "(CUDA launches the kernel, CPU takes the plain version)"
+    )
+
+
+@_nms_mask_op.register_fake
+def _(boxes, scores, iou_threshold):
+    return scores.new_empty(scores.shape, dtype=torch.bool)
+
+
+@_nms_mask_op.register_vmap
+def _(info, in_dims, boxes, scores, iou_threshold):
+    """The vmapped axis becomes the op's leading row axis: one launch of
+    the pair for the window's B rows (an operand the rows share is
+    expanded to them)."""
+    bsz = info.batch_size
+    boxes_dim, scores_dim = in_dims[0], in_dims[1]
+    boxes = (boxes.movedim(boxes_dim, 0) if boxes_dim is not None
+             else boxes.expand((bsz,) + boxes.shape))
+    scores = (scores.movedim(scores_dim, 0) if scores_dim is not None
+              else scores.expand((bsz,) + scores.shape))
+    return _nms_mask_op(boxes, scores, iou_threshold), 0
 
 
 def nms_mask(
@@ -231,16 +295,9 @@ def nms_mask(
         raise TypeError(f"nms takes float boxes and scores, got {boxes.dtype}, {scores.dtype}")
     if scores.device != boxes.device:
         raise ValueError(f"scores on {scores.device}, boxes on {boxes.device}")
-    boxes = boxes.to(torch.float32).contiguous()
-    scores = scores.to(torch.float32).contiguous()
-    if boxes.is_cuda:
-        if boxes.shape[0] == 0:
-            return torch.zeros((0,), dtype=torch.bool, device=boxes.device)
-        alive, _ = _cuda_nms(boxes, scores, iou_threshold)
-        return alive > 0.0
-    if boxes.device.type == "cpu":
-        return plain_nms_mask(boxes, scores, iou_threshold)
-    raise RuntimeError(
-        f"nms kernel has no implementation on {boxes.device} "
-        "(CUDA launches the kernel, CPU takes the plain version)"
-    )
+    if boxes.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(
+            f"nms kernel has no implementation on {boxes.device} "
+            "(CUDA launches the kernel, CPU takes the plain version)"
+        )
+    return _nms_mask_op(boxes.to(torch.float32), scores.to(torch.float32), float(iou_threshold))

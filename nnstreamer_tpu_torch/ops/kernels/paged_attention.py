@@ -220,16 +220,14 @@ def _cuda_paged_attention(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
     return out
 
 
-def paged_decode_attention(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
-                           k_scale=None, v_scale=None,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """q [B,1,H,D], arena_k/v [N,bs,KV,D] (int8 with ``k_scale``/``v_scale``
-    [N,bs,KV]), tables [B,nb] int32, pos [B], fresh_k/v [B,1,KV,D] →
-    o [B,1,H,D] float32: the kernel on CUDA tensors, the plain version on
-    CPU tensors."""
-    _check(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v, k_scale, v_scale)
-    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    args = (q, arena_k, arena_v, tables, pos, fresh_k, fresh_v, k_scale, v_scale, sc)
+@torch.library.custom_op("nns::paged_decode_attention", mutates_args=())
+def _paged_attention_op(q: torch.Tensor, arena_k: torch.Tensor, arena_v: torch.Tensor,
+                        tables: torch.Tensor, pos: torch.Tensor, fresh_k: torch.Tensor,
+                        fresh_v: torch.Tensor, k_scale: Optional[torch.Tensor],
+                        v_scale: Optional[torch.Tensor], scale: float) -> torch.Tensor:
+    """K4 on checked operands: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    args = (q, arena_k, arena_v, tables, pos, fresh_k, fresh_v, k_scale, v_scale, scale)
     if q.is_cuda:
         return _cuda_paged_attention(*args)
     if q.device.type == "cpu":
@@ -238,6 +236,39 @@ def paged_decode_attention(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
         f"paged attention kernel has no implementation on {q.device} "
         "(CUDA launches the kernel, CPU takes the plain version)"
     )
+
+
+@_paged_attention_op.register_fake
+def _(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v, k_scale, v_scale, scale):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@_paged_attention_op.register_vmap
+def _(info, in_dims, *args):
+    """Refused: K4's batch is the slots of a serving step, written out in
+    its operands; it has no batching rule, so a vmap that reaches it
+    raises (never the dispatcher's per-row loop)."""
+    raise NotImplementedError(
+        "nns::paged_decode_attention (K4) has no vmap rule: its batch is the slot axis of "
+        "its operands; call it on the batched tensors")
+
+
+def paged_decode_attention(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
+                           k_scale=None, v_scale=None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,1,H,D], arena_k/v [N,bs,KV,D] (int8 with ``k_scale``/``v_scale``
+    [N,bs,KV]), tables [B,nb] int32, pos [B], fresh_k/v [B,1,KV,D] →
+    o [B,1,H,D] float32: the kernel on CUDA tensors, the plain version on
+    CPU tensors (the op ``nns::paged_decode_attention``)."""
+    _check(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v, k_scale, v_scale)
+    sc = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(
+            f"paged attention kernel has no implementation on {q.device} "
+            "(CUDA launches the kernel, CPU takes the plain version)"
+        )
+    return _paged_attention_op(q, arena_k, arena_v, tables, pos, fresh_k, fresh_v,
+                               k_scale, v_scale, float(sc))
 
 
 def make_paged_attention():

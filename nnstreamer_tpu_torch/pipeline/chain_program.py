@@ -241,6 +241,9 @@ class ChainProgram:
             self.device, self._compose,
             versions=lambda: tuple(op.fn_version for op in chain.ops),
             uncapturable=lambda: tuple(op.name for op in chain.ops if not op.CAPTURABLE),
+            # each frame through the per-frame fn, as the reference's
+            # _unrolled: no vmap re-association, bit for bit the frames'
+            unrolled=True,
         )
         # windows that launched the program (one graph replay each on CUDA);
         # single writer: the owning node's thread

@@ -561,9 +561,14 @@ class FusedSegment:
 
         Stacks each tensor index on a new leading axis and pads up to the
         window's bucket with replicas of the last frame (rows computed and
-        discarded: the price of a bounded program count); on CUDA the
-        window is one replay. A window of mixed signatures runs per frame.
-        An unfused op takes the window through ``host_process_batch``."""
+        discarded: the price of a bounded program count), then runs the
+        bucket's batched program, ``torch.func.vmap`` of the composed ops
+        (pipeline/programs.py; the reference's ``jax.vmap(composed)``): the
+        convs at N = bucket, each kernel once a window. On CUDA the window
+        is one replay. A program that vmap cannot batch raises as a failed
+        build (the device circuit's), never a loop over the rows. A window
+        of mixed signatures runs per frame. An unfused op takes the window
+        through ``host_process_batch``."""
         n = len(frames)
         if not self.fused:
             if not self.first.DEVICE_PASSTHROUGH:

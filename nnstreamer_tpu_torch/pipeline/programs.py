@@ -1,18 +1,29 @@
 """Per-frame programs and their cache: the port's ``jax.jit`` cache.
 
 One home for the programs of a per-frame function, shared by the fused
-segments (:class:`~nnstreamer_tpu_torch.pipeline.graph.FusedSegment`) and
-the serving plane (:class:`~nnstreamer_tpu_torch.serving_plane.sharding.VmapProgram`),
-so both build, capture and run their programs the same way:
+segments (:class:`~nnstreamer_tpu_torch.pipeline.graph.FusedSegment`),
+the serving plane (:class:`~nnstreamer_tpu_torch.serving_plane.sharding.VmapProgram`)
+and the chain program, so all build, capture and run their programs the
+same way:
 
 - a program is cached by (signature, batch bucket, fn versions): a new
   shape or dtype, a new bucket, or a same-shape model swap (a ticked fn
   version) makes a new entry from the current fn, so a stale program is
   never served; ``n_traces`` counts the fills;
-- a bucket's program runs the per-frame fn over each row of the stacked
-  window, so every row runs the per-frame kernels at the per-frame shapes
-  and a window's outputs equal the frames' own bit for bit; a window pads
-  to its bucket with replicas of its last frame;
+- a bucket's program is ONE program over a leading axis of B frames:
+  ``torch.func.vmap`` of the per-frame fn over the stacked window (the
+  reference's ``jax.vmap(composed)``), so a model's convs run at N = B
+  and each hand-written kernel on the path launches once a window through
+  its op's vmap rule (ops/kernels/). Batched float math may differ from
+  the frames' own in the last bits (other conv algorithms at N = B);
+  elementwise math is bit for bit. An op that has no batching rule would
+  make torch loop over the rows behind the program's back: around every
+  batched call torch's vmap fallback warning is on and is an error
+  (:func:`vmap_fallback_is_error`), so such an op fails the build. A
+  cache made with ``unrolled=True`` (the chain program, as the
+  reference's ``_unrolled``) runs the per-frame fn over each row instead,
+  bit for bit the frames' own; a window pads to its bucket with replicas
+  of its last frame;
 - on CUDA each entry is a CUDA graph (:func:`~nnstreamer_tpu_torch.capture.capture`:
   an eager warm-up on a side stream, then the capture, under the
   process-wide capture lock), and a call copies its tensors into the
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import itertools
 import threading
+import warnings
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -64,6 +76,74 @@ def _building() -> Iterator[None]:
         _build_state.build = prev
 
 
+#: the message of torch's vmap fallback warning (an op with no batching
+#: rule, run row by row)
+_FALLBACK_WARNING = ("There is a performance drop because we have not yet implemented the "
+                     "batching rule")
+_fallback_lock = threading.Lock()
+_fallback_depth = 0
+_fallback_filter: Optional[tuple] = None
+
+
+@contextmanager
+def vmap_fallback_is_error() -> Iterator[None]:
+    """torch's vmap fallback warning on (it is off by default) and raised
+    as an error while the block runs: an op with no batching rule fails
+    the batched program instead of looping over its rows. The switch and
+    the warnings filter are process-wide; nested and concurrent blocks
+    share them (the last one out turns them off)."""
+    global _fallback_depth, _fallback_filter
+    with _fallback_lock:
+        if _fallback_depth == 0:
+            warnings.filterwarnings("error", message=_FALLBACK_WARNING)
+            _fallback_filter = warnings.filters[0]
+            torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+        _fallback_depth += 1
+    try:
+        yield
+    finally:
+        with _fallback_lock:
+            _fallback_depth -= 1
+            if _fallback_depth == 0:
+                torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+                if _fallback_filter in warnings.filters:
+                    warnings.filters.remove(_fallback_filter)
+                    warnings._filters_mutated()
+                _fallback_filter = None
+
+
+#: what torch's vmap raises for a program it cannot batch: an op with no
+#: batching rule (the fallback an error), a read of values, a data-dependent
+#: shape
+_VMAP_REFUSALS = ("vmap:", "vmap fallback", "batching rule", "vmap rule")
+
+
+def batched(composed: Callable) -> Callable:
+    """The batched program of a per-frame fn: stacked columns (each
+    tensor index with a leading axis of B frames) → the outputs with the
+    same leading axis, as ``torch.func.vmap`` of the fn (in and out dims
+    0), with the vmap fallback an error (:func:`vmap_fallback_is_error`).
+    A program vmap cannot batch raises
+    :class:`~nnstreamer_tpu_torch.pipeline.device_faults.DeviceCompileError`
+    (a program that cannot be built: the executor's device circuit takes
+    it), never a loop over the rows."""
+    vm = torch.func.vmap(lambda *cols: tuple(composed(cols)))
+
+    def program(cols: Tuple) -> Tuple:
+        try:
+            with vmap_fallback_is_error():
+                return tuple(vm(*cols))
+        except (UserWarning, RuntimeError) as exc:
+            low = str(exc).lower()
+            if not any(m in low for m in _VMAP_REFUSALS):
+                raise
+            from nnstreamer_tpu_torch.pipeline.device_faults import DeviceCompileError
+
+            raise DeviceCompileError(f"the batched program cannot be built: {exc}") from exc
+
+    return program
+
+
 def sig_of(tensors: Sequence[Any]) -> tuple:
     """A frame's program signature: each tensor's shape and dtype."""
     return tuple((tuple(t.shape), t.dtype) for t in tensors)
@@ -71,7 +151,8 @@ def sig_of(tensors: Sequence[Any]) -> tuple:
 
 class Program:
     """One cache entry: the fn (over one frame's tensors, or with a bucket
-    over stacked columns, one list entry a row), and on CUDA the graph it
+    over stacked columns: batched outputs, or for an unrolled cache one
+    list entry a row), and on CUDA the graph it
     was captured into, with its static input buffers, its outputs in the
     graph's pool and the launch counts
     (:class:`~nnstreamer_tpu_torch.ops.kernels.LaunchCounter`) one replay
@@ -94,7 +175,9 @@ class ProgramCache:
     fill), ``versions()`` the fn versions that key the cache, and
     ``uncapturable()`` the names of the parts that declared
     ``CAPTURABLE = False``, recorded at each fill: on CUDA they keep the
-    fill's program eager. A failed build raises and leaves no entry."""
+    fill's program eager. A failed build raises and leaves no entry.
+    ``unrolled`` makes a bucket's program the per-frame fn over each row
+    (module docstring) instead of the batched program."""
 
     def __init__(
         self,
@@ -102,8 +185,10 @@ class ProgramCache:
         compose: Callable[[], Callable],
         versions: Callable[[], tuple] = tuple,
         uncapturable: Callable[[], Tuple[str, ...]] = tuple,
+        unrolled: bool = False,
     ) -> None:
         self.device = device
+        self.unrolled = unrolled
         self._compose = compose
         self._versions = versions
         self._uncapturable = uncapturable
@@ -131,11 +216,13 @@ class ProgramCache:
         prog = self._cache.get(key)
         if prog is None:
             composed = self._compose()
-            if bucket:
+            if bucket and self.unrolled:
                 def rows(cols: Tuple) -> List[Tuple]:
                     return [tuple(composed(tuple(c[j] for c in cols))) for j in range(bucket)]
 
                 prog = Program(rows)
+            elif bucket:
+                prog = Program(batched(composed))
             else:
                 prog = Program(lambda tensors: tuple(composed(tensors)))
             self.uncapturable = tuple(self._uncapturable())
@@ -176,8 +263,10 @@ class ProgramCache:
 
     def run_rows(self, windows: Sequence[Sequence[Any]], bucket: int) -> List[Tuple[Any, ...]]:
         """The outputs of ``windows`` (frames of one signature, at most
-        ``bucket`` of them) through the bucket's program: each tensor index
-        stacked on a new leading axis, padded with the last frame."""
+        ``bucket`` of them) through the bucket's program, one tuple a
+        frame: each tensor index stacked on a new leading axis, padded with
+        the last frame. A batched program's rows are views of one clone of
+        each output."""
         n = len(windows)
         sig = sig_of(windows[0])
         prog = self.program_for(sig, bucket)
@@ -191,9 +280,12 @@ class ProgramCache:
                 torch.stack(rows, out=prog.inputs[i])
         if prog.graph is None:
             with _building():
-                return prog.fn(tuple(cols))[:n]
+                outs = prog.fn(tuple(cols))
+            return outs[:n] if self.unrolled else _rows_of(outs, n)
         self._replay(prog)
-        return [tuple(o.clone() for o in row) for row in prog.outputs[:n]]
+        if self.unrolled:
+            return [tuple(o.clone() for o in row) for row in prog.outputs[:n]]
+        return _rows_of(tuple(o[:n].clone() for o in prog.outputs), n)
 
     def warm(self, sig: tuple, bucket: int = 0) -> Program:
         """Build the program of ``(sig, bucket)`` and, where a program is the
@@ -213,3 +305,9 @@ class ProgramCache:
         """Drop every program (and the graphs' pools with them)."""
         self._cache.clear()
         self._last = None
+
+
+def _rows_of(outs: Tuple, n: int) -> List[Tuple]:
+    """A batched program's outputs → the first ``n`` rows, one tuple a
+    frame."""
+    return [tuple(o[j] for o in outs) for j in range(n)]

@@ -7,18 +7,20 @@ tensor tuple, plus ``invoke_one`` for the heterogeneous/per-frame route.
 - :class:`VmapProgram`: ONE device. The cross-stream generalization of
   ``FusedSegment.process_batch``, built on the same program cache
   (pipeline/programs.py): one program per (signature, bucket, fn version)
-  over the bucket ladder, the per-frame fn run over each row of the
-  stacked window, so a batched row is bitwise equal to ``invoke_one`` of
-  the same frame. On CUDA each program is a captured CUDA graph and a
-  dispatch is one replay. A device-pinned backend gives its fn through
+  over the bucket ladder, ``torch.func.vmap`` of the per-frame fn over the
+  stacked window (the reference's ``jax.vmap``), so a dispatch's convs run
+  at N = B and each kernel launches once a dispatch; a batched row equals
+  ``invoke_one`` of the same frame to float32 rounding (bit for bit where
+  the math is elementwise). On CUDA each program is a captured CUDA graph
+  and a dispatch is one replay. A device-pinned backend gives its fn through
   its ``plane_fn`` hook, so the plane batches on the pinned device.
 - :class:`MeshShardedProgram` (``mode=shard``): N positions of a ``dp``
   mesh (parallel/mesh.py), data-parallel. Its bucket ladder is in
   multiples of the mesh size, so every dispatch divides evenly: a window
   is padded with its last frame to the bucket, cut into the positions'
-  contiguous blocks, each block run through its position's own program on
-  its device, and the rows gathered back in frame order. Rows are
-  computed independently, so per-frame parity holds as on one device.
+  contiguous blocks, each block run through its position's own batched
+  program on its device, and the rows gathered back in frame order. Rows
+  are computed independently, so per-frame parity holds as on one device.
 - :class:`HostProgram`: for a backend with no traceable fn (a host
   script). The plane still shares ONE opened backend across all streams;
   batching goes through the backend's own ``invoke_batched`` when it

@@ -59,6 +59,38 @@ def test_k2_plans_switch_the_mask_block_at_the_wave():
         ((4950, 1, 1), (64, 1, 1), 0), ((1, 1, 1), (512, 1, 1), 0)]
 
 
+def test_batched_k1_and_k2_plans():
+    """The vmapped window's one launch: K1 over every box of the window
+    (8 x 16 boxes -> 112^2), K2's mask over (tiles, rows) and the scan one
+    block a row; bytes and operations the rows' own."""
+    r = _report("K1", "crop-u8-720p-8x16box-112-batched")
+    assert [ln.key() for ln in r.launches] == [((-(-128 * 112 * 112 // 256), 1, 1),
+                                                (256, 1, 1), 0)]
+    one = _report("K1", "resize-u8-720p-224").cost
+    eight = _report("K1", "resize-u8-720p-224-b8").cost
+    assert eight.hbm_bytes == 8 * one.hbm_bytes and eight.flops == 8 * one.flops
+    assert [ln.key() for ln in _report("K2", "nms-ssd-8x1917").launches] == [
+        ((465, 8, 1), (256, 1, 1), 0), ((8, 1, 1), (512, 1, 1), 0)]
+    assert [ln.key() for ln in _report("K2", "nms-yolo-4x6300").launches] == [
+        ((4950, 4, 1), (64, 1, 1), 0), ((4, 1, 1), (512, 1, 1), 0)]
+    single, rows = _report("K2", "nms-ssd-1917").cost, _report("K2", "nms-ssd-8x1917").cost
+    assert rows.hbm_bytes == 8 * single.hbm_bytes and rows.flops == 8 * single.flops
+    kept = _report("K2", "nms-ssd-8x1917", rows=2, kept=[[0, 5], [1]]).cost
+    assert kept.flops == 12 * (1916 + 1911 + 1915)
+
+
+def test_batched_k1_bound_reads_each_images_own_rows():
+    """A batched crop reads each image's rows once for its own boxes: 8
+    images with the same boxes read 8 times one image's rows."""
+    from nnstreamer_tpu_torch.analysis.kernels import _k1_rows
+
+    box = [[10.0, 20.0, 300.0, 200.0], [100.0, 50.0, 400.0, 260.0]]
+    p1 = dict(n=2, h=720, w=1280, out_h=112, out_w=112, boxes=box)
+    p8 = dict(n=16, per_image=2, h=720, w=1280, out_h=112, out_w=112, boxes=box * 8)
+    assert _k1_rows(p8) == 8 * _k1_rows(p1)
+    assert _k1_rows(dict(p8, per_image=16)) == _k1_rows(p1)  # one shared image
+
+
 def test_k3_and_k4_plans():
     # g = 4 query heads a kv head -> 4 a block; DP 128: 8 lane groups, 16-row
     # tiles; ring 4 x 2 x 16 x 128 x 4 B = 65536 > merge 4 x 8 x 4 x 131
@@ -162,6 +194,19 @@ def test_w127_from_the_plan(monkeypatch):
     for ln in (K.Launch("k", (1, 1, 1), (1025, 1, 1), 0),
                K.Launch("k", (1, 1, 1), (128, 1, 1), K.MAX_DYN_SMEM + 1)):
         assert K.CaseReport("k", "K0", "c", [ln], None).limits()
+
+
+@pytest.mark.parametrize("rows,fires", [(65535, False), (65536, True)])
+def test_w127_at_the_grid_y_limit(rows, fires):
+    """K2's batched mask grid puts the rows on gridDim.y: a window past
+    65 535 rows is a launch the card cannot run (NNS-W127)."""
+    spec, case = _case("K2", "nms-ssd-8x1917")
+    r = K.analyze_case(spec, K.Case("rows", {**case.params, "rows": rows}))
+    assert bool(r.limits()) == fires
+    assert all("gridDim.y/z" in m for m in r.limits())
+    _, report = K.analyze([K.KernelSpec(**{**spec.__dict__, "cases": [
+        K.Case("rows", {**case.params, "rows": rows})]})])
+    assert ("NNS-W127" in report.codes) == fires
 
 
 def test_w128_plan_mismatch_against_the_host_code(monkeypatch):

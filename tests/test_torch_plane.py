@@ -691,8 +691,9 @@ def mobilenet_npz(tmp_path_factory):
 def test_mobilenet_plane_matches_reference_plane(mobilenet_npz):
     """Two streams of different patterns through zoo:mobilenet_v2 on one
     plane, both packages: logits within 1e-4 of max |logit|, top-1 equal,
-    every frame in order; within the port each batched row is bitwise the
-    plane program's invoke_one of that frame."""
+    every frame in order; within the port each batched row (one batched
+    program a window, its convs at N = B) is the plane program's invoke_one
+    of that frame within 1e-4 of max |logit|, top-1 equal."""
     def desc(plane, fw):
         return " ".join(
             f"videotestsrc pattern={pat} num-frames=4 width=96 height=96 ! tensor_converter ! "
@@ -724,14 +725,21 @@ def test_mobilenet_plane_matches_reference_plane(mobilenet_npz):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * float(np.abs(want).max()))
         assert np.array_equal(got.argmax(-1), want.argmax(-1))
     assert sum(len(w) for w, _ in rows) == 8  # every frame through the plane's program
+
+    def same_frame(o, w):
+        one = prog.invoke_one(w)[0]
+        tol = 1e-4 * float(one.abs().max())
+        assert float((o[0] - one).abs().max()) <= tol
+        assert torch.equal(o[0].argmax(-1), one.argmax(-1))
+
     for windows, outs in rows:
         for w, o in zip(windows, outs):
-            assert torch.equal(o[0], prog.invoke_one(w)[0])
+            same_frame(o, w)
     # and a two-frame window built here, whatever the run's timing formed
     frames = [w for windows, _ in rows for w in windows]
     mixed = [frames[0], frames[-1]]
     for w, o in zip(mixed, inner(mixed)):
-        assert torch.equal(o[0], prog.invoke_one(w)[0])
+        same_frame(o, w)
 
 
 # -- async tickets --------------------------------------------------------------

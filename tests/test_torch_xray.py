@@ -123,6 +123,11 @@ CROSSCHECK = [
     "t. ! queue ! tensor_sink",
     "tensorsrc dimensions=4:2 num-frames=5 ! tensor_filter framework=scaler "
     "batching=true max-batch=2 ! tensor_sink sync-window=2",
+    # the batched program of a labeling window (one vmapped program a window)
+    "videotestsrc num-frames=6 width=64 height=48 ! tensor_converter ! "
+    "tensor_transform mode=resize option=32:32 ! tensor_filter framework=torch "
+    "model=zoo:mobilenet_v2 custom=size:32 batching=true max-batch=4 ! "
+    "tensor_decoder mode=image_labeling ! tensor_sink",
     "tensorsrc dimensions=4 num-frames=6 ! tensor_filter framework=scaler ! "
     "tensor_rate framerate=15/1 ! tensor_sink",
     # a host decoder renders host arrays: the sink reads them as they are
@@ -133,7 +138,7 @@ CROSSCHECK = [
 
 @pytest.mark.parametrize("desc", CROSSCHECK, ids=[
     "one-chain", "host-split", "three-segments", "reading-sink", "host-source", "labeling",
-    "tee-queues", "batched-window", "rate", "host-decoder"])
+    "tee-queues", "batched-window", "labeling-batched", "rate", "host-decoder"])
 def test_transfer_crosscheck_has_zero_delta(desc):
     ex = parse_pipeline(desc, device="cpu").run(timeout=120)
     chk = ex.transfer_crosscheck()
@@ -236,13 +241,22 @@ def test_host_read_fires_w120_and_uncapturable_too(monkeypatch):
 
 def test_a_kernels_plain_version_reading_values_is_no_hazard():
     """K2's plain version loops over the data; its kernel reads nothing
-    back, so the trace stops there with no W120."""
+    back, and under the trace the op answers with its fake: the trace runs
+    through K2 to the decoder's detections with no W120, per frame and
+    batched."""
     desc = ("tensorsrc dimensions=25:10 types=float32 num-frames=1 ! tensor_filter "
             "framework=scaler ! tensor_decoder mode=bounding_boxes option1=yolov5 "
             "postproc=device ! tensor_sink")
     seg = _seg(desc)
     tr = xr.segment_trace(seg)
-    assert tr.host_read is None and "nms" in tr.partial
+    assert tr.host_read is None and tr.out_dtypes == (torch.float32,)
+    assert tr.out_bytes == 100 * 6 * 4
+    assert [op[:3] for op in tr.ops if op[0].startswith("nns.nms_mask")] == [
+        ("nns.nms_mask.default", torch.bool, 10)]
+    batched = xr.segment_trace(seg, 4)
+    assert batched.host_read is None and batched.out_bytes == 4 * 100 * 6 * 4
+    assert [op[:3] for op in batched.ops if op[0].startswith("nns.nms_mask")] == [
+        ("nns.nms_mask.default", torch.bool, 40)]
     assert xray(desc).codes == []
 
 
@@ -331,3 +345,68 @@ def test_degraded_and_error_results():
     assert r.errors and r.exit_code == 2
     r = xray("appsrc dimensions=4 ! tensor_llm_serversink id=xray-probe")
     assert r.degraded and "stateful serving" in r.notes[0]
+
+
+BATCHED_LABELING = (
+    "videotestsrc num-frames=1 width=64 height=48 ! tensor_converter ! "
+    "tensor_transform mode=resize option=32:32 ! tensor_filter framework=torch "
+    "model=zoo:mobilenet_v2 custom=size:32 batching=true max-batch=4 ! "
+    "tensor_decoder mode=image_labeling ! tensor_sink"
+)
+
+
+def test_a_batched_segment_traces_its_batched_program():
+    """A micro-batched segment's bucket program is traced as it runs: the
+    vmapped composed ops at the bucket, each op's output the window's
+    (B rows), K1 one op for the window; per frame the same ops at N = 1."""
+    from nnstreamer_tpu_torch.analysis.costmodel import segment_trace
+
+    seg = _seg(BATCHED_LABELING)
+    one, four = segment_trace(seg), segment_trace(seg, 4)
+    assert one.host_read is None and four.host_read is None
+    assert four.out_dtypes == one.out_dtypes and four.out_bytes == 4 * one.out_bytes
+
+    def k1(tr):
+        return [op[2] for op in tr.ops if op[0] == "nns.crop_resize.default"]
+
+    assert k1(one) == [32 * 32 * 3] and k1(four) == [4 * 32 * 32 * 3]
+    assert four.intermediate_bytes > 3 * one.intermediate_bytes
+    assert segment_trace(seg, 4) is four  # cached per (bucket, fn versions)
+
+
+def test_transient_bytes_follow_the_batched_program():
+    """chain_cost's transient bytes at the max bucket are the batched
+    program's own trace plus the window's inputs and outputs; for
+    elementwise ops that is the per-frame working set times the bucket."""
+    from nnstreamer_tpu_torch.analysis.costmodel import chain_cost, segment_trace
+
+    plan = parse_pipeline(BATCHED_LABELING, device="cpu").compile_plan()
+    (chain,) = plan.chains()
+    seg = chain.segments[0]
+    in_b = spec_bytes(seg.first.in_specs[0])
+    out_b = spec_bytes(seg.last.out_specs[0])
+    cost = chain_cost(chain)
+    assert cost.transient_bytes == (in_b + out_b) * 4 + segment_trace(seg, 4).intermediate_bytes
+    desc = ("tensorsrc dimensions=8:8 num-frames=1 ! tensor_transform mode=arithmetic "
+            "option=add:1.0 ! tensor_filter framework=scaler batching=true max-batch=4 ! "
+            "tensor_sink")
+    plan = parse_pipeline(desc, device="cpu").compile_plan()
+    (chain,) = plan.chains()
+    seg = chain.segments[0]
+    per_frame = (spec_bytes(seg.first.in_specs[0]) + spec_bytes(seg.last.out_specs[0])
+                 + segment_trace(seg).intermediate_bytes)
+    assert chain_cost(chain).transient_bytes == 4 * per_frame
+
+
+def test_a_batched_program_that_cannot_be_built_is_noted():
+    """A segment whose batched program vmap refuses (a read of values)
+    gets a note from nns-xray, and its per-frame W120 as before."""
+    from nnstreamer_tpu_torch.backends import custom as tcustom
+
+    tcustom.register_custom_easy("xr_hist", lambda ts: (torch.histc(ts[0]),), traceable=True)
+    try:
+        r = xray("tensorsrc dimensions=16 types=float32 num-frames=1 ! tensor_filter "
+                 "framework=custom-easy model=xr_hist batching=true max-batch=4 ! tensor_sink")
+        assert any("batched program at bucket 4 cannot be built" in n for n in r.chains[0].notes)
+    finally:
+        tcustom.unregister_custom_easy("xr_hist")
